@@ -1,5 +1,7 @@
 """Model registry: a plain per-model pipeline cache, counterpart of
-``chiaswarm_tpu/node/registry.py``.
+``chiaswarm_tpu/node/registry.py``. As there (``pipeline(model_name,
+mesh=None)``, :199-), a slot's mesh keys its own entry
+(``_mesh_cache_key``).
 
 A hive model name resolves to a family through the catalog entry's
 ``family`` field or the name hints of ``models.configs.get_family``. This
@@ -19,6 +21,7 @@ import threading
 import torch
 
 from chiaswarm_tpu_torch.core.device import resolve_device
+from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
 from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily, get_family
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
@@ -43,19 +46,47 @@ class ModelRegistry:
             return FAMILIES[fam]
         return get_family(model_name)
 
-    def _load_components(self, model_name: str) -> Components:
+    def _load_components(self, model_name: str,
+                         device: torch.device) -> Components:
         if not self.allow_random:
             raise ValueError(
                 f"model {model_name!r} is not available on this node "
                 "(chiaswarm_tpu_torch loads no checkpoints yet)")
         log.warning("no checkpoint for %s; using random weights", model_name)
         return Components.random(self.family_for(model_name), seed=0,
-                                 device=self.device, model_name=model_name)
+                                 device=device, model_name=model_name)
 
-    def pipeline(self, model_name: str) -> DiffusionPipeline:
+    def pipeline(self, model_name: str,
+                 mesh: DeviceMesh | None = None) -> DiffusionPipeline:
+        """The resident pipeline of ``model_name`` for a slot's ``mesh``:
+        its modules on the mesh's lead device (the registry's device when
+        no mesh is given), ringing its large self-attentions over the
+        mesh's ``seq`` axis when that is above 1. One entry per
+        (model, :func:`_mesh_cache_key`)."""
+        device = self.device if mesh is None else mesh.lead
+        key = (model_name, _mesh_cache_key(device, mesh))
         with self._lock:
-            pipe = self._pipelines.get(model_name)
+            pipe = self._pipelines.get(key)
             if pipe is None:
-                pipe = DiffusionPipeline(self._load_components(model_name))
-                self._pipelines[model_name] = pipe
+                pipe = DiffusionPipeline(
+                    self._load_components(model_name, device),
+                    mesh=mesh if seq_size(mesh) > 1 else None)
+                self._pipelines[key] = pipe
             return pipe
+
+
+def _device_key(device: torch.device) -> str:
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
+def _mesh_cache_key(device: torch.device, mesh: DeviceMesh | None) -> tuple:
+    """Cache identity of a pipeline: where its modules live and, for a
+    ``seq`` > 1 mesh, the mesh it rings over. A mesh that does not ring
+    shares the entry of its lead device."""
+    if seq_size(mesh) <= 1:
+        return (_device_key(device),)
+    return (_device_key(device), mesh.axis_names,
+            tuple(mesh.shape.values()),
+            tuple(_device_key(d) for d in mesh.device_list))

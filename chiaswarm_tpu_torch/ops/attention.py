@@ -8,19 +8,33 @@ keys/values, with the JAX package's ``impl`` kinds:
                 product. Always correct; the reference for the kernel tests.
 - ``"flash"`` — kernel B1 (ops/flash_attention.py): the CUDA kernel on a
                 CUDA tensor, its plain blockwise version on a CPU tensor.
+- ``"ring"`` / ``"ring_flash"`` — sequence-parallel kinds over the mesh of
+                an active ``parallel.context.sequence_parallel``; both run
+                the one ring drive, ``ops/ring_flash_attention.py`` (kernel
+                B3 when the shards share q's device, else the scan drive
+                over kernel B2; plain versions on CPU tensors).
 - ``"auto"``  — B1 for CUDA tensors when both L and S are >= 1024, else
-                ``"xla"``. ``CHIASWARM_ATTENTION=<kind>`` steers the auto
-                pick, as in the JAX package, but never moves card work off
-                B1: ``flash`` sends more calls to the kernel, while ``xla``
-                raises where auto would launch the kernel (everywhere else
-                auto is already ``"xla"``).
-- ``"ring"``/``"ring_flash"`` — sequence-parallel kinds. The port has no
-                sequence-parallel mesh yet, so an explicit request raises; an
-                env-forced one falls back to the auto pick (the JAX
-                package's advisory-knob contract).
+                ``"xla"``.
+
+Sequence parallelism comes before the local choice, for every ``impl``
+(the VAE's pinned ``"xla"`` included), as the JAX ``_try_ring`` does: under a
+mesh with ``seq`` = n > 1, a self-attention (S == L) with L divisible by n
+rings when L >= :data:`RING_MIN_TOKENS` or when ``impl`` is a ring kind.
+Every ring call takes the route ``"ring_flash"``, CPU tensors included, so
+the CPU tests drive the code the card serves. Cross-attention, an
+indivisible L and small self-attentions stay local. An explicit ring kind
+with no active mesh raises. The plain ring of ``parallel/ring_attention.py``
+is the tests' oracle and no route of the dispatcher.
+
+``CHIASWARM_ATTENTION=<kind>`` steers the ``auto`` pick as in the JAX
+package (explicit ``impl=`` callers are never steered) but never moves card
+work off a kernel: where ``auto`` would launch B1 and the steered route
+would not, it raises; under a seq mesh every kind rings alike. Ring kinds
+in the knob are advisory: with no mesh they fall back to the ``auto``
+pick.
 
 The fake-quant and numerics taps of the JAX dispatcher are off by default
-there and are not ported in this slice.
+there and are not ported.
 """
 
 from __future__ import annotations
@@ -30,14 +44,21 @@ from typing import Literal
 
 import torch
 
+from chiaswarm_tpu_torch.core.mesh import seq_size
 from chiaswarm_tpu_torch.ops.flash_attention import flash_attention
+from chiaswarm_tpu_torch.ops.ring_flash_attention import ring_flash_attention
+from chiaswarm_tpu_torch.parallel.context import active_seq_mesh, note_ring_call
 
 AttentionImpl = Literal["auto", "xla", "flash", "ring", "ring_flash"]
 
 _IMPLS = ("auto", "xla", "flash", "ring", "ring_flash")
+_RING_KINDS = ("ring", "ring_flash")
 
 #: the token count from which ``auto`` takes the flash kernel
 FLASH_MIN_TOKENS = 1024
+
+#: the token count from which self-attention rings under a seq mesh
+RING_MIN_TOKENS = 1024
 
 
 def _env_impl() -> str | None:
@@ -56,25 +77,41 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhls,bshd->blhd", weights, v)
 
 
-def _route(impl: str, device_type: str, l: int, s: int) -> str:
-    """The path one call takes, ``"flash"`` or ``"xla"``; see the module
+def _route_kind(kind: str, env_forced: bool, cuda: bool, l: int, s: int,
+                sp: int) -> str:
+    """The route of one call for an already-steered ``kind``."""
+    if (sp > 1 and s == l and l % sp == 0
+            and (kind in _RING_KINDS or l >= RING_MIN_TOKENS)):
+        return "ring_flash"
+    if kind in _RING_KINDS:
+        if sp == 1 and not env_forced:
+            raise ValueError(
+                f"impl={kind!r} requires an active sequence-parallel mesh "
+                "(parallel.context.sequence_parallel)")
+        kind = "auto"  # advisory knob, or a shape the ring does not take
+    if kind != "auto":
+        return kind
+    kernel = cuda and l >= FLASH_MIN_TOKENS and s >= FLASH_MIN_TOKENS
+    return "flash" if kernel else "xla"
+
+
+def _route(impl: str, device_type: str, l: int, s: int, sp: int = 1) -> str:
+    """The path one call takes: ``"flash"``, ``"xla"`` or ``"ring_flash"``,
+    under a ``seq`` axis of ``sp`` (1: no active mesh); see the module
     docstring for the rules."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl in ("ring", "ring_flash"):
+    cuda = device_type == "cuda"
+    route = _route_kind(impl, False, cuda, l, s, sp)
+    env = _env_impl() if impl == "auto" else None
+    if env is None:
+        return route
+    steered = _route_kind(env, True, cuda, l, s, sp)
+    if route == "flash" and steered != "flash":
         raise ValueError(
-            f"impl={impl!r} requires an active sequence-parallel mesh, "
-            "which chiaswarm_tpu_torch does not have yet")
-    if impl != "auto":
-        return impl
-    kernel = (device_type == "cuda" and l >= FLASH_MIN_TOKENS
-              and s >= FLASH_MIN_TOKENS)
-    env = _env_impl()
-    if env == "xla" and kernel:
-        raise ValueError(
-            f"CHIASWARM_ATTENTION=xla would move a CUDA attention over "
+            f"CHIASWARM_ATTENTION={env} would move a CUDA attention over "
             f"{l}x{s} tokens off kernel B1; unset it")
-    return "flash" if kernel or env == "flash" else "xla"
+    return steered
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -85,6 +122,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"expected (B, L, H, D) tensors, got {tuple(q.shape)}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _route(impl, q.device.type, q.shape[1], k.shape[1]) == "flash":
+    mesh = active_seq_mesh()
+    route = _route(impl, q.device.type, q.shape[1], k.shape[1], seq_size(mesh))
+    if route == "ring_flash":
+        note_ring_call(route, q.shape)
+        return ring_flash_attention(q, k, v, mesh=mesh, scale=scale)
+    if route == "flash":
         return flash_attention(q, k, v, scale=scale)
     return xla_attention(q, k, v, scale)

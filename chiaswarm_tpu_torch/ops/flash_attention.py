@@ -13,6 +13,9 @@ what its design does about that), built with ``nvcc`` at first use.
   recurrence in PyTorch: fp32 logits and state, KV blocks padded with zeros
   and masked with the finite -1e30 past the true length, output cast to the
   input type. It is the oracle the kernel is held against on the card.
+- :func:`online_softmax_update` is that recurrence with the running state
+  passed in and returned; the plain version of the ring hop, kernel B2
+  (``ops/ring_flash_attention.py``), is the same function.
 """
 
 from __future__ import annotations
@@ -53,22 +56,28 @@ KERNEL = register(CudaKernel(
 ))
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, scale: float | None = None) -> torch.Tensor:
-    """The blockwise recurrence in plain PyTorch over (B, L, H, D) q and
-    (B, S, H, D) k/v; see the module docstring."""
-    if scale is None:
-        scale = float(q.shape[-1]) ** -0.5
-    b, l, h, d = q.shape
+def online_softmax_update(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          m: torch.Tensor, denom: torch.Tensor,
+                          acc: torch.Tensor, *, scale: float
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The running-softmax recurrence over every KV block of one K/V
+    sequence: counterpart of ``online_softmax_block_update``
+    (``chiaswarm_tpu/ops/flash_attention.py:84-114``), swept over blocks of
+    :data:`BLOCK_KV`. B1's and B2's plain versions are this function.
+
+    q (B, L, H, D) and k/v (B, S, H, D) in any float type; the running max
+    ``m`` and denominator ``denom`` (B, H, L) and the accumulator ``acc``
+    (B, L, H, D) in float32. Logits and p stay float32; v is read in
+    float32. Returns the updated (m, denom, acc), new tensors in the same
+    layouts; nothing is normalised."""
     s = k.shape[1]
     block_kv = BLOCK_KV  # read per call, so tests can vary it
     qf = q.float().permute(0, 2, 1, 3)          # (B, H, L, D)
     kf = k.float().permute(0, 2, 1, 3)          # (B, H, S, D)
     vf = v.float().permute(0, 2, 1, 3)
-    m = torch.full((b, h, l, 1), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    denom = torch.zeros((b, h, l, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, l, d), dtype=torch.float32, device=q.device)
+    m = m[..., None]                            # (B, H, L, 1)
+    denom = denom[..., None]
+    acc = acc.permute(0, 2, 1, 3)               # (B, H, L, D)
     cols = torch.arange(block_kv, device=q.device)
     for start in range(0, s, block_kv):
         kb = kf[:, :, start:start + block_kv]
@@ -87,10 +96,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         denom = alpha * denom + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p, vb)
         m = m_next
-    return (acc / denom).to(q.dtype).permute(0, 2, 1, 3)
+    return m[..., 0], denom[..., 0], acc.permute(0, 2, 1, 3)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float | None = None) -> torch.Tensor:
+    """The blockwise recurrence in plain PyTorch over (B, L, H, D) q and
+    (B, S, H, D) k/v; see the module docstring."""
+    if scale is None:
+        scale = float(q.shape[-1]) ** -0.5
+    b, l, h, d = q.shape
+    m = torch.full((b, h, l), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, h, l), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, l, h, d), dtype=torch.float32, device=q.device)
+    m, denom, acc = online_softmax_update(q, k, v, m, denom, acc, scale=scale)
+    return (acc / denom.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Refuse (B, L, H, D) q and (B, S, H, D) k/v that do not fit together."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"expected (B, L, H, D) tensors, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -115,7 +139,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take :func:`flash_attention_plain`. CUDA tensors launch
     kernel B1 on the current stream, or raise for what it does not take.
     """
-    _check(q, k, v)
+    check_qkv(q, k, v)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":

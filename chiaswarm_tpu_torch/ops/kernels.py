@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels: build, load and launch accounting.
 
 Every kernel of the port is a ``.cu`` source under ``chiaswarm_tpu_torch/csrc``
-with a plain C entry point. It is compiled on first use with ``nvcc`` for
-``sm_90a`` into a shared library under the checkout's git-ignored
-``build/kernels/`` directory, keyed by a hash of the source and flags, and
+with a plain C entry point; sources may include the ``.cuh`` headers beside
+them. It is compiled on first use with ``nvcc`` for ``sm_90a`` into a shared
+library under the checkout's git-ignored ``build/kernels/`` directory, keyed
+by a hash of the source, the headers and the flags, and
 loaded with ``ctypes``. Nothing here runs at import time: the CPU test tier
 imports every module of the package on a machine with no ``nvcc``.
 
@@ -21,6 +22,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable
 
@@ -58,15 +61,17 @@ class CudaKernel:
     replaces: str
     launches: int = 0
     build_log: str = ""
+    build_s: float = 0.0  # seconds of this process's nvcc run, 0 if cached
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._fn: ctypes._CFuncPtr | None = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in (self.source, *sorted(self.source.parent.glob("*.cuh"))):
+            digest.update(path.read_bytes())
+        return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile the source unless a library for this exact source and
@@ -82,9 +87,11 @@ class CudaKernel:
         # interleave writes; os.replace installs atomically
         tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        t0 = time.perf_counter()
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True,
                                   timeout=900)
+            self.build_s = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed to build {self.source.name} "
@@ -117,11 +124,18 @@ def register(kernel: CudaKernel) -> CudaKernel:
 
 
 def build_all() -> dict[str, Path]:
-    """Build every registered kernel. Raises on the first failure."""
+    """Build every registered kernel, one ``nvcc`` per source, all started
+    together: a cold build takes as long as the slowest source, not the
+    sum. Raises the first failure after every build has ended."""
     # importing the ops modules registers their kernels
-    from chiaswarm_tpu_torch.ops import flash_attention  # noqa: F401
+    from chiaswarm_tpu_torch.ops import (  # noqa: F401
+        flash_attention,
+        ring_flash_attention,
+    )
 
-    return {name: k.build() for name, k in KERNELS.items()}
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        futures = {name: pool.submit(k.build) for name, k in KERNELS.items()}
+    return {name: f.result() for name, f in futures.items()}
 
 
 def reset_launches() -> None:

@@ -10,7 +10,9 @@ prompt and (for classifier-free guidance) the negative prompt, concatenated
 along the batch; the UNet runs once per step on the doubled batch inside a
 Python loop under the resolved sampler; the VAE decodes; the image is
 quantized to uint8 on the device ((x + 1) * 127.5 + 0.5, clipped,
-truncated) and crosses to the host once.
+truncated) and crosses to the host once. A pipeline built with a ``seq``
+mesh runs that whole flow under the sequence-parallel context, so its large
+self-attentions ring over the mesh's devices (``parallel/context.py``).
 
 Noise: row b's initial (and, for the ancestral/lcm kinds, per-step) noise
 comes from its own generator (core/rng.py), so an image is independent of
@@ -32,7 +34,9 @@ import numpy as np
 import torch
 
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
+from chiaswarm_tpu_torch.core.mesh import DeviceMesh
 from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators
+from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.schedulers import (
     SamplerConfig,
@@ -131,10 +135,18 @@ class PendingImages:
 
 
 class DiffusionPipeline:
-    """Resident txt2img executor for one Components bundle."""
+    """Resident txt2img executor for one Components bundle. With a ``mesh``
+    whose ``seq`` axis is above 1, the whole generate call (encode, denoise
+    loop, VAE decode, uint8) runs under ``parallel.context.
+    sequence_parallel``, so every large self-attention, the VAE mid block's
+    included, rings over the mesh (the JAX solo program's
+    ``seq_parallel_wrap``, ``pipelines/diffusion.py:615-618``); a mesh
+    that rings beside another axis above 1 raises there."""
 
-    def __init__(self, components: Components) -> None:
+    def __init__(self, components: Components,
+                 mesh: DeviceMesh | None = None) -> None:
         self.c = components
+        self.mesh = mesh
         fam = components.family
         self.schedule_config = ScheduleConfig(
             beta_schedule=fam.beta_schedule,
@@ -251,10 +263,11 @@ class DiffusionPipeline:
         generators = row_generators(pairs)
         noise = self._initial_noise(req, batch, lh, lw, generators)
 
-        images = self._generate(
-            batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
-            guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,
-            noise=noise, generators=generators)
+        with sequence_parallel(self.mesh):
+            images = self._generate(
+                batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
+                guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,
+                noise=noise, generators=generators)
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,

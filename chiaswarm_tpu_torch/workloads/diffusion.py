@@ -55,7 +55,7 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        content_type: str = "image/png",
                        **kwargs: Any):
     _refuse(kwargs)
-    pipe = registry.pipeline(model_name)
+    pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
     fam = pipe.c.family
     if fam.kind != "sd":
         raise ValueError(

@@ -3,37 +3,76 @@
 
     python3 chip_smoke.py            # on a machine with one NVIDIA GPU
 
-Drives the port's main path on the card and checks it, phase by phase, each
-phase printing one JSON line:
+Drives the port's main paths on the card and checks them, phase by phase,
+each phase printing one JSON line:
 
-1. probe   — CUDA present; card name and power limit (the raw
-             ``nvidia-smi --query-gpu=name,power.limit`` line is printed on
-             its own too), torch / CUDA / nvcc versions, whether PIL imports.
-2. build   — builds every CUDA kernel from the checkout's sources and the
-             host artifact codec.
-3. kernel  — holds kernel B1 (flash attention) against its plain PyTorch
-             version at the UNet's shapes for SD1.5 at 512 px in bf16 (max
-             abs error 4e-3, two bf16 steps at the largest outputs, and
-             relative L2 1e-2), and at ragged fp32 shapes (2e-4 and 1e-4,
-             TF32 off);
-             CUDA-event median times of the kernel, the plain version and
-             ``scaled_dot_product_attention`` (the library yardstick, which
-             the port never calls), with FLOP and byte counts and the bound.
-4. check   — the full-width SD1.5 UNet in float32 on a small latent, once
-             with the spatial self-attention through B1 and once through
-             the plain path: relative L2 difference within 1e-4, and B1
-             launched 5 times (the five 1024-token self-attentions).
-5. serve   — SD1.5 at its published widths, random bf16 weights from a
-             seed, three 512x512 txt2img jobs (20 steps, guidance 7.5,
-             default scheduler) through the port's executor
-             ``synchronous_do_work``. Every envelope must carry no error
-             and a 512x512 PNG, and B1's launch count over the three jobs
-             must be jobs x steps x 10 (5 self-attentions at 4096 tokens
-             and 5 at 1024 per UNet evaluation, CFG batched).
-6. kernels — one line ``{"kernels": [...]}``: each port kernel, the TPU
-             kernel it replaces, its launches on the serve phase, and its
-             numbers from the kernel phase averaged over the serve phase's
-             launch mix (per-shape numbers under ``shapes``).
+1. probe      — CUDA present; card name and power limit (the raw
+                ``nvidia-smi --query-gpu=name,power.limit`` line is printed
+                on its own too), torch / CUDA / nvcc versions, whether PIL
+                imports.
+2. build      — builds every CUDA kernel from the checkout's sources, one
+                ``nvcc`` per source, all started together, and the host
+                artifact codec; prints each kernel's ptxas lines
+                (registers, shared memory, spills) and fails on a spill.
+3. kernel     — holds kernel B1 (flash attention) against its plain PyTorch
+                version at the UNet's shapes for SD1.5 at 512 px in bf16
+                (max abs error 4e-3, two bf16 steps at the largest outputs,
+                and relative L2 1e-2), and at ragged fp32 shapes (2e-4 and
+                1e-4, TF32 off); CUDA-event median times of the kernel, the
+                plain version and ``scaled_dot_product_attention`` (the
+                library yardstick, which the port never calls), with FLOP
+                and byte counts and the bound.
+4. ring_kernel — holds kernel B2 (one ring hop with carried state) against
+                ``ring_flash_hop_plain`` with a non-trivial incoming state,
+                on a strided query shard, at the three shapes of the
+                sequence-parallel serve path in bf16 and a ragged fp32
+                shape: the normalised output acc / l to B1's bars, m within
+                1e-5 and l within a relative 1e-4. Times, FLOPs and bytes
+                with the state counted in and out, the bound, and the host
+                time to enqueue one hop on an idle card (no single PyTorch
+                call computes one hop with carried state, so B2's library
+                time is null).
+5. fused_kernel — holds kernel B3 (a whole 4-shard ring in one launch)
+                against its plain version ``ring_flash_fused_plain`` at the
+                three ring attentions of the serve path in bf16 and a ragged
+                fp32 one (S != L) to B1's bars, and against unsharded
+                ``flash_attention_plain`` and the scan drive over B2 on the
+                one-card mesh. Times of B3, its plain version, the scan
+                drive and ``scaled_dot_product_attention`` on the unsharded
+                attention (B3's library yardstick), host enqueue times of B3
+                and the scan drive, FLOPs, bytes and the bound.
+6. check      — the full-width SD1.5 UNet in float32 on a small latent, once
+                with the spatial self-attention through B1 and once through
+                the plain path: relative L2 difference within 1e-4, and B1
+                launched 5 times (the five 1024-token self-attentions).
+7. ring_check — the same UNet under a ``seq = 4`` mesh against the
+                single-device plain route: relative L2 within 1e-4, with
+                exactly 5 B3 launches (the five 1024-token self-attentions)
+                and, under the scan drive, 80 B2 launches (x 4 shards x 4
+                hops); the full-width VAE decode in float32 at a 64x64
+                latent, ring against local: within 1e-4, 1 B3 launch and 16
+                B2 launches at head dim 512.
+8. serve      — SD1.5 at its published widths, random bf16 weights from a
+                seed, three 512x512 txt2img jobs (20 steps, guidance 7.5,
+                default scheduler) through the port's executor
+                ``synchronous_do_work``. Every envelope must carry no error
+                and a 512x512 PNG, and B1's launch count over the three jobs
+                must be jobs x steps x 10 (5 self-attentions at 4096 tokens
+                and 5 at 1024 per UNet evaluation, CFG batched).
+9. seq_serve  — the same three jobs on a slot whose mesh has ``seq = 4``
+                over ``cuda:0`` named four times: every envelope error-free
+                with a 512x512 PNG, B3 launched jobs x (steps x 10 + 1)
+                times, B1 and B2 never. The uint8 difference from the serve
+                phase's image of the same seed is printed as information.
+10. seq_serve_scan — the same jobs under ``CHIASWARM_RING_FLASH=scan`` on a
+                ``seq = 4`` slot (``cuda:0..3`` when four cards are visible,
+                else ``cuda:0`` named four times, and the rotation copies
+                stay on the card): B2 launched jobs x (steps x 160 + 16)
+                times, B1 and B3 never.
+11. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
+                kernel it replaces, its launches on its serve phase, and its
+                numbers from its kernel phase averaged over that serve
+                phase's launch mix (per-shape numbers under ``shapes``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero without that line — also when CUDA is absent
@@ -43,7 +82,11 @@ or the package is not next to this file.
 from __future__ import annotations
 
 import base64
+import contextlib
+import io
 import json
+import os
+import re
 import statistics
 import struct
 import subprocess
@@ -60,6 +103,14 @@ PEAK_BYTES_PER_S = 3.35e12
 SERVE_JOBS = 3
 SERVE_STEPS = 20
 B1_LAUNCHES_PER_UNET_EVAL = 10
+RING_SHARDS = 4
+# ten self-attentions per UNet eval ring (five at 4096 tokens, five at
+# 1024), each 4 shards x 4 hops; the VAE mid block rings once per job
+B2_LAUNCHES_PER_UNET_EVAL = 10 * RING_SHARDS * RING_SHARDS
+B2_LAUNCHES_PER_DECODE = RING_SHARDS * RING_SHARDS
+# B3 runs each of those ring attentions in one launch
+B3_LAUNCHES_PER_UNET_EVAL = 10
+B3_LAUNCHES_PER_DECODE = 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -112,12 +163,20 @@ def build() -> None:
     if native.CODEC.load() is None:
         raise RuntimeError("the artifact codec did not build (g++ and zlib)")
     codec_s = time.perf_counter() - t1
-    ptxas = {name: [line.split("ptxas info    : ")[-1]
-                    for line in k.build_log.splitlines() if "Used" in line]
+    ptxas = {name: [line.split("ptxas info    : ")[-1].strip()
+                    for line in k.build_log.splitlines()
+                    if "Used" in line or "spill" in line]
              for name, k in KERNELS.items()}
+    spills = {name: sum(int(n) for line in k.build_log.splitlines()
+                        for n in re.findall(r"(\d+) bytes spill", line))
+              for name, k in KERNELS.items()}
     emit("build", kernels={n: str(p.relative_to(ROOT)) for n, p in libs.items()},
-         kernel_build_s=round(kernel_s, 3), codec_build_s=round(codec_s, 3),
-         ptxas=ptxas)
+         kernel_build_s=round(kernel_s, 3),
+         nvcc_s={name: round(k.build_s, 3) for name, k in KERNELS.items()},
+         codec_build_s=round(codec_s, 3),
+         spill_bytes=spills, ptxas=ptxas)
+    if any(spills.values()):
+        raise AssertionError(f"a kernel spills registers: {spills}")
 
 
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
@@ -137,20 +196,37 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def host_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    """Median host time in ms to enqueue ``fn`` on an idle card: the Python
+    and launch cost alone, the device's own time excluded."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def bound(flops: int, nbytes: int, dtype) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate of ``dtype`` and the bytes over the memory rate."""
+    op_ms = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+
+
 def attention_work(b: int, l: int, s: int, h: int, d: int, dtype) -> dict:
     """FLOPs and bytes one forward attention needs: 2·L·S·D multiply-adds
     for QK^T and again for PV per (batch, head); each input read once and
     the output written once."""
-    import torch
-
-    elem = torch.empty((), dtype=dtype).element_size()
-    flops = 4 * b * h * l * s * d
-    nbytes = (2 * b * l * h * d + 2 * b * s * h * d) * elem
-    name = str(dtype).removeprefix("torch.")
-    op_ms = flops / PEAK_FLOPS[name] * 1e3
-    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    elem = dtype.itemsize
+    return bound(4 * b * h * l * s * d,
+                 (2 * b * l * h * d + 2 * b * s * h * d) * elem, dtype)
 
 
 # With randn q/k/v the outputs have a standard deviation of about
@@ -165,6 +241,20 @@ KERNEL_SHAPES = [
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, False),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, False),
 ]
+
+
+def _held(name: str, shape, out, ref, tol: float, rel_tol: float) -> dict:
+    """Hold ``out`` against its plain version ``ref``; raises past a bar."""
+    diff = out.float() - ref.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    if not (err <= tol and rel <= rel_tol):
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}: max abs error {err} (bar {tol}), "
+                             f"relative L2 {rel} (bar {rel_tol})")
+    return {"max_abs_err": err, "tolerance": tol, "rel_l2": rel,
+            "rel_l2_tolerance": rel_tol,
+            "mean_abs_out": ref.float().abs().mean().item()}
 
 
 def kernel_phase(torch) -> list[dict]:
@@ -189,20 +279,13 @@ def kernel_phase(torch) -> list[dict]:
         v = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v)
-        diff = out.float() - ref.float()
-        err = diff.abs().max().item()
-        rel = (diff.norm() / ref.float().norm()).item()
-        if not (err <= tol and rel <= rel_tol):
-            raise AssertionError(f"B1 disagrees with its plain version at "
-                                 f"{(b, l, s, h, d, dtype_name)}: max abs "
-                                 f"error {err} (bar {tol}), relative L2 "
-                                 f"{rel} (bar {rel_tol})")
+        shape = [b, l, s, h, d]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
-            "shape": [b, l, s, h, d], "dtype": dtype_name, "tolerance": tol,
-            "max_abs_err": err, "rel_l2_tolerance": rel_tol, "rel_l2": rel,
-            "mean_abs_out": ref.float().abs().mean().item(), "served": served,
+            "shape": shape, "dtype": dtype_name,
+            **_held("B1", shape, out, flash_attention_plain(q, k, v), tol,
+                    rel_tol),
+            "served": served,
             "ms": time_ms(torch, lambda: flash_attention(q, k, v)),
             "plain_ms": time_ms(torch, lambda: flash_attention_plain(q, k, v)),
             "library_ms": time_ms(
@@ -210,6 +293,198 @@ def kernel_phase(torch) -> list[dict]:
             **attention_work(b, l, s, h, d, dtype),
         }
         emit("kernel", name="flash_attention", **row)
+        rows.append(row)
+    return rows
+
+
+def ring_hop_work(b: int, l: int, s: int, h: int, d: int, dtype) -> dict:
+    """FLOPs and bytes one ring hop needs: the attention's 4·B·H·L·S·D,
+    q, k and v read once in their type, and the float32 state m, l (B, H, L)
+    and acc (B, L, H, D) read once and written once."""
+    elem = dtype.itemsize
+    return bound(4 * b * h * l * s * d,
+                 (b * l * h * d + 2 * b * s * h * d) * elem
+                 + 2 * (2 * b * h * l + b * l * h * d) * 4, dtype)
+
+
+def ring_mesh_devices(torch) -> list:
+    """The devices of the seq = 4 mesh: four cards when four are visible,
+    else the first card named four times."""
+    if torch.cuda.device_count() >= RING_SHARDS:
+        return [torch.device("cuda", i) for i in range(RING_SHARDS)]
+    return [torch.device("cuda", 0)] * RING_SHARDS
+
+
+def ring_mesh(torch, devices=None):
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    return build_mesh(MeshSpec({"seq": RING_SHARDS}),
+                      devices=devices or ring_mesh_devices(torch))
+
+
+def one_card_devices(torch) -> list:
+    """The mesh B3 serves: the first card named once per shard."""
+    return [torch.device("cuda", 0)] * RING_SHARDS
+
+
+@contextlib.contextmanager
+def ring_mode(mode: str):
+    """CHIASWARM_RING_FLASH set to ``mode`` ("scan": the scan drive over B2;
+    "": B3 where the shards share q's card) for the block."""
+    old = os.environ.get("CHIASWARM_RING_FLASH")
+    os.environ["CHIASWARM_RING_FLASH"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("CHIASWARM_RING_FLASH")
+        else:
+            os.environ["CHIASWARM_RING_FLASH"] = old
+
+
+# B2 shapes: the query shard, a K/V shard, and the launches per job of the
+# sequence-parallel serve path (20 steps x 5 self-attentions x 16 per level,
+# 16 for the VAE mid block)
+RING_SHAPES = [
+    # (B, L, S, H, D, dtype, max abs error, relative L2, launches per job)
+    (2, 1024, 1024, 8, 40, "bfloat16", 4e-3, 1e-2, 1600),
+    (2, 256, 256, 8, 80, "bfloat16", 4e-3, 1e-2, 1600),
+    (1, 1024, 1024, 1, 512, "bfloat16", 4e-3, 1e-2, 16),
+    (1, 300, 170, 2, 64, "float32", 2e-4, 1e-4, 0),
+]
+
+
+def ring_kernel_phase(torch) -> list[dict]:
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        ring_flash_hop,
+        ring_flash_hop_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    rows = []
+    for b, l, s, h, d, dtype_name, tol, rel_tol, per_job in RING_SHAPES:
+        dtype = getattr(torch, dtype_name)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen).to("cuda", dtype)
+
+        # query shard 1 of 4 of a (B, 4L, H, D) tensor, as the ring hands
+        # it to B2 (strided across the batch when B > 1)
+        q = randn(b, RING_SHARDS * l, h, d)[:, l:2 * l]
+        k0, v0, k, v = (randn(b, s, h, d) for _ in range(4))
+        scale = d ** -0.5
+        state = ring_flash_hop_plain(
+            q, k0, v0, torch.full((b, h, l), -1e30, device="cuda"),
+            torch.zeros((b, h, l), device="cuda"),
+            torch.zeros((b, l, h, d), device="cuda"), scale=scale)
+        m, lsum, acc = (t.clone() for t in state)
+        ring_flash_hop(q, k, v, m, lsum, acc)
+        torch.cuda.synchronize()
+        ref_m, ref_l, ref_acc = ring_flash_hop_plain(q, k, v, *state,
+                                                     scale=scale)
+        shape = [b, l, s, h, d]
+        m_err = (m - ref_m).abs().max().item()
+        l_err = ((lsum - ref_l).abs() / ref_l).max().item()
+        if not (m_err <= 1e-5 and l_err <= 1e-4):
+            raise AssertionError(f"B2 state disagrees with its plain version "
+                                 f"at {shape}: m max abs error {m_err} (bar "
+                                 f"1e-5), l max relative error {l_err} (bar "
+                                 f"1e-4)")
+        row = {
+            "shape": shape, "dtype": dtype_name,
+            "strided_q": not q.is_contiguous(),
+            "launches_per_job": per_job, "served": per_job > 0,
+            **_held("B2", shape, acc / lsum.transpose(1, 2)[..., None],
+                    ref_acc / ref_l.transpose(1, 2)[..., None],
+                    tol, rel_tol),
+            "m_max_abs_err": m_err, "l_max_rel_err": l_err,
+            "ms": time_ms(torch, lambda: ring_flash_hop(q, k, v, m, lsum,
+                                                        acc)),
+            "host_ms": host_ms(torch, lambda: ring_flash_hop(q, k, v, m, lsum,
+                                                             acc)),
+            "plain_ms": time_ms(torch, lambda: ring_flash_hop_plain(
+                q, k, v, *state, scale=scale)),
+            "library_ms": None,
+            **ring_hop_work(b, l, s, h, d, dtype),
+        }
+        if not torch.isfinite(acc).all():
+            raise AssertionError(f"B2 state went non-finite at {shape}")
+        emit("ring_kernel", name="ring_flash_hop", **row)
+        rows.append(row)
+
+    return rows
+
+
+# B3 shapes: the whole ring attention of the serve path (q = k/v length)
+# and the launches per job (20 steps x 5 self-attentions per UNet level,
+# one for the VAE mid block)
+FUSED_SHAPES = [
+    # (B, L, S, H, D, dtype, max abs error, relative L2, launches per job)
+    (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, 100),
+    (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, 100),
+    (1, 4096, 4096, 1, 512, "bfloat16", 4e-3, 1e-2, 1),
+    (1, 600, 680, 2, 64, "float32", 2e-4, 1e-4, 0),
+]
+
+
+def fused_kernel_phase(torch) -> list[dict]:
+    import torch.nn.functional as F
+
+    from chiaswarm_tpu_torch.ops.flash_attention import flash_attention_plain
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        ring_flash_attention,
+        ring_flash_fused,
+        ring_flash_fused_plain,
+    )
+
+    mesh = ring_mesh(torch, one_card_devices(torch))
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    rows = []
+    for b, l, s, h, d, dtype_name, tol, rel_tol, per_job in FUSED_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, l, h, d), generator=gen).to("cuda", dtype)
+        k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+                for _ in range(2))
+        scale = d ** -0.5
+        out = ring_flash_fused(q, k, v, shards=RING_SHARDS)
+        with ring_mode("scan"):
+            scan = ring_flash_attention(q, k, v, mesh=mesh)
+        torch.cuda.synchronize()
+        shape = [b, l, s, h, d]
+        unsharded = flash_attention_plain(q, k, v)
+        _held("B3 against unsharded flash", shape, out, unsharded, tol,
+              rel_tol)
+        _held("B3 against the B2 scan drive", shape, out, scan, tol, rel_tol)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def scan_ring():
+            with ring_mode("scan"):
+                ring_flash_attention(q, k, v, mesh=mesh)
+
+        row = {
+            "shape": shape, "dtype": dtype_name, "shards": RING_SHARDS,
+            "launches_per_job": per_job, "served": per_job > 0,
+            **_held("B3", shape, out, ring_flash_fused_plain(
+                q, k, v, shards=RING_SHARDS, scale=scale), tol, rel_tol),
+            "max_abs_err_vs_unsharded": (out.float() - unsharded.float())
+            .abs().max().item(),
+            "max_abs_err_vs_scan": (out.float() - scan.float())
+            .abs().max().item(),
+            "ms": time_ms(torch, lambda: ring_flash_fused(
+                q, k, v, shards=RING_SHARDS)),
+            "host_ms": host_ms(torch, lambda: ring_flash_fused(
+                q, k, v, shards=RING_SHARDS)),
+            "plain_ms": time_ms(torch, lambda: ring_flash_fused_plain(
+                q, k, v, shards=RING_SHARDS, scale=scale)),
+            "scan_ms": time_ms(torch, scan_ring),
+            "scan_host_ms": host_ms(torch, scan_ring),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            **attention_work(b, l, s, h, d, dtype),
+        }
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"B3 output went non-finite at {shape}")
+        emit("fused_kernel", name="ring_flash_fused", **row)
         rows.append(row)
     return rows
 
@@ -255,6 +530,78 @@ def check_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def ring_check_phase(torch) -> None:
+    """Full-width SD1.5 UNet (32x32 latents) and VAE decode (64x64 latent)
+    in float32, under the seq = 4 mesh against the single-device plain
+    route, once through B3 (the shards share cuda:0) and once through the
+    scan drive over B2; only float32 summation order differs."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.models.unet import UNet
+    from chiaswarm_tpu_torch.models.vae import AutoencoderKL
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        FUSED_KERNEL as B3,
+    )
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import KERNEL as B2
+    from chiaswarm_tpu_torch.parallel.context import sequence_parallel
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    fam = FAMILIES["sd15"]
+    drives = (("fused", "", B3, one_card_devices(torch)),
+              ("scan", "scan", B2, ring_mesh_devices(torch)))
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    results = {}
+    # five 1024-token self-attentions in the UNet, one in the VAE mid block
+    for name, ctor, cfg, rings in (("unet", UNet, fam.unet, 5),
+                                   ("vae", AutoencoderKL, fam.vae, 1)):
+        with torch.device("meta"):
+            module = ctor(cfg)
+        module = module.to_empty(device="cuda").eval().requires_grad_(False)
+        flax_default_init(module, torch.Generator(device="cuda").manual_seed(0))
+        if name == "unet":
+            args = (torch.randn((2, 4, 32, 32), generator=gen).cuda(),
+                    torch.tensor([999.0, 10.5], device="cuda"),
+                    torch.randn((2, 77, 768), generator=gen).cuda())
+            fn = module
+        else:
+            args = (torch.randn((1, 4, 64, 64), generator=gen).cuda(),)
+            fn = module.decode
+        with torch.inference_mode():
+            if name == "unet":
+                set_attn_impl(module, "xla")
+            out_local = fn(*args)
+            if name == "unet":
+                set_attn_impl(module, "auto")
+            for drive, mode, kernel, devices in drives:
+                mesh = ring_mesh(torch, devices)
+                want = rings * (1 if kernel is B3 else RING_SHARDS ** 2)
+                kernels.reset_launches()
+                with ring_mode(mode), sequence_parallel(mesh):
+                    out_ring = fn(*args)
+                launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+                torch.cuda.synchronize()
+                rel = ((out_ring - out_local).norm() / out_local.norm()).item()
+                finite = bool(torch.isfinite(out_ring).all())
+                results[f"{name}_{drive}"] = {
+                    "shape": list(args[0].shape), "launches": launches,
+                    "rel_l2": rel, "finite": finite,
+                    "mesh_devices": [str(dv) for dv in mesh.device_list]}
+                if (launches[kernel.name] != want
+                        or sum(launches.values()) != want
+                        or not finite or not rel <= 1e-4):
+                    raise AssertionError(
+                        f"ring check of the sd15 {name} ({drive}) failed: "
+                        f"launches {launches} (want {want} of {kernel.name} "
+                        f"and no other), finite {finite}, relative L2 {rel} "
+                        "(bar 1e-4)")
+                del out_ring
+        del module, out_local
+        torch.cuda.empty_cache()
+    emit("ring_check", model="sd15 unet + vae fp32", tolerance=1e-4,
+         **results)
+
+
 def png_hw(blob_b64: str) -> tuple[int, int]:
     blob = base64.b64decode(blob_b64)
     if blob[:8] != b"\x89PNG\r\n\x1a\n" or blob[12:16] != b"IHDR":
@@ -263,80 +610,189 @@ def png_hw(blob_b64: str) -> tuple[int, int]:
     return height, width
 
 
-def serve_phase(torch) -> dict:
-    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+JOBS = [{"id": f"smoke-sd15-{seed}", "model_name": "sd15",
+         "prompt": "a lighthouse on a cliff at golden hour, oil painting",
+         "negative_prompt": "blurry, low quality" if seed == 2 else "",
+         "num_inference_steps": SERVE_STEPS, "guidance_scale": 7.5,
+         "height": 512, "width": 512, "seed": seed,
+         "content_type": "image/png"} for seed in (1, 2, 3)][:SERVE_JOBS]
+
+
+def run_jobs(torch, phase: str, slot, registry) -> tuple[list, dict]:
+    """The serve jobs through ``synchronous_do_work`` on ``slot``, with every
+    launch count set to 0 just before. Returns the job seconds and each
+    job's PNG blob by seed; raises on an error envelope or a wrong PNG."""
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    seconds, blobs = [], {}
+    for job in JOBS:
+        t1 = time.perf_counter()
+        result = synchronous_do_work(dict(job), slot, registry)
+        seconds.append(time.perf_counter() - t1)
+        cfg = result["pipeline_config"]
+        if "error" in cfg:
+            raise AssertionError(f"{phase} job {job['id']} failed: "
+                                 f"{cfg['error']}")
+        blobs[job["seed"]] = result["artifacts"]["primary"]["blob"]
+        hw = png_hw(blobs[job["seed"]])
+        if hw != (512, 512):
+            raise AssertionError(f"{phase} job {job['id']} PNG is {hw}, "
+                                 "not 512x512")
+        emit(f"{phase}_job", id=job["id"], seed=cfg["seed"],
+             seconds=seconds[-1], generation_s=cfg["generation_s"],
+             scheduler=cfg["scheduler"], png_hw=list(hw),
+             mesh_shape=cfg["slot"]["mesh_shape"])
+    return seconds, blobs
+
+
+def load_pipeline(torch, phase: str, registry, mesh=None) -> None:
+    t0 = time.perf_counter()
+    # Components.random(sd15, seed 0, the slot's lead card, the family's bf16)
+    pipe = registry.pipeline("sd15", mesh=mesh)
+    torch.cuda.synchronize()
+    emit(f"{phase}_load", model="sd15", load_s=round(time.perf_counter() - t0, 3),
+         param_bytes=pipe.c.param_bytes(), dtype=str(pipe.c.dtype))
+
+
+def serve_phase(torch) -> tuple[dict, dict]:
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
     from chiaswarm_tpu_torch.ops import kernels
 
     registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
                              allow_random=True, device="cuda")
     slot = ChipPool(device="cuda").slots[0]
-    t0 = time.perf_counter()
-    # Components.random(sd15, seed 0, cuda, the family's bf16)
-    pipe = registry.pipeline("sd15")
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    emit("serve_load", model="sd15", load_s=round(load_s, 3),
-         param_bytes=pipe.c.param_bytes(), dtype=str(pipe.c.dtype))
-
-    jobs = [{"id": f"smoke-sd15-{seed}", "model_name": "sd15",
-             "prompt": "a lighthouse on a cliff at golden hour, oil painting",
-             "negative_prompt": "blurry, low quality" if seed == 2 else "",
-             "num_inference_steps": SERVE_STEPS, "guidance_scale": 7.5,
-             "height": 512, "width": 512, "seed": seed,
-             "content_type": "image/png"} for seed in (1, 2, 3)][:SERVE_JOBS]
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    seconds = []
-    for job in jobs:
-        t1 = time.perf_counter()
-        result = synchronous_do_work(job, slot, registry)
-        seconds.append(time.perf_counter() - t1)
-        cfg = result["pipeline_config"]
-        if "error" in cfg:
-            raise AssertionError(f"job {job['id']} failed: {cfg['error']}")
-        hw = png_hw(result["artifacts"]["primary"]["blob"])
-        if hw != (512, 512):
-            raise AssertionError(f"job {job['id']} PNG is {hw}, not 512x512")
-        emit("serve_job", id=job["id"], seed=cfg["seed"], seconds=seconds[-1],
-             generation_s=cfg["generation_s"], scheduler=cfg["scheduler"],
-             png_hw=list(hw))
+    load_pipeline(torch, "serve", registry)
+    seconds, blobs = run_jobs(torch, "serve", slot, registry)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
-    want = len(jobs) * SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL
-    emit("serve", jobs=len(jobs), steps=SERVE_STEPS, job_seconds=seconds,
-         images_per_s=len(jobs) / sum(seconds),
-         images_per_s_after_first=(len(jobs) - 1) / sum(seconds[1:]),
+    want = len(JOBS) * SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL
+    emit("serve", jobs=len(JOBS), steps=SERVE_STEPS, job_seconds=seconds,
+         images_per_s=len(JOBS) / sum(seconds),
+         images_per_s_after_first=(len(JOBS) - 1) / sum(seconds[1:]),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, expected_flash_launches=want)
     if launches["flash_attention"] != want:
         raise AssertionError(f"B1 launched {launches['flash_attention']} "
                              f"times in the serve phase, expected {want}")
+    return launches, blobs
+
+
+def decode_png(blob_b64: str):
+    try:
+        import numpy as np
+        from PIL import Image
+    except ImportError:
+        return None
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(blob_b64)))
+                      .convert("RGB")).astype("int16")
+
+
+def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
+    """The serve jobs on a seq = 4 slot: ``seq_serve`` through B3 on the
+    one-card mesh, ``seq_serve_scan`` through the scan drive over B2."""
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        FUSED_KERNEL as B3,
+    )
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import KERNEL as B2
+
+    if phase == "seq_serve":
+        mode, kernel, devices = "", B3, one_card_devices(torch)
+        per_eval, per_decode = B3_LAUNCHES_PER_UNET_EVAL, B3_LAUNCHES_PER_DECODE
+    else:
+        mode, kernel, devices = "scan", B2, ring_mesh_devices(torch)
+        per_eval, per_decode = B2_LAUNCHES_PER_UNET_EVAL, B2_LAUNCHES_PER_DECODE
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+                             allow_random=True, device="cuda")
+    slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
+                    devices=devices).slots[0]
+    with ring_mode(mode):
+        load_pipeline(torch, phase, registry, mesh=slot.mesh)
+        seconds, blobs = run_jobs(torch, phase, slot, registry)
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    want = len(JOBS) * (SERVE_STEPS * per_eval + per_decode)
+    diffs = {}
+    for seed, blob in blobs.items():
+        ours, solo = decode_png(blob), decode_png(solo_blobs[seed])
+        diffs[seed] = (None if ours is None
+                       else int(abs(ours - solo).max()))
+    desc = slot.descriptor()
+    emit(phase, jobs=len(JOBS), steps=SERVE_STEPS,
+         ring_flash_mode=mode or "default", kernel=kernel.name,
+         mesh_shape=desc["mesh_shape"], mesh_devices=desc["mesh_devices"],
+         repeated_device=desc["repeated_device"],
+         job_seconds=seconds, images_per_s=len(JOBS) / sum(seconds),
+         images_per_s_after_first=(len(JOBS) - 1) / sum(seconds[1:]),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_ring_launches=want,
+         max_uint8_diff_vs_serve=diffs)
+    if launches[kernel.name] != want or sum(launches.values()) != want:
+        raise AssertionError(f"{phase} launched {launches}, expected "
+                             f"{want} of {kernel.name} and no other")
     return launches
 
 
-def kernels_line(rows: list[dict], launches: dict) -> None:
+def kernel_entry(name: str, rows: list[dict], launches: int,
+                 weights: list[int], **extra) -> dict:
+    """One kernel of the kernels line: per-launch numbers averaged over its
+    serve phase's launch mix (``weights``, per row)."""
     from chiaswarm_tpu_torch.ops.kernels import KERNELS
 
-    served = [r for r in rows if r["served"]]
-    entries = []
-    for name, k in KERNELS.items():
-        # the serve phase launches B1 equally often at each of its shapes,
-        # so its per-launch numbers are the mean over those shapes
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": str(k.source.relative_to(ROOT)),
-            "replaces": k.replaces, "launches": launches[name],
-            "checked_against_plain": True,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": statistics.mean(r["ms"] for r in served),
-            "plain_ms": statistics.mean(r["plain_ms"] for r in served),
-            "bound_ms": statistics.mean(r["bound_ms"] for r in served),
-            "bound_by": "operations"
-            if all(r["bound_by"] == "operations" for r in served) else "bytes",
-            "library_ms": statistics.mean(r["library_ms"] for r in served),
-            "shapes": rows,
-        })
+    k = KERNELS[name]
+
+    def mix(key):
+        values = [r[key] for r in rows]
+        if any(v is None for v in values):
+            return None
+        return sum(w * v for w, v in zip(weights, values)) / sum(weights)
+
+    op_ms = sum(w * r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
+                for w, r in zip(weights, rows))
+    byte_ms = sum(w * r["bytes"] / PEAK_BYTES_PER_S * 1e3
+                  for w, r in zip(weights, rows))
+    return {
+        "name": name, "route": "cuda",
+        "source": str(k.source.relative_to(ROOT)),
+        "replaces": k.replaces, "launches": launches,
+        "checked_against_plain": True,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": mix("ms"), "plain_ms": mix("plain_ms"),
+        "bound_ms": mix("bound_ms"),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": mix("library_ms"),
+        **extra,
+        "shapes": rows,
+    }
+
+
+def kernels_line(b1_rows: list[dict], b1_launches: dict, b2_rows: list[dict],
+                 b2_launches: dict, b3_rows: list[dict],
+                 b3_launches: dict) -> None:
+    # B1: the serve phase launches it equally often at each of its shapes
+    b1_weights = [1 if r["served"] else 0 for r in b1_rows]
+    entries = [
+        kernel_entry("flash_attention", b1_rows,
+                     b1_launches["flash_attention"], b1_weights),
+        kernel_entry(
+            "ring_flash_hop", b2_rows, b2_launches["ring_flash_hop"],
+            [r["launches_per_job"] for r in b2_rows],
+            library_note="no single PyTorch call computes one ring hop with "
+                         "carried state; the whole ring, scan drive "
+                         "included, is timed beside "
+                         "scaled_dot_product_attention under "
+                         "ring_flash_fused"),
+        kernel_entry(
+            "ring_flash_fused", b3_rows, b3_launches["ring_flash_fused"],
+            [r["launches_per_job"] for r in b3_rows],
+            library_note="scaled_dot_product_attention on the unsharded "
+                         "attention"),
+    ]
     print(json.dumps({"kernels": entries}), flush=True)
 
 
@@ -345,12 +801,18 @@ def main() -> int:
     build()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    rows = kernel_phase(torch)
+    b1_rows = kernel_phase(torch)
+    b2_rows = ring_kernel_phase(torch)
+    b3_rows = fused_kernel_phase(torch)
     check_phase(torch)
+    ring_check_phase(torch)
     # serve with PyTorch's defaults, as a worker would
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    launches = serve_phase(torch)
-    kernels_line(rows, launches)
+    b1_launches, solo_blobs = serve_phase(torch)
+    b3_launches = seq_serve_phase(torch, "seq_serve", solo_blobs)
+    b2_launches = seq_serve_phase(torch, "seq_serve_scan", solo_blobs)
+    kernels_line(b1_rows, b1_launches, b2_rows, b2_launches, b3_rows,
+                 b3_launches)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

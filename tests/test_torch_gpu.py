@@ -1,5 +1,8 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel B1 against its
-plain PyTorch version, its refusals, and the dispatcher's route to it.
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels B1 (flash
+attention), B2 (one ring hop with carried state) and B3 (a whole ring in one
+launch) against their plain PyTorch versions, their refusals, and the
+dispatcher's routes to them (B3, and B2 under the scan drive, through a
+4-shard ring on one card).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -12,7 +15,9 @@ conftest cannot load:
 Tolerances are those of the kernel phase of chip_smoke.py: 4e-3 for bf16
 and fp16 (kernel and plain version round the same fp32 sums, so they differ
 by a rounding step or two at outputs near 0.25), 2e-4 for fp32 with TF32
-off (only the order of float32 sums differs).
+off (only the order of float32 sums differs). B2's normalised output
+acc / l is held to the same bars; its m to 1e-5 and its l to a relative
+1e-4 (float32 sums in another order). B3's output is held to B1's bars.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the B1 CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -116,3 +121,175 @@ def test_env_knob_cannot_move_long_cuda_sequences_off_the_kernel(
     monkeypatch.setenv("CHIASWARM_ATTENTION", "flash")
     tattn.attention(q, k, v)
     assert KERNEL.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# kernel B2, one ring hop with carried state (ops/ring_flash_attention.py)
+
+
+def _hop_inputs(b, l, s, h, d, dtype, device, shards=4, seed=11):
+    """Query shard 1 of a (B, shards*L, H, D) tensor (strided across the
+    batch, as the ring hands it to B2), a K/V shard, and the non-trivial
+    state a plain hop over another K/V shard leaves behind."""
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        ring_flash_hop_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    full_q = torch.randn((b, shards * l, h, d), generator=gen).to(device, dtype)
+    q = full_q[:, l:2 * l]
+    k0, v0, k, v = (torch.randn((b, s, h, d), generator=gen).to(device, dtype)
+                    for _ in range(4))
+    state = (torch.full((b, h, l), -1e30, device=device),
+             torch.zeros((b, h, l), device=device),
+             torch.zeros((b, l, h, d), device=device))
+    state = ring_flash_hop_plain(q, k0, v0, *state, scale=d ** -0.5)
+    return q, k, v, state
+
+
+@pytest.mark.parametrize("b,l,s,h,d,dtype,tol", [
+    (2, 1024, 1024, 8, 40, torch.bfloat16, 4e-3),   # UNet 64x64 level shard
+    (2, 256, 256, 8, 80, torch.bfloat16, 4e-3),     # UNet 32x32 level shard
+    (1, 1024, 1024, 1, 512, torch.bfloat16, 4e-3),  # VAE mid block shard
+    (1, 300, 170, 2, 64, torch.float32, 2e-4),      # ragged, fp32
+])
+def test_ring_hop_kernel_matches_plain(cuda_device, b, l, s, h, d, dtype, tol):
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v, state = _hop_inputs(b, l, s, h, d, dtype, cuda_device)
+    # a shard of a batch of 2 is strided across the batch
+    assert q.stride(-1) == 1 and q.is_contiguous() == (b == 1)
+    want = tring.ring_flash_hop_plain(q, k, v, *state, scale=d ** -0.5)
+    m, lsum, acc = (t.clone() for t in state)
+    before = tring.KERNEL.launches
+    got = tring.ring_flash_hop(q, k, v, m, lsum, acc)
+    torch.cuda.synchronize()
+    assert tring.KERNEL.launches == before + 1
+    # the state is updated in place
+    assert all(g is t for g, t in zip(got, (m, lsum, acc)))
+    torch.testing.assert_close(m, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lsum, want[1], rtol=1e-4, atol=0)
+    out = acc / lsum.transpose(1, 2)[..., None]
+    ref = want[2] / want[1].transpose(1, 2)[..., None]
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
+def test_ring_hop_kernel_refuses_what_it_does_not_take(cuda_device):
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v, state = _hop_inputs(1, 64, 64, 1, 40, torch.float32, cuda_device)
+    q48 = torch.zeros(1, 8, 1, 48, device=cuda_device)
+    st48 = (torch.zeros(1, 1, 8, device=cuda_device),) * 2 + (
+        torch.zeros(1, 8, 1, 48, device=cuda_device),)
+    with pytest.raises(ValueError, match="head dim"):
+        tring.ring_flash_hop(q48, q48, q48, *st48)
+    m, lsum, acc = state
+    with pytest.raises(ValueError, match="float32"):
+        tring.ring_flash_hop(q, k, v, m.half(), lsum, acc)
+    strided = torch.zeros(1, 64, 1, 80, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tring.ring_flash_hop(q, k, v, m, lsum, strided)
+
+
+def test_one_card_ring_runs_b2_and_matches_unsharded(cuda_device,
+                                                     monkeypatch):
+    """The 4-shard scan drive on one card (cuda:0 named four times) at the
+    UNet's 64x64 level: 16 B2 launches, no B1, and the unsharded answer."""
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+    from chiaswarm_tpu_torch.parallel.context import sequence_parallel
+
+    monkeypatch.delenv("CHIASWARM_ATTENTION", raising=False)
+    monkeypatch.setenv("CHIASWARM_RING_FLASH", "scan")
+    mesh = build_mesh(MeshSpec({"seq": 4}), devices=[cuda_device] * 4)
+    q, k, v = _qkv((2, 4096, 8, 40), (2, 4096, 8, 40), torch.bfloat16,
+                   cuda_device)
+    b1, b2 = KERNEL.launches, tring.KERNEL.launches
+    with sequence_parallel(mesh):
+        out = tattn.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches - b1, tring.KERNEL.launches - b2) == (0, 16)
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+
+
+# ---------------------------------------------------------------------------
+# kernel B3, every hop of a ring in one launch (ops/ring_flash_attention.py)
+
+
+@pytest.mark.parametrize("b,l,s,h,d,shards,dtype,tol", [
+    (2, 4096, 4096, 8, 40, 4, torch.bfloat16, 4e-3),   # UNet 64x64 level
+    (2, 1024, 1024, 8, 80, 4, torch.bfloat16, 4e-3),   # UNet 32x32 level
+    (1, 4096, 4096, 1, 512, 4, torch.bfloat16, 4e-3),  # VAE mid block
+    (1, 600, 680, 2, 64, 4, torch.float32, 2e-4),      # ragged, S != L
+    (2, 390, 390, 3, 128, 3, torch.float16, 4e-3),     # three shards
+    (1, 77, 130, 2, 160, 1, torch.float32, 2e-4),      # one shard: no rotation
+])
+def test_fused_ring_kernel_matches_plain(cuda_device, b, l, s, h, d, shards,
+                                         dtype, tol):
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    # heads-major storage viewed as (B, L, H, D): strided q/k/v
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv((b, l, h, d), (b, s, h, d), dtype, cuda_device))
+    before = tring.FUSED_KERNEL.launches
+    out = tring.ring_flash_fused(q, k, v, shards=shards)
+    torch.cuda.synchronize()
+    assert tring.FUSED_KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = tring.ring_flash_fused_plain(q, k, v, shards=shards,
+                                         scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               rtol=0, atol=tol)
+
+
+def test_fused_ring_kernel_is_repeatable(cuda_device):
+    """Two launches over the same inputs agree bit for bit: the counters
+    order every slot write before its read, whatever the block schedule."""
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v = _qkv((2, 1024, 4, 40), (2, 1024, 4, 40), torch.bfloat16,
+                   cuda_device)
+    outs = [tring.ring_flash_fused(q, k, v, shards=8) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_fused_ring_kernel_refuses_what_it_does_not_take(cuda_device):
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q = torch.zeros(1, 8, 1, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tring.ring_flash_fused(q, q, q, shards=2)
+    q = torch.zeros(1, 10, 1, 40, device=cuda_device)
+    with pytest.raises(ValueError, match="do not split"):
+        tring.ring_flash_fused(q, q, q, shards=4)
+    strided = torch.zeros(1, 8, 1, 80, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        tring.ring_flash_fused(strided, strided, strided, shards=2)
+
+
+def test_one_card_ring_runs_b3_and_matches_unsharded(cuda_device,
+                                                     monkeypatch):
+    """By default a ring whose shards share the card is one B3 launch: the
+    UNet's 64x64 level on cuda:0 named four times, no B1 and no B2."""
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+    from chiaswarm_tpu_torch.parallel.context import sequence_parallel
+
+    monkeypatch.delenv("CHIASWARM_ATTENTION", raising=False)
+    monkeypatch.delenv("CHIASWARM_RING_FLASH", raising=False)
+    mesh = build_mesh(MeshSpec({"seq": 4}), devices=[cuda_device] * 4)
+    q, k, v = _qkv((2, 4096, 8, 40), (2, 4096, 8, 40), torch.bfloat16,
+                   cuda_device)
+    counts = (KERNEL.launches, tring.KERNEL.launches,
+              tring.FUSED_KERNEL.launches)
+    with sequence_parallel(mesh):
+        out = tattn.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches - counts[0], tring.KERNEL.launches - counts[1],
+            tring.FUSED_KERNEL.launches - counts[2]) == (0, 0, 1)
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)

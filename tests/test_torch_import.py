@@ -77,6 +77,11 @@ def test_package_has_the_slice_modules():
                   "convert.from_jax", "pipelines.components",
                   "pipelines.diffusion", "workloads.diffusion",
                   "node.output_processor", "node.registry", "node.job_args",
-                  "node.executor", "node.smoke"):
+                  "node.executor", "node.smoke", "core.mesh",
+                  "parallel.context", "parallel.ring_attention",
+                  "ops.ring_flash_attention"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
+    for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",
+                   "ring_flash_common.cuh"):
+        assert (PACKAGE / "csrc" / source).exists()
