@@ -14,24 +14,31 @@
 // FLOPs against 4*B*L*H*D elements moved puts it far above the H100's
 // ~295 FLOP/byte ridge, so the floor is the tensor-core rate.
 //
-// What this design does about it: nothing fast yet. It is the simple, right
-// first version. Each thread block owns one (batch*head, 64-query) tile and
-// keeps no (L, S) matrix anywhere: the KV sequence streams through shared
-// memory in tiles while each query's running softmax state stays in fp32
-// registers. Four threads share a query; each owns a quarter of the head
-// dimension (interleaved float2 chunks, so the four threads read adjacent
-// shared-memory words and the eight queries of a warp read them by
-// broadcast) and the partial dot products meet through two warp shuffles.
-// The products run on the fp32 CUDA cores, so the kernel sits well below
-// the tensor-core bound; wgmma, TMA loads and tuned tiles are later work.
+// Two routes, chosen by dtype:
+// - bf16 and fp16 (the serve path) run on the tensor cores: the wgmma tile
+//   of attention_tile_sm90.cuh (Q K^T and P V as wgmma with fp32
+//   accumulators, p rounded to the input type for P V only, l summed from
+//   the fp32 p; K/V through a three-stage cp.async ring in shared memory;
+//   one tile's P V overlaps the next tile's Q K^T and softmax). A block is
+//   two warpgroups, each owning 64 query rows of one (batch*head); they
+//   share every K/V tile.
+// - fp32 keeps the sweep on the CUDA cores: each thread block owns one
+//   (batch*head, 64-query) tile; K/V stream through shared memory in fp32
+//   tiles while each query's running state stays in fp32 registers; four
+//   threads share a query, each owning a quarter of D (interleaved float2
+//   chunks), their partial dot products meeting through warp shuffles. The
+//   fp32 products keep the reference's arithmetic exactly (no bf16 p).
 // There is no padding of D to 128 lanes or of the sequence to the block:
 // those were TPU tiling needs. The strides of the (B, L, H, D) tensors are
-// read directly; only the head dimension must be contiguous.
+// read directly; only the head dimension must be contiguous, and on the
+// tensor-core route rows must start on 16 bytes (the wrapper checks).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tile_sm90.cuh"
 
 namespace {
 
@@ -39,21 +46,6 @@ constexpr float kNegInf = -1e30f;  // finite: true -inf breaks exp() on masked r
 constexpr int kQueriesPerBlock = 64;
 constexpr int kThreadsPerQuery = 4;
 constexpr int kThreads = kQueriesPerBlock * kThreadsPerQuery;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Params {
   const void* q;
@@ -69,7 +61,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, int D, int BKV>
+template <int D, int BKV>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   static_assert(D % 8 == 0, "head dim must split into float2 chunks over 4 threads");
   constexpr int kChunks = D / 8;  // float2 chunks owned by each thread
@@ -86,18 +78,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   const int qi = blockIdx.x * kQueriesPerBlock + (tid >> 2);
   const bool q_valid = qi < p.q_len;
 
-  const T* q_row = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh +
+  const float* q_row = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh +
                    static_cast<int64_t>(q_valid ? qi : 0) * p.q_sl;
-  const T* k_base = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v_base = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
   float q_r[kOwn];
   float acc[kOwn];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int d = 8 * c + 2 * part;
-    q_r[2 * c] = q_valid ? to_f32(q_row[d]) : 0.f;
-    q_r[2 * c + 1] = q_valid ? to_f32(q_row[d + 1]) : 0.f;
+    q_r[2 * c] = q_valid ? q_row[d] : 0.f;
+    q_r[2 * c + 1] = q_valid ? q_row[d + 1] : 0.f;
     acc[2 * c] = 0.f;
     acc[2 * c + 1] = 0.f;
   }
@@ -112,8 +104,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
       const int s = kv0 + j;
       float kval = 0.f, vval = 0.f;  // zero tail: 0 * garbage could be NaN
       if (s < p.kv_len) {
-        kval = to_f32(k_base[static_cast<int64_t>(s) * p.k_ss + d]);
-        vval = to_f32(v_base[static_cast<int64_t>(s) * p.v_ss + d]);
+        kval = k_base[static_cast<int64_t>(s) * p.k_ss + d];
+        vval = v_base[static_cast<int64_t>(s) * p.v_ss + d];
       }
       k_tile[j][d] = kval;
       v_tile[j][d] = vval;
@@ -163,27 +155,75 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
   }
 
   if (q_valid) {
-    T* o_row = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh +
+    float* o_row = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh +
                static_cast<int64_t>(qi) * p.o_sl;
     const float inv = 1.f / l;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int d = 8 * c + 2 * part;
-      o_row[d] = from_f32<T>(acc[2 * c] * inv);
-      o_row[d + 1] = from_f32<T>(acc[2 * c + 1] * inv);
+      o_row[d] = acc[2 * c] * inv;
+      o_row[d + 1] = acc[2 * c + 1] * inv;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
+template <int D>
+int launch_sweep(const Params& p, cudaStream_t stream) {
   // KV tile depth: two fp32 tiles of BKV x D must fit the 48 KB of static
   // shared memory a block may use without opting in to more
   constexpr int BKV = D <= 80 ? 64 : 32;
   const dim3 grid((p.q_len + kQueriesPerBlock - 1) / kQueriesPerBlock,
                   p.batch * p.heads);
-  flash_fwd_kernel<T, D, BKV><<<grid, kThreads, 0, stream>>>(p);
+  flash_fwd_kernel<D, BKV><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: warpgroup g of block (x, bh) owns query rows
+// 128 x + 64 g .. + 64 of (batch, head) bh.
+template <typename T, int D>
+__global__ void __launch_bounds__(attn_sm90::kBlockThreads, attn_sm90::Shape<D>::kMinBlocks)
+    flash_fwd_tc_kernel(const Params p) {
+  using namespace attn_sm90;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int row0 = blockIdx.x * kBlockRows + threadIdx.x / kWarpgroup * kRows;
+  const int valid = p.q_len - row0;
+  const T* q0 = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh +
+                static_cast<int64_t>(row0) * p.q_sl;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  T* o0 = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row0) * p.o_sl;
+  const KVRing<T, D> ring{k, v, p.k_ss, p.v_ss, p.kv_len, smem};
+  ring.start();  // the first K/V tile lands while Q loads
+  Tile<T, D> tile;
+  tile.load_q(q0, p.q_sl, valid);
+  tile.init();
+  ring.run(tile, p.scale);
+  tile.store_out(o0, p.o_sl, valid);
+}
+
+template <typename T, int D>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  using attn_sm90::kBlockRows;
+  constexpr int kSmem = attn_sm90::Shape<D>::kSmemBytes;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((p.q_len + kBlockRows - 1) / kBlockRows, p.batch * p.heads);
+  flash_fwd_tc_kernel<T, D><<<grid, attn_sm90::kBlockThreads, kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32: the sweep; bf16 and fp16: the tensor cores
+template <typename T, int D>
+int launch(const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    return launch_sweep<D>(p, stream);
+  } else {
+    return launch_tc<T, D>(p, stream);
+  }
 }
 
 template <typename T>

@@ -4,7 +4,11 @@ version.
 Counterpart of ``chiaswarm_tpu/ops/flash_attention.py``. The TPU package runs
 a Pallas kernel (``_flash_kernel``); here the kernel is CUDA C++ written for
 Hopper (``csrc/flash_attention.cu``, whose header says what bounds it and
-what its design does about that), built with ``nvcc`` at first use.
+what its design does about that), built with ``nvcc`` at first use. bf16
+and fp16 run on the tensor cores (``csrc/attention_tile_sm90.cuh``, shared
+with kernel B3), which round p to the input type for the P·V product only,
+as ``scaled_dot_product_attention`` does; fp32 keeps the reference's fp32 p
+on the CUDA cores.
 
 - :func:`flash_attention` is the wrapper. For tensors on the CPU it runs
   :func:`flash_attention_plain`; for CUDA tensors it launches the kernel or
@@ -37,6 +41,9 @@ BLOCK_KV = 512
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+#: dtypes B1 and B3 run on the tensor cores (at head dims up to 160)
+TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def _bind(fn) -> None:
@@ -132,6 +139,22 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"mixed dtypes {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def check_16_byte_rows(kernel: str, **tensors: torch.Tensor) -> None:
+    """Refuse what the tensor-core route of B1 and B3 cannot load: its
+    cp.async copies move 16 bytes, so every row of D must start on a
+    16-byte address (the data pointer and every stride of an axis longer
+    than 1 a multiple of 16 bytes)."""
+    for label, t in tensors.items():
+        step = 16 // t.element_size()
+        strides = [st for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1]
+        if t.data_ptr() % 16 or any(st % step for st in strides):
+            raise ValueError(
+                f"{kernel} kernel runs {t.dtype} on the tensor cores, which "
+                f"load rows of 16 bytes: {label} (data pointer "
+                f"{t.data_ptr():#x}, strides {tuple(t.stride())}) is not "
+                "16-byte aligned")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, scale: float | None = None) -> torch.Tensor:
     """Blockwise attention over (B, L, H, D) q and (B, S, H, D) k/v.
@@ -160,6 +183,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in the head dim")
+    if q.dtype in TENSOR_CORE_DTYPES:
+        check_16_byte_rows("flash_attention", q=q, k=k, v=v)
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(
         q.stride(0), q.stride(1), q.stride(2),

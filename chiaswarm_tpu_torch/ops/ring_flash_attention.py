@@ -15,7 +15,10 @@ between hops.
 - :func:`ring_flash_fused` is B3's wrapper: the whole ring attention of n
   shards that share one device, one launch (``csrc/ring_flash_fused.cu``).
   Its plain version :func:`ring_flash_fused_plain` runs the same hops in
-  the same order with the plain recurrence.
+  the same order with the plain recurrence. bf16 and fp16 at head dims up
+  to 160 run each hop on the tensor cores (B1's tile,
+  ``csrc/attention_tile_sm90.cuh``: p rounded to the input type for P·V
+  only); fp32 and the VAE's head dim 512 keep the CUDA-core sweep.
 - :func:`ring_flash_attention` drives the ring over a mesh's ``seq`` axis.
   When every shard sits on q's device (a one-card mesh names ``cuda:0``
   once per shard) it calls B3; otherwise, or under
@@ -44,6 +47,8 @@ import torch
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, ring_devices
 from chiaswarm_tpu_torch.ops.flash_attention import (
     NEG_INF,
+    TENSOR_CORE_DTYPES,
+    check_16_byte_rows,
     check_qkv,
     online_softmax_update,
 )
@@ -57,6 +62,9 @@ from chiaswarm_tpu_torch.parallel.ring_attention import (
 #: head dims B2 and B3 are instantiated for: B1's, and the VAE's single
 #: 512-wide head, which rings in the mid block under a seq mesh
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
+
+#: B3's tensor-core route takes bf16 and fp16 up to this head dim
+TENSOR_CORE_MAX_HEAD_DIM = 160
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -233,6 +241,8 @@ def ring_flash_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"ring_flash_fused has no kernel for {q.device}")
     _check_kernel_inputs("ring_flash_fused", q, k, v)
+    if q.dtype in TENSOR_CORE_DTYPES and d <= TENSOR_CORE_MAX_HEAD_DIM:
+        check_16_byte_rows("ring_flash_fused", q=q, k=k, v=v)
     lq, ls = length // shards, s // shards
     dev = q.device
     out = torch.empty((b, length, h, d), dtype=q.dtype, device=dev)

@@ -44,7 +44,11 @@ each phase printing one JSON line:
 6. check      — the full-width SD1.5 UNet in float32 on a small latent, once
                 with the spatial self-attention through B1 and once through
                 the plain path: relative L2 difference within 1e-4, and B1
-                launched 5 times (the five 1024-token self-attentions).
+                launched 5 times (the five 1024-token self-attentions); then
+                the same UNet in bf16, the serve dtype, at 64x64 latents
+                (4096 tokens), B1's tensor-core route against the plain
+                ``xla`` route: within the repo's bf16 parity bar, relative
+                L2 3e-2, with 10 B1 launches (5 at 4096 tokens, 5 at 1024).
 7. ring_check — the same UNet under a ``seq = 4`` mesh against the
                 single-device plain route: relative L2 within 1e-4, with
                 exactly 5 B3 launches (the five 1024-token self-attentions)
@@ -70,9 +74,13 @@ each phase printing one JSON line:
                 stay on the card): B2 launched jobs x (steps x 160 + 16)
                 times, B1 and B3 never.
 11. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
-                kernel it replaces, its launches on its serve phase, and its
-                numbers from its kernel phase averaged over that serve
-                phase's launch mix (per-shape numbers under ``shapes``).
+                kernel it replaces, its design (``wgmma+cp.async`` for the
+                tensor-core route of B1 and B3 — bf16 and fp16 at head dims
+                up to 160 — ``sweep`` for the CUDA-core sweep of B2 and of
+                fp32 and head dim 512), its launches on its serve phase, and
+                its numbers from its kernel phase averaged over that serve
+                phase's launch mix (per-shape numbers, each with its design
+                and its factor against the library call, under ``shapes``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero without that line — also when CUDA is absent
@@ -111,6 +119,20 @@ B2_LAUNCHES_PER_DECODE = RING_SHARDS * RING_SHARDS
 # B3 runs each of those ring attentions in one launch
 B3_LAUNCHES_PER_UNET_EVAL = 10
 B3_LAUNCHES_PER_DECODE = 1
+
+
+def design(name: str, dtype_name: str, d: int) -> str:
+    """The route a kernel launch takes: B1 and B3 run bf16 and fp16 at head
+    dims up to 160 on the tensor cores (wgmma, K/V by cp.async); fp32, the
+    VAE's head dim 512 and every B2 launch run the CUDA-core sweep."""
+    tensor_cores = (name in ("flash_attention", "ring_flash_fused")
+                    and dtype_name in ("bfloat16", "float16") and d <= 160)
+    return "wgmma+cp.async" if tensor_cores else "sweep"
+
+
+def vs_library(ms: float, library_ms: float | None) -> float | None:
+    """The kernel's time as a multiple of the library call's."""
+    return None if library_ms is None else ms / library_ms
 
 
 def emit(phase: str, **fields) -> None:
@@ -179,8 +201,15 @@ def build() -> None:
         raise AssertionError(f"a kernel spills registers: {spills}")
 
 
+# the card sleeps this long before each timed call (about 1 ms at the
+# H100's clock), so the host has enqueued the call before the card reaches
+# it and the events time the device alone, not the host's launch cost
+SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls."""
+    """Median CUDA-event time of ``fn`` in ms, after ``warmup`` calls, each
+    timed call queued behind a device sleep of :data:`SLEEP_CYCLES`."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -188,6 +217,7 @@ def time_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -231,9 +261,11 @@ def attention_work(b: int, l: int, s: int, h: int, d: int, dtype) -> dict:
 
 # With randn q/k/v the outputs have a standard deviation of about
 # sqrt(e / S): 0.026 at S = 4096 and 0.05 at S = 1024, peaks near 0.25. Both
-# sides round the same fp32 sums to bf16, so they differ by at most a step or
-# two (2e-3 at 0.25); a kernel off by a few percent everywhere (a wrong scale,
-# a skipped KV tile) fails the relative L2 bar.
+# sides round fp32 sums to bf16, and the tensor-core route rounds p to bf16
+# for P·V (about 2e-3 relative L2 against the fp32 p of the plain version,
+# tests/test_torch_flash.py), so they differ by a step or two (2e-3 at
+# 0.25); a kernel off by a few percent everywhere (a wrong scale, a skipped
+# KV tile) fails the relative L2 bar.
 KERNEL_SHAPES = [
     # (B, L, S, H, D, dtype, max abs error, relative L2, on the serve path)
     (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, True),
@@ -283,6 +315,7 @@ def kernel_phase(torch) -> list[dict]:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
             "shape": shape, "dtype": dtype_name,
+            "design": design("flash_attention", dtype_name, d),
             **_held("B1", shape, out, flash_attention_plain(q, k, v), tol,
                     rel_tol),
             "served": served,
@@ -292,6 +325,7 @@ def kernel_phase(torch) -> list[dict]:
                 torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             **attention_work(b, l, s, h, d, dtype),
         }
+        row["vs_library"] = vs_library(row["ms"], row["library_ms"])
         emit("kernel", name="flash_attention", **row)
         rows.append(row)
     return rows
@@ -392,6 +426,7 @@ def ring_kernel_phase(torch) -> list[dict]:
                                  f"1e-4)")
         row = {
             "shape": shape, "dtype": dtype_name,
+            "design": design("ring_flash_hop", dtype_name, d),
             "strided_q": not q.is_contiguous(),
             "launches_per_job": per_job, "served": per_job > 0,
             **_held("B2", shape, acc / lsum.transpose(1, 2)[..., None],
@@ -463,6 +498,7 @@ def fused_kernel_phase(torch) -> list[dict]:
 
         row = {
             "shape": shape, "dtype": dtype_name, "shards": RING_SHARDS,
+            "design": design("ring_flash_fused", dtype_name, d),
             "launches_per_job": per_job, "served": per_job > 0,
             **_held("B3", shape, out, ring_flash_fused_plain(
                 q, k, v, shards=RING_SHARDS, scale=scale), tol, rel_tol),
@@ -482,6 +518,7 @@ def fused_kernel_phase(torch) -> list[dict]:
                 torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             **attention_work(b, l, s, h, d, dtype),
         }
+        row["vs_library"] = vs_library(row["ms"], row["library_ms"])
         if not torch.isfinite(out).all():
             raise AssertionError(f"B3 output went non-finite at {shape}")
         emit("fused_kernel", name="ring_flash_fused", **row)
@@ -492,10 +529,14 @@ def fused_kernel_phase(torch) -> list[dict]:
 def check_phase(torch) -> None:
     """Full-width SD1.5 UNet, float32, 32x32 latents (1024 tokens at the
     first level, so B1 runs there): kernel route against the plain route.
-    Both runs share every other op; only float32 summation order differs."""
+    Both runs share every other op; only float32 summation order differs.
+    Then the same weights in bf16 at 64x64 latents (B1's tensor-core route
+    at both of its serve shapes) against the plain route, within the repo's
+    bf16 parity bar."""
     from chiaswarm_tpu_torch.models.unet import UNet
     from chiaswarm_tpu_torch.models.configs import FAMILIES
     from chiaswarm_tpu_torch.ops.flash_attention import KERNEL
+    from chiaswarm_tpu_torch.models.common import cast_module
     from chiaswarm_tpu_torch.pipelines.components import flax_default_init
     from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
 
@@ -526,6 +567,32 @@ def check_phase(torch) -> None:
         raise AssertionError(f"UNet kernel route check failed: launches "
                              f"{launches} (want 5), finite {finite}, "
                              f"relative L2 {rel}")
+    del out_kernel, out_plain
+
+    # bf16, the serve dtype, at 64x64 latents: B1's tensor-core route (p
+    # rounded to bf16 for P·V) against the plain route's fp32 logits
+    cast_module(unet, torch.bfloat16)  # as the serve path: norms stay fp32
+    x = torch.randn((2, 4, 64, 64), generator=gen).cuda().to(torch.bfloat16)
+    ctx = ctx.to(torch.bfloat16)
+    with torch.inference_mode():
+        set_attn_impl(unet, "auto")
+        before = KERNEL.launches
+        out_kernel = unet(x, t, ctx).float()
+        launches = KERNEL.launches - before
+        set_attn_impl(unet, "xla")
+        out_plain = unet(x, t, ctx).float()
+    torch.cuda.synchronize()
+    rel = ((out_kernel - out_plain).norm() / out_plain.norm()).item()
+    finite = bool(torch.isfinite(out_kernel).all())
+    emit("check", model="sd15 unet bf16", latent=[2, 4, 64, 64],
+         b1_launches=launches, rel_l2=rel, finite=finite, tolerance=3e-2,
+         design=design("flash_attention", "bfloat16", 40))
+    # 64x64 latents: 4096 tokens at the first level and 1024 at the second,
+    # five self-attentions each through B1
+    if launches != 10 or not finite or not rel <= 3e-2:
+        raise AssertionError(f"bf16 UNet kernel route check failed: launches "
+                             f"{launches} (want 10), finite {finite}, "
+                             f"relative L2 {rel} (bar 3e-2)")
     del unet
     torch.cuda.empty_cache()
 
@@ -756,16 +823,20 @@ def kernel_entry(name: str, rows: list[dict], launches: int,
                 for w, r in zip(weights, rows))
     byte_ms = sum(w * r["bytes"] / PEAK_BYTES_PER_S * 1e3
                   for w, r in zip(weights, rows))
+    served = [r["design"] for r, w in zip(rows, weights) if w]
     return {
         "name": name, "route": "cuda",
         "source": str(k.source.relative_to(ROOT)),
-        "replaces": k.replaces, "launches": launches,
+        "replaces": k.replaces,
+        "design": ", ".join(dict.fromkeys(served)) if served else None,
+        "launches": launches,
         "checked_against_plain": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": mix("ms"), "plain_ms": mix("plain_ms"),
         "bound_ms": mix("bound_ms"),
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": mix("library_ms"),
+        "vs_library": vs_library(mix("ms"), mix("library_ms")),
         **extra,
         "shapes": rows,
     }

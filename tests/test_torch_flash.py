@@ -104,6 +104,51 @@ def test_bf16_io_within_bf16_tolerance():
                                rtol=3e-2, atol=3e-2)
 
 
+def _tensor_core_numerics(q, k, v, block_kv):
+    """The arithmetic of B1's and B3's tensor-core route in plain PyTorch:
+    16-bit q and k multiplied with fp32 sums, the fp32 running max and
+    denominator (l summed from the fp32 p), and P·V with p rounded to q's
+    type, over K/V tiles of ``block_kv`` keys; output in q's type."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m = torch.full(qf.shape[:-1] + (1,), tflash.NEG_INF)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for start in range(0, kf.shape[2], block_kv):
+        kb, vb = kf[:, :, start:start + block_kv], vf[:, :, start:start + block_kv]
+        logits = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        m_next = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(logits - m_next)
+        denom = alpha * denom + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(q.dtype).float(), vb)
+        m = m_next
+    return (acc / denom).permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,l,s,h,d", [(1, 200, 200, 2, 40), (1, 72, 72, 2, 80)])
+def test_bf16_p_in_pv_stays_inside_the_kernel_bars(b, l, s, h, d):
+    """The numerics the tensor-core route settles on: p rounded to bf16 for
+    P·V only, l from the fp32 p. Held against the JAX flash kernel in
+    interpret mode (fp32 p) on the same bf16-valued inputs, and against the
+    port's plain version in bf16, within the bars chip_smoke.py holds the
+    kernels to on the card: 4e-3 max abs and 1e-2 relative L2. K/V tiles of
+    64 keys at D = 40 and 128 at D = 80, as the kernel takes them."""
+    q, k, v = _t(*_qkv(b, l, s, h, d, seed=7), dtype=torch.bfloat16)
+    got = _tensor_core_numerics(q, k, v, block_kv=64 if d == 40 else 128)
+    assert got.dtype == torch.bfloat16
+    ref = np.asarray(jax_flash(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                               block_q=64, block_kv=64, interpret=True))
+    plain = flash_attention_plain(q, k, v).float().numpy()
+    for want in (ref, plain):
+        diff = got.float().numpy() - want
+        assert np.abs(diff).max() <= 4e-3
+        assert np.linalg.norm(diff) / np.linalg.norm(want) <= 1e-2
+    # rounding p moves the output: the check would see a kernel that kept
+    # p in fp32 and one that rounded it as different
+    assert not torch.equal(got, flash_attention_plain(q, k, v))
+
+
 def test_auto_keeps_cpu_tensors_on_the_plain_path(monkeypatch):
     monkeypatch.delenv("CHIASWARM_ATTENTION", raising=False)
     q, k, v = _t(*_qkv(1, 1024, 1024, 1, 40, seed=4))

@@ -13,9 +13,10 @@ conftest cannot load:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances are those of the kernel phase of chip_smoke.py: 4e-3 for bf16
-and fp16 (kernel and plain version round the same fp32 sums, so they differ
-by a rounding step or two at outputs near 0.25), 2e-4 for fp32 with TF32
-off (only the order of float32 sums differs). B2's normalised output
+and fp16 (kernel and plain version round the same fp32 sums to the output
+type, and the tensor-core route of B1 and B3 also rounds p to the input
+type for the P·V product, about 1e-3 at outputs near 0.25), 2e-4 for fp32
+with TF32 off (only the order of float32 sums differs). B2's normalised output
 acc / l is held to the same bars; its m to 1e-5 and its l to a relative
 1e-4 (float32 sums in another order). B3's output is held to B1's bars.
 """
@@ -68,6 +69,64 @@ def test_kernel_matches_plain(cuda_device, b, l, s, h, d, dtype, tol):
     assert out.dtype == dtype and out.shape == q.shape
     ref = flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
+@pytest.mark.parametrize("l,s", [(1000, 1000), (300, 170)])
+def test_tensor_core_kernel_matches_plain(cuda_device, d, dtype, l, s):
+    """Every head dim in bf16 and fp16 on the tensor-core route, at lengths
+    that are no multiple of the 64-row query tile or the K/V tile."""
+    q, k, v = _qkv((2, l, 2, d), (2, s, 2, d), dtype, cuda_device, seed=d)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
+def test_tensor_core_kernel_reads_strided_query_shards(cuda_device, dtype):
+    """A query shard of a batch of two, as a ring hands it on: strided
+    across the batch and offset along L; k/v heads-major."""
+    full = _qkv((2, 4 * 250, 4, 80), (2, 333, 4, 80), dtype, cuda_device)
+    q = full[0][:, 250:500]
+    k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in full[1:])
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               rtol=0, atol=4e-3)
+
+
+def test_tensor_core_kernel_refuses_misaligned_rows(cuda_device):
+    """The tensor-core route loads 16-byte rows: a data pointer or a stride
+    off 16 bytes raises rather than falling back. fp32 takes the CUDA-core
+    sweep, which has no such need."""
+    buf = torch.zeros(1 + 64 * 40, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 64, 1, 40)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, shifted, shifted)
+    ok = torch.zeros(1, 64, 1, 40, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(ok, shifted, ok)
+    # a sequence stride of 44 elements (88 bytes)
+    odd = torch.zeros(1, 64, 44, device=cuda_device,
+                      dtype=torch.float16)[..., :40].unsqueeze(2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(odd, odd, odd)
+    fp32 = torch.zeros(1 + 64 * 40, device=cuda_device)[1:].view(1, 64, 1, 40)
+    assert fp32.data_ptr() % 16
+    before = KERNEL.launches
+    flash_attention(fp32, fp32, fp32)
+    assert KERNEL.launches == before + 1
 
 
 def test_kernel_reads_strided_inputs(cuda_device):
@@ -255,6 +314,57 @@ def test_fused_ring_kernel_is_repeatable(cuda_device):
     outs = [tring.ring_flash_fused(q, k, v, shards=8) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
+def test_tensor_core_fused_ring_matches_plain(cuda_device, d, dtype):
+    """B3's tensor-core route at every head dim in bf16 and fp16: 4 shards
+    of 250 query and 170 key rows (no multiple of any tile), batch 2, so
+    every query shard is strided across the batch."""
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v = _qkv((2, 1000, 2, d), (2, 680, 2, d), dtype, cuda_device,
+                   seed=d + 1)
+    before = tring.FUSED_KERNEL.launches
+    out = tring.ring_flash_fused(q, k, v, shards=4)
+    torch.cuda.synchronize()
+    assert tring.FUSED_KERNEL.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    plain = tring.ring_flash_fused_plain(q, k, v, shards=4, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("d,dtype", [(80, torch.float16),
+                                     (160, torch.bfloat16)])
+def test_tensor_core_fused_ring_is_repeatable(cuda_device, d, dtype):
+    """Three launches of the tensor-core route agree bit for bit, with a
+    ragged per-shard length: no sum depends on the block schedule."""
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v = _qkv((2, 4 * 300, 4, d), (2, 4 * 300, 4, d), dtype,
+                   cuda_device)
+    outs = [tring.ring_flash_fused(q, k, v, shards=4) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_tensor_core_fused_ring_refuses_misaligned_rows(cuda_device):
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    buf = torch.zeros(1 + 64 * 40, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 64, 1, 40)
+    before = tring.FUSED_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tring.ring_flash_fused(shifted, shifted, shifted, shards=4)
+    assert tring.FUSED_KERNEL.launches == before
+    # fp32 keeps the sweep, which reads any element
+    fp32 = torch.zeros(1 + 64 * 40, device=cuda_device)[1:].view(1, 64, 1, 40)
+    assert fp32.data_ptr() % 16
+    tring.ring_flash_fused(fp32, fp32, fp32, shards=4)
+    assert tring.FUSED_KERNEL.launches == before + 1
 
 
 def test_fused_ring_kernel_refuses_what_it_does_not_take(cuda_device):

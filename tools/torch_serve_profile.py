@@ -6,9 +6,10 @@ job, then one job under ``torch.profiler`` with CPU and CUDA activity. Prints
 one JSON object: the job's wall seconds (host clock) and its CUDA-event
 span, the summed device time of every
 kernel, the device busy share (summed kernel time over the job's wall time;
-one stream, so kernels do not overlap), and the heaviest kernels by total
-device time with their call counts and shares; the port's kernels (B1, B2,
-B3) are reported on lines of their own too. ``--seq 4`` serves on a ring of
+one stream, so kernels do not overlap), the number of kernel launches, and
+the heaviest kernels by total device time with their call counts and
+shares; the port's kernels (B1, B2, B3, each route of B1 and B3) are
+reported on lines of their own too. ``--seq 4`` serves on a ring of
 four shards (four cards when four are visible, else the first card named
 four times, where B3 runs each ring attention in one launch);
 ``CHIASWARM_RING_FLASH=scan`` in the environment makes it the scan drive
@@ -94,8 +95,8 @@ def main(argv: list[str] | None = None) -> int:
     for k in kernels:
         k["share"] = k["device_ms"] / total_ms if total_ms else 0.0
 
-    def kernel_line(symbol: str) -> dict:
-        rows = [k for k in kernels if symbol in k["name"]]
+    def kernel_line(*symbols: str) -> dict:
+        rows = [k for k in kernels if any(s in k["name"] for s in symbols)]
         return {"calls": sum(k["calls"] for k in rows),
                 "device_ms": sum(k["device_ms"] for k in rows),
                 "share": sum(k["share"] for k in rows)}
@@ -108,9 +109,13 @@ def main(argv: list[str] | None = None) -> int:
         "wall_s": wall_s, "event_ms": start.elapsed_time(end),
         "device_kernel_ms": total_ms,
         "device_busy_share": total_ms / 1e3 / wall_s,
-        "flash_attention": kernel_line("flash_fwd_kernel"),
-        "ring_flash_hop": kernel_line("ring_hop_kernel"),
-        "ring_flash_fused": kernel_line("ring_fused_kernel"),
+        "kernel_launches": sum(k["calls"] for k in kernels),
+        # each kernel's CUDA-core sweep and tensor-core route by name
+        "flash_attention": kernel_line("flash_fwd_kernel<",
+                                       "flash_fwd_tc_kernel<"),
+        "ring_flash_hop": kernel_line("ring_hop_kernel<"),
+        "ring_flash_fused": kernel_line("ring_fused_kernel<",
+                                        "ring_fused_tc_kernel<"),
         "top": kernels[: args.top],
     }))
     return 0
