@@ -1,6 +1,7 @@
-// The tensor-core attention tile shared by kernels B1 (flash_attention.cu)
-// and B3 (ring_flash_fused.cu) of the PyTorch/CUDA port, for Hopper
-// (sm_90a), bf16 and fp16 with head dims 40, 64, 80, 128 and 160.
+// The tensor-core attention tile shared by kernels B1 (flash_attention.cu),
+// B2 (ring_flash_hop.cu) and B3 (ring_flash_fused.cu) of the PyTorch/CUDA
+// port, for Hopper (sm_90a), bf16 and fp16 with head dims 40, 64, 80, 128
+// and 160.
 //
 // One warpgroup (128 threads) owns 64 query rows of one (batch, head) and
 // advances their running-softmax state (m, l, acc) over a run of K/V, in the
@@ -453,21 +454,26 @@ struct Tile {
     l[0] = l[1] = 0.f;
   }
 
-  // The state of rows 0..valid from a workspace that other blocks of the
-  // launch wrote (read through L2): m, l per row, acc rows of D floats.
-  __device__ __forceinline__ void load_state(const float* m0, const float* l0,
-                                             const float* acc0, int valid) {
+  // The state of rows 0..valid: m and l per row (row strides m_sl, l_sl),
+  // acc rows of D floats (row stride a_sl, rows on 8 bytes). kL2 reads
+  // through L2 only, for a workspace that other blocks of the same launch
+  // wrote (B3's); B2's state rows belong to its block alone, so plain loads.
+  template <bool kL2>
+  __device__ __forceinline__ void load_state(const float* m0, int64_t m_sl, const float* l0,
+                                             int64_t l_sl, const float* acc0, int64_t a_sl,
+                                             int valid) {
     init();
     const int r = row(), c = col();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int rr = r + 8 * h;
       if (rr >= valid) continue;
-      m[h] = __ldcg(m0 + rr);
-      l[h] = c == 0 ? __ldcg(l0 + rr) : 0.f;  // one part per row holds it
+      m[h] = kL2 ? __ldcg(m0 + rr * m_sl) : m0[rr * m_sl];
+      if (c == 0) l[h] = kL2 ? __ldcg(l0 + rr * l_sl) : l0[rr * l_sl];  // one part per row
+      const float2* a = reinterpret_cast<const float2*>(acc0 + rr * a_sl + c);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
-        const float2 v = __ldcg(reinterpret_cast<const float2*>(acc0 + rr * D + 8 * j + c));
+        const float2 v = kL2 ? __ldcg(a + 4 * j) : a[4 * j];
         o[4 * j + 2 * h] = v.x;
         o[4 * j + 2 * h + 1] = v.y;
       }
@@ -484,7 +490,9 @@ struct Tile {
     }
   }
 
-  __device__ __forceinline__ void store_state(float* m0, float* l0, float* acc0, int valid) const {
+  // The state of rows 0..valid back, in load_state's layout.
+  __device__ __forceinline__ void store_state(float* m0, int64_t m_sl, float* l0, int64_t l_sl,
+                                              float* acc0, int64_t a_sl, int valid) const {
     float sum[2];
     row_sums(sum);
     const int r = row(), c = col();
@@ -493,13 +501,13 @@ struct Tile {
       const int rr = r + 8 * h;
       if (rr >= valid) continue;
       if (c == 0) {
-        m0[rr] = m[h];
-        l0[rr] = sum[h];
+        m0[rr * m_sl] = m[h];
+        l0[rr * l_sl] = sum[h];
       }
+      float2* a = reinterpret_cast<float2*>(acc0 + rr * a_sl + c);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<float2*>(acc0 + rr * D + 8 * j + c) =
-            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+        a[4 * j] = make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
     }
   }
 
@@ -646,7 +654,7 @@ struct KVRing {
   }
 
   __device__ __forceinline__ void start() const {
-    if (Sh::kChunks != Sh::kLoadChunks) {
+    if constexpr (Sh::kChunks != Sh::kLoadChunks) {
       // the pad chunks of both K tiles stay zero: Q's pad columns are
       // zero, and 0 x garbage can be NaN
       constexpr int kPad = Sh::kChunks - Sh::kLoadChunks;
@@ -678,7 +686,7 @@ struct KVRing {
     tile.issue_qk(base);
     wgmma_wait<0>();
     tile.softmax(0, kv_len, scale, tile.pa, alpha);
-    tile.rescale(alpha);  // o is zero, or B3's carried state
+    tile.rescale(alpha);  // o is zero, or the carried state of B2 or B3
     int stage = 0;        // tile it's stage
     for (int it = 0; it + 1 < n_tiles; ++it) {
       const int next = stage == Sh::kStages - 1 ? 0 : stage + 1;

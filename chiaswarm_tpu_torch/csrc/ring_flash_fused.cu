@@ -338,7 +338,8 @@ __global__ void __launch_bounds__(attn_sm90::kBlockThreads, attn_sm90::Shape<D>:
   tile.load_q(static_cast<const T*>(p.q) + u.b * p.q_sb + u.h * p.q_sh + seq0 * p.q_sl, p.q_sl,
               valid);
   if (u.hop > 0) {
-    tile.load_state(p.m + state0, p.l + state0, p.acc + state0 * D, valid);
+    tile.template load_state<true>(p.m + state0, 1, p.l + state0, 1, p.acc + state0 * D, D,
+                                   valid);
   } else {
     tile.init();
   }
@@ -347,7 +348,7 @@ __global__ void __launch_bounds__(attn_sm90::kBlockThreads, attn_sm90::Shape<D>:
     tile.store_out(static_cast<T*>(p.out) + u.b * p.o_sb + u.h * p.o_sh + seq0 * p.o_sl, p.o_sl,
                    valid);
   } else {
-    tile.store_state(p.m + state0, p.l + state0, p.acc + state0 * D, valid);
+    tile.store_state(p.m + state0, 1, p.l + state0, 1, p.acc + state0 * D, D, valid);
   }
   end_unit(p, u.hop, u.shard, u.bh);
 }

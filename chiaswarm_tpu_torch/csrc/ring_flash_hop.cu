@@ -7,35 +7,43 @@
 // one K/V shard, with the running state carried in and out instead of
 // initialised and normalised. For every query row:
 //   logits = q k^T * scale (fp32), m' = max(m, rowmax), alpha = exp(m - m'),
-//   p = exp(logits - m') kept in fp32, l' = alpha * l + sum(p),
-//   acc' = alpha * acc + p v (v read in fp32).
+//   p = exp(logits - m'), l' = alpha * l + sum(p), acc' = alpha * acc + p v.
 // Queries are (B, L, H, D) and keys/values (B, S, H, D) in fp32, fp16 or
 // bf16; m and l are (B, H, L) fp32 and acc is (B, L, H, D) fp32. The state is
 // updated IN PLACE: each block reads the state of its own query rows before
 // its first tile and writes it after its last, and no other block touches
 // those rows.
 //
-// What bounds it on this card: bytes, at every shape of the SD1.5 serve
-// path. The carried state more than doubles what a hop moves: acc is read
-// and written in fp32 on every hop (5.2 MB in and out at (2, 1024, 8, 40)
-// against 3.9 MB of bf16 q/k/v). At the 1024-token shards and the VAE's
-// D = 512 shard the byte floor is within 4% of the tensor-core floor; at
-// the 256-token shards (D = 80) it is four times above it.
+// What bounds it on this card: at the 1024-token shards of the SD1.5 serve
+// path the byte floor (the fp32 state read and written every hop: 5.2 MB at
+// (2, 1024, 8, 40) against 3.9 MB of bf16 q/k/v) and the tensor-core floor
+// are within 4% of each other; at the 256-token shards (D = 80) the bytes
+// are four times the operations' floor, and the grid is small (2 query
+// tiles x 16 batch*heads), so the latency of one block sets the time.
 //
-// What this design does about it: little yet; it is the simple, right first
-// version, B1's design with the state carried. Each thread block owns one
-// (batch*head, query tile) and reads its rows' state once, sweeps the K/V
-// shard (ring_flash_common.cuh: fp32 tiles in shared memory, the row's q,
-// acc slice, m and l in fp32 registers, TPQ threads per row), and writes
-// the state once, so the state crosses device memory once in and once out
-// per hop. The products run on the fp32 CUDA cores; tensor cores, TMA and
-// tuned tiles are later work. Query shards are slices along L of a
-// (B, L, H, D) tensor, so the strides of every tensor are read directly;
-// only the last dim must be contiguous.
+// Two routes, chosen by dtype and head dim, as in B3:
+// - bf16 and fp16 with D <= 160 (the serve path) run the wgmma tile of
+//   attention_tile_sm90.cuh: one block of two warpgroups per (batch*head,
+//   128-query tile), Q K^T and P V as wgmma with fp32 accumulators, p
+//   rounded to the input type for P V only and l summed from the fp32 p,
+//   K/V through the three-stage cp.async ring. The block loads its rows'
+//   state into the accumulator layout (plain loads: no other block writes
+//   those rows), runs the ring over the hop's K/V shard, and stores the
+//   state back, so the state crosses device memory once in and once out.
+// - fp32 and the VAE's D = 512 keep the CUDA-core sweep of
+//   ring_flash_common.cuh with the reference's fp32 p: fp32 tiles in shared
+//   memory, the row's q, acc slice, m and l in fp32 registers, TPQ threads
+//   per row. D = 512 needs a tile that splits D across warpgroups (64 rows
+//   x 512 fp32 of acc is 256 registers a thread in one warpgroup).
+// Query shards are slices along L of a (B, L, H, D) tensor, so the strides
+// of every tensor are read directly; only the last dim must be contiguous,
+// and on the tensor-core route q/k/v rows start on 16 bytes and acc rows on
+// 8 (the wrapper checks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tile_sm90.cuh"
 #include "ring_flash_common.cuh"
 
 namespace {
@@ -115,11 +123,60 @@ __global__ void __launch_bounds__(kThreads) ring_hop_kernel(const Params p) {
 }
 
 template <typename T, int D>
-int launch(const Params& p, cudaStream_t stream) {
+int launch_sweep(const Params& p, cudaStream_t stream) {
   constexpr int kQueries = Tiling<D>::kQueries;
   const dim3 grid((p.q_len + kQueries - 1) / kQueries, p.batch * p.heads);
   ring_hop_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: warpgroup g of block (x, bh) owns query rows
+// 128 x + 64 g .. + 64 of (batch, head) bh and their state.
+template <typename T, int D>
+__global__ void __launch_bounds__(attn_sm90::kBlockThreads, attn_sm90::Shape<D>::kMinBlocks)
+    ring_hop_tc_kernel(const Params p) {
+  using namespace attn_sm90;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int64_t row0 = blockIdx.x * kBlockRows + threadIdx.x / kWarpgroup * kRows;
+  const int valid = p.q_len - static_cast<int>(row0);
+  const KVRing<T, D> ring{static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh,
+                          static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh,
+                          p.k_ss, p.v_ss, p.kv_len, smem};
+  ring.start();  // the first K/V tile lands while Q and the state load
+  float* m0 = p.m + b * p.m_sb + h * p.m_sh + row0 * p.m_sl;
+  float* l0 = p.l + b * p.l_sb + h * p.l_sh + row0 * p.l_sl;
+  float* acc0 = p.acc + b * p.a_sb + h * p.a_sh + row0 * p.a_sl;
+  Tile<T, D> tile;
+  tile.load_q(static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + row0 * p.q_sl, p.q_sl,
+              valid);
+  tile.template load_state<false>(m0, p.m_sl, l0, p.l_sl, acc0, p.a_sl, valid);
+  ring.run(tile, p.scale);
+  tile.store_state(m0, p.m_sl, l0, p.l_sl, acc0, p.a_sl, valid);
+}
+
+template <typename T, int D>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  using attn_sm90::kBlockRows;
+  constexpr int kSmem = attn_sm90::Shape<D>::kSmemBytes;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      ring_hop_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((p.q_len + kBlockRows - 1) / kBlockRows, p.batch * p.heads);
+  ring_hop_tc_kernel<T, D><<<grid, attn_sm90::kBlockThreads, kSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// bf16 and fp16 with D <= 160: the tensor cores; fp32 and D = 512: the sweep
+template <typename T, int D>
+int launch(const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2 && D <= 160) {
+    return launch_tc<T, D>(p, stream);
+  } else {
+    return launch_sweep<T, D>(p, stream);
+  }
 }
 
 template <typename T>

@@ -6,7 +6,7 @@ a Pallas kernel (``_flash_kernel``); here the kernel is CUDA C++ written for
 Hopper (``csrc/flash_attention.cu``, whose header says what bounds it and
 what its design does about that), built with ``nvcc`` at first use. bf16
 and fp16 run on the tensor cores (``csrc/attention_tile_sm90.cuh``, shared
-with kernel B3), which round p to the input type for the P·V product only,
+with kernels B2 and B3), which round p to the input type for the P·V product only,
 as ``scaled_dot_product_attention`` does; fp32 keeps the reference's fp32 p
 on the CUDA cores.
 
@@ -42,7 +42,7 @@ SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-#: dtypes B1 and B3 run on the tensor cores (at head dims up to 160)
+#: dtypes B1, B2 and B3 run on the tensor cores (at head dims up to 160)
 TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
 
 
@@ -140,7 +140,7 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def check_16_byte_rows(kernel: str, **tensors: torch.Tensor) -> None:
-    """Refuse what the tensor-core route of B1 and B3 cannot load: its
+    """Refuse what the tensor-core route of B1, B2 and B3 cannot load: its
     cp.async copies move 16 bytes, so every row of D must start on a
     16-byte address (the data pointer and every stride of an axis longer
     than 1 a multiple of 16 bytes)."""

@@ -10,15 +10,19 @@ between hops.
 
 - :func:`ring_flash_hop` is B2's wrapper: B1's blockwise recurrence over one
   K/V shard with the running (m, l, acc) state carried in and out, nothing
-  normalised. Its plain version :func:`ring_flash_hop_plain` is
-  ``ops.flash_attention.online_softmax_update``.
+  normalised (``csrc/ring_flash_hop.cu``). Its plain version
+  :func:`ring_flash_hop_plain` is ``ops.flash_attention.online_softmax_update``.
 - :func:`ring_flash_fused` is B3's wrapper: the whole ring attention of n
   shards that share one device, one launch (``csrc/ring_flash_fused.cu``).
   Its plain version :func:`ring_flash_fused_plain` runs the same hops in
-  the same order with the plain recurrence. bf16 and fp16 at head dims up
-  to 160 run each hop on the tensor cores (B1's tile,
-  ``csrc/attention_tile_sm90.cuh``: p rounded to the input type for P·V
-  only); fp32 and the VAE's head dim 512 keep the CUDA-core sweep.
+  the same order with the plain recurrence.
+
+Both kernels have two routes. bf16 and fp16 at head dims up to
+:data:`TENSOR_CORE_MAX_HEAD_DIM` run each hop on the tensor cores (B1's
+tile, ``csrc/attention_tile_sm90.cuh``: p rounded to the input type for
+P·V only, l summed from the fp32 p; q, k and v rows must start on 16
+bytes, or the wrapper raises); fp32 and the VAE's head dim 512 keep the
+CUDA-core sweep with the reference's fp32 p.
 - :func:`ring_flash_attention` drives the ring over a mesh's ``seq`` axis.
   When every shard sits on q's device (a one-card mesh names ``cuda:0``
   once per shard) it calls B3; otherwise, or under
@@ -63,7 +67,8 @@ from chiaswarm_tpu_torch.parallel.ring_attention import (
 #: 512-wide head, which rings in the mid block under a seq mesh
 SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160, 512)
 
-#: B3's tensor-core route takes bf16 and fp16 up to this head dim
+#: B2's and B3's tensor-core route takes bf16 and fp16 up to this head dim;
+#: above it (the VAE's 512) and in fp32 both run the CUDA-core sweep
 TENSOR_CORE_MAX_HEAD_DIM = 160
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -132,9 +137,11 @@ def _check(q, k, v, m, l, acc) -> None:
         raise ValueError("q, k, v and the ring state must be on one device")
 
 
-def _check_kernel_inputs(name: str, q: torch.Tensor, *tensors: torch.Tensor
-                         ) -> None:
-    """What both CUDA kernels refuse: dtype, head dim, a strided D."""
+def _check_kernel_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> bool:
+    """What both CUDA kernels refuse: dtype, head dim, a strided D, and on
+    the tensor-core route rows off 16 bytes. Returns whether the launch
+    takes the tensor-core route."""
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name} kernel takes float32, float16 or bfloat16, "
                          f"not {q.dtype}")
@@ -142,9 +149,14 @@ def _check_kernel_inputs(name: str, q: torch.Tensor, *tensors: torch.Tensor
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name} kernel has no head dim {d} "
                          f"(built for {SUPPORTED_HEAD_DIMS})")
-    for label, t in zip("qkv", (q, *tensors)):
+    for label, t in zip("qkv", (q, k, v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{label} must be contiguous in the head dim")
+    tensor_cores = (q.dtype in TENSOR_CORE_DTYPES
+                    and d <= TENSOR_CORE_MAX_HEAD_DIM)
+    if tensor_cores:
+        check_16_byte_rows(name, q=q, k=k, v=v)
+    return tensor_cores
 
 
 def ring_flash_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,7 +171,8 @@ def ring_flash_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors launch kernel B2 on the current stream, which updates m, l and
     acc IN PLACE (each block reads its own query rows' state before it
     writes them) and returns the same three tensors; it raises for what the
-    kernel does not take."""
+    kernel does not take. bf16 and fp16 up to head dim 160 take the
+    tensor-core route, fp32 and head dim 512 the CUDA-core sweep."""
     _check(q, k, v, m, l, acc)
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
@@ -167,9 +180,18 @@ def ring_flash_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ring_flash_hop_plain(q, k, v, m, l, acc, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"ring_flash_hop has no kernel for {q.device}")
-    _check_kernel_inputs("ring_flash_hop", q, k, v)
     if acc.stride(-1) != 1:
         raise ValueError("acc must be contiguous in the head dim")
+    if _check_kernel_inputs("ring_flash_hop", q, k, v):
+        # the tile moves acc rows in float2 pairs
+        strides = [st for st, n in zip(acc.stride()[:-1], acc.shape[:-1])
+                   if n > 1]
+        if acc.data_ptr() % 8 or any(st % 2 for st in strides):
+            raise ValueError(
+                f"ring_flash_hop kernel runs {q.dtype} on the tensor cores, "
+                f"which move acc in 8-byte pairs: acc (data pointer "
+                f"{acc.data_ptr():#x}, strides {tuple(acc.stride())}) is not "
+                "8-byte aligned")
     b, lq, h, d = q.shape
     s = k.shape[1]
     if b * h > 65535:
@@ -241,8 +263,6 @@ def ring_flash_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"ring_flash_fused has no kernel for {q.device}")
     _check_kernel_inputs("ring_flash_fused", q, k, v)
-    if q.dtype in TENSOR_CORE_DTYPES and d <= TENSOR_CORE_MAX_HEAD_DIM:
-        check_16_byte_rows("ring_flash_fused", q=q, k=k, v=v)
     lq, ls = length // shards, s // shards
     dev = q.device
     out = torch.empty((b, length, h, d), dtype=q.dtype, device=dev)

@@ -25,8 +25,10 @@ each phase printing one JSON line:
 4. ring_kernel — holds kernel B2 (one ring hop with carried state) against
                 ``ring_flash_hop_plain`` with a non-trivial incoming state,
                 on a strided query shard, at the three shapes of the
-                sequence-parallel serve path in bf16 and a ragged fp32
-                shape: the normalised output acc / l to B1's bars, m within
+                sequence-parallel serve path in bf16 (the two at head dims
+                40 and 80 on the tensor-core route, the VAE's 512 on the
+                sweep), a ragged bf16 shape off the path and a ragged fp32
+                one: the normalised output acc / l to B1's bars, m within
                 1e-5 and l within a relative 1e-4. Times, FLOPs and bytes
                 with the state counted in and out, the bound, and the host
                 time to enqueue one hop on an idle card (no single PyTorch
@@ -37,7 +39,8 @@ each phase printing one JSON line:
                 three ring attentions of the serve path in bf16 and a ragged
                 fp32 one (S != L) to B1's bars, and against unsharded
                 ``flash_attention_plain`` and the scan drive over B2 on the
-                one-card mesh. Times of B3, its plain version, the scan
+                one-card mesh (whether the two agree bit for bit is
+                printed). Times of B3, its plain version, the scan
                 drive and ``scaled_dot_product_attention`` on the unsharded
                 attention (B3's library yardstick), host enqueue times of B3
                 and the scan drive, FLOPs, bytes and the bound.
@@ -55,7 +58,11 @@ each phase printing one JSON line:
                 and, under the scan drive, 80 B2 launches (x 4 shards x 4
                 hops); the full-width VAE decode in float32 at a 64x64
                 latent, ring against local: within 1e-4, 1 B3 launch and 16
-                B2 launches at head dim 512.
+                B2 launches at head dim 512; then the UNet in bf16 at 64x64
+                latents under the scan drive (B2's tensor-core route at both
+                of its serve shapes) against the single-device plain route:
+                relative L2 3e-2, exactly 160 B2 launches and no other
+                kernel.
 8. serve      — SD1.5 at its published widths, random bf16 weights from a
                 seed, three 512x512 txt2img jobs (20 steps, guidance 7.5,
                 default scheduler) through the port's executor
@@ -74,10 +81,10 @@ each phase printing one JSON line:
                 stay on the card): B2 launched jobs x (steps x 160 + 16)
                 times, B1 and B3 never.
 11. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
-                kernel it replaces, its design (``wgmma+cp.async`` for the
-                tensor-core route of B1 and B3 — bf16 and fp16 at head dims
-                up to 160 — ``sweep`` for the CUDA-core sweep of B2 and of
-                fp32 and head dim 512), its launches on its serve phase, and
+                kernel it replaces, its designs (``wgmma+cp.async`` for the
+                tensor-core route of B1, B2 and B3 — bf16 and fp16 at head
+                dims up to 160 — ``sweep`` for the CUDA-core sweep of fp32
+                and head dim 512), its launches on its serve phase, and
                 its numbers from its kernel phase averaged over that serve
                 phase's launch mix (per-shape numbers, each with its design
                 and its factor against the library call, under ``shapes``).
@@ -121,12 +128,11 @@ B3_LAUNCHES_PER_UNET_EVAL = 10
 B3_LAUNCHES_PER_DECODE = 1
 
 
-def design(name: str, dtype_name: str, d: int) -> str:
-    """The route a kernel launch takes: B1 and B3 run bf16 and fp16 at head
-    dims up to 160 on the tensor cores (wgmma, K/V by cp.async); fp32, the
-    VAE's head dim 512 and every B2 launch run the CUDA-core sweep."""
-    tensor_cores = (name in ("flash_attention", "ring_flash_fused")
-                    and dtype_name in ("bfloat16", "float16") and d <= 160)
+def design(dtype_name: str, d: int) -> str:
+    """The route a launch of B1, B2 or B3 takes: bf16 and fp16 at head dims
+    up to 160 run on the tensor cores (wgmma, K/V by cp.async); fp32 and the
+    VAE's head dim 512 run the CUDA-core sweep."""
+    tensor_cores = dtype_name in ("bfloat16", "float16") and d <= 160
     return "wgmma+cp.async" if tensor_cores else "sweep"
 
 
@@ -315,7 +321,7 @@ def kernel_phase(torch) -> list[dict]:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
             "shape": shape, "dtype": dtype_name,
-            "design": design("flash_attention", dtype_name, d),
+            "design": design(dtype_name, d),
             **_held("B1", shape, out, flash_attention_plain(q, k, v), tol,
                     rel_tol),
             "served": served,
@@ -384,6 +390,7 @@ RING_SHAPES = [
     (2, 1024, 1024, 8, 40, "bfloat16", 4e-3, 1e-2, 1600),
     (2, 256, 256, 8, 80, "bfloat16", 4e-3, 1e-2, 1600),
     (1, 1024, 1024, 1, 512, "bfloat16", 4e-3, 1e-2, 16),
+    (2, 300, 170, 2, 64, "bfloat16", 4e-3, 1e-2, 0),  # ragged, strided q
     (1, 300, 170, 2, 64, "float32", 2e-4, 1e-4, 0),
 ]
 
@@ -426,7 +433,7 @@ def ring_kernel_phase(torch) -> list[dict]:
                                  f"1e-4)")
         row = {
             "shape": shape, "dtype": dtype_name,
-            "design": design("ring_flash_hop", dtype_name, d),
+            "design": design(dtype_name, d),
             "strided_q": not q.is_contiguous(),
             "launches_per_job": per_job, "served": per_job > 0,
             **_held("B2", shape, acc / lsum.transpose(1, 2)[..., None],
@@ -498,7 +505,7 @@ def fused_kernel_phase(torch) -> list[dict]:
 
         row = {
             "shape": shape, "dtype": dtype_name, "shards": RING_SHARDS,
-            "design": design("ring_flash_fused", dtype_name, d),
+            "design": design(dtype_name, d),
             "launches_per_job": per_job, "served": per_job > 0,
             **_held("B3", shape, out, ring_flash_fused_plain(
                 q, k, v, shards=RING_SHARDS, scale=scale), tol, rel_tol),
@@ -506,6 +513,7 @@ def fused_kernel_phase(torch) -> list[dict]:
             .abs().max().item(),
             "max_abs_err_vs_scan": (out.float() - scan.float())
             .abs().max().item(),
+            "bit_equal_vs_scan": bool(torch.equal(out, scan)),
             "ms": time_ms(torch, lambda: ring_flash_fused(
                 q, k, v, shards=RING_SHARDS)),
             "host_ms": host_ms(torch, lambda: ring_flash_fused(
@@ -586,7 +594,7 @@ def check_phase(torch) -> None:
     finite = bool(torch.isfinite(out_kernel).all())
     emit("check", model="sd15 unet bf16", latent=[2, 4, 64, 64],
          b1_launches=launches, rel_l2=rel, finite=finite, tolerance=3e-2,
-         design=design("flash_attention", "bfloat16", 40))
+         design=design("bfloat16", 40))
     # 64x64 latents: 4096 tokens at the first level and 1024 at the second,
     # five self-attentions each through B1
     if launches != 10 or not finite or not rel <= 3e-2:
@@ -663,10 +671,52 @@ def ring_check_phase(torch) -> None:
                         f"and no other), finite {finite}, relative L2 {rel} "
                         "(bar 1e-4)")
                 del out_ring
+        if name == "unet":
+            results["unet_bf16_scan"] = ring_check_unet_bf16(torch, module,
+                                                             gen)
         del module, out_local
         torch.cuda.empty_cache()
-    emit("ring_check", model="sd15 unet + vae fp32", tolerance=1e-4,
-         **results)
+    emit("ring_check", model="sd15 unet + vae fp32, unet bf16",
+         tolerance=1e-4, bf16_tolerance=3e-2, **results)
+
+
+def ring_check_unet_bf16(torch, unet, gen) -> dict:
+    """The UNet in bf16, the serve dtype, at 64x64 latents (4096 tokens at
+    the first level, 1024 at the second) under the scan drive on the seq = 4
+    mesh: B2's tensor-core route at both of its serve shapes, against the
+    single-device plain route, within the repo's bf16 parity bar."""
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import KERNEL as B2
+    from chiaswarm_tpu_torch.parallel.context import sequence_parallel
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    cast_module(unet, torch.bfloat16)  # as the serve path: norms stay fp32
+    x = torch.randn((2, 4, 64, 64), generator=gen).cuda().to(torch.bfloat16)
+    ctx = torch.randn((2, 77, 768), generator=gen).cuda().to(torch.bfloat16)
+    t = torch.tensor([999.0, 10.5], device="cuda")
+    mesh = ring_mesh(torch)
+    with torch.inference_mode():
+        set_attn_impl(unet, "xla")
+        out_local = unet(x, t, ctx).float()
+        set_attn_impl(unet, "auto")
+        kernels.reset_launches()
+        with ring_mode("scan"), sequence_parallel(mesh):
+            out_ring = unet(x, t, ctx).float()
+        launches = {n: k.launches for n, k in kernels.KERNELS.items()}
+    torch.cuda.synchronize()
+    rel = ((out_ring - out_local).norm() / out_local.norm()).item()
+    finite = bool(torch.isfinite(out_ring).all())
+    want = B2_LAUNCHES_PER_UNET_EVAL
+    if (launches[B2.name] != want or sum(launches.values()) != want
+            or not finite or not rel <= 3e-2):
+        raise AssertionError(
+            f"bf16 ring check of the sd15 unet (scan) failed: launches "
+            f"{launches} (want {want} of {B2.name} and no other), finite "
+            f"{finite}, relative L2 {rel} (bar 3e-2)")
+    return {"shape": list(x.shape), "launches": launches, "rel_l2": rel,
+            "finite": finite, "design": design("bfloat16", 40),
+            "mesh_devices": [str(dv) for dv in mesh.device_list]}
 
 
 def png_hw(blob_b64: str) -> tuple[int, int]:

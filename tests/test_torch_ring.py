@@ -148,6 +148,76 @@ def test_hop_wrapper_on_cpu_never_launches_and_checks_state():
         tring.ring_flash_hop(q, k, v, m, lsum, acc.double())
 
 
+def _tensor_core_hop(q, k, v, m, lsum, acc, *, scale, block_kv):
+    """The arithmetic of B2's tensor-core route over one K/V shard in plain
+    PyTorch: 16-bit q and k multiplied with fp32 sums, the fp32 running max
+    and denominator (l summed from the fp32 p), and P·V with p rounded to
+    q's type, over K/V tiles of ``block_kv`` keys (the last one ragged).
+    The state goes in and comes out in fp32, in B2's layouts."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    m, lsum = m[..., None], lsum[..., None]
+    acc = acc.permute(0, 2, 1, 3)
+    for start in range(0, kf.shape[2], block_kv):
+        kb, vb = kf[:, :, start:start + block_kv], vf[:, :, start:start + block_kv]
+        logits = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        m_next = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(logits - m_next)
+        lsum = alpha * lsum + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(q.dtype).float(), vb)
+        m = m_next
+    return m[..., 0], lsum[..., 0], acc.permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("d", [40, 80])
+def test_tensor_core_hop_chain_stays_inside_the_kernel_bars(d):
+    """The numerics of B2's tensor-core route chained over a 4-hop ring (the
+    state kept in fp32 between hops, p rounded to bf16 in every hop), held
+    against the JAX ``_hop_call`` chained in interpret mode (fp32 p) on the
+    same bf16-valued inputs and against the port's fp32-p plain hop chain,
+    within the bars chip_smoke.py holds B2 to on the card: 4e-3 max abs and
+    1e-2 relative L2 on acc / l. K/V tiles of 64 keys at D = 40 and 128 at
+    D = 80, as the kernel takes them; 100 keys a shard, so tiles are ragged."""
+    b, l, s, h, hops, block = 2, 96, 100, 2, 4, 32
+    scale = d ** -0.5
+    rng = np.random.default_rng(d)
+    bf16 = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(torch.bfloat16)
+            for shape in [(b, l, h, d)] + [(b, s, h, d)] * (2 * hops)]
+    q, kv = bf16[0], list(zip(bf16[1::2], bf16[2::2]))
+    as_np = [t.float().numpy() for t in bf16]
+
+    qf = _fold(as_np[0], block)
+    bh, lp, dp = qf.shape
+    hop = partial(_hop_call, scale=scale, kv_len=s, block_q=block,
+                  block_kv=block, interpret=True)
+    jax_state = (jnp.full((bh, lp, _LANES), NEG_INF, jnp.float32),
+                 jnp.zeros((bh, lp, _LANES), jnp.float32),
+                 jnp.zeros((bh, lp, dp), jnp.float32))
+    for i in range(hops):
+        jax_state = hop(qf, _fold(as_np[1 + 2 * i], block),
+                        _fold(as_np[2 + 2 * i], block), *jax_state)
+    _, jax_l, jax_acc = _unfold_state(*jax_state, b, l, h, d)
+
+    start = (torch.full((b, h, l), NEG_INF), torch.zeros(b, h, l),
+             torch.zeros(b, l, h, d))
+    tc, plain = start, start
+    for k, v in kv:
+        tc = _tensor_core_hop(q, k, v, *tc, scale=scale,
+                              block_kv=64 if d == 40 else 128)
+        plain = tring.ring_flash_hop(q, k, v, *plain, scale=scale)
+    got = (tc[2] / tc[1].transpose(1, 2)[..., None]).numpy()
+    plain_out = (plain[2] / plain[1].transpose(1, 2)[..., None]).numpy()
+    jax_out = jax_acc / jax_l.transpose(0, 2, 1)[..., None]
+    for want in (jax_out, plain_out):
+        diff = got - want
+        assert np.abs(diff).max() <= 4e-3
+        assert np.linalg.norm(diff) / np.linalg.norm(want) <= 1e-2
+    # rounding p moves the state: a kernel that kept the fp32 p and one that
+    # rounded it are told apart
+    assert np.abs(got - plain_out).max() > 0
+
+
 # ---------------------------------------------------------------------------
 # 2, 3. the two ring drives against the JAX rings
 

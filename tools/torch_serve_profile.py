@@ -8,7 +8,7 @@ span, the summed device time of every
 kernel, the device busy share (summed kernel time over the job's wall time;
 one stream, so kernels do not overlap), the number of kernel launches, and
 the heaviest kernels by total device time with their call counts and
-shares; the port's kernels (B1, B2, B3, each route of B1 and B3) are
+shares; the port's kernels (B1, B2, B3, each with both its routes) are
 reported on lines of their own too. ``--seq 4`` serves on a ring of
 four shards (four cards when four are visible, else the first card named
 four times, where B3 runs each ring attention in one launch);
@@ -113,7 +113,8 @@ def main(argv: list[str] | None = None) -> int:
         # each kernel's CUDA-core sweep and tensor-core route by name
         "flash_attention": kernel_line("flash_fwd_kernel<",
                                        "flash_fwd_tc_kernel<"),
-        "ring_flash_hop": kernel_line("ring_hop_kernel<"),
+        "ring_flash_hop": kernel_line("ring_hop_kernel<",
+                                      "ring_hop_tc_kernel<"),
         "ring_flash_fused": kernel_line("ring_fused_kernel<",
                                         "ring_fused_tc_kernel<"),
         "top": kernels[: args.top],
