@@ -14,6 +14,9 @@ _POW2 = (1, 2, 4, 8, 16, 32, 64, 128)
 
 _STEP_BUCKETS = (16, 32, 64, 128)
 
+#: the longest ladder a lane row may carry
+STEP_CAPACITY = _STEP_BUCKETS[-1]
+
 
 def bucket_batch(n: int) -> int:
     """Round batch up to the next power of two."""

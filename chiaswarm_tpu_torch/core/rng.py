@@ -23,6 +23,8 @@ import struct
 
 import torch
 
+from chiaswarm_tpu_torch.core.device import upload
+
 
 def draw_seed() -> int:
     """A fresh non-negative 63-bit seed (json-safe, torch.seed()-like range)."""
@@ -51,4 +53,4 @@ def randn_rows(generators: list[torch.Generator], shape: tuple[int, ...],
     generator b only, drawn on the CPU and moved to ``device``."""
     rows = [torch.randn(shape, generator=g, dtype=torch.float32)
             for g in generators]
-    return torch.stack(rows).to(device)
+    return upload(torch.stack(rows), device)

@@ -1,6 +1,8 @@
-"""Job executor, solo path: counterpart of ``chiaswarm_tpu/node/executor.py``
-(``_error_payload``/``_format``/``_execute``/``synchronous_do_work``, :62-212,
-:346-367).
+"""Job executor: counterpart of ``chiaswarm_tpu/node/executor.py``
+(``_error_payload``/``_result``/``error_result``/``_format``/``_execute``
+:62-212, ``_stepper_submit``/``_stepper_collect`` :215-310,
+``synchronous_do_work`` :346-367, ``single_chip_rows`` :397-416,
+``synchronous_do_work_batch`` :458-593).
 
 Error taxonomy, as in the reference: argument-formatting errors and
 ``ValueError`` raised by callbacks are fatal (``fatal_error: True``, do not
@@ -9,9 +11,12 @@ redispatch) unless their kind is non-fatal (``model_unavailable``,
 envelope; any other exception returns an error artifact without the fatal
 flag so the hive may retry elsewhere. Every failure renders as an artifact.
 
-The JAX executor tries the continuous-batching lanes first; the port has no
-lanes yet, so every job runs the solo path (its ``CHIASWARM_STEPPER=0``
-behaviour).
+Lanes first, as in the JAX executor: an eligible txt2img job goes to the
+slot's continuous-batching scheduler (``serving/stepper.py``); a job the
+lane rejects or fails takes the per-job (solo) path, the zero-loss ladder.
+Both paths run on the slot's device. ``CHIASWARM_STEPPER=0`` sends every job
+down the solo path. Coalesced bursts and the lane-rebuild rung of the hang
+watchdog are later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -64,6 +69,16 @@ def _result(job_id: Any, artifacts: dict, config: dict,
     return result
 
 
+def error_result(job: dict[str, Any], exc: Exception, *,
+                 kind: str | None = None) -> dict:
+    """Structured error envelope for a job that never produced a result
+    through the normal executor path (a lane deadline expiry, a poisoned
+    lane row). Same wire shape as executor-internal failures."""
+    content_type = str(job.get("content_type") or "image/jpeg")
+    artifacts, config = _error_payload(exc, content_type, kind=kind)
+    return _result(job.get("id"), artifacts, config)
+
+
 def _format(job: dict[str, Any], registry):
     """-> ((job_id, content_type, callback, kwargs), None) or
     (None, fatal result)."""
@@ -103,9 +118,120 @@ def _execute(job_id, content_type, callback, kwargs, slot) -> dict:
     return _result(job_id, artifacts, config)
 
 
+def _stepper_submit(job_id, content_type, callback, kwargs, slot, registry):
+    """Submit an eligible txt2img job to the slot's step scheduler. Returns
+    a ticket, or None: run the job through the per-job path instead.
+    Submission failures are never terminal for the job."""
+    from chiaswarm_tpu_torch.core.rng import draw_seed
+    from chiaswarm_tpu_torch.serving.stepper import LaneReject
+    from chiaswarm_tpu_torch.workloads.diffusion import (
+        diffusion_callback,
+        stepper_eligible,
+        stepper_submit,
+    )
+
+    if callback is not diffusion_callback or not stepper_eligible(kwargs):
+        return None
+    seed = kwargs.get("seed")
+    seed = draw_seed() if seed is None else int(seed)
+    try:
+        return stepper_submit(slot, registry, kwargs, seed, job_id=job_id)
+    except LaneReject as exc:
+        log.debug("job %s not lane-eligible (%s)", job_id, exc)
+        return None
+    except Exception as exc:  # the per-job path still serves the job
+        log.warning("job %s lane submit failed (%s); per-job path",
+                    job_id, exc)
+        return None
+
+
+def _stepper_collect(job_id, content_type, slot, ticket) -> dict | None:
+    """Wait out a lane ticket. Returns the finished result, a timeout
+    envelope (in-lane deadline expiry), an ``invalid_output`` envelope
+    (screened poisoned rows), or None: the job re-runs through the per-job
+    path (a lane fault; zero-loss fallback)."""
+    from chiaswarm_tpu_torch.serving.stepper import LaneDeadline, get_stepper
+    from chiaswarm_tpu_torch.workloads.diffusion import stepper_finish
+
+    job = {"id": job_id, "content_type": content_type}
+    try:
+        artifacts, config = stepper_finish(ticket)
+    except LaneDeadline as exc:
+        return error_result(job, exc, kind="timeout")
+    except InvalidOutput as exc:
+        log.error("job %s retired invalid_output (%s); envelope uploaded "
+                  "instead of a poisoned image", job_id, exc)
+        return error_result(job, exc, kind="invalid_output")
+    except Exception as exc:  # the per-job path re-runs the job
+        kind = classify_exception(exc)
+        if kind == "oom":
+            get_stepper(slot).note_oom()  # rebuild lanes narrower
+        log.warning("job %s lane run failed (%s: %s); per-job path",
+                    job_id, kind, exc)
+        return None
+    return _result(job_id, artifacts, config)
+
+
 def synchronous_do_work(job: dict[str, Any], slot, registry) -> dict[str, Any]:
     log.info("processing job %s", job.get("id"))
     formatted, fatal = _format(job, registry)
     if formatted is None:
         return fatal
+    job_id, content_type, _, _ = formatted
+    ticket = _stepper_submit(*formatted, slot, registry)
+    if ticket is not None:
+        result = _stepper_collect(job_id, content_type, slot, ticket)
+        if result is not None:
+            return result
     return _execute(*formatted, slot)
+
+
+def single_chip_rows(kwargs: dict[str, Any]) -> int:
+    """How many batch rows ONE device profitably carries for this job class:
+    a copy of the JAX package's rule, measured there on a TPU (512 px-class
+    programs gain up to batch 4, 1024 px-class are saturated at batch 1).
+    The lanes' width policy reads it; the H100's own sweep is in
+    ``PERF.md``."""
+    try:
+        h, w = int(kwargs.get("height") or 0), int(kwargs.get("width") or 0)
+    except (TypeError, ValueError):
+        return 1
+    if not (h and w):
+        image = kwargs.get("image")
+        if image is not None and getattr(image, "ndim", 0) >= 2:
+            h, w = int(image.shape[0]), int(image.shape[1])
+    return 4 if 0 < h * w <= 512 * 512 else 1
+
+
+def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
+                              registry) -> list[dict]:
+    """Run a burst of jobs: every lane-eligible job is submitted first, so
+    their rows share the lanes' steps, then the rest run one at a time
+    through the per-job path, as do lane jobs the lane fails. Results keep
+    the jobs' order. Coalescing the ineligible residue into one batched
+    program is a later slice (``ROADMAP.md``)."""
+    if len(jobs) == 1:
+        return [synchronous_do_work(jobs[0], slot, registry)]
+    results: list[dict | None] = [None] * len(jobs)
+    singles: list[tuple[int, tuple]] = []
+    tickets: list[tuple[int, tuple, Any]] = []
+    for i, job in enumerate(jobs):
+        log.info("processing job %s (burst of %d)", job.get("id"), len(jobs))
+        formatted, fatal = _format(job, registry)
+        if formatted is None:
+            results[i] = fatal
+            continue
+        ticket = _stepper_submit(*formatted, slot, registry)
+        if ticket is not None:
+            tickets.append((i, formatted, ticket))
+        else:
+            singles.append((i, formatted))
+    for i, formatted, ticket in tickets:
+        result = _stepper_collect(formatted[0], formatted[1], slot, ticket)
+        if result is not None:
+            results[i] = result
+        else:
+            singles.append((i, formatted))
+    for i, formatted in singles:
+        results[i] = _execute(*formatted, slot)
+    return [r for r in results if r is not None]

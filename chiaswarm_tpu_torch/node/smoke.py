@@ -52,6 +52,7 @@ def run_smoke(model: str | None = None, size: int | None = None,
     from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
 
     registry = ModelRegistry(
         catalog=[{"name": m, "family": fam}
@@ -59,7 +60,11 @@ def run_smoke(model: str | None = None, size: int | None = None,
         allow_random=True, device=device)
     slot = ChipPool(device=registry.device).slots[0]
     model = model or default_model(registry.device)
-    return synchronous_do_work(smoke_job(model, size, steps), slot, registry)
+    try:
+        return synchronous_do_work(smoke_job(model, size, steps), slot,
+                                   registry)
+    finally:
+        get_stepper(slot).shutdown()  # the job's lane, if it rode one
 
 
 def main(argv: list[str] | None = None) -> int:

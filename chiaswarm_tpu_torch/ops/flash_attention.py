@@ -200,5 +200,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(CUDA error {rc})")
-    KERNEL.launches += 1
+    KERNEL.count_launch(q, k)
     return out

@@ -9,12 +9,14 @@ loaded with ``ctypes``. Nothing here runs at import time: the CPU test tier
 imports every module of the package on a machine with no ``nvcc``.
 
 Each :class:`CudaKernel` carries a plain integer ``launches`` that its
-wrapper increments once per launch, so a run can show that its main path
-went through the kernel.
+wrapper increments once per launch, and a count per launched shape, so a
+run can show that its main path went through the kernel and at which
+shapes.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import hashlib
@@ -60,12 +62,23 @@ class CudaKernel:
     bind: Callable[[ctypes._CFuncPtr], None]
     replaces: str
     launches: int = 0
+    #: launches by (B, L, S, H, D, dtype): the shapes a run served
+    shapes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
     build_log: str = ""
     build_s: float = 0.0  # seconds of this process's nvcc run, 0 if cached
 
     def __post_init__(self) -> None:
         self._lock = threading.Lock()
         self._fn: ctypes._CFuncPtr | None = None
+
+    def count_launch(self, q, k) -> None:
+        """Count one launch on ``q`` (B, L, H, D) against ``k`` (B, S, H,
+        D); the wrapper calls it where it launches, and nowhere else."""
+        self.launches += 1
+        b, l, h, d = q.shape
+        dtype = str(q.dtype).removeprefix("torch.")
+        self.shapes[(b, l, k.shape[1], h, d, dtype)] += 1
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -141,3 +154,4 @@ def build_all() -> dict[str, Path]:
 def reset_launches() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
+        kernel.shapes.clear()

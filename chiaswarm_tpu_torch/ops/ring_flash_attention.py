@@ -213,7 +213,7 @@ def ring_flash_hop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ring_flash_hop kernel launch failed "
                            f"(CUDA error {rc})")
-    KERNEL.launches += 1
+    KERNEL.count_launch(q, k)
     return m, l, acc
 
 
@@ -289,7 +289,7 @@ def ring_flash_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"ring_flash_fused kernel launch failed "
                            f"(code {rc})")
-    FUSED_KERNEL.launches += 1
+    FUSED_KERNEL.count_launch(q, k)
     return out
 
 

@@ -20,6 +20,15 @@ the batch it rides in. ``GenerateRequest.init_noise`` replaces the drawn
 initial noise; it keeps the JAX package's (B|1, H/f, W/f, C) layout so one
 array drives both backends.
 
+The lane programs (``stepper_encode``, ``stepper_row_init``,
+``stepper_step``, ``stepper_decode``) are the solo flow cut at its step
+boundaries for the continuous-batching lanes (``serving/stepper.py``), as
+the JAX package's ``stepper_*_fn`` executables are: text encode and row
+noise at admission, ONE denoise step over a lane of rows at different
+ladder positions, and the VAE decode of retiring rows. Each enters
+inference mode and the pipeline's sequence-parallel context itself, so a
+lane's own thread runs them as the solo path does.
+
 This slice serves txt2img. img2img, inpaint, ControlNet, instruct-pix2pix,
 DeepCache reuse and tiled decode raise ``ValueError`` naming the later
 slice that brings them.
@@ -34,23 +43,26 @@ import numpy as np
 import torch
 
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
+from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh
 from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.schedulers import (
+    NOISY_KINDS,
     SamplerConfig,
+    SamplerState,
+    SamplingSchedule,
     ScheduleConfig,
     init_sampler_state,
     make_noise_schedule,
     make_sampling_schedule,
     resolve,
     sampler_step,
+    sampler_step_rows,
     scale_model_input,
+    scale_model_input_rows,
 )
-
-#: sampler kinds that consume fresh noise every step
-_NOISY_KINDS = ("euler_ancestral", "lcm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +118,9 @@ def _refuse_unported(req: GenerateRequest, components: Components) -> None:
 
 @dataclasses.dataclass
 class PendingImages:
-    """A generation's uint8 output, still on the device. ``wait()`` copies
-    it to the host and un-buckets back to the exact requested size."""
+    """A generation's uint8 output, on the device (or, from a lane, already
+    copied to host memory). ``wait()`` brings it to the host and un-buckets
+    back to the exact requested size."""
 
     device_images: torch.Tensor   # (B, H, W, 3) uint8
     compiled_hw: tuple[int, int]
@@ -155,7 +168,8 @@ class DiffusionPipeline:
         self.noise_schedule = make_noise_schedule(self.schedule_config)
 
     def _tokenize(self, prompts: list[str]) -> list[torch.Tensor]:
-        return [torch.from_numpy(tok.encode_batch(prompts)).to(self.c.device)
+        return [upload(torch.from_numpy(tok.encode_batch(prompts)),
+                       self.c.device)
                 for tok in self.c.tokenizers]
 
     def _encode_text(self, ids: list[torch.Tensor]) -> torch.Tensor:
@@ -195,7 +209,7 @@ class DiffusionPipeline:
         """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
-        unet, vae = self.c.unet, self.c.vae
+        unet = self.c.unet
 
         ctx = self._encode_text(ids)
         if use_cfg:
@@ -215,13 +229,99 @@ class DiffusionPipeline:
                 eps = unet(inp, t, ctx)
             step_noise = (randn_rows(generators, tuple(x.shape[1:]),
                                      self.c.device)
-                          if sampler.kind in _NOISY_KINDS else None)
+                          if sampler.kind in NOISY_KINDS else None)
             x, state = sampler_step(sampler, sched, i, x, eps, state,
                                     noise=step_noise)
 
-        img = vae.decode(x)
+        return self._decode_uint8(x)
+
+    def _decode_uint8(self, x: torch.Tensor) -> torch.Tensor:
+        img = self.c.vae.decode(x)
         img = torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
         return img.permute(0, 2, 3, 1)
+
+    # ---------- lane programs (serving/stepper.py) ----------
+
+    def stepper_encode(self, ids: list[torch.Tensor],
+                       neg_ids: list[torch.Tensor]
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(ctx_u, ctx_c) for a job's rows: the solo path's text encode,
+        the negative prompt's (uncond) and the prompt's (cond) apart."""
+        with torch.inference_mode(), sequence_parallel(self.mesh):
+            return self._encode_text(neg_ids), self._encode_text(ids)
+
+    def stepper_row_init(self, generators: list[torch.Generator],
+                         sigma0: torch.Tensor, height: int,
+                         width: int) -> torch.Tensor:
+        """A fresh row's initial latents: row b's noise from its own
+        generator, scaled by the ladder's ``sigma[start]``, as the solo
+        prologue draws it. The generators then carry on as the rows'
+        per-step noise sources (the JAX carry keys' counterpart)."""
+        lh, lw = self._latent_hw(height, width)
+        with torch.inference_mode():
+            return randn_rows(generators,
+                              (self.c.family.vae.latent_channels, lh, lw),
+                              self.c.device) * sigma0
+
+    def stepper_step(self, *, sampler: SamplerConfig, ctx_u: torch.Tensor,
+                     ctx_c: torch.Tensor, x: torch.Tensor, idx: torch.Tensor,
+                     start_idx: torch.Tensor, sigmas: torch.Tensor,
+                     timesteps: torch.Tensor, guidance: torch.Tensor,
+                     old_denoised: torch.Tensor, active: torch.Tensor,
+                     generators: list[torch.Generator | None]
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """ONE denoise step over a lane of W rows -> (x, idx, old_denoised).
+
+        Per row: latents ``x`` (W, C, h, w), step and start index (W,), its
+        sigma (W, S+1) and timestep (W, S) ladders padded to the lane's step
+        capacity, guidance (W,) float32, multistep history and an active
+        flag. One UNet call on 2W rows (uncond rows, then cond) with a (2W,)
+        timestep vector; the per-row CFG combine keeps the solo path's
+        dtype (the guidance rounded to the UNet's type, as a Python float
+        is) and takes the conditional prediction alone where guidance is at
+        most 1. Only the noisy kinds draw per-step noise, and only from the
+        generators of active rows (``generators[b]`` is None elsewhere).
+        Inactive rows compute and are discarded: x, history and index keep
+        their values."""
+        with torch.inference_mode(), sequence_parallel(self.mesh):
+            rows = SamplingSchedule(sigmas=sigmas, timesteps=timesteps)
+            inp = scale_model_input_rows(rows, x, idx)
+            last = timesteps.shape[1] - 1
+            t = timesteps.gather(1, idx.clamp(0, last)[:, None].long())[:, 0]
+            out = self.c.unet(torch.cat([inp, inp], dim=0),
+                              torch.cat([t, t], dim=0),
+                              torch.cat([ctx_u, ctx_c], dim=0))
+            eps_u, eps_c = out.chunk(2, dim=0)
+            g = guidance.reshape(-1, 1, 1, 1)
+            eps = torch.where(g > 1.0,
+                              eps_u + g.to(eps_u.dtype) * (eps_c - eps_u),
+                              eps_c)
+            noise = None
+            if sampler.kind in NOISY_KINDS:
+                noise = self._row_noise(generators, tuple(x.shape[1:]))
+            x_next, state = sampler_step_rows(
+                sampler, rows, idx, x, eps,
+                SamplerState(old_denoised=old_denoised), noise, start_idx)
+            act = active.reshape(-1, 1, 1, 1)
+            x_next = torch.where(act, x_next, x)
+            old_next = torch.where(act, state.old_denoised, old_denoised)
+            return x_next, idx + active.to(idx.dtype), old_next
+
+    def _row_noise(self, generators: list[torch.Generator | None],
+                   shape: tuple[int, ...]) -> torch.Tensor:
+        """(W, *shape) standard-normal: row b from ``generators[b]``, zeros
+        where it is None; drawn on the CPU."""
+        noise = torch.zeros((len(generators),) + shape)
+        drawn = [b for b, g in enumerate(generators) if g is not None]
+        if drawn:
+            noise[drawn] = randn_rows([generators[b] for b in drawn], shape)
+        return upload(noise, self.c.device)
+
+    def stepper_decode(self, x: torch.Tensor) -> torch.Tensor:
+        """Latents of retiring rows -> uint8 (B, H, W, 3) on the device, the
+        solo path's tail."""
+        with torch.inference_mode(), sequence_parallel(self.mesh):
+            return self._decode_uint8(x)
 
     def __call__(self, req: GenerateRequest) -> tuple[np.ndarray, dict]:
         """Run a request. Returns (images uint8 (B, H, W, 3), config dict)."""

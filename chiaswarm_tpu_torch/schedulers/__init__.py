@@ -6,6 +6,8 @@ from chiaswarm_tpu_torch.schedulers.common import (
     make_noise_schedule,
 )
 from chiaswarm_tpu_torch.schedulers.sampling import (
+    FEWSTEP_KINDS,
+    NOISY_KINDS,
     SAMPLERS,
     SamplerConfig,
     SamplerState,
@@ -14,10 +16,14 @@ from chiaswarm_tpu_torch.schedulers.sampling import (
     make_sampling_schedule,
     resolve,
     sampler_step,
+    sampler_step_rows,
     scale_model_input,
+    scale_model_input_rows,
 )
 
 __all__ = [
+    "FEWSTEP_KINDS",
+    "NOISY_KINDS",
     "NoiseSchedule",
     "SAMPLERS",
     "SamplerConfig",
@@ -29,5 +35,7 @@ __all__ = [
     "make_sampling_schedule",
     "resolve",
     "sampler_step",
+    "sampler_step_rows",
     "scale_model_input",
+    "scale_model_input_rows",
 ]

@@ -5,9 +5,16 @@ Every sampler works on latents in k-diffusion coordinates
 Euler step on discrete-timestep sigmas), Heun's Euler predictor,
 Euler-ancestral, LCM and DPM-Solver++(2M). ``SAMPLERS``/``resolve`` map the
 diffusers class names the hive sends exactly as the JAX package does,
-remaps included. The step index is a Python int (the denoise loop is a
-Python loop); per-step scalars are float32 tensors, as in the reference.
-The per-row ``*_rows`` variants wait for the lanes.
+remaps included. The solo step index is a Python int (the denoise loop is
+a Python loop); per-step scalars are float32 tensors, as in the reference.
+
+The per-row ``*_rows`` variants serve the continuous-batching lanes
+(``serving/stepper.py``): each row of a lane carries its own sigma and
+timestep ladder, step index and start index, so rows at different ladder
+positions, with different step counts, share one batched step. The JAX
+package ``vmap``s its scalar step; here the step is written once over the
+rows, its Python branches turned into ``torch.where`` masks over the same
+expressions in the same order, so each row computes its solo step.
 """
 
 from __future__ import annotations
@@ -39,6 +46,14 @@ class SamplerConfig:
     steps_offset: int = 1
     prediction_type: str = "epsilon"
 
+
+#: sampler kinds whose contract is the few-step regime (guidance embedded by
+#: distillation, guidance <= 1 their native mode): such a job rides a lane
+#: even without classifier-free guidance
+FEWSTEP_KINDS = frozenset({"lcm"})
+
+#: sampler kinds that consume fresh noise every step
+NOISY_KINDS = frozenset({"euler_ancestral", "lcm"})
 
 #: LCM boundary-condition constants (Luo et al. 2023)
 LCM_SIGMA_DATA = 0.5
@@ -160,6 +175,90 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
 
     if float(sigma_next) == 0.0:
         x_next = denoised
+    return x_next.to(sample.dtype), SamplerState(old_denoised=denoised.to(sample.dtype))
+
+
+def _row_values(table: torch.Tensor, i: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``table[b, i[b]]`` for every row b, shaped to broadcast over a
+    (B, ...) sample of ``ndim`` dims. Indices past the table clamp, as a
+    JAX gather does: a retired or padding row may sit at its last index."""
+    i = i.clamp(0, table.shape[1] - 1).to(torch.int64)
+    return table.gather(1, i[:, None]).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def scale_model_input_rows(sched: SamplingSchedule, sample: torch.Tensor,
+                           i: torch.Tensor) -> torch.Tensor:
+    """Per-row :func:`scale_model_input`: ``sched.sigmas`` is (B, S+1), one
+    ladder per row, and ``i`` the (B,) per-row step indices."""
+    sigma = _row_values(sched.sigmas, i, sample.ndim)
+    return (sample / torch.sqrt(sigma ** 2 + 1.0)).to(sample.dtype)
+
+
+def sampler_step_rows(config: SamplerConfig, sched: SamplingSchedule,
+                      i: torch.Tensor, sample: torch.Tensor,
+                      model_output: torch.Tensor, state: SamplerState,
+                      noise: torch.Tensor | None,
+                      start_index: torch.Tensor
+                      ) -> tuple[torch.Tensor, SamplerState]:
+    """Per-row :func:`sampler_step`, the continuous-batching quantum.
+
+    ``sched.sigmas`` is (B, S+1) and ``sched.timesteps`` (B, S): each row
+    carries its own ladder, padded to the lane's step capacity; ``i`` and
+    ``start_index`` are (B,) per-row positions. The step's expressions are
+    the solo step's, in the same order, over (B, 1, ...) per-row scalars;
+    its two branches on the step (first executed step, last step) are
+    masks. No host sync: nothing here reads a device value on the host.
+    """
+    nd = sample.ndim
+    sigma = _row_values(sched.sigmas, i, nd)
+    sigma_next = _row_values(sched.sigmas, i + 1, nd)
+    x = sample.to(_F32)
+    denoised = denoised_from_model_output(model_output.to(_F32), x, sigma,
+                                          config.prediction_type)
+
+    if config.kind in ("euler", "ddim", "heun"):
+        d = (x - denoised) / sigma
+        x_next = x + (sigma_next - sigma) * d
+    elif config.kind == "euler_ancestral":
+        if noise is None:
+            raise ValueError("euler_ancestral requires noise")
+        var = sigma_next ** 2 * (sigma ** 2 - sigma_next ** 2) / sigma ** 2
+        sigma_up = torch.sqrt(torch.clamp(var, min=0.0))
+        sigma_down = torch.sqrt(torch.clamp(sigma_next ** 2 - sigma_up ** 2,
+                                            min=0.0))
+        d = (x - denoised) / sigma
+        x_next = x + (sigma_down - sigma) * d + noise.to(_F32) * sigma_up
+    elif config.kind == "lcm":
+        if noise is None:
+            raise ValueError("lcm requires noise")
+        ts = _row_values(sched.timesteps, i, nd) * LCM_TIMESTEP_SCALING
+        c_skip = LCM_SIGMA_DATA ** 2 / (ts ** 2 + LCM_SIGMA_DATA ** 2)
+        c_out = ts / torch.sqrt(ts ** 2 + LCM_SIGMA_DATA ** 2)
+        sample_vp = x / torch.sqrt(sigma ** 2 + 1.0)
+        denoised = c_skip * sample_vp + c_out * denoised
+        x_next = denoised + noise.to(_F32) * sigma_next
+    elif config.kind == "dpmpp_2m":
+        def t_fn(s: torch.Tensor) -> torch.Tensor:
+            return -torch.log(torch.clamp(s, min=1e-10))
+
+        t, t_next = t_fn(sigma), t_fn(sigma_next)
+        h = t_next - t
+        sigma_prev = _row_values(sched.sigmas, torch.clamp(i - 1, min=0), nd)
+        h_last = t - t_fn(sigma_prev)
+        r = h_last / h
+        old = state.old_denoised.to(_F32)
+        # the first executed step has r = 0, so the second-order branch is
+        # inf or NaN there: the mask selects around it, never scales it
+        first_or_last = ((i == start_index).reshape(sigma.shape)
+                         | (sigma_next == 0.0))
+        use_d = torch.where(
+            first_or_last, denoised,
+            (1.0 + 1.0 / (2.0 * r)) * denoised - (1.0 / (2.0 * r)) * old)
+        x_next = (sigma_next / sigma) * x - torch.expm1(-h) * use_d
+    else:
+        raise ValueError(f"unknown sampler kind {config.kind!r}")
+
+    x_next = torch.where(sigma_next == 0.0, denoised, x_next)
     return x_next.to(sample.dtype), SamplerState(old_denoised=denoised.to(sample.dtype))
 
 

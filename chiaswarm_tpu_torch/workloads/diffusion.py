@@ -1,5 +1,7 @@
-"""Stable-diffusion workload callback, txt2img path: counterpart of
-``chiaswarm_tpu/workloads/diffusion.py::diffusion_callback`` (:27-191).
+"""Stable-diffusion workload, txt2img path: counterpart of
+``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
+lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
+``stepper_finish`` :236-466).
 
 The job binds to the registry's resident pipeline, generates, screens the
 decoded images (a poisoned trajectory raises ``InvalidOutput`` instead of
@@ -8,10 +10,17 @@ config keys as the JAX callback: the pipeline's config, the safety fields
 the JAX callback emits when no safety checker is present, and the timing
 keys. Inputs this slice does not serve raise ``ValueError`` naming the
 later slice, which the executor reports as a fatal bad-request envelope.
+
+The lane workload hands an eligible txt2img job to the slot's
+continuous-batching scheduler (``serving/stepper.py``) and finishes it into
+the JAX lane envelope's config keys, ``stepper`` stamp included. A job
+carrying anything a later slice serves is not eligible: it takes the solo
+path, which refuses it and names that slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any
 
@@ -26,18 +35,21 @@ from chiaswarm_tpu_torch.serving.guard import screen_images
 SAFETY_UNAVAILABLE = {"nsfw": False, "safety_checker": "unavailable"}
 
 
+#: job arguments a later slice serves, and what each asks for
+_LATER = {
+    "image": "img2img (the img2img/inpaint slice)",
+    "mask_image": "inpainting (the img2img/inpaint slice)",
+    "controlnet_model_name": "ControlNet",
+    "image_guidance_scale": "instruct-pix2pix guidance",
+    "upscale": "the latent upscaler",
+    "textual_inversion": "textual inversion",
+    "lora": "LoRA",
+    "reuse_schedule": "DeepCache reuse",
+}
+
+
 def _refuse(kwargs: dict[str, Any]) -> None:
-    later = {
-        "image": "img2img (the img2img/inpaint slice)",
-        "mask_image": "inpainting (the img2img/inpaint slice)",
-        "controlnet_model_name": "ControlNet",
-        "image_guidance_scale": "instruct-pix2pix guidance",
-        "upscale": "the latent upscaler",
-        "textual_inversion": "textual inversion",
-        "lora": "LoRA",
-        "reuse_schedule": "DeepCache reuse",
-    }
-    for key, what in later.items():
+    for key, what in _LATER.items():
         if kwargs.get(key):
             raise ValueError(f"{what} is not served by chiaswarm_tpu_torch "
                              "yet (a later slice of the port)")
@@ -91,3 +103,122 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         "slot": slot.descriptor() if hasattr(slot, "descriptor") else str(slot),
     })
     return artifacts, config
+
+
+# ---- continuous step-level batching (serving/stepper.py) ---------------
+
+
+def stepper_eligible(kwargs: dict[str, Any]) -> bool:
+    """Can this (formatted) job ride a lane? A conservative pre-filter:
+    ``StepScheduler.submit_request`` is the authority and raises
+    ``LaneReject`` for the residue (steps beyond the capacity lattice, rows
+    wider than the lane cap, non-sd families)."""
+    from chiaswarm_tpu_torch.schedulers.sampling import FEWSTEP_KINDS, SAMPLERS
+    from chiaswarm_tpu_torch.serving.stepper import stepper_enabled
+
+    if not stepper_enabled():
+        return False
+    if any(kwargs.get(key) for key in _LATER):
+        return False  # the solo path refuses it, naming its slice
+    guidance = kwargs.get("guidance_scale")
+    if guidance is not None and float(guidance) <= 1.0:
+        # few-step kinds ride lanes without CFG; the rest run the solo path
+        if SAMPLERS.get(kwargs.get("scheduler_type") or "") not in \
+                FEWSTEP_KINDS:
+            return False
+    height, width = kwargs.get("height"), kwargs.get("width")
+    return not ((height and int(height) > 1024)
+                or (width and int(width) > 1024))
+
+
+@dataclasses.dataclass
+class StepperTicket:
+    """A submitted lane job: ``stepper_finish`` resolves it into the same
+    (artifacts, config) contract the solo callback returns."""
+
+    future: Any
+    model_name: str
+    family: str
+    sampler_kind: str
+    steps: int
+    guidance: float
+    req_hw: tuple[int, int]
+    compiled_hw: tuple[int, int]
+    rows: int
+    seed: int
+    content_type: str
+    slot: Any
+    t0: float
+
+
+def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
+                   job_id: Any = None) -> StepperTicket:
+    """Hand one formatted txt2img job to the slot's step scheduler. Raises
+    ``LaneReject`` (or anything else) when the job must run through the
+    per-job path instead."""
+    from chiaswarm_tpu_torch.core.buckets import bucket_image_size
+    from chiaswarm_tpu_torch.schedulers import resolve
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    model_name = kwargs.get("model_name")
+    pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
+    fam = pipe.c.family
+    height = int(kwargs.get("height") or fam.default_size)
+    width = int(kwargs.get("width") or fam.default_size)
+    steps = max(1, int(kwargs.get("num_inference_steps") or 30))
+    guidance = kwargs.get("guidance_scale")
+    guidance = 7.5 if guidance is None else float(guidance)
+    rows = max(1, int(kwargs.get("num_images_per_prompt") or 1))
+    future = get_stepper(slot).submit_request(
+        pipe,
+        prompt=str(kwargs.get("prompt") or ""),
+        negative_prompt=str(kwargs.get("negative_prompt") or ""),
+        steps=steps, guidance_scale=guidance, height=height, width=width,
+        rows=rows, seed=int(seed), scheduler=kwargs.get("scheduler_type"),
+        job_id=job_id)
+    sampler = resolve(kwargs.get("scheduler_type"),
+                      prediction_type=fam.prediction_type)
+    return StepperTicket(
+        future=future, model_name=model_name, family=fam.name,
+        sampler_kind=sampler.kind, steps=steps, guidance=guidance,
+        req_hw=(height, width), compiled_hw=bucket_image_size(height, width),
+        rows=rows, seed=int(seed),
+        content_type=kwargs.get("content_type", "image/png"),
+        slot=slot, t0=time.perf_counter())
+
+
+def stepper_finish(ticket: StepperTicket):
+    """Block on the lane rows, then postprocess as the solo callback does
+    (un-bucket crop, screen, artifact encode)."""
+    pending, lane_info = ticket.future.result()
+    # the lane decodes at the compiled bucket; un-bucket to the request
+    pending.requested_hw = ticket.req_hw
+    images = pending.wait()
+    screen_images(images, context="lane decode")
+    elapsed = time.perf_counter() - ticket.t0
+
+    proc = OutputProcessor(ticket.content_type)
+    proc.add_images(images)
+    config = {
+        "model_name": ticket.model_name,
+        "family": ticket.family,
+        "scheduler": ticket.sampler_kind,
+        "steps": ticket.steps,
+        "denoise_steps": ticket.steps,
+        "guidance_scale": ticket.guidance,
+        "size": list(ticket.req_hw),
+        "compiled_size": list(ticket.compiled_hw),
+        "batch": ticket.rows,
+        "mode": "txt2img",
+        "seed": ticket.seed,
+        "stepper": dict(lane_info),
+    }
+    config.update(SAFETY_UNAVAILABLE)
+    config.update({
+        "images_per_sec": round(images.shape[0] / max(elapsed, 1e-9), 4),
+        "generation_s": round(elapsed, 3),
+        "slot": (ticket.slot.descriptor()
+                 if hasattr(ticket.slot, "descriptor")
+                 else str(ticket.slot)),
+    })
+    return proc.get_results(), config

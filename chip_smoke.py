@@ -16,8 +16,10 @@ each phase printing one JSON line:
                 (registers, shared memory, spills) and fails on a spill.
 3. kernel     — holds kernel B1 (flash attention) against its plain PyTorch
                 version at the UNet's shapes for SD1.5 at 512 px in bf16
-                (max abs error 4e-3, two bf16 steps at the largest outputs,
-                and relative L2 1e-2), and at ragged fp32 shapes (2e-4 and
+                (batch 2 for a solo job, 4 for a lone job's lane of 2 rows,
+                16 for a lane of 8 rows) (max abs error 4e-3, two bf16 steps
+                at the largest outputs, and relative L2 1e-2), at
+                lane_check's fp32 shape and at ragged fp32 shapes (2e-4 and
                 1e-4, TF32 off); CUDA-event median times of the kernel, the
                 plain version and ``scaled_dot_product_attention`` (the
                 library yardstick, which the port never calls), with FLOP
@@ -36,11 +38,12 @@ each phase printing one JSON line:
                 time is null).
 5. fused_kernel — holds kernel B3 (a whole 4-shard ring in one launch)
                 against its plain version ``ring_flash_fused_plain`` at the
-                three ring attentions of the serve path in bf16 and a ragged
-                fp32 one (S != L) to B1's bars, and against unsharded
-                ``flash_attention_plain`` and the scan drive over B2 on the
-                one-card mesh (whether the two agree bit for bit is
-                printed). Times of B3, its plain version, the scan
+                ring attentions of the seq slot's serve paths in bf16 (batch
+                2 for a solo job, 16 for a lane of 8 rows, 1 for the VAE)
+                and a ragged fp32 one (S != L) to B1's bars, and against
+                unsharded ``flash_attention_plain`` and the scan drive over
+                B2 on the one-card mesh (whether the two agree bit for bit
+                is printed). Times of B3, its plain version, the scan
                 drive and ``scaled_dot_product_attention`` on the unsharded
                 attention (B3's library yardstick), host enqueue times of B3
                 and the scan drive, FLOPs, bytes and the bound.
@@ -63,13 +66,24 @@ each phase printing one JSON line:
                 of its serve shapes) against the single-device plain route:
                 relative L2 3e-2, exactly 160 B2 launches and no other
                 kernel.
+6b. lane_check — the same UNet in float32 on a 32x32 latent: ONE lane step
+                (``DiffusionPipeline.stepper_step``) over 4 rows at different
+                ladder positions (step counts 20, 12 and 7, guidance 7.5, 5.0
+                and 9.0, one inactive row) against each row's solo step (a
+                batch-1 CFG UNet call and ``sampler_step``), for
+                DPM-Solver++(2M) and Euler: relative L2 1e-4 on x and the
+                multistep history, the inactive row bit for bit, 5 B1
+                launches for the lane step, all at the fp32 shape phase 3
+                holds.
 8. serve      — SD1.5 at its published widths, random bf16 weights from a
                 seed, three 512x512 txt2img jobs (20 steps, guidance 7.5,
                 default scheduler) through the port's executor
-                ``synchronous_do_work``. Every envelope must carry no error
-                and a 512x512 PNG, and B1's launch count over the three jobs
-                must be jobs x steps x 10 (5 self-attentions at 4096 tokens
-                and 5 at 1024 per UNet evaluation, CFG batched).
+                ``synchronous_do_work`` on the solo path
+                (``CHIASWARM_STEPPER=0`` for this phase and the next two).
+                Every envelope must carry no error and a 512x512 PNG, and
+                B1's launch count over the three jobs must be jobs x steps x
+                10 (5 self-attentions at 4096 tokens and 5 at 1024 per UNet
+                evaluation, CFG batched).
 9. seq_serve  — the same three jobs on a slot whose mesh has ``seq = 4``
                 over ``cuda:0`` named four times: every envelope error-free
                 with a 512x512 PNG, B3 launched jobs x (steps x 10 + 1)
@@ -80,14 +94,40 @@ each phase printing one JSON line:
                 else ``cuda:0`` named four times, and the rotation copies
                 stay on the card): B2 launched jobs x (steps x 160 + 16)
                 times, B1 and B3 never.
-11. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
+11. lane_serve — the serve jobs again, one after another, through the
+                continuous-batching lanes (the default engine): each job a
+                lane's (a ``stepper`` stamp, no fallback to the per-job
+                path), B1 launched 10 times per lane step; the uint8
+                difference from the serve phase's image of each seed is
+                printed as information.
+12. lane_burst — eight jobs at once through ``synchronous_do_work_batch``
+                on a lane pinned at 8 rows (steps 20 and 12, guidance 7.5
+                and 5.0 alternating) and a ninth through
+                ``synchronous_do_work`` from a second thread once the lane
+                has stepped 5 times: it splices in mid-flight when the
+                12-step rows retire. Every job on one lane, the ninth
+                admitted at a step >= 1, B1 launched 10 times per lane step
+                and fewer lane steps than half the jobs' summed steps; job
+                11 alone in a lane of the same width within one uint8 level
+                of its burst image. Images/s, peak memory, resizes and the
+                active and padded row steps are printed.
+13. lane_seq_serve — four of the burst jobs through the lanes of the
+                one-card ``seq = 4`` slot, pinned at 8 rows: B3 launched 10
+                times per lane step and once per decode, B1 and B2 never.
+14. shapes_held — every shape at which a phase from 8 on launched a kernel
+                is one its kernel phase (3-5) held against the plain
+                version; each phase's launches by shape.
+15. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
                 kernel it replaces, its designs (``wgmma+cp.async`` for the
                 tensor-core route of B1, B2 and B3 — bf16 and fp16 at head
                 dims up to 160 — ``sweep`` for the CUDA-core sweep of fp32
-                and head dim 512), its launches on its serve phase, and
-                its numbers from its kernel phase averaged over that serve
-                phase's launch mix (per-shape numbers, each with its design
-                and its factor against the library call, under ``shapes``).
+                and head dim 512), its launches on its solo serve phase
+                (by shape too), and its numbers from its kernel phase
+                averaged over those launches (per-shape numbers, each with
+                its design and its factor against the library call, under
+                ``shapes``); B1 also under ``lane_serve`` and
+                ``lane_burst`` and B3 under ``lane_seq_serve``, with their
+                launches there and their numbers over those launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero without that line — also when CUDA is absent
@@ -273,11 +313,20 @@ def attention_work(b: int, l: int, s: int, h: int, d: int, dtype) -> dict:
 # 0.25); a kernel off by a few percent everywhere (a wrong scale, a skipped
 # KV tile) fails the relative L2 bar.
 KERNEL_SHAPES = [
-    # (B, L, S, H, D, dtype, max abs error, relative L2, on the serve path)
-    (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, True),
-    (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, True),
-    (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, False),
-    (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, False),
+    # (B, L, S, H, D, dtype, max abs error, relative L2, the phases that
+    # launch it: the solo serve path (one job, CFG doubles the batch), a lone
+    # job's lane of 2 rows in lane_serve (its adaptive lane may narrow to
+    # one row, batch 2), a lane of 8 rows in lane_burst, and lane_check's
+    # fp32 lane step over 4 rows at a 32x32 latent)
+    (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("serve",)),
+    (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("serve",)),
+    (4, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
+    (4, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
+    (16, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
+    (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
+    (8, 1024, 1024, 8, 40, "float32", 2e-4, 1e-4, ("lane_check",)),
+    (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
+    (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
 ]
 
 
@@ -310,7 +359,7 @@ def kernel_phase(torch) -> list[dict]:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
-    for b, l, s, h, d, dtype_name, tol, rel_tol, served in KERNEL_SHAPES:
+    for b, l, s, h, d, dtype_name, tol, rel_tol, paths in KERNEL_SHAPES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, l, h, d), generator=gen).to("cuda", dtype)
         k = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
@@ -324,7 +373,7 @@ def kernel_phase(torch) -> list[dict]:
             "design": design(dtype_name, d),
             **_held("B1", shape, out, flash_attention_plain(q, k, v), tol,
                     rel_tol),
-            "served": served,
+            "served": bool(paths), "paths": list(paths),
             "ms": time_ms(torch, lambda: flash_attention(q, k, v)),
             "plain_ms": time_ms(torch, lambda: flash_attention_plain(q, k, v)),
             "library_ms": time_ms(
@@ -368,18 +417,19 @@ def one_card_devices(torch) -> list:
 
 
 @contextlib.contextmanager
-def ring_mode(mode: str):
-    """CHIASWARM_RING_FLASH set to ``mode`` ("scan": the scan drive over B2;
-    "": B3 where the shards share q's card) for the block."""
-    old = os.environ.get("CHIASWARM_RING_FLASH")
-    os.environ["CHIASWARM_RING_FLASH"] = mode
+def env(**values: str):
+    """The environment variables ``values`` set for the block, then
+    restored."""
+    old = {name: os.environ.get(name) for name in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("CHIASWARM_RING_FLASH")
-        else:
-            os.environ["CHIASWARM_RING_FLASH"] = old
+        for name, value in old.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 # B2 shapes: the query shard, a K/V shard, and the launches per job of the
@@ -457,15 +507,19 @@ def ring_kernel_phase(torch) -> list[dict]:
     return rows
 
 
-# B3 shapes: the whole ring attention of the serve path (q = k/v length)
-# and the launches per job (20 steps x 5 self-attentions per UNet level,
-# one for the VAE mid block)
+# B3 shapes: the whole ring attention (q = k/v length) of a solo job on the
+# seq slot (5 self-attentions per UNet level a step), of a lane of 8 rows
+# there (16 UNet rows with CFG), and of the VAE mid block (one a decode)
 FUSED_SHAPES = [
-    # (B, L, S, H, D, dtype, max abs error, relative L2, launches per job)
-    (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, 100),
-    (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, 100),
-    (1, 4096, 4096, 1, 512, "bfloat16", 4e-3, 1e-2, 1),
-    (1, 600, 680, 2, 64, "float32", 2e-4, 1e-4, 0),
+    # (B, L, S, H, D, dtype, max abs error, relative L2, the phases that
+    # launch it)
+    (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("seq_serve",)),
+    (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("seq_serve",)),
+    (16, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_seq_serve",)),
+    (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_seq_serve",)),
+    (1, 4096, 4096, 1, 512, "bfloat16", 4e-3, 1e-2,
+     ("seq_serve", "lane_seq_serve")),
+    (1, 600, 680, 2, 64, "float32", 2e-4, 1e-4, ()),
 ]
 
 
@@ -482,14 +536,14 @@ def fused_kernel_phase(torch) -> list[dict]:
     mesh = ring_mesh(torch, one_card_devices(torch))
     gen = torch.Generator(device="cpu").manual_seed(4)
     rows = []
-    for b, l, s, h, d, dtype_name, tol, rel_tol, per_job in FUSED_SHAPES:
+    for b, l, s, h, d, dtype_name, tol, rel_tol, paths in FUSED_SHAPES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, l, h, d), generator=gen).to("cuda", dtype)
         k, v = (torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
                 for _ in range(2))
         scale = d ** -0.5
         out = ring_flash_fused(q, k, v, shards=RING_SHARDS)
-        with ring_mode("scan"):
+        with env(CHIASWARM_RING_FLASH="scan"):
             scan = ring_flash_attention(q, k, v, mesh=mesh)
         torch.cuda.synchronize()
         shape = [b, l, s, h, d]
@@ -500,13 +554,13 @@ def fused_kernel_phase(torch) -> list[dict]:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def scan_ring():
-            with ring_mode("scan"):
+            with env(CHIASWARM_RING_FLASH="scan"):
                 ring_flash_attention(q, k, v, mesh=mesh)
 
         row = {
             "shape": shape, "dtype": dtype_name, "shards": RING_SHARDS,
             "design": design(dtype_name, d),
-            "launches_per_job": per_job, "served": per_job > 0,
+            "served": bool(paths), "paths": list(paths),
             **_held("B3", shape, out, ring_flash_fused_plain(
                 q, k, v, shards=RING_SHARDS, scale=scale), tol, rel_tol),
             "max_abs_err_vs_unsharded": (out.float() - unsharded.float())
@@ -652,7 +706,7 @@ def ring_check_phase(torch) -> None:
                 mesh = ring_mesh(torch, devices)
                 want = rings * (1 if kernel is B3 else RING_SHARDS ** 2)
                 kernels.reset_launches()
-                with ring_mode(mode), sequence_parallel(mesh):
+                with env(CHIASWARM_RING_FLASH=mode), sequence_parallel(mesh):
                     out_ring = fn(*args)
                 launches = {n: k.launches for n, k in kernels.KERNELS.items()}
                 torch.cuda.synchronize()
@@ -701,7 +755,7 @@ def ring_check_unet_bf16(torch, unet, gen) -> dict:
         out_local = unet(x, t, ctx).float()
         set_attn_impl(unet, "auto")
         kernels.reset_launches()
-        with ring_mode("scan"), sequence_parallel(mesh):
+        with env(CHIASWARM_RING_FLASH="scan"), sequence_parallel(mesh):
             out_ring = unet(x, t, ctx).float()
         launches = {n: k.launches for n, k in kernels.KERNELS.items()}
     torch.cuda.synchronize()
@@ -735,10 +789,33 @@ JOBS = [{"id": f"smoke-sd15-{seed}", "model_name": "sd15",
          "content_type": "image/png"} for seed in (1, 2, 3)][:SERVE_JOBS]
 
 
-def run_jobs(torch, phase: str, slot, registry) -> tuple[list, dict]:
-    """The serve jobs through ``synchronous_do_work`` on ``slot``, with every
-    launch count set to 0 just before. Returns the job seconds and each
-    job's PNG blob by seed; raises on an error envelope or a wrong PNG."""
+def check_envelope(phase: str, job: dict, result: dict, lanes: bool) -> str:
+    """Raises on an error envelope, a PNG that is not 512x512, or (with
+    ``lanes``) a job a lane did not serve. Returns the PNG blob."""
+    cfg = result["pipeline_config"]
+    if "error" in cfg:
+        raise AssertionError(f"{phase} job {job['id']} failed: "
+                             f"{cfg['error']}")
+    if lanes and "stepper" not in cfg:
+        raise AssertionError(f"{phase} job {job['id']} fell back to the "
+                             "per-job path: no stepper stamp")
+    if not lanes and "stepper" in cfg:
+        raise AssertionError(f"{phase} job {job['id']} rode a lane on the "
+                             "solo path")
+    blob = result["artifacts"]["primary"]["blob"]
+    hw = png_hw(blob)
+    if hw != (512, 512):
+        raise AssertionError(f"{phase} job {job['id']} PNG is {hw}, "
+                             "not 512x512")
+    return blob
+
+
+def run_jobs(torch, phase: str, slot, registry,
+             lanes: bool = False) -> tuple[list, dict]:
+    """The serve jobs through ``synchronous_do_work`` on ``slot``, one after
+    another, with every launch count set to 0 just before. Returns the job
+    seconds and each job's PNG blob by seed; raises on an error envelope, a
+    wrong PNG, or a job on the wrong path (``lanes``)."""
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
     from chiaswarm_tpu_torch.ops import kernels
 
@@ -750,18 +827,12 @@ def run_jobs(torch, phase: str, slot, registry) -> tuple[list, dict]:
         result = synchronous_do_work(dict(job), slot, registry)
         seconds.append(time.perf_counter() - t1)
         cfg = result["pipeline_config"]
-        if "error" in cfg:
-            raise AssertionError(f"{phase} job {job['id']} failed: "
-                                 f"{cfg['error']}")
-        blobs[job["seed"]] = result["artifacts"]["primary"]["blob"]
-        hw = png_hw(blobs[job["seed"]])
-        if hw != (512, 512):
-            raise AssertionError(f"{phase} job {job['id']} PNG is {hw}, "
-                                 "not 512x512")
+        blobs[job["seed"]] = check_envelope(phase, job, result, lanes)
         emit(f"{phase}_job", id=job["id"], seed=cfg["seed"],
              seconds=seconds[-1], generation_s=cfg["generation_s"],
-             scheduler=cfg["scheduler"], png_hw=list(hw),
-             mesh_shape=cfg["slot"]["mesh_shape"])
+             scheduler=cfg["scheduler"], png_hw=[512, 512],
+             mesh_shape=cfg["slot"]["mesh_shape"],
+             stepper=cfg.get("stepper"))
     return seconds, blobs
 
 
@@ -774,14 +845,39 @@ def load_pipeline(torch, phase: str, registry, mesh=None) -> None:
          param_bytes=pipe.c.param_bytes(), dtype=str(pipe.c.dtype))
 
 
-def serve_phase(torch) -> tuple[dict, dict]:
-    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
-    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+def launched() -> dict:
+    """Every kernel's launches since the counts were last set to 0, in all
+    and by shape (B, L, S, H, D, dtype)."""
     from chiaswarm_tpu_torch.ops import kernels
 
-    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
-                             allow_random=True, device="cuda")
-    slot = ChipPool(device="cuda").slots[0]
+    return {name: {"launches": k.launches, "shapes": dict(k.shapes)}
+            for name, k in kernels.KERNELS.items()}
+
+
+def shape_key(row: dict) -> tuple:
+    return (*row["shape"], row["dtype"])
+
+
+def check_held(runs: dict, tables: dict) -> None:
+    """Every shape at which a served phase launched a kernel is one that
+    its kernel phase held against the plain version; prints each phase's
+    launches by shape."""
+    for phase, run in runs.items():
+        for name, rows in tables.items():
+            held = {shape_key(r) for r in rows}
+            unheld = sorted(k for k in run[name]["shapes"] if k not in held)
+            if unheld:
+                raise AssertionError(
+                    f"{phase} launched {name} at {unheld}: no kernel phase "
+                    "held it against its plain version at those shapes")
+    emit("shapes_held", **{phase: {
+        name: [[*key, n] for key, n in run[name]["shapes"].items()]
+        for name in tables} for phase, run in runs.items()})
+
+
+def serve_phase(torch, registry, slot) -> tuple[dict, dict]:
+    from chiaswarm_tpu_torch.ops import kernels
+
     load_pipeline(torch, "serve", registry)
     seconds, blobs = run_jobs(torch, "serve", slot, registry)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
@@ -794,15 +890,13 @@ def serve_phase(torch) -> tuple[dict, dict]:
     if launches["flash_attention"] != want:
         raise AssertionError(f"B1 launched {launches['flash_attention']} "
                              f"times in the serve phase, expected {want}")
-    return launches, blobs
+    return launched(), blobs
 
 
 def decode_png(blob_b64: str):
-    try:
-        import numpy as np
-        from PIL import Image
-    except ImportError:
-        return None
+    import numpy as np
+    from PIL import Image
+
     return np.asarray(Image.open(io.BytesIO(base64.b64decode(blob_b64)))
                       .convert("RGB")).astype("int16")
 
@@ -829,16 +923,15 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
                              allow_random=True, device="cuda")
     slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
                     devices=devices).slots[0]
-    with ring_mode(mode):
+    with env(CHIASWARM_RING_FLASH=mode):
         load_pipeline(torch, phase, registry, mesh=slot.mesh)
         seconds, blobs = run_jobs(torch, phase, slot, registry)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     want = len(JOBS) * (SERVE_STEPS * per_eval + per_decode)
     diffs = {}
     for seed, blob in blobs.items():
-        ours, solo = decode_png(blob), decode_png(solo_blobs[seed])
-        diffs[seed] = (None if ours is None
-                       else int(abs(ours - solo).max()))
+        diffs[seed] = int(abs(decode_png(blob)
+                              - decode_png(solo_blobs[seed])).max())
     desc = slot.descriptor()
     emit(phase, jobs=len(JOBS), steps=SERVE_STEPS,
          ring_flash_mode=mode or "default", kernel=kernel.name,
@@ -852,16 +945,316 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
     if launches[kernel.name] != want or sum(launches.values()) != want:
         raise AssertionError(f"{phase} launched {launches}, expected "
                              f"{want} of {kernel.name} and no other")
-    return launches
+    return launched()
 
 
-def kernel_entry(name: str, rows: list[dict], launches: int,
-                 weights: list[int], **extra) -> dict:
-    """One kernel of the kernels line: per-launch numbers averaged over its
-    serve phase's launch mix (``weights``, per row)."""
+# ---------------------------------------------------------------------------
+# the continuous-batching lanes (serving/stepper.py), the default engine
+
+
+def lane_check_phase(torch) -> None:
+    """The full-width SD1.5 UNet in float32 (TF32 off) on a 32x32 latent:
+    ONE lane step over 4 rows (step counts 20, 12 and 7 at different ladder
+    positions, guidance 7.5, 5.0 and 9.0, one inactive row) against each
+    row's solo step (a batch-1 CFG UNet call and ``sampler_step``), for
+    DPM-Solver++(2M) and Euler. Relative L2 1e-4 on x and the multistep
+    history, the inactive row bit for bit, and the lane step itself
+    launching B1 5 times (the 1024-token level, whatever the width)."""
+    from chiaswarm_tpu_torch.ops.flash_attention import KERNEL
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from chiaswarm_tpu_torch.schedulers import (
+        SamplerState,
+        make_sampling_schedule,
+        resolve,
+        sampler_step,
+        scale_model_input,
+    )
+
+    pipe = DiffusionPipeline(Components.random("sd15", seed=0, device="cuda",
+                                               dtype=torch.float32))
+    steps, idx = (20, 12, 7, 20), (0, 5, 6, 3)
+    guidance = torch.tensor([7.5, 5.0, 9.0, 7.5])
+    active = torch.tensor([True, True, True, False])
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x, old = (torch.randn((4, 4, 32, 32), generator=gen).cuda()
+              for _ in range(2))
+    ctx_u, ctx_c = (torch.randn((4, 77, 768), generator=gen).cuda()
+                    for _ in range(2))
+    results = {}
+    for name in (None, "EulerDiscreteScheduler"):
+        sampler = resolve(name)
+        scheds = [make_sampling_schedule(pipe.noise_schedule, n, sampler)
+                  for n in steps]
+        sig = torch.zeros((4, 33))
+        ts = torch.zeros((4, 32))
+        for b, sched in enumerate(scheds):
+            sig[b, :steps[b] + 1] = sched.sigmas
+            ts[b, :steps[b]] = sched.timesteps
+        before = KERNEL.launches
+        shapes_before = dict(KERNEL.shapes)
+        x_l, idx_l, old_l = pipe.stepper_step(
+            sampler=sampler, ctx_u=ctx_u, ctx_c=ctx_c, x=x,
+            idx=torch.tensor(idx, device="cuda"),
+            start_idx=torch.zeros(4, dtype=torch.long, device="cuda"),
+            sigmas=sig.cuda(), timesteps=ts.cuda(), guidance=guidance.cuda(),
+            old_denoised=old, active=active.cuda(), generators=[None] * 4)
+        torch.cuda.synchronize()
+        launches = KERNEL.launches - before
+        shapes = {key: n - shapes_before.get(key, 0)
+                  for key, n in KERNEL.shapes.items()
+                  if n != shapes_before.get(key, 0)}
+        rels = []
+        with torch.inference_mode():
+            for b in range(3):
+                one = slice(b, b + 1)
+                inp = scale_model_input(scheds[b], x[one], idx[b])
+                t = scheds[b].timesteps[idx[b]].cuda().expand(2)
+                eps_u, eps_c = pipe.c.unet(
+                    torch.cat([inp, inp]), t,
+                    torch.cat([ctx_u[one], ctx_c[one]])).chunk(2)
+                eps = eps_u + float(guidance[b]) * (eps_c - eps_u)
+                x_s, state = sampler_step(sampler, scheds[b], idx[b], x[one],
+                                          eps, SamplerState(old[one]))
+                rels.append([((got - ref).norm() / ref.norm()).item()
+                             for got, ref in ((x_l[one], x_s),
+                                              (old_l[one],
+                                               state.old_denoised))])
+        frozen = bool(torch.equal(x_l[3], x[3]) and torch.equal(old_l[3],
+                                                                old[3]))
+        kind = sampler.kind
+        results[kind] = {"b1_launches": launches,
+                         "b1_shapes": [[*k, n] for k, n in shapes.items()],
+                         "rel_l2_x_old": rels,
+                         "inactive_row_bit_equal": frozen,
+                         "idx_next": idx_l.tolist()}
+        worst = max(max(r) for r in rels)
+        # the 1024-token level, 8 UNet rows: a shape the kernel phase holds
+        if (shapes != {(8, 1024, 1024, 8, 40, "float32"): 5}
+                or launches != 5 or not frozen or not worst <= 1e-4
+                or idx_l.tolist() != [1, 6, 7, 3]):
+            raise AssertionError(f"lane check ({kind}) failed: {results[kind]}")
+    emit("lane_check", model="sd15 unet fp32", latent=[4, 4, 32, 32],
+         width=4, steps=list(steps), idx=list(idx),
+         guidance=guidance.tolist(), active=active.tolist(), tolerance=1e-4,
+         **results)
+    del pipe
+    torch.cuda.empty_cache()
+
+
+def stepper_stats(slot) -> dict:
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    return get_stepper(slot).stats()
+
+
+def delta(after: dict, before: dict, key: str) -> int:
+    return after.get(key, 0) - before.get(key, 0)
+
+
+def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> dict:
+    """The serve jobs one after another through ``synchronous_do_work`` with
+    the lanes on, on the solo slot: each job alone in a lane (adaptive
+    width). Every job a lane's; B1 launched 10 times per lane step."""
+    from chiaswarm_tpu_torch.ops import kernels
+
+    before = stepper_stats(slot)
+    seconds, blobs = run_jobs(torch, "lane_serve", slot, registry, lanes=True)
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    after = stepper_stats(slot)
+    steps = delta(after, before, "steps_executed")
+    want = steps * B1_LAUNCHES_PER_UNET_EVAL
+    emit("lane_serve", jobs=len(JOBS), steps=SERVE_STEPS,
+         job_seconds=seconds, images_per_s=len(JOBS) / sum(seconds),
+         images_per_s_after_first=(len(JOBS) - 1) / sum(seconds[1:]),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         steps_executed=steps, launches=launches,
+         expected_flash_launches=want,
+         vs_serve=image_diffs(blobs, solo_blobs))
+    if launches["flash_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"lane_serve launched {launches}, expected "
+                             f"{want} of flash_attention and no other")
+    return launched()
+
+
+def image_diffs(blobs: dict, ref_blobs: dict) -> dict:
+    """Per seed: the largest uint8 difference and the share of values within
+    one level, against the reference's image of the same seed."""
+    diffs = {}
+    for seed, blob in blobs.items():
+        diff = abs(decode_png(blob) - decode_png(ref_blobs[seed]))
+        diffs[seed] = {"max": int(diff.max()),
+                       "within_one": float((diff <= 1).mean()),
+                       "bit_equal": bool((diff == 0).all())}
+    return diffs
+
+
+LANE_WIDTH = 8
+BURST_JOBS = [{"id": f"burst-sd15-{seed}", "model_name": "sd15",
+               "prompt": "a lighthouse on a cliff at golden hour, oil painting",
+               "negative_prompt": "blurry, low quality" if seed == 12 else "",
+               "num_inference_steps": 20 if seed % 2 else 12,
+               "guidance_scale": 7.5 if seed % 2 else 5.0,
+               "height": 512, "width": 512, "seed": seed,
+               "content_type": "image/png"} for seed in range(11, 19)]
+LATE_JOB = dict(BURST_JOBS[0], id="burst-sd15-19", seed=19)
+
+
+def lane_burst_phase(torch, registry, slot) -> dict:
+    """Eight jobs at once through ``synchronous_do_work_batch`` at a pinned
+    lane width of 8 (steps 20 and 12, guidance 7.5 and 5.0 alternating),
+    and a ninth through ``synchronous_do_work`` from a second thread once
+    the lane has executed 5 steps: it waits for the 12-step rows to retire
+    and splices in mid-flight. Every job on one lane; B1 launched 10 times
+    per lane step, and fewer lane steps than half the jobs' summed steps.
+    Then job 11 alone in a lane of the same width: its image within one
+    uint8 level of the burst's (the per-row plumbing at one batch shape).
+    Returns the burst's launches (``launched``)."""
+    import threading
+
+    from chiaswarm_tpu_torch.node.executor import (
+        synchronous_do_work,
+        synchronous_do_work_batch,
+    )
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    get_stepper(slot).shutdown()  # lanes of another width policy
+    jobs = BURST_JOBS + [LATE_JOB]
+    with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)):
+        before = stepper_stats(slot)
+        late: dict = {}
+
+        def submit_late():
+            # at least 5 lane steps in, from a thread of its own
+            while (delta(stepper_stats(slot), before, "steps_executed") < 5
+                   and time.perf_counter() - t0 < 600):
+                time.sleep(0.002)
+            late["submitted_at"] = delta(stepper_stats(slot), before,
+                                         "steps_executed")
+            late["result"] = synchronous_do_work(dict(LATE_JOB), slot,
+                                                 registry)
+            late["done_s"] = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=submit_late, name="late-job")
+        thread.start()
+        results = synchronous_do_work_batch([dict(j) for j in BURST_JOBS],
+                                            slot, registry)
+        burst_s = time.perf_counter() - t0
+        thread.join(timeout=900)
+        wall_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        run = launched()
+        after = stepper_stats(slot)
+        peak = torch.cuda.max_memory_allocated()
+        if "result" not in late:
+            raise AssertionError("the ninth job never returned")
+        results.append(late["result"])
+        blobs, infos = {}, {}
+        for job, result in zip(jobs, results):
+            blobs[job["seed"]] = check_envelope("lane_burst", job, result,
+                                                lanes=True)
+            infos[job["seed"]] = result["pipeline_config"]["stepper"]
+        # job 11 alone in a lane of the same width
+        alone = synchronous_do_work(dict(BURST_JOBS[0]), slot, registry)
+        alone_blob = check_envelope("lane_burst", BURST_JOBS[0], alone,
+                                    lanes=True)
+    get_stepper(slot).shutdown()
+    steps = delta(after, before, "steps_executed")
+    summed = sum(j["num_inference_steps"] for j in jobs)
+    want = steps * B1_LAUNCHES_PER_UNET_EVAL
+    isolation = image_diffs({11: blobs[11]}, {11: alone_blob})[11]
+    lanes_used = {info["lane"] for info in infos.values()}
+    row_active = delta(after, before, "row_steps_active")
+    row_padded = delta(after, before, "row_steps_padded")
+    emit("lane_burst", jobs=len(jobs), lane_width=LANE_WIDTH,
+         burst_s=burst_s, wall_s=wall_s, images_per_s=len(jobs) / wall_s,
+         late_submitted_at_step=late["submitted_at"],
+         late_admitted_at_step=infos[19]["admitted_at_step"],
+         steps_executed=steps, summed_job_steps=summed,
+         launches=launches, expected_flash_launches=want,
+         lane_resizes=delta(after, before, "lane_resizes"),
+         row_steps_active=row_active, row_steps_padded=row_padded,
+         occupancy=row_active / max(1, row_active + row_padded),
+         step_seconds_ewma=after.get("step_seconds_ewma"),
+         max_memory_allocated=peak, lanes=sorted(lanes_used),
+         stepper={seed: infos[seed] for seed in sorted(infos)},
+         isolation_job_11=isolation)
+    if (launches["flash_attention"] != want or sum(launches.values()) != want
+            or len(lanes_used) != 1 or infos[19]["admitted_at_step"] < 1
+            or not steps < summed / 2 or isolation["max"] > 1):
+        raise AssertionError(
+            f"lane_burst failed: launches {launches} (want {want} of "
+            f"flash_attention), lanes {lanes_used}, ninth job admitted at "
+            f"step {infos[19]['admitted_at_step']}, steps {steps} (bar < "
+            f"{summed / 2}), isolation {isolation}")
+    return run
+
+
+def lane_seq_serve_phase(torch) -> dict:
+    """Four of the burst jobs through the lanes of the one-card ``seq = 4``
+    slot, at a pinned lane width of 8 as in ``lane_burst``: every large
+    self-attention of every lane step and every lane decode one B3 launch;
+    B1 and B2 never. Returns its launches (``launched``)."""
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        FUSED_KERNEL as B3,
+    )
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+                             allow_random=True, device="cuda")
+    slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
+                    devices=one_card_devices(torch)).slots[0]
+    jobs = BURST_JOBS[:4]
+    with env(CHIASWARM_RING_FLASH="",
+             CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)):
+        load_pipeline(torch, "lane_seq_serve", registry, mesh=slot.mesh)
+        before = stepper_stats(slot)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                            registry)
+        wall_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        run = launched()
+        after = stepper_stats(slot)
+    get_stepper(slot).shutdown()
+    for job, result in zip(jobs, results):
+        check_envelope("lane_seq_serve", job, result, lanes=True)
+    steps = delta(after, before, "steps_executed")
+    decodes = delta(after, before, "rows_completed")  # one row a job
+    want = steps * B3_LAUNCHES_PER_UNET_EVAL + decodes * B3_LAUNCHES_PER_DECODE
+    desc = slot.descriptor()
+    emit("lane_seq_serve", jobs=len(jobs), wall_s=wall_s,
+         images_per_s=len(jobs) / wall_s, mesh_shape=desc["mesh_shape"],
+         mesh_devices=desc["mesh_devices"], steps_executed=steps,
+         decodes=decodes, launches=launches, expected_ring_launches=want,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         stepper=[r["pipeline_config"]["stepper"] for r in results])
+    if launches[B3.name] != want or sum(launches.values()) != want:
+        raise AssertionError(f"lane_seq_serve launched {launches}, expected "
+                             f"{want} of {B3.name} and no other")
+    return run
+
+
+def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
+    """One kernel of the kernels line: its launches in a served phase
+    (``run``, from ``launched``) and its per-launch numbers from its kernel
+    phase averaged over that phase's launches by shape."""
     from chiaswarm_tpu_torch.ops.kernels import KERNELS
 
     k = KERNELS[name]
+    weights = [run[name]["shapes"].get(shape_key(r), 0) for r in rows]
 
     def mix(key):
         values = [r[key] for r in rows]
@@ -879,7 +1272,8 @@ def kernel_entry(name: str, rows: list[dict], launches: int,
         "source": str(k.source.relative_to(ROOT)),
         "replaces": k.replaces,
         "design": ", ".join(dict.fromkeys(served)) if served else None,
-        "launches": launches,
+        "launches": run[name]["launches"],
+        "launches_by_shape": weights,
         "checked_against_plain": True,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": mix("ms"), "plain_ms": mix("plain_ms"),
@@ -888,31 +1282,34 @@ def kernel_entry(name: str, rows: list[dict], launches: int,
         "library_ms": mix("library_ms"),
         "vs_library": vs_library(mix("ms"), mix("library_ms")),
         **extra,
-        "shapes": rows,
     }
 
 
-def kernels_line(b1_rows: list[dict], b1_launches: dict, b2_rows: list[dict],
-                 b2_launches: dict, b3_rows: list[dict],
-                 b3_launches: dict) -> None:
-    # B1: the serve phase launches it equally often at each of its shapes
-    b1_weights = [1 if r["served"] else 0 for r in b1_rows]
+def kernels_line(runs: dict, tables: dict) -> None:
+    """Each kernel on its solo serve phase, with the lane phases that
+    launch it beside (their launches and numbers over their shapes); the
+    per-shape numbers under ``shapes``, in the order of
+    ``launches_by_shape``."""
+    def entry(name, phase, lanes=(), **extra):
+        for lane in lanes:
+            extra[lane] = kernel_entry(name, tables[name], runs[lane])
+            for key in ("name", "route", "source", "replaces",
+                        "checked_against_plain", "max_abs_err"):
+                del extra[lane][key]
+        return {**kernel_entry(name, tables[name], runs[phase], **extra),
+                "shapes": tables[name]}
+
     entries = [
-        kernel_entry("flash_attention", b1_rows,
-                     b1_launches["flash_attention"], b1_weights),
-        kernel_entry(
-            "ring_flash_hop", b2_rows, b2_launches["ring_flash_hop"],
-            [r["launches_per_job"] for r in b2_rows],
-            library_note="no single PyTorch call computes one ring hop with "
-                         "carried state; the whole ring, scan drive "
-                         "included, is timed beside "
-                         "scaled_dot_product_attention under "
-                         "ring_flash_fused"),
-        kernel_entry(
-            "ring_flash_fused", b3_rows, b3_launches["ring_flash_fused"],
-            [r["launches_per_job"] for r in b3_rows],
-            library_note="scaled_dot_product_attention on the unsharded "
-                         "attention"),
+        entry("flash_attention", "serve", ("lane_serve", "lane_burst")),
+        entry("ring_flash_hop", "seq_serve_scan",
+              library_note="no single PyTorch call computes one ring hop "
+                           "with carried state; the whole ring, scan drive "
+                           "included, is timed beside "
+                           "scaled_dot_product_attention under "
+                           "ring_flash_fused"),
+        entry("ring_flash_fused", "seq_serve", ("lane_seq_serve",),
+              library_note="scaled_dot_product_attention on the unsharded "
+                           "attention"),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
 
@@ -926,14 +1323,31 @@ def main() -> int:
     b2_rows = ring_kernel_phase(torch)
     b3_rows = fused_kernel_phase(torch)
     check_phase(torch)
+    lane_check_phase(torch)
     ring_check_phase(torch)
     # serve with PyTorch's defaults, as a worker would
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    b1_launches, solo_blobs = serve_phase(torch)
-    b3_launches = seq_serve_phase(torch, "seq_serve", solo_blobs)
-    b2_launches = seq_serve_phase(torch, "seq_serve_scan", solo_blobs)
-    kernels_line(b1_rows, b1_launches, b2_rows, b2_launches, b3_rows,
-                 b3_launches)
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+                             allow_random=True, device="cuda")
+    slot = ChipPool(device="cuda").slots[0]
+    runs = {}
+    with env(CHIASWARM_STEPPER="0"):  # the solo path
+        runs["serve"], solo_blobs = serve_phase(torch, registry, slot)
+        runs["seq_serve"] = seq_serve_phase(torch, "seq_serve", solo_blobs)
+        runs["seq_serve_scan"] = seq_serve_phase(torch, "seq_serve_scan",
+                                                 solo_blobs)
+    with env(CHIASWARM_STEPPER="1"):  # the lanes, the default engine
+        runs["lane_serve"] = lane_serve_phase(torch, registry, slot,
+                                              solo_blobs)
+        runs["lane_burst"] = lane_burst_phase(torch, registry, slot)
+        runs["lane_seq_serve"] = lane_seq_serve_phase(torch)
+    tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
+              "ring_flash_fused": b3_rows}
+    check_held(runs, tables)
+    kernels_line(runs, tables)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 attention), B2 (one ring hop with carried state) and B3 (a whole ring in one
 launch) against their plain PyTorch versions, their refusals, and the
 dispatcher's routes to them (B3, and B2 under the scan drive, through a
-4-shard ring on one card).
+4-shard ring on one card), B1 and B3 at the batches a continuous-batching
+lane gives them (2W rows for a lane of W), and one lane step against each
+row's solo step on a small float32 UNet through B1.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -483,3 +485,116 @@ def test_one_card_ring_runs_b3_and_matches_unsharded(cuda_device,
             tring.FUSED_KERNEL.launches - counts[2]) == (0, 0, 1)
     ref = flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching lanes (serving/stepper.py): a lane of W rows runs
+# its UNet on 2W rows (CFG), so B1 and B3 take batches of 8 to 32
+
+
+@pytest.mark.parametrize("b,l,h,d", [
+    (8, 4096, 8, 40), (8, 1024, 8, 80),     # a lane of width 4 at 512 px
+    (16, 4096, 8, 40), (16, 1024, 8, 80),   # width 8
+])
+def test_kernel_matches_plain_at_lane_batches(cuda_device, b, l, h, d):
+    q, k, v = _qkv((b, l, h, d), (b, l, h, d), torch.bfloat16, cuda_device)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("b,l,d", [
+    (16, 4096, 40), (16, 1024, 80),   # a lane of width 8 on a seq slot
+    (32, 4096, 40), (32, 1024, 80),   # width 16
+])
+def test_fused_ring_kernel_matches_plain_at_lane_batches(cuda_device, b, l,
+                                                         d):
+    """B3's ticket counter, counters and slots at a lane's batch: up to 32
+    x 8 heads x 4 shards x 4 hops of work units."""
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v = _qkv((b, l, 8, d), (b, l, 8, d), torch.bfloat16, cuda_device)
+    before = tring.FUSED_KERNEL.launches
+    out = tring.ring_flash_fused(q, k, v, shards=4)
+    torch.cuda.synchronize()
+    assert tring.FUSED_KERNEL.launches == before + 1
+    plain = tring.ring_flash_fused_plain(q, k, v, shards=4, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("scheduler", [None, "EulerDiscreteScheduler"])
+def test_lane_step_matches_each_rows_solo_step(cuda_device, scheduler):
+    """One lane step over 4 rows (step counts 20, 12 and 7 at different
+    ladder positions, guidance 7.5, 5.0 and 9.0, one inactive row) against
+    each row's solo step (a batch-1 CFG UNet call and ``sampler_step``), on
+    a small float32 UNet whose 1024-token level goes through B1: relative
+    L2 1e-4, the inactive row bit for bit, B1 once per self-attention at
+    that level whatever the lane's width."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.models.configs import FAMILIES, UNetConfig
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from chiaswarm_tpu_torch.schedulers import (
+        SamplerState,
+        make_sampling_schedule,
+        resolve,
+        sampler_step,
+        scale_model_input,
+    )
+
+    unet_cfg = UNetConfig(block_out_channels=(80, 160), layers_per_block=1,
+                          transformer_depth=(1, 1), attention_head_dim=2,
+                          cross_attention_dim=32, dtype="float32")
+    family = dataclasses.replace(FAMILIES["tiny"], unet=unet_cfg)
+    pipe = DiffusionPipeline(Components.random(family, seed=0,
+                                               device=cuda_device))
+    sampler = resolve(scheduler)
+    steps, idx = (20, 12, 7, 20), (0, 5, 6, 3)
+    scheds = [make_sampling_schedule(pipe.noise_schedule, n, sampler)
+              for n in steps]
+    cap = 32
+    sig = torch.zeros((4, cap + 1))
+    ts = torch.zeros((4, cap))
+    for b, s in enumerate(scheds):
+        sig[b, :steps[b] + 1] = s.sigmas
+        ts[b, :steps[b]] = s.timesteps
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x, old = (torch.randn((4, 4, 32, 32), generator=gen).to(cuda_device)
+              for _ in range(2))
+    ctx_u, ctx_c = (torch.randn((4, 77, 32), generator=gen).to(cuda_device)
+                    for _ in range(2))
+    guidance = torch.tensor([7.5, 5.0, 9.0, 7.5])
+    active = torch.tensor([True, True, True, False])
+    before = KERNEL.launches
+    x_l, idx_l, old_l = pipe.stepper_step(
+        sampler=sampler, ctx_u=ctx_u, ctx_c=ctx_c, x=x,
+        idx=torch.tensor(idx, device=cuda_device),
+        start_idx=torch.zeros(4, dtype=torch.long, device=cuda_device),
+        sigmas=sig.to(cuda_device), timesteps=ts.to(cuda_device),
+        guidance=guidance.to(cuda_device), old_denoised=old,
+        active=active.to(cuda_device), generators=[None] * 4)
+    torch.cuda.synchronize()
+    assert KERNEL.launches - before == 3  # 1 down and 2 up at 1024 tokens
+    assert idx_l.tolist() == [1, 6, 7, 3]
+    assert torch.equal(x_l[3], x[3]) and torch.equal(old_l[3], old[3])
+    with torch.inference_mode():
+        for b in range(3):
+            one = slice(b, b + 1)
+            inp = scale_model_input(scheds[b], x[one], idx[b])
+            t = scheds[b].timesteps[idx[b]].to(cuda_device).expand(2)
+            eps_u, eps_c = pipe.c.unet(torch.cat([inp, inp]), t, torch.cat(
+                [ctx_u[one], ctx_c[one]])).chunk(2)
+            eps = eps_u + float(guidance[b]) * (eps_c - eps_u)
+            x_s, state = sampler_step(sampler, scheds[b], idx[b], x[one], eps,
+                                      SamplerState(old[one]))
+            for got, ref in ((x_l[one], x_s), (old_l[one], state.old_denoised)):
+                rel = ((got - ref).norm() / ref.norm()).item()
+                assert rel <= 1e-4, (b, rel)

@@ -79,7 +79,8 @@ def test_package_has_the_slice_modules():
                   "node.output_processor", "node.registry", "node.job_args",
                   "node.executor", "node.smoke", "core.mesh",
                   "parallel.context", "parallel.ring_attention",
-                  "ops.ring_flash_attention"):
+                  "ops.ring_flash_attention", "serving.guard",
+                  "serving.stepper"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

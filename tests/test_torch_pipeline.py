@@ -7,13 +7,18 @@ JAX package.
   sides; a value on a rounding boundary may truncate either way) and the
   config dicts are equal.
 - The executor: the same hive job through both packages'
-  ``synchronous_do_work`` gives envelopes with the same keys. The JAX side
-  runs its solo program (``CHIASWARM_STEPPER=0``), the path the port has.
+  ``synchronous_do_work`` gives envelopes with the same keys, both on the
+  solo path (``CHIASWARM_STEPPER=0``; the lane envelope is held in
+  ``tests/test_torch_stepper.py``).
+
+Tests of the solo path pin ``CHIASWARM_STEPPER=0``; each has a twin with
+the lanes on (the default) where the lane behaves the same.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import struct
 
@@ -162,20 +167,63 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     (_job(height=2048, width=512), "fatal", True),
     (_job(lora="some-adapter"), "fatal", True),
 ])
-def test_unserved_jobs_become_error_envelopes(port_registry, job, kind, fatal):
-    slot = ChipPool(device="cpu").slots[0]
-    result = executor.synchronous_do_work(job, slot, port_registry)
+def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
+                                              job, kind, fatal):
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    _assert_error_envelope(port_registry, job, kind, fatal)
+
+
+@pytest.mark.parametrize("job,kind,fatal", [
+    (_job(start_image_uri="http://localhost:1/a.png"), "fatal", True),
+    (_job(workflow="txt2audio"), "fatal", True),
+    (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
+    (_job(height=2048, width=512), "fatal", True),
+    (_job(lora="some-adapter"), "fatal", True),
+])
+def test_unserved_jobs_become_error_envelopes_with_lanes_on(
+        monkeypatch, port_registry, job, kind, fatal):
+    monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    _assert_error_envelope(port_registry, job, kind, fatal)
+
+
+def _assert_error_envelope(registry, job, kind, fatal):
+    with _slot() as slot:
+        result = executor.synchronous_do_work(job, slot, registry)
     cfg = result["pipeline_config"]
     assert cfg["error_kind"] == kind
     assert bool(result.get("fatal_error")) is fatal
     assert result["artifacts"]["primary"]["content_type"] == "image/png"
 
 
-def test_missing_model_is_non_fatal_model_unavailable():
+@contextlib.contextmanager
+def _slot():
+    """A fresh CPU slot whose lanes, if a job opened one, stop after."""
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = ChipPool(device="cpu").slots[0]
+    try:
+        yield slot
+    finally:
+        get_stepper(slot).shutdown()
+
+
+def test_missing_model_is_non_fatal_model_unavailable(monkeypatch):
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    _assert_model_unavailable()
+
+
+def test_missing_model_is_non_fatal_with_lanes_on(monkeypatch):
+    """A lane submit that cannot load the model falls back to the per-job
+    path, which reports it."""
+    monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    _assert_model_unavailable()
+
+
+def _assert_model_unavailable():
     registry = ModelRegistry(allow_random=False, device="cpu")
-    result = executor.synchronous_do_work(
-        _job(content_type="application/json"),
-        ChipPool(device="cpu").slots[0], registry)
+    with _slot() as slot:
+        result = executor.synchronous_do_work(
+            _job(content_type="application/json"), slot, registry)
     assert result["pipeline_config"]["error_kind"] == "model_unavailable"
     assert "fatal_error" not in result
     payload = json.loads(base64.b64decode(result["artifacts"]["primary"]["blob"]))
@@ -188,6 +236,7 @@ def test_poisoned_output_uploads_invalid_output(monkeypatch, port_registry):
     def flat(self, **kwargs):
         return torch.zeros((1, 64, 64, 3), dtype=torch.uint8)
 
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
     monkeypatch.setattr(diffusion.DiffusionPipeline, "_generate", flat)
     result = executor.synchronous_do_work(
         _job(), ChipPool(device="cpu").slots[0], port_registry)
@@ -195,7 +244,35 @@ def test_poisoned_output_uploads_invalid_output(monkeypatch, port_registry):
     assert "fatal_error" not in result
 
 
-def test_smoke_cli_runs_tiny_on_cpu(capsys):
+def test_poisoned_lane_output_uploads_invalid_output(monkeypatch,
+                                                     port_registry):
+    """The lane twin: a flat decoded frame is screened after the lane
+    decode and uploads an ``invalid_output`` envelope, not the image."""
+    from chiaswarm_tpu_torch.pipelines import diffusion
+
+    def flat(self, x):
+        return torch.zeros((x.shape[0], 64, 64, 3), dtype=torch.uint8)
+
+    monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    monkeypatch.setattr(diffusion.DiffusionPipeline, "stepper_decode", flat)
+    with _slot() as slot:
+        result = executor.synchronous_do_work(_job(), slot, port_registry)
+    assert result["pipeline_config"]["error_kind"] == "invalid_output"
+    assert "lane decode" in result["pipeline_config"]["error"]
+    assert "fatal_error" not in result
+
+
+def test_smoke_cli_runs_tiny_on_cpu(monkeypatch, capsys):
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    _assert_smoke_ok(capsys)
+
+
+def test_smoke_cli_runs_tiny_on_cpu_with_lanes_on(monkeypatch, capsys):
+    monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    _assert_smoke_ok(capsys)
+
+
+def _assert_smoke_ok(capsys):
     assert smoke_main(["--device", "cpu", "--steps", "2"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["status"] == "ok" and line["artifacts"] == ["primary"]

@@ -587,7 +587,9 @@ def _png(result) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
 
 
-def test_executor_serves_a_seq_mesh_slot_like_the_solo_slot():
+def test_executor_serves_a_seq_mesh_slot_like_the_solo_slot(monkeypatch):
+    # the solo path (the lanes on a seq slot: tests/test_torch_stepper.py)
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
     registry = ModelRegistry(catalog=[{"name": "tiny", "family": "tiny"}],
                              allow_random=True, device="cpu")
     seq_slot = ChipPool(mesh_spec=MeshSpec({"seq": 4}),

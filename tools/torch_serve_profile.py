@@ -15,8 +15,18 @@ four times, where B3 runs each ring attention in one launch);
 ``CHIASWARM_RING_FLASH=scan`` in the environment makes it the scan drive
 over B2.
 
+``--lanes N`` profiles a burst of N jobs through the continuous-batching
+lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
+and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
+``--width`` rows, N by default): one warm-up burst, then one under the
+profiler, with the lane steps it took and the launches per lane step.
+``--sweep 1,2,4,8,16`` times that burst, unprofiled, at each pinned lane
+width (a warm-up burst first at each) and prints the images/s of each.
+
     python tools/torch_serve_profile.py [--steps 20] [--top 25] [--seq 4]
            [--trace serve_trace.json]
+    python tools/torch_serve_profile.py --lanes 8 [--width 8]
+    python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -40,10 +50,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="ring shards of a seq mesh (1: no mesh)")
     parser.add_argument("--trace", default=None,
                         help="write a Chrome trace of the profiled job here")
+    parser.add_argument("--lanes", type=int, default=0,
+                        help="profile a burst of this many jobs on the lanes")
+    parser.add_argument("--width", type=int, default=0,
+                        help="pinned lane width (default: --lanes)")
+    parser.add_argument("--sweep", default="",
+                        help="comma-separated lane widths to time the burst at")
     args = parser.parse_args(argv)
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
@@ -55,6 +70,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    if args.lanes:
+        return lanes_main(args)
     mesh = None
     if args.seq > 1:
         n_cards = torch.cuda.device_count()
@@ -84,6 +101,21 @@ def main(argv: list[str] | None = None) -> int:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
 
+    summary = kernel_summary(prof, wall_s, args.top)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "steps": args.steps,
+        "seq": args.seq,
+        "mesh_devices": None if mesh is None
+        else [str(d) for d in mesh.device_list],
+        "event_ms": start.elapsed_time(end), **summary}))
+    return 0
+
+
+def kernel_summary(prof, wall_s: float, top: int) -> dict:
+    """Device time, busy share and launches of a profiled window, and the
+    port's kernels (each with both its routes) on lines of their own."""
+    from torch.autograd import DeviceType
+
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -101,12 +133,8 @@ def main(argv: list[str] | None = None) -> int:
                 "device_ms": sum(k["device_ms"] for k in rows),
                 "share": sum(k["share"] for k in rows)}
 
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": args.steps,
-        "seq": args.seq,
-        "mesh_devices": None if mesh is None
-        else [str(d) for d in mesh.device_list],
-        "wall_s": wall_s, "event_ms": start.elapsed_time(end),
+    return {
+        "wall_s": wall_s,
         "device_kernel_ms": total_ms,
         "device_busy_share": total_ms / 1e3 / wall_s,
         "kernel_launches": sum(k["calls"] for k in kernels),
@@ -117,8 +145,81 @@ def main(argv: list[str] | None = None) -> int:
                                       "ring_hop_tc_kernel<"),
         "ring_flash_fused": kernel_line("ring_fused_kernel<",
                                         "ring_fused_tc_kernel<"),
-        "top": kernels[: args.top],
-    }))
+        "top": kernels[:top],
+    }
+
+
+def burst_jobs(n: int, steps: int) -> list[dict]:
+    """``n`` 512 px jobs: ``steps`` and 12 steps, guidance 7.5 and 5.0,
+    alternating (the mix of chip_smoke.py's lane_burst phase)."""
+    return [{"id": f"burst-{i}", "model_name": "sd15",
+             "prompt": "a lighthouse on a cliff at golden hour, oil painting",
+             "negative_prompt": "blurry, low quality" if i == 1 else "",
+             "num_inference_steps": steps if i % 2 == 0 else 12,
+             "guidance_scale": 7.5 if i % 2 == 0 else 5.0,
+             "height": 512, "width": 512, "seed": 11 + i,
+             "content_type": "image/png"} for i in range(n)]
+
+
+def lanes_main(args) -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+                             allow_random=True, device="cuda")
+    slot = ChipPool(device="cuda").slots[0]
+    stepper = get_stepper(slot)
+    jobs = burst_jobs(args.lanes, args.steps)
+    os.environ["CHIASWARM_STEPPER"] = "1"
+
+    def burst(width: int) -> tuple[float, int]:
+        """One burst at a pinned lane width: (wall s, lane steps)."""
+        os.environ["CHIASWARM_STEPPER_LANE_WIDTH"] = str(width)
+        before = stepper.stats().get("steps_executed", 0)
+        t0 = time.perf_counter()
+        results = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                            registry)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        for result in results:
+            cfg = result["pipeline_config"]
+            if "error" in cfg or "stepper" not in cfg:
+                raise SystemExit(f"job {result['id']} was not served by a "
+                                 f"lane: {cfg.get('error')}")
+        return wall_s, stepper.stats()["steps_executed"] - before
+
+    line = {"device": torch.cuda.get_device_name(0), "jobs": len(jobs),
+            "steps": [j["num_inference_steps"] for j in jobs]}
+    try:
+        if args.sweep:
+            sweep = []
+            for width in (int(w) for w in args.sweep.split(",")):
+                stepper.shutdown()  # a fresh lane at the new width
+                burst(width)  # warm-up: cuDNN plans for the new batch
+                wall_s, steps = burst(width)
+                sweep.append({"width": width, "wall_s": wall_s,
+                              "lane_steps": steps,
+                              "images_per_s": len(jobs) / wall_s})
+            line["sweep"] = sweep
+        else:
+            width = args.width or args.lanes
+            burst(width)  # warm-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_s, steps = burst(width)
+            summary = kernel_summary(prof, wall_s, args.top)
+            line.update(width=width, lane_steps=steps,
+                        images_per_s=len(jobs) / wall_s,
+                        launches_per_lane_step=summary["kernel_launches"]
+                        / max(1, steps), **summary)
+    finally:
+        stepper.shutdown()
+    print(json.dumps(line))
     return 0
 
 
