@@ -7,13 +7,26 @@ the pipeline's modules live; a mesh with ``seq > 1`` rings the large
 self-attentions over its devices. The slot keeps the reference's call
 contract:
 
-- non-blocking busy check (a busy slot raises :class:`SlotBusy`),
+- non-blocking busy check: a call beyond the slot's ``depth`` of jobs in
+  flight raises :class:`SlotBusy`,
 - ``model_name`` popped from the kwargs and passed positionally,
 - a seed drawn when the job does not pin one and recorded into the result
   config, so any image is reproducible.
 
 Callbacks keep the uniform signature
 ``callback(slot, model_name, **kwargs) -> (artifacts, config)``.
+
+**Depth.** The worker (``node/worker.py``) keeps up to ``slot.depth``
+bursts in flight on a slot, as the JAX worker does with ``MeshSlot.depth``
+(2 in ``ChipPool``). Here the two in-flight bursts cannot share the card
+the way two dispatched XLA programs do: PyTorch runs eagerly. So
+``depth`` only admits; a call within it that runs a callback (the solo
+path) waits for the slot's execution lock, and solo jobs run on a card
+one at a time. A burst that rides the lanes never calls the slot: it
+submits its rows to the lane thread and waits on tickets, so a second
+burst splices into the first burst's running lane while the first still
+waits. A bare :class:`DeviceSlot` keeps depth 1, the reference's hard
+mutex.
 """
 
 from __future__ import annotations
@@ -34,6 +47,10 @@ from chiaswarm_tpu_torch.core.mesh import (
 from chiaswarm_tpu_torch.core.rng import draw_seed
 
 
+# bursts a pool slot admits at once (the JAX ``MeshSlot.depth``)
+POOL_DEPTH = 2
+
+
 class SlotBusy(RuntimeError):
     """A job was dispatched to a slot that is already running one."""
 
@@ -41,23 +58,31 @@ class SlotBusy(RuntimeError):
 @dataclasses.dataclass
 class DeviceSlot:
     """One schedulable executor: a device mesh plus per-job seed handling.
-    ``DeviceSlot(index, device=...)`` is the one-device mesh. One job at a
-    time: PyTorch runs eagerly, so there is no dispatched program to
-    overlap a second job with."""
+    ``DeviceSlot(index, device=...)`` is the one-device mesh. ``depth``
+    jobs may be admitted at once; their callbacks run one at a time (the
+    module docstring)."""
 
     index: int
     device: torch.device | None = None
     mesh: DeviceMesh | None = None
+    depth: int = 1
 
     def __post_init__(self) -> None:
         if self.mesh is None:
             self.mesh = single_device_mesh(self.device)
         self.device = self.mesh.lead
-        self._busy = threading.Lock()
+        self._admitted = threading.BoundedSemaphore(max(1, self.depth))
+        self._running = threading.Lock()
 
     @property
     def identifier(self) -> str:
         return f"{self.device.type}-slot:{self.index}"
+
+    @property
+    def data_width(self) -> int:
+        """Size of the mesh's ``data`` axis: the worker's queue bound and
+        burst size read it (``node/worker.py``)."""
+        return int(self.mesh.shape.get("data", 1))
 
     def descriptor(self) -> dict[str, Any]:
         devices = self.mesh.device_list
@@ -77,8 +102,10 @@ class DeviceSlot:
         }
 
     def __call__(self, callback: Callable[..., tuple[dict, dict]], **kwargs):
-        """Run ``callback`` on this slot, injecting the seed."""
-        if not self._busy.acquire(blocking=False):
+        """Run ``callback`` on this slot, injecting the seed. Raises
+        :class:`SlotBusy` at once when ``depth`` calls are already in;
+        otherwise waits for the callbacks admitted before it."""
+        if not self._admitted.acquire(blocking=False):
             raise SlotBusy(f"{self.identifier} is busy")
         try:
             model_name = kwargs.pop("model_name", None)
@@ -86,12 +113,14 @@ class DeviceSlot:
             if seed is None:
                 seed = draw_seed()
             seed = int(seed)
-            artifacts, config = callback(self, model_name, seed=seed, **kwargs)
+            with self._running:
+                artifacts, config = callback(self, model_name, seed=seed,
+                                             **kwargs)
             config = dict(config)
             config["seed"] = seed
             return artifacts, config
         finally:
-            self._busy.release()
+            self._admitted.release()
 
 
 class ChipPool:
@@ -104,6 +133,9 @@ class ChipPool:
       contiguous slots, each a mesh shaped by ``mesh_spec``. ``devices`` may
       name one device several times, for a ring on one card. With neither
       ``n_slots`` nor ``mesh_spec``, each device is its own slot.
+
+    Every slot has depth :data:`POOL_DEPTH`, as in the JAX package's
+    ``ChipPool``.
     """
 
     def __init__(self, n_slots: int | None = None,
@@ -128,6 +160,12 @@ class ChipPool:
         self.slots = [
             DeviceSlot(index=i, mesh=build_mesh(
                 mesh_spec or MeshSpec(),
-                devices[i * per_slot:(i + 1) * per_slot]))
+                devices[i * per_slot:(i + 1) * per_slot]), depth=POOL_DEPTH)
             for i in range(n_slots)
         ]
+
+    def __len__(self) -> int:
+        return len(self.slots)
+
+    def __iter__(self):
+        return iter(self.slots)

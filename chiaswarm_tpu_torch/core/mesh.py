@@ -9,8 +9,12 @@ shard i of a sequence to the i-th device along the ``seq`` axis
 
 Copied from the JAX module (names and behaviour kept, pinned by
 ``tests/test_torch_ring.py``): the axis names (:30-34) and :class:`MeshSpec`
-with its ``resolve`` (:37-72). The worker's mesh policy
-(``derive_mesh_spec``) comes over with the worker that calls it.
+with its ``resolve`` (:37-72). The worker's default-pool policy is copied
+too (:79-160): :func:`derive_mesh_spec` with
+:func:`resident_param_budget_bytes` (``CHIASWARM_RESIDENCY_BUDGET``) and
+:func:`device_hbm_bytes`, which reads a card's total memory from
+``torch.cuda.get_device_properties`` and takes the JAX module's default
+for a CPU device (pinned by ``tests/test_torch_worker.py``).
 
 A mesh may name one device several times. That is how one card stands in
 for a multi-card ring (``DeviceMesh`` over ``[cuda:0] * 4`` is the layout of a
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Sequence
 
 import numpy as np
@@ -101,6 +106,74 @@ class DeviceMesh:
     def repeats_devices(self) -> bool:
         names = [str(d) for d in self.device_list]
         return len(set(names)) < len(names)
+
+
+_DEFAULT_HBM_BYTES = 16 * 1024**3  # the JAX module's default chip memory
+# params may take at most this fraction of a device; the rest is
+# activations, lane rows and headroom (the initial budget before any model
+# has loaded; the operator's env override below wins outright)
+_PARAM_HBM_FRACTION = 0.35
+
+ENV_RESIDENCY_BUDGET = "CHIASWARM_RESIDENCY_BUDGET"
+
+
+def resident_param_budget_bytes(hbm_bytes: int | None = None) -> int:
+    """Per-device byte budget for resident model params.
+    ``CHIASWARM_RESIDENCY_BUDGET`` (bytes) overrides; otherwise a fixed
+    fraction of the device's memory."""
+    raw = os.environ.get(ENV_RESIDENCY_BUDGET, "").strip()
+    if raw:
+        try:
+            return max(1, int(float(raw)))
+        except ValueError:
+            pass  # malformed override: fall through to the fraction
+    if hbm_bytes is None:
+        hbm_bytes = device_hbm_bytes()
+    return int(_PARAM_HBM_FRACTION * hbm_bytes)
+
+
+def device_hbm_bytes(device: str | torch.device | None = None) -> int:
+    """A device's memory: a card's total memory (the first card when
+    ``device`` is None), the JAX module's default for a CPU device."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda":
+        index = (torch.cuda.current_device() if device.index is None
+                 else device.index)
+        return int(torch.cuda.get_device_properties(index).total_memory)
+    return _DEFAULT_HBM_BYTES
+
+
+def derive_mesh_spec(n_devices: int,
+                     heaviest_param_bytes: int | None = None,
+                     hbm_bytes: int | None = None,
+                     latency: bool = False) -> MeshSpec:
+    """Default dp x tp (x sp) policy for a serving pool.
+
+    Everything defaults to ``data``. Tensor parallelism engages only when
+    the heaviest catalog family's params would not fit in
+    :func:`resident_param_budget_bytes`: tp doubles over power-of-two
+    divisors of the device count until the per-device shard fits.
+    ``latency=True`` gives the leftover devices to ``seq`` (its largest
+    power-of-two factor) instead of ``data``."""
+    if n_devices <= 1:
+        return MeshSpec({DATA_AXIS: 1})
+    if hbm_bytes is None:
+        hbm_bytes = device_hbm_bytes()
+    budget = resident_param_budget_bytes(hbm_bytes)
+    tp = 1
+    if heaviest_param_bytes:
+        while (heaviest_param_bytes / tp > budget
+               and tp * 2 <= n_devices and n_devices % (tp * 2) == 0):
+            tp *= 2
+    rest = n_devices // tp
+    # seq must divide the power-of-two spatial token counts
+    sp = rest & (-rest) if latency else 1
+    if sp > 1:
+        return MeshSpec({DATA_AXIS: rest // sp, MODEL_AXIS: tp,
+                         SEQ_AXIS: sp})
+    return MeshSpec({DATA_AXIS: rest, MODEL_AXIS: tp})
 
 
 def build_mesh(spec: MeshSpec | None = None,

@@ -1,8 +1,11 @@
 """Job executor: counterpart of ``chiaswarm_tpu/node/executor.py``
 (``_error_payload``/``_result``/``error_result``/``_format``/``_execute``
 :62-212, ``_stepper_submit``/``_stepper_collect`` :215-310,
-``synchronous_do_work`` :346-367, ``single_chip_rows`` :397-416,
-``synchronous_do_work_batch`` :458-593).
+``synchronous_do_work`` :346-367, ``job_rows`` :386, ``single_chip_rows``
+:397-416, ``rows_cap`` :418, ``synchronous_do_work_batch`` :458-593, and
+the async ``do_work``/``do_work_batch`` :47-59, which the worker awaits:
+each runs its synchronous twin on a thread of the event loop's default
+executor).
 
 Error taxonomy, as in the reference: argument-formatting errors and
 ``ValueError`` raised by callbacks are fatal (``fatal_error: True``, do not
@@ -21,6 +24,7 @@ watchdog are later slices (``ROADMAP.md``).
 
 from __future__ import annotations
 
+import asyncio
 import logging
 from typing import Any
 
@@ -33,9 +37,28 @@ from chiaswarm_tpu_torch.node.output_processor import (
     make_text_result,
 )
 from chiaswarm_tpu_torch.node.resilience import NONFATAL_KINDS, classify_exception
+from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.serving.guard import InvalidOutput
 
 log = logging.getLogger("chiaswarm_torch.executor")
+
+# what a job may carry that is never a job argument: the worker's trace,
+# and the trace context and epoch stamp a lease-aware hive adds (the JAX
+# package's obs/flight.py::TRACE_CTX_KEY, node/hivelog.py::HIVE_EPOCH_KEY)
+_NOT_ARGUMENTS = (obs_trace.TRACE_KEY, "trace_ctx", "hive_epoch")
+
+
+async def do_work(job: dict[str, Any], slot, registry) -> dict:
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(
+        None, synchronous_do_work, job, slot, registry)
+
+
+async def do_work_batch(jobs: list[dict[str, Any]], slot,
+                        registry) -> list[dict]:
+    loop = asyncio.get_running_loop()
+    return await loop.run_in_executor(
+        None, synchronous_do_work_batch, jobs, slot, registry)
 
 
 def _error_payload(exc: Exception, content_type: str,
@@ -69,11 +92,17 @@ def _result(job_id: Any, artifacts: dict, config: dict,
     return result
 
 
-def error_result(job: dict[str, Any], exc: Exception, *,
+def error_result(job: dict[str, Any], exc_or_message: Any, *,
                  kind: str | None = None) -> dict:
     """Structured error envelope for a job that never produced a result
-    through the normal executor path (a lane deadline expiry, a poisoned
-    lane row). Same wire shape as executor-internal failures."""
+    through the normal executor path: a lane deadline expiry, a poisoned
+    lane row, the worker's deadline, a crashed burst or a breaker's
+    refusal. Same wire shape as executor-internal failures."""
+    if isinstance(exc_or_message, BaseException):
+        exc: Exception = exc_or_message if isinstance(
+            exc_or_message, Exception) else RuntimeError(str(exc_or_message))
+    else:
+        exc = RuntimeError(str(exc_or_message))
     content_type = str(job.get("content_type") or "image/jpeg")
     artifacts, config = _error_payload(exc, content_type, kind=kind)
     return _result(job.get("id"), artifacts, config)
@@ -83,10 +112,13 @@ def _format(job: dict[str, Any], registry):
     """-> ((job_id, content_type, callback, kwargs), None) or
     (None, fatal result)."""
     job = dict(job)
+    for key in _NOT_ARGUMENTS:
+        job.pop(key, None)
     job_id = job.pop("id", None)
     content_type = job.get("content_type", "image/jpeg")
     try:
-        callback, kwargs = format_args(job, registry)
+        with obs_trace.span("format"):
+            callback, kwargs = format_args(job, registry)
     except Exception as exc:
         kind = classify_exception(exc)
         fatal = kind not in NONFATAL_KINDS
@@ -174,16 +206,30 @@ def _stepper_collect(job_id, content_type, slot, ticket) -> dict | None:
 
 def synchronous_do_work(job: dict[str, Any], slot, registry) -> dict[str, Any]:
     log.info("processing job %s", job.get("id"))
-    formatted, fatal = _format(job, registry)
-    if formatted is None:
-        return fatal
-    job_id, content_type, _, _ = formatted
-    ticket = _stepper_submit(*formatted, slot, registry)
-    if ticket is not None:
-        result = _stepper_collect(job_id, content_type, slot, ticket)
-        if result is not None:
-            return result
-    return _execute(*formatted, slot)
+    # the job's span tree follows it into this thread: the format, encode,
+    # step, decode and artifacts spans below attach under the worker's
+    # open "execute" phase (obs/trace.py)
+    with obs_trace.activate(obs_trace.job_trace(job)):
+        formatted, fatal = _format(job, registry)
+        if formatted is None:
+            return fatal
+        job_id, content_type, _, _ = formatted
+        ticket = _stepper_submit(*formatted, slot, registry)
+        if ticket is not None:
+            result = _stepper_collect(job_id, content_type, slot, ticket)
+            if result is not None:
+                return result
+        return _execute(*formatted, slot)
+
+
+def job_rows(job_or_kwargs: dict[str, Any]) -> int:
+    """Batch rows one job contributes (``num_images_per_prompt``; a bad
+    value surfaces per job downstream, not here). The worker's burst
+    drain reads it."""
+    try:
+        return max(1, int(job_or_kwargs.get("num_images_per_prompt") or 1))
+    except (TypeError, ValueError):
+        return 1
 
 
 def single_chip_rows(kwargs: dict[str, Any]) -> int:
@@ -203,6 +249,15 @@ def single_chip_rows(kwargs: dict[str, Any]) -> int:
     return 4 if 0 < h * w <= 512 * 512 else 1
 
 
+def rows_cap(rows_max: int, data_width: int, per_device_rows: int = 1) -> int:
+    """Max total rows a burst may carry:
+    dp * max(ceil(rows_max/dp), per_device_rows): per device, the larger of
+    the heaviest member's own solo footprint and the profitable batch,
+    never their product."""
+    dw = max(1, int(data_width))
+    return dw * max(-(-rows_max // dw), max(1, int(per_device_rows)))
+
+
 def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
                               registry) -> list[dict]:
     """Run a burst of jobs: every lane-eligible job is submitted first, so
@@ -215,23 +270,30 @@ def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
     results: list[dict | None] = [None] * len(jobs)
     singles: list[tuple[int, tuple]] = []
     tickets: list[tuple[int, tuple, Any]] = []
+    def traced(i: int):
+        return obs_trace.activate(obs_trace.job_trace(jobs[i]))
+
     for i, job in enumerate(jobs):
         log.info("processing job %s (burst of %d)", job.get("id"), len(jobs))
-        formatted, fatal = _format(job, registry)
-        if formatted is None:
-            results[i] = fatal
-            continue
-        ticket = _stepper_submit(*formatted, slot, registry)
+        with traced(i):
+            formatted, fatal = _format(job, registry)
+            if formatted is None:
+                results[i] = fatal
+                continue
+            ticket = _stepper_submit(*formatted, slot, registry)
         if ticket is not None:
             tickets.append((i, formatted, ticket))
         else:
             singles.append((i, formatted))
     for i, formatted, ticket in tickets:
-        result = _stepper_collect(formatted[0], formatted[1], slot, ticket)
+        with traced(i):
+            result = _stepper_collect(formatted[0], formatted[1], slot,
+                                      ticket)
         if result is not None:
             results[i] = result
         else:
             singles.append((i, formatted))
     for i, formatted in singles:
-        results[i] = _execute(*formatted, slot)
+        with traced(i):
+            results[i] = _execute(*formatted, slot)
     return [r for r in results if r is not None]

@@ -8,9 +8,12 @@ A hive model name resolves to a family through the catalog entry's
 slice has no checkpoint loading: with ``allow_random=True`` (tests, the
 smoke harness, the chip smoke run) a model gets seeded random weights of
 its family; otherwise it is not available on this node, which the executor
-reports as the non-fatal ``model_unavailable`` kind. Residency budgets,
-quarantine and LoRA/textual-inversion merges wait for later slices (the
-diffusion callback refuses those jobs before they reach the registry).
+reports as the non-fatal ``model_unavailable`` kind. The quarantine that
+the worker's circuit breakers mirror in is copied from the JAX registry
+(:83-112): a quarantined model's pipeline raises, which the executor
+reports as ``model_unavailable``. Residency budgets and LoRA/textual-
+inversion merges wait for later slices (the diffusion callback refuses
+those jobs before they reach the registry).
 """
 
 from __future__ import annotations
@@ -39,6 +42,25 @@ class ModelRegistry:
         self.device = resolve_device(device)
         self._pipelines: dict[str, DiffusionPipeline] = {}
         self._lock = threading.Lock()
+        self._quarantined: dict[str, str] = {}
+
+    # ---- quarantine (the worker's circuit breakers) ----
+
+    def quarantine(self, model_name: str, reason: str = "") -> None:
+        """Refuse to serve ``model_name`` until :meth:`unquarantine`."""
+        log.error("quarantining model %s%s", model_name,
+                  f": {reason}" if reason else "")
+        self._quarantined[model_name] = reason or "circuit breaker open"
+
+    def unquarantine(self, model_name: str) -> None:
+        if self._quarantined.pop(model_name, None) is not None:
+            log.warning("model %s released from quarantine", model_name)
+
+    def is_quarantined(self, model_name: str) -> bool:
+        return model_name in self._quarantined
+
+    def known_models(self) -> list[str]:
+        return list(self._catalog)
 
     def family_for(self, model_name: str) -> ModelFamily:
         fam = self._catalog.get(model_name, {}).get("family")
@@ -63,6 +85,10 @@ class ModelRegistry:
         no mesh is given), ringing its large self-attentions over the
         mesh's ``seq`` axis when that is above 1. One entry per
         (model, :func:`_mesh_cache_key`)."""
+        reason = self._quarantined.get(model_name)
+        if reason is not None:
+            raise ValueError(f"model {model_name!r} is quarantined on this "
+                             f"node ({reason})")
         device = self.device if mesh is None else mesh.lead
         key = (model_name, _mesh_cache_key(device, mesh))
         with self._lock:

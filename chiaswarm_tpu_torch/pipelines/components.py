@@ -63,6 +63,27 @@ def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
+_FAMILY_BYTES_CACHE: dict[str, int] = {}
+
+
+def estimate_family_bytes(family: ModelFamily | str) -> int:
+    """Serving-footprint estimate (bf16, 2 bytes a param) of one family's full
+    param set, counted on the port's modules built on the ``meta`` device
+    (no storage): the counterpart of the JAX package's
+    ``pipelines/components.py::estimate_family_bytes`` (:120), which the
+    worker's default-pool policy reads (``core/mesh.py``). Raises for a
+    family whose modules the port does not build yet."""
+    if isinstance(family, str):
+        family = FAMILIES[family]
+    if family.name not in _FAMILY_BYTES_CACHE:
+        with torch.device("meta"):
+            modules = [ClipTextEncoder(cfg) for cfg in family.text_encoders]
+            modules += [UNet(family.unet), AutoencoderKL(family.vae)]
+        total = sum(p.numel() for m in modules for p in m.parameters())
+        _FAMILY_BYTES_CACHE[family.name] = total * 2
+    return _FAMILY_BYTES_CACHE[family.name]
+
+
 def _empty(ctor, config, device: torch.device) -> nn.Module:
     """The module with uninitialized storage on ``device`` (no CPU copy)."""
     with torch.device("meta"):

@@ -46,6 +46,7 @@ from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh
 from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators
+from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.schedulers import (
@@ -128,7 +129,8 @@ class PendingImages:
     requested_batch: int
 
     def wait(self) -> np.ndarray:
-        img_u8 = self.device_images.cpu().numpy()
+        with obs_trace.span("decode", batch=self.requested_batch):
+            img_u8 = self.device_images.cpu().numpy()
         height, width = self.compiled_hw
         req_h, req_w = self.requested_hw
         if (height, width) != (req_h, req_w):

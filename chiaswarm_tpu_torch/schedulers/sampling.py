@@ -7,6 +7,14 @@ Euler-ancestral, LCM and DPM-Solver++(2M). ``SAMPLERS``/``resolve`` map the
 diffusers class names the hive sends exactly as the JAX package does,
 remaps included. The solo step index is a Python int (the denoise loop is
 a Python loop); per-step scalars are float32 tensors, as in the reference.
+The ladder lives on the host, but the solo step does its arithmetic on the
+sample's device, as the per-row step does: the scalars it reads go to the
+sample's device first (``core/device.py::upload``, without waiting on the
+device's queue), and only its branch decisions read the host ladder. On a
+card the two would otherwise part in the last bit (CUDA divides by a host
+scalar as a product with its reciprocal, and its ``log``/``expm1`` are not
+the host's), which the bf16 UNet grows to several uint8 levels over a
+job's steps.
 
 The per-row ``*_rows`` variants serve the continuous-batching lanes
 (``serving/stepper.py``): each row of a lane carries its own sigma and
@@ -24,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.schedulers.common import (
     NoiseSchedule,
     denoised_from_model_output,
@@ -106,7 +115,7 @@ def scale_model_input(sched: SamplingSchedule, sample: torch.Tensor,
                       i: int) -> torch.Tensor:
     """x / sqrt(sigma^2 + 1): k-diffusion coordinates back to the VP
     coordinates the UNet was trained in."""
-    sigma = sched.sigmas[i]
+    sigma = upload(sched.sigmas[i], sample.device)
     return (sample / torch.sqrt(sigma ** 2 + 1.0)).to(sample.dtype)
 
 
@@ -124,7 +133,12 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
     lcm kinds. ``start_index`` is the first index the loop executes; the
     multistep history fallback keys off it.
     """
-    sigma, sigma_next = sched.sigmas[i], sched.sigmas[i + 1]
+    # sigma[i - 1], sigma[i], sigma[i + 1] (and the step's timestep) on the
+    # sample's device; the branches below read the host ladder
+    sigma_prev, sigma, sigma_next = upload(
+        sched.sigmas[torch.tensor([max(i - 1, 0), i, i + 1])],
+        sample.device).unbind()
+    last = float(sched.sigmas[i + 1]) == 0.0
     x = sample.to(_F32)
     denoised = denoised_from_model_output(model_output.to(_F32), x, sigma,
                                           config.prediction_type)
@@ -146,7 +160,7 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
     elif config.kind == "lcm":
         if noise is None:
             raise ValueError("lcm requires noise")
-        ts = sched.timesteps[i] * LCM_TIMESTEP_SCALING
+        ts = upload(sched.timesteps[i], sample.device) * LCM_TIMESTEP_SCALING
         c_skip = LCM_SIGMA_DATA ** 2 / (ts ** 2 + LCM_SIGMA_DATA ** 2)
         c_out = ts / torch.sqrt(ts ** 2 + LCM_SIGMA_DATA ** 2)
         sample_vp = x / torch.sqrt(sigma ** 2 + 1.0)
@@ -159,13 +173,12 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
 
         t, t_next = t_fn(sigma), t_fn(sigma_next)
         h = t_next - t
-        sigma_prev = sched.sigmas[max(i - 1, 0)]
         h_last = t - t_fn(sigma_prev)
         r = h_last / h
         old = state.old_denoised.to(_F32)
         # first executed step (no history) and final step (sigma_next == 0)
         # take the first-order update
-        if i == start_index or float(sigma_next) == 0.0:
+        if i == start_index or last:
             use_d = denoised
         else:
             use_d = (1.0 + 1.0 / (2.0 * r)) * denoised - (1.0 / (2.0 * r)) * old
@@ -173,7 +186,7 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
     else:
         raise ValueError(f"unknown sampler kind {config.kind!r}")
 
-    if float(sigma_next) == 0.0:
+    if last:
         x_next = denoised
     return x_next.to(sample.dtype), SamplerState(old_denoised=denoised.to(sample.dtype))
 

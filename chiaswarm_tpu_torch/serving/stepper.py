@@ -90,6 +90,7 @@ from chiaswarm_tpu_torch.core.buckets import (
 )
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.rng import row_generators
+from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.pipelines.diffusion import PendingImages
 from chiaswarm_tpu_torch.schedulers import (
     FEWSTEP_KINDS,
@@ -330,9 +331,12 @@ class Lane:
         # once the images are resident
         self._handoff: collections.deque = collections.deque()
         # the creator's context (instrumentation such as capture_ring_calls)
-        # reaches the lane thread, as it would an asyncio task
+        # reaches the lane thread, as it would an asyncio task; the job
+        # trace of the row that opened the lane does not
+        context = contextvars.copy_context()
+        context.run(obs_trace.unbind)
         self._thread = threading.Thread(
-            target=contextvars.copy_context().run, args=(self._drive,),
+            target=context.run, args=(self._drive,),
             name=f"stepper-lane-{self.lane_id}", daemon=True)
         self._thread.start()
 
@@ -860,15 +864,18 @@ class StepScheduler:
             lane_rows = max(rows, limit)
         self._note_arrival(rows)
 
-        sched = make_sampling_schedule(pipe.noise_schedule, steps, sampler)
-        eb = bucket_batch(rows)
-        ids = pipe._tokenize([prompt or ""] * eb)
-        neg = pipe._tokenize([negative_prompt or ""] * eb)
-        ctx_u, ctx_c = pipe.stepper_encode(ids, neg)
-        # one generator per row, the solo path's (seed, row) pairs
-        generators = row_generators([(int(seed), r) for r in range(rows)])
-        x0 = pipe.stepper_row_init(generators, sched.sigmas[0],
-                                   height, width)
+        with obs_trace.span("encode", rows=rows, steps=steps):
+            sched = make_sampling_schedule(pipe.noise_schedule, steps,
+                                           sampler)
+            eb = bucket_batch(rows)
+            ids = pipe._tokenize([prompt or ""] * eb)
+            neg = pipe._tokenize([negative_prompt or ""] * eb)
+            ctx_u, ctx_c = pipe.stepper_encode(ids, neg)
+            # one generator per row, the solo path's (seed, row) pairs
+            generators = row_generators([(int(seed), r)
+                                         for r in range(rows)])
+            x0 = pipe.stepper_row_init(generators, sched.sigmas[0],
+                                       height, width)
         job = _RowJob(
             job_id=job_id, n_rows=rows, steps=steps,
             guidance=float(guidance_scale),

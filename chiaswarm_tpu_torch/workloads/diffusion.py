@@ -27,6 +27,7 @@ from typing import Any
 import numpy as np
 
 from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
+from chiaswarm_tpu_torch.obs.trace import span
 from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
 from chiaswarm_tpu_torch.serving.guard import screen_images
 
@@ -92,9 +93,10 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
 
     screen_images(images, context="solo decode")
 
-    proc = OutputProcessor(content_type)
-    proc.add_images(np.asarray(images))
-    artifacts = proc.get_results()
+    with span("artifacts", images=int(images.shape[0])):  # PNG, base64
+        proc = OutputProcessor(content_type)
+        proc.add_images(np.asarray(images))
+        artifacts = proc.get_results()
 
     config.update(SAFETY_UNAVAILABLE)
     config.update({
@@ -190,15 +192,21 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
 def stepper_finish(ticket: StepperTicket):
     """Block on the lane rows, then postprocess as the solo callback does
     (un-bucket crop, screen, artifact encode)."""
-    pending, lane_info = ticket.future.result()
+    # the job's "step" span: admission wait + its rows' residency in the
+    # lane's denoise loop (the lane-side timeline rides in as metadata)
+    with span("step", steps=ticket.steps, rows=ticket.rows) as step_span:
+        pending, lane_info = ticket.future.result()
+        step_span.meta.update(lane_info)
     # the lane decodes at the compiled bucket; un-bucket to the request
     pending.requested_hw = ticket.req_hw
     images = pending.wait()
     screen_images(images, context="lane decode")
     elapsed = time.perf_counter() - ticket.t0
 
-    proc = OutputProcessor(ticket.content_type)
-    proc.add_images(images)
+    with span("artifacts", images=int(images.shape[0])):  # PNG, base64
+        proc = OutputProcessor(ticket.content_type)
+        proc.add_images(images)
+        artifacts = proc.get_results()
     config = {
         "model_name": ticket.model_name,
         "family": ticket.family,
@@ -221,4 +229,4 @@ def stepper_finish(ticket: StepperTicket):
                  if hasattr(ticket.slot, "descriptor")
                  else str(ticket.slot)),
     })
-    return proc.get_results(), config
+    return artifacts, config

@@ -8,8 +8,8 @@ each phase printing one JSON line:
 
 1. probe      — CUDA present; card name and power limit (the raw
                 ``nvidia-smi --query-gpu=name,power.limit`` line is printed
-                on its own too), torch / CUDA / nvcc versions, whether PIL
-                imports.
+                on its own too), torch / CUDA / nvcc versions, the PIL and
+                aiohttp versions (the worker's hive client is aiohttp's).
 2. build      — builds every CUDA kernel from the checkout's sources, one
                 ``nvcc`` per source, all started together, and the host
                 artifact codec; prints each kernel's ptxas lines
@@ -114,10 +114,45 @@ each phase printing one JSON line:
 13. lane_seq_serve — four of the burst jobs through the lanes of the
                 one-card ``seq = 4`` slot, pinned at 8 rows: B3 launched 10
                 times per lane step and once per decode, B1 and B2 never.
-14. shapes_held — every shape at which a phase from 8 on launched a kernel
+14. solo_pair — seed 1 with ``num_images_per_prompt=2`` on the solo path
+                (a CFG batch of 4 rows, a lane of 2's UNet batch) and
+                through a lane pinned at 2 rows (the same UNet batch, text
+                batch and noise): bit for bit, the lane's per-row step held
+                to the solo step on the card. The solo pair's first image is
+                printed beside the lone job's lane image and the solo
+                one-image render.
+15. worker_serve — the port's hive worker (``node/worker.py``:
+                ``Worker.run()``) against a hive served from a thread of
+                this script (standard-library ``http.server``: ``/api/work``,
+                ``/api/results``, ``/api/models``), on the lanes: serve's
+                seed-1 job alone in a fresh lane (bit for bit lane_serve's
+                image, a stepper stamp), then twice more in the warm lane,
+                each after the same job through ``synchronous_do_work``
+                (the worker's cost over the executor's, image for image);
+                lane_burst's nine jobs at 8 rows pinned (seeds 11-18 from
+                the first poll that returns work, seed 19 from a later one
+                once the lane has stepped 5 times), each bit for bit the
+                image of a replay that admits the same jobs into the same
+                lane slots at the same lane steps (the difference from
+                lane_burst's image of each seed is printed: lane_burst fills
+                other slots, and cuDNN's convolutions are not
+                batch-position invariant, ``tools/torch_batch_position.py``);
+                one 503 on an upload (one retry, the result arrives once),
+                then ``python -m chiaswarm_tpu_torch.node.worker`` as a
+                child process: its registry has no checkpoint, so it
+                uploads a non-fatal ``model_unavailable`` envelope, and on
+                SIGTERM it drains and exits with 0. B1 = 10 x lane steps.
+                Prints each job's seconds (poll receipt to settled upload,
+                from the worker's traces and ``chiaswarm_job_seconds``) with
+                its spans (format, text encode, lane wait, decode, PNG and
+                base64, upload), the worker's host seconds (job seconds
+                minus ``generation_s``), the burst's images/s from the first
+                poll that returned work to the last upload beside
+                lane_burst's, lane steps and occupancy.
+16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
-15. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
+17. kernels   — one line ``{"kernels": [...]}``: each port kernel, the TPU
                 kernel it replaces, its designs (``wgmma+cp.async`` for the
                 tensor-core route of B1, B2 and B3 — bf16 and fp16 at head
                 dims up to 160 — ``sweep`` for the CUDA-core sweep of fp32
@@ -125,9 +160,10 @@ each phase printing one JSON line:
                 (by shape too), and its numbers from its kernel phase
                 averaged over those launches (per-shape numbers, each with
                 its design and its factor against the library call, under
-                ``shapes``); B1 also under ``lane_serve`` and
-                ``lane_burst`` and B3 under ``lane_seq_serve``, with their
-                launches there and their numbers over those launches.
+                ``shapes``); B1 also under ``lane_serve``, ``lane_burst``
+                and ``worker_serve`` and B3 under ``lane_seq_serve``, with
+                their launches there and their numbers over those
+                launches.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero without that line — also when CUDA is absent
@@ -137,6 +173,7 @@ or the package is not next to this file.
 from __future__ import annotations
 
 import base64
+import collections
 import contextlib
 import io
 import json
@@ -213,10 +250,16 @@ def probe():
         pil = PIL.__version__
     except ImportError:
         pil = None
+    try:  # the worker's hive client (node/hive.py)
+        import aiohttp
+
+        aiohttp_version = aiohttp.__version__
+    except ImportError:
+        aiohttp_version = None
     emit("probe", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
-         python=sys.version.split()[0], pil=pil)
+         python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version)
     return torch
 
 
@@ -1074,7 +1117,7 @@ def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> dict:
     if launches["flash_attention"] != want or sum(launches.values()) != want:
         raise AssertionError(f"lane_serve launched {launches}, expected "
                              f"{want} of flash_attention and no other")
-    return launched()
+    return launched(), blobs
 
 
 def image_diffs(blobs: dict, ref_blobs: dict) -> dict:
@@ -1192,7 +1235,7 @@ def lane_burst_phase(torch, registry, slot) -> dict:
             f"flash_attention), lanes {lanes_used}, ninth job admitted at "
             f"step {infos[19]['admitted_at_step']}, steps {steps} (bar < "
             f"{summed / 2}), isolation {isolation}")
-    return run
+    return run, blobs, len(jobs) / wall_s
 
 
 def lane_seq_serve_phase(torch) -> dict:
@@ -1244,6 +1287,585 @@ def lane_seq_serve_phase(torch) -> dict:
     if launches[B3.name] != want or sum(launches.values()) != want:
         raise AssertionError(f"lane_seq_serve launched {launches}, expected "
                              f"{want} of {B3.name} and no other")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the hive worker (node/worker.py): poll -> lanes -> upload
+
+
+class LocalHive:
+    """The hive protocol's three endpoints (``GET /api/work``, ``POST
+    /api/results``, ``GET /api/models``) on ``127.0.0.1``, served from a
+    thread of this script by the standard library's ``http.server``. Every
+    poll hands out every queued job (the reference hive's semantics).
+    ``faults`` maps a job id to the HTTP statuses its first uploads get."""
+
+    def __init__(self) -> None:
+        import http.server
+        import threading
+
+        self.cond = threading.Condition()
+        self.queued: list[dict] = []
+        self.results: list[dict] = []
+        self.result_t: list[float] = []
+        self.faults: dict[str, list[int]] = {}
+        self.work_t: list[float] = []  # when each poll that handed out work
+        self.posts = 0
+        hive = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args) -> None:
+                pass
+
+            def _reply(self, status: int, payload) -> None:
+                body = json.dumps(payload).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self) -> None:
+                path = self.path.split("?")[0]
+                if path == "/api/models":
+                    return self._reply(200, {"models": []})
+                if path != "/api/work":
+                    return self._reply(404, {"message": "no such endpoint"})
+                with hive.cond:
+                    jobs, hive.queued = hive.queued, []
+                    if jobs:
+                        hive.work_t.append(time.perf_counter())
+                self._reply(200, {"jobs": jobs})
+
+            def do_POST(self) -> None:
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                result = json.loads(body)
+                with hive.cond:
+                    hive.posts += 1
+                    statuses = hive.faults.get(str(result.get("id")))
+                    status = statuses.pop(0) if statuses else 200
+                    if status == 200:
+                        hive.results.append(result)
+                        hive.result_t.append(time.perf_counter())
+                        hive.cond.notify_all()
+                if status != 200:
+                    return self._reply(status, {"message": "unavailable"})
+                self._reply(200, {"status": "ok"})
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="local-hive", daemon=True)
+
+    @property
+    def uri(self) -> str:
+        return f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def submit(self, *jobs: dict) -> None:
+        with self.cond:
+            self.queued.extend(dict(job) for job in jobs)
+
+    def __enter__(self) -> "LocalHive":
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def serve_through_worker(hive: LocalHive, pool, registry, jobs: list[dict],
+                         late=None, timeout_s: float = 600.0):
+    """Queue ``jobs`` on ``hive``, run the port's ``Worker`` (its default
+    settings but the hive address) until a result per job (and per job
+    ``late`` submits) has arrived, then stop it. ``late(hive, t0)`` is
+    awaited beside the worker. Returns the worker."""
+    import asyncio
+
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+
+    hive.submit(*jobs)
+    want = len(hive.results) + len(jobs) + (1 if late else 0)
+    worker = Worker(Settings(hive_uri=hive.uri, hive_token="chip-smoke",
+                             worker_name="chip-smoke"),
+                    pool=pool, registry=registry)
+
+    async def drive():
+        task = asyncio.create_task(worker.run())
+        extra = asyncio.create_task(late(hive)) if late else None
+        t0 = time.perf_counter()
+        try:
+            while len(hive.results) < want:
+                if task.done():
+                    task.result()  # the worker died: raise its error
+                    raise AssertionError("the worker stopped early")
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(
+                        f"{len(hive.results)} of {want} results after "
+                        f"{timeout_s} s")
+                await asyncio.sleep(0.005)
+        finally:
+            worker.request_stop()
+            await asyncio.wait_for(task, timeout=120)
+            if extra is not None:
+                await extra
+
+    asyncio.run(drive())
+    return worker
+
+
+def trace_rows(worker) -> dict:
+    """Per job id: its seconds from poll receipt to settled upload, its
+    phases (poll = queue wait, execute, upload) and the spans under each
+    (``execute.encode_s`` and so on; a span that repeats, such as an
+    upload's attempts, sums), from the worker's trace ring."""
+    return {trace.meta["id"]: span_rows(trace)
+            for trace in worker.traces.traces()}
+
+
+def span_rows(trace) -> dict:
+    row = {"seconds": trace.root.duration_s}
+    for phase in trace.root.children:
+        row[f"{phase.name}_s"] = phase.duration_s
+        for span in phase.children:
+            key = f"{phase.name}.{span.name}_s"
+            row[key] = row.get(key, 0.0) + span.duration_s
+    return row
+
+
+def host_breakdown(row: dict, generation_s: float) -> dict:
+    """The worker's host seconds of one job (job seconds minus the
+    executor's ``generation_s``, which runs from the lane submission's end
+    to the decoded image) and the spans that make them up; ``other`` is
+    what no span covers (thread hops, the executor around the spans)."""
+    parts = {"poll": row.get("poll_s", 0.0),
+             "format": row.get("execute.format_s", 0.0),
+             "text_encode": row.get("execute.encode_s", 0.0),
+             "png_base64": row.get("execute.artifacts_s", 0.0),
+             "upload": row.get("upload_s", 0.0)}
+    host_s = row["seconds"] - generation_s
+    return {"host_s": host_s, **parts, "other": host_s - sum(parts.values())}
+
+
+@contextlib.contextmanager
+def lane_admissions(record: dict | None = None, hold: dict | None = None):
+    """Watch or steer the lanes' admissions (``serving/stepper.py``,
+    ``Lane._admit_locked``) while the block runs:
+
+    - ``record`` fills with job id -> (lane id, lane step, slots) as each
+      job is admitted;
+    - ``hold`` maps job id -> lane step: nothing is admitted until every
+      job it names has been submitted, and each is then held until its
+      lane has executed that many steps. Jobs released at one step are
+      admitted in their submission order, into the lowest free slots,
+      as the lane always admits."""
+    from chiaswarm_tpu_torch.serving.stepper import Lane
+
+    admit = Lane._admit_locked
+    submitted: set = set()
+
+    def steered(lane) -> None:
+        held: list = []
+        if hold:
+            submitted.update(job.job_id for job in lane._pending)
+            if set(hold) - submitted:
+                return  # a job of the schedule is still being submitted
+            held = [job for job in lane._pending
+                    if hold.get(job.job_id, 0) > lane.steps_executed]
+            lane._pending = collections.deque(
+                job for job in lane._pending
+                if not any(job is h for h in held))
+        admit(lane)
+        lane._pending.extend(held)
+        if record is not None:
+            for job in lane._rows:
+                if job is not None and job.job_id not in record:
+                    record[job.job_id] = (lane.lane_id, job.admitted_at_step,
+                                          list(job.slots))
+
+    Lane._admit_locked = steered
+    try:
+        yield
+    finally:
+        Lane._admit_locked = admit
+
+
+def replay_burst(registry, slot, jobs: list[dict], admissions: dict) -> dict:
+    """``jobs`` through ``synchronous_do_work_batch`` on a fresh lane of
+    ``LANE_WIDTH`` rows, each admitted at the lane step at which
+    ``admissions`` (from ``lane_admissions``) says it was: the same jobs
+    in the same slots beside the same rows at every step. Returns the
+    envelope by job id, the replay's admissions, its lane steps and its B1
+    launches (0 on the CPU)."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops.flash_attention import KERNEL as B1
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    get_stepper(slot).shutdown()
+    order = sorted(jobs, key=lambda j: admissions[j["id"]][1:])
+    replayed: dict = {}
+    with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)), lane_admissions(
+            record=replayed,
+            hold={j["id"]: admissions[j["id"]][1] for j in order}):
+        before, b1_before = stepper_stats(slot), B1.launches
+        results = synchronous_do_work_batch([dict(j) for j in order], slot,
+                                            registry)
+        steps = delta(stepper_stats(slot), before, "steps_executed")
+        b1 = B1.launches - b1_before
+    get_stepper(slot).shutdown()
+    return {"results": {job["id"]: result
+                        for job, result in zip(order, results)},
+            "admissions": replayed, "steps": steps, "b1_launches": b1}
+
+
+def worker_child(hive: LocalHive, root: Path) -> dict:
+    """``python -m chiaswarm_tpu_torch.node.worker`` as a child process
+    pointed at ``hive`` by ``SDAAS_URI``/``SDAAS_TOKEN``: its registry holds
+    no checkpoint and no random fallback, so one ``sd15`` job must come back
+    as a non-fatal ``model_unavailable`` envelope; then SIGTERM, and the
+    child drains and exits with 0."""
+    import signal
+
+    job = dict(JOBS[0], id="worker-child-1")
+    hive.submit(job)
+    log_path = root / "child.log"
+    child_env = dict(os.environ, SDAAS_URI=hive.uri, SDAAS_TOKEN="chip-smoke",
+                     SDAAS_WORKERNAME="chip-smoke-child",
+                     SWARM_TPU_ROOT=str(root / "child"))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+            cwd=ROOT, env=child_env, stdout=log_file,
+            stderr=subprocess.STDOUT)
+        try:
+            with hive.cond:
+                if not hive.cond.wait_for(
+                        lambda: any(r["id"] == job["id"]
+                                    for r in hive.results), timeout=300):
+                    raise AssertionError("the child worker uploaded nothing")
+            result_s = time.perf_counter() - t0
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=120)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=30)
+    text = log_path.read_text()
+    startup = [line for line in text.splitlines()
+               if "card(s)" in line or "derived default mesh" in line]
+    [result] = [r for r in hive.results if r["id"] == job["id"]]
+    cfg = result["pipeline_config"]
+    out = {"rc": rc, "error_kind": cfg.get("error_kind"),
+           "fatal_error": bool(result.get("fatal_error")),
+           "result_after_s": result_s, "startup": startup,
+           "log_tail": text.splitlines()[-5:]}
+    if (rc != 0 or cfg.get("error_kind") != "model_unavailable"
+            or result.get("fatal_error") or not startup):
+        raise AssertionError(f"the child worker failed: {out}")
+    return out
+
+
+def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
+                       burst_blobs: dict, burst_ips: float) -> dict:
+    """The port's ``Worker.run()`` against a hive served from this script
+    (``LocalHive``), on the lanes, on the serve phases' ``ChipPool``:
+
+    - the lone job: ``serve``'s seed-1 job in a fresh lane at the lanes'
+      default width; error-free with a 512x512 PNG and a ``stepper``
+      stamp, and bit for bit ``lane_serve``'s seed-1 image (the same lane
+      of 2 rows). Then, in the warm lane, twice: the same job through
+      ``synchronous_do_work`` (with a trace of its own), then through the
+      worker; each pair bit for bit, and their seconds side by side;
+    - the burst: ``lane_burst``'s jobs at its pinned width of 8, seeds
+      11-18 handed out by the first poll that returns work and seed 19 by a
+      later one once the lane has stepped 5 times; all nine arrive once,
+      each bit for bit the image of ``replay_burst`` (the same jobs in the
+      same slots at the same lane steps), which runs last; the difference
+      from ``lane_burst``'s image of each seed is printed;
+    - one upload fault: the first POST of a re-run of the lone job gets a
+      503; ``upload_retries`` rises by 1 and the result arrives once, with
+      the lone job's image;
+    - the entry point: ``python -m chiaswarm_tpu_torch.node.worker`` as a
+      child process (``worker_child``).
+
+    B1 launches 10 times per lane step, at held shapes. Prints each job's
+    seconds (poll receipt to settled upload, from the worker's traces and
+    its ``chiaswarm_job_seconds`` histogram) and spans, the worker's host
+    seconds (``host_breakdown``), the burst's images/s from the first poll
+    that returned work to the last upload beside ``lane_burst``'s, and the
+    lane steps and occupancy. Returns the launches of the worker's runs
+    (``launched``), the replay's excluded."""
+    import tempfile
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.obs import trace as obs_trace
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.flash_attention import KERNEL as B1
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    get_stepper(slot).shutdown()
+    out: dict = {}
+    failed: list[str] = []  # checked after every sub-run has run
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="worker-serve-") as tmp, \
+            env(SWARM_TPU_ROOT=tmp), LocalHive() as hive:
+        # the lone job, in a fresh lane
+        before, b1_before = stepper_stats(slot), B1.launches
+        lone_job = dict(JOBS[0], id="worker-sd15-1")
+        worker = serve_through_worker(hive, pool, registry, [lone_job])
+        [lone] = [r for r in hive.results if r["id"] == lone_job["id"]]
+        lone_blob = check_envelope("worker_serve", lone_job, lone, lanes=True)
+        steps = delta(stepper_stats(slot), before, "steps_executed")
+        rows = trace_rows(worker)[lone_job["id"]]
+        gen_s = lone["pipeline_config"]["generation_s"]
+        out["lone"] = {
+            **rows, "generation_s": gen_s,
+            **host_breakdown(rows, gen_s),
+            "histogram_count": worker._job_seconds.count(),
+            "histogram_sum_s": worker._job_seconds.sum(),
+            "steps_executed": steps,
+            "b1_launches": B1.launches - b1_before,
+            "stepper": lone["pipeline_config"]["stepper"],
+            "vs_lane_serve": image_diffs({1: lone_blob},
+                                         {1: lane_blobs[1]})[1]}
+        emit("worker_serve_lone", **out["lone"])
+        if (B1.launches - b1_before != steps * B1_LAUNCHES_PER_UNET_EVAL
+                or not out["lone"]["vs_lane_serve"]["bit_equal"]):
+            raise AssertionError(f"worker_serve lone job: {out['lone']}")
+
+        # the same job in the warm lane: the executor alone, then the worker
+        warm = []
+        for turn in range(2):
+            direct_job = dict(JOBS[0], id=f"direct-sd15-1-{turn}")
+            trace = obs_trace.JobTrace(id=direct_job["id"])
+            obs_trace.attach(direct_job, trace)
+            trace.phase("execute")
+            direct = synchronous_do_work(direct_job, slot, registry)
+            trace.finish(obs_trace.TraceRing())
+            direct_blob = check_envelope("worker_serve", direct_job, direct,
+                                         lanes=True)
+            job = dict(JOBS[0], id=f"worker-sd15-1-{turn}")
+            worker = serve_through_worker(hive, pool, registry, [job])
+            [result] = [r for r in hive.results if r["id"] == job["id"]]
+            blob = check_envelope("worker_serve", job, result, lanes=True)
+            rows = trace_rows(worker)[job["id"]]
+            d_rows = span_rows(trace)
+            gen_s = result["pipeline_config"]["generation_s"]
+            d_gen_s = direct["pipeline_config"]["generation_s"]
+            warm.append({
+                "direct": {**d_rows, "generation_s": d_gen_s,
+                           **host_breakdown(d_rows, d_gen_s)},
+                "worker": {**rows, "generation_s": gen_s,
+                           **host_breakdown(rows, gen_s)},
+                "worker_minus_direct_s": rows["seconds"] - d_rows["seconds"],
+                "lane_widths": [direct["pipeline_config"]["stepper"]
+                                ["lane_width"],
+                                result["pipeline_config"]["stepper"]
+                                ["lane_width"]],
+                "bit_equal": blob == direct_blob})
+        get_stepper(slot).shutdown()
+        out["warm"] = warm
+        emit("worker_serve_warm", turns=warm,
+             mean_worker_minus_direct_s=statistics.mean(
+                 t["worker_minus_direct_s"] for t in warm))
+        if not all(t["bit_equal"] for t in warm):
+            failed.append(f"worker_serve warm lone jobs: {warm}")
+
+        # the burst, at lane_burst's pinned width
+        admissions: dict = {}
+        with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)), \
+                lane_admissions(record=admissions):
+            before, b1_before = stepper_stats(slot), B1.launches
+            late_at: dict = {}
+
+            async def late(hive_):
+                import asyncio
+
+                while (delta(stepper_stats(slot), before, "steps_executed")
+                       < 5):
+                    await asyncio.sleep(0.002)
+                late_at["step"] = delta(stepper_stats(slot), before,
+                                        "steps_executed")
+                late_at["polls_with_work"] = len(hive_.work_t)
+                hive_.submit(LATE_JOB)
+
+            first_poll = len(hive.work_t)
+            first_result = len(hive.results)
+            worker = serve_through_worker(hive, pool, registry,
+                                          BURST_JOBS, late=late)
+            after = stepper_stats(slot)
+            get_stepper(slot).shutdown()
+        results = hive.results[first_result:]
+        t_first_work = hive.work_t[first_poll]
+        t_last = hive.result_t[-1]
+        ids = [r["id"] for r in results]
+        jobs = BURST_JOBS + [LATE_JOB]
+        if sorted(ids) != sorted(j["id"] for j in jobs):
+            raise AssertionError(f"worker_serve burst results: {ids}")
+        by_id = {r["id"]: r for r in results}
+        blobs, infos, host = {}, {}, []
+        traces = trace_rows(worker)
+        for job in jobs:
+            result = by_id[job["id"]]
+            blobs[job["seed"]] = check_envelope("worker_serve", job, result,
+                                                lanes=True)
+            infos[job["seed"]] = result["pipeline_config"]["stepper"]
+            host.append(host_breakdown(
+                traces[job["id"]], result["pipeline_config"]["generation_s"]))
+        steps = delta(after, before, "steps_executed")
+        row_active = delta(after, before, "row_steps_active")
+        row_padded = delta(after, before, "row_steps_padded")
+        diffs = image_diffs(blobs, burst_blobs)
+        wall_s = t_last - t_first_work
+        out["burst"] = {
+            "jobs": len(jobs), "lane_width": LANE_WIDTH,
+            "wall_s": wall_s, "images_per_s": len(jobs) / wall_s,
+            "lane_burst_images_per_s": burst_ips,
+            "vs_lane_burst_images_per_s": len(jobs) / wall_s / burst_ips,
+            "late_submitted_at_step": late_at.get("step"),
+            "late_polls_with_work_before": late_at.get("polls_with_work"),
+            "polls_with_work": len(hive.work_t) - first_poll,
+            "late_admitted_at_step": infos[19]["admitted_at_step"],
+            "steps_executed": steps,
+            "row_steps_active": row_active, "row_steps_padded": row_padded,
+            "occupancy": row_active / max(1, row_active + row_padded),
+            "b1_launches": B1.launches - b1_before,
+            "job_seconds": {j["id"]: traces[j["id"]] for j in jobs},
+            "host_per_job": host,
+            "mean_host_s": statistics.mean(h["host_s"] for h in host),
+            "histogram_count": worker._job_seconds.count(),
+            "histogram_sum_s": worker._job_seconds.sum(),
+            "lanes": sorted({info["lane"] for info in infos.values()}),
+            "admissions": {j["seed"]: admissions.get(j["id"]) for j in jobs},
+            "vs_lane_burst": diffs,
+            "bit_equal_vs_lane_burst": sum(d["bit_equal"]
+                                           for d in diffs.values()),
+            "within_one_level_of_lane_burst": sum(
+                d["max"] <= 1 for d in diffs.values())}
+        emit("worker_serve_burst", **out["burst"])
+        if (B1.launches - b1_before != steps * B1_LAUNCHES_PER_UNET_EVAL
+                or len(out["burst"]["lanes"]) != 1
+                or any(j["id"] not in admissions for j in jobs)):
+            failed.append(f"worker_serve burst: {out['burst']}")
+
+        # one upload fault on a re-run of the lone job
+        retry_job = dict(JOBS[0], id="worker-sd15-retry-1")
+        hive.faults[retry_job["id"]] = [503]
+        posts_before = hive.posts
+        worker = serve_through_worker(hive, pool, registry, [retry_job])
+        get_stepper(slot).shutdown()
+        arrived = [r for r in hive.results if r["id"] == retry_job["id"]]
+        retry_blob = check_envelope("worker_serve", retry_job, arrived[0],
+                                    lanes=True)
+        out["upload_fault"] = {
+            "upload_retries": worker.stats.upload_retries,
+            "posts": hive.posts - posts_before, "arrived": len(arrived),
+            "seconds": trace_rows(worker)[retry_job["id"]],
+            "bit_equal_to_lone": retry_blob == lone_blob}
+        emit("worker_serve_upload_fault", **out["upload_fault"])
+        if (worker.stats.upload_retries != 1 or len(arrived) != 1
+                or hive.posts - posts_before != 2 or retry_blob != lone_blob):
+            failed.append(f"worker_serve upload fault: "
+                          f"{out['upload_fault']}")
+
+        # the entry point, as a node operator starts it
+        out["child"] = worker_child(hive, Path(tmp))
+        emit("worker_serve_child", **out["child"])
+    run = launched()
+
+    # the burst's batch composition again, outside the worker: each image
+    # bit for bit the worker's
+    if not failed:
+        replay = replay_burst(registry, slot, jobs, admissions)
+        exact = image_diffs(blobs, {
+            job["seed"]: check_envelope("worker_serve", job,
+                                        replay["results"][job["id"]],
+                                        lanes=True) for job in jobs})
+        out["replay"] = {
+            "steps_executed": replay["steps"],
+            "b1_launches": replay["b1_launches"],
+            # (lane step, slots) of each job; the lane is a fresh one
+            "same_admissions": {k: v[1:] for k, v in
+                                replay["admissions"].items()}
+            == {k: v[1:] for k, v in admissions.items()},
+            "bit_equal": sum(d["bit_equal"] for d in exact.values()),
+            "vs_worker": exact}
+        emit("worker_serve_replay", **out["replay"])
+        if (not out["replay"]["same_admissions"]
+                or out["replay"]["bit_equal"] != len(jobs)
+                or replay["steps"] != steps
+                or replay["b1_launches"]
+                != steps * B1_LAUNCHES_PER_UNET_EVAL):
+            failed.append(f"worker_serve replay: {out['replay']} "
+                          f"(worker admissions {admissions})")
+    emit("worker_serve", lone_seconds=out["lone"]["seconds"],
+         lone_host_s=out["lone"]["host_s"],
+         warm_worker_minus_direct_s=[t["worker_minus_direct_s"]
+                                     for t in out["warm"]],
+         burst_images_per_s=out["burst"]["images_per_s"],
+         lane_burst_images_per_s=burst_ips,
+         burst_mean_host_s=out["burst"]["mean_host_s"],
+         burst_bit_equal_vs_replay=out.get("replay", {}).get("bit_equal"),
+         burst_within_one_level_of_lane_burst=out["burst"][
+             "within_one_level_of_lane_burst"],
+         b1_launches=run["flash_attention"]["launches"])
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return run
+
+
+def solo_pair_phase(torch, registry, slot, lane_blob: str,
+                    solo_blob: str) -> dict:
+    """Seed 1 with ``num_images_per_prompt=2`` on the solo path (a CFG
+    batch of 4 rows, the UNet batch of a lane of 2) and through a lane
+    pinned at 2 rows (the same UNet batch, text batch and noise): the two
+    grids bit for bit, which holds the lane's per-row step to the solo
+    step on the card. The solo pair's first image (the left half of its
+    1x2 grid) is also set beside the lone job's lane image (a lane of 2
+    with a padding row; its text encoded alone) and beside the solo path's
+    one-image render (a CFG batch of 2)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    kernels.reset_launches()
+    job = dict(JOBS[0], id="solo-pair-1", num_images_per_prompt=2)
+    grids = {}
+    for mode in ("0", "1"):
+        with env(CHIASWARM_STEPPER=mode, CHIASWARM_STEPPER_LANE_WIDTH="2"):
+            result = synchronous_do_work(dict(job), slot, registry)
+        cfg = result["pipeline_config"]
+        if "error" in cfg or ("stepper" in cfg) != (mode == "1"):
+            raise AssertionError(f"solo_pair ({mode}): {cfg}")
+        grids[mode] = decode_png(result["artifacts"]["primary"]["blob"])
+        if grids[mode].shape != (512, 1024, 3):
+            raise AssertionError(f"solo_pair grid is {grids[mode].shape}")
+    get_stepper(slot).shutdown()
+    row0 = grids["0"][:, :512]
+
+    def diff(a, b):
+        d = np.abs(a - b)
+        return {"max": int(d.max()), "within_one": float((d <= 1).mean()),
+                "bit_equal": bool((d == 0).all())}
+
+    run = launched()
+    pair = diff(grids["1"], grids["0"])
+    emit("solo_pair", lane_pair_vs_solo_pair=pair,
+         solo_pair_row_0_vs_lone_lane_job=diff(row0, decode_png(lane_blob)),
+         solo_pair_row_0_vs_solo_1=diff(row0, decode_png(solo_blob)),
+         b1_shapes=[[*k, n] for k, n in run["flash_attention"]["shapes"]
+                    .items()])
+    if not pair["bit_equal"]:
+        raise AssertionError(f"solo_pair: the lane's pair is not the solo "
+                             f"pair bit for bit: {pair}")
     return run
 
 
@@ -1300,7 +1922,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
                 "shapes": tables[name]}
 
     entries = [
-        entry("flash_attention", "serve", ("lane_serve", "lane_burst")),
+        entry("flash_attention", "serve", ("lane_serve", "lane_burst",
+                                           "worker_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -1332,7 +1955,8 @@ def main() -> int:
 
     registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
                              allow_random=True, device="cuda")
-    slot = ChipPool(device="cuda").slots[0]
+    pool = ChipPool(device="cuda")
+    slot = pool.slots[0]
     runs = {}
     with env(CHIASWARM_STEPPER="0"):  # the solo path
         runs["serve"], solo_blobs = serve_phase(torch, registry, slot)
@@ -1340,10 +1964,15 @@ def main() -> int:
         runs["seq_serve_scan"] = seq_serve_phase(torch, "seq_serve_scan",
                                                  solo_blobs)
     with env(CHIASWARM_STEPPER="1"):  # the lanes, the default engine
-        runs["lane_serve"] = lane_serve_phase(torch, registry, slot,
-                                              solo_blobs)
-        runs["lane_burst"] = lane_burst_phase(torch, registry, slot)
+        runs["lane_serve"], lane_blobs = lane_serve_phase(
+            torch, registry, slot, solo_blobs)
+        runs["lane_burst"], burst_blobs, burst_ips = lane_burst_phase(
+            torch, registry, slot)
         runs["lane_seq_serve"] = lane_seq_serve_phase(torch)
+        runs["solo_pair"] = solo_pair_phase(torch, registry, slot,
+                                            lane_blobs[1], solo_blobs[1])
+        runs["worker_serve"] = worker_serve_phase(
+            torch, registry, pool, lane_blobs, burst_blobs, burst_ips)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

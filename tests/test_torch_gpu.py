@@ -598,3 +598,112 @@ def test_lane_step_matches_each_rows_solo_step(cuda_device, scheduler):
             for got, ref in ((x_l[one], x_s), (old_l[one], state.old_denoised)):
                 rel = ((got - ref).norm() / ref.norm()).item()
                 assert rel <= 1e-4, (b, rel)
+
+
+def test_worker_serves_a_job_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """One small job through the port's worker (``node/worker.py``) against
+    an in-process hive, on a one-card ``ChipPool``: a float32 UNet whose
+    1024-token level (64 px through the tiny VAE) goes through B1 at head
+    dim 40. The envelope is error-free, a lane served it, and B1 ran."""
+    import asyncio
+    import dataclasses
+
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.models.configs import FAMILIES, UNetConfig
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+    from fake_hive import FakeHive  # tests/ is on the path under pytest
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    monkeypatch.setenv("CHIASWARM_STEPPER", "1")
+    unet_cfg = UNetConfig(block_out_channels=(80, 160), layers_per_block=1,
+                          transformer_depth=(1, 1), attention_head_dim=2,
+                          cross_attention_dim=32, dtype="float32")
+    monkeypatch.setitem(FAMILIES, "tiny_b1", dataclasses.replace(
+        FAMILIES["tiny"], name="tiny_b1", unet=unet_cfg))
+    registry = ModelRegistry(catalog=[{"name": "tiny_b1",
+                                       "family": "tiny_b1"}],
+                             allow_random=True, device=cuda_device)
+    pool = ChipPool(device=cuda_device)
+
+    async def scenario():
+        hive = FakeHive()
+        uri = await hive.start()
+        hive.jobs.append({"id": "gpu-1", "model_name": "tiny_b1",
+                          "prompt": "a house", "num_inference_steps": 3,
+                          "height": 64, "width": 64, "seed": 5,
+                          "content_type": "image/png"})
+        worker = Worker(settings=Settings(hive_uri=uri, hive_token="t",
+                                          worker_name="gpu", poll_busy_s=0.05,
+                                          poll_idle_s=0.05,
+                                          install_signal_handlers=False),
+                        pool=pool, registry=registry)
+        task = asyncio.create_task(worker.run())
+        try:
+            await hive.wait_for_results(1, timeout=300)
+        finally:
+            worker.request_stop()
+            await asyncio.wait_for(task, timeout=60)
+            await hive.stop()
+        return hive.results, worker
+
+    before = KERNEL.launches
+    [result], worker = asyncio.run(scenario())
+    get_stepper(pool.slots[0]).shutdown()
+    config = result["pipeline_config"]
+    assert "error" not in config, config
+    assert "stepper" in config and config["slot"]["platform"] == "gpu"
+    assert worker.jobs_done == 1
+    assert KERNEL.launches - before == 3 * 3  # 3 steps, 3 at 1024 tokens
+
+
+@pytest.mark.parametrize("scheduler", [None, "EulerDiscreteScheduler",
+                                       "EulerAncestralDiscreteScheduler",
+                                       "LCMScheduler"])
+def test_solo_step_is_the_lanes_per_row_step_bit_for_bit(cuda_device,
+                                                          scheduler):
+    """The solo step (its ladder on the host) and the lane's per-row step
+    (its ladders on the card) compute on the card alike: the same scaled
+    input, x and history, bit for bit, at every position of a 20-step
+    ladder. The solo step moves the scalars it reads to the sample's device
+    before it computes; dividing by a host scalar there would multiply by
+    its reciprocal and part from the lane in the last bit."""
+    from chiaswarm_tpu_torch.schedulers import (
+        SamplerState,
+        ScheduleConfig,
+        make_noise_schedule,
+        make_sampling_schedule,
+        resolve,
+        sampler_step,
+        scale_model_input,
+    )
+    from chiaswarm_tpu_torch.schedulers.sampling import (
+        SamplingSchedule,
+        sampler_step_rows,
+        scale_model_input_rows,
+    )
+
+    sampler = resolve(scheduler)
+    host = make_sampling_schedule(make_noise_schedule(ScheduleConfig()), 20,
+                                  sampler)
+    rows = SamplingSchedule(host.sigmas[None].repeat(2, 1).to(cuda_device),
+                            host.timesteps[None].repeat(2, 1).to(cuda_device))
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = (torch.randn((2, 4, 64, 64), generator=gen) * 10).to(cuda_device)
+    old, noise = (torch.randn((2, 4, 64, 64), generator=gen).to(cuda_device)
+                  for _ in range(2))
+    eps = torch.randn((2, 4, 64, 64), generator=gen).to(cuda_device,
+                                                        torch.bfloat16)
+    start = torch.zeros(2, dtype=torch.long, device=cuda_device)
+    for i in range(20):
+        idx = torch.full((2,), i, device=cuda_device)
+        assert torch.equal(scale_model_input(host, x, i),
+                           scale_model_input_rows(rows, x, idx)), i
+        solo_x, solo_s = sampler_step(sampler, host, i, x, eps,
+                                      SamplerState(old), noise=noise)
+        lane_x, lane_s = sampler_step_rows(sampler, rows, idx, x, eps,
+                                           SamplerState(old), noise, start)
+        assert torch.equal(solo_x, lane_x), i
+        assert torch.equal(solo_s.old_denoised, lane_s.old_denoised), i

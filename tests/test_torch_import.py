@@ -80,7 +80,9 @@ def test_package_has_the_slice_modules():
                   "node.executor", "node.smoke", "core.mesh",
                   "parallel.context", "parallel.ring_attention",
                   "ops.ring_flash_attention", "serving.guard",
-                  "serving.stepper"):
+                  "serving.stepper", "node.settings", "node.logging_setup",
+                  "node.resilience", "node.hive", "node.worker",
+                  "obs.metrics", "obs.trace"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",
