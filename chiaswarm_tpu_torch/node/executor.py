@@ -16,7 +16,11 @@ flag so the hive may retry elsewhere. Every failure renders as an artifact.
 
 Lanes first, as in the JAX executor: an eligible txt2img job goes to the
 slot's continuous-batching scheduler (``serving/stepper.py``); a job the
-lane rejects or fails takes the per-job (solo) path, the zero-loss ladder.
+lane rejects or fails takes the per-job (solo) path, the zero-loss ladder,
+and so does a job whose model the residency ledger has degraded to
+load-per-job (``registry.lane_resident_ok``, JAX :230-238). A model that
+cannot fit even transiently raises ``ModelUnavailable``: the non-fatal
+``model_unavailable`` envelope.
 Both paths run on the slot's device. ``CHIASWARM_STEPPER=0`` sends every job
 down the solo path. Coalesced bursts and the lane-rebuild rung of the hang
 watchdog are later slices (``ROADMAP.md``).
@@ -163,6 +167,15 @@ def _stepper_submit(job_id, content_type, callback, kwargs, slot, registry):
     )
 
     if callback is not diffusion_callback or not stepper_eligible(kwargs):
+        return None
+    # residency fast path: a model the ledger knows is degraded to
+    # load-per-job must not pin a lane, nor pay a transient load only to
+    # be refused by the lane (stepper_submit checks again after a
+    # first-ever load)
+    lane_ok = getattr(registry, "lane_resident_ok", None)
+    if callable(lane_ok) and not lane_ok(str(kwargs.get("model_name"))):
+        log.debug("job %s model degraded to load-per-job; skipping lanes",
+                  job_id)
         return None
     seed = kwargs.get("seed")
     seed = draw_seed() if seed is None else int(seed)

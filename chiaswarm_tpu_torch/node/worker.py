@@ -22,12 +22,19 @@ the executor routes them. A slot keeps up to ``slot.depth`` bursts in
 flight, so a burst handed out while a lane steps splices into it
 (``core/chip_pool.py`` says how a slot runs solo jobs at that depth).
 
+Models load from ``<settings root>/models/<name>`` (diffusers layout,
+``node/registry.py``) through the registry's residency ledger: the worker
+applies ``residency_budget_bytes`` and ``residency_prefetch`` to it, its
+mesh policy reads the ledger's measured footprints before the family
+estimates, and an empty poll lets the ledger prefetch (``note_idle``).
+
 Left for the next worker slice, and refused when a setting asks for them
 (``heartbeat_s``, ``health_port``, ``overload_control``, several hive uris,
-``hive_front_uri``): the heartbeat loop with checkpoints and resume, the
-health server and ``/metrics``, the overload controller, federation over
-hive shards. The gray-failure guard is not ported: ``guard_enabled`` is
-ignored, which the startup log says once.
+``hive_front_uri``): the heartbeat loop with checkpoints and resume (and
+the placement hints its acks carry, ``note_placement``), the health server
+and ``/metrics``, the overload controller, federation over hive shards.
+The gray-failure guard is not ported: ``guard_enabled`` is ignored, which
+the startup log says once.
 
 ``python -m chiaswarm_tpu_torch.node.worker`` runs one worker on the
 machine's CUDA cards. There is no CPU fallback: pass ``pool=`` and
@@ -242,6 +249,17 @@ class Worker:
             self._dl_replayed.inc(0, when=when)
         # jobs between poll receipt and settled upload
         self._inflight: dict[Any, float] = {}
+        # the operator's residency settings, pushed into the registry's
+        # ledger: an explicit budget, and the prefetch toggle (idle polls
+        # start demand-driven warm loads, _ask_for_work)
+        residency = getattr(self.registry, "residency", None)
+        if residency is not None:
+            if int(self.settings.residency_budget_bytes or 0) > 0:
+                residency.set_budget(
+                    int(self.settings.residency_budget_bytes))
+            residency.prefetch_enabled = bool(
+                self.settings.residency_prefetch
+                and residency.prefetch_enabled)
 
     def _refuse_later_parts(self) -> None:
         s = self.settings
@@ -302,8 +320,10 @@ class Worker:
         return ChipPool(n_slots=n_slots, mesh_spec=slot_spec)
 
     def _heaviest_catalog_bytes(self) -> int | None:
-        """Estimated footprint of the heaviest model the catalog serves
-        (None = empty catalog or no estimate)."""
+        """Footprint of the heaviest model the catalog serves (None =
+        empty catalog or no estimate): the ledger's measured footprint
+        (persisted across restarts in ``residency.json``) where there is
+        one, else the family's bf16 estimate."""
         try:
             from chiaswarm_tpu_torch.models.configs import get_family
             from chiaswarm_tpu_torch.pipelines.components import (
@@ -313,10 +333,15 @@ class Worker:
             names = self.registry.known_models()
             if not names:
                 return None
+            residency = getattr(self.registry, "residency", None)
+            measured = (residency.measured_footprints()
+                        if residency is not None else {})
             heaviest = 0
             for name in names:
-                heaviest = max(heaviest, int(
-                    estimate_family_bytes(get_family(name).name)))
+                nbytes = measured.get(name)
+                if nbytes is None:
+                    nbytes = estimate_family_bytes(get_family(name).name)
+                heaviest = max(heaviest, int(nbytes))
             return heaviest or None
         except Exception as exc:  # policy must never block startup
             log.warning("mesh policy estimate failed (%s); using dp-only",
@@ -565,6 +590,16 @@ class Worker:
             await self.work_queue.put(job)
         if jobs:
             return float(self.settings.poll_busy_s)
+        # demand-driven prefetch: only an empty poll with nothing queued
+        # lets the ledger warm-load the hottest evicted model that fits
+        # the free budget (on a daemon thread)
+        if not self._stop.is_set() and self.work_queue.empty():
+            residency = getattr(self.registry, "residency", None)
+            if residency is not None:
+                try:
+                    residency.note_idle()
+                except Exception:  # prefetch must never stop polls
+                    log.exception("residency prefetch tick failed")
         return float(self.settings.poll_idle_s)
 
     async def _next_job(self) -> dict | None:

@@ -2,8 +2,9 @@
 ``chiaswarm_tpu/obs/metrics.py`` (:31-387 and :806-831), trimmed to what the
 worker (``node/worker.py``) and ``node/resilience.py::ResilienceStats`` use:
 :class:`Registry`, :class:`Counter`, :class:`Gauge`, :class:`Histogram`,
-:func:`render_all`, the process-global :data:`REGISTRY`, and the
-dead-letter and hive-session families.
+:func:`render_all`, the process-global :data:`REGISTRY`, the dead-letter
+and hive-session families, and the residency families (:530-636), which
+``serving/residency.py`` registers on :data:`REGISTRY` with zeroes.
 
 Each worker owns its own :class:`Registry` (hermetic test workers must not
 bleed counters into each other); process-wide state, such as the hive
@@ -270,3 +271,99 @@ def hive_session_state_gauge(registry: Registry | None = None) -> Gauge:
     return (registry or REGISTRY).gauge(
         "chiaswarm_hive_session_state",
         "worker's hive reachability state (0=online, 1=outage)")
+
+
+# ---- residency families (serving/residency.py owns the ledger) ----
+
+#: the authoritative per-model state vocabulary (registry + residency:
+#: quarantine and residency share one enum)
+RESIDENCY_STATES = ("cold", "loading", "resident", "degraded",
+                    "evicted", "unavailable", "quarantined")
+
+#: why a resident model was dropped from HBM
+RESIDENCY_EVICT_REASONS = ("capacity", "squeeze")
+
+#: how a model load was served (resident admit / degraded load-per-job /
+#: background prefetch)
+RESIDENCY_LOAD_MODES = ("resident", "per_job", "prefetch")
+
+
+def residency_bytes_gauge(registry: Registry | None = None) -> Gauge:
+    """Bytes of model params the residency ledger holds resident,
+    measured from the live modules at load, not estimated. The headroom
+    signal: steady-state near the budget with a nonzero eviction rate
+    means the catalog is memory-bound (raise CHIASWARM_RESIDENCY_BUDGET)."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_residency_resident_bytes",
+        "measured bytes of model params currently resident in HBM")
+
+
+def residency_budget_gauge(registry: Registry | None = None) -> Gauge:
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_residency_budget_bytes",
+        "HBM byte budget the residency ledger evicts down to")
+
+
+def residency_peak_gauge(registry: Registry | None = None) -> Gauge:
+    """High-water mark of resident + reserved bytes, the no-double-buffer
+    proof: a swap that evicts before loading keeps this at most budget +
+    one model (the churn checks assert exactly that)."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_residency_peak_bytes",
+        "high-water mark of resident + in-flight reserved bytes")
+
+
+def residency_models_gauge(registry: Registry | None = None) -> Gauge:
+    """Model count per residency state (the /healthz ``models`` enum,
+    aggregated). ``degraded`` > 0 is the graceful-degradation rung in
+    action: some model serves load-per-job because its measured
+    footprint exceeds the budget."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_residency_models",
+        "models per residency state (cold/loading/resident/degraded/"
+        "evicted/unavailable/quarantined)",
+        labelnames=("state",))
+
+
+def residency_evictions_counter(registry: Registry | None = None) -> Counter:
+    """Ledger evictions by reason: ``capacity`` (donation — room made
+    for an incoming load) vs ``squeeze`` (the budget itself shrank). A
+    high capacity rate with a small catalog means footprints ~ budget:
+    expect swap latency on every model switch."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_residency_evictions_total",
+        "models evicted from HBM residency, by reason",
+        labelnames=("reason",))
+
+
+def residency_loads_counter(registry: Registry | None = None) -> Counter:
+    """Model loads by mode. ``per_job`` counting up is the degradation
+    rung burning load latency per job, the signal to grow the budget;
+    ``prefetch`` counts idle-poll warm loads driven by the per-model
+    arrival EWMA."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_residency_loads_total",
+        "model param-tree loads, by residency mode",
+        labelnames=("mode",))
+
+
+def residency_bounces_counter(registry: Registry | None = None) -> Counter:
+    """Jobs refused because the model cannot fit even transiently
+    (footprint > hard limit): uploaded as non-fatal
+    ``model_unavailable`` so a lease-aware hive redispatches them."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_residency_bounces_total",
+        "jobs bounced model_unavailable: model cannot fit transiently")
+
+
+def residency_load_seconds_histogram(
+        registry: Registry | None = None) -> Histogram:
+    """Wall time of one model load (read, build, measure), by mode, with
+    ``swapped="1"`` when the load had to evict first: the swap latency."""
+    return (registry or REGISTRY).histogram(
+        "chiaswarm_residency_load_seconds",
+        "model load wall time, by residency mode and whether the load "
+        "evicted residents first",
+        labelnames=("mode", "swapped"),
+        buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+                 60.0, 120.0, 300.0))

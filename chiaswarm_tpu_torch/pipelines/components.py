@@ -2,7 +2,7 @@
 ``chiaswarm_tpu/pipelines/components.py``: modules with their weights and
 tokenizers for one checkpoint family, resident on one device.
 
-Two constructors:
+Three constructors:
 
 - :meth:`Components.random` — a seeded init with Flax's default
   distributions (lecun-normal kernels, zero biases, unit norm scales,
@@ -11,6 +11,11 @@ Two constructors:
   finite, non-constant image.
 - :meth:`Components.from_jax` — the JAX package's params carried across by
   ``convert.from_jax.params_from_flax``; the parity tests use it.
+- :meth:`Components.from_checkpoint` — a diffusers-layout directory on
+  disk (``convert/checkpoint.py``) and its CLIP BPE tokenizer, the
+  counterpart of JAX ``Components.from_checkpoint`` (:246-272). The
+  modules are allocated at their serving dtypes before the tensors land,
+  each cast as it lands, so a load never holds a float32 copy of the model.
 
 The text towers stay in float32 whatever ``dtype`` is (the JAX package runs
 them in float32); the UNet and VAE are cast to ``dtype`` except the modules
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 from typing import Any, Sequence
 
 import torch
@@ -30,8 +36,12 @@ from chiaswarm_tpu_torch.core.device import resolve_device
 from chiaswarm_tpu_torch.core.rng import row_seed
 from chiaswarm_tpu_torch.models.clip import ClipTextEncoder
 from chiaswarm_tpu_torch.models.common import cast_module
-from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily
-from chiaswarm_tpu_torch.models.tokenizer import HashTokenizer, Tokenizer
+from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily, get_family
+from chiaswarm_tpu_torch.models.tokenizer import (
+    HashTokenizer,
+    Tokenizer,
+    load_tokenizer,
+)
 from chiaswarm_tpu_torch.models.unet import UNet
 from chiaswarm_tpu_torch.models.vae import AutoencoderKL
 
@@ -84,10 +94,14 @@ def estimate_family_bytes(family: ModelFamily | str) -> int:
     return _FAMILY_BYTES_CACHE[family.name]
 
 
-def _empty(ctor, config, device: torch.device) -> nn.Module:
-    """The module with uninitialized storage on ``device`` (no CPU copy)."""
+def _empty(ctor, config, device: torch.device,
+           dtype: torch.dtype | None = None) -> nn.Module:
+    """The module with uninitialized storage on ``device`` (no CPU copy),
+    cast to ``dtype`` first (``cast_module``) when one is given."""
     with torch.device("meta"):
         module = ctor(config)
+    if dtype is not None:
+        cast_module(module, dtype)
     return module.to_empty(device=device)
 
 
@@ -101,18 +115,24 @@ class Components:
     vae: AutoencoderKL
     device: torch.device
     dtype: torch.dtype
+    #: a checkpoint load's statistics (``convert/checkpoint.py``)
+    load_stats: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def _build(cls, family: ModelFamily, model_name: str | None,
                device: str | torch.device | None, dtype: torch.dtype | None,
-               fill) -> "Components":
+               fill, precast: bool = False) -> "Components":
+        """Modules with storage on ``device``, filled module by module
+        (``fill(index, name, module)``), UNet and VAE cast to ``dtype``:
+        after the fill, or before it with ``precast``."""
         dev = resolve_device(device)
         if dtype is None:
             dtype = _DTYPES[family.unet.dtype]
         text_encoders = [_empty(ClipTextEncoder, cfg, dev)
                          for cfg in family.text_encoders]
-        unet = _empty(UNet, family.unet, dev)
-        vae = _empty(AutoencoderKL, family.vae, dev)
+        first = dtype if precast else None
+        unet = _empty(UNet, family.unet, dev, first)
+        vae = _empty(AutoencoderKL, family.vae, dev, first)
         named = [(f"text_encoder_{i}", te) for i, te in enumerate(text_encoders)]
         named += [("unet", unet), ("vae", vae)]
         for index, (name, module) in enumerate(named):
@@ -161,6 +181,43 @@ class Components:
             module.load_state_dict(state[name], strict=True)
 
         return cls._build(family, model_name, device, dtype, fill)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str | Path,
+                        model_name: str | None = None,
+                        family: ModelFamily | str | None = None,
+                        device: str | torch.device | None = None,
+                        dtype: torch.dtype | None = None) -> "Components":
+        """A diffusers-layout snapshot on ``device`` (default ``cuda``):
+        UNet and VAE in ``dtype`` (default: the family config's), text
+        towers in float32, the tokenizer from the snapshot's vocab files.
+        ``load_stats`` holds the file-read and device-copy seconds."""
+        from chiaswarm_tpu_torch.convert.checkpoint import (
+            SUBDIRS,
+            TensorLander,
+            load_module,
+        )
+
+        checkpoint_dir = Path(checkpoint_dir)
+        model_name = model_name or checkpoint_dir.name
+        if family is None:
+            family = get_family(model_name)
+        elif isinstance(family, str):
+            family = FAMILIES[family]
+        tokenizers = [load_tokenizer(checkpoint_dir, cfg.vocab_size,
+                                     cfg.eos_token_id,
+                                     cfg.max_position_embeddings)
+                      for cfg in family.text_encoders]
+        lander = TensorLander(resolve_device(device))
+
+        def fill(index: int, name: str, module: nn.Module) -> None:
+            load_module(module, name, checkpoint_dir / SUBDIRS[name], lander)
+
+        components = cls._build(family, model_name, device, dtype, fill,
+                                precast=True)
+        components.tokenizers = tokenizers
+        components.load_stats = lander.finish()
+        return components
 
     def param_bytes(self) -> int:
         modules = [*self.text_encoders, self.unet, self.vae]

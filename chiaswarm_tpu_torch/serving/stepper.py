@@ -19,7 +19,9 @@ occupancy with arrivals flowing, halves under trickle, only at step
 boundaries and only onto the power-of-two lattice. A failed lane fails every
 resident row's future and the executor falls back to the per-job path; rows
 carry their own deadline; an out-of-memory lane halves the width lanes are
-rebuilt with; ``drain``/``shutdown`` retire lanes.
+rebuilt with; ``drain``/``shutdown`` retire lanes, and so does the
+residency ledger when it evicts a lane's model (:func:`retire_lanes_for_owner`,
+at drain: the lane's row state and text embeddings free when it retires).
 
 What is PyTorch's own here:
 
@@ -59,9 +61,9 @@ Knobs (the JAX package's names and defaults):
 - ``CHIASWARM_STEPPER_IDLE_S``  idle grace before a lane retires (15)
 
 Not here yet (``ROADMAP.md``): checkpoints and resume, the hang watchdog
-and lane condemnation, residency hooks, the overload admission cap and poll
-hints, metrics, the image-mode row state (img2img, inpaint, ControlNet) and
-DeepCache reuse lanes.
+and lane condemnation, the overload admission cap and poll hints, metrics,
+the image-mode row state (img2img, inpaint, ControlNet) and DeepCache
+reuse lanes.
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ from chiaswarm_tpu_torch.schedulers import (
     make_sampling_schedule,
     resolve,
 )
+from chiaswarm_tpu_torch.serving.residency import ArrivalEwma
 
 log = logging.getLogger("chiaswarm_torch.stepper")
 
@@ -138,30 +141,6 @@ class LaneDeadline(TimeoutError):
 
 class LaneRetired(RuntimeError):
     """The lane shut down (stop or fault) before the row completed."""
-
-
-class ArrivalEwma:
-    """Events/second EWMA over inter-arrival gaps, decayed while idle: a
-    copy of ``chiaswarm_tpu/serving/residency.py::ArrivalEwma``. Every
-    method takes an explicit monotonic ``now``."""
-
-    def __init__(self, window_s: float = 10.0) -> None:
-        self.window_s = float(window_s)
-        self._rate = 0.0
-        self._last: float | None = None
-
-    def note(self, rows: int, now: float) -> None:
-        if self._last is not None:
-            gap = max(now - self._last, 1e-3)
-            decay = 0.5 ** (gap / self.window_s)
-            self._rate = decay * self._rate + (1.0 - decay) * (rows / gap)
-        self._last = now
-
-    def rate(self, now: float) -> float:
-        if self._last is None:
-            return 0.0
-        return self._rate * 0.5 ** (max(now - self._last, 0.0)
-                                    / self.window_s)
 
 
 @dataclasses.dataclass(eq=False)  # identity semantics: membership checks
@@ -915,6 +894,17 @@ class StepScheduler:
 
     # ---- lifecycle / observability ----
 
+    def retire_lanes_for_owner(self, owner_id: int) -> int:
+        """Ask every lane built on the components object with
+        ``id == owner_id`` to retire as soon as its rows drain (idle lanes
+        on the lane thread's next wakeup). Returns the number asked."""
+        with self._lock:
+            lanes = [lane for key, lane in self._lanes.items()
+                     if id(key[0].c) == owner_id]
+        for lane in lanes:
+            lane.request_retire()
+        return len(lanes)
+
     def _lane_done(self, lane: Lane) -> None:
         with self._lock:
             if self._lanes.get(lane.key) is lane:
@@ -1055,6 +1045,15 @@ def aggregate_stats(steppers) -> dict[str, Any]:
     data["arrival_rate"] = round(rate, 4)
     data["step_seconds_ewma"] = round(step_ewma, 6)
     return data
+
+
+def retire_lanes_for_owner(owner_id: int) -> int:
+    """Process-wide eviction -> lane retire: every scheduler's lanes built
+    on the components object ``id(c) == owner_id`` retire at drain. The
+    residency ledger calls it when it evicts a model
+    (``serving/residency.py``)."""
+    return sum(sched.retire_lanes_for_owner(owner_id)
+               for sched in list(_EXIT_SCHEDULERS))
 
 
 _ATTACH_LOCK = threading.Lock()

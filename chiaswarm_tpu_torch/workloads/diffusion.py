@@ -8,14 +8,17 @@ decoded images (a poisoned trajectory raises ``InvalidOutput`` instead of
 uploading a flat frame), builds the artifact envelope, and returns the same
 config keys as the JAX callback: the pipeline's config, the safety fields
 the JAX callback emits when no safety checker is present, and the timing
-keys. Inputs this slice does not serve raise ``ValueError`` naming the
-later slice, which the executor reports as a fatal bad-request envelope.
+keys (and ``residency: per_job`` when the model is degraded to
+load-per-job). Inputs this slice does not serve raise ``ValueError`` naming
+the later slice, which the executor reports as a fatal bad-request
+envelope.
 
 The lane workload hands an eligible txt2img job to the slot's
 continuous-batching scheduler (``serving/stepper.py``) and finishes it into
 the JAX lane envelope's config keys, ``stepper`` stamp included. A job
 carrying anything a later slice serves is not eligible: it takes the solo
-path, which refuses it and names that slice.
+path, which refuses it and names that slice. Neither is a job whose model
+came back degraded to load-per-job.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
 from chiaswarm_tpu_torch.obs.trace import span
 from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
 from chiaswarm_tpu_torch.serving.guard import screen_images
+from chiaswarm_tpu_torch.serving.residency import is_transient
 
 #: what the JAX callback reports when no safety checker is installed
 #: (chiaswarm_tpu/workloads/safety.py::check_images)
@@ -69,6 +73,7 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        **kwargs: Any):
     _refuse(kwargs)
     pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
+    degraded = is_transient(pipe)  # the load-per-job rung
     fam = pipe.c.family
     if fam.kind != "sd":
         raise ValueError(
@@ -104,6 +109,10 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         "generation_s": round(elapsed, 3),
         "slot": slot.descriptor() if hasattr(slot, "descriptor") else str(slot),
     })
+    if degraded:
+        # this result paid a load: the model exceeds the residency budget
+        # and serves load -> run -> release
+        config["residency"] = "per_job"
     return artifacts, config
 
 
@@ -160,10 +169,16 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
     per-job path instead."""
     from chiaswarm_tpu_torch.core.buckets import bucket_image_size
     from chiaswarm_tpu_torch.schedulers import resolve
-    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+    from chiaswarm_tpu_torch.serving.stepper import LaneReject, get_stepper
 
     model_name = kwargs.get("model_name")
     pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
+    if is_transient(pipe):
+        # degraded to load-per-job: a lane would hold the over-budget
+        # weights between jobs (the executor's lane_resident_ok check
+        # makes this a first-ever-load-only cost)
+        raise LaneReject(
+            f"model {model_name!r} degraded to load-per-job (residency)")
     fam = pipe.c.family
     height = int(kwargs.get("height") or fam.default_size)
     width = int(kwargs.get("width") or fam.default_size)

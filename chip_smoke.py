@@ -9,7 +9,9 @@ each phase printing one JSON line:
 1. probe      — CUDA present; card name and power limit (the raw
                 ``nvidia-smi --query-gpu=name,power.limit`` line is printed
                 on its own too), torch / CUDA / nvcc versions, the PIL and
-                aiohttp versions (the worker's hive client is aiohttp's).
+                aiohttp versions (the worker's hive client is aiohttp's) and
+                whether a ``safetensors`` package is installed (the port
+                does not use one).
 2. build      — builds every CUDA kernel from the checkout's sources, one
                 ``nvcc`` per source, all started together, and the host
                 artifact codec; prints each kernel's ptxas lines
@@ -121,6 +123,42 @@ each phase printing one JSON line:
                 to the solo step on the card. The solo pair's first image is
                 printed beside the lone job's lane image and the solo
                 one-image render.
+14b. checkpoint_serve — SD1.5 from disk: the serve phases' seed-0 weights
+                written as a diffusers-layout directory of float32
+                safetensors (the published snapshot's dtype; bf16 weights
+                round-trip it exactly) through the port's own writer, with
+                a synthetic 49,408-entry CLIP vocab and its 48,894 merges
+                made here, under ``build/chip_smoke_root`` (the run's
+                settings root, removed when the run ends; its bytes and the
+                free space are printed), synced and advised out of the page
+                cache. The files are read once with ``O_DIRECT`` (the disk's
+                read time and rate) and the share of their pages the page
+                cache still holds is printed (``mincore``); then a
+                ``ModelRegistry`` with no random fallback loads it: load
+                seconds split into file read and device copy, the load's
+                peak ``max_memory_allocated`` against ``param_bytes`` and
+                ``estimate_family_bytes("sd15")``, every parameter
+                ``torch.equal`` to its source. A second registry loads it
+                again while serve's seed-1 job steps in the source model's
+                lane on another thread: every parameter equal to its source,
+                the lane's image bit for bit lane_serve's, the lane stepping
+                during the load. Seeds 1-3 one after another in the lanes,
+                each image bit for bit the source modules' with the loaded
+                tokenizer swapped in (the same lane composition), B1 = 10 x
+                lane steps; each job's spans (text encode, lane wait,
+                decode, PNG) beside lane_serve's.
+14c. residency_churn — two catalog names over that checkpoint (the second a
+                directory of links) under a ledger that holds one model
+                (1.5x the measured footprint): A in a lane; B's load evicts
+                A and retires A's lane at drain, ``memory_allocated`` back
+                within one model (plus 5%) of the level before A, the
+                ledger's peak of resident + reserved bytes at most budget +
+                one model; A's reload renders its first image bit for bit.
+                A budget below one model degrades A to load-per-job (no
+                lane, ``residency: per_job``, bit for bit the solo path's
+                image); a hard limit below the footprint gives a non-fatal
+                ``model_unavailable`` envelope. Prints the evict + load and
+                reload seconds and the ledger's ``snapshot()``.
 15. worker_serve — the port's hive worker (``node/worker.py``:
                 ``Worker.run()``) against a hive served from a thread of
                 this script (standard-library ``http.server``: ``/api/work``,
@@ -138,7 +176,10 @@ each phase printing one JSON line:
                 other slots, and cuDNN's convolutions are not
                 batch-position invariant, ``tools/torch_batch_position.py``);
                 one 503 on an upload (one retry, the result arrives once),
-                then ``python -m chiaswarm_tpu_torch.node.worker`` as a
+                checkpoint_serve's seed-1 job through a worker whose
+                registry loads the checkpoint from disk (bit for bit
+                checkpoint_serve's image), then
+                ``python -m chiaswarm_tpu_torch.node.worker`` as a
                 child process: its registry has no checkpoint, so it
                 uploads a non-fatal ``model_unavailable`` envelope, and on
                 SIGTERM it drains and exits with 0. B1 = 10 x lane steps.
@@ -160,8 +201,9 @@ each phase printing one JSON line:
                 (by shape too), and its numbers from its kernel phase
                 averaged over those launches (per-shape numbers, each with
                 its design and its factor against the library call, under
-                ``shapes``); B1 also under ``lane_serve``, ``lane_burst``
-                and ``worker_serve`` and B3 under ``lane_seq_serve``, with
+                ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
+                ``checkpoint_serve``, ``residency_churn`` and
+                ``worker_serve`` and B3 under ``lane_seq_serve``, with
                 their launches there and their numbers over those
                 launches.
 
@@ -256,10 +298,17 @@ def probe():
         aiohttp_version = aiohttp.__version__
     except ImportError:
         aiohttp_version = None
+    try:  # the port reads and writes safetensors without this package
+        import safetensors
+
+        safetensors_version = safetensors.__version__
+    except ImportError:
+        safetensors_version = None
     emit("probe", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
-         python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version)
+         python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version,
+         safetensors=safetensors_version)
     return torch
 
 
@@ -853,29 +902,41 @@ def check_envelope(phase: str, job: dict, result: dict, lanes: bool) -> str:
     return blob
 
 
-def run_jobs(torch, phase: str, slot, registry,
-             lanes: bool = False) -> tuple[list, dict]:
-    """The serve jobs through ``synchronous_do_work`` on ``slot``, one after
-    another, with every launch count set to 0 just before. Returns the job
-    seconds and each job's PNG blob by seed; raises on an error envelope, a
-    wrong PNG, or a job on the wrong path (``lanes``)."""
+def run_jobs(torch, phase: str, slot, registry, lanes: bool = False,
+             jobs=None, spans: list | None = None) -> tuple[list, dict]:
+    """The serve jobs (or ``jobs``) through ``synchronous_do_work`` on
+    ``slot``, one after another, with every launch count set to 0 just
+    before, each under a trace of its own (its executor spans: format, text
+    encode, lane wait or steps, decode, PNG and base64; appended to
+    ``spans``). Returns the job seconds and each job's PNG blob by seed;
+    raises on an error envelope, a wrong PNG, or a job on the wrong path
+    (``lanes``)."""
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.obs import trace as obs_trace
     from chiaswarm_tpu_torch.ops import kernels
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     seconds, blobs = [], {}
-    for job in JOBS:
+    for job in JOBS if jobs is None else jobs:
+        job = dict(job)
+        trace = obs_trace.JobTrace(id=job["id"])
+        obs_trace.attach(job, trace)
+        trace.phase("execute")
         t1 = time.perf_counter()
-        result = synchronous_do_work(dict(job), slot, registry)
+        result = synchronous_do_work(job, slot, registry)
         seconds.append(time.perf_counter() - t1)
+        trace.finish(obs_trace.TraceRing())
+        rows = span_rows(trace)
+        if spans is not None:
+            spans.append(rows)
         cfg = result["pipeline_config"]
         blobs[job["seed"]] = check_envelope(phase, job, result, lanes)
         emit(f"{phase}_job", id=job["id"], seed=cfg["seed"],
              seconds=seconds[-1], generation_s=cfg["generation_s"],
              scheduler=cfg["scheduler"], png_hw=[512, 512],
              mesh_shape=cfg["slot"]["mesh_shape"],
-             stepper=cfg.get("stepper"))
+             stepper=cfg.get("stepper"), spans=rows)
     return seconds, blobs
 
 
@@ -1095,14 +1156,17 @@ def delta(after: dict, before: dict, key: str) -> int:
     return after.get(key, 0) - before.get(key, 0)
 
 
-def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> dict:
+def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> tuple:
     """The serve jobs one after another through ``synchronous_do_work`` with
     the lanes on, on the solo slot: each job alone in a lane (adaptive
-    width). Every job a lane's; B1 launched 10 times per lane step."""
+    width). Every job a lane's; B1 launched 10 times per lane step. Returns
+    the launches, the blobs by seed and the jobs' span rows."""
     from chiaswarm_tpu_torch.ops import kernels
 
     before = stepper_stats(slot)
-    seconds, blobs = run_jobs(torch, "lane_serve", slot, registry, lanes=True)
+    spans: list = []
+    seconds, blobs = run_jobs(torch, "lane_serve", slot, registry, lanes=True,
+                              spans=spans)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     after = stepper_stats(slot)
     steps = delta(after, before, "steps_executed")
@@ -1117,7 +1181,7 @@ def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> dict:
     if launches["flash_attention"] != want or sum(launches.values()) != want:
         raise AssertionError(f"lane_serve launched {launches}, expected "
                              f"{want} of flash_attention and no other")
-    return launched(), blobs
+    return launched(), blobs, spans
 
 
 def image_diffs(blobs: dict, ref_blobs: dict) -> dict:
@@ -1287,6 +1351,489 @@ def lane_seq_serve_phase(torch) -> dict:
     if launches[B3.name] != want or sum(launches.values()) != want:
         raise AssertionError(f"lane_seq_serve launched {launches}, expected "
                              f"{want} of {B3.name} and no other")
+    return run
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on disk (convert/, models/tokenizer.py) and the residency
+# ledger (serving/residency.py)
+
+CKPT_MODEL = "chip-smoke/sd15"
+CKPT_MODEL_B = "chip-smoke/sd15-b"  # a directory of links to CKPT_MODEL's
+CKPT_JOBS = [dict(job, id=f"ckpt-sd15-{job['seed']}", model_name=CKPT_MODEL)
+             for job in JOBS]
+CLIP_VOCAB = 49408
+# beyond its modules' bytes, a served model holds its pipeline's small
+# device tensors, and the allocator rounds each block up: 5% of the model
+MEMORY_SLACK = 0.05
+
+
+def settings_root_dir() -> Path:
+    """The settings root of this run (checkpoints, residency.json, spools):
+    under the git-ignored ``build/``, removed when the run ends."""
+    return ROOT / "build" / "chip_smoke_root"
+
+
+def bytes_to_unicode() -> dict[int, str]:
+    """GPT-2's reversible byte -> printable-character table, the alphabet
+    CLIP's vocab is built on."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def synthetic_clip_vocab(seed: int = 0) -> tuple[dict, list]:
+    """A CLIP-format vocab made here (nothing is downloaded): the 256 byte
+    symbols and their word-final ``</w>`` forms, the left-to-right merges
+    that spell the serve jobs' words, then random merges of a piece and a
+    letter until the table holds 49,406 pieces (48,894 merges, as the
+    published CLIP tokenizer), ``<|startoftext|>`` at 49406 and
+    ``<|endoftext|>`` at 49407."""
+    import random
+
+    from chiaswarm_tpu_torch.models.tokenizer import _basic_tokens
+
+    rng = random.Random(seed)
+    base = list(bytes_to_unicode().values())
+    vocab = {piece: i for i, piece in
+             enumerate(base + [b + "</w>" for b in base])}
+    merges: list[tuple[str, str]] = []
+    stems = list(base)
+
+    def merge(a: str, b: str) -> None:
+        if a + b not in vocab:
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+            if not b.endswith("</w>"):
+                stems.append(a + b)
+
+    text = " ".join(f"{j['prompt']} {j['negative_prompt']}" for j in JOBS)
+    for word in _basic_tokens(text):
+        pieces = list(word[:-1]) + [word[-1] + "</w>"]
+        left = pieces[0]
+        for right in pieces[1:]:
+            merge(left, right)
+            left += right
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    letters += [c + "</w>" for c in letters]
+    while len(vocab) < CLIP_VOCAB - 2:
+        merge(rng.choice(stems), rng.choice(letters))
+    vocab["<|startoftext|>"] = CLIP_VOCAB - 2
+    vocab["<|endoftext|>"] = CLIP_VOCAB - 1
+    return vocab, merges
+
+
+def write_checkpoint(torch, components, path: Path) -> dict:
+    """``components`` as a diffusers-layout snapshot at ``path``: ``unet/``,
+    ``vae/`` and ``text_encoder/`` as float32 safetensors through the
+    port's own writer (the dtype of the published SD1.5 snapshot; bf16
+    weights round-trip it exactly), ``tokenizer/`` from
+    ``synthetic_clip_vocab``. The files are synced and advised out of the
+    page cache (``posix_fadvise``), which a filesystem may ignore:
+    ``page_cache_share`` reads what it kept."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+
+    modules = {"unet": components.unet, "vae": components.vae,
+               "text_encoder": components.text_encoders[0]}
+    files = []
+    for sub, module in modules.items():
+        (path / sub).mkdir(parents=True, exist_ok=True)
+        name = ("model.safetensors" if sub == "text_encoder"
+                else "diffusion_pytorch_model.safetensors")
+        save_file({k: v.detach().float().cpu()
+                   for k, v in module.state_dict().items()},
+                  path / sub / name, {"format": "pt"})
+        files.append(path / sub / name)
+    vocab, merges = synthetic_clip_vocab()
+    (path / "tokenizer").mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer" / "vocab.json").write_text(json.dumps(vocab),
+                                                    encoding="utf-8")
+    (path / "tokenizer" / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+        encoding="utf-8")
+    for file in files:
+        fd = os.open(file, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    return {"files": {str(f.relative_to(path)): f.stat().st_size
+                      for f in files},
+            "bytes": sum(f.stat().st_size for f in files),
+            "vocab": len(vocab), "merges": len(merges)}
+
+
+def page_cache_share(paths: list[str]) -> float:
+    """The share of the files' pages that the page cache holds now
+    (``mincore(2)`` over a private mapping of each file, nothing read)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.POINTER(ctypes.c_ubyte)]
+    held = total = 0
+    for path in paths:
+        with open(path, "rb") as fh:
+            mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_COPY)
+        pages = -(-len(mm) // mmap.PAGESIZE)
+        vec = (ctypes.c_ubyte * pages)()
+        anchor = ctypes.c_char.from_buffer(mm)
+        rc = libc.mincore(ctypes.addressof(anchor), len(mm), vec)
+        del anchor
+        mm.close()
+        if rc != 0:
+            raise OSError(ctypes.get_errno(), f"mincore on {path}")
+        held += sum(v & 1 for v in vec)
+        total += pages
+    return held / total
+
+
+def direct_read(paths: list[str], chunk: int = 64 << 20) -> dict:
+    """Every byte of the files read with ``O_DIRECT`` (past the page cache,
+    from the disk) into one page-aligned buffer: the read a load pays when
+    the cache does not hold its files. ``{"error": ...}`` where the
+    filesystem refuses ``O_DIRECT``."""
+    import mmap
+
+    buf = mmap.mmap(-1, chunk)
+    nbytes = 0
+    t0 = time.perf_counter()
+    try:
+        for path in paths:
+            fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+            try:
+                while (n := os.readv(fd, [buf])) > 0:
+                    nbytes += n
+            finally:
+                os.close(fd)
+    except OSError as exc:
+        return {"error": f"{type(exc).__name__}: {exc}"}
+    finally:
+        buf.close()
+    seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "bytes": nbytes,
+            "gb_per_s": nbytes / seconds / 1e9}
+
+
+def module_states(components) -> dict:
+    named = {f"text_encoder_{i}": te
+             for i, te in enumerate(components.text_encoders)}
+    named.update(unet=components.unet, vae=components.vae)
+    return {name: dict(m.named_parameters()) for name, m in named.items()}
+
+
+class OnePipeline:
+    """A registry that serves one pipeline under every name: the reference
+    side of an image comparison, on the executor's own path."""
+
+    def __init__(self, pipe) -> None:
+        self.pipe = pipe
+
+    def pipeline(self, model_name: str, mesh=None):
+        return self.pipe
+
+
+def checkpoint_serve_phase(torch, src_registry, slot, lane_blobs: dict,
+                           lane_spans: list) -> tuple[dict, dict]:
+    """SD1.5 from a diffusers-layout directory on disk, through a
+    ``ModelRegistry`` with no random fallback: the serve phases' seed-0
+    weights written as float32 safetensors with a synthetic CLIP vocab
+    (``write_checkpoint``), the files read once with ``O_DIRECT`` (the disk's
+    read, ``direct_read``), the share of their pages the page cache holds
+    (``page_cache_share``), the first load (file read and device copy timed
+    apart, the peak of ``max_memory_allocated`` against ``param_bytes`` and
+    ``estimate_family_bytes``), every tensor ``torch.equal`` to its source.
+    Then a second registry loads the checkpoint while the source model's
+    lane steps on another thread: its tensors equal to the source, the lane
+    job's image bit for bit lane_serve's seed 1. Then seeds 1-3 one after
+    another in the lanes, each image bit for bit the source modules' with
+    the loaded tokenizer swapped in at the same lane composition, B1 at 10
+    launches a lane step, and each job's spans beside lane_serve's. Returns
+    the launches (``launched``) and what later phases need."""
+    import dataclasses
+    import gc
+    import shutil
+    import threading
+
+    from chiaswarm_tpu_torch.models.tokenizer import ClipBpeTokenizer
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+    from chiaswarm_tpu_torch.pipelines.components import (
+        estimate_family_bytes,
+    )
+    from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    src = src_registry.pipeline("sd15").c
+    source = module_states(src)
+    path = model_dir(CKPT_MODEL)
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    written = write_checkpoint(torch, src, path)
+    write_s = time.perf_counter() - t0
+    disk = shutil.disk_usage(path)
+    paths = [str(path / name) for name in written["files"]]
+    direct = direct_read(paths)
+
+    def unequal_to_source(components) -> list[str]:
+        loaded = module_states(components)
+        return [f"{m}.{k}" for m, params in source.items()
+                for k, p in params.items()
+                if loaded[m][k].dtype != p.dtype
+                or not torch.equal(loaded[m][k], p)]
+
+    registry = ModelRegistry(catalog=[{"name": CKPT_MODEL,
+                                       "family": "sd15"}], device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cached = page_cache_share(paths)
+    t0 = time.perf_counter()
+    pipe = registry.pipeline(CKPT_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    unequal = unequal_to_source(pipe.c)
+    tokenizer = pipe.c.tokenizers[0]
+    ids = tokenizer.encode(JOBS[0]["prompt"])
+    footprint = pipe.c.param_bytes()
+    out = {
+        "model": CKPT_MODEL, "files": written, "write_s": write_s,
+        "disk_free_bytes": disk.free, "disk_total_bytes": disk.total,
+        "direct_read": direct, "page_cache_share_at_load": cached,
+        "cold_load_s": load_s, "load_stats": pipe.c.load_stats,
+        "load_other_s": load_s - pipe.c.load_stats["read_s"]
+        - pipe.c.load_stats["copy_s"],
+        "load_peak_bytes": peak, "param_bytes": footprint,
+        "estimate_family_bytes": estimate_family_bytes("sd15"),
+        "tensors_checked": sum(len(v) for v in source.values()),
+        "tensors_unequal": unequal[:8], "tokenizer": type(tokenizer).__name__,
+        "prompt_ids": ids[:ids.index(tokenizer.eos_id) + 1],
+        "residency": registry.residency.snapshot()}
+    ref_pipe = DiffusionPipeline(dataclasses.replace(
+        src, tokenizers=pipe.c.tokenizers))
+    del pipe
+
+    # a load while another model's lane steps on the card's one stream
+    sched = get_stepper(slot)
+    sched.shutdown()
+    lane_job = dict(JOBS[0], id="under-load-sd15-1")
+    done: dict = {}
+    runner = threading.Thread(target=lambda: done.update(
+        result=synchronous_do_work(dict(lane_job), slot, src_registry)))
+    start = stepper_stats(slot).get("steps_executed", 0)
+    runner.start()
+    while (stepper_stats(slot).get("steps_executed", 0) - start < 3
+           and runner.is_alive()):
+        time.sleep(0.001)
+    at_load = stepper_stats(slot).get("steps_executed", 0) - start
+    second = ModelRegistry(catalog=[{"name": CKPT_MODEL, "family": "sd15"}],
+                           device="cuda")
+    t0 = time.perf_counter()
+    pipe2 = second.pipeline(CKPT_MODEL)
+    torch.cuda.synchronize()
+    under_s = time.perf_counter() - t0
+    after_load = stepper_stats(slot).get("steps_executed", 0) - start
+    runner.join()
+    sched.shutdown()
+    under_blob = check_envelope("checkpoint_serve", lane_job, done["result"],
+                                lanes=True)
+    out["load_under_lane"] = {
+        "load_s": under_s, "load_stats": pipe2.c.load_stats,
+        "lane_steps_before_load": at_load, "lane_steps_after_load": after_load,
+        "tensors_unequal": unequal_to_source(pipe2.c)[:8],
+        "vs_lane_serve": image_diffs({1: under_blob}, {1: lane_blobs[1]})[1]}
+    del pipe2, second
+    gc.collect()
+
+    before_stats = stepper_stats(slot)
+    spans: list = []
+    seconds, blobs = run_jobs(torch, "checkpoint_serve", slot, registry,
+                              lanes=True, jobs=CKPT_JOBS, spans=spans)
+    run = launched()  # run_jobs set every count to 0 first
+    steps = delta(stepper_stats(slot), before_stats, "steps_executed")
+    b1 = run["flash_attention"]["launches"]
+    sched.shutdown()
+    ref_spans: list = []
+    ref_seconds, ref_blobs = run_jobs(torch, "checkpoint_serve_reference",
+                                      slot, OnePipeline(ref_pipe),
+                                      lanes=True, jobs=CKPT_JOBS,
+                                      spans=ref_spans)
+    sched.shutdown()
+    diffs = image_diffs(blobs, ref_blobs)
+    keys = sorted({k for row in spans + lane_spans for k in row})
+    out.update({"job_seconds": seconds, "reference_job_seconds": ref_seconds,
+                "spans": spans, "reference_spans": ref_spans,
+                "lane_serve_spans": lane_spans,
+                "minus_lane_serve_s": {
+                    k: [a.get(k, 0.0) - b.get(k, 0.0)
+                        for a, b in zip(spans, lane_spans)] for k in keys},
+                "steps_executed": steps, "b1_launches": b1,
+                "vs_source_modules": diffs})
+    emit("checkpoint_serve", **out)
+    under = out["load_under_lane"]
+    if (unequal or not isinstance(tokenizer, ClipBpeTokenizer)
+            or b1 != steps * B1_LAUNCHES_PER_UNET_EVAL
+            or not all(d["bit_equal"] for d in diffs.values())
+            or under["tensors_unequal"]
+            or not under["vs_lane_serve"]["bit_equal"]
+            or not at_load < under["lane_steps_after_load"]):
+        raise AssertionError(f"checkpoint_serve: {out}")
+    return run, {"registry": registry, "blobs": blobs,
+                 "footprint": footprint}
+
+
+def residency_churn_phase(torch, slot, ckpt: dict) -> dict:
+    """Two catalog names over the one checkpoint (``CKPT_MODEL_B`` is a
+    directory of links) under a ledger that holds one model (budget 1.5x
+    the measured footprint): A served in a lane; B's load evicts A and
+    retires A's lane at drain, ``memory_allocated`` back within one model
+    (and ``MEMORY_SLACK``) of the level before A, the ledger's peak of
+    resident + reserved bytes at most budget + one model; B served; A
+    reloaded renders its first image bit for bit. Then the rungs: a budget
+    below one model degrades A to load-per-job (``lane_resident_ok`` false,
+    the job solo, ``residency: per_job``, the image bit for bit the solo
+    path's on the checkpoint registry); a hard limit below the footprint
+    gives a non-fatal ``model_unavailable`` envelope."""
+    import gc
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.residency import (
+        ResidencyManager,
+        default_hard_limit_bytes,
+    )
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    footprint = ckpt["footprint"]
+    link = model_dir(CKPT_MODEL_B)
+    link.mkdir(parents=True, exist_ok=True)
+    for sub in model_dir(CKPT_MODEL).iterdir():
+        if not (link / sub.name).exists():
+            (link / sub.name).symlink_to(sub.resolve(),
+                                         target_is_directory=True)
+    budget = int(1.5 * footprint)
+    ledger = ResidencyManager(
+        budget, default_hard_limit_bytes(budget, "cuda"),
+        persist_path=settings_root_dir() / "residency-churn.json",
+        prefetch=False)
+    registry = ModelRegistry(
+        catalog=[{"name": CKPT_MODEL, "family": "sd15"},
+                 {"name": CKPT_MODEL_B, "family": "sd15"}],
+        device="cuda", residency=ledger)
+    sched = get_stepper(slot)
+    sched.shutdown()
+    kernels.reset_launches()
+    job_a = dict(CKPT_JOBS[0], id="churn-a-1")
+    out: dict = {"budget_bytes": budget, "footprint": footprint}
+
+    def serve(job, lanes=True) -> tuple[str, dict]:
+        t0 = time.perf_counter()
+        result = synchronous_do_work(dict(job), slot, registry)
+        seconds = time.perf_counter() - t0
+        cfg = result["pipeline_config"]
+        return check_envelope("residency_churn", job, result, lanes), {
+            "seconds": seconds, "generation_s": cfg.get("generation_s"),
+            "stepper": cfg.get("stepper"), "residency": cfg.get("residency")}
+
+    def timed_load(model: str) -> float:
+        t0 = time.perf_counter()
+        registry.pipeline(model)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def owners() -> set:
+        return {id(key[0].c) for key in list(sched._lanes)}
+
+    gc.collect()
+    torch.cuda.synchronize()
+    level0 = torch.cuda.memory_allocated()
+    out["load_a_s"] = timed_load(CKPT_MODEL)
+    owner_a = id(registry.pipeline(CKPT_MODEL).c)
+    blob_a1, out["a_first"] = serve(job_a)
+    level_a = torch.cuda.memory_allocated()
+    ledger.reset_peak()
+
+    t0 = time.perf_counter()
+    registry.pipeline(CKPT_MODEL_B)
+    torch.cuda.synchronize()
+    out["evict_and_load_b_s"] = time.perf_counter() - t0
+    while owner_a in owners() and time.perf_counter() - t0 < 60:
+        time.sleep(0.01)
+    out["a_lane_retired_after_s"] = time.perf_counter() - t0
+    out["a_lane_retired"] = owner_a not in owners()
+    gc.collect()
+    torch.cuda.synchronize()
+    level_b = torch.cuda.memory_allocated()
+    out.update({"level_before_a": level0, "level_a_resident": level_a,
+                "level_after_eviction": level_b,
+                "above_level_before_a": level_b - level0,
+                "memory_reserved": torch.cuda.memory_reserved(),
+                "ledger_peak_bytes": ledger.peak_bytes,
+                "states_after_b": registry.model_states()})
+    blob_b, out["b"] = serve(dict(CKPT_JOBS[0], id="churn-b-1",
+                                  model_name=CKPT_MODEL_B))
+    out["reload_a_s"] = timed_load(CKPT_MODEL)
+    blob_a2, out["a_again"] = serve(dict(job_a, id="churn-a-1-again"))
+    out["a_again_bit_equal"] = blob_a2 == blob_a1
+    out["b_bit_equal_a"] = blob_b == blob_a1
+    sched.shutdown()
+    snap = ledger.snapshot()
+    failed = []
+    if (snap["evictions"] != 2 or not out["a_lane_retired"]
+            or level_b - level0 > footprint * (1 + MEMORY_SLACK)
+            or out["ledger_peak_bytes"] > budget + footprint
+            or out["states_after_b"] != {CKPT_MODEL: "evicted",
+                                         CKPT_MODEL_B: "resident"}
+            or not out["a_again_bit_equal"]):
+        failed.append("eviction")
+
+    # rung 1: a budget below one model degrades A to load-per-job
+    ledger.set_budget(footprint // 2)
+    out["lane_resident_ok_degraded"] = registry.lane_resident_ok(CKPT_MODEL)
+    blob_deg, out["degraded"] = serve(dict(job_a, id="churn-a-1-degraded"),
+                                      lanes=False)
+    with env(CHIASWARM_STEPPER="0"):
+        solo = synchronous_do_work(dict(job_a, id="churn-a-1-solo"), slot,
+                                   ckpt["registry"])
+    blob_solo = check_envelope("residency_churn", job_a, solo, lanes=False)
+    out["degraded_bit_equal_solo"] = blob_deg == blob_solo
+    gc.collect()
+    out["reserved_after_degraded_job"] = ledger.reserved_bytes
+    if (out["lane_resident_ok_degraded"] or not out["degraded_bit_equal_solo"]
+            or out["degraded"]["residency"] != "per_job"
+            or out["reserved_after_degraded_job"] != 0):
+        failed.append("degrade")
+
+    # rung 2: a hard limit below the footprint bounces the job
+    ledger.set_budget(footprint // 4, footprint // 2)
+    bounced = synchronous_do_work(dict(job_a, id="churn-a-2-bounce", seed=2),
+                                  slot, registry)
+    cfg = bounced["pipeline_config"]
+    out["bounce"] = {"error_kind": cfg.get("error_kind"),
+                     "fatal_error": bool(bounced.get("fatal_error")),
+                     "error": cfg.get("error")}
+    if cfg.get("error_kind") != "model_unavailable" or "fatal_error" in bounced:
+        failed.append("bounce")
+    run = launched()
+    out["snapshot"] = ledger.snapshot()
+    out["states"] = registry.model_states()
+    sched.shutdown()
+    emit("residency_churn", **out)
+    if failed:
+        raise AssertionError(f"residency_churn ({', '.join(failed)}): {out}")
     return run
 
 
@@ -1571,7 +2118,8 @@ def worker_child(hive: LocalHive, root: Path) -> dict:
 
 
 def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
-                       burst_blobs: dict, burst_ips: float) -> dict:
+                       burst_blobs: dict, burst_ips: float,
+                       ckpt: dict) -> dict:
     """The port's ``Worker.run()`` against a hive served from this script
     (``LocalHive``), on the lanes, on the serve phases' ``ChipPool``:
 
@@ -1590,6 +2138,10 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
     - one upload fault: the first POST of a re-run of the lone job gets a
       503; ``upload_retries`` rises by 1 and the result arrives once, with
       the lone job's image;
+    - the checkpoint model: ``CKPT_MODEL``'s seed-1 job, served by a worker
+      whose registry has no random fallback and loads the model from disk
+      (the settings root of ``checkpoint_serve``): an error-free PNG, bit
+      for bit ``checkpoint_serve``'s seed-1 image (a fresh lane both times);
     - the entry point: ``python -m chiaswarm_tpu_torch.node.worker`` as a
       child process (``worker_child``).
 
@@ -1603,6 +2155,7 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
     import tempfile
 
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
     from chiaswarm_tpu_torch.obs import trace as obs_trace
     from chiaswarm_tpu_torch.ops import kernels
     from chiaswarm_tpu_torch.ops.flash_attention import KERNEL as B1
@@ -1774,6 +2327,33 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
             failed.append(f"worker_serve upload fault: "
                           f"{out['upload_fault']}")
 
+        # the checkpoint model, loaded from disk by the worker's registry
+        ck_job = dict(CKPT_JOBS[0], id="worker-ckpt-sd15-1")
+        with env(SWARM_TPU_ROOT=str(settings_root_dir())):
+            ck_registry = ModelRegistry(
+                catalog=[{"name": CKPT_MODEL, "family": "sd15"}],
+                device="cuda")
+            before, b1_before = stepper_stats(slot), B1.launches
+            worker = serve_through_worker(hive, pool, ck_registry, [ck_job])
+            ck_steps = delta(stepper_stats(slot), before, "steps_executed")
+            get_stepper(slot).shutdown()
+        [ck_result] = [r for r in hive.results if r["id"] == ck_job["id"]]
+        ck_blob = check_envelope("worker_serve", ck_job, ck_result, lanes=True)
+        out["checkpoint"] = {
+            "seconds": trace_rows(worker)[ck_job["id"]],
+            "generation_s": ck_result["pipeline_config"]["generation_s"],
+            "steps_executed": ck_steps,
+            "b1_launches": B1.launches - b1_before,
+            "residency": ck_registry.residency.snapshot(),
+            "vs_checkpoint_serve": image_diffs(
+                {1: ck_blob}, {1: ckpt["blobs"][1]})[1]}
+        del ck_registry
+        emit("worker_serve_checkpoint", **out["checkpoint"])
+        if (out["checkpoint"]["b1_launches"]
+                != ck_steps * B1_LAUNCHES_PER_UNET_EVAL
+                or not out["checkpoint"]["vs_checkpoint_serve"]["bit_equal"]):
+            failed.append(f"worker_serve checkpoint job: {out['checkpoint']}")
+
         # the entry point, as a node operator starts it
         out["child"] = worker_child(hive, Path(tmp))
         emit("worker_serve_child", **out["child"])
@@ -1814,6 +2394,8 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
          burst_bit_equal_vs_replay=out.get("replay", {}).get("bit_equal"),
          burst_within_one_level_of_lane_burst=out["burst"][
              "within_one_level_of_lane_burst"],
+         checkpoint_job_bit_equal=out["checkpoint"]["vs_checkpoint_serve"][
+             "bit_equal"],
          b1_launches=run["flash_attention"]["launches"])
     if failed:
         raise AssertionError("; ".join(failed))
@@ -1923,6 +2505,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
 
     entries = [
         entry("flash_attention", "serve", ("lane_serve", "lane_burst",
+                                           "checkpoint_serve",
+                                           "residency_churn",
                                            "worker_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
@@ -1938,7 +2522,21 @@ def kernels_line(runs: dict, tables: dict) -> None:
 
 
 def main() -> int:
+    import shutil
+
     torch = probe()
+    # everything this run writes (checkpoints, residency.json, spools)
+    # stays under the checkout and is removed when the run ends
+    root = settings_root_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    os.environ["SWARM_TPU_ROOT"] = str(root)
+    try:
+        return run_phases(torch)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_phases(torch) -> int:
     build()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -1964,15 +2562,18 @@ def main() -> int:
         runs["seq_serve_scan"] = seq_serve_phase(torch, "seq_serve_scan",
                                                  solo_blobs)
     with env(CHIASWARM_STEPPER="1"):  # the lanes, the default engine
-        runs["lane_serve"], lane_blobs = lane_serve_phase(
+        runs["lane_serve"], lane_blobs, lane_spans = lane_serve_phase(
             torch, registry, slot, solo_blobs)
         runs["lane_burst"], burst_blobs, burst_ips = lane_burst_phase(
             torch, registry, slot)
         runs["lane_seq_serve"] = lane_seq_serve_phase(torch)
         runs["solo_pair"] = solo_pair_phase(torch, registry, slot,
                                             lane_blobs[1], solo_blobs[1])
+        runs["checkpoint_serve"], ckpt = checkpoint_serve_phase(
+            torch, registry, slot, lane_blobs, lane_spans)
+        runs["residency_churn"] = residency_churn_phase(torch, slot, ckpt)
         runs["worker_serve"] = worker_serve_phase(
-            torch, registry, pool, lane_blobs, burst_blobs, burst_ips)
+            torch, registry, pool, lane_blobs, burst_blobs, burst_ips, ckpt)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

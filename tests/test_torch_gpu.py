@@ -707,3 +707,226 @@ def test_solo_step_is_the_lanes_per_row_step_bit_for_bit(cuda_device,
                                            SamplerState(old), noise, start)
         assert torch.equal(solo_x, lane_x), i
         assert torch.equal(solo_s.old_denoised, lane_s.old_denoised), i
+
+
+def test_checkpoint_reader_lands_tensors_in_device_memory(cuda_device,
+                                                          tmp_path):
+    """``Components.from_checkpoint`` onto the card: float32 safetensors
+    land in bf16 UNet/VAE parameters (cast as they land) and float32 text
+    and norm parameters, equal to the source bit for bit, with nothing left
+    in flight and the load's peak within one tensor of the modules."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import (
+        SafetensorsFile,
+        save_file,
+    )
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    src = Components.random("tiny", seed=4, device="cpu",
+                            dtype=torch.bfloat16)
+    modules = {"unet": src.unet, "vae": src.vae,
+               "text_encoder": src.text_encoders[0]}
+    for sub, module in modules.items():
+        (tmp_path / sub).mkdir()
+        save_file({k: v.float() for k, v in module.state_dict().items()},
+                  tmp_path / sub / "model.safetensors")
+    mapped = dict(SafetensorsFile(tmp_path / "unet" / "model.safetensors")
+                  .tensors())
+    on_card = mapped["conv_in.weight"].to(cuda_device)
+    assert torch.equal(on_card.cpu(), src.unet.conv_in.weight.float())
+    del on_card, mapped
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = Components.from_checkpoint(tmp_path, "tiny", "tiny",
+                                     device=cuda_device, dtype=torch.bfloat16)
+    peak = torch.cuda.max_memory_allocated() - before
+    largest = max(p.numel() * 4 for m in modules.values()
+                  for p in m.parameters())
+    assert got.param_bytes() == src.param_bytes()
+    assert peak <= got.param_bytes() + 2 * largest + (1 << 20)
+    for name in ("unet", "vae"):
+        for key, value in getattr(src, name).state_dict().items():
+            loaded = getattr(got, name).state_dict()[key]
+            assert loaded.is_cuda and loaded.dtype == value.dtype, key
+            assert torch.equal(loaded.cpu(), value), key
+    assert got.load_stats["tensors"] == sum(
+        len(m.state_dict()) for m in modules.values())
+
+
+def test_eviction_drops_memory_allocated(cuda_device, monkeypatch, tmp_path):
+    """A one-model ledger on the card: loading B evicts A, and once A's
+    references are gone ``memory_allocated`` is back within a model of the
+    level before A (the caching allocator may keep the blocks reserved)."""
+    import gc
+
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.obs.metrics import Registry
+    from chiaswarm_tpu_torch.serving.residency import ResidencyManager
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    footprint = ModelRegistry(
+        catalog=[{"name": "a", "family": "tiny"}], allow_random=True,
+        device=cuda_device).pipeline("a").c.param_bytes()
+    gc.collect()
+    torch.cuda.synchronize()
+    level0 = torch.cuda.memory_allocated()
+    ledger = ResidencyManager(int(1.5 * footprint), 4 * footprint,
+                              persist_path=None, prefetch=False,
+                              metrics_registry=Registry())
+    registry = ModelRegistry(catalog=[{"name": "a", "family": "tiny"},
+                                      {"name": "b", "family": "tiny"}],
+                             allow_random=True, device=cuda_device,
+                             residency=ledger)
+    registry.pipeline("a")
+    level_a = torch.cuda.memory_allocated()
+    assert level_a - level0 >= footprint
+    registry.pipeline("b")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert ledger.snapshot()["evictions"] == 1
+    assert ledger.model_states() == {"a": "evicted", "b": "resident"}
+    assert torch.cuda.memory_allocated() - level0 <= 1.05 * footprint
+    assert ledger.peak_bytes <= ledger.budget_bytes + footprint
+
+
+def test_prefetch_loads_a_checkpoint_on_its_thread_before_admission(
+        cuda_device, monkeypatch, tmp_path):
+    """The ledger's idle prefetch loads an evicted checkpoint on its daemon
+    thread; the lander copies on its own stream and synchronises it, so the
+    pipeline the next job gets holds the source weights bit for bit."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+    from chiaswarm_tpu_torch.obs.metrics import Registry
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.serving.residency import ResidencyManager
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    src = Components.random("tiny", seed=6, device="cpu")
+    root = model_dir("tiny/a")
+    for sub, module in {"unet": src.unet, "vae": src.vae,
+                        "text_encoder": src.text_encoders[0]}.items():
+        (root / sub).mkdir(parents=True)
+        save_file(module.state_dict(), root / sub / "model.safetensors")
+    footprint = src.param_bytes()
+    ledger = ResidencyManager(int(1.5 * footprint), 4 * footprint,
+                              persist_path=None, prefetch=True,
+                              metrics_registry=Registry())
+    registry = ModelRegistry(catalog=[{"name": "tiny/a", "family": "tiny"}],
+                             device=cuda_device, residency=ledger)
+    registry.pipeline("tiny/a")
+    registry.pipeline("tiny/a")
+    ledger.set_budget(footprint // 2, 4 * footprint)
+    ledger.set_budget(int(1.5 * footprint), 4 * footprint)
+    assert ledger.model_states() == {"tiny/a": "evicted"}
+    assert ledger.note_idle()
+    ledger._prefetch_thread.join(timeout=120)
+    assert ledger.snapshot()["prefetch_loads"] == 1
+    pipe = registry.pipeline("tiny/a")
+    for key, value in src.unet.state_dict().items():
+        got = pipe.c.unet.state_dict()[key]
+        assert got.is_cuda and torch.equal(got.cpu(), value), key
+
+
+def test_lander_orders_its_copies_after_kernels_queued_on_a_reused_block(
+        cuda_device):
+    """A block freed while a kernel queued on the current stream still
+    writes it goes at once to the next allocation there. The lander is made
+    before that allocation (as ``Components.from_checkpoint`` makes it);
+    once told the parameter is allocated, its copy lands after the queued
+    write, so the parameter ends up holding the checkpoint's value. The
+    lander's pinned staging buffer and the sleep and fill kernels are made
+    ready first: a pinned allocation or a kernel's first launch can block
+    the host until the device is idle, which would hide a missing wait."""
+    from chiaswarm_tpu_torch.convert.checkpoint import TensorLander
+
+    n = 1 << 20
+    lander = TensorLander(cuda_device)
+    lander.land(torch.empty(n, device=cuda_device), torch.zeros(n))
+    torch.cuda._sleep(1000)
+    torch.empty(n, device=cuda_device).fill_(0.0)
+    torch.cuda.synchronize()
+    scratch = torch.empty(n, device=cuda_device)
+    block = scratch.data_ptr()
+    torch.cuda._sleep(100_000_000)  # tens of ms of device time queued first
+    scratch.fill_(-1.0)
+    del scratch
+    param = torch.empty(n, device=cuda_device)
+    assert param.data_ptr() == block
+    src = torch.arange(n, dtype=torch.float32)
+    lander.after_allocation()
+    lander.land(param, src)
+    lander.finish()
+    torch.cuda.synchronize()
+    assert torch.equal(param.cpu(), src)
+
+
+def test_a_checkpoint_loads_while_another_models_lane_steps(
+        cuda_device, monkeypatch, tmp_path):
+    """Model B loads from disk on this thread while model A's lane steps on
+    its own thread, both on the card's one stream (A's steps free blocks the
+    allocator hands to B's parameters). B's weights equal their source bit
+    for bit, and A's image is the one A renders with the card otherwise
+    idle, at the same lane composition."""
+    import dataclasses
+    import threading
+    import time
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.models.configs import FAMILIES, UNetConfig
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    monkeypatch.setenv("CHIASWARM_STEPPER", "1")
+    # the tiny family at a head dim B1 takes (its 1024-token level at 64 px)
+    unet_cfg = UNetConfig(block_out_channels=(80, 160), layers_per_block=1,
+                          transformer_depth=(1, 1), attention_head_dim=2,
+                          cross_attention_dim=32, dtype="float32")
+    monkeypatch.setitem(FAMILIES, "tiny_b1", dataclasses.replace(
+        FAMILIES["tiny"], name="tiny_b1", unet=unet_cfg))
+    src = Components.random("tiny_b1", seed=6, device="cpu")
+    modules = {"unet": src.unet, "vae": src.vae,
+               "text_encoder": src.text_encoders[0]}
+    for sub, module in modules.items():
+        (model_dir("tiny/b") / sub).mkdir(parents=True)
+        save_file(module.state_dict(),
+                  model_dir("tiny/b") / sub / "model.safetensors")
+    registry = ModelRegistry(catalog=[{"name": "tiny/a", "family": "tiny_b1"},
+                                      {"name": "tiny/b", "family": "tiny_b1"}],
+                             allow_random=True, device=cuda_device)
+    slot = ChipPool(device=cuda_device).slots[0]
+    sched = get_stepper(slot)
+    job = {"id": "a-1", "model_name": "tiny/a", "prompt": "a house",
+           "num_inference_steps": 100, "height": 64, "width": 64, "seed": 5,
+           "content_type": "image/png"}
+    quiet = synchronous_do_work(dict(job), slot, registry)
+    sched.shutdown()
+
+    done: dict = {}
+    runner = threading.Thread(target=lambda: done.update(
+        result=synchronous_do_work(dict(job), slot, registry)))
+    start = sched.stats().get("steps_executed", 0)
+    runner.start()
+    deadline = time.monotonic() + 120
+    while (sched.stats().get("steps_executed", 0) - start < 3
+           and runner.is_alive() and time.monotonic() < deadline):
+        time.sleep(0.001)
+    at_load = sched.stats().get("steps_executed", 0)
+    pipe_b = registry.pipeline("tiny/b")
+    after_load = sched.stats().get("steps_executed", 0)
+    runner.join(timeout=300)
+    sched.shutdown()
+    assert at_load - start >= 3 and after_load - start < 100, (
+        start, at_load, after_load)  # the load ran while the lane stepped
+    for sub, module in modules.items():
+        got = (pipe_b.c.text_encoders[0] if sub == "text_encoder"
+               else getattr(pipe_b.c, sub)).state_dict()
+        for key, value in module.state_dict().items():
+            assert torch.equal(got[key].cpu(), value.to(got[key].dtype)), key
+    cfg = done["result"]["pipeline_config"]
+    assert "error" not in cfg and "stepper" in cfg, cfg
+    assert (done["result"]["artifacts"]["primary"]["blob"]
+            == quiet["artifacts"]["primary"]["blob"])

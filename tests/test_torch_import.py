@@ -82,7 +82,8 @@ def test_package_has_the_slice_modules():
                   "ops.ring_flash_attention", "serving.guard",
                   "serving.stepper", "node.settings", "node.logging_setup",
                   "node.resilience", "node.hive", "node.worker",
-                  "obs.metrics", "obs.trace"):
+                  "obs.metrics", "obs.trace", "convert.safetensors_io",
+                  "convert.checkpoint", "serving.residency"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",
