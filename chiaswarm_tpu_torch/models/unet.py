@@ -1,5 +1,5 @@
 """Conditional diffusion UNet, counterpart of ``chiaswarm_tpu/models/unet.py``
-(``UNet`` :34-492), SD1.x/SD2.x path.
+(``UNet`` :34-492), SD1.x/SD2.x and SDXL paths.
 
 NCHW inside (the JAX module is NHWC; the tests transpose at the seam).
 Parameter names are diffusers' ``UNet2DConditionModel`` names
@@ -13,8 +13,11 @@ Spatial self-attention goes through ``ops.attention`` with the config's
 ``attn_impl``, so on the GPU the >=1024-token levels take kernel B1; text
 cross-attention is pinned to the plain ``"xla"`` path, as in the reference.
 
-Not in this slice: SDXL added conditioning, class embeddings (upscalers,
-AudioLDM), ControlNet residual inputs and the DeepCache seam.
+SDXL's added conditioning (``time_conditioning`` :289-310) is the
+``add_embedding`` MLP over concat(pooled text, sinusoidal time ids), added
+to the time embedding; the SVD-class variant without a pooled branch comes
+with it. Not in this slice: class embeddings (upscalers, AudioLDM),
+ControlNet residual inputs and the DeepCache seam.
 """
 
 from __future__ import annotations
@@ -259,9 +262,6 @@ class UNet(nn.Module):
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
-        if config.addition_embed_dim is not None:
-            raise ValueError("SDXL added conditioning is not ported yet "
-                             "(a later slice of the port)")
         if config.num_class_embeds is not None or config.class_proj_dim is not None:
             raise ValueError("class-conditioned UNets are not ported yet "
                              "(a later slice of the port)")
@@ -279,6 +279,11 @@ class UNet(nn.Module):
 
         self.conv_in = nn.Conv2d(cfg.sample_channels, channels[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(channels[0], temb_dim)
+        if cfg.addition_embed_dim is not None:
+            n_ids = 6 if cfg.addition_pooled_dim is not None else 3
+            add_in = n_ids * cfg.addition_embed_dim + (
+                cfg.addition_pooled_dim or 0)
+            self.add_embedding = TimestepEmbedding(add_in, temb_dim)
 
         self.down_blocks = nn.ModuleList()
         skip_channels = [channels[0]]
@@ -323,12 +328,16 @@ class UNet(nn.Module):
         self.conv_out = Conv2d32(channels[0], cfg.out_channels, 3, padding=1)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor | None) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor | None,
+                added_cond: dict[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
         cfg = self.config
         dtype = param_dtype(self)
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
+        if cfg.addition_embed_dim is not None:
+            temb = temb + self._added_embedding(added_cond, dtype)
         context = (None if encoder_hidden_states is None
                    else encoder_hidden_states.to(dtype))
 
@@ -358,3 +367,25 @@ class UNet(nn.Module):
 
         x = F.silu(self.conv_norm_out(x)).to(dtype)
         return self.conv_out(x)
+
+    def _added_embedding(self, added_cond: dict[str, torch.Tensor] | None,
+                         dtype: torch.dtype) -> torch.Tensor:
+        """``add_embedding`` over the micro-conditioning: ``time_ids`` (B, K)
+        sin-embedded in float32 at ``addition_embed_dim`` each (SDXL: 6
+        ids, the pooled ``text_embeds`` (B, P) before them; SVD-class: 3
+        ids alone), concatenated in float32, cast to the model dtype."""
+        cfg = self.config
+        if added_cond is None:
+            raise ValueError("this family requires added_cond "
+                             "(time_ids [+ text_embeds])")
+        time_ids = added_cond["time_ids"]
+        b = time_ids.shape[0]
+        ids_emb = timestep_embedding(
+            time_ids.reshape(-1), cfg.addition_embed_dim,
+            cfg.flip_sin_to_cos, cfg.freq_shift).reshape(b, -1)
+        if cfg.addition_pooled_dim is not None:
+            add = torch.cat([added_cond["text_embeds"].float(), ids_emb],
+                            dim=-1)
+        else:
+            add = ids_emb
+        return self.add_embedding(add.to(dtype))

@@ -29,6 +29,14 @@ ladder positions, and the VAE decode of retiring rows. Each enters
 inference mode and the pipeline's sequence-parallel context itself, so a
 lane's own thread runs them as the solo path does.
 
+SDXL-class families (``addition_embed_dim`` set) add the micro-conditioning
+the JAX programs build (:434-448 solo, :785-800 lanes): the text encode
+returns the last tower's pooled output beside the concatenated sequence
+embeddings (``_make_text_encode`` :217-230), and each UNet row gets
+``time_ids`` = (h, w, 0, 0, h, w) at the bucketed size, made on the device,
+and ``text_embeds`` = its pooled row, the negative prompt's before the
+prompt's under CFG.
+
 This slice serves txt2img. img2img, inpaint, ControlNet, instruct-pix2pix,
 DeepCache reuse and tiled decode raise ``ValueError`` naming the later
 slice that brings them.
@@ -44,7 +52,7 @@ import torch
 
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
-from chiaswarm_tpu_torch.core.mesh import DeviceMesh
+from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
 from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
@@ -156,13 +164,19 @@ class DiffusionPipeline:
     sequence_parallel``, so every large self-attention, the VAE mid block's
     included, rings over the mesh (the JAX solo program's
     ``seq_parallel_wrap``, ``pipelines/diffusion.py:615-618``); a mesh
-    that rings beside another axis above 1 raises there."""
+    that rings beside another axis above 1 raises there. Rings serve the
+    SD1.x/SD2.x UNet only: an SDXL-class family on a ``seq`` mesh raises
+    here (ROADMAP queue item 7)."""
 
     def __init__(self, components: Components,
                  mesh: DeviceMesh | None = None) -> None:
         self.c = components
         self.mesh = mesh
         fam = components.family
+        if seq_size(mesh) > 1 and fam.unet.addition_embed_dim is not None:
+            raise NotImplementedError(
+                f"{fam.name} on a seq={seq_size(mesh)} mesh is not served "
+                "yet (ROADMAP queue item 7: the rings serve SD1.x/SD2.x)")
         self.schedule_config = ScheduleConfig(
             beta_schedule=fam.beta_schedule,
             prediction_type=fam.prediction_type,
@@ -174,9 +188,33 @@ class DiffusionPipeline:
                        self.c.device)
                 for tok in self.c.tokenizers]
 
-    def _encode_text(self, ids: list[torch.Tensor]) -> torch.Tensor:
-        seqs = [te(i)[0] for te, i in zip(self.c.text_encoders, ids)]
-        return torch.cat(seqs, dim=-1) if len(seqs) > 1 else seqs[0]
+    def _encode_text(self, ids: list[torch.Tensor]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sequence embeddings, pooled): the towers' sequences concatenated
+        along the feature axis, the pooled output of the last tower (SDXL's
+        pooled text comes from its second, projected tower)."""
+        seqs, pooled = [], None
+        for te, i in zip(self.c.text_encoders, ids):
+            seq, pooled = te(i)
+            seqs.append(seq)
+        return (torch.cat(seqs, dim=-1) if len(seqs) > 1 else seqs[0]), pooled
+
+    def _added_cond(self, pooled: list[torch.Tensor], height: int,
+                    width: int) -> dict[str, torch.Tensor] | None:
+        """SDXL's ``added_cond`` at the bucketed (height, width), or None for
+        a family without it: ``text_embeds`` the UNet rows' pooled text
+        (``pooled`` concatenated: under CFG the negative prompt's rows
+        before the prompt's) cut to ``addition_pooled_dim``, ``time_ids``
+        (0, 0 crop, float32) made on the device, one row each."""
+        unet_cfg = self.c.family.unet
+        if unet_cfg.addition_embed_dim is None:
+            return None
+        text_embeds = torch.cat(pooled, dim=0) if len(pooled) > 1 else pooled[0]
+        ids = torch.tensor([height, width, 0, 0, height, width],
+                           dtype=torch.float32)
+        time_ids = upload(ids, self.c.device).expand(text_embeds.shape[0], 6)
+        return {"time_ids": time_ids,
+                "text_embeds": text_embeds[:, :unet_cfg.addition_pooled_dim]}
 
     def _latent_hw(self, height: int, width: int) -> tuple[int, int]:
         f = self.c.family.vae.downscale
@@ -206,29 +244,33 @@ class DiffusionPipeline:
     def _generate(self, *, batch: int, steps: int, sampler: SamplerConfig,
                   use_cfg: bool, guidance: float,
                   ids: list[torch.Tensor], neg_ids: list[torch.Tensor],
-                  noise: torch.Tensor,
-                  generators: list[torch.Generator]) -> torch.Tensor:
+                  noise: torch.Tensor, generators: list[torch.Generator],
+                  height: int, width: int) -> torch.Tensor:
         """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
         unet = self.c.unet
 
-        ctx = self._encode_text(ids)
+        ctx, pooled = self._encode_text(ids)
+        pooled_rows = [pooled]
         if use_cfg:
-            ctx = torch.cat([self._encode_text(neg_ids), ctx], dim=0)
+            nctx, npooled = self._encode_text(neg_ids)
+            ctx = torch.cat([nctx, ctx], dim=0)
+            pooled_rows = [npooled, pooled]
 
         x = noise * sched.sigmas[0]
         state = init_sampler_state(x)
         rows = 2 * batch if use_cfg else batch
+        added = self._added_cond(pooled_rows, height, width)
         for i in range(steps):
             inp = scale_model_input(sched, x, i)
             t = timesteps[i].expand(rows)
             if use_cfg:
-                out = unet(torch.cat([inp, inp], dim=0), t, ctx)
+                out = unet(torch.cat([inp, inp], dim=0), t, ctx, added)
                 eps_u, eps_c = out.chunk(2, dim=0)
                 eps = eps_u + guidance * (eps_c - eps_u)
             else:
-                eps = unet(inp, t, ctx)
+                eps = unet(inp, t, ctx, added)
             step_noise = (randn_rows(generators, tuple(x.shape[1:]),
                                      self.c.device)
                           if sampler.kind in NOISY_KINDS else None)
@@ -246,11 +288,15 @@ class DiffusionPipeline:
 
     def stepper_encode(self, ids: list[torch.Tensor],
                        neg_ids: list[torch.Tensor]
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(ctx_u, ctx_c) for a job's rows: the solo path's text encode,
-        the negative prompt's (uncond) and the prompt's (cond) apart."""
+                       ) -> tuple[torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+        """(ctx_u, ctx_c, pooled_u, pooled_c) for a job's rows: the solo
+        path's text encode, the negative prompt's (uncond) and the prompt's
+        (cond) apart."""
         with torch.inference_mode(), sequence_parallel(self.mesh):
-            return self._encode_text(neg_ids), self._encode_text(ids)
+            ctx_c, pooled_c = self._encode_text(ids)
+            ctx_u, pooled_u = self._encode_text(neg_ids)
+            return ctx_u, ctx_c, pooled_u, pooled_c
 
     def stepper_row_init(self, generators: list[torch.Generator],
                          sigma0: torch.Tensor, height: int,
@@ -270,14 +316,19 @@ class DiffusionPipeline:
                      start_idx: torch.Tensor, sigmas: torch.Tensor,
                      timesteps: torch.Tensor, guidance: torch.Tensor,
                      old_denoised: torch.Tensor, active: torch.Tensor,
-                     generators: list[torch.Generator | None]
+                     generators: list[torch.Generator | None],
+                     pooled_u: torch.Tensor | None = None,
+                     pooled_c: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """ONE denoise step over a lane of W rows -> (x, idx, old_denoised).
 
         Per row: latents ``x`` (W, C, h, w), step and start index (W,), its
         sigma (W, S+1) and timestep (W, S) ladders padded to the lane's step
         capacity, guidance (W,) float32, multistep history and an active
-        flag. One UNet call on 2W rows (uncond rows, then cond) with a (2W,)
+        flag; the pooled text rows ``pooled_u``/``pooled_c`` (W, P), which an
+        SDXL-class UNet reads beside ``time_ids`` at the latents' size (other
+        families ignore them and may pass None). One UNet
+        call on 2W rows (uncond rows, then cond) with a (2W,)
         timestep vector; the per-row CFG combine keeps the solo path's
         dtype (the guidance rounded to the UNet's type, as a Python float
         is) and takes the conditional prediction alone where guidance is at
@@ -290,9 +341,12 @@ class DiffusionPipeline:
             inp = scale_model_input_rows(rows, x, idx)
             last = timesteps.shape[1] - 1
             t = timesteps.gather(1, idx.clamp(0, last)[:, None].long())[:, 0]
+            f = self.c.family.vae.downscale
+            added = self._added_cond([pooled_u, pooled_c], x.shape[2] * f,
+                                     x.shape[3] * f)
             out = self.c.unet(torch.cat([inp, inp], dim=0),
                               torch.cat([t, t], dim=0),
-                              torch.cat([ctx_u, ctx_c], dim=0))
+                              torch.cat([ctx_u, ctx_c], dim=0), added)
             eps_u, eps_c = out.chunk(2, dim=0)
             g = guidance.reshape(-1, 1, 1, 1)
             eps = torch.where(g > 1.0,
@@ -369,7 +423,8 @@ class DiffusionPipeline:
             images = self._generate(
                 batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
                 guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,
-                noise=noise, generators=generators)
+                noise=noise, generators=generators, height=height,
+                width=width)
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,

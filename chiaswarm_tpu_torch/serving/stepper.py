@@ -7,7 +7,8 @@ denoise step per dispatch over a row file of fixed width. A job
 arriving while the lane steps splices into free rows at the next step
 boundary; a finished row retires, decodes and goes back to its job while
 the others keep stepping. Each row carries its own ladder, step index,
-guidance, multistep history and noise generator, so every row walks its
+guidance, multistep history, noise generator and text embeddings (the
+pooled ones too, which an SDXL-class UNet reads), so every row walks its
 solo trajectory (``pipelines/diffusion.py::stepper_step``;
 ``tests/test_torch_stepper.py`` holds the splice against the solo path).
 Lanes are the default engine, as in the JAX package: ``CHIASWARM_STEPPER=0``
@@ -157,6 +158,8 @@ class _RowJob:                    # must never compare tensor fields
     timesteps: np.ndarray       # (steps,)
     ctx_u: torch.Tensor         # (n, L, D) on the device
     ctx_c: torch.Tensor
+    pooled_u: torch.Tensor      # (n, P) on the device (SDXL reads them)
+    pooled_c: torch.Tensor
     generators: list[torch.Generator]  # one per row: the noise carry
     x0: torch.Tensor            # (n, C, h, w) initial latents
     deadline: float             # absolute time.monotonic() cutoff
@@ -449,6 +452,12 @@ class Lane:
                                  dtype=job.ctx_u.dtype, device=self.device),
             "ctx_c": torch.zeros((w,) + tuple(job.ctx_c.shape[1:]),
                                  dtype=job.ctx_c.dtype, device=self.device),
+            "pooled_u": torch.zeros((w,) + tuple(job.pooled_u.shape[1:]),
+                                    dtype=job.pooled_u.dtype,
+                                    device=self.device),
+            "pooled_c": torch.zeros((w,) + tuple(job.pooled_c.shape[1:]),
+                                    dtype=job.pooled_c.dtype,
+                                    device=self.device),
         }
         self._sync_tables()
 
@@ -484,6 +493,8 @@ class Lane:
             dev["idx"].index_fill_(0, sel, 0)  # txt2img rows start at 0
             dev["ctx_u"].index_copy_(0, sel, job.ctx_u)
             dev["ctx_c"].index_copy_(0, sel, job.ctx_c)
+            dev["pooled_u"].index_copy_(0, sel, job.pooled_u)
+            dev["pooled_c"].index_copy_(0, sel, job.pooled_c)
             self._h_idx[slots] = 0
             self._h_start[slots] = 0
             self._h_sig[slots, :] = 0.0
@@ -553,7 +564,8 @@ class Lane:
                 return torch.cat([taken, arr.new_zeros(
                     (pad,) + tuple(arr.shape[1:]))])
 
-            for name in ("x", "old", "idx", "ctx_u", "ctx_c"):
+            for name in ("x", "old", "idx", "ctx_u", "ctx_c", "pooled_u",
+                         "pooled_c"):
                 self._dev[name] = remap(self._dev[name])
             self._sync_tables()
 
@@ -568,7 +580,8 @@ class Lane:
             sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
             x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
             sigmas=dev["sig"], timesteps=dev["ts"], guidance=dev["guid"],
-            old_denoised=dev["old"], active=dev["active"], generators=gens)
+            old_denoised=dev["old"], active=dev["active"], generators=gens,
+            pooled_u=dev["pooled_u"], pooled_c=dev["pooled_c"])
         # throttle: at most two dispatched steps in flight, so the host
         # cannot run away from the device and execution errors surface
         # here, inside the lane thread's containment try
@@ -849,7 +862,7 @@ class StepScheduler:
             eb = bucket_batch(rows)
             ids = pipe._tokenize([prompt or ""] * eb)
             neg = pipe._tokenize([negative_prompt or ""] * eb)
-            ctx_u, ctx_c = pipe.stepper_encode(ids, neg)
+            ctx_u, ctx_c, pooled_u, pooled_c = pipe.stepper_encode(ids, neg)
             # one generator per row, the solo path's (seed, row) pairs
             generators = row_generators([(int(seed), r)
                                          for r in range(rows)])
@@ -859,7 +872,8 @@ class StepScheduler:
             job_id=job_id, n_rows=rows, steps=steps,
             guidance=float(guidance_scale),
             sigmas=sched.sigmas.numpy(), timesteps=sched.timesteps.numpy(),
-            ctx_u=ctx_u[:rows], ctx_c=ctx_c[:rows], generators=generators,
+            ctx_u=ctx_u[:rows], ctx_c=ctx_c[:rows], pooled_u=pooled_u[:rows],
+            pooled_c=pooled_c[:rows], generators=generators,
             x0=x0,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
                                          else self.row_deadline_s()))

@@ -19,9 +19,12 @@ each phase printing one JSON line:
 3. kernel     — holds kernel B1 (flash attention) against its plain PyTorch
                 version at the UNet's shapes for SD1.5 at 512 px in bf16
                 (batch 2 for a solo job, 4 for a lone job's lane of 2 rows,
-                16 for a lane of 8 rows) (max abs error 4e-3, two bf16 steps
+                16 for a lane of 8 rows) and for SDXL at 1024 px (head dim
+                64: batch 2 solo, 4 in a lane of 2, 8 in a lane of 4, 1
+                for a job without CFG) (max abs error 4e-3, two bf16 steps
                 at the largest outputs, and relative L2 1e-2), at
-                lane_check's fp32 shape and at ragged fp32 shapes (2e-4 and
+                lane_check's and xl_check's fp32 shapes and at ragged fp32
+                shapes (2e-4 and
                 1e-4, TF32 off); CUDA-event median times of the kernel, the
                 plain version and ``scaled_dot_product_attention`` (the
                 library yardstick, which the port never calls), with FLOP
@@ -57,6 +60,12 @@ each phase printing one JSON line:
                 (4096 tokens), B1's tensor-core route against the plain
                 ``xla`` route: within the repo's bf16 parity bar, relative
                 L2 3e-2, with 10 B1 launches (5 at 4096 tokens, 5 at 1024).
+6c. xl_check — the full-width SDXL UNet (2.57 B parameters) in bf16 at a
+                128x128 latent with its added conditioning (time ids and
+                pooled text): one eval through B1 (70 launches: 10 at 4096
+                tokens, 60 at 1024, head dim 64) against the plain route,
+                relative L2 3e-2; then the same weights in float32 at a
+                64x64 latent, TF32 off: 1e-4, 10 launches.
 7. ring_check — the same UNet under a ``seq = 4`` mesh against the
                 single-device plain route: relative L2 within 1e-4, with
                 exactly 5 B3 launches (the five 1024-token self-attentions)
@@ -190,6 +199,36 @@ each phase printing one JSON line:
                 minus ``generation_s``), the burst's images/s from the first
                 poll that returned work to the last upload beside
                 lane_burst's, lane steps and occupancy.
+15b. xl_serve — SDXL at its published widths (3.47 B parameters: UNet
+                and VAE in bf16, both text towers in float32, random from
+                seed 0, drawn on the card once and reused by every SDXL
+                phase; both towers on the synthetic CLIP vocab), serve's
+                three jobs at 1024x1024 on the solo path: error-free
+                envelopes with 1024x1024 PNGs, B1 exactly 1,400 times a job
+                (20 steps x 70) and no other kernel. Prints the weights'
+                init seconds, job seconds, ``generation_s`` and the peak of
+                ``max_memory_allocated``.
+15c. xl_lane_serve — the same three jobs one by one through the lanes (a
+                lane of 2 rows, UNet batch 4): B1 = 70 x lane steps; each
+                image's uint8 difference from xl_serve's is printed (another
+                batch composition). Then a guidance-1.0 job: no lane takes
+                it, the solo path serves it without CFG at B1 batch 1.
+15d. xl_lane_burst — four SDXL jobs (seeds 11-14) at once at a lane width
+                pinned to 4 (UNet batch 8): one lane, B1 = 70 x lane steps,
+                fewer lane steps than half the summed steps. Prints lane
+                steps, images/s beside xl_serve's after its first job,
+                occupancy and peak memory.
+15e. xl_worker_checkpoint — the drawn SDXL weights written as a
+                diffusers-layout directory (``unet/``, ``vae/``,
+                ``text_encoder/``, ``text_encoder_2/``, ``tokenizer/``),
+                each tensor at its serving dtype (~8.6 GB), under the run's
+                settings root as ``stabilityai__stable-diffusion-xl-base-
+                1.0``; a registry with no random fallback loads it (load
+                seconds split into read, copy and the rest, the peak against
+                ``param_bytes``, every tensor ``torch.equal`` to its source)
+                and the worker serves seed 1 for that name against a hive in
+                this script: bit for bit xl_lane_serve's seed 1. The
+                directory is removed at the end of the phase.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -202,8 +241,9 @@ each phase printing one JSON line:
                 averaged over those launches (per-shape numbers, each with
                 its design and its factor against the library call, under
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
-                ``checkpoint_serve``, ``residency_churn`` and
-                ``worker_serve`` and B3 under ``lane_seq_serve``, with
+                ``checkpoint_serve``, ``residency_churn``,
+                ``worker_serve`` and the four SDXL serve phases and B3
+                under ``lane_seq_serve``, with
                 their launches there and their numbers over those
                 launches.
 
@@ -237,6 +277,10 @@ PEAK_BYTES_PER_S = 3.35e12
 SERVE_JOBS = 3
 SERVE_STEPS = 20
 B1_LAUNCHES_PER_UNET_EVAL = 10
+# SDXL at 1024 px: 4 + 6 self-attentions at 4096 tokens (two depth-2
+# transformers down, three up), 20 + 10 + 30 at 1024 (depth 10: two down,
+# the mid block, three up)
+B1_LAUNCHES_PER_XL_EVAL = 70
 RING_SHARDS = 4
 # ten self-attentions per UNet eval ring (five at 4096 tokens, five at
 # 1024), each 4 shards x 4 hops; the VAE mid block rings once per job
@@ -417,6 +461,22 @@ KERNEL_SHAPES = [
     (16, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (8, 1024, 1024, 8, 40, "float32", 2e-4, 1e-4, ("lane_check",)),
+    # SDXL at 1024 px, head dim 64: 10 heads at 4096 tokens and 20 at 1024,
+    # a solo job (CFG, batch 2), a lone job in a lane of 2 rows (batch 4; the
+    # worker's checkpoint job too), a lane pinned at 4 rows (batch 8), the
+    # no-CFG solo job at guidance 1.0 (batch 1), and xl_check's fp32 UNet at
+    # a 64x64 latent (its 1024-token level has 10 heads)
+    (2, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_serve",)),
+    (2, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_serve",)),
+    (4, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2,
+     ("xl_lane_serve", "xl_worker_checkpoint")),
+    (4, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2,
+     ("xl_lane_serve", "xl_worker_checkpoint")),
+    (8, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_burst",)),
+    (8, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_burst",)),
+    (1, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_serve",)),
+    (1, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_serve",)),
+    (2, 1024, 1024, 10, 64, "float32", 2e-4, 1e-4, ("xl_check",)),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
 ]
@@ -882,8 +942,9 @@ JOBS = [{"id": f"smoke-sd15-{seed}", "model_name": "sd15",
 
 
 def check_envelope(phase: str, job: dict, result: dict, lanes: bool) -> str:
-    """Raises on an error envelope, a PNG that is not 512x512, or (with
-    ``lanes``) a job a lane did not serve. Returns the PNG blob."""
+    """Raises on an error envelope, a PNG that is not the job's height x
+    width, or (with ``lanes``) a job a lane did not serve. Returns the PNG
+    blob."""
     cfg = result["pipeline_config"]
     if "error" in cfg:
         raise AssertionError(f"{phase} job {job['id']} failed: "
@@ -895,10 +956,10 @@ def check_envelope(phase: str, job: dict, result: dict, lanes: bool) -> str:
         raise AssertionError(f"{phase} job {job['id']} rode a lane on the "
                              "solo path")
     blob = result["artifacts"]["primary"]["blob"]
-    hw = png_hw(blob)
-    if hw != (512, 512):
+    hw, want = png_hw(blob), (job["height"], job["width"])
+    if hw != want:
         raise AssertionError(f"{phase} job {job['id']} PNG is {hw}, "
-                             "not 512x512")
+                             f"not {want}")
     return blob
 
 
@@ -934,7 +995,8 @@ def run_jobs(torch, phase: str, slot, registry, lanes: bool = False,
         blobs[job["seed"]] = check_envelope(phase, job, result, lanes)
         emit(f"{phase}_job", id=job["id"], seed=cfg["seed"],
              seconds=seconds[-1], generation_s=cfg["generation_s"],
-             scheduler=cfg["scheduler"], png_hw=[512, 512],
+             scheduler=cfg["scheduler"],
+             png_hw=[job["height"], job["width"]],
              mesh_shape=cfg["slot"]["mesh_shape"],
              stepper=cfg.get("stepper"), spans=rows)
     return seconds, blobs
@@ -1023,7 +1085,8 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
     else:
         mode, kernel, devices = "scan", B2, ring_mesh_devices(torch)
         per_eval, per_decode = B2_LAUNCHES_PER_UNET_EVAL, B2_LAUNCHES_PER_DECODE
-    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"},
+                                      {"name": XL_MODEL, "family": "sdxl"}],
                              allow_random=True, device="cuda")
     slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
                     devices=devices).slots[0]
@@ -1317,7 +1380,8 @@ def lane_seq_serve_phase(torch) -> dict:
     )
     from chiaswarm_tpu_torch.serving.stepper import get_stepper
 
-    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"},
+                                      {"name": XL_MODEL, "family": "sdxl"}],
                              allow_random=True, device="cuda")
     slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
                     devices=one_card_devices(torch)).slots[0]
@@ -1431,34 +1495,43 @@ def synthetic_clip_vocab(seed: int = 0) -> tuple[dict, list]:
     return vocab, merges
 
 
-def write_checkpoint(torch, components, path: Path) -> dict:
+def write_clip_vocab(path: Path) -> dict:
+    """``synthetic_clip_vocab`` as ``vocab.json`` and ``merges.txt`` in
+    ``path`` (a snapshot's ``tokenizer/``)."""
+    vocab, merges = synthetic_clip_vocab()
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.json").write_text(json.dumps(vocab), encoding="utf-8")
+    (path / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+        encoding="utf-8")
+    return {"vocab": len(vocab), "merges": len(merges)}
+
+
+def write_checkpoint(torch, components, path: Path,
+                     float32: bool = True) -> dict:
     """``components`` as a diffusers-layout snapshot at ``path``: ``unet/``,
-    ``vae/`` and ``text_encoder/`` as float32 safetensors through the
-    port's own writer (the dtype of the published SD1.5 snapshot; bf16
-    weights round-trip it exactly), ``tokenizer/`` from
-    ``synthetic_clip_vocab``. The files are synced and advised out of the
-    page cache (``posix_fadvise``), which a filesystem may ignore:
-    ``page_cache_share`` reads what it kept."""
+    ``vae/``, ``text_encoder/`` (and ``text_encoder_2/`` for a second
+    tower) as safetensors through the port's own writer, in float32 (the
+    dtype of the published SD1.5 snapshot; bf16 weights round-trip it
+    exactly) or, with ``float32=False``, each tensor at the dtype it serves
+    at; ``tokenizer/`` from ``synthetic_clip_vocab``. The files are synced
+    and advised out of the page cache (``posix_fadvise``), which a
+    filesystem may ignore: ``page_cache_share`` reads what it kept."""
     from chiaswarm_tpu_torch.convert.safetensors_io import save_file
 
-    modules = {"unet": components.unet, "vae": components.vae,
-               "text_encoder": components.text_encoders[0]}
+    modules = {"unet": components.unet, "vae": components.vae}
+    for i, tower in enumerate(components.text_encoders):
+        modules["text_encoder" + (f"_{i + 1}" if i else "")] = tower
     files = []
     for sub, module in modules.items():
         (path / sub).mkdir(parents=True, exist_ok=True)
-        name = ("model.safetensors" if sub == "text_encoder"
+        name = ("model.safetensors" if sub.startswith("text_encoder")
                 else "diffusion_pytorch_model.safetensors")
-        save_file({k: v.detach().float().cpu()
+        save_file({k: (v.detach().float() if float32 else v.detach()).cpu()
                    for k, v in module.state_dict().items()},
                   path / sub / name, {"format": "pt"})
         files.append(path / sub / name)
-    vocab, merges = synthetic_clip_vocab()
-    (path / "tokenizer").mkdir(parents=True, exist_ok=True)
-    (path / "tokenizer" / "vocab.json").write_text(json.dumps(vocab),
-                                                    encoding="utf-8")
-    (path / "tokenizer" / "merges.txt").write_text(
-        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
-        encoding="utf-8")
+    vocab = write_clip_vocab(path / "tokenizer")
     for file in files:
         fd = os.open(file, os.O_RDONLY)
         try:
@@ -1468,8 +1541,7 @@ def write_checkpoint(torch, components, path: Path) -> dict:
             os.close(fd)
     return {"files": {str(f.relative_to(path)): f.stat().st_size
                       for f in files},
-            "bytes": sum(f.stat().st_size for f in files),
-            "vocab": len(vocab), "merges": len(merges)}
+            "bytes": sum(f.stat().st_size for f in files), **vocab}
 
 
 def page_cache_share(paths: list[str]) -> float:
@@ -2451,6 +2523,309 @@ def solo_pair_phase(torch, registry, slot, lane_blob: str,
     return run
 
 
+# ---- SDXL at 1024 px ------------------------------------------------------
+
+XL_MODEL = "sdxl"  # random weights from seed 0 (the registry's fallback)
+XL_CKPT_MODEL = "stabilityai/stable-diffusion-xl-base-1.0"
+XL_SIZE = 1024
+XL_JOBS = [dict(job, id=f"smoke-sdxl-{job['seed']}", model_name=XL_MODEL,
+                height=XL_SIZE, width=XL_SIZE) for job in JOBS]
+# guidance 1.0: no CFG, so no lane (the solo path at UNet batch 1)
+XL_NOCFG_JOB = dict(XL_JOBS[0], id="smoke-sdxl-nocfg-4", seed=4,
+                    guidance_scale=1.0)
+XL_LANE_WIDTH = 4
+XL_BURST_JOBS = [dict(XL_JOBS[0], id=f"burst-sdxl-{seed}", seed=seed,
+                      negative_prompt="blurry, low quality" if seed == 12
+                      else "") for seed in range(11, 15)]
+
+
+def xl_check_phase(torch) -> None:
+    """The full-width SDXL UNet (2.57 B parameters, random from a seed) in
+    bf16 at a 128x128 latent, the 1024 px serve shape: one eval through B1
+    (70 launches: 10 at 4096 tokens, 60 at 1024) against one through the
+    plain ``xla`` route, within relative L2 3e-2. Then the same weights in
+    float32 at a 64x64 latent, TF32 off: within 1e-4, with 10 B1 launches
+    (its 1024-token level; the 256-token level stays plain)."""
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.models.unet import UNet
+    from chiaswarm_tpu_torch.ops.flash_attention import KERNEL
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    cfg = FAMILIES["sdxl"].unet
+    with torch.device("meta"):
+        unet = UNet(cfg)
+    unet = unet.to_empty(device="cuda").eval().requires_grad_(False)
+    flax_default_init(unet, torch.Generator(device="cuda").manual_seed(0))
+    cast_module(unet, torch.bfloat16)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    t = torch.tensor([999.0, 10.5], device="cuda")
+    ctx = torch.randn((2, 77, cfg.cross_attention_dim), generator=gen).cuda()
+    added = {"time_ids": torch.tensor([[1024.0, 1024, 0, 0, 1024, 1024]] * 2,
+                                      device="cuda"),
+             "text_embeds": torch.randn((2, cfg.addition_pooled_dim),
+                                        generator=gen).cuda()}
+    results = []
+    for dtype, side, tol, want in ((torch.bfloat16, 128, 3e-2, 70),
+                                   (torch.float32, 64, 1e-4, 10)):
+        cast_module(unet, dtype)  # bf16 -> float32 keeps every value
+        x = torch.randn((2, 4, side, side), generator=gen).cuda().to(dtype)
+        with torch.inference_mode():
+            set_attn_impl(unet, "auto")
+            before = KERNEL.launches
+            out_kernel = unet(x, t, ctx.to(dtype), added).float()
+            launches = KERNEL.launches - before
+            set_attn_impl(unet, "xla")
+            out_plain = unet(x, t, ctx.to(dtype), added).float()
+            set_attn_impl(unet, "auto")
+        torch.cuda.synchronize()
+        rel = ((out_kernel - out_plain).norm() / out_plain.norm()).item()
+        finite = bool(torch.isfinite(out_kernel).all())
+        row = {"model": f"sdxl unet {str(dtype).removeprefix('torch.')}",
+               "latent": list(x.shape), "b1_launches": launches,
+               "rel_l2": rel, "finite": finite, "tolerance": tol,
+               "design": design(str(dtype).removeprefix("torch."), 64)}
+        emit("xl_check", **row)
+        results.append(row)
+        del out_kernel, out_plain
+        if launches != want or not finite or not rel <= tol:
+            raise AssertionError(f"SDXL UNet kernel route check failed: {row} "
+                                 f"(want {want} launches)")
+    del unet
+    torch.cuda.empty_cache()
+
+
+def xl_tokenizers():
+    """The CLIP BPE tokenizer over ``synthetic_clip_vocab``, written to the
+    checkpoint directory's ``tokenizer/`` (read later by the checkpoint
+    load), one per text tower as the JAX package loads it: the random-weight
+    SDXL phases and the checkpoint then give the same ids."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.models.tokenizer import load_tokenizer
+    from chiaswarm_tpu_torch.node.registry import model_dir
+
+    path = model_dir(XL_CKPT_MODEL)
+    write_clip_vocab(path / "tokenizer")
+    return [load_tokenizer(path, cfg.vocab_size, cfg.eos_token_id,
+                           cfg.max_position_embeddings)
+            for cfg in FAMILIES["sdxl"].text_encoders]
+
+
+def xl_serve_phase(torch, registry, slot) -> tuple:
+    """SDXL at its published widths, random weights from seed 0 (drawn on
+    the card once; every later SDXL phase reuses them), both text towers on
+    the synthetic CLIP vocab: the three serve jobs at 1024x1024 on the solo
+    path. Error-free envelopes with 1024x1024 PNGs, B1 exactly 1,400 times a
+    job and no other kernel. Returns the launches, the blobs and the
+    images/s after the first job."""
+    from chiaswarm_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = registry.pipeline(XL_MODEL)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe.c.tokenizers = xl_tokenizers()
+    seconds, blobs = run_jobs(torch, "xl_serve", slot, registry, jobs=XL_JOBS)
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    want = len(XL_JOBS) * SERVE_STEPS * B1_LAUNCHES_PER_XL_EVAL
+    ips_after_first = (len(XL_JOBS) - 1) / sum(seconds[1:])
+    emit("xl_serve", jobs=len(XL_JOBS), steps=SERVE_STEPS, size=XL_SIZE,
+         init_s=init_s, param_bytes=pipe.c.param_bytes(),
+         dtype=str(pipe.c.dtype), job_seconds=seconds,
+         images_per_s=len(XL_JOBS) / sum(seconds),
+         images_per_s_after_first=ips_after_first,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_flash_launches=want)
+    if launches["flash_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"xl_serve launched {launches}, expected {want} "
+                             "of flash_attention and no other")
+    return launched(), blobs, ips_after_first
+
+
+def xl_lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> tuple:
+    """The SDXL serve jobs one after another through the lanes (each alone
+    in a lane of 2 rows, UNet batch 4): B1 = 70 x lane steps, the uint8
+    difference from xl_serve's image of each seed printed. Then a job at
+    guidance 1.0: no lane takes it (no CFG), the solo path serves it at
+    UNet batch 1 (1,400 more B1 launches). Returns the launches and the
+    blobs."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    get_stepper(slot).shutdown()
+    before = stepper_stats(slot)
+    seconds, blobs = run_jobs(torch, "xl_lane_serve", slot, registry,
+                              lanes=True, jobs=XL_JOBS)
+    steps = delta(stepper_stats(slot), before, "steps_executed")
+    t0 = time.perf_counter()
+    nocfg = synchronous_do_work(dict(XL_NOCFG_JOB), slot, registry)
+    nocfg_s = time.perf_counter() - t0
+    check_envelope("xl_lane_serve", XL_NOCFG_JOB, nocfg, lanes=False)
+    get_stepper(slot).shutdown()
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    want = (steps + SERVE_STEPS) * B1_LAUNCHES_PER_XL_EVAL
+    emit("xl_lane_serve", jobs=len(XL_JOBS), steps=SERVE_STEPS,
+         job_seconds=seconds, images_per_s=len(XL_JOBS) / sum(seconds),
+         steps_executed=steps, nocfg_seconds=nocfg_s,
+         nocfg_generation_s=nocfg["pipeline_config"]["generation_s"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_flash_launches=want,
+         vs_xl_serve=image_diffs(blobs, solo_blobs))
+    if launches["flash_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"xl_lane_serve launched {launches}, expected "
+                             f"{want} of flash_attention and no other")
+    return launched(), blobs
+
+
+def xl_lane_burst_phase(torch, registry, slot, solo_ips: float) -> dict:
+    """Four SDXL jobs (seeds 11-14) at once through
+    ``synchronous_do_work_batch`` at a lane width pinned to 4 (UNet batch
+    8): every job on one lane, B1 = 70 x lane steps and no other kernel,
+    fewer lane steps than half the jobs' summed steps. Prints lane steps,
+    images/s beside xl_serve's after its first job, occupancy and peak
+    memory. Returns the launches."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    get_stepper(slot).shutdown()
+    with env(CHIASWARM_STEPPER_LANE_WIDTH=str(XL_LANE_WIDTH)):
+        before = stepper_stats(slot)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = synchronous_do_work_batch([dict(j) for j in XL_BURST_JOBS],
+                                            slot, registry)
+        wall_s = time.perf_counter() - t0
+        after = stepper_stats(slot)
+        get_stepper(slot).shutdown()
+    launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+    infos = {}
+    for job, result in zip(XL_BURST_JOBS, results):
+        check_envelope("xl_lane_burst", job, result, lanes=True)
+        infos[job["seed"]] = result["pipeline_config"]["stepper"]
+    steps = delta(after, before, "steps_executed")
+    summed = sum(j["num_inference_steps"] for j in XL_BURST_JOBS)
+    want = steps * B1_LAUNCHES_PER_XL_EVAL
+    row_active = delta(after, before, "row_steps_active")
+    row_padded = delta(after, before, "row_steps_padded")
+    lanes_used = {info["lane"] for info in infos.values()}
+    ips = len(XL_BURST_JOBS) / wall_s
+    emit("xl_lane_burst", jobs=len(XL_BURST_JOBS), lane_width=XL_LANE_WIDTH,
+         wall_s=wall_s, images_per_s=ips, xl_serve_images_per_s=solo_ips,
+         vs_xl_serve=ips / solo_ips, steps_executed=steps,
+         summed_job_steps=summed, launches=launches,
+         expected_flash_launches=want,
+         row_steps_active=row_active, row_steps_padded=row_padded,
+         occupancy=row_active / max(1, row_active + row_padded),
+         step_seconds_ewma=after.get("step_seconds_ewma"),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         lanes=sorted(lanes_used),
+         stepper={seed: infos[seed] for seed in sorted(infos)})
+    if (launches["flash_attention"] != want or sum(launches.values()) != want
+            or len(lanes_used) != 1 or not steps < summed / 2):
+        raise AssertionError(
+            f"xl_lane_burst failed: launches {launches} (want {want} of "
+            f"flash_attention), lanes {lanes_used}, steps {steps} (bar < "
+            f"{summed / 2})")
+    return launched()
+
+
+def xl_worker_checkpoint_phase(torch, registry, pool,
+                               lane_blobs: dict) -> dict:
+    """SDXL from disk through the worker: the drawn weights written under
+    ``<settings root>/models/stabilityai__stable-diffusion-xl-base-1.0/``
+    in the diffusers layout (``unet/``, ``vae/``, ``text_encoder/``,
+    ``text_encoder_2/``, ``tokenizer/``), each tensor at the dtype it
+    serves at. A registry with no random fallback loads it (load seconds
+    split into file read, device copy and the rest; the load's peak against
+    ``param_bytes``; every tensor ``torch.equal`` to its source), then the
+    worker serves serve's seed-1 job for that model name against a hive in
+    this script: an error-free 1024x1024 PNG bit for bit xl_lane_serve's
+    seed 1 (a lone job in a lane of 2 both times), B1 = 70 x lane steps.
+    The directory is removed at the end. Returns the launches."""
+    import gc
+    import shutil
+
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    src = registry.pipeline(XL_MODEL).c
+    source = module_states(src)
+    path = model_dir(XL_CKPT_MODEL)
+    t0 = time.perf_counter()
+    written = write_checkpoint(torch, src, path, float32=False)
+    write_s = time.perf_counter() - t0
+    disk = shutil.disk_usage(path)
+    paths = [str(path / name) for name in written["files"]]
+    try:
+        ck_registry = ModelRegistry(catalog=[{"name": XL_CKPT_MODEL,
+                                              "family": "sdxl"}],
+                                    device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cached = page_cache_share(paths)
+        t0 = time.perf_counter()
+        pipe = ck_registry.pipeline(XL_CKPT_MODEL)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        loaded = module_states(pipe.c)
+        unequal = [f"{m}.{k}" for m, params in source.items()
+                   for k, p in params.items()
+                   if loaded[m][k].dtype != p.dtype
+                   or not torch.equal(loaded[m][k], p)]
+        stats, footprint = pipe.c.load_stats, pipe.c.param_bytes()
+        tokenizers = [type(t).__name__ for t in pipe.c.tokenizers]
+        del pipe, loaded
+
+        job = dict(XL_JOBS[0], id="worker-ckpt-sdxl-1",
+                   model_name=XL_CKPT_MODEL)
+        get_stepper(slot).shutdown()
+        kernels.reset_launches()
+        steps_before = stepper_stats(slot)
+        with LocalHive() as hive:
+            worker = serve_through_worker(hive, pool, ck_registry, [job])
+        steps = delta(stepper_stats(slot), steps_before, "steps_executed")
+        get_stepper(slot).shutdown()
+        run = launched()
+        [result] = [r for r in hive.results if r["id"] == job["id"]]
+        blob = check_envelope("xl_worker_checkpoint", job, result, lanes=True)
+        out = {
+            "model": XL_CKPT_MODEL, "files": written, "write_s": write_s,
+            "disk_free_bytes": disk.free, "page_cache_share_at_load": cached,
+            "load_s": load_s, "load_stats": stats,
+            "load_other_s": load_s - stats["read_s"] - stats["copy_s"],
+            "load_peak_bytes": peak, "param_bytes": footprint,
+            "peak_over_param_bytes": peak / footprint,
+            "tensors_checked": sum(len(v) for v in source.values()),
+            "tensors_unequal": unequal[:8], "tokenizers": tokenizers,
+            "seconds": trace_rows(worker)[job["id"]],
+            "generation_s": result["pipeline_config"]["generation_s"],
+            "steps_executed": steps,
+            "b1_launches": run["flash_attention"]["launches"],
+            "vs_xl_lane_serve": image_diffs({1: blob}, {1: lane_blobs[1]})[1]}
+        del ck_registry
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    emit("xl_worker_checkpoint", **out)
+    b1 = out["b1_launches"]
+    if (unequal or tokenizers != ["ClipBpeTokenizer"] * 2
+            or b1 != steps * B1_LAUNCHES_PER_XL_EVAL
+            or sum(r["launches"] for r in run.values()) != b1
+            or not out["vs_xl_lane_serve"]["bit_equal"]):
+        raise AssertionError(f"xl_worker_checkpoint: {out}")
+    return run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -2507,7 +2882,9 @@ def kernels_line(runs: dict, tables: dict) -> None:
         entry("flash_attention", "serve", ("lane_serve", "lane_burst",
                                            "checkpoint_serve",
                                            "residency_churn",
-                                           "worker_serve")),
+                                           "worker_serve", "xl_serve",
+                                           "xl_lane_serve", "xl_lane_burst",
+                                           "xl_worker_checkpoint")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -2544,6 +2921,7 @@ def run_phases(torch) -> int:
     b2_rows = ring_kernel_phase(torch)
     b3_rows = fused_kernel_phase(torch)
     check_phase(torch)
+    xl_check_phase(torch)
     lane_check_phase(torch)
     ring_check_phase(torch)
     # serve with PyTorch's defaults, as a worker would
@@ -2551,7 +2929,8 @@ def run_phases(torch) -> int:
     from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
 
-    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"},
+                                      {"name": XL_MODEL, "family": "sdxl"}],
                              allow_random=True, device="cuda")
     pool = ChipPool(device="cuda")
     slot = pool.slots[0]
@@ -2574,6 +2953,17 @@ def run_phases(torch) -> int:
         runs["residency_churn"] = residency_churn_phase(torch, slot, ckpt)
         runs["worker_serve"] = worker_serve_phase(
             torch, registry, pool, lane_blobs, burst_blobs, burst_ips, ckpt)
+    # SDXL at 1024 px: the solo path, then the lanes and the worker
+    with env(CHIASWARM_STEPPER="0"):
+        runs["xl_serve"], xl_blobs, xl_ips = xl_serve_phase(torch, registry,
+                                                            slot)
+    with env(CHIASWARM_STEPPER="1"):
+        runs["xl_lane_serve"], xl_lane_blobs = xl_lane_serve_phase(
+            torch, registry, slot, xl_blobs)
+        runs["xl_lane_burst"] = xl_lane_burst_phase(torch, registry, slot,
+                                                    xl_ips)
+        runs["xl_worker_checkpoint"] = xl_worker_checkpoint_phase(
+            torch, registry, pool, xl_lane_blobs)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

@@ -3,8 +3,10 @@ attention), B2 (one ring hop with carried state) and B3 (a whole ring in one
 launch) against their plain PyTorch versions, their refusals, and the
 dispatcher's routes to them (B3, and B2 under the scan drive, through a
 4-shard ring on one card), B1 and B3 at the batches a continuous-batching
-lane gives them (2W rows for a lane of W), and one lane step against each
-row's solo step on a small float32 UNet through B1.
+lane gives them (2W rows for a lane of W), one lane step against each
+row's solo step on a small float32 UNet through B1, and SDXL's side: B1 at
+its head dim 64 shapes, the tiny_xl pipeline on the card against its CPU
+run, and an SDXL-class lane pair against the solo pair.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -930,3 +932,123 @@ def test_a_checkpoint_loads_while_another_models_lane_steps(
     assert "error" not in cfg and "stepper" in cfg, cfg
     assert (done["result"]["artifacts"]["primary"]["blob"]
             == quiet["artifacts"]["primary"]["blob"])
+
+
+# ---------------------------------------------------------------------------
+# SDXL: B1 at head dim 64, the tiny_xl pipeline on the card, and
+# a lane pair against the solo pair with pooled text and time ids
+
+
+@pytest.mark.parametrize("b,l,h,dtype", [
+    (2, 4096, 10, torch.bfloat16), (2, 1024, 20, torch.bfloat16),   # solo
+    (4, 4096, 10, torch.bfloat16), (4, 1024, 20, torch.bfloat16),   # lane of 2
+    (8, 4096, 10, torch.bfloat16), (8, 1024, 20, torch.bfloat16),   # lane of 4
+    (2, 4096, 10, torch.float16), (2, 1024, 20, torch.float16),
+])
+def test_kernel_matches_plain_at_sdxl_shapes(cuda_device, b, l, h, dtype):
+    """SDXL at 1024 px: 10 heads at 4096 tokens and 20 at 1024, head dim
+    64, at the UNet batches of the solo path (2) and of lanes of 2 and 4
+    rows (4 and 8)."""
+    q, k, v = _qkv((b, l, h, 64), (b, l, h, 64), dtype, cuda_device)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert KERNEL.shapes[(b, l, l, h, 64, str(dtype).removeprefix(
+        "torch."))] >= 1
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+def _png_u8(result):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    cfg = result["pipeline_config"]
+    assert "error" not in cfg, cfg
+    blob = base64.b64decode(result["artifacts"]["primary"]["blob"])
+    return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB")).astype(
+        np.int16)
+
+
+def test_tiny_xl_pipeline_on_the_card_matches_its_cpu_run(cuda_device):
+    """The same tiny_xl weights (float32, TF32 off) and noise on the card
+    and on the CPU: two towers, pooled text and time ids on the device,
+    within one uint8 level."""
+    import dataclasses
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.diffusion import (
+        DiffusionPipeline,
+        GenerateRequest,
+    )
+
+    noise = np.random.default_rng(0).standard_normal(
+        (1, 32, 32, 4)).astype(np.float32)
+    req = GenerateRequest(prompt="a lighthouse", negative_prompt="blurry",
+                          steps=4, guidance_scale=7.5, height=64, width=64,
+                          init_noise=noise)
+    # drawn once, on the CPU (a card's generator draws other numbers)
+    cpu = Components.random("tiny_xl", seed=2, device="cpu")
+    images = {"cpu": DiffusionPipeline(cpu)(req)[0]}
+    card = dataclasses.replace(
+        cpu, device=cuda_device,
+        text_encoders=[te.to(cuda_device) for te in cpu.text_encoders],
+        unet=cpu.unet.to(cuda_device), vae=cpu.vae.to(cuda_device))
+    images["cuda"], _ = DiffusionPipeline(card)(req)
+    diff = np.abs(images["cuda"].astype(np.int16) - images["cpu"])
+    assert diff.max() <= 1 and images["cuda"].std() > 1.0, diff.max()
+
+
+def test_sdxl_class_lane_pair_is_the_solo_pair_bit_for_bit(cuda_device,
+                                                           monkeypatch,
+                                                           tmp_path):
+    """A bf16 SDXL-class UNet whose 1024-token level (64 px through the tiny
+    VAE) takes B1 at head dim 64: one job with two images on the solo path
+    (a CFG batch of 4 rows) and in a lane pinned at 2 rows (the same UNet
+    batch, text batch, pooled rows, time ids and noise) renders the same
+    grid bit for bit, and B1 ran at (4, 1024, 1024, 1, 64) in both."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    xl = FAMILIES["tiny_xl"]
+    monkeypatch.setitem(FAMILIES, "tiny_xl_b1", dataclasses.replace(
+        xl, name="tiny_xl_b1", unet=dataclasses.replace(
+            xl.unet, block_out_channels=(64, 128), transformer_depth=(1, 1),
+            attention_head_dim=64, dtype="bfloat16")))
+    registry = ModelRegistry(catalog=[{"name": "tiny_xl_b1",
+                                       "family": "tiny_xl_b1"}],
+                             allow_random=True, device=cuda_device)
+    slot = ChipPool(device=cuda_device).slots[0]
+    job = {"id": "pair", "model_name": "tiny_xl_b1", "prompt": "a house",
+           "negative_prompt": "blurry", "num_inference_steps": 6,
+           "height": 64, "width": 64, "seed": 5, "num_images_per_prompt": 2,
+           "content_type": "image/png"}
+    grids, launches = {}, {}
+    for mode in ("0", "1"):
+        monkeypatch.setenv("CHIASWARM_STEPPER", mode)
+        monkeypatch.setenv("CHIASWARM_STEPPER_LANE_WIDTH", "2")
+        kernels.reset_launches()
+        result = synchronous_do_work(dict(job), slot, registry)
+        assert ("stepper" in result["pipeline_config"]) == (mode == "1")
+        grids[mode] = _png_u8(result)
+        launches[mode] = dict(KERNEL.shapes)
+    get_stepper(slot).shutdown()
+    assert grids["0"].shape == (64, 128, 3) and grids["0"].std() > 1.0
+    assert (grids["1"] == grids["0"]).all()
+    assert launches["0"] == launches["1"] == {
+        (4, 1024, 1024, 1, 64, "bfloat16"): 6 * 3}

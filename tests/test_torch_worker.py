@@ -343,7 +343,7 @@ def test_residency_budget_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("family", ["tiny", "tiny_up", "tiny_p2p", "sd15",
-                                    "upscaler_x2"])
+                                    "upscaler_x2", "tiny_xl"])
 def test_estimate_family_bytes_matches_jax(family):
     from chiaswarm_tpu.pipelines.components import (
         estimate_family_bytes as jax_estimate,
@@ -354,10 +354,12 @@ def test_estimate_family_bytes_matches_jax(family):
 
 
 def test_estimate_refuses_families_the_port_does_not_build():
+    """A class-conditioned family (the x4 upscaler) still has no modules in
+    the port; SDXL has had them since its slice."""
     from chiaswarm_tpu_torch.pipelines.components import estimate_family_bytes
 
     with pytest.raises(ValueError, match="not ported yet"):
-        estimate_family_bytes("sdxl")
+        estimate_family_bytes("upscaler_x4")
 
 
 def _drive_metrics(mod, stats_cls):
@@ -1174,7 +1176,11 @@ def test_worker_entry_point_has_no_cpu_fallback(tmp_path):
 ], ids=["one-card", "data-4", "sdxl-no-estimate", "latency-seq-4",
         "mesh-shape-wins", "data-x-seq-raises", "model-raises"])
 def test_default_pool_rules(cards, over, catalog, want, monkeypatch):
+    """On ``cards`` H100s (80 GiB each): SDXL's bf16 estimate fits one card,
+    so eight cards serve it data-parallel."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(tmesh, "device_hbm_bytes",
+                        lambda device=None: 80 * 1024**3)
     worker = tworker.Worker(
         settings=tsettings.Settings(**over),
         pool=ChipPool(device="cpu"),
@@ -1187,6 +1193,24 @@ def test_default_pool_rules(cards, over, catalog, want, monkeypatch):
         return
     spec, n_slots, slot_spec = worker._default_pool_plan()
     assert (spec.resolve(cards), n_slots, dict(slot_spec.shape)) == want
+
+
+def test_sdxl_estimate_reaches_the_default_pool_policy(monkeypatch):
+    """SDXL's estimate (6.94 GB) on eight cards of the JAX module's default
+    16 GiB: the port's policy derives the JAX policy's tensor-parallel mesh,
+    which the port's pool refuses (ROADMAP queue item 7)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    worker = tworker.Worker(
+        settings=tsettings.Settings(), pool=ChipPool(device="cpu"),
+        registry=TorchRegistry(catalog=[{"name": "sdxl-base"}], device="cpu"),
+        hive=object())
+    nbytes = worker._heaviest_catalog_bytes()
+    assert nbytes == 6_937_675_734
+    assert (tmesh.derive_mesh_spec(8, nbytes).resolve(8)
+            == jmesh.derive_mesh_spec(8, nbytes).resolve(8))
+    assert tmesh.derive_mesh_spec(8, nbytes).resolve(8)["model"] > 1
+    with pytest.raises(NotImplementedError, match="item 7"):
+        worker._default_pool_plan()
 
 
 @pytest.mark.parametrize("over", [

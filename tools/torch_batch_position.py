@@ -159,8 +159,8 @@ def conv_checks(torch, pipe) -> dict:
                 row[variant] = {**_compare(torch, got, ref), "ms": ms}
             out[f"{c}@{side}/s{stride}"] = row
         tok = pipe._tokenize(["a lighthouse on a cliff"] * 2)
-        one = pipe._encode_text([t[:1] for t in tok])
-        two = pipe._encode_text(tok)
+        one = pipe._encode_text([t[:1] for t in tok])[0]
+        two = pipe._encode_text(tok)[0]
         out["text_encoder_row0_batch1_vs_2"] = _compare(torch, one, two[:1])
     return out
 

@@ -1,7 +1,8 @@
 """Where the time of one txt2img job goes on the GPU, for the PyTorch port.
 
 Runs SD1.5 (random bf16 weights from a seed, published widths) through the
-port's ``DiffusionPipeline`` at 512 px, 20 steps, guidance 7.5: one warm-up
+port's ``DiffusionPipeline`` at 512 px, 20 steps, guidance 7.5 (``--model
+sdxl``: SDXL at its published widths, 1024 px): one warm-up
 job, then one job under ``torch.profiler`` with CPU and CUDA activity. Prints
 one JSON object: the job's wall seconds (host clock) and its CUDA-event
 span, the summed device time of every
@@ -23,9 +24,9 @@ profiler, with the lane steps it took and the launches per lane step.
 ``--sweep 1,2,4,8,16`` times that burst, unprofiled, at each pinned lane
 width (a warm-up burst first at each) and prints the images/s of each.
 
-    python tools/torch_serve_profile.py [--steps 20] [--top 25] [--seq 4]
-           [--trace serve_trace.json]
-    python tools/torch_serve_profile.py --lanes 8 [--width 8]
+    python tools/torch_serve_profile.py [--model sdxl] [--steps 20]
+           [--top 25] [--seq 4] [--trace serve_trace.json]
+    python tools/torch_serve_profile.py [--model sdxl] --lanes 8 [--width 8]
     python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
 
 Needs one NVIDIA GPU; it refuses to run without one.
@@ -44,6 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", choices=("sd15", "sdxl"), default="sd15",
+                        help="the family, served at its default size")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--top", type=int, default=25)
     parser.add_argument("--seq", type=int, default=1,
@@ -79,12 +82,15 @@ def main(argv: list[str] | None = None) -> int:
                    if n_cards >= args.seq
                    else [torch.device("cuda", 0)] * args.seq)
         mesh = build_mesh(MeshSpec({"seq": args.seq}), devices=devices)
-    pipe = DiffusionPipeline(Components.random("sd15", seed=0, device="cuda",
+    pipe = DiffusionPipeline(Components.random(args.model, seed=0,
+                                               device="cuda",
                                                dtype=torch.bfloat16),
                              mesh=mesh)
+    size = pipe.c.family.default_size
     req = GenerateRequest(prompt="a lighthouse on a cliff at golden hour",
                           negative_prompt="blurry", steps=args.steps,
-                          guidance_scale=7.5, height=512, width=512, seed=1)
+                          guidance_scale=7.5, height=size, width=size,
+                          seed=1)
     pipe(req)  # warm-up: cuDNN heuristics, allocator, kernel library loads
     torch.cuda.synchronize()
 
@@ -103,8 +109,8 @@ def main(argv: list[str] | None = None) -> int:
 
     summary = kernel_summary(prof, wall_s, args.top)
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": args.steps,
-        "seq": args.seq,
+        "device": torch.cuda.get_device_name(0), "model": args.model,
+        "size": size, "steps": args.steps, "seq": args.seq,
         "mesh_devices": None if mesh is None
         else [str(d) for d in mesh.device_list],
         "event_ms": start.elapsed_time(end), **summary}))
@@ -149,15 +155,18 @@ def kernel_summary(prof, wall_s: float, top: int) -> dict:
     }
 
 
-def burst_jobs(n: int, steps: int) -> list[dict]:
-    """``n`` 512 px jobs: ``steps`` and 12 steps, guidance 7.5 and 5.0,
-    alternating (the mix of chip_smoke.py's lane_burst phase)."""
-    return [{"id": f"burst-{i}", "model_name": "sd15",
+def burst_jobs(n: int, steps: int, model: str = "sd15") -> list[dict]:
+    """``n`` jobs at the model's size: ``steps`` and 12 steps, guidance 7.5
+    and 5.0, alternating (the mix of chip_smoke.py's lane_burst phase)."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+
+    size = FAMILIES[model].default_size
+    return [{"id": f"burst-{i}", "model_name": model,
              "prompt": "a lighthouse on a cliff at golden hour, oil painting",
              "negative_prompt": "blurry, low quality" if i == 1 else "",
              "num_inference_steps": steps if i % 2 == 0 else 12,
              "guidance_scale": 7.5 if i % 2 == 0 else 5.0,
-             "height": 512, "width": 512, "seed": 11 + i,
+             "height": size, "width": size, "seed": 11 + i,
              "content_type": "image/png"} for i in range(n)]
 
 
@@ -170,11 +179,12 @@ def lanes_main(args) -> int:
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
     from chiaswarm_tpu_torch.serving.stepper import get_stepper
 
-    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+    registry = ModelRegistry(catalog=[{"name": args.model,
+                                       "family": args.model}],
                              allow_random=True, device="cuda")
     slot = ChipPool(device="cuda").slots[0]
     stepper = get_stepper(slot)
-    jobs = burst_jobs(args.lanes, args.steps)
+    jobs = burst_jobs(args.lanes, args.steps, args.model)
     os.environ["CHIASWARM_STEPPER"] = "1"
 
     def burst(width: int) -> tuple[float, int]:
@@ -193,7 +203,8 @@ def lanes_main(args) -> int:
                                  f"lane: {cfg.get('error')}")
         return wall_s, stepper.stats()["steps_executed"] - before
 
-    line = {"device": torch.cuda.get_device_name(0), "jobs": len(jobs),
+    line = {"device": torch.cuda.get_device_name(0), "model": args.model,
+            "jobs": len(jobs),
             "steps": [j["num_inference_steps"] for j in jobs]}
     try:
         if args.sweep:
