@@ -13,6 +13,14 @@ threefry ``PRNGKey``; here each row gets its own CPU ``torch.Generator``
 drawn noise is moved to the compute device. The same seed therefore gives
 different noise, and a different image, on the two backends. Noise drawn on
 the CPU is the same whichever device runs the model.
+
+An img2img or inpaint job draws one more stream: the VAE posterior's noise
+when its init image is encoded (the JAX package samples the posterior with
+``key_for_seed(seed)``, ``pipelines/diffusion.py:667``). That generator
+(:func:`posterior_generator`) is seeded from a hash in a domain of its own,
+a tag before the seed, so it never equals a ``(seed, row)`` stream. A job
+draws it once, whatever its rows, and its rows share the one encoded latent,
+as the JAX package repeats ``z`` over a job's rows.
 """
 
 from __future__ import annotations
@@ -41,6 +49,23 @@ def row_seed(seed: int, row: int) -> int:
 def row_generator(seed: int, row: int) -> torch.Generator:
     """An independent CPU generator for batch row ``row`` of job ``seed``."""
     return torch.Generator(device="cpu").manual_seed(row_seed(seed, row))
+
+
+_POSTERIOR_DOMAIN = b"chiaswarm-vae-posterior"
+
+
+def posterior_seed(seed: int) -> int:
+    """The 63-bit generator seed of job ``seed``'s VAE posterior draw: a
+    hash of a domain tag and the seed, so no ``(seed, row)`` pair of
+    :func:`row_seed` (a 16-byte message) hashes the same message."""
+    digest = hashlib.sha256(_POSTERIOR_DOMAIN + struct.pack(
+        "<q", int(seed) & 0x7FFF_FFFF_FFFF_FFFF)).digest()
+    return int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def posterior_generator(seed: int) -> torch.Generator:
+    """The CPU generator of job ``seed``'s one VAE posterior draw."""
+    return torch.Generator(device="cpu").manual_seed(posterior_seed(seed))
 
 
 def row_generators(pairs: list[tuple[int, int]]) -> list[torch.Generator]:

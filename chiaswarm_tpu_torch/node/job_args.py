@@ -1,22 +1,73 @@
-"""Job routing and argument normalization, txt2img path: counterpart of
-``chiaswarm_tpu/node/job_args.py::format_args`` (:53, :149-205).
+"""Job routing, argument normalization and the guarded input-image fetch:
+counterpart of ``chiaswarm_tpu/node/job_args.py`` (``format_args`` :53,
+:149-205; ``get_image``/``download_image`` and their guards :32-48,
+:205-305).
 
-A hive job dict maps to ``(callback, kwargs)``. Stable-diffusion jobs get
-the reference's normalization: the 1024-pixel size cap, the server's
-``parameters`` block unpacked (scheduler class name, ``upscale``,
-``reuse_schedule``), default steps, and server-listed unsupported
-arguments stripped. Workflows and inputs this slice does not serve
-(audio, video, captions, stitch, cascades, input images) raise
-``ValueError`` naming the later slice; the executor turns that into a
-fatal bad-request envelope, as it does for any malformed job.
+A hive job dict maps to ``(callback, kwargs)``. Every workflow the JAX
+package does not route elsewhere (none, ``txt2img``, ``img2img``,
+``inpaint``, any other name) goes to the stable-diffusion formatter, as in
+the JAX package: the 1024-pixel size cap, the server's ``parameters`` block
+unpacked (scheduler class name, ``upscale``, ``reuse_schedule``), default
+steps, server-listed unsupported arguments stripped, and the input images
+(``start_image_uri``, ``mask_image_uri``) fetched into ``image`` and
+``mask_image``. The workflows the JAX package routes to other workloads
+(audio, video, captions, stitch), DeepFloyd cascades and ControlNet's
+preprocessed inputs raise ``ValueError`` naming the later slice; the
+executor turns that into a fatal bad-request envelope, as it does for any
+malformed job. instruct-pix2pix's strength remap comes with its slice (the
+pipeline refuses those models).
+
+The fetch crosses an open-network trust boundary: HEAD, then a streamed GET
+with connect and read timeouts, the content type checked on both, the body
+cut off past :data:`MAX_IMAGE_BYTES` whatever its Content-Length claimed,
+the decoded dimensions capped at :data:`MAX_IMAGE_PIXELS` before any pixel
+is decoded (a decompression bomb), EXIF orientation applied and the image
+thumbnailed to the requested or the maximum size. A guard violation raises
+``BadAssetError`` (a non-fatal ``bad_asset`` envelope); network faults
+classify ``transient`` (``node/resilience.py``). The JAX package fetches
+with ``requests``; the port uses the standard library's ``urllib.request``,
+since the card's machine does not promise ``requests``. Only http and https
+are fetched, redirects included: ``requests`` has no adapter for any other
+scheme, and ``urllib``'s defaults would read ``file:``, ``ftp:`` and
+``data:`` URLs (a job could have the worker upload a near copy of a file on
+the node's disk). Any other scheme, or none, raises :class:`InvalidSchema`,
+an ``OSError`` as ``requests``' own is, so it classifies as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import functools
+import http.client
+import io
+import ssl
+import urllib.error
+import urllib.parse
+import urllib.request
 from typing import Any, Callable
 
+import numpy as np
+from PIL import Image, ImageOps
+
+from chiaswarm_tpu_torch.node.resilience import BadAssetError
+
 MAX_SIZE = 1024
+MAX_IMAGE_BYTES = 3 * 1048576   # the input cap
 DEFAULT_STEPS = 30
+CONNECT_TIMEOUT_S = 10.0
+READ_TIMEOUT_S = 60.0
+HEAD_READ_TIMEOUT_S = 30.0
+MAX_IMAGE_PIXELS = 16 * 1024 * 1024  # 16 Mpx; the served maximum is ~1 Mpx
+
+#: workflows the JAX package routes to other workloads, and what serves them
+_LATER_WORKFLOWS = {
+    "txt2audio": "audio generation",
+    "stitch": "stitch",
+    "img2txt": "captioning",
+    "vid2vid": "video",
+    "img2vid": "video",
+    "txt2vid": "video",
+}
 
 FormatResult = tuple[Callable[..., tuple[dict, dict]], dict[str, Any]]
 
@@ -26,9 +77,10 @@ def format_args(job: dict[str, Any], registry) -> FormatResult:
     args = dict(job)
     args["registry"] = registry
     workflow = args.pop("workflow", None)
-    if workflow not in (None, "txt2img"):
-        raise ValueError(f"workflow {workflow!r} is not served by "
-                         "chiaswarm_tpu_torch yet (a later slice of the port)")
+    if workflow in _LATER_WORKFLOWS:
+        raise ValueError(f"workflow {workflow!r} ({_LATER_WORKFLOWS[workflow]})"
+                         " is not served by chiaswarm_tpu_torch yet (a later "
+                         "slice of the port)")
     if str(args.get("model_name", "")).startswith("DeepFloyd/"):
         raise ValueError("DeepFloyd cascades are not served by "
                          "chiaswarm_tpu_torch yet (a later slice of the port)")
@@ -44,6 +96,7 @@ def _strip_unsupported(args: dict[str, Any], parameters: dict[str, Any]) -> None
 def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
     from chiaswarm_tpu_torch.workloads.diffusion import diffusion_callback
 
+    size = None
     if "height" in args and "width" in args:
         size = (int(args["height"]), int(args["width"]))
         if size[0] > MAX_SIZE or size[1] > MAX_SIZE:
@@ -55,11 +108,21 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
     args.setdefault("prompt", "")
     args["upscale"] = parameters.get("upscale", False)
 
-    for uri in ("start_image_uri", "mask_image_uri"):
-        if uri in args:
-            raise ValueError(f"{uri}: img2img and inpainting are not served "
-                             "by chiaswarm_tpu_torch yet (the img2img/inpaint "
-                             "slice of the port)")
+    if "start_image_uri" in args:
+        if parameters.get("controlnet") is not None:
+            raise ValueError("ControlNet inputs are not served by "
+                             "chiaswarm_tpu_torch yet (a later slice of the "
+                             "port)")
+        args.pop("height", None)
+        args.pop("width", None)
+        args["image"] = np.asarray(get_image(args.pop("start_image_uri"),
+                                             size))
+
+    if "mask_image_uri" in args:
+        args.pop("height", None)
+        args.pop("width", None)
+        args["mask_image"] = np.asarray(get_image(args.pop("mask_image_uri"),
+                                                  size))
 
     args.setdefault("num_inference_steps", DEFAULT_STEPS)
     args["scheduler_type"] = parameters.pop("scheduler_type", None)
@@ -70,3 +133,176 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
                                   else reuse)
     _strip_unsupported(args, parameters)
     return diffusion_callback, args
+
+
+# ---- the input-image fetch and its guards ---------------------------------
+
+_SCHEMES = ("http", "https")
+
+
+class InvalidSchema(OSError, ValueError):
+    """An input-image URL (or a redirect) whose scheme is not http or
+    https: refused before any request, as ``requests.InvalidSchema`` and
+    ``requests.MissingSchema`` refuse it (both ``OSError`` and
+    ``ValueError``, so ``classify_exception`` reads them alike)."""
+
+
+def _check_scheme(url: str) -> None:
+    scheme = urllib.parse.urlsplit(url).scheme.lower()
+    if scheme not in _SCHEMES:
+        raise InvalidSchema(f"No connection adapters were found for {url!r}"
+                            " (only http and https images are fetched)")
+
+
+def _connection(base: type, read_timeout_s: float) -> type:
+    """``base`` with ``read_timeout_s`` on every read once connected
+    (``urlopen``'s own timeout then bounds only the connect)."""
+
+    class Connection(base):
+        def connect(self) -> None:
+            super().connect()
+            self.sock.settimeout(read_timeout_s)
+
+    return Connection
+
+
+class _HTTPHandler(urllib.request.HTTPHandler):
+    def __init__(self, read_timeout_s: float) -> None:
+        super().__init__()
+        self._conn = _connection(http.client.HTTPConnection, read_timeout_s)
+
+    def http_open(self, req):
+        return self.do_open(self._conn, req)
+
+
+@functools.cache
+def _tls_context() -> ssl.SSLContext:
+    """One TLS context for every fetch: loading the system's certificates
+    takes tens of milliseconds, too much to pay per request."""
+    return ssl.create_default_context()
+
+
+class _HTTPSHandler(urllib.request.HTTPSHandler):
+    def __init__(self, read_timeout_s: float) -> None:
+        super().__init__(context=_tls_context())
+        self._conn = _connection(http.client.HTTPSConnection, read_timeout_s)
+
+    def https_open(self, req):
+        return self.do_open(self._conn, req, context=self._context)
+
+
+class _RedirectHandler(urllib.request.HTTPRedirectHandler):
+    """Redirects followed to http and https only; any other target raises
+    :class:`InvalidSchema` (``urllib`` itself would follow one to ftp)."""
+
+    def http_error_302(self, req, fp, code, msg, headers):
+        target = headers.get("location") or headers.get("uri")
+        if target is not None:
+            try:
+                _check_scheme(urllib.parse.urljoin(req.full_url, target))
+            except InvalidSchema:
+                fp.close()
+                raise
+        return super().http_error_302(req, fp, code, msg, headers)
+
+    http_error_301 = http_error_303 = http_error_307 = http_error_302
+    http_error_308 = http_error_302
+
+
+def _open(url: str, method: str, read_timeout_s: float):
+    """An open response (redirects followed; a 4xx or 5xx raises
+    ``urllib.error.HTTPError``) with a connect timeout of
+    :data:`CONNECT_TIMEOUT_S` and ``read_timeout_s`` on every read. The
+    opener holds the http and https handlers and nothing that opens another
+    scheme (``build_opener``'s defaults add file, ftp and data)."""
+    _check_scheme(url)
+    opener = urllib.request.OpenerDirector()
+    for handler in (urllib.request.ProxyHandler(),
+                    urllib.request.UnknownHandler(),
+                    _HTTPHandler(read_timeout_s),
+                    _HTTPSHandler(read_timeout_s),
+                    urllib.request.HTTPDefaultErrorHandler(),
+                    _RedirectHandler(),
+                    urllib.request.HTTPErrorProcessor()):
+        opener.add_handler(handler)
+    return opener.open(urllib.request.Request(url, method=method),
+                       timeout=CONNECT_TIMEOUT_S)
+
+
+def _read_capped(response, cap: int) -> bytes:
+    """Stream a response body up to ``cap`` bytes; one byte more is a
+    :class:`BadAssetError`, raised before the body is buffered past the
+    cap."""
+    chunks: list[bytes] = []
+    total = 0
+    while True:
+        chunk = response.read(65536)
+        if not chunk:
+            return b"".join(chunks)
+        total += len(chunk)
+        if total > cap:
+            raise BadAssetError(
+                f"Input image too large.\nMax size is {cap} bytes.\n"
+                f"Stream exceeded the cap at {total} bytes.")
+        chunks.append(chunk)
+
+
+def _check_decoded_dims(image: Image.Image) -> None:
+    """Decompression-bomb guard: PIL knows the claimed dimensions before it
+    decodes a pixel, so the bomb is refused while it is still a few KB."""
+    pixels = int(image.size[0]) * int(image.size[1])
+    if pixels > MAX_IMAGE_PIXELS:
+        raise BadAssetError(
+            f"Input image decodes to {image.size[0]}x{image.size[1]} "
+            f"({pixels} pixels), over the {MAX_IMAGE_PIXELS}-pixel cap "
+            f"(decompression-bomb guard).")
+
+
+def _check_content_type(content_type: str, allow_empty: bool) -> None:
+    if (content_type or not allow_empty) and \
+            not content_type.startswith("image"):
+        raise BadAssetError("Input does not appear to be an image.\n"
+                            f"Content type was {content_type}.")
+
+
+def download_image(url: str, max_bytes: int = MAX_IMAGE_BYTES) -> Image.Image:
+    """Guarded GET of an image: the GET's own content type checked (a host
+    whose HEAD looked clean may switch), the body streamed and capped, the
+    decoded dimensions capped, EXIF orientation applied; RGB."""
+    with _open(url, "GET", READ_TIMEOUT_S) as response:
+        _check_content_type(response.headers.get("Content-Type", ""),
+                            allow_empty=True)
+        data = _read_capped(response, max_bytes)
+    image = Image.open(io.BytesIO(data))
+    _check_decoded_dims(image)
+    image = ImageOps.exif_transpose(image)
+    return image.convert("RGB")
+
+
+def get_image(uri: str, size: tuple[int, int] | None) -> Image.Image:
+    """Fetch an input image behind the guards: a HEAD first (an image
+    content type, a Content-Length within the cap), then
+    :func:`download_image`, then a LANCZOS thumbnail down to ``size`` (H, W)
+    or to :data:`MAX_SIZE`."""
+    try:
+        head = _open(uri, "HEAD", HEAD_READ_TIMEOUT_S)
+    except urllib.error.HTTPError as exc:
+        # the HEAD's status is not checked, as in the JAX package: its
+        # headers are (a 5xx or 4xx says so at the GET)
+        head = exc
+    with head:
+        content_type = head.headers.get("Content-Type", "")
+        content_length = int(head.headers.get("Content-Length", 0) or 0)
+    _check_content_type(content_type, allow_empty=False)
+    if content_length > MAX_IMAGE_BYTES:
+        raise BadAssetError(
+            f"Input image too large.\nMax size is {MAX_IMAGE_BYTES} bytes.\n"
+            f"Image was {content_length}.")
+
+    image = download_image(uri)
+    if size is not None and (image.height > size[0] or image.width > size[1]):
+        # PIL's thumbnail takes (max_width, max_height); size is (H, W)
+        image.thumbnail((size[1], size[0]), Image.Resampling.LANCZOS)
+    elif image.height > MAX_SIZE or image.width > MAX_SIZE:
+        image.thumbnail((MAX_SIZE, MAX_SIZE), Image.Resampling.LANCZOS)
+    return image

@@ -113,7 +113,13 @@ def classify_exception(exc: BaseException) -> str:
     if "BadAssetError" in names:
         return "bad_asset"
     if "HTTPError" in names:
+        # the status class decides: 5xx is the server's bad day (retry),
+        # 4xx a request no node can make good. ``requests`` attaches a
+        # response; ``urllib.error.HTTPError`` carries ``.code`` and its
+        # text starts "HTTP Error 503"; else the message's leading status
         status = getattr(getattr(exc, "response", None), "status_code", None)
+        if status is None and isinstance(getattr(exc, "code", None), int):
+            status = exc.code
         if status is None:
             match = re.match(r"\s*(\d{3})\b", str(exc))
             status = int(match.group(1)) if match else None

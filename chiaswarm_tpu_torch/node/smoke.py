@@ -1,10 +1,15 @@
-"""Smoke harness: one hard-coded txt2img job through the port's real
-dispatch and execution stack, no hive. Counterpart of
-``chiaswarm_tpu/node/smoke.py`` (:117-172).
+"""Smoke harness: one hard-coded job per workflow (txt2img, img2img)
+through the port's real dispatch and execution stack, no hive. Counterpart
+of ``chiaswarm_tpu/node/smoke.py`` (:20-37, :117-172).
 
     python -m chiaswarm_tpu_torch.node.smoke                  # sd15, 512 px, GPU
     python -m chiaswarm_tpu_torch.node.smoke --model sd15 --size 512
     python -m chiaswarm_tpu_torch.node.smoke --device cpu     # tiny, 64 px
+    python -m chiaswarm_tpu_torch.node.smoke --workflow img2img
+    python -m chiaswarm_tpu_torch.node.smoke --all            # both
+
+The img2img job's input image is made from a seed and injected into the job
+(no network), as in the JAX harness.
 
 Weights are random (seeded). The job runs on the GPU unless ``--device``
 says otherwise. The model follows the device unless ``--model`` names one:
@@ -24,13 +29,16 @@ from typing import Any
 #: model -> (catalog family, default steps)
 SMOKE_MODELS = {"tiny": ("tiny", 4), "sd15": ("sd15", 20)}
 
+WORKFLOWS = ("txt2img", "img2img")
+
 
 def smoke_job(model: str = "tiny", size: int | None = None,
-              steps: int | None = None, seed: int = 1) -> dict[str, Any]:
+              steps: int | None = None, seed: int = 1,
+              workflow: str = "txt2img") -> dict[str, Any]:
     family, default_steps = SMOKE_MODELS[model]
     size = size or (64 if model == "tiny" else 512)
-    return {
-        "id": f"smoke-txt2img-{model}-{size}",
+    job = {
+        "id": f"smoke-{workflow}-{model}-{size}",
         "model_name": model,
         "prompt": "a lighthouse on a cliff at golden hour",
         "negative_prompt": "blurry",
@@ -40,6 +48,14 @@ def smoke_job(model: str = "tiny", size: int | None = None,
         "seed": seed,
         "content_type": "image/png",
     }
+    if workflow == "img2img":
+        import numpy as np
+
+        rng = np.random.default_rng(0)
+        job.update(prompt="watercolor style", strength=0.6,
+                   image=rng.integers(0, 255, (size, size, 3),
+                                      dtype=np.uint8))
+    return job
 
 
 def default_model(device) -> str:
@@ -47,8 +63,8 @@ def default_model(device) -> str:
 
 
 def run_smoke(model: str | None = None, size: int | None = None,
-              steps: int | None = None, device: str | None = None
-              ) -> dict[str, Any]:
+              steps: int | None = None, device: str | None = None,
+              workflow: str = "txt2img") -> dict[str, Any]:
     from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
@@ -61,8 +77,8 @@ def run_smoke(model: str | None = None, size: int | None = None,
     slot = ChipPool(device=registry.device).slots[0]
     model = model or default_model(registry.device)
     try:
-        return synchronous_do_work(smoke_job(model, size, steps), slot,
-                                   registry)
+        return synchronous_do_work(
+            smoke_job(model, size, steps, workflow=workflow), slot, registry)
     finally:
         get_stepper(slot).shutdown()  # the job's lane, if it rode one
 
@@ -75,24 +91,32 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--steps", type=int, default=None)
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda)")
+    parser.add_argument("--workflow", choices=WORKFLOWS, default="txt2img")
+    parser.add_argument("--all", action="store_true",
+                        help="run every workflow's smoke job")
     args = parser.parse_args(argv)
 
     from chiaswarm_tpu_torch.core.device import resolve_device
 
     model = args.model or default_model(resolve_device(args.device))
-    result = run_smoke(model, args.size, args.steps, args.device)
-    config = result.get("pipeline_config", {})
-    status = "error" if "error" in config else "ok"
-    line = {
-        "workflow": "txt2img", "model": model, "status": status,
-        "fatal": bool(result.get("fatal_error")),
-        "artifacts": sorted(result.get("artifacts", {})),
-        "generation_s": config.get("generation_s"),
-    }
-    if status == "error":
-        line["error"] = config["error"]
-    print(json.dumps(line))
-    return 1 if status == "error" else 0
+    failures = 0
+    for workflow in WORKFLOWS if args.all else (args.workflow,):
+        result = run_smoke(model, args.size, args.steps, args.device,
+                           workflow=workflow)
+        config = result.get("pipeline_config", {})
+        status = "error" if "error" in config else "ok"
+        line = {
+            "workflow": workflow, "model": model, "status": status,
+            "mode": config.get("mode"),
+            "fatal": bool(result.get("fatal_error")),
+            "artifacts": sorted(result.get("artifacts", {})),
+            "generation_s": config.get("generation_s"),
+        }
+        if status == "error":
+            line["error"] = config["error"]
+            failures += 1
+        print(json.dumps(line))
+    return 1 if failures else 0
 
 
 if __name__ == "__main__":

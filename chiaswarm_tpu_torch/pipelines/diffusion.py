@@ -37,9 +37,18 @@ embeddings (``_make_text_encode`` :217-230), and each UNet row gets
 and ``text_embeds`` = its pooled row, the negative prompt's before the
 prompt's under CFG.
 
-This slice serves txt2img. img2img, inpaint, ControlNet, instruct-pix2pix,
-DeepCache reuse and tiled decode raise ``ValueError`` naming the later
-slice that brings them.
+img2img and inpaint (``submit``'s ``has_init``/``has_mask`` preparation,
+:960-1015): the init image is resized onto the bucketed grid and encoded by
+the VAE encoder with its posterior sampled (:func:`encode_init_image`, one
+batch-1 encode per job, outside any sequence-parallel context, as the JAX
+package runs it outside ``seq_parallel_wrap``); img2img starts the ladder at
+:func:`img2img_start_index` from ``init + noise * sigma[start]``; inpaint
+starts at 0 and, after every step, re-projects the kept region of the clean
+latents (``schedulers/sampling.py::reproject_known``) with a renoise draw
+from each row's generator, after that step's own noise. The lanes carry the
+same row state (``stepper_step``'s ``known``/``mask``/``mask_on``).
+ControlNet, instruct-pix2pix, DeepCache reuse and tiled decode raise
+``ValueError`` naming the later slice that brings them.
 """
 
 from __future__ import annotations
@@ -53,7 +62,11 @@ import torch
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
-from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators
+from chiaswarm_tpu_torch.core.rng import (
+    posterior_generator,
+    randn_rows,
+    row_generators,
+)
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
@@ -66,6 +79,8 @@ from chiaswarm_tpu_torch.schedulers import (
     init_sampler_state,
     make_noise_schedule,
     make_sampling_schedule,
+    reproject_known,
+    reproject_known_rows,
     resolve,
     sampler_step,
     sampler_step_rows,
@@ -104,16 +119,74 @@ class GenerateRequest:
     reuse_schedule: tuple[int, ...] | str | None = None
 
 
+def img2img_start_index(steps: int, strength: float) -> int:
+    """img2img strength -> denoise start index, the one quantization (clip
+    to [0.05, 1], round, never past the last step), shared by the solo path,
+    the lanes and the envelope's ``denoise_steps``."""
+    strength = float(np.clip(strength, 0.05, 1.0))
+    return min(int(round(steps * (1.0 - strength))), steps - 1)
+
+
+def image_plan(steps: int, strength: float, has_init: bool,
+               has_mask: bool) -> tuple[str, int]:
+    """A job's mode and denoise start index: ``inpaint`` (a mask, which
+    needs an init image) starts at 0 and re-projects the kept region every
+    step; ``img2img`` skips the first (1 - strength) of the ladder;
+    ``txt2img`` starts at 0. The one derivation for the solo path, the
+    lanes and the lane envelope."""
+    if has_mask and not has_init:
+        raise ValueError("inpainting requires an init image with the mask")
+    if has_mask:
+        return "inpaint", 0
+    if has_init:
+        return "img2img", img2img_start_index(steps, strength)
+    return "txt2img", 0
+
+
+def latent_mask(mask: np.ndarray, lh: int, lw: int,
+                downscale: int) -> np.ndarray:
+    """Inpaint mask of any size -> binarized (lh, lw) latent-grid mask (1 =
+    regenerate): PIL NEAREST onto the bucketed pixel grid, box mean to the
+    latent grid, ``> 0.5``. Shared by the solo path and lane admission."""
+    mask = np.asarray(mask, dtype=np.float32)
+    if mask.shape != (lh, lw):
+        if mask.shape != (lh * downscale, lw * downscale):
+            from PIL import Image
+
+            mask = np.asarray(Image.fromarray(
+                (mask * 255).clip(0, 255).astype(np.uint8)
+            ).resize((lw * downscale, lh * downscale), Image.NEAREST),
+                dtype=np.float32) / 255.0
+        mask = mask.reshape(lh, downscale, lw, downscale).mean((1, 3))
+    return (mask > 0.5).astype(np.float32)
+
+
+def _to_float_image(img: np.ndarray) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 127.5 - 1.0
+    return img.astype(np.float32)
+
+
+def _resize_image(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Host-side LANCZOS resize of one (H, W, 3) image onto the bucketed
+    grid, uint8 or float in [-1, 1] (the JAX package's ``_resize_batch`` on
+    one frame)."""
+    from PIL import Image
+
+    if img.dtype == np.uint8:
+        return np.asarray(Image.fromarray(img).resize((width, height),
+                                                      Image.LANCZOS))
+    frame = ((img + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    resized = np.asarray(Image.fromarray(frame).resize((width, height),
+                                                       Image.LANCZOS))
+    return resized.astype(np.float32) / 127.5 - 1.0
+
+
 def _refuse_unported(req: GenerateRequest, components: Components) -> None:
     if components.family.image_conditioned:
         raise ValueError("instruct-pix2pix models are not served by "
                          "chiaswarm_tpu_torch yet (a later slice of the port)")
-    if req.mask is not None:
-        raise ValueError("inpainting is not served by chiaswarm_tpu_torch yet "
-                         "(the img2img/inpaint slice of the port)")
-    if req.init_image is not None:
-        raise ValueError("img2img is not served by chiaswarm_tpu_torch yet "
-                         "(the img2img/inpaint slice of the port)")
     if req.controlnet is not None:
         raise ValueError("ControlNet is not served by chiaswarm_tpu_torch yet "
                          "(a later slice of the port)")
@@ -245,8 +318,15 @@ class DiffusionPipeline:
                   use_cfg: bool, guidance: float,
                   ids: list[torch.Tensor], neg_ids: list[torch.Tensor],
                   noise: torch.Tensor, generators: list[torch.Generator],
-                  height: int, width: int) -> torch.Tensor:
-        """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device."""
+                  height: int, width: int, start: int = 0,
+                  init_latent: torch.Tensor | None = None,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device.
+        With ``init_latent`` the loop starts at ladder index ``start`` from
+        ``init_latent + noise * sigma[start]``; with ``mask`` ((B, 1, h, w),
+        1 = regenerate, broadcast over channels) every step re-projects the kept
+        region of ``init_latent`` with a renoise draw per row, after the
+        step's own noise."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
         unet = self.c.unet
@@ -258,11 +338,13 @@ class DiffusionPipeline:
             ctx = torch.cat([nctx, ctx], dim=0)
             pooled_rows = [npooled, pooled]
 
-        x = noise * sched.sigmas[0]
+        x = noise * sched.sigmas[start]
+        if init_latent is not None:
+            x = init_latent + x
         state = init_sampler_state(x)
         rows = 2 * batch if use_cfg else batch
         added = self._added_cond(pooled_rows, height, width)
-        for i in range(steps):
+        for i in range(start, steps):
             inp = scale_model_input(sched, x, i)
             t = timesteps[i].expand(rows)
             if use_cfg:
@@ -275,9 +357,65 @@ class DiffusionPipeline:
                                      self.c.device)
                           if sampler.kind in NOISY_KINDS else None)
             x, state = sampler_step(sampler, sched, i, x, eps, state,
-                                    noise=step_noise)
+                                    noise=step_noise, start_index=start)
+            if mask is not None:
+                renoise = randn_rows(generators, tuple(x.shape[1:]),
+                                     self.c.device)
+                x = reproject_known(sched, i, x, init_latent, mask, renoise)
 
         return self._decode_uint8(x)
+
+    def encode_init_image(self, image: np.ndarray, height: int, width: int,
+                          seed: int) -> torch.Tensor:
+        """One job's init image (H, W, 3), uint8 or float in [-1, 1], at the
+        bucketed size -> its scaled latents (1, C, H/f, W/f) float32 on the
+        device, the posterior sampled with the job's own
+        ``core/rng.py::posterior_generator``. Always a batch-1 encode (the
+        solo path and the lanes call this one function, so a job's latents
+        do not depend on where it runs), and never under a sequence-parallel
+        context: the encoder's attention stays local, as the JAX package
+        runs its encode outside ``seq_parallel_wrap``."""
+        img = _to_float_image(image)
+        if img.shape != (height, width, 3):
+            raise ValueError(f"init image {img.shape} != requested "
+                             f"{(height, width, 3)}; resize on the host first")
+        lh, lw = self._latent_hw(height, width)
+        channels = self.c.family.vae.latent_channels
+        x = upload(torch.from_numpy(img).permute(2, 0, 1)[None].contiguous(),
+                   self.c.device)
+        noise = randn_rows([posterior_generator(seed)], (channels, lh, lw),
+                           self.c.device)
+        with torch.inference_mode(), sequence_parallel(None):
+            return self.c.vae.encode(x, noise)
+
+    def prepare_image_rows(self, init_image: Any, mask: Any,
+                           strength: float, steps: int, height: int,
+                           width: int, seed: int, rows: int
+                           ) -> tuple[str, int, torch.Tensor | None,
+                                      torch.Tensor | None]:
+        """One job's image inputs for ``rows`` rows at the bucketed size:
+        ``(mode, start, init_latent, mask)`` with :func:`image_plan`'s mode
+        and start, the init image resized on the host and encoded once
+        (:meth:`encode_init_image`) and expanded to (rows, C, h, w), and the
+        mask quantized by :func:`latent_mask` and expanded to
+        (rows, 1, h, w). The solo path and lane admission both call this,
+        so a job's rows do not depend on where it runs."""
+        mode, start = image_plan(steps, strength, init_image is not None,
+                                 mask is not None)
+        init_latent = mask_rows = None
+        if init_image is not None:
+            init = np.asarray(init_image)
+            if init.shape[:2] != (height, width):
+                init = _resize_image(init, height, width)
+            init_latent = self.encode_init_image(
+                init, height, width, seed).expand(rows, -1, -1, -1)
+        if mask is not None:
+            lh, lw = self._latent_hw(height, width)
+            m = latent_mask(np.asarray(mask, np.float32), lh, lw,
+                            self.c.family.vae.downscale)
+            mask_rows = upload(torch.from_numpy(m)[None, None],
+                               self.c.device).expand(rows, 1, lh, lw)
+        return mode, start, init_latent, mask_rows
 
     def _decode_uint8(self, x: torch.Tensor) -> torch.Tensor:
         img = self.c.vae.decode(x)
@@ -318,7 +456,12 @@ class DiffusionPipeline:
                      old_denoised: torch.Tensor, active: torch.Tensor,
                      generators: list[torch.Generator | None],
                      pooled_u: torch.Tensor | None = None,
-                     pooled_c: torch.Tensor | None = None
+                     pooled_c: torch.Tensor | None = None,
+                     known: torch.Tensor | None = None,
+                     mask: torch.Tensor | None = None,
+                     mask_on: torch.Tensor | None = None,
+                     renoise_generators: list[torch.Generator | None]
+                     | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """ONE denoise step over a lane of W rows -> (x, idx, old_denoised).
 
@@ -334,8 +477,12 @@ class DiffusionPipeline:
         is) and takes the conditional prediction alone where guidance is at
         most 1. Only the noisy kinds draw per-step noise, and only from the
         generators of active rows (``generators[b]`` is None elsewhere).
-        Inactive rows compute and are discarded: x, history and index keep
-        their values."""
+        Inpaint rows (``mask_on``) re-project their clean latents ``known``
+        (W, C, h, w) where their ``mask`` (W, 1, h, w) is 0, with a renoise
+        draw from ``renoise_generators[b]`` after the step noise; the other
+        rows draw nothing more and keep the plain step's value. Without
+        ``renoise_generators`` no row re-projects. Inactive rows compute and
+        are discarded: x, history and index keep their values."""
         with torch.inference_mode(), sequence_parallel(self.mesh):
             rows = SamplingSchedule(sigmas=sigmas, timesteps=timesteps)
             inp = scale_model_input_rows(rows, x, idx)
@@ -358,6 +505,13 @@ class DiffusionPipeline:
             x_next, state = sampler_step_rows(
                 sampler, rows, idx, x, eps,
                 SamplerState(old_denoised=old_denoised), noise, start_idx)
+            if renoise_generators is not None:
+                renoise = self._row_noise(renoise_generators,
+                                          tuple(x.shape[1:]))
+                x_masked = reproject_known_rows(rows, idx, x_next, known,
+                                                mask, renoise)
+                x_next = torch.where(mask_on.reshape(-1, 1, 1, 1), x_masked,
+                                     x_next)
             act = active.reshape(-1, 1, 1, 1)
             x_next = torch.where(act, x_next, x)
             old_next = torch.where(act, state.old_denoised, old_denoised)
@@ -395,6 +549,9 @@ class DiffusionPipeline:
         sampler = resolve(req.scheduler, prediction_type=fam.prediction_type)
         use_cfg = req.guidance_scale > 1.0
         lh, lw = self._latent_hw(height, width)
+        mode, start, init_latent, mask = self.prepare_image_rows(
+            req.init_image, req.mask, req.strength, steps, height, width,
+            req.seed, batch)
 
         def rows(value: str | tuple[str, ...]) -> list[str]:
             vals = (list(value) if isinstance(value, (tuple, list))
@@ -424,20 +581,22 @@ class DiffusionPipeline:
                 batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
                 guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,
                 noise=noise, generators=generators, height=height,
-                width=width)
+                width=width, start=start, init_latent=init_latent, mask=mask)
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,
             "scheduler": sampler.kind,
             "steps": steps,
-            "denoise_steps": steps,
-            "unet_evals": steps,
+            # the ladder actually executed: img2img's strength maps to a
+            # start index, an observable contract
+            "denoise_steps": steps - start,
+            "unet_evals": steps - start,
             "steps_skipped": 0,
             "guidance_scale": float(req.guidance_scale),
             "size": [req.height, req.width],
             "compiled_size": [height, width],
             "batch": batch,
-            "mode": "txt2img",
+            "mode": mode,
         }
         return PendingImages(images, (height, width), (req.height, req.width),
                              req.batch), config

@@ -14,6 +14,8 @@ from chiaswarm_tpu_torch.schedulers.sampling import (
     SamplingSchedule,
     init_sampler_state,
     make_sampling_schedule,
+    reproject_known,
+    reproject_known_rows,
     resolve,
     sampler_step,
     sampler_step_rows,
@@ -33,6 +35,8 @@ __all__ = [
     "init_sampler_state",
     "make_noise_schedule",
     "make_sampling_schedule",
+    "reproject_known",
+    "reproject_known_rows",
     "resolve",
     "sampler_step",
     "sampler_step_rows",

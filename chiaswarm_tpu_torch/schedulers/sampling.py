@@ -23,6 +23,10 @@ positions, with different step counts, share one batched step. The JAX
 package ``vmap``s its scalar step; here the step is written once over the
 rows, its Python branches turned into ``torch.where`` masks over the same
 expressions in the same order, so each row computes its solo step.
+
+Inpainting re-projects the kept region after each step
+(:func:`reproject_known`, per row :func:`reproject_known_rows`), as the
+JAX package's legacy inpaint does.
 """
 
 from __future__ import annotations
@@ -189,6 +193,29 @@ def sampler_step(config: SamplerConfig, sched: SamplingSchedule, i: int,
     if last:
         x_next = denoised
     return x_next.to(sample.dtype), SamplerState(old_denoised=denoised.to(sample.dtype))
+
+
+def reproject_known(sched: SamplingSchedule, i: int, sample: torch.Tensor,
+                    known: torch.Tensor, mask: torch.Tensor,
+                    renoise: torch.Tensor) -> torch.Tensor:
+    """Model-agnostic inpainting: after the sampler step to noise level
+    ``i + 1``, re-noise the clean source latents ``known`` onto that level
+    and paste them where ``mask`` is 0 (1 = regenerate). At the last step
+    ``sigmas[i + 1]`` is 0, so the kept region ends as ``known`` exactly."""
+    sigma_next = upload(sched.sigmas[i + 1], sample.device)
+    known_t = known + renoise * sigma_next
+    return sample * mask + known_t * (1.0 - mask)
+
+
+def reproject_known_rows(sched: SamplingSchedule, i: torch.Tensor,
+                         sample: torch.Tensor, known: torch.Tensor,
+                         mask: torch.Tensor,
+                         renoise: torch.Tensor) -> torch.Tensor:
+    """Per-row :func:`reproject_known`: ``sched.sigmas`` is (B, S+1), one
+    ladder per row, and ``i`` the (B,) per-row step indices."""
+    sigma_next = _row_values(sched.sigmas, i + 1, sample.ndim)
+    known_t = known + renoise * sigma_next
+    return sample * mask + known_t * (1.0 - mask)
 
 
 def _row_values(table: torch.Tensor, i: torch.Tensor, ndim: int) -> torch.Tensor:

@@ -61,10 +61,15 @@ Knobs (the JAX package's names and defaults):
 - ``CHIASWARM_STEPPER_ROW_DEADLINE_S``  per-row in-lane deadline (600)
 - ``CHIASWARM_STEPPER_IDLE_S``  idle grace before a lane retires (15)
 
+Workload row state: an img2img row starts at its strength's ladder index
+from its encoded init image; an inpaint row starts at 0 and carries its
+clean latents (``known``) and latent-grid mask, and only such rows
+(``mask_on``) re-project and draw renoise, so a txt2img row beside them keeps
+its bits.
+
 Not here yet (``ROADMAP.md``): checkpoints and resume, the hang watchdog
 and lane condemnation, the overload admission cap and poll hints, metrics,
-the image-mode row state (img2img, inpaint, ControlNet) and DeepCache
-reuse lanes.
+ControlNet row state and DeepCache reuse lanes.
 """
 
 from __future__ import annotations
@@ -163,6 +168,12 @@ class _RowJob:                    # must never compare tensor fields
     generators: list[torch.Generator]  # one per row: the noise carry
     x0: torch.Tensor            # (n, C, h, w) initial latents
     deadline: float             # absolute time.monotonic() cutoff
+    # workload row state: img2img rows start partway down the ladder;
+    # inpaint rows carry their clean latents and latent-grid mask
+    workload: str = "txt2img"
+    start_step: int = 0
+    known0: torch.Tensor | None = None  # (n, C, h, w) clean init latents
+    mask0: torch.Tensor | None = None   # (n, 1, h, w) 1 = regenerate
     future: Future = dataclasses.field(default_factory=Future)
     admitted_at_step: int = -1
     slots: list[int] = dataclasses.field(default_factory=list)
@@ -332,11 +343,12 @@ class Lane:
         self._h_ts = np.zeros((w, self.steps_cap), np.float32)
         self._h_guid = np.ones(w, np.float32)
         self._h_active = np.zeros(w, bool)
+        self._h_mask_on = np.zeros(w, bool)
         self._gens: list[torch.Generator | None] = [None] * w
 
     def _mirrors(self) -> tuple:
         return (self._h_start, self._h_idx, self._h_sig, self._h_ts,
-                self._h_guid, self._h_active)
+                self._h_guid, self._h_active, self._h_mask_on)
 
     # ---- submission side ----
 
@@ -447,6 +459,9 @@ class Lane:
         self._dev = {
             "x": x,
             "old": torch.zeros_like(x),
+            "known": torch.zeros_like(x),
+            "mask": torch.ones((w, 1) + tuple(x.shape[2:]),
+                               dtype=torch.float32, device=self.device),
             "idx": torch.zeros(w, dtype=torch.int64, device=self.device),
             "ctx_u": torch.zeros((w,) + tuple(job.ctx_u.shape[1:]),
                                  dtype=job.ctx_u.dtype, device=self.device),
@@ -471,6 +486,7 @@ class Lane:
         dev["ts"] = _fresh(self._h_ts, self.device)
         dev["guid"] = _fresh(self._h_guid, self.device)
         dev["active"] = _fresh(self._h_active, self.device)
+        dev["mask_on"] = _fresh(self._h_mask_on, self.device)
 
     def _admit_locked(self) -> None:
         """Splice pending jobs into free row slots: the step boundary is
@@ -490,13 +506,20 @@ class Lane:
             dev = self._dev
             dev["x"].index_copy_(0, sel, job.x0)
             dev["old"].index_fill_(0, sel, 0.0)
-            dev["idx"].index_fill_(0, sel, 0)  # txt2img rows start at 0
+            dev["idx"].index_fill_(0, sel, job.start_step)
+            if job.known0 is None:
+                dev["known"].index_fill_(0, sel, 0.0)
+                dev["mask"].index_fill_(0, sel, 1.0)
+            else:
+                dev["known"].index_copy_(0, sel, job.known0)
+                dev["mask"].index_copy_(0, sel, job.mask0)
             dev["ctx_u"].index_copy_(0, sel, job.ctx_u)
             dev["ctx_c"].index_copy_(0, sel, job.ctx_c)
             dev["pooled_u"].index_copy_(0, sel, job.pooled_u)
             dev["pooled_c"].index_copy_(0, sel, job.pooled_c)
-            self._h_idx[slots] = 0
-            self._h_start[slots] = 0
+            self._h_idx[slots] = job.start_step
+            self._h_start[slots] = job.start_step
+            self._h_mask_on[slots] = job.known0 is not None
             self._h_sig[slots, :] = 0.0
             self._h_sig[slots, : job.steps + 1] = job.sigmas
             self._h_ts[slots, :] = 0.0
@@ -516,7 +539,7 @@ class Lane:
             self._deferred_counts.append(dict(
                 rows_admitted=job.n_rows,
                 rows_admitted_midflight=job.n_rows if mid_flight else 0,
-                rows_admitted_txt2img=job.n_rows))
+                **{f"rows_admitted_{job.workload}": job.n_rows}))
 
     def _resize_locked(self, width_limit: int | None, rate: float) -> None:
         """Adaptive capacity, applied only here: between dispatches, under
@@ -564,8 +587,8 @@ class Lane:
                 return torch.cat([taken, arr.new_zeros(
                     (pad,) + tuple(arr.shape[1:]))])
 
-            for name in ("x", "old", "idx", "ctx_u", "ctx_c", "pooled_u",
-                         "pooled_c"):
+            for name in ("x", "old", "known", "mask", "idx", "ctx_u",
+                         "ctx_c", "pooled_u", "pooled_c"):
                 self._dev[name] = remap(self._dev[name])
             self._sync_tables()
 
@@ -576,12 +599,19 @@ class Lane:
         if self.sampler.kind in NOISY_KINDS:
             gens = [self._gens[s] if self._h_active[s] else None
                     for s in range(self.width)]
+        # renoise only for active inpaint rows; a lane without one
+        # re-projects nothing
+        masked = self._h_active & self._h_mask_on
+        renoise = ([self._gens[s] if masked[s] else None
+                    for s in range(self.width)] if masked.any() else None)
         dev["x"], dev["idx"], dev["old"] = self.pipe.stepper_step(
             sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
             x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
             sigmas=dev["sig"], timesteps=dev["ts"], guidance=dev["guid"],
             old_denoised=dev["old"], active=dev["active"], generators=gens,
-            pooled_u=dev["pooled_u"], pooled_c=dev["pooled_c"])
+            pooled_u=dev["pooled_u"], pooled_c=dev["pooled_c"],
+            known=dev["known"], mask=dev["mask"], mask_on=dev["mask_on"],
+            renoise_generators=renoise)
         # throttle: at most two dispatched steps in flight, so the host
         # cannot run away from the device and execution errors surface
         # here, inside the lane thread's containment try
@@ -684,6 +714,7 @@ class Lane:
         for s in job.slots:
             self._rows[s] = None
             self._h_active[s] = False
+            self._h_mask_on[s] = False
             self._gens[s] = None
         if self._dev is not None:
             self._sync_tables()
@@ -825,17 +856,29 @@ class StepScheduler:
                        rows: int = 1, seed: int = 0,
                        scheduler: str | None = None,
                        deadline_s: float | None = None,
-                       job_id: Any = None) -> Future:
-        """Prepare a txt2img job's rows (tokenize, encode, ladder, initial
-        noise) and hand them to the matching lane. Returns a Future of
+                       job_id: Any = None, init_image: Any = None,
+                       strength: float = 0.8, mask: Any = None) -> Future:
+        """Prepare a job's rows (tokenize, encode, ladder, initial noise;
+        for img2img and inpaint the init image's VAE encode and the latent
+        mask) and hand them to the matching lane. Returns a Future of
         ``(PendingImages, lane_info)``; raises :class:`LaneReject` when the
-        job cannot ride a lane."""
+        job cannot ride a lane.
+
+        ``init_image`` makes the rows img2img: ``strength`` maps to their
+        start index as the solo path quantizes it. ``mask`` (with
+        ``init_image``) makes them inpaint: they start at 0 and carry the
+        clean latents and the latent-grid mask. The image is encoded with
+        the job's own seed through the solo path's batch-1 encode
+        (``pipelines/diffusion.py::encode_init_image``) and shared by the
+        job's rows."""
         fam = pipe.c.family
         if fam.kind != "sd" or fam.image_conditioned:
             raise LaneReject(f"family {fam.name!r} does not ride lanes")
         sampler = resolve(scheduler, prediction_type=fam.prediction_type)
         if float(guidance_scale) <= 1.0 and sampler.kind not in FEWSTEP_KINDS:
             raise LaneReject("guidance <= 1 runs the solo (no-CFG) path")
+        if mask is not None and init_image is None:
+            raise LaneReject("inpainting requires an init image")
         height, width = bucket_image_size(int(height or fam.default_size),
                                           int(width or fam.default_size))
         steps = max(1, int(steps))
@@ -863,18 +906,26 @@ class StepScheduler:
             ids = pipe._tokenize([prompt or ""] * eb)
             neg = pipe._tokenize([negative_prompt or ""] * eb)
             ctx_u, ctx_c, pooled_u, pooled_c = pipe.stepper_encode(ids, neg)
+            workload, start_step, init_rows, mask_rows = \
+                pipe.prepare_image_rows(init_image, mask, strength, steps,
+                                        height, width, int(seed), rows)
             # one generator per row, the solo path's (seed, row) pairs
             generators = row_generators([(int(seed), r)
                                          for r in range(rows)])
-            x0 = pipe.stepper_row_init(generators, sched.sigmas[0],
+            x0 = pipe.stepper_row_init(generators, sched.sigmas[start_step],
                                        height, width)
+            if init_rows is not None:
+                # x = init + noise * sigma[start], the solo prologue
+                x0 = init_rows + x0
         job = _RowJob(
             job_id=job_id, n_rows=rows, steps=steps,
             guidance=float(guidance_scale),
             sigmas=sched.sigmas.numpy(), timesteps=sched.timesteps.numpy(),
             ctx_u=ctx_u[:rows], ctx_c=ctx_c[:rows], pooled_u=pooled_u[:rows],
             pooled_c=pooled_c[:rows], generators=generators,
-            x0=x0,
+            x0=x0, workload=workload, start_step=start_step,
+            known0=init_rows if mask_rows is not None else None,
+            mask0=mask_rows,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
                                          else self.row_deadline_s()))
         self._enqueue(key, pipe, job, lane_rows, height, width, sampler,

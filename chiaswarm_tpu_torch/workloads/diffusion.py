@@ -1,7 +1,13 @@
-"""Stable-diffusion workload, txt2img path: counterpart of
+"""Stable-diffusion workload, txt2img, img2img and inpaint: counterpart of
 ``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
 lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
 ``stepper_finish`` :236-466).
+
+An ``image`` (the fetched ``start_image_uri``) sets the job's size and makes
+it img2img; a ``mask_image`` beside it makes it inpaint (averaged over its
+channels, scaled to [0, 1]). On a family that is not instruct-pix2pix an
+``image_guidance_scale`` maps to the img2img strength (the hive sends
+strength x 5), as in the JAX callback; such a job runs the solo path.
 
 The job binds to the registry's resident pipeline, generates, screens the
 decoded images (a poisoned trajectory raises ``InvalidOutput`` instead of
@@ -13,12 +19,12 @@ load-per-job). Inputs this slice does not serve raise ``ValueError`` naming
 the later slice, which the executor reports as a fatal bad-request
 envelope.
 
-The lane workload hands an eligible txt2img job to the slot's
-continuous-batching scheduler (``serving/stepper.py``) and finishes it into
-the JAX lane envelope's config keys, ``stepper`` stamp included. A job
-carrying anything a later slice serves is not eligible: it takes the solo
-path, which refuses it and names that slice. Neither is a job whose model
-came back degraded to load-per-job.
+The lane workload hands an eligible txt2img, img2img or inpaint job to the
+slot's continuous-batching scheduler (``serving/stepper.py``) and finishes
+it into the JAX lane envelope's config keys, ``stepper`` stamp included. A
+job carrying anything a later slice serves is not eligible: it takes the
+solo path, which refuses it and names that slice. Neither is a job whose
+model came back degraded to load-per-job.
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ import numpy as np
 
 from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
 from chiaswarm_tpu_torch.obs.trace import span
-from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
+from chiaswarm_tpu_torch.pipelines.diffusion import (
+    GenerateRequest,
+    image_plan,
+)
 from chiaswarm_tpu_torch.serving.guard import screen_images
 from chiaswarm_tpu_torch.serving.residency import is_transient
 
@@ -42,10 +51,7 @@ SAFETY_UNAVAILABLE = {"nsfw": False, "safety_checker": "unavailable"}
 
 #: job arguments a later slice serves, and what each asks for
 _LATER = {
-    "image": "img2img (the img2img/inpaint slice)",
-    "mask_image": "inpainting (the img2img/inpaint slice)",
     "controlnet_model_name": "ControlNet",
-    "image_guidance_scale": "instruct-pix2pix guidance",
     "upscale": "the latent upscaler",
     "textual_inversion": "textual inversion",
     "lora": "LoRA",
@@ -68,6 +74,10 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        height: int | None = None,
                        width: int | None = None,
                        num_images_per_prompt: int = 1,
+                       image: np.ndarray | None = None,
+                       mask_image: np.ndarray | None = None,
+                       strength: float = 0.75,
+                       image_guidance_scale: float | None = None,
                        scheduler_type: str | None = None,
                        content_type: str = "image/png",
                        **kwargs: Any):
@@ -79,8 +89,14 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         raise ValueError(
             f"model {model_name!r} is a {fam.kind} model, not a generation "
             f"pipeline; upscalers run via the server's 'upscale' parameter")
+    if image is not None:
+        height, width = image.shape[:2]
     height = int(height or fam.default_size)
     width = int(width or fam.default_size)
+    if image_guidance_scale is not None and not fam.image_conditioned:
+        # the user's image guidance on a plain checkpoint: honoured as
+        # img2img strength (the hive sends strength x 5)
+        strength = min(1.0, max(0.05, float(image_guidance_scale) / 5.0))
     req = GenerateRequest(
         prompt=prompt or "",
         negative_prompt=negative_prompt or "",
@@ -91,6 +107,12 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         batch=max(1, int(num_images_per_prompt)),
         seed=seed,
         scheduler=scheduler_type,
+        init_image=image,
+        strength=float(strength),
+        mask=_mask_01(mask_image),
+        image_guidance_scale=float(image_guidance_scale
+                                   if image_guidance_scale is not None
+                                   else 1.5),
     )
     t0 = time.perf_counter()
     images, config = pipe(req)
@@ -116,6 +138,17 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
     return artifacts, config
 
 
+def _mask_01(mask_image: np.ndarray | None) -> np.ndarray | None:
+    """An inpaint mask image -> (H, W) float in [0, 1] (1 = regenerate):
+    averaged over channels, scaled down from 0-255 when above 1."""
+    if mask_image is None:
+        return None
+    m = np.asarray(mask_image, dtype=np.float32)
+    if m.ndim == 3:
+        m = m.mean(axis=-1)
+    return m / 255.0 if m.max() > 1.0 else m
+
+
 # ---- continuous step-level batching (serving/stepper.py) ---------------
 
 
@@ -131,6 +164,8 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
         return False
     if any(kwargs.get(key) for key in _LATER):
         return False  # the solo path refuses it, naming its slice
+    if kwargs.get("image_guidance_scale") is not None:
+        return False  # pix2pix guidance or the strength remap: solo
     guidance = kwargs.get("guidance_scale")
     if guidance is not None and float(guidance) <= 1.0:
         # few-step kinds ride lanes without CFG; the rest run the solo path
@@ -138,6 +173,9 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
                 FEWSTEP_KINDS:
             return False
     height, width = kwargs.get("height"), kwargs.get("width")
+    image = kwargs.get("image")
+    if image is not None and getattr(image, "ndim", 0) >= 2:
+        height, width = int(image.shape[0]), int(image.shape[1])
     return not ((height and int(height) > 1024)
                 or (width and int(width) > 1024))
 
@@ -160,13 +198,15 @@ class StepperTicket:
     content_type: str
     slot: Any
     t0: float
+    mode: str
+    denoise_steps: int
 
 
 def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
                    job_id: Any = None) -> StepperTicket:
-    """Hand one formatted txt2img job to the slot's step scheduler. Raises
-    ``LaneReject`` (or anything else) when the job must run through the
-    per-job path instead."""
+    """Hand one formatted txt2img, img2img or inpaint job to the slot's
+    step scheduler. Raises ``LaneReject`` (or anything else) when the job
+    must run through the per-job path instead."""
     from chiaswarm_tpu_torch.core.buckets import bucket_image_size
     from chiaswarm_tpu_torch.schedulers import resolve
     from chiaswarm_tpu_torch.serving.stepper import LaneReject, get_stepper
@@ -180,19 +220,29 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         raise LaneReject(
             f"model {model_name!r} degraded to load-per-job (residency)")
     fam = pipe.c.family
-    height = int(kwargs.get("height") or fam.default_size)
-    width = int(kwargs.get("width") or fam.default_size)
+    image = kwargs.get("image")
+    if image is not None:
+        height, width = int(image.shape[0]), int(image.shape[1])
+    else:
+        height = int(kwargs.get("height") or fam.default_size)
+        width = int(kwargs.get("width") or fam.default_size)
     steps = max(1, int(kwargs.get("num_inference_steps") or 30))
     guidance = kwargs.get("guidance_scale")
     guidance = 7.5 if guidance is None else float(guidance)
     rows = max(1, int(kwargs.get("num_images_per_prompt") or 1))
+    # None-check, not `or`: strength 0.0 (near-identity img2img) is valid
+    strength = kwargs.get("strength")
+    strength = 0.75 if strength is None else float(strength)
+    mask = _mask_01(kwargs.get("mask_image"))
+    mode, start_step = image_plan(steps, strength, image is not None,
+                                  mask is not None)
     future = get_stepper(slot).submit_request(
         pipe,
         prompt=str(kwargs.get("prompt") or ""),
         negative_prompt=str(kwargs.get("negative_prompt") or ""),
         steps=steps, guidance_scale=guidance, height=height, width=width,
         rows=rows, seed=int(seed), scheduler=kwargs.get("scheduler_type"),
-        job_id=job_id)
+        job_id=job_id, init_image=image, strength=strength, mask=mask)
     sampler = resolve(kwargs.get("scheduler_type"),
                       prediction_type=fam.prediction_type)
     return StepperTicket(
@@ -201,7 +251,8 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         req_hw=(height, width), compiled_hw=bucket_image_size(height, width),
         rows=rows, seed=int(seed),
         content_type=kwargs.get("content_type", "image/png"),
-        slot=slot, t0=time.perf_counter())
+        slot=slot, t0=time.perf_counter(), mode=mode,
+        denoise_steps=steps - start_step)
 
 
 def stepper_finish(ticket: StepperTicket):
@@ -227,12 +278,12 @@ def stepper_finish(ticket: StepperTicket):
         "family": ticket.family,
         "scheduler": ticket.sampler_kind,
         "steps": ticket.steps,
-        "denoise_steps": ticket.steps,
+        "denoise_steps": ticket.denoise_steps,
         "guidance_scale": ticket.guidance,
         "size": list(ticket.req_hw),
         "compiled_size": list(ticket.compiled_hw),
         "batch": ticket.rows,
-        "mode": "txt2img",
+        "mode": ticket.mode,
         "seed": ticket.seed,
         "stepper": dict(lane_info),
     }

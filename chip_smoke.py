@@ -229,6 +229,36 @@ each phase printing one JSON line:
                 and the worker serves seed 1 for that name against a hive in
                 this script: bit for bit xl_lane_serve's seed 1. The
                 directory is removed at the end of the phase.
+15f. img2img_serve — after residency_churn (so before worker_serve): SD1.5
+                img2img at 512 px, 20 steps, strengths 0.75, 0.5 and 0.3
+                (start indices 5, 10 and 14), each init image made from a
+                seed and fetched over HTTP from a hive of this script
+                through the job's ``start_image_uri``; solo, then one by
+                one in lanes: B1 exactly 10 x UNet evals (310) and no other
+                kernel in each; then seed 31 with two images solo and in a
+                lane pinned at 2 rows, bit for bit. Prints each job's
+                seconds, ``generation_s``, and its encode's device ms
+                (CUDA events around ``encode_init_image``) and share.
+15g. inpaint_serve — two inpaint jobs (a fetched rectangular
+                ``mask_image_uri``), solo then in lanes: B1 = 10 x 20 a job;
+                each job's final latents equal its encoded init latents
+                exactly where the latent mask keeps them; the kept pixels'
+                mean uint8 error against the source at most 1.5x the
+                source's own VAE round-trip error + 2 (both printed).
+15h. seq_img2img — the strength-0.75 job on the one-card ``seq = 4`` slot:
+                B3 exactly 10 x 15 + 1, no other kernel (the encode does
+                not ring).
+15i. xl_img2img_serve — one SDXL img2img job at 1024 px (strength 0.75),
+                solo then in a lane: B1 exactly 70 x 15.
+15j. encode_check — SD1.5's VAE encoder (bf16) against its float32 copy at
+                512 px: relative L2 of the latent mean within 3e-2, no
+                kernel; the encode's device ms alone (inputs on the
+                card), the whole encode_init_image call's event ms (host
+                work inside) and its peak memory, at 512 px and at 1024 px
+                (SDXL's VAE). worker_serve gains an img2img
+                and an inpaint job fetched by URI (bit for bit the lane
+                images of 15f and 15g) and an init image past the 3 MiB
+                cap (a non-fatal ``bad_asset`` envelope).
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -242,8 +272,9 @@ each phase printing one JSON line:
                 its design and its factor against the library call, under
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
-                ``worker_serve`` and the four SDXL serve phases and B3
-                under ``lane_seq_serve``, with
+                ``worker_serve``, the four SDXL serve phases and the image
+                phases, and B3 under ``lane_seq_serve`` and
+                ``seq_img2img``, with
                 their launches there and their numbers over those
                 launches.
 
@@ -964,14 +995,15 @@ def check_envelope(phase: str, job: dict, result: dict, lanes: bool) -> str:
 
 
 def run_jobs(torch, phase: str, slot, registry, lanes: bool = False,
-             jobs=None, spans: list | None = None) -> tuple[list, dict]:
+             jobs=None, spans: list | None = None,
+             configs: list | None = None) -> tuple[list, dict]:
     """The serve jobs (or ``jobs``) through ``synchronous_do_work`` on
     ``slot``, one after another, with every launch count set to 0 just
     before, each under a trace of its own (its executor spans: format, text
     encode, lane wait or steps, decode, PNG and base64; appended to
-    ``spans``). Returns the job seconds and each job's PNG blob by seed;
-    raises on an error envelope, a wrong PNG, or a job on the wrong path
-    (``lanes``)."""
+    ``spans``; each envelope's config to ``configs``). Returns the job
+    seconds and each job's PNG blob by seed; raises on an error envelope, a
+    wrong PNG, or a job on the wrong path (``lanes``)."""
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
     from chiaswarm_tpu_torch.obs import trace as obs_trace
     from chiaswarm_tpu_torch.ops import kernels
@@ -993,6 +1025,8 @@ def run_jobs(torch, phase: str, slot, registry, lanes: bool = False,
             spans.append(rows)
         cfg = result["pipeline_config"]
         blobs[job["seed"]] = check_envelope(phase, job, result, lanes)
+        if configs is not None:
+            configs.append(cfg)
         emit(f"{phase}_job", id=job["id"], seed=cfg["seed"],
              seconds=seconds[-1], generation_s=cfg["generation_s"],
              scheduler=cfg["scheduler"],
@@ -1918,7 +1952,9 @@ class LocalHive:
     /api/results``, ``GET /api/models``) on ``127.0.0.1``, served from a
     thread of this script by the standard library's ``http.server``. Every
     poll hands out every queued job (the reference hive's semantics).
-    ``faults`` maps a job id to the HTTP statuses its first uploads get."""
+    ``faults`` maps a job id to the HTTP statuses its first uploads get.
+    ``assets`` maps a name to the PNG bytes ``GET``/``HEAD /assets/<name>``
+    serve as ``image/png`` (the jobs' input images)."""
 
     def __init__(self) -> None:
         import http.server
@@ -1929,6 +1965,7 @@ class LocalHive:
         self.results: list[dict] = []
         self.result_t: list[float] = []
         self.faults: dict[str, list[int]] = {}
+        self.assets: dict[str, bytes] = {}
         self.work_t: list[float] = []  # when each poll that handed out work
         self.posts = 0
         hive = self
@@ -1945,7 +1982,27 @@ class LocalHive:
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _asset(self, with_body: bool) -> bool:
+                name = self.path.split("?")[0].removeprefix("/assets/")
+                body = hive.assets.get(name)
+                if not self.path.startswith("/assets/") or body is None:
+                    return False
+                self.send_response(200)
+                self.send_header("Content-Type", "image/png")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if with_body:
+                    self.wfile.write(body)
+                return True
+
+            def do_HEAD(self) -> None:
+                if not self._asset(with_body=False):
+                    self.send_response(404)
+                    self.end_headers()
+
             def do_GET(self) -> None:
+                if self._asset(with_body=True):
+                    return
                 path = self.path.split("?")[0]
                 if path == "/api/models":
                     return self._reply(200, {"models": []})
@@ -2191,7 +2248,7 @@ def worker_child(hive: LocalHive, root: Path) -> dict:
 
 def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
                        burst_blobs: dict, burst_ips: float,
-                       ckpt: dict) -> dict:
+                       ckpt: dict, image_blobs: dict) -> dict:
     """The port's ``Worker.run()`` against a hive served from this script
     (``LocalHive``), on the lanes, on the serve phases' ``ChipPool``:
 
@@ -2214,6 +2271,12 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
       whose registry has no random fallback and loads the model from disk
       (the settings root of ``checkpoint_serve``): an error-free PNG, bit
       for bit ``checkpoint_serve``'s seed-1 image (a fresh lane both times);
+    - image jobs: ``IMG_JOBS[0]`` (img2img) and ``INPAINT_JOBS[0]``
+      (inpaint), their images fetched from the hive by URI, each alone in a
+      fresh lane: error-free 512x512 PNGs, bit for bit the lane image of
+      the same job in ``img2img_serve`` and ``inpaint_serve``
+      (``image_blobs``, by seed); then one job whose init image is past the
+      3 MiB input cap: a non-fatal ``bad_asset`` envelope;
     - the entry point: ``python -m chiaswarm_tpu_torch.node.worker`` as a
       child process (``worker_child``).
 
@@ -2240,6 +2303,7 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
     kernels.reset_launches()
     with tempfile.TemporaryDirectory(prefix="worker-serve-") as tmp, \
             env(SWARM_TPU_ROOT=tmp), LocalHive() as hive:
+        hive.assets.update(image_assets())
         # the lone job, in a fresh lane
         before, b1_before = stepper_stats(slot), B1.launches
         lone_job = dict(JOBS[0], id="worker-sd15-1")
@@ -2426,6 +2490,49 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
                 or not out["checkpoint"]["vs_checkpoint_serve"]["bit_equal"]):
             failed.append(f"worker_serve checkpoint job: {out['checkpoint']}")
 
+        # image jobs fetched by URI, each alone in a fresh lane
+        out["image_jobs"] = {}
+        for job in on_hive(hive, [dict(IMG_JOBS[0], id="worker-img2img-31"),
+                                  dict(INPAINT_JOBS[0],
+                                       id="worker-inpaint-41")]):
+            get_stepper(slot).shutdown()
+            before, b1_before = stepper_stats(slot), B1.launches
+            worker = serve_through_worker(hive, pool, registry, [job])
+            image_steps = delta(stepper_stats(slot), before,
+                                "steps_executed")
+            get_stepper(slot).shutdown()
+            [result] = [r for r in hive.results if r["id"] == job["id"]]
+            blob = check_envelope("worker_serve", job, result, lanes=True)
+            cfg = result["pipeline_config"]
+            row = {"mode": cfg["mode"], "denoise_steps": cfg["denoise_steps"],
+                   "seconds": trace_rows(worker)[job["id"]],
+                   "generation_s": cfg["generation_s"],
+                   "steps_executed": image_steps,
+                   "b1_launches": B1.launches - b1_before,
+                   "vs_lane_image": image_diffs(
+                       {job["seed"]: blob},
+                       {job["seed"]: image_blobs[job["seed"]]})[job["seed"]]}
+            out["image_jobs"][job["id"]] = row
+            emit("worker_serve_image_job", id=job["id"], **row)
+            if (row["b1_launches"] != image_steps * B1_LAUNCHES_PER_UNET_EVAL
+                    or not row["vs_lane_image"]["bit_equal"]):
+                failed.append(f"worker_serve image job {job['id']}: {row}")
+
+        # an init image past the input cap: a non-fatal bad_asset envelope
+        [bad_job] = on_hive(hive, [dict(IMG_JOBS[0], id="worker-bad-asset",
+                                        start_image_uri="/assets/"
+                                        "oversized.png")])
+        serve_through_worker(hive, pool, registry, [bad_job])
+        [bad] = [r for r in hive.results if r["id"] == bad_job["id"]]
+        out["bad_asset"] = {
+            "error_kind": bad["pipeline_config"].get("error_kind"),
+            "fatal_error": bool(bad.get("fatal_error")),
+            "error": bad["pipeline_config"].get("error")}
+        emit("worker_serve_bad_asset", **out["bad_asset"])
+        if (out["bad_asset"]["error_kind"] != "bad_asset"
+                or out["bad_asset"]["fatal_error"]):
+            failed.append(f"worker_serve bad asset: {out['bad_asset']}")
+
         # the entry point, as a node operator starts it
         out["child"] = worker_child(hive, Path(tmp))
         emit("worker_serve_child", **out["child"])
@@ -2468,6 +2575,9 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
              "within_one_level_of_lane_burst"],
          checkpoint_job_bit_equal=out["checkpoint"]["vs_checkpoint_serve"][
              "bit_equal"],
+         image_jobs_bit_equal={k: v["vs_lane_image"]["bit_equal"]
+                               for k, v in out["image_jobs"].items()},
+         bad_asset_kind=out["bad_asset"]["error_kind"],
          b1_launches=run["flash_attention"]["launches"])
     if failed:
         raise AssertionError("; ".join(failed))
@@ -2520,6 +2630,332 @@ def solo_pair_phase(torch, registry, slot, lane_blob: str,
     if not pair["bit_equal"]:
         raise AssertionError(f"solo_pair: the lane's pair is not the solo "
                              f"pair bit for bit: {pair}")
+    return run
+
+
+# ---- img2img and inpaint ------------------------------------------------
+
+IMG_SIZE = 512
+# strength -> start index 5, 10 and 14 of 20: 15, 10 and 6 UNet evals
+IMG_STRENGTHS = {31: 0.75, 32: 0.5, 33: 0.3}
+IMG_JOBS = [dict(JOBS[0], id=f"img2img-sd15-{seed}", seed=seed,
+                 prompt="the same scene as a watercolor", strength=strength,
+                 start_image_uri=f"/assets/init-{seed}.png")
+            for seed, strength in IMG_STRENGTHS.items()]
+INPAINT_JOBS = [dict(JOBS[0], id=f"inpaint-sd15-{seed}", seed=seed,
+                     prompt="a red door", start_image_uri=f"/assets/"
+                     f"init-{seed}.png", mask_image_uri="/assets/mask.png")
+                for seed in (41, 42)]
+
+
+def smooth_image(seed: int, size: int):
+    """A smooth uint8 (size, size, 3) test picture made from ``seed``: a few
+    low-frequency waves per channel and three flat rectangles (a PNG of it
+    stays far under the 3 MiB input cap at 1024 px)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    img = np.zeros((size, size, 3), np.float32)
+    for c in range(3):
+        for _ in range(4):
+            fx, fy = rng.uniform(0.5, 3.0, 2)
+            img[..., c] += rng.uniform(0.2, 1.0) * np.sin(
+                2 * np.pi * (fx * x + fy * y) + rng.uniform(0, 2 * np.pi))
+    for _ in range(3):
+        y0, x0 = rng.integers(0, size * 3 // 4, 2)
+        h, w = rng.integers(size // 8, size // 3, 2)
+        img[y0:y0 + h, x0:x0 + w] = rng.uniform(-2, 2, 3)
+    img = (img - img.min()) / (img.max() - img.min())
+    return (img * 255).astype(np.uint8)
+
+
+def rect_mask(size: int):
+    """The inpaint mask: 255 (regenerate) in a rectangle, 0 elsewhere."""
+    import numpy as np
+
+    mask = np.zeros((size, size), np.uint8)
+    mask[size // 4: size * 5 // 8, size * 3 // 8: size * 7 // 8] = 255
+    return mask
+
+
+def png_bytes(pixels) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(pixels).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def image_assets() -> dict:
+    """Every input the image phases fetch, by asset name: the init images
+    of IMG_JOBS, INPAINT_JOBS and XL_IMG_JOB, the mask, and one body past
+    the 3 MiB input cap."""
+    from chiaswarm_tpu_torch.node.job_args import MAX_IMAGE_BYTES
+
+    assets = {f"init-{seed}.png": png_bytes(smooth_image(seed, IMG_SIZE))
+              for seed in (*IMG_STRENGTHS, 41, 42)}
+    assets["init-51-1024.png"] = png_bytes(smooth_image(51, XL_SIZE))
+    assets["mask.png"] = png_bytes(rect_mask(IMG_SIZE))
+    assets["oversized.png"] = b"\x89PNG" + bytes(MAX_IMAGE_BYTES)
+    return assets
+
+
+def on_hive(hive: LocalHive, jobs: list[dict]) -> list[dict]:
+    """``jobs`` with their asset paths as URIs on ``hive``."""
+    out = []
+    for job in jobs:
+        job = dict(job)
+        for key in ("start_image_uri", "mask_image_uri"):
+            if key in job:
+                job[key] = hive.uri + job[key]
+        out.append(job)
+    return out
+
+
+@contextlib.contextmanager
+def watch_pipe(torch, pipe):
+    """Records, for the block, each init-image encode of ``pipe`` (its
+    latents and the CUDA-event ms around the whole call on the current
+    stream: the host's conversion, posterior draw and upload inside, as the
+    job pays them) and the latents of each VAE decode (solo and lanes)."""
+    rec = {"encodes": [], "final": []}
+    encode, decode = pipe.encode_init_image, pipe._decode_uint8
+
+    def timed_encode(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        z = encode(*args, **kw)
+        end.record()
+        rec["encodes"].append((z, start, end))
+        return z
+
+    def kept_decode(x):
+        rec["final"].append(x.clone())
+        return decode(x)
+
+    pipe.encode_init_image, pipe._decode_uint8 = timed_encode, kept_decode
+    try:
+        yield rec
+    finally:
+        del pipe.encode_init_image, pipe._decode_uint8
+        torch.cuda.synchronize()
+        rec["encode_ms"] = [s.elapsed_time(e) for _, s, e in rec["encodes"]]
+
+
+def encode_shares(rec: dict, configs: list) -> list:
+    """Each job's encode call (event ms, host work inside) over its
+    ``generation_s``."""
+    return [ms / 1e3 / cfg["generation_s"]
+            for ms, cfg in zip(rec["encode_ms"], configs)]
+
+
+def check_b1(phase: str, launches: dict, want: int) -> None:
+    if launches["flash_attention"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"{phase} launched {launches}, expected {want} "
+                             "of flash_attention and no other")
+
+
+def kernel_launches() -> dict:
+    from chiaswarm_tpu_torch.ops import kernels
+
+    return {name: k.launches for name, k in kernels.KERNELS.items()}
+
+
+def image_solo_and_lanes(torch, phase: str, registry, slot, jobs: list,
+                         per_eval: int, model: str = "sd15") -> dict:
+    """``jobs`` on the solo path (``CHIASWARM_STEPPER=0``), then one after
+    another through the lanes: error-free envelopes with PNGs of the jobs'
+    size, B1 exactly ``per_eval`` x UNet evals (solo: the configs'
+    ``unet_evals``; lanes: lane steps) and no other kernel. Prints each
+    job's seconds, ``generation_s`` and the encode's device ms and share of
+    it. Returns both runs' launches, blobs, configs and watch records."""
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    pipe = registry.pipeline(model)
+    out = {}
+    for mode, lanes in (("solo", False), ("lanes", True)):
+        configs: list = []
+        get_stepper(slot).shutdown()
+        before = stepper_stats(slot)
+        with env(CHIASWARM_STEPPER="1" if lanes else "0"), \
+                watch_pipe(torch, pipe) as rec:
+            seconds, blobs = run_jobs(torch, f"{phase}_{mode}", slot,
+                                      registry, lanes=lanes, jobs=jobs,
+                                      configs=configs)
+            launches, run = kernel_launches(), launched()
+        steps = delta(stepper_stats(slot), before, "steps_executed")
+        get_stepper(slot).shutdown()
+        evals = steps if lanes else sum(c["unet_evals"] for c in configs)
+        emit(f"{phase}_{mode}", jobs=len(jobs), job_seconds=seconds,
+             generation_s=[c["generation_s"] for c in configs],
+             denoise_steps=[c["denoise_steps"] for c in configs],
+             modes=[c["mode"] for c in configs],
+             encode_ms=rec["encode_ms"],
+             encode_share_of_generation=encode_shares(rec, configs),
+             unet_evals=evals, lane_steps=steps if lanes else None,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             launches=launches, expected_flash_launches=per_eval * evals)
+        check_b1(f"{phase}_{mode}", launches, per_eval * evals)
+        if len(rec["encodes"]) != len(jobs):
+            raise AssertionError(f"{phase}_{mode}: {len(rec['encodes'])} "
+                                 f"encodes for {len(jobs)} jobs")
+        out[mode] = {"run": run, "blobs": blobs, "configs": configs,
+                     "rec": rec, "seconds": seconds}
+    return out
+
+
+def img2img_serve_phase(torch, registry, slot, hive: LocalHive) -> tuple:
+    """SD1.5 at 512 px, 20 steps: three img2img jobs at strengths 0.75, 0.5
+    and 0.3 (start indices 5, 10 and 14), their init images fetched from
+    this script's hive, solo then in lanes (``image_solo_and_lanes``: B1 =
+    10 x (15 + 10 + 6) solo). Then ``solo_pair``'s composition for img2img:
+    seed 31 with two images on the solo path and through a lane pinned at 2
+    rows, bit for bit. Returns the runs and the solo and lane blobs."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import img2img_start_index
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    jobs = on_hive(hive, IMG_JOBS)
+    out = image_solo_and_lanes(torch, "img2img_serve", registry, slot, jobs,
+                               B1_LAUNCHES_PER_UNET_EVAL)
+    starts = [img2img_start_index(SERVE_STEPS, s)
+              for s in IMG_STRENGTHS.values()]
+    got = [SERVE_STEPS - c["denoise_steps"] for c in out["solo"]["configs"]]
+    if starts != [5, 10, 14] or got != starts:
+        raise AssertionError(f"img2img start indices {got}, expected "
+                             f"{starts} = [5, 10, 14]")
+
+    kernels.reset_launches()
+    job = dict(jobs[0], id="img2img-pair-31", num_images_per_prompt=2)
+    grids = {}
+    for mode in ("0", "1"):
+        with env(CHIASWARM_STEPPER=mode, CHIASWARM_STEPPER_LANE_WIDTH="2"):
+            result = synchronous_do_work(dict(job), slot, registry)
+        cfg = result["pipeline_config"]
+        if "error" in cfg or ("stepper" in cfg) != (mode == "1"):
+            raise AssertionError(f"img2img pair ({mode}): {cfg}")
+        grids[mode] = decode_png(result["artifacts"]["primary"]["blob"])
+    get_stepper(slot).shutdown()
+    pair_run = launched()
+    d = np.abs(grids["1"] - grids["0"])
+    pair = {"max": int(d.max()), "bit_equal": bool((d == 0).all()),
+            "shape": list(grids["0"].shape)}
+    emit("img2img_serve", strengths=list(IMG_STRENGTHS.values()),
+         start_indices=starts,
+         solo_job_seconds=out["solo"]["seconds"],
+         lane_job_seconds=out["lanes"]["seconds"],
+         lanes_vs_solo=image_diffs(out["lanes"]["blobs"],
+                                   out["solo"]["blobs"]),
+         pair_lane_vs_solo=pair,
+         pair_b1_shapes=[[*k, n] for k, n in
+                         pair_run["flash_attention"]["shapes"].items()])
+    if not pair["bit_equal"] or pair["shape"] != [IMG_SIZE, 2 * IMG_SIZE, 3]:
+        raise AssertionError(f"img2img pair: the lane's pair is not the solo "
+                             f"pair bit for bit: {pair}")
+    return ({"img2img_serve": out["solo"]["run"],
+             "img2img_lane_serve": out["lanes"]["run"],
+             "img2img_pair": pair_run},
+            out["solo"]["blobs"], out["lanes"]["blobs"])
+
+
+def inpaint_serve_phase(torch, registry, slot, hive: LocalHive) -> tuple:
+    """Two inpaint jobs (a rectangular mask) on the solo path, then in
+    lanes (``image_solo_and_lanes``: B1 = 10 x 20 a job solo). Each job's
+    final latents equal its encoded init latents exactly where the latent
+    mask keeps them (the last step's sigma is 0); the kept pixels of each
+    image lie within the source's own VAE round-trip error (mean absolute
+    uint8 error at most 1.5x that error + 2 levels), both printed. Returns
+    the runs and the lane blobs."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.diffusion import latent_mask
+
+    jobs = on_hive(hive, INPAINT_JOBS)
+    out = image_solo_and_lanes(torch, "inpaint_serve", registry, slot, jobs,
+                               B1_LAUNCHES_PER_UNET_EVAL)
+    pipe = registry.pipeline("sd15")
+    f = pipe.c.family.vae.downscale
+    lh = IMG_SIZE // f
+    kept = latent_mask(rect_mask(IMG_SIZE) / 255.0, lh, lh, f) == 0
+    kept_px = np.kron(kept, np.ones((f, f), bool))
+    kept_t = torch.from_numpy(kept).to(pipe.c.device)
+    report, failed = {}, []
+    for mode, res in out.items():
+        for i, job in enumerate(jobs):
+            known = res["rec"]["encodes"][i][0]
+            final = res["rec"]["final"][i][:1]
+            exact = bool(torch.equal(final[:, :, kept_t],
+                                     known[:, :, kept_t]))
+            with torch.inference_mode():
+                rt = pipe._decode_uint8(known)[0].cpu().numpy().astype(
+                    "int16")
+            src = smooth_image(job["seed"], IMG_SIZE).astype("int16")
+            img = decode_png(res["blobs"][job["seed"]])
+            row = {
+                "kept_latents_equal_known": exact,
+                "kept_latent_share": float(kept.mean()),
+                "round_trip_err_kept": float(np.abs(rt - src)[kept_px].mean()),
+                "out_err_kept": float(np.abs(img - src)[kept_px].mean()),
+                "out_vs_round_trip_kept": float(
+                    np.abs(img - rt)[kept_px].mean()),
+                "out_vs_round_trip_masked": float(
+                    np.abs(img - rt)[~kept_px].mean())}
+            report[f"{mode}_{job['seed']}"] = row
+            if not exact or row["out_err_kept"] > (
+                    1.5 * row["round_trip_err_kept"] + 2):
+                failed.append(f"{mode} {job['id']}: {row}")
+    emit("inpaint_serve", jobs=len(jobs), kept=report,
+         lanes_vs_solo=image_diffs(out["lanes"]["blobs"],
+                                   out["solo"]["blobs"]))
+    if failed:
+        raise AssertionError("inpaint_serve: " + "; ".join(failed))
+    return {"inpaint_serve": out["solo"]["run"],
+            "inpaint_lane_serve": out["lanes"]["run"]}, out["lanes"]["blobs"]
+
+
+def seq_img2img_phase(torch, hive: LocalHive, solo_blob: str) -> dict:
+    """IMG_JOBS' first job (strength 0.75: 15 UNet evals) on the solo path
+    of the one-card ``seq = 4`` slot: B3 exactly 10 x 15 + 1 (the VAE
+    decode's ring) and no other kernel, so the init image's encode ran
+    outside the ring (its mid-block attention would add a B3 launch). The
+    difference from img2img_serve's solo image is printed."""
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import (
+        FUSED_KERNEL as B3,
+    )
+
+    registry = ModelRegistry(catalog=[{"name": "sd15", "family": "sd15"}],
+                             allow_random=True, device="cuda")
+    slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
+                    devices=one_card_devices(torch)).slots[0]
+    [job] = on_hive(hive, IMG_JOBS[:1])
+    configs: list = []
+    with env(CHIASWARM_RING_FLASH="", CHIASWARM_STEPPER="0"):
+        load_pipeline(torch, "seq_img2img", registry, mesh=slot.mesh)
+        with watch_pipe(torch, registry.pipeline("sd15", mesh=slot.mesh)) \
+                as rec:
+            seconds, blobs = run_jobs(torch, "seq_img2img", slot, registry,
+                                      jobs=[job], configs=configs)
+            launches, run = kernel_launches(), launched()
+    evals = configs[0]["unet_evals"]
+    want = evals * B3_LAUNCHES_PER_UNET_EVAL + B3_LAUNCHES_PER_DECODE
+    emit("seq_img2img", job_seconds=seconds,
+         generation_s=configs[0]["generation_s"], unet_evals=evals,
+         encode_ms=rec["encode_ms"],
+         encode_share_of_generation=encode_shares(rec, configs),
+         mesh_shape=slot.descriptor()["mesh_shape"], launches=launches,
+         expected_ring_launches=want,
+         vs_img2img_serve=image_diffs(blobs, {job["seed"]: solo_blob}))
+    if launches[B3.name] != want or sum(launches.values()) != want:
+        raise AssertionError(f"seq_img2img launched {launches}, expected "
+                             f"{want} of {B3.name} and no other")
     return run
 
 
@@ -2826,6 +3262,103 @@ def xl_worker_checkpoint_phase(torch, registry, pool,
     return run
 
 
+XL_IMG_JOB = dict(XL_JOBS[0], id="img2img-sdxl-51", seed=51,
+                  prompt="the same scene as a watercolor", strength=0.75,
+                  start_image_uri="/assets/init-51-1024.png")
+
+
+def xl_img2img_serve_phase(torch, registry, slot, hive: LocalHive) -> dict:
+    """One SDXL img2img job at 1024 px (strength 0.75: 15 UNet evals), its
+    init image fetched from this script's hive, solo then in a lane
+    (``image_solo_and_lanes``: B1 = 70 x evals). Returns both runs."""
+    [job] = on_hive(hive, [XL_IMG_JOB])
+    out = image_solo_and_lanes(torch, "xl_img2img_serve", registry, slot,
+                               [job], B1_LAUNCHES_PER_XL_EVAL, XL_MODEL)
+    emit("xl_img2img_serve", solo_job_seconds=out["solo"]["seconds"],
+         lane_job_seconds=out["lanes"]["seconds"],
+         lanes_vs_solo=image_diffs(out["lanes"]["blobs"],
+                                   out["solo"]["blobs"]))
+    return {"xl_img2img_serve": out["solo"]["run"],
+            "xl_img2img_lane_serve": out["lanes"]["run"]}
+
+
+def encode_check_phase(torch, registry) -> None:
+    """SD1.5's full-width VAE encoder (bf16 weights) at 512 px: its latent
+    mean in bf16 against the same weights in float32 (TF32 off), relative
+    L2 within 3e-2 (the repo's bf16 bar), no kernel launched. Then, at
+    512 px (SD1.5's VAE) and at 1024 px (SDXL's), the median CUDA-event ms
+    of the encode alone (``vae.encode(x, noise)`` on an image and posterior
+    noise already on the card: device time), of the whole
+    ``encode_init_image`` call (the host's float conversion, posterior
+    draw and upload inside the events), and the call's peak device memory
+    above what was allocated before it."""
+    import copy
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import _to_float_image
+
+    pipe = registry.pipeline("sd15")
+    img = _to_float_image(smooth_image(31, IMG_SIZE))
+    x = torch.from_numpy(img).permute(2, 0, 1)[None].to(pipe.c.device)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        vae32 = copy.deepcopy(pipe.c.vae).float()
+        kernels.reset_launches()
+        with torch.inference_mode():
+            mean, _ = pipe.c.vae.encode_moments(x)
+            ref, _ = vae32.encode_moments(x)
+        del vae32
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    rel = float((mean.float() - ref).norm() / ref.norm())
+    times = {}
+    for name, size in (("sd15", IMG_SIZE), (XL_MODEL, XL_SIZE)):
+        p = registry.pipeline(name)
+        image = smooth_image(31, size)
+        xs = torch.from_numpy(_to_float_image(image)).permute(2, 0, 1)[None]
+        xs = xs.contiguous().to(p.c.device)
+        lat = size // p.c.family.vae.downscale
+        noise = torch.randn((1, p.c.family.vae.latent_channels, lat, lat),
+                            generator=torch.Generator().manual_seed(31)
+                            ).to(p.c.device)
+
+        def encode(p=p, xs=xs, noise=noise):
+            with torch.inference_mode():
+                p.c.vae.encode(xs, noise)
+
+        times[f"{name}_{size}px_ms"] = time_ms(torch, encode, warmup=2,
+                                               iters=5)
+        times[f"{name}_{size}px_call_ms"] = time_ms(
+            torch, lambda p=p, image=image, size=size:
+            p.encode_init_image(image, size, size, 31), warmup=2, iters=5)
+        # the encode's own peak over the memory held before it
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p.encode_init_image(image, size, size, 31)
+        torch.cuda.synchronize()
+        times[f"{name}_{size}px_peak_bytes"] = (
+            torch.cuda.max_memory_allocated() - held)
+    emit("encode_check", vae_dtype=str(pipe.c.dtype),
+         latent_shape=list(mean.shape),
+         rel_l2_vs_fp32=rel, max_abs_vs_fp32=float(
+             (mean.float() - ref).abs().max()),
+         launches=launches, **times, note="*_px_ms: device ms of the "
+         "encode alone, inputs on the card; *_px_call_ms: event ms of the "
+         "whole encode_init_image, host conversion, draw and upload inside")
+    if not rel <= 3e-2 or any(launches.values()) or not np.isfinite(rel):
+        raise AssertionError(f"encode_check: relative L2 {rel} (bar 3e-2), "
+                             f"launches {launches}")
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -2882,16 +3415,23 @@ def kernels_line(runs: dict, tables: dict) -> None:
         entry("flash_attention", "serve", ("lane_serve", "lane_burst",
                                            "checkpoint_serve",
                                            "residency_churn",
+                                           "img2img_serve",
+                                           "img2img_lane_serve",
+                                           "img2img_pair", "inpaint_serve",
+                                           "inpaint_lane_serve",
                                            "worker_serve", "xl_serve",
                                            "xl_lane_serve", "xl_lane_burst",
-                                           "xl_worker_checkpoint")),
+                                           "xl_worker_checkpoint",
+                                           "xl_img2img_serve",
+                                           "xl_img2img_lane_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
                            "included, is timed beside "
                            "scaled_dot_product_attention under "
                            "ring_flash_fused"),
-        entry("ring_flash_fused", "seq_serve", ("lane_seq_serve",),
+        entry("ring_flash_fused", "seq_serve", ("lane_seq_serve",
+                                                "seq_img2img"),
               library_note="scaled_dot_product_attention on the unsharded "
                            "attention"),
     ]
@@ -2951,8 +3491,19 @@ def run_phases(torch) -> int:
         runs["checkpoint_serve"], ckpt = checkpoint_serve_phase(
             torch, registry, slot, lane_blobs, lane_spans)
         runs["residency_churn"] = residency_churn_phase(torch, slot, ckpt)
+        # img2img and inpaint, their images fetched from a hive here
+        with LocalHive() as asset_hive:
+            asset_hive.assets.update(image_assets())
+            img_runs, img_solo_blobs, img_blobs = img2img_serve_phase(
+                torch, registry, slot, asset_hive)
+            inpaint_runs, inpaint_blobs = inpaint_serve_phase(
+                torch, registry, slot, asset_hive)
+            runs.update(img_runs, **inpaint_runs)
+            runs["seq_img2img"] = seq_img2img_phase(torch, asset_hive,
+                                                    img_solo_blobs[31])
         runs["worker_serve"] = worker_serve_phase(
-            torch, registry, pool, lane_blobs, burst_blobs, burst_ips, ckpt)
+            torch, registry, pool, lane_blobs, burst_blobs, burst_ips, ckpt,
+            {**img_blobs, **inpaint_blobs})
     # SDXL at 1024 px: the solo path, then the lanes and the worker
     with env(CHIASWARM_STEPPER="0"):
         runs["xl_serve"], xl_blobs, xl_ips = xl_serve_phase(torch, registry,
@@ -2964,6 +3515,11 @@ def run_phases(torch) -> int:
                                                     xl_ips)
         runs["xl_worker_checkpoint"] = xl_worker_checkpoint_phase(
             torch, registry, pool, xl_lane_blobs)
+        with LocalHive() as asset_hive:
+            asset_hive.assets.update(image_assets())
+            runs.update(xl_img2img_serve_phase(torch, registry, slot,
+                                               asset_hive))
+    encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

@@ -1052,3 +1052,170 @@ def test_sdxl_class_lane_pair_is_the_solo_pair_bit_for_bit(cuda_device,
     assert (grids["1"] == grids["0"]).all()
     assert launches["0"] == launches["1"] == {
         (4, 1024, 1024, 1, 64, "bfloat16"): 6 * 3}
+
+
+# ---- img2img and inpaint -------------------------------------------------
+
+
+def test_vae_encoder_bf16_matches_fp32(cuda_device):
+    """SD1.5's full-width VAE encoder, random from a seed, at 256 px: the
+    latent mean with the weights cast to bf16 (the serving dtype; norms and
+    ``conv_out``/``quant_conv`` stay float32) against the same weights in
+    float32, within the repo's bf16 bar of 3e-2 relative L2."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.models.vae import AutoencoderKL
+
+    torch.manual_seed(0)
+    vae32 = AutoencoderKL(FAMILIES["sd15"].vae).eval()
+    vae16 = cast_module(copy.deepcopy(vae32), torch.bfloat16).to(cuda_device)
+    vae32 = vae32.to(cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    x = (torch.rand((1, 3, 256, 256), generator=gen) * 2 - 1).to(cuda_device)
+    with torch.inference_mode():
+        mean16, logvar16 = vae16.encode_moments(x)
+        mean32, _ = vae32.encode_moments(x)
+    assert mean16.dtype == logvar16.dtype == torch.float32
+    assert mean16.shape == (1, 4, 32, 32)
+    rel = float((mean16 - mean32).norm() / mean32.norm())
+    assert rel <= 3e-2, rel
+
+
+def _tiny_b1(monkeypatch, tmp_path, cuda_device):
+    """A bf16 SD-class tiny family whose 1024-token level (64 px through the
+    tiny VAE) takes B1 at head dim 64, its registry and a slot."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    tiny = FAMILIES["tiny"]
+    monkeypatch.setitem(FAMILIES, "tiny_b1", dataclasses.replace(
+        tiny, name="tiny_b1", unet=dataclasses.replace(
+            tiny.unet, block_out_channels=(64, 128), attention_head_dim=64,
+            head_dim_is_count=False, dtype="bfloat16")))
+    registry = ModelRegistry(catalog=[{"name": "tiny_b1",
+                                       "family": "tiny_b1"}],
+                             allow_random=True, device=cuda_device)
+    return registry, ChipPool(device=cuda_device).slots[0]
+
+
+def _image_job(mode: str, **over):
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    job = {"id": mode, "model_name": "tiny_b1", "prompt": "a red door",
+           "negative_prompt": "blurry", "num_inference_steps": 6,
+           "seed": 5, "content_type": "image/png",
+           "image": rng.integers(0, 255, (64, 64, 3), dtype=np.uint8)}
+    if mode == "img2img":
+        job["strength"] = 0.5
+    else:
+        mask = np.zeros((64, 64, 3), np.uint8)
+        mask[16:40, 8:48] = 255
+        job["mask_image"] = mask
+    job.update(over)
+    return job
+
+
+@pytest.mark.parametrize("mode", ["img2img", "inpaint"])
+def test_image_lane_pair_is_the_solo_pair_bit_for_bit(cuda_device,
+                                                      monkeypatch, tmp_path,
+                                                      mode):
+    """An img2img or inpaint job with two images on the solo path (a CFG
+    batch of 4 rows) and in a lane pinned at 2 rows (the same UNet batch,
+    the same batch-1 encode, renoise from the same generators) renders the
+    same grid bit for bit, B1 at the same shapes in both."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    grids, launches = {}, {}
+    for lanes in ("0", "1"):
+        monkeypatch.setenv("CHIASWARM_STEPPER", lanes)
+        monkeypatch.setenv("CHIASWARM_STEPPER_LANE_WIDTH", "2")
+        kernels.reset_launches()
+        result = synchronous_do_work(_image_job(mode,
+                                                num_images_per_prompt=2),
+                                     slot, registry)
+        cfg = result["pipeline_config"]
+        assert ("stepper" in cfg) == (lanes == "1") and cfg["mode"] == mode
+        grids[lanes] = _png_u8(result)
+        launches[lanes] = dict(KERNEL.shapes)
+    get_stepper(slot).shutdown()
+    assert grids["0"].shape == (64, 128, 3) and grids["0"].std() > 1.0
+    assert (grids["1"] == grids["0"]).all()
+    assert launches["0"] == launches["1"] and launches["0"]
+
+
+def test_inpaint_keeps_the_known_latents_on_the_card(cuda_device,
+                                                     monkeypatch, tmp_path):
+    """Solo and in a lane, an inpaint job's final latents equal its encoded
+    init latents exactly where the latent mask keeps them."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.pipelines.diffusion import latent_mask
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    pipe = registry.pipeline("tiny_b1")
+    seen = {"known": [], "final": []}
+    encode, decode = pipe.encode_init_image, pipe._decode_uint8
+
+    def spy_encode(*args, **kw):
+        seen["known"].append(encode(*args, **kw))
+        return seen["known"][-1]
+
+    def spy_decode(x):
+        seen["final"].append(x.clone())
+        return decode(x)
+
+    monkeypatch.setattr(pipe, "encode_init_image", spy_encode)
+    monkeypatch.setattr(pipe, "_decode_uint8", spy_decode)
+    job = _image_job("inpaint", scheduler_type="EulerAncestralDiscreteScheduler")
+    for lanes in ("0", "1"):
+        monkeypatch.setenv("CHIASWARM_STEPPER", lanes)
+        _png_u8(synchronous_do_work(dict(job), slot, registry))
+    get_stepper(slot).shutdown()
+    m = job["mask_image"].mean(-1) / 255.0
+    kept = torch.from_numpy(latent_mask(m, 32, 32, 2) == 0).to(cuda_device)
+    assert kept.any() and (~kept).any()
+    for known, final in zip(seen["known"], seen["final"]):
+        assert torch.equal(final[:1, :, kept], known[:, :, kept])
+    assert len(seen["final"]) == 2 and not np.array_equal(
+        seen["final"][0].cpu().numpy(), seen["known"][0].cpu().numpy())
+
+
+def test_encode_stays_outside_the_seq_context(cuda_device):
+    """Under a caller's ``seq = 4`` context on one card, the init-image
+    encode rings nothing and launches no B3: its 1024-token mid-block
+    attention stays local, as the JAX package encodes outside
+    ``seq_parallel_wrap``."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from chiaswarm_tpu_torch.ops.ring_flash_attention import FUSED_KERNEL
+    from chiaswarm_tpu_torch.parallel.context import (
+        capture_ring_calls,
+        sequence_parallel,
+    )
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
+
+    mesh = build_mesh(MeshSpec({"seq": 4}), devices=[cuda_device] * 4)
+    pipe = DiffusionPipeline(Components.random("tiny", seed=0,
+                                               device=cuda_device), mesh=mesh)
+    image = np.random.default_rng(4).integers(0, 255, (64, 64, 3),
+                                              dtype=np.uint8)
+    before = FUSED_KERNEL.launches
+    with capture_ring_calls() as calls, sequence_parallel(mesh):
+        z = pipe.encode_init_image(image, 64, 64, seed=1)
+    torch.cuda.synchronize()
+    assert calls == [] and FUSED_KERNEL.launches == before
+    assert z.shape == (1, 4, 32, 32) and torch.isfinite(z).all()

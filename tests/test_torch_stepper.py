@@ -77,6 +77,18 @@ ALL_KINDS = [None, "DDIMScheduler", "EulerDiscreteScheduler",
              "LCMScheduler"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and a lane's many small ops wait on an oversubscribed
+    thread pool far longer than they compute (several times slower than
+    one thread when the suite runs in parallel)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def jax_pipe():
     return JaxPipeline(JaxComponents.random("tiny", seed=0))
