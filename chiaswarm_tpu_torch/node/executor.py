@@ -1,11 +1,11 @@
 """Job executor: counterpart of ``chiaswarm_tpu/node/executor.py``
 (``_error_payload``/``_result``/``error_result``/``_format``/``_execute``
-:62-212, ``_stepper_submit``/``_stepper_collect`` :215-310,
-``synchronous_do_work`` :346-367, ``job_rows`` :386, ``single_chip_rows``
-:397-416, ``rows_cap`` :418, ``synchronous_do_work_batch`` :458-593, and
-the async ``do_work``/``do_work_batch`` :47-59, which the worker awaits:
-each runs its synchronous twin on a thread of the event loop's default
-executor).
+:62-212, ``_stepper_submit``/``_stepper_collect``/``_stepper_resubmit``
+:215-343, ``synchronous_do_work`` :346-367, ``job_rows`` :386,
+``single_chip_rows`` :397-416, ``rows_cap`` :418,
+``synchronous_do_work_batch`` :458-593, and the async
+``do_work``/``do_work_batch`` :47-59, which the worker awaits: each runs its
+synchronous twin on a thread of the event loop's default executor).
 
 Error taxonomy, as in the reference: argument-formatting errors and
 ``ValueError`` raised by callbacks are fatal (``fatal_error: True``, do not
@@ -22,13 +22,24 @@ load-per-job (``registry.lane_resident_ok``, JAX :230-238). A model that
 cannot fit even transiently raises ``ModelUnavailable``: the non-fatal
 ``model_unavailable`` envelope.
 Both paths run on the slot's device. ``CHIASWARM_STEPPER=0`` sends every job
-down the solo path. Coalesced bursts and the lane-rebuild rung of the hang
-watchdog are later slices (``ROADMAP.md``).
+down the solo path. Coalesced bursts are a later slice (``ROADMAP.md``).
+
+The gray-failure guard (``serving/guard.py``): a diffusion job's solo call
+runs under the hang watchdog (``watch_solo``; a hung call raises
+``StepHung``, ``transient`` for the worker's retry ladder), and an
+``invalid_output`` feeds the slot's device guard. A job whose lane the
+watchdog condemned (``LaneHung``) is re-admitted once to a fresh lane with
+the seed its first admission drew and the condemnation's checkpoint, so it
+resumes at that step (the lane-rebuild rung); a second hang takes the per-job
+path. A burst re-admits its condemned jobs together, in order, once every
+job of the burst has left its lane, so they share a fresh lane in the slots
+and at the width they held (a lane row's bits depend on both).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import logging
 from typing import Any
 
@@ -42,7 +53,12 @@ from chiaswarm_tpu_torch.node.output_processor import (
 )
 from chiaswarm_tpu_torch.node.resilience import NONFATAL_KINDS, classify_exception
 from chiaswarm_tpu_torch.obs import trace as obs_trace
-from chiaswarm_tpu_torch.serving.guard import InvalidOutput
+from chiaswarm_tpu_torch.serving.guard import (
+    InvalidOutput,
+    LaneHung,
+    _slot_devices,
+    watch_solo,
+)
 
 log = logging.getLogger("chiaswarm_torch.executor")
 
@@ -132,10 +148,27 @@ def _format(job: dict[str, Any], registry):
     return (job_id, content_type, callback, kwargs), None
 
 
+def _note_invalid(slot, model: Any) -> None:
+    """A poisoned output is a health event for the slot's devices."""
+    guard = getattr(slot, "_guard", None)
+    if guard is not None:
+        guard.note_invalid_output(_slot_devices(slot), model=str(model or ""))
+
+
 def _execute(job_id, content_type, callback, kwargs, slot) -> dict:
+    # a diffusion job's solo denoise runs under the hang watchdog, keyed by
+    # (model, height, width): each key's first watched call gets the
+    # ceiling budget
+    watched_steps = (kwargs.get("num_inference_steps")
+                     if getattr(callback, "__name__", "")
+                     == "diffusion_callback" else None)
+    watch_key = (str(kwargs.get("model_name")), kwargs.get("height"),
+                 kwargs.get("width"))
     try:
-        artifacts, config = slot(callback, **kwargs)
+        with watch_solo(slot, watched_steps, key=watch_key):
+            artifacts, config = slot(callback, **kwargs)
     except InvalidOutput as exc:
+        _note_invalid(slot, kwargs.get("model_name"))
         log.error("job %s produced invalid output (%s); envelope uploaded "
                   "instead of the poisoned image", job_id, exc)
         artifacts, config = _error_payload(exc, content_type,
@@ -193,8 +226,9 @@ def _stepper_submit(job_id, content_type, callback, kwargs, slot, registry):
 def _stepper_collect(job_id, content_type, slot, ticket) -> dict | None:
     """Wait out a lane ticket. Returns the finished result, a timeout
     envelope (in-lane deadline expiry), an ``invalid_output`` envelope
-    (screened poisoned rows), or None: the job re-runs through the per-job
-    path (a lane fault; zero-loss fallback)."""
+    (poisoned rows), or None: the job re-runs through the per-job path (a
+    lane fault; zero-loss fallback), or, when the watchdog condemned its
+    lane, is re-admitted by :func:`_collect_lanes`."""
     from chiaswarm_tpu_torch.serving.stepper import LaneDeadline, get_stepper
     from chiaswarm_tpu_torch.workloads.diffusion import stepper_finish
 
@@ -204,9 +238,14 @@ def _stepper_collect(job_id, content_type, slot, ticket) -> dict | None:
     except LaneDeadline as exc:
         return error_result(job, exc, kind="timeout")
     except InvalidOutput as exc:
+        _note_invalid(slot, ticket.model_name)
         log.error("job %s retired invalid_output (%s); envelope uploaded "
                   "instead of a poisoned image", job_id, exc)
         return error_result(job, exc, kind="invalid_output")
+    except LaneHung as exc:
+        # the hang reached the device guard when the lane was condemned
+        log.warning("job %s lost its lane to the watchdog (%s)", job_id, exc)
+        return None
     except Exception as exc:  # the per-job path re-runs the job
         kind = classify_exception(exc)
         if kind == "oom":
@@ -215,6 +254,65 @@ def _stepper_collect(job_id, content_type, slot, ticket) -> dict | None:
                     job_id, kind, exc)
         return None
     return _result(job_id, artifacts, config)
+
+
+def _stepper_resubmit(job_id, slot, registry, kwargs, ticket, exc):
+    """Re-admit a condemned lane's job to a fresh lane (the lane-rebuild
+    rung): its kwargs, the seed its first admission drew, and the
+    condemnation's checkpoint as ``resume``. Returns the new ticket, or None
+    (the per-job path)."""
+    from chiaswarm_tpu_torch.workloads.diffusion import stepper_submit
+
+    retry_kwargs = dict(kwargs)
+    retry_kwargs["seed"] = ticket.seed
+    resume = getattr(exc, "resume", None)
+    if isinstance(resume, dict):
+        retry_kwargs["resume"] = resume
+    else:
+        retry_kwargs.pop("resume", None)
+    try:
+        retry = stepper_submit(slot, registry, retry_kwargs, ticket.seed,
+                               job_id=job_id)
+    except Exception as submit_exc:
+        log.warning("job %s lane re-admission failed (%s); per-job path",
+                    job_id, submit_exc)
+        return None
+    log.warning("job %s re-admitted to a fresh lane after condemnation%s",
+                job_id, (f", resuming at step {resume.get('step')}"
+                         if isinstance(resume, dict)
+                         else " (no checkpoint: restarting at step 0)"))
+    return retry
+
+
+def _collect_lanes(tickets, slot, registry,
+                   traced=lambda i: contextlib.nullcontext()) -> dict:
+    """Collect lane tickets ``(i, formatted, ticket)`` in order -> {i: result
+    or None (the per-job path)}. Jobs whose lane the watchdog condemned are
+    re-admitted once, together and in order, after the loop: by then every
+    ticket's rows have left their lanes, so the condemned jobs share a fresh
+    lane in the slots and at the width they held (a lane row's bits depend
+    on both). A second hang takes the per-job path."""
+    results: dict[int, dict | None] = {}
+    hung = []
+    for i, formatted, ticket in tickets:
+        with traced(i):
+            results[i] = _stepper_collect(formatted[0], formatted[1], slot,
+                                          ticket)
+        if results[i] is None and isinstance(ticket.future.exception(),
+                                             LaneHung):
+            hung.append((i, formatted, ticket))
+    retries = []
+    for i, formatted, ticket in hung:
+        with traced(i):
+            retries.append(_stepper_resubmit(
+                formatted[0], slot, registry, formatted[3], ticket,
+                ticket.future.exception()))
+    for (i, formatted, _), retry in zip(hung, retries):
+        if retry is not None:
+            with traced(i):
+                results[i] = _stepper_collect(formatted[0], formatted[1],
+                                              slot, retry)
+    return results
 
 
 def synchronous_do_work(job: dict[str, Any], slot, registry) -> dict[str, Any]:
@@ -226,10 +324,10 @@ def synchronous_do_work(job: dict[str, Any], slot, registry) -> dict[str, Any]:
         formatted, fatal = _format(job, registry)
         if formatted is None:
             return fatal
-        job_id, content_type, _, _ = formatted
         ticket = _stepper_submit(*formatted, slot, registry)
         if ticket is not None:
-            result = _stepper_collect(job_id, content_type, slot, ticket)
+            result = _collect_lanes([(0, formatted, ticket)], slot,
+                                    registry)[0]
             if result is not None:
                 return result
         return _execute(*formatted, slot)
@@ -298,12 +396,10 @@ def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
             tickets.append((i, formatted, ticket))
         else:
             singles.append((i, formatted))
-    for i, formatted, ticket in tickets:
-        with traced(i):
-            result = _stepper_collect(formatted[0], formatted[1], slot,
-                                      ticket)
-        if result is not None:
-            results[i] = result
+    collected = _collect_lanes(tickets, slot, registry, traced)
+    for i, formatted, _ in tickets:
+        if collected[i] is not None:
+            results[i] = collected[i]
         else:
             singles.append((i, formatted))
     for i, formatted in singles:

@@ -15,7 +15,17 @@ handling:
 - **graceful drain**: SIGTERM/SIGINT stop polling first, in-flight bursts
   and the result queue drain (bounded by the drain timeouts), and results
   that exhaust their upload retries spool to a **dead-letter** directory
-  that replays on the next start.
+  that replays on the next start;
+- the **gray-failure guard** (``serving/guard.py``; JAX :259-276,
+  :1165, :1324-1406): a ``DeviceGuard`` built from the ``guard_*``
+  settings is set on every slot as ``slot._guard`` and seeded with its
+  devices; lanes and the solo watchdog feed it hangs, slow steps and
+  invalid outputs, and every poll applies the rungs it queued:
+  ``cache_flush``, ``device_quarantine`` (a slot's data mesh shrinks to its
+  healthy cards; a slot of one card declines, and the ladder escalates),
+  ``restart`` (the graceful drain, then exit code 73 from ``run_worker``
+  and ``main``). With ``guard_enabled`` false the guard counts events and
+  applies no rung.
 
 Jobs go through the port's executor (``node/executor.py``): lanes first, as
 the executor routes them. A slot keeps up to ``slot.depth`` bursts in
@@ -33,8 +43,6 @@ Left for the next worker slice, and refused when a setting asks for them
 ``hive_front_uri``): the heartbeat loop with checkpoints and resume (and
 the placement hints its acks carry, ``note_placement``), the health server
 and ``/metrics``, the overload controller, federation over hive shards.
-The gray-failure guard is not ported: ``guard_enabled`` is ignored, which
-the startup log says once.
 
 ``python -m chiaswarm_tpu_torch.node.worker`` runs one worker on the
 machine's CUDA cards. There is no CPU fallback: pass ``pool=`` and
@@ -96,6 +104,7 @@ from chiaswarm_tpu_torch.node.settings import (
 )
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.serving import guard as _guard
 
 log = logging.getLogger("chiaswarm_torch.worker")
 
@@ -221,6 +230,19 @@ class Worker:
             "jobs settled (uploaded or dead-lettered), by final outcome",
             labelnames=("outcome",))
         self.stats = ResilienceStats(self.metrics)
+        # the per-worker device-health ledger and healing ladder; always
+        # built (its chiaswarm_guard_* families read 0 from the start),
+        # its rungs applied only with guard_enabled
+        self.guard = _guard.DeviceGuard(
+            enabled=self.settings.guard_enabled,
+            cache_flush_after=self.settings.guard_cache_flush_after,
+            quarantine_after=self.settings.guard_quarantine_after,
+            restart_after=self.settings.guard_restart_after,
+            metrics_registry=self.metrics)
+        for slot in self.pool:
+            slot._guard = self.guard
+            self.guard.seed_devices(_guard._slot_devices(slot))
+        # 0, or GUARD_RESTART_EXIT_CODE after the restart rung's drain
         self.exit_code = 0
         self._retry_rng = random.Random(
             f"retry:{self.settings.worker_name}")
@@ -364,9 +386,6 @@ class Worker:
         log.info("worker %s: %d card(s), %d slot(s), mesh %s",
                  self.settings.worker_name, cards, len(self.pool),
                  None if self.mesh_spec is None else self.mesh_spec.shape)
-        if self.settings.guard_enabled:
-            log.info("guard_enabled is ignored: the gray-failure guard is "
-                     "not ported")
 
     def request_stop(self) -> None:
         self._stop.set()
@@ -518,6 +537,91 @@ class Worker:
             self._finish_trace(trace, result, settled="dead_letter")
             self.result_queue.task_done()
 
+    # ---- the healing ladder (serving/guard.py) ----
+
+    def _apply_heal_rungs(self) -> None:
+        """Apply the rungs the device guard queued since the last poll (JAX
+        :1324-1365), and mirror the lanes' guard counters into the worker's
+        registry. The lane rebuild happened lane-side at condemnation.
+
+        - ``cache_flush``: the port keeps no executable cache to drop, so
+          the rung re-colds what warm-up built: every lane's warm widths
+          and the solo watchdog's warm keys (``note_cache_flush``; each
+          lane clears its widths at its next dispatch), so the next calls
+          run under the ceiling budget. Host state only: no
+          ``torch.cuda.empty_cache()`` or synchronize here, since either
+          would block the poll loop on a wedged card.
+        - ``device_quarantine``: :meth:`_quarantine_device`.
+        - ``restart``: the graceful drain, then exit code
+          ``GUARD_RESTART_EXIT_CODE``."""
+        self._mirror_lane_counters()
+        if not self.settings.guard_enabled:
+            return
+        for action in self.guard.take_actions():
+            if action.rung == "cache_flush":
+                _guard.note_cache_flush()
+                log.error("guard heal: lanes and solo keys re-colded, "
+                          "flush epoch %d (%s)", _guard.flush_epoch(),
+                          action.reason)
+            elif action.rung == "device_quarantine":
+                self._quarantine_device(action.device, action.reason)
+            elif action.rung == "restart":
+                log.error("guard heal: self-restart requested (%s); "
+                          "draining gracefully, exit code %d",
+                          action.reason, _guard.GUARD_RESTART_EXIT_CODE)
+                self.exit_code = _guard.GUARD_RESTART_EXIT_CODE
+                self.request_stop()
+
+    def _quarantine_device(self, device: str, reason: str) -> None:
+        """Shrink every slot mesh holding ``device`` to its healthy devices
+        (JAX :1367-1406): data-axis meshes only. The slot's lanes retire
+        first (their rows bounce to the per-job path). A slot that cannot
+        shrink (its only device, or another axis above 1) declines, and
+        the ladder escalates to restart."""
+        from chiaswarm_tpu_torch.core.mesh import build_mesh
+
+        for slot in self.pool:
+            devices = _guard._slot_devices(slot)
+            if device not in devices:
+                continue
+            healthy = [torch.device(d) for d in devices if d != device]
+            shape = slot.mesh.shape
+            others = 1
+            for name, size in shape.items():
+                if name != DATA_AXIS:
+                    others *= int(size)
+            if not healthy or others != 1:
+                log.error("guard heal: cannot quarantine device %s out of "
+                          "slot %s (mesh %s, devices %s); the ladder "
+                          "escalates to restart instead", device,
+                          slot.index, shape, devices)
+                continue
+            stepper = getattr(slot, "_stepper", None)
+            if stepper is not None:
+                stepper.shutdown(timeout_s=5.0)
+            slot.mesh = build_mesh(MeshSpec({DATA_AXIS: len(healthy)}),
+                                   healthy)
+            slot.device = slot.mesh.lead
+            log.error("guard heal: device %s quarantined (%s); slot %s "
+                      "mesh shrunk to %d healthy device(s)", device, reason,
+                      slot.index, len(healthy))
+
+    def _mirror_lane_counters(self) -> None:
+        """The guard's lane counters as ``chiaswarm_stepper_<key>_total``
+        on the worker's registry (the JAX worker's collector, :1011-1025,
+        for these keys)."""
+        from chiaswarm_tpu_torch.serving.stepper import aggregate_stats
+
+        steppers = [slot._stepper for slot in self.pool
+                    if getattr(slot, "_stepper", None) is not None]
+        totals = aggregate_stats(steppers) if steppers else {}
+        for key in ("lanes_condemned", "rows_hung", "rows_invalid",
+                    "steps_slow", "rows_resumed", "resumes_rejected"):
+            self.metrics.counter(
+                f"chiaswarm_stepper_{key}_total",
+                f"step scheduler: cumulative {key}").set_to(
+                    totals.get(key, 0))
+
     # ---- tasks ----
 
     async def _poll_loop(self) -> None:
@@ -534,6 +638,7 @@ class Worker:
                 if self._stop.is_set():
                     return
                 delay = await self._ask_for_work(session)
+                self._apply_heal_rungs()
                 try:
                     await asyncio.wait_for(self._stop.wait(), timeout=delay)
                 except asyncio.TimeoutError:
@@ -949,7 +1054,9 @@ class Worker:
 
 
 async def run_worker(settings: Settings | None = None) -> int:
-    """Run one worker to completion; returns its exit code."""
+    """Run one worker to completion; returns its exit code: 0, or
+    ``GUARD_RESTART_EXIT_CODE`` (73) after the restart rung's graceful
+    drain."""
     worker = Worker(settings)
     await worker.run()
     return int(worker.exit_code)

@@ -2,9 +2,12 @@
 ``chiaswarm_tpu/obs/metrics.py`` (:31-387 and :806-831), trimmed to what the
 worker (``node/worker.py``) and ``node/resilience.py::ResilienceStats`` use:
 :class:`Registry`, :class:`Counter`, :class:`Gauge`, :class:`Histogram`,
-:func:`render_all`, the process-global :data:`REGISTRY`, the dead-letter
-and hive-session families, and the residency families (:530-636), which
-``serving/residency.py`` registers on :data:`REGISTRY` with zeroes.
+:func:`render_all`, the process-global :data:`REGISTRY`, the dead-letter and
+hive-session families, the residency families (:530-636), which
+``serving/residency.py`` registers on :data:`REGISTRY` with zeroes, and the
+gray-failure guard's ``chiaswarm_guard_*`` families (:704-780), which each
+worker's ``serving/guard.py::DeviceGuard`` registers on the worker's
+registry with zeroes.
 
 Each worker owns its own :class:`Registry` (hermetic test workers must not
 bleed counters into each other); process-wide state, such as the hive
@@ -107,6 +110,13 @@ class Counter(_Metric):
         key = self._key(labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
+
+    def set_to(self, value: float, **labels: Any) -> None:
+        """Mirror a cumulative count kept elsewhere (never goes down)."""
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = max(self._values.get(key, 0.0),
+                                    float(value))
 
 
 class Gauge(_Metric):
@@ -223,6 +233,10 @@ class Registry:
                   buckets: Sequence[float] = DEFAULT_BUCKETS) -> Histogram:
         return self._get_or_create(Histogram, name, help, labelnames,
                                    buckets=buckets)
+
+    def get(self, name: str) -> _Metric | None:
+        with self._lock:
+            return self._metrics.get(name)
 
     def _sorted_metrics(self) -> list[_Metric]:
         with self._lock:
@@ -367,3 +381,68 @@ def residency_load_seconds_histogram(
         labelnames=("mode", "swapped"),
         buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
                  60.0, 120.0, 300.0))
+
+
+# ---- gray-failure guard families (serving/guard.py) ----
+#
+# The DeviceGuard is per worker (hermetic test workers must not bleed
+# health events into each other): it takes the worker's registry and
+# pre-seeds every enumerable label. The ``model`` and ``device`` labels
+# are bounded by the catalog and the card count.
+
+
+def guard_hangs_counter(registry: Registry | None = None) -> Counter:
+    """Calls the watchdog declared hung, by phase (``lane`` step dispatch
+    or ``solo`` denoise): the gray-failure signal, a card that wedges
+    without dying."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_guard_hangs_total",
+        "compiled calls declared hung by the step watchdog, by phase",
+        labelnames=("phase",))
+
+
+def guard_condemned_counter(registry: Registry | None = None) -> Counter:
+    """Lanes condemned by the watchdog, each one a lane-rebuild rung: the
+    rows re-admit to a fresh lane from their last step-boundary
+    checkpoint."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_guard_condemned_lanes_total",
+        "lanes condemned by the hang watchdog (rows re-admitted to a "
+        "fresh lane)")
+
+
+def guard_invalid_counter(registry: Registry | None = None) -> Counter:
+    """Jobs retired ``invalid_output`` (non-finite latents or a poisoned
+    decoded frame), by model: one model alone points at its weights,
+    every model together at the card."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_guard_invalid_outputs_total",
+        "jobs retired invalid_output instead of uploading a poisoned "
+        "image, by model",
+        labelnames=("model",))
+
+
+def guard_device_health_gauge(registry: Registry | None = None) -> Gauge:
+    """Per-device health in [0, 1]: 1 healthy, falling with the sickness
+    streak of hangs, slow steps and invalid outputs, rising with OK
+    steps."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_guard_device_health",
+        "per-device health score (1 = healthy; ladder rungs fire as "
+        "the sickness streak grows)",
+        labelnames=("device",))
+
+
+def guard_heal_rung_counter(registry: Registry | None = None) -> Counter:
+    """Healing-ladder escalations by rung: ``lane_rebuild`` (every
+    condemnation), ``cache_flush``, ``device_quarantine``, ``restart``."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_guard_heal_rung_total",
+        "self-healing ladder escalations, by rung",
+        labelnames=("rung",))
+
+
+def guard_quarantined_gauge(registry: Registry | None = None) -> Gauge:
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_guard_quarantined_devices",
+        "devices currently quarantined out of the serving mesh")

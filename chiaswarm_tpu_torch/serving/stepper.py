@@ -60,6 +60,8 @@ Knobs (the JAX package's names and defaults):
 - ``CHIASWARM_STEPPER_MIN_WIDTH`` / ``_MAX_WIDTH``  adaptive bounds
 - ``CHIASWARM_STEPPER_ROW_DEADLINE_S``  per-row in-lane deadline (600)
 - ``CHIASWARM_STEPPER_IDLE_S``  idle grace before a lane retires (15)
+- ``CHIASWARM_STEPPER_CKPT_EVERY``  steps between in-memory row checkpoints
+  (8; 0 turns them and the per-row finite check off)
 
 Workload row state: an img2img row starts at its strength's ladder index
 from its encoded init image; an inpaint row starts at 0 and carries its
@@ -67,14 +69,46 @@ clean latents (``known``) and latent-grid mask, and only such rows
 (``mask_on``) re-project and draw renoise, so a txt2img row beside them keeps
 its bits.
 
-Not here yet (``ROADMAP.md``): checkpoints and resume, the hang watchdog
-and lane condemnation, the overload admission cap and poll hints, metrics,
-ControlNet row state and DeepCache reuse lanes.
+The gray-failure guard (``serving/guard.py``; JAX :473-610, :1003-1156,
+:1246-1376, :1630-1985):
+
+- **Watchdog.** Each dispatch is armed from before the step's launches to
+  after the depth-2 window's ``event.synchronize()``, where a wedged card
+  blocks the lane thread; so are the checkpoint's copy to the host and an
+  idle lane's wait for its last decodes (JAX arms the dispatch alone).
+  The budget is the scheduler's :meth:`StepScheduler.hang_budget`, the
+  ceiling for a lane's first dispatch at a width and the first after a
+  ``cache_flush`` rung. Past it, :meth:`Lane.condemn` runs in the monitor
+  thread and never touches the device: it retires the lane and fails every
+  job with :class:`~chiaswarm_tpu_torch.serving.guard.LaneHung`, carrying
+  the job's last checkpoint; the returning lane thread condemns again (a
+  no-op) and exits. A scheduler joins its condemned lanes' threads at
+  shutdown, with the same timeout.
+- **Checkpoints.** Every ``CHIASWARM_STEPPER_CKPT_EVERY`` lane steps the
+  lane copies ``x`` to the host (the copy waits for every queued step),
+  finite-checks each job's rows (a poisoned job retires alone with
+  ``InvalidOutput``) and keeps each job's resume state in memory: latents,
+  multistep history and step, in the JAX envelope's keys, and beside them,
+  under ``generators``, each row's noise ``torch.Generator`` state, taken
+  in the lane thread where the draws happen. The durable spool that ships
+  them to the hive is the heartbeat slice's.
+- **Resume.** ``submit_request(resume=...)`` validates a checkpoint against
+  the job (:meth:`StepScheduler._validate_resume`) and splices the rows in
+  at its step with their latents, history and generators; an image row
+  re-derives its start index, ``known`` and mask from the job's inputs. A
+  payload it cannot trust, a JAX lane checkpoint among them (its threefry
+  keys are not the port's noise stream), is rejected loudly and the job
+  restarts at 0.
+
+Not here yet (``ROADMAP.md``): the overload admission cap and poll hints,
+the lane metrics but the checkpoint-seconds histogram (the step-seconds and
+resume-step histograms wait for ``/metrics``, their reader), ControlNet row state and DeepCache reuse lanes.
 """
 
 from __future__ import annotations
 
 import atexit
+import base64
 import collections
 import contextlib
 import contextvars
@@ -98,6 +132,7 @@ from chiaswarm_tpu_torch.core.buckets import (
 )
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.rng import row_generators
+from chiaswarm_tpu_torch.obs import metrics as obs_metrics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.pipelines.diffusion import PendingImages
 from chiaswarm_tpu_torch.schedulers import (
@@ -106,6 +141,8 @@ from chiaswarm_tpu_torch.schedulers import (
     make_sampling_schedule,
     resolve,
 )
+from chiaswarm_tpu_torch.serving import guard as _guard
+from chiaswarm_tpu_torch.serving.guard import InvalidOutput, LaneHung
 from chiaswarm_tpu_torch.serving.residency import ArrivalEwma
 
 log = logging.getLogger("chiaswarm_torch.stepper")
@@ -117,8 +154,20 @@ ENV_MIN_WIDTH = "CHIASWARM_STEPPER_MIN_WIDTH"
 ENV_MAX_WIDTH = "CHIASWARM_STEPPER_MAX_WIDTH"
 ENV_ROW_DEADLINE = "CHIASWARM_STEPPER_ROW_DEADLINE_S"
 ENV_IDLE_S = "CHIASWARM_STEPPER_IDLE_S"
+ENV_CKPT_EVERY = "CHIASWARM_STEPPER_CKPT_EVERY"
 
 _OFF = ("0", "false", "off", "no")
+
+# checkpoint seconds (chip_smoke's guard_cost reads them)
+_CKPT_SECONDS = obs_metrics.REGISTRY.histogram(
+    "chiaswarm_stepper_checkpoint_seconds",
+    "wall time of one lane checkpoint (device->host copy, finite check, "
+    "generator states)",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0))
+
+#: the version of the port's lane checkpoint (JAX's envelope keys plus
+#: ``generators``)
+CKPT_VERSION = 1
 
 
 def stepper_enabled() -> bool:
@@ -134,6 +183,45 @@ def adaptive_enabled() -> bool:
     if os.environ.get(ENV_LANE_WIDTH, "").strip():
         return False
     return os.environ.get(ENV_ADAPTIVE, "").strip().lower() not in _OFF
+
+
+# ---- resume-state packing (JAX :199-222) ----
+#
+# A checkpoint is JSON-safe: arrays ride as base64 raw bytes with dtype and
+# shape, exact bit for bit. numpy has no bfloat16, so a bf16 tensor rides
+# as its raw 16-bit words under dtype "bfloat16".
+
+
+def pack_array(arr: Any) -> dict[str, Any]:
+    """A tensor or array -> ``{"dtype", "shape", "b64"}``."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().to("cpu").contiguous()
+        if t.dtype == torch.bfloat16:
+            return {"dtype": "bfloat16", "shape": list(t.shape),
+                    "b64": base64.b64encode(
+                        t.view(torch.int16).numpy().tobytes()
+                    ).decode("ascii")}
+        arr = t.numpy()
+    a = np.ascontiguousarray(np.asarray(arr))
+    return {"dtype": str(a.dtype), "shape": list(a.shape),
+            "b64": base64.b64encode(a.tobytes()).decode("ascii")}
+
+
+def unpack_array(spec: dict[str, Any]) -> torch.Tensor:
+    """:func:`pack_array`'s inverse, a CPU tensor."""
+    raw = base64.b64decode(spec["b64"])
+    shape = [int(n) for n in spec["shape"]]
+    if str(spec["dtype"]) == "bfloat16":
+        words = np.frombuffer(raw, dtype=np.int16).reshape(shape).copy()
+        return torch.from_numpy(words).view(torch.bfloat16)
+    a = np.frombuffer(raw, dtype=np.dtype(str(spec["dtype"])))
+    return torch.from_numpy(a.reshape(shape).copy())
+
+
+class ResumeReject(RuntimeError):
+    """The resume payload does not match this job (another job's shape or
+    steps, corrupt arrays, another noise stream): the job restarts at step
+    0. Lost progress is acceptable; the wrong trajectory is not."""
 
 
 class LaneReject(RuntimeError):
@@ -174,11 +262,21 @@ class _RowJob:                    # must never compare tensor fields
     start_step: int = 0
     known0: torch.Tensor | None = None  # (n, C, h, w) clean init latents
     mask0: torch.Tensor | None = None   # (n, 1, h, w) 1 = regenerate
+    # a resumed job's rows splice in at ``resume_step`` with restored
+    # latents (x0), multistep history and generators
+    resume_step: int = 0
+    old0: torch.Tensor | None = None    # (n, C, h, w) restored history
     future: Future = dataclasses.field(default_factory=Future)
     admitted_at_step: int = -1
     slots: list[int] = dataclasses.field(default_factory=list)
     submitted_t: float = dataclasses.field(default_factory=time.perf_counter)
     admitted_t: float = 0.0
+
+    @property
+    def idx0(self) -> int:
+        """The ladder index the rows are admitted at: the resume step, else
+        the workload's start."""
+        return self.resume_step if self.resume_step > 0 else self.start_step
 
 
 class LaneWidthController:
@@ -323,6 +421,17 @@ class Lane:
         # retired rows whose decode is still in flight: the future resolves
         # once the images are resident
         self._handoff: collections.deque = collections.deque()
+        # the guard: condemnation (from the watchdog's thread), each job's
+        # last in-memory checkpoint, the chaos plan (trigger steps count
+        # from the dispatch that first saw it) and the widths whose first
+        # dispatch this lane has made in the current flush epoch
+        self._ckpt_every = int(os.environ.get(ENV_CKPT_EVERY, "8") or 8)
+        self._condemned = False
+        self._ckpt_mem: dict[int, dict[str, Any]] = {}
+        self._chaos_base: int | None = None
+        self._chaos_seen: _guard.LaneChaos | None = None
+        self._warm_widths: set[int] = set()
+        self._flush_epoch = _guard.flush_epoch()
         # the creator's context (instrumentation such as capture_ring_calls)
         # reaches the lane thread, as it would an asyncio task; the job
         # trace of the row that opened the lane does not
@@ -384,6 +493,59 @@ class Lane:
     def join(self, timeout: float | None = None) -> None:
         self._thread.join(timeout)
 
+    def condemn(self, reason: str) -> None:
+        """Declare the lane hung (JAX :548-611). Runs in the watchdog's
+        thread while the lane thread is blocked in the wedged step, so it
+        never touches the device: it retires the lane (a racing submit opens
+        a fresh one), clears the row file and fails every job with
+        :class:`LaneHung`, resident jobs with their last checkpoint. Rows
+        whose decode is queued fail too: waiting on it here would wedge the
+        watchdog, so those jobs re-run. Idempotent."""
+        with self._cond:
+            if self._retired or self._condemned:
+                return
+            self._condemned = True
+            self._retired = True
+            jobs = {id(j): j for j in self._rows if j is not None}
+            pending = list(self._pending)
+            self._pending.clear()
+            for s in range(self.width):
+                self._rows[s] = None
+            self._h_active[:] = False
+            resumes = {jid: self._ckpt_mem.get(jid) for jid in jobs}
+            handoff = list(self._handoff)
+            self._handoff.clear()
+            self._cond.notify_all()
+        # outside the lane lock: _lane_done and _count take sched._lock
+        self._sched._lane_condemned(self)
+        rows_hung = 0
+        for jid, job in jobs.items():
+            rows_hung += job.n_rows
+            if not job.future.done():
+                job.future.set_exception(LaneHung(
+                    f"lane {self.lane_id} condemned: {reason}",
+                    resume=resumes.get(jid)))
+        for job in pending:
+            rows_hung += job.n_rows
+            if not job.future.done():
+                job.future.set_exception(LaneHung(
+                    f"lane {self.lane_id} condemned with the job still "
+                    f"pending: {reason}"))
+        for job, _images, _info, _event in handoff:
+            if not job.future.done():
+                job.future.set_exception(LaneHung(
+                    f"lane {self.lane_id} condemned with the decode "
+                    f"in flight: {reason}"))
+        self._sched._count(lanes_condemned=1, rows_hung=rows_hung)
+        device_guard = getattr(self._sched.slot, "_guard", None)
+        if device_guard is not None:
+            device_guard.note_hang(_guard._slot_devices(self._sched.slot),
+                                   phase="lane")
+            device_guard.note_condemned()
+        log.error("lane %d CONDEMNED (%s): %d row(s) failed over with "
+                  "resume state for a fresh lane", self.lane_id, reason,
+                  rows_hung)
+
     # ---- the lane thread ----
 
     def _drive(self) -> None:
@@ -429,6 +591,7 @@ class Lane:
                     self._sched._maybe_fault(self)
                     self._dispatch_step()
                     self._retire_rows()
+                    self._maybe_checkpoint()
                     self._flush_handoff(block=not self._h_active.any())
         except Exception as exc:  # containment seam: rows bounce, not hang
             self._fail_all(exc)
@@ -505,8 +668,13 @@ class Lane:
             sel = self._index(slots)
             dev = self._dev
             dev["x"].index_copy_(0, sel, job.x0)
-            dev["old"].index_fill_(0, sel, 0.0)
-            dev["idx"].index_fill_(0, sel, job.start_step)
+            # a resumed row brings its multistep history and rejoins at
+            # its step; a fresh one starts clean at its workload's start
+            if job.old0 is None:
+                dev["old"].index_fill_(0, sel, 0.0)
+            else:
+                dev["old"].index_copy_(0, sel, job.old0)
+            dev["idx"].index_fill_(0, sel, job.idx0)
             if job.known0 is None:
                 dev["known"].index_fill_(0, sel, 0.0)
                 dev["mask"].index_fill_(0, sel, 1.0)
@@ -517,7 +685,7 @@ class Lane:
             dev["ctx_c"].index_copy_(0, sel, job.ctx_c)
             dev["pooled_u"].index_copy_(0, sel, job.pooled_u)
             dev["pooled_c"].index_copy_(0, sel, job.pooled_c)
-            self._h_idx[slots] = job.start_step
+            self._h_idx[slots] = job.idx0
             self._h_start[slots] = job.start_step
             self._h_mask_on[slots] = job.known0 is not None
             self._h_sig[slots, :] = 0.0
@@ -539,7 +707,11 @@ class Lane:
             self._deferred_counts.append(dict(
                 rows_admitted=job.n_rows,
                 rows_admitted_midflight=job.n_rows if mid_flight else 0,
+                rows_resumed=job.n_rows if job.resume_step > 0 else 0,
                 **{f"rows_admitted_{job.workload}": job.n_rows}))
+            if job.resume_step > 0:
+                log.info("job %s resumed at step %d/%d (%d row(s))",
+                         job.job_id, job.resume_step, job.steps, job.n_rows)
 
     def _resize_locked(self, width_limit: int | None, rate: float) -> None:
         """Adaptive capacity, applied only here: between dispatches, under
@@ -592,9 +764,50 @@ class Lane:
                 self._dev[name] = remap(self._dev[name])
             self._sync_tables()
 
+    @contextlib.contextmanager
+    def _watched(self, budget: float | None, what: str):
+        """Arm the watchdog around a stretch of the lane thread that may
+        wait on the card (JAX :1026-1091). If it fired meanwhile, the lane
+        was condemned from the monitor thread; condemn again here (a no-op
+        unless this thread got back first) and leave the lane thread."""
+        if budget is None:
+            yield
+            return
+        ticket = _guard.WATCHDOG.arm(
+            budget, lambda: self.condemn(
+                f"{what} exceeded its {budget:.1f}s hang budget"),
+            tag=f"lane-{self.lane_id}-{what}")
+        try:
+            yield
+        finally:
+            fired = _guard.WATCHDOG.disarm(ticket)
+        if fired:
+            self.condemn(f"{what} exceeded its hang budget")
+            raise LaneRetired(f"lane {self.lane_id} condemned by the hang "
+                              f"watchdog at {what}")
+
     def _dispatch_step(self) -> None:
         dev = self._dev
-        t0 = time.perf_counter()
+        this_step = self.steps_executed + 1
+        # the chaos plan, re-read at each dispatch; its trigger steps count
+        # from the dispatch that first saw it
+        chaos = _guard.LaneChaos.from_env()
+        if not chaos.armed:
+            self._chaos_base = self._chaos_seen = None
+        elif chaos != self._chaos_seen:
+            self._chaos_base = self.steps_executed
+            self._chaos_seen = chaos
+        chaos_step = (this_step - self._chaos_base
+                      if self._chaos_base is not None else 0)
+        # a lane's first dispatch at a width, and the first after a
+        # cache_flush rung, pay warm-up: the ceiling budget, not k x EWMA
+        epoch = _guard.flush_epoch()
+        if epoch != self._flush_epoch:
+            self._flush_epoch = epoch
+            self._warm_widths.clear()
+        budget = self._sched.hang_budget()
+        if budget is not None and self.width not in self._warm_widths:
+            budget = _guard.hang_budget_s(0.0)
         gens: list[torch.Generator | None] = [None] * self.width
         if self.sampler.kind in NOISY_KINDS:
             gens = [self._gens[s] if self._h_active[s] else None
@@ -604,31 +817,68 @@ class Lane:
         masked = self._h_active & self._h_mask_on
         renoise = ([self._gens[s] if masked[s] else None
                     for s in range(self.width)] if masked.any() else None)
-        dev["x"], dev["idx"], dev["old"] = self.pipe.stepper_step(
-            sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
-            x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
-            sigmas=dev["sig"], timesteps=dev["ts"], guidance=dev["guid"],
-            old_denoised=dev["old"], active=dev["active"], generators=gens,
-            pooled_u=dev["pooled_u"], pooled_c=dev["pooled_c"],
-            known=dev["known"], mask=dev["mask"], mask_on=dev["mask_on"],
-            renoise_generators=renoise)
-        # throttle: at most two dispatched steps in flight, so the host
-        # cannot run away from the device and execution errors surface
-        # here, inside the lane thread's containment try
-        self._window.append(self._mark())
-        if len(self._window) > 2:
-            event = self._window.popleft()
-            if event is not None:
-                event.synchronize()
+        t0 = time.perf_counter()
+        with self._watched(budget, f"step {this_step}"):
+            dev["x"], dev["idx"], dev["old"] = self.pipe.stepper_step(
+                sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
+                x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
+                sigmas=dev["sig"], timesteps=dev["ts"], guidance=dev["guid"],
+                old_denoised=dev["old"], active=dev["active"],
+                generators=gens, pooled_u=dev["pooled_u"],
+                pooled_c=dev["pooled_c"], known=dev["known"],
+                mask=dev["mask"], mask_on=dev["mask_on"],
+                renoise_generators=renoise)
+            wedge_s = chaos.wedge_at(chaos_step)
+            if wedge_s > 0:  # the scripted stand-in for a wedged card
+                log.warning("chaos: wedging lane %d step %d for %.1fs",
+                            self.lane_id, this_step, wedge_s)
+                time.sleep(wedge_s)
+            # throttle: at most two dispatched steps in flight, so the
+            # host cannot run away from the device and execution errors
+            # surface here, inside the lane thread's containment try
+            self._window.append(self._mark())
+            if len(self._window) > 2:
+                event = self._window.popleft()
+                if event is not None:
+                    event.synchronize()
+        self._warm_widths.add(self.width)
+        nan_row = chaos.nan_wants(chaos_step)
+        if nan_row is not None:
+            # spent only on an active row that steps on past this
+            # boundary, so a checkpoint's finite check (or the decode's
+            # screen) is what catches it
+            row = min(max(0, int(nan_row)), self.width - 1)
+            victim = self._rows[row]
+            if (victim is not None and self._h_active[row]
+                    and int(self._h_idx[row]) + 1 < victim.steps
+                    and _guard.consume_chaos("nan")):
+                log.warning("chaos: poisoning lane %d row %d with NaN "
+                            "after step %d", self.lane_id, row, this_step)
+                dev["x"][row] = float("nan")
         active = int(self._h_active.sum())
         self._h_idx[self._h_active] += 1
         self.steps_executed += 1
         self._sched._count(steps_executed=1, row_steps_active=active,
                            row_steps_padded=self.width - active)
+        step_s = time.perf_counter() - t0
+        slow_extra = chaos.slow_extra_s(step_s)
+        if slow_extra > 0:  # chaos: the sick but living card
+            time.sleep(slow_extra)
+            step_s += slow_extra
         # the lane's first step pays cuDNN's and the allocator's warm-up:
-        # it does not feed the EWMA
+        # it does not feed the EWMA the hang budget reads
+        ewma_before = self._sched.step_ewma()
         if self.steps_executed > 1:
-            self._sched.note_step_seconds(time.perf_counter() - t0)
+            self._sched.note_step_seconds(step_s)
+        device_guard = getattr(self._sched.slot, "_guard", None)
+        if device_guard is not None:
+            devices = _guard._slot_devices(self._sched.slot)
+            if ewma_before > 0 and step_s > _guard.slow_factor() * \
+                    ewma_before:
+                self._sched._count(steps_slow=1)
+                device_guard.note_slow_step(devices)
+            else:
+                device_guard.note_ok(devices)
 
     def _retire_rows(self) -> None:
         """Retire finished rows (their decode is queued and overlaps the
@@ -668,7 +918,7 @@ class Lane:
                 "lane_width": self.width,
                 "admitted_at_step": job.admitted_at_step,
                 "steps_executed": self.steps_executed,
-                "resume_step": 0,  # resume is not ported (ROADMAP)
+                "resume_step": job.resume_step,
                 "splice_wait_s": round(
                     max(0.0, job.admitted_t - job.submitted_t), 6)
                 if job.admitted_t else 0.0,
@@ -694,16 +944,87 @@ class Lane:
             with self._cond:
                 self._cond.notify_all()
 
+    def _maybe_checkpoint(self) -> None:
+        """Every ``CHIASWARM_STEPPER_CKPT_EVERY`` lane steps (JAX
+        :1246-1354): copy the lane's latents and history to the host (the
+        copy waits for every queued step, under the watchdog), retire each
+        job whose rows are not finite (:meth:`_poison_rows`) and keep each
+        other job's resume state in memory: JAX's envelope keys, the rows'
+        latents and history in NCHW, and under ``generators`` each row's
+        ``torch.Generator`` state. The states are read here, in the thread
+        that draws from them, after the dispatch of the step whose latents
+        the copy holds, so draws and latents agree. Rows at their start or
+        about to retire keep no checkpoint."""
+        if (self._ckpt_every <= 0 or self._dev is None
+                or not _guard.watchdog_enabled()
+                or self.steps_executed % self._ckpt_every):
+            return
+        jobs = {id(j): j for j in self._rows if j is not None}
+        if not jobs:
+            return
+        t0 = time.perf_counter()
+        with self._watched(self._sched.hang_budget(),
+                           f"checkpoint at step {self.steps_executed}"):
+            x = self._dev["x"].to("cpu")
+            old = self._dev["old"].to("cpu")
+        poisoned: list[_RowJob] = []
+        for job in jobs.values():
+            sel = list(job.slots)
+            if not bool(torch.isfinite(x[sel]).all()):
+                poisoned.append(job)
+                continue
+            step = int(self._h_idx[sel[0]])
+            if step <= job.start_step or step >= job.steps:
+                continue
+            self._ckpt_mem[id(job)] = {
+                "version": CKPT_VERSION, "kind": "lane",
+                "step": step, "steps": int(job.steps),
+                "rows": int(job.n_rows),
+                "height": int(self.height), "width": int(self.width_px),
+                "guidance": float(job.guidance),
+                "workload": str(job.workload),
+                "start": int(job.start_step),
+                "x": pack_array(x[sel]),
+                "old": pack_array(old[sel]),
+                "generators": [pack_array(self._gens[s].get_state())
+                               for s in sel],
+            }
+        for job in poisoned:
+            self._poison_rows(job)
+        _CKPT_SECONDS.observe(time.perf_counter() - t0)
+
+    def _poison_rows(self, job: _RowJob) -> None:
+        """Retire one job's rows as numerically poisoned (JAX :1356-1374):
+        they never decode, the job fails with :class:`InvalidOutput` (a
+        non-fatal ``invalid_output`` envelope) and the lane's other jobs
+        step on."""
+        step = int(self._h_idx[job.slots[0]]) if job.slots else 0
+        # the caller wakes on set_exception: the count lands first, and the
+        # slots stop counting toward busy() only after
+        self._sched._count(rows_invalid=job.n_rows)
+        if not job.future.done():
+            job.future.set_exception(InvalidOutput(
+                f"job {job.job_id}: non-finite latents at step {step}; "
+                f"row(s) retired without decoding"))
+        self._release_rows(job)
+        log.error("lane %d: job %s poisoned (non-finite latents at step "
+                  "%d); %d row(s) retired invalid_output, peers keep "
+                  "stepping", self.lane_id, job.job_id, step, job.n_rows)
+        with self._cond:
+            self._cond.notify_all()
+
     def _flush_handoff(self, block: bool) -> None:
         """Resolve retired rows whose decoded images are resident. With
         ``block=False`` (rows still stepping) in-flight decodes stay queued
         and resolve at a later boundary; with ``block=True`` (lane idle)
-        the lane thread waits them out."""
+        the lane thread waits them out, under the watchdog."""
         while self._handoff:
             job, pending, info, event = self._handoff[0]
             if event is not None:
                 if block:
-                    event.synchronize()
+                    with self._watched(self._sched.hang_budget(),
+                                       f"decode of job {job.job_id}"):
+                        event.synchronize()
                 elif not event.query():
                     return
             self._handoff.popleft()
@@ -716,6 +1037,7 @@ class Lane:
             self._h_active[s] = False
             self._h_mask_on[s] = False
             self._gens[s] = None
+        self._ckpt_mem.pop(id(job), None)
         if self._dev is not None:
             self._sync_tables()
 
@@ -776,6 +1098,9 @@ class StepScheduler:
         self._failed_lane_hints = _ByPipe()
         self._arrivals = ArrivalEwma()
         self._step_ewma = 0.0
+        # condemned lanes whose threads may still be inside the wedged
+        # step: shutdown joins them too
+        self._condemned: list[Lane] = []
         _register_for_exit(self)
 
     # ---- policy ----
@@ -848,6 +1173,20 @@ class StepScheduler:
                                else self._step_ewma + 0.25 * (
                                    float(seconds) - self._step_ewma))
 
+    def step_ewma(self) -> float:
+        """The step-seconds EWMA (0.0 while cold): the hang budgets and the
+        slow-step signal read it."""
+        with self._lock:
+            return self._step_ewma
+
+    def hang_budget(self) -> float | None:
+        """The watchdog's budget for one lane step (JAX :1598-1613): k x
+        the step EWMA between the floor and ceiling knobs, the ceiling
+        while cold; None with the guard off (``CHIASWARM_GUARD=0``)."""
+        if not _guard.watchdog_enabled():
+            return None
+        return _guard.hang_budget_s(self.step_ewma())
+
     # ---- submission ----
 
     def submit_request(self, pipe, *, prompt: str, negative_prompt: str = "",
@@ -856,8 +1195,10 @@ class StepScheduler:
                        rows: int = 1, seed: int = 0,
                        scheduler: str | None = None,
                        deadline_s: float | None = None,
-                       job_id: Any = None, init_image: Any = None,
-                       strength: float = 0.8, mask: Any = None) -> Future:
+                       job_id: Any = None,
+                       resume: dict[str, Any] | None = None,
+                       init_image: Any = None, strength: float = 0.8,
+                       mask: Any = None) -> Future:
         """Prepare a job's rows (tokenize, encode, ladder, initial noise;
         for img2img and inpaint the init image's VAE encode and the latent
         mask) and hand them to the matching lane. Returns a Future of
@@ -870,7 +1211,14 @@ class StepScheduler:
         clean latents and the latent-grid mask. The image is encoded with
         the job's own seed through the solo path's batch-1 encode
         (``pipelines/diffusion.py::encode_init_image``) and shared by the
-        job's rows."""
+        job's rows.
+
+        ``resume`` (a lane checkpoint, :meth:`Lane._maybe_checkpoint`)
+        replaces the fresh noise: the rows splice in at its step with its
+        latents, history and generator states; an image row's start,
+        ``known`` and mask come from the job's own inputs as above. A
+        payload :meth:`_validate_resume` refuses is logged and counted
+        (``resumes_rejected``), and the job restarts at step 0."""
         fam = pipe.c.family
         if fam.kind != "sd" or fam.image_conditioned:
             raise LaneReject(f"family {fam.name!r} does not ride lanes")
@@ -909,14 +1257,32 @@ class StepScheduler:
             workload, start_step, init_rows, mask_rows = \
                 pipe.prepare_image_rows(init_image, mask, strength, steps,
                                         height, width, int(seed), rows)
-            # one generator per row, the solo path's (seed, row) pairs
-            generators = row_generators([(int(seed), r)
-                                         for r in range(rows)])
-            x0 = pipe.stepper_row_init(generators, sched.sigmas[start_step],
-                                       height, width)
-            if init_rows is not None:
-                # x = init + noise * sigma[start], the solo prologue
-                x0 = init_rows + x0
+            restored = None
+            if resume is not None:
+                try:
+                    restored = self._validate_resume(
+                        pipe, resume, steps=steps, rows=rows, height=height,
+                        width=width, guidance=float(guidance_scale),
+                        start=start_step, workload=workload)
+                except ResumeReject as exc:
+                    log.error("resume state for job %s rejected (%s); "
+                              "restarting at step 0", job_id, exc)
+                    self._count(resumes_rejected=1)
+            resume_step, old0 = 0, None
+            if restored is not None:
+                resume_step = restored["step"]
+                generators = restored["generators"]
+                x0 = upload(restored["x"], pipe.c.device)
+                old0 = upload(restored["old"], pipe.c.device)
+            else:
+                # one generator per row, the solo path's (seed, row) pairs
+                generators = row_generators([(int(seed), r)
+                                             for r in range(rows)])
+                x0 = pipe.stepper_row_init(
+                    generators, sched.sigmas[start_step], height, width)
+                if init_rows is not None:
+                    # x = init + noise * sigma[start], the solo prologue
+                    x0 = init_rows + x0
         job = _RowJob(
             job_id=job_id, n_rows=rows, steps=steps,
             guidance=float(guidance_scale),
@@ -925,12 +1291,77 @@ class StepScheduler:
             pooled_c=pooled_c[:rows], generators=generators,
             x0=x0, workload=workload, start_step=start_step,
             known0=init_rows if mask_rows is not None else None,
-            mask0=mask_rows,
+            mask0=mask_rows, resume_step=resume_step, old0=old0,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
                                          else self.row_deadline_s()))
         self._enqueue(key, pipe, job, lane_rows, height, width, sampler,
                       bounds)
         return job.future
+
+    def _validate_resume(self, pipe, resume: dict[str, Any], *, steps: int,
+                         rows: int, height: int, width: int,
+                         guidance: float, start: int,
+                         workload: str) -> dict[str, Any]:
+        """Hold a checkpoint against the job it claims to resume (JAX
+        :1870-1945, with the port's noise state in place of the threefry
+        keys): ``{"step", "x", "old", "generators"}`` on the host, or
+        :class:`ResumeReject`. Every field is hostile until proven: a JAX
+        lane checkpoint (``keys``, no ``generators``) is refused, since its
+        noise stream is not the port's."""
+        if resume.get("kind") != "lane":
+            raise ResumeReject(
+                f"not a lane checkpoint (kind={resume.get('kind')!r})")
+        if "keys" in resume or "generators" not in resume:
+            raise ResumeReject(
+                "a JAX-package lane checkpoint (threefry keys, no generator "
+                "states): its noise stream is not this package's")
+        try:
+            step = int(resume["step"])
+            ck_steps, ck_rows = int(resume["steps"]), int(resume["rows"])
+            ck_h, ck_w = int(resume["height"]), int(resume["width"])
+            ck_guidance = float(resume["guidance"])
+            ck_start = int(resume.get("start", 0))
+            ck_workload = str(resume.get("workload", "txt2img"))
+            x = unpack_array(resume["x"])
+            old = unpack_array(resume["old"])
+            states = [unpack_array(g) for g in resume["generators"]]
+        except (KeyError, TypeError, ValueError) as exc:
+            raise ResumeReject(f"corrupt payload: {exc}") from exc
+        if not start < step < steps:
+            raise ResumeReject(f"step {step} outside ({start}, {steps})")
+        if (ck_start, ck_workload) != (start, workload):
+            raise ResumeReject(
+                f"workload mismatch: checkpoint is {ck_workload} from "
+                f"step {ck_start}, job is {workload} from {start}")
+        if (ck_steps, ck_rows) != (steps, rows):
+            raise ResumeReject(
+                f"job mismatch: checkpoint is {ck_rows} row(s) x "
+                f"{ck_steps} step(s), job wants {rows} x {steps}")
+        if (ck_h, ck_w) != (height, width):
+            raise ResumeReject(f"size mismatch: checkpoint {ck_h}x{ck_w}, "
+                               f"job {height}x{width}")
+        if ck_guidance != guidance:
+            raise ResumeReject(f"guidance mismatch: checkpoint "
+                               f"{ck_guidance}, job {guidance}")
+        lh, lw = pipe._latent_hw(height, width)
+        want = (rows, pipe.c.family.vae.latent_channels, lh, lw)
+        if tuple(x.shape) != want or tuple(old.shape) != want:
+            raise ResumeReject(f"latent shape {tuple(x.shape)} != {want}")
+        if x.dtype != torch.float32 or old.dtype != torch.float32:
+            raise ResumeReject(f"latent dtype {x.dtype}/{old.dtype}, lanes "
+                               f"carry float32")
+        if len(states) != rows:
+            raise ResumeReject(f"{len(states)} generator states for "
+                               f"{rows} row(s)")
+        generators = []
+        for state in states:
+            gen = torch.Generator()
+            try:
+                gen.set_state(state)
+            except (RuntimeError, TypeError, ValueError) as exc:
+                raise ResumeReject(f"bad generator state: {exc}") from exc
+            generators.append(gen)
+        return {"step": step, "x": x, "old": old, "generators": generators}
 
     def _enqueue(self, key, pipe, job, lane_rows, height, width, sampler,
                  bounds) -> None:
@@ -974,6 +1405,15 @@ class StepScheduler:
         with self._lock:
             if self._lanes.get(lane.key) is lane:
                 del self._lanes[lane.key]
+            self._condemned = [c for c in self._condemned if c is not lane]
+
+    def _lane_condemned(self, lane: Lane) -> None:
+        """A condemned lane leaves the table (submits open a fresh one);
+        its thread is joined at shutdown."""
+        with self._lock:
+            if self._lanes.get(lane.key) is lane:
+                del self._lanes[lane.key]
+            self._condemned.append(lane)
 
     def _note_lane_failure(self, key: tuple, width: int) -> None:
         with self._lock:
@@ -1055,9 +1495,10 @@ class StepScheduler:
 
     def shutdown(self, timeout_s: float = 5.0) -> None:
         """Stop every lane; unfinished rows fail with :class:`LaneRetired`
-        so their jobs bounce to the per-job path, never lost."""
+        so their jobs bounce to the per-job path, never lost. Condemned
+        lanes' threads are joined too, each within ``timeout_s``."""
         with self._lock:
-            lanes = list(self._lanes.values())
+            lanes = list(self._lanes.values()) + list(self._condemned)
         for lane in lanes:
             lane.stop()
         for lane in lanes:

@@ -1,7 +1,8 @@
 """Stable-diffusion workload, txt2img, img2img and inpaint: counterpart of
 ``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
 lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
-``stepper_finish`` :236-466).
+``stepper_finish`` :236-466, ``stepper_submit`` passing a lane checkpoint
+through as ``resume`` :376-387).
 
 An ``image`` (the fetched ``start_image_uri``) sets the job's size and makes
 it img2img; a ``mask_image`` beside it makes it inpaint (averaged over its
@@ -236,13 +237,20 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
     mask = _mask_01(kwargs.get("mask_image"))
     mode, start_step = image_plan(steps, strength, image is not None,
                                   mask is not None)
+    # a lane checkpoint rides in as ``resume`` (the executor's re-admission
+    # after a condemned lane): the rows splice in at its step. Anything
+    # else under that key carries no lane state to splice.
+    resume = kwargs.get("resume")
+    if not (isinstance(resume, dict) and resume.get("kind") == "lane"):
+        resume = None
     future = get_stepper(slot).submit_request(
         pipe,
         prompt=str(kwargs.get("prompt") or ""),
         negative_prompt=str(kwargs.get("negative_prompt") or ""),
         steps=steps, guidance_scale=guidance, height=height, width=width,
         rows=rows, seed=int(seed), scheduler=kwargs.get("scheduler_type"),
-        job_id=job_id, init_image=image, strength=strength, mask=mask)
+        job_id=job_id, resume=resume, init_image=image, strength=strength,
+        mask=mask)
     sampler = resolve(kwargs.get("scheduler_type"),
                       prediction_type=fam.prediction_type)
     return StepperTicket(

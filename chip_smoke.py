@@ -259,6 +259,50 @@ each phase printing one JSON line:
                 and an inpaint job fetched by URI (bit for bit the lane
                 images of 15f and 15g) and an init image past the 3 MiB
                 cap (a non-fatal ``bad_asset`` envelope).
+15k. guard_lane — the gray-failure guard (after worker_serve): serve's
+                seed-1 txt2img job and an inpaint job (seed 41, fetched from
+                a hive of this script) in a lane pinned at 2 rows, both
+                admitted at its first step, through
+                ``synchronous_do_work_batch``: once uninterrupted, once with
+                lane step 12 wedged by ``CHIASWARM_CHAOS_WEDGE_STEP="12:6"``
+                (a 6 s host sleep inside the step's armed window; hang floor
+                1 s, ceiling 20 s). The watchdog condemns the lane, both jobs
+                resume at step 8 (the default checkpoint cadence) in one
+                fresh lane, each image bit for bit its uninterrupted run, the
+                inpaint job's kept latents exactly its encoded ones, B1 = 10 x
+                lane step dispatches (the condemned lane's included). Prints
+                the counters, the hang budget and the seconds from the
+                condemnation to the first resumed dispatch.
+15l. guard_nan — seeds 1 and 2 in a lane of 2 through the worker, row 1
+                poisoned after lane step 5 (``CHIASWARM_CHAOS_NAN_STEP="5:1"``):
+                the step-8 checkpoint's finite check retires seed 2's job
+                alone, its envelope a non-fatal ``invalid_output`` and the
+                worker's ``chiaswarm_guard_invalid_outputs_total`` 1; seed
+                1's image bit for bit its unpoisoned twin.
+15m. guard_solo — the solo path under the watchdog through the worker:
+                serve's seed 1 (its key warm first), its diffusion callback
+                wrapped once in a sleep 3 s past its budget (factor 2):
+                ``StepHung``, classified ``transient``, one retry, the
+                image bit for bit the serve phase's.
+15n. guard_worker — the healing ladder (thresholds 1, 2, 3; hang ceiling
+                3 s): seeds 1 and 2 in a lane of 2 whose first dispatch
+                wedges, re-armed once, so the fresh lane wedges too; the
+                rungs apply as cache_flush, device_quarantine (declined: one
+                card), restart; ``run()`` returns by itself with exit code 73
+                after a graceful drain, each job settled once without error
+                (on the per-job path). guard_child: ``python -m
+                chiaswarm_tpu_torch.node.worker`` on the checkpoint of 14b
+                (thresholds 1, 2, 2; lane step 3 wedged) exits with 73, its
+                job settled once without error.
+15o. guard_cost — lane_burst's nine jobs as one burst at 8 rows, four
+                times (guard off, on, on, off): images/s of each, the
+                checkpoints a run and the mean ms of one checkpoint boundary
+                (the copy to the host, which waits for the queued steps, the
+                finite check and the generator states), the card; images
+                bit for bit across the runs, times not gated.
+15p. guard_xl — guard_lane for SDXL at 1024 px (after the SDXL phases), two
+                txt2img jobs (seeds 1, 2): both resume at step 8 bit for
+                bit, their pooled text encoded again; B1 = 70 x dispatches.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -272,12 +316,14 @@ each phase printing one JSON line:
                 its design and its factor against the library call, under
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
-                ``worker_serve``, the four SDXL serve phases and the image
-                phases, and B3 under ``lane_seq_serve`` and
+                ``worker_serve``, the four SDXL serve phases, the image
+                phases and the guard phases, and B3 under ``lane_seq_serve``
+                and
                 ``seq_img2img``, with
                 their launches there and their numbers over those
                 launches.
 
+Before the kernels line, ``script_wall`` prints the run's seconds so far.
 The last line is ``{"ok": true, "device": {...}}``. Any failed phase raises,
 so the script exits non-zero without that line — also when CUDA is absent
 or the package is not next to this file.
@@ -1386,6 +1432,8 @@ def lane_burst_phase(torch, registry, slot) -> dict:
          occupancy=row_active / max(1, row_active + row_padded),
          step_seconds_ewma=after.get("step_seconds_ewma"),
          max_memory_allocated=peak, lanes=sorted(lanes_used),
+         generation_s={job["seed"]: result["pipeline_config"]["generation_s"]
+                       for job, result in zip(jobs, results)},
          stepper={seed: infos[seed] for seed in sorted(infos)},
          isolation_job_11=isolation)
     if (launches["flash_attention"] != want or sum(launches.values()) != want
@@ -2134,21 +2182,23 @@ def lane_admissions(record: dict | None = None, hold: dict | None = None):
 
     - ``record`` fills with job id -> (lane id, lane step, slots) as each
       job is admitted;
-    - ``hold`` maps job id -> lane step: nothing is admitted until every
-      job it names has been submitted, and each is then held until its
-      lane has executed that many steps. Jobs released at one step are
-      admitted in their submission order, into the lowest free slots,
-      as the lane always admits."""
+    - ``hold`` maps job id -> lane step: nothing is admitted into a lane
+      until every job it names has been submitted to that lane, and each is
+      then held until the lane has executed that many steps. Jobs released
+      at one step are admitted in their submission order, into the lowest
+      free slots, as the lane always admits. A lane the guard condemns
+      hands its jobs to a fresh lane, which waits for all of them again."""
     from chiaswarm_tpu_torch.serving.stepper import Lane
 
     admit = Lane._admit_locked
-    submitted: set = set()
+    submitted: dict = collections.defaultdict(set)  # by lane id
 
     def steered(lane) -> None:
         held: list = []
         if hold:
-            submitted.update(job.job_id for job in lane._pending)
-            if set(hold) - submitted:
+            seen = submitted[lane.lane_id]
+            seen.update(job.job_id for job in lane._pending)
+            if set(hold) - seen:
                 return  # a job of the schedule is still being submitted
             held = [job for job in lane._pending
                     if hold.get(job.job_id, 0) > lane.steps_executed]
@@ -2426,6 +2476,9 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
             "occupancy": row_active / max(1, row_active + row_padded),
             "b1_launches": B1.launches - b1_before,
             "job_seconds": {j["id"]: traces[j["id"]] for j in jobs},
+            "generation_s": {
+                j["id"]: by_id[j["id"]]["pipeline_config"]["generation_s"]
+                for j in jobs},
             "host_per_job": host,
             "mean_host_s": statistics.mean(h["host_s"] for h in host),
             "histogram_count": worker._job_seconds.count(),
@@ -3359,6 +3412,524 @@ def encode_check_phase(torch, registry) -> None:
                              f"launches {launches}")
 
 
+# ---- the gray-failure guard ----------------------------------------------
+
+GUARD_WEDGE_STEP = 12        # after the step-8 checkpoint, before step 16
+GUARD_RESUME_STEP = 8        # CHIASWARM_STEPPER_CKPT_EVERY's default
+GUARD_KNOBS = {"CHIASWARM_GUARD_HANG_FLOOR_S": "1",
+               "CHIASWARM_GUARD_HANG_CEIL_S": "20"}
+GUARD_JOBS = [dict(JOBS[0], id="guard-txt2img-1"),
+              dict(INPAINT_JOBS[0], id="guard-inpaint-41")]
+GUARD_NAN_JOBS = [dict(JOBS[0], id="guard-nan-1"),
+                  dict(JOBS[1], id="guard-nan-2")]
+GUARD_XL_JOBS = [dict(XL_JOBS[0], id="guard-sdxl-1"),
+                 dict(XL_JOBS[1], id="guard-sdxl-2")]
+
+
+def fresh_guard(slot):
+    """A device guard of its own on ``slot`` (a worker sets its own)."""
+    from chiaswarm_tpu_torch.obs.metrics import Registry
+    from chiaswarm_tpu_torch.serving.guard import DeviceGuard, _slot_devices
+
+    slot._guard = DeviceGuard(metrics_registry=Registry())
+    slot._guard.seed_devices(_slot_devices(slot))
+    return slot._guard
+
+
+@contextlib.contextmanager
+def watch_lanes(pipe):
+    """Counts ``pipe``'s lane step dispatches (``stepper_step`` calls,
+    condemned ones included) and records when each lane was condemned and
+    when the first dispatch after the first condemnation began."""
+    from chiaswarm_tpu_torch.serving.stepper import Lane
+
+    rec = {"dispatches": 0, "condemned_t": [], "first_after_t": None}
+    step, condemn = pipe.stepper_step, Lane.condemn
+
+    def counted(*args, **kw):
+        if rec["condemned_t"] and rec["first_after_t"] is None:
+            rec["first_after_t"] = time.monotonic()
+        rec["dispatches"] += 1
+        return step(*args, **kw)
+
+    def timed_condemn(lane, reason):
+        if not lane._condemned:
+            rec["condemned_t"].append(time.monotonic())
+        condemn(lane, reason)
+
+    pipe.stepper_step, Lane.condemn = counted, timed_condemn
+    try:
+        yield rec
+    finally:
+        del pipe.stepper_step
+        Lane.condemn = condemn
+
+
+def guard_stats(after: dict, before: dict) -> dict:
+    return {key: delta(after, before, key) for key in (
+        "steps_executed", "lanes_condemned", "rows_hung", "rows_resumed",
+        "rows_invalid", "resumes_rejected", "rows_completed")}
+
+
+def wedged_pair(torch, phase: str, registry, slot, jobs: list[dict],
+                model: str, per_eval: int) -> dict:
+    """``jobs`` (two) through ``synchronous_do_work_batch`` in a lane pinned
+    at 2 rows, both admitted at its first step, twice: uninterrupted, then
+    with lane step ``GUARD_WEDGE_STEP`` wedged (``CHIASWARM_CHAOS_WEDGE_STEP``)
+    past its hang budget (floor 1 s). The watchdog condemns the lane, both
+    jobs resume at step ``GUARD_RESUME_STEP`` in one fresh lane, also
+    admitted together, and each image is its uninterrupted run bit for bit.
+    B1 = ``per_eval`` x lane step dispatches, the condemned lane's
+    included."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving import guard
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    pipe = registry.pipeline(model)
+    hold = {job["id"]: 0 for job in jobs}
+    get_stepper(slot).shutdown()
+    device_guard = fresh_guard(slot)
+    with env(CHIASWARM_STEPPER_LANE_WIDTH="2", **GUARD_KNOBS):
+        with lane_admissions(hold=hold):
+            ref = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                            registry)
+        get_stepper(slot).shutdown()
+        ref_blobs = [check_envelope(phase, j, r, lanes=True)
+                     for j, r in zip(jobs, ref)]
+        wedge_s = 6.0
+        budget = get_stepper(slot).hang_budget()
+        guard.reset_chaos()
+        before = stepper_stats(slot)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with env(CHIASWARM_CHAOS_WEDGE_STEP=f"{GUARD_WEDGE_STEP}:{wedge_s}"), \
+                lane_admissions(hold=hold), watch_lanes(pipe) as rec, \
+                watch_pipe(torch, pipe) as pipe_rec:
+            healed = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                               registry)
+        healed_s = time.perf_counter() - t0
+        launches, run = kernel_launches(), launched()
+        get_stepper(slot).shutdown(timeout_s=60)  # joins the wedged thread
+    stats = guard_stats(stepper_stats(slot), before)
+    blobs, infos = [], []
+    for job, result in zip(jobs, healed):
+        blobs.append(check_envelope(phase, job, result, lanes=True))
+        infos.append(result["pipeline_config"]["stepper"])
+    diffs = image_diffs(dict(enumerate(blobs)), dict(enumerate(ref_blobs)))
+    out = {
+        "jobs": [j["id"] for j in jobs], "wedge_step": GUARD_WEDGE_STEP,
+        "wedge_s": wedge_s, "hang_budget_s": budget,
+        "resume_step": [info["resume_step"] for info in infos],
+        "resumed_lanes": sorted({info["lane"] for info in infos}),
+        "counters": stats,
+        "guard": {k: device_guard.snapshot()[k] for k in
+                  ("hangs", "condemned_lanes", "health")},
+        "condemned_to_first_resumed_step_s": (
+            rec["first_after_t"] - rec["condemned_t"][0]
+            if rec["condemned_t"] and rec["first_after_t"] else None),
+        "lane_step_dispatches": rec["dispatches"], "seconds": healed_s,
+        "launches": launches,
+        "expected_flash_launches": per_eval * rec["dispatches"],
+        "vs_uninterrupted": diffs}
+    failed = []
+    if stats["lanes_condemned"] != 1 or stats["rows_resumed"] != len(jobs):
+        failed.append(f"counters {stats}")
+    if out["resume_step"] != [GUARD_RESUME_STEP] * len(jobs) or \
+            len(out["resumed_lanes"]) != 1:
+        failed.append(f"resume {out['resume_step']} in lanes "
+                      f"{out['resumed_lanes']}")
+    if not all(d["bit_equal"] for d in diffs.values()):
+        failed.append(f"images {diffs}")
+    if launches["flash_attention"] != out["expected_flash_launches"] or \
+            sum(launches.values()) != launches["flash_attention"]:
+        failed.append(f"launches {launches}")
+    return {"out": out, "failed": failed, "run": run, "pipe_rec": pipe_rec}
+
+
+def guard_lane_phase(torch, registry, slot, hive: LocalHive) -> dict:
+    """A lane of 2: serve's seed-1 txt2img job and an inpaint job (fetched
+    from this script's hive), wedged at lane step 12 (``wedged_pair``): both
+    resume at step 8 bit for bit, and the inpaint job's final latents equal
+    its encoded ``known`` latents exactly where the mask keeps them."""
+    from chiaswarm_tpu_torch.pipelines.diffusion import latent_mask
+
+    jobs = on_hive(hive, GUARD_JOBS)
+    res = wedged_pair(torch, "guard_lane", registry, slot, jobs, "sd15",
+                      B1_LAUNCHES_PER_UNET_EVAL)
+    rec = res["pipe_rec"]
+    pipe = registry.pipeline("sd15")
+    f = pipe.c.family.vae.downscale
+    kept = torch.from_numpy(latent_mask(rect_mask(IMG_SIZE) / 255.0,
+                                        IMG_SIZE // f, IMG_SIZE // f, f) == 0
+                            ).to(pipe.c.device)
+    # the lane decodes its retiring jobs in slot order: txt2img, inpaint
+    known, final = rec["encodes"][-1][0], rec["final"][-1][:1]
+    exact = bool(torch.equal(final[:, :, kept], known[:, :, kept]))
+    res["out"]["inpaint_kept_latents_exact"] = exact
+    emit("guard_lane", **res["out"])
+    if not exact:
+        res["failed"].append("the inpaint job's kept latents moved")
+    if res["failed"]:
+        raise AssertionError("guard_lane: " + "; ".join(res["failed"]))
+    return res["run"]
+
+
+def guard_xl_phase(torch, registry, slot) -> dict:
+    """``guard_lane`` for SDXL at 1024 px, two txt2img jobs: the rows'
+    pooled text is encoded again at re-admission, and both resume at step
+    8 bit for bit; B1 = 70 x lane step dispatches."""
+    res = wedged_pair(torch, "guard_xl", registry, slot, GUARD_XL_JOBS,
+                      XL_MODEL, B1_LAUNCHES_PER_XL_EVAL)
+    emit("guard_xl", **res["out"])
+    if res["failed"]:
+        raise AssertionError("guard_xl: " + "; ".join(res["failed"]))
+    return res["run"]
+
+
+def guard_nan_phase(torch, registry, pool) -> dict:
+    """Seeds 1 and 2 in a lane of 2 through the worker, row 1 poisoned with
+    NaN after lane step 5 (``CHIASWARM_CHAOS_NAN_STEP="5:1"``): the step-8
+    checkpoint's finite check retires seed 2's job alone, which uploads a
+    non-fatal ``invalid_output`` envelope, and the worker's
+    ``chiaswarm_guard_invalid_outputs_total`` reads 1; seed 1's image is
+    bit for bit its unpoisoned twin (the same two jobs in the same slots,
+    through the executor)."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.node.resilience import classify_result
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving import guard
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    jobs = GUARD_NAN_JOBS
+    hold = {job["id"]: 0 for job in jobs}
+    get_stepper(slot).shutdown()
+    with env(CHIASWARM_STEPPER_LANE_WIDTH="2"):
+        with lane_admissions(hold=hold):
+            twin = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                             registry)
+        get_stepper(slot).shutdown()
+        twin_blob = check_envelope("guard_nan", jobs[0], twin[0], lanes=True)
+        guard.reset_chaos()
+        before = stepper_stats(slot)
+        kernels.reset_launches()
+        with env(CHIASWARM_CHAOS_NAN_STEP="5:1"), \
+                lane_admissions(hold=hold), LocalHive() as hive:
+            worker = serve_through_worker(hive, pool, registry,
+                                          [dict(j) for j in jobs])
+            results = {r["id"]: r for r in hive.results}
+        launches, run = kernel_launches(), launched()
+        get_stepper(slot).shutdown()
+    stats = guard_stats(stepper_stats(slot), before)
+    ok_blob = check_envelope("guard_nan", jobs[0], results[jobs[0]["id"]],
+                             lanes=True)
+    bad = results[jobs[1]["id"]]
+    invalid = worker.metrics.get(
+        "chiaswarm_guard_invalid_outputs_total").value(model="sd15")
+    out = {"counters": stats, "launches": launches,
+           "expected_flash_launches":
+               stats["steps_executed"] * B1_LAUNCHES_PER_UNET_EVAL,
+           "poisoned_envelope": {
+               "error_kind": bad["pipeline_config"].get("error_kind"),
+               "fatal_error": bool(bad.get("fatal_error")),
+               "classified": classify_result(bad)},
+           "guard_invalid_outputs_total": invalid,
+           "guard": worker.guard.snapshot()["health"],
+           "row0_vs_twin": image_diffs({1: ok_blob}, {1: twin_blob})[1],
+           "uploads": len(hive.results)}
+    emit("guard_nan", **out)
+    if (out["poisoned_envelope"] != {"error_kind": "invalid_output",
+                                     "fatal_error": False,
+                                     "classified": "invalid_output"}
+            or invalid != 1 or stats["rows_invalid"] != 1
+            or not out["row0_vs_twin"]["bit_equal"] or out["uploads"] != 2):
+        raise AssertionError(f"guard_nan: {out}")
+    check_b1("guard_nan", launches, out["expected_flash_launches"])
+    return run
+
+
+def guard_solo_phase(torch, registry, pool, solo_blob: str) -> dict:
+    """The solo path (``CHIASWARM_STEPPER=0``) under the watchdog, through
+    the worker: serve's seed-1 job once (its key warm), then again with the
+    diffusion callback wrapped, once, in a sleep 3 s past its budget
+    (factor 2: steps x the lane step EWMA x 2, floor 1 s). ``StepHung`` is raised and
+    classified ``transient``, the retry ladder re-runs the job, and its
+    image is bit for bit the serve phase's solo image."""
+    import functools
+
+    from chiaswarm_tpu_torch.node import executor
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.guard import solo_hang_budget_s
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+    from chiaswarm_tpu_torch.workloads import diffusion as workload
+
+    slot = pool.slots[0]
+    real_cb, real_execute = workload.diffusion_callback, executor._execute
+    attempts: list = []
+    slept: list = []
+
+    @functools.wraps(real_cb)
+    def sleepy(*args, **kw):
+        if not slept:  # once: the retry runs the plain callback
+            slept.append(budget + 3.0)
+            time.sleep(budget + 3.0)
+        return real_cb(*args, **kw)
+
+    def recorded(*args, **kw):
+        result = real_execute(*args, **kw)
+        cfg = result["pipeline_config"]
+        attempts.append({"error_class": cfg.get("error_class"),
+                         "error_kind": cfg.get("error_kind")})
+        return result
+
+    knobs = dict(GUARD_KNOBS, CHIASWARM_GUARD_HANG_FACTOR="2",
+                 CHIASWARM_STEPPER="0")
+    ewma = get_stepper(slot).step_ewma()
+    with env(**knobs):
+        budget = solo_hang_budget_s(ewma, SERVE_STEPS)
+        warm = executor.synchronous_do_work(dict(JOBS[0], id="guard-solo-0"),
+                                            slot, registry)
+        check_envelope("guard_solo", JOBS[0], warm, lanes=False)
+        kernels.reset_launches()
+        workload.diffusion_callback, executor._execute = sleepy, recorded
+        try:
+            with LocalHive() as hive:
+                job = dict(JOBS[0], id="guard-solo-1")
+                worker = serve_through_worker(hive, pool, registry, [job])
+                [result] = hive.results
+        finally:
+            workload.diffusion_callback = real_cb
+            executor._execute = real_execute
+        launches, run = kernel_launches(), launched()
+    blob = check_envelope("guard_solo", job, result, lanes=False)
+    snap = worker.guard.snapshot()
+    out = {"hang_budget_s": budget, "step_ewma_s": ewma, "slept_s": slept,
+           "attempts": attempts, "jobs_retried": worker.stats.jobs_retried,
+           "guard": {k: snap[k] for k in ("hangs", "health")},
+           "solo_hangs": worker.metrics.get(
+               "chiaswarm_guard_hangs_total").value(phase="solo"),
+           "vs_serve": image_diffs({1: blob}, {1: solo_blob})[1],
+           "launches": launches,
+           "expected_flash_launches":
+               2 * SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL}
+    emit("guard_solo", **out)
+    if (attempts != [{"error_class": "StepHung", "error_kind": "transient"},
+                     {"error_class": None, "error_kind": None}]
+            or out["jobs_retried"] != 1 or out["solo_hangs"] != 1
+            or not out["vs_serve"]["bit_equal"]):
+        raise AssertionError(f"guard_solo: {out}")
+    check_b1("guard_solo", launches, out["expected_flash_launches"])
+    return run
+
+
+def guard_worker_phase(torch, registry, pool) -> dict:
+    """The healing ladder through the worker (``guard_cache_flush_after=1``,
+    ``guard_quarantine_after=2``, ``guard_restart_after=3``, polls every
+    0.1 s, hang ceiling 3 s): seeds 1 and 2 in a lane of 2, whose first
+    dispatch wedges for 8 s (a lane's first dispatch at a width runs under
+    the ceiling). The seam is re-armed once, at the condemnation, so the
+    fresh lane the jobs re-enter wedges at its first dispatch too: two
+    hangs with no healthy step between them (a healthy step would shrink
+    the sickness streak). The first queues cache_flush and quarantine, the
+    second restart, and the jobs finish on the per-job path. The worker
+    applies the rungs in that order, declines to quarantine its one card
+    (the slot's mesh unchanged), drains gracefully and ``run()`` returns by
+    itself with exit code 73; each job is settled at the hive exactly once,
+    without error."""
+    import asyncio
+
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving import guard
+    from chiaswarm_tpu_torch.serving.stepper import Lane, get_stepper
+
+    slot = pool.slots[0]
+    jobs = [dict(JOBS[0], id="guard-worker-1"),
+            dict(JOBS[1], id="guard-worker-2")]
+    get_stepper(slot).shutdown()
+    mesh, epoch = slot.mesh, guard.flush_epoch()
+    condemn, rearmed, applied = Lane.condemn, [], []
+
+    def condemn_and_rearm(lane, reason):
+        condemn(lane, reason)
+        if not rearmed:
+            rearmed.append(lane.lane_id)
+            guard.reset_chaos()
+
+    guard.reset_chaos()
+    kernels.reset_launches()
+    before = stepper_stats(slot)
+    t0 = time.perf_counter()
+    with env(CHIASWARM_STEPPER_LANE_WIDTH="2",
+             CHIASWARM_CHAOS_WEDGE_STEP="1:8",
+             **dict(GUARD_KNOBS, CHIASWARM_GUARD_HANG_CEIL_S="3")), \
+            LocalHive() as hive:
+        hive.submit(*jobs)
+        worker = Worker(Settings(hive_uri=hive.uri, hive_token="chip-smoke",
+                                 worker_name="chip-smoke-guard",
+                                 poll_busy_s=0.1, poll_idle_s=0.1,
+                                 guard_cache_flush_after=1,
+                                 guard_quarantine_after=2,
+                                 guard_restart_after=3),
+                        pool=pool, registry=registry)
+        take = worker.guard.take_actions
+
+        def recorded_take():
+            actions = take()
+            applied.extend(a.rung for a in actions)
+            return actions
+
+        worker.guard.take_actions = recorded_take
+        Lane.condemn = condemn_and_rearm
+        try:
+            asyncio.run(asyncio.wait_for(worker.run(), timeout=600))
+        finally:
+            Lane.condemn = condemn
+        results = list(hive.results)
+        get_stepper(slot).shutdown(timeout_s=60)
+    run_s = time.perf_counter() - t0
+    launches, run = kernel_launches(), launched()
+    stats = guard_stats(stepper_stats(slot), before)
+    ids = [r["id"] for r in results]
+    out = {"exit_code": worker.exit_code, "rungs_applied": applied,
+           "quarantined": worker.guard.snapshot()["quarantined"],
+           "mesh_unchanged": slot.mesh is mesh,
+           "flush_epochs": guard.flush_epoch() - epoch,
+           "guard": worker.guard.snapshot(), "counters": stats,
+           "settled": ids, "errors": [r["pipeline_config"].get("error")
+                                      for r in results],
+           "on_lanes": ["stepper" in r["pipeline_config"] for r in results],
+           "run_s": run_s, "launches": launches}
+    emit("guard_worker", **out)
+    if (worker.exit_code != guard.GUARD_RESTART_EXIT_CODE
+            or applied != ["cache_flush", "device_quarantine", "restart"]
+            or not out["mesh_unchanged"] or out["flush_epochs"] != 1
+            or sorted(ids) != sorted(j["id"] for j in jobs)
+            or any(out["errors"]) or stats["lanes_condemned"] != 2):
+        raise AssertionError(f"guard_worker: {out}")
+    for job, result in zip(jobs, results):
+        check_envelope("guard_worker", job, result, lanes=False)
+    return run
+
+
+def guard_child(hive: LocalHive, root: Path) -> dict:
+    """``python -m chiaswarm_tpu_torch.node.worker`` as a child process on
+    ``CKPT_MODEL`` (its directory linked into the child's settings root),
+    with ``guard_cache_flush_after=1``, ``guard_quarantine_after=2`` and
+    ``guard_restart_after=2`` in its ``settings.json`` and lane step 3
+    wedged by ``CHIASWARM_CHAOS_WEDGE_STEP``: the one hang queues all three
+    rungs, the child declines to quarantine its card, drains, uploads the
+    job once without error and exits with 73."""
+    from chiaswarm_tpu_torch.node.registry import model_dir
+
+    child_root = root / "guard-child"
+    (child_root / "models").mkdir(parents=True, exist_ok=True)
+    src = model_dir(CKPT_MODEL)
+    (child_root / "models" / src.name).symlink_to(src)
+    (child_root / "models.json").write_text(json.dumps(
+        [{"name": CKPT_MODEL, "family": "sd15"}]))
+    (child_root / "settings.json").write_text(json.dumps({
+        "worker_name": "chip-smoke-guard-child", "poll_busy_s": 0.1,
+        "poll_idle_s": 0.1,
+        "guard_cache_flush_after": 1, "guard_quarantine_after": 2,
+        "guard_restart_after": 2}))
+    job = dict(JOBS[0], id="guard-child-1", model_name=CKPT_MODEL)
+    hive.submit(job)
+    child_env = dict(os.environ, SDAAS_URI=hive.uri, SDAAS_TOKEN="chip-smoke",
+                     SWARM_TPU_ROOT=str(child_root),
+                     CHIASWARM_CHAOS_WEDGE_STEP="3:6", **GUARD_KNOBS)
+    log_path = child_root / "child.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+            cwd=ROOT, env=child_env, stdout=log_file,
+            stderr=subprocess.STDOUT)
+        try:
+            rc = child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=30)
+    text = log_path.read_text()
+    results = [r for r in hive.results if r["id"] == job["id"]]
+    out = {"rc": rc, "exit_s": time.perf_counter() - t0,
+           "settled": len(results),
+           "error": results[0]["pipeline_config"].get("error")
+           if results else None,
+           "condemned": "CONDEMNED" in text,
+           "declined": "cannot quarantine device" in text,
+           "restart": "self-restart requested" in text,
+           "log_tail": text.splitlines()[-4:]}
+    if (rc != 73 or len(results) != 1 or out["error"] is not None
+            or not (out["condemned"] and out["declined"] and out["restart"])):
+        raise AssertionError(f"the guard child failed: {out}")
+    return out
+
+
+def guard_cost_phase(torch, registry, slot) -> dict:
+    """lane_burst's nine jobs as one burst at its pinned width of 8, four
+    times: with the guard off (``CHIASWARM_GUARD=0``: no watchdog, no
+    checkpoints), on (checkpoints every 8 steps), on, off. Prints each
+    run's images/s, the mean ms of one checkpoint boundary (the copy of the
+    lane's latents and history to the host, the finite check, the generator
+    states) and the card. A measurement: every image is held bit for bit
+    across the runs, the times are not gated."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.obs.metrics import REGISTRY
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    jobs = BURST_JOBS + [LATE_JOB]
+    # every run the same composition: eight rows at step 0, the ninth in
+    # the first row to free
+    hold = {job["id"]: 0 for job in jobs}
+    hist = REGISTRY.get("chiaswarm_stepper_checkpoint_seconds")
+    runs, blobs = [], {}
+    kernels.reset_launches()
+    for guard_on in (False, True, True, False):
+        get_stepper(slot).shutdown()
+        before = stepper_stats(slot)
+        n0, s0 = hist.count(), hist.sum()
+        with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH),
+                 CHIASWARM_GUARD="1" if guard_on else "0"), \
+                lane_admissions(hold=hold):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                                registry)
+            wall_s = time.perf_counter() - t0
+        n, s = hist.count() - n0, hist.sum() - s0
+        runs.append({"guard": guard_on, "wall_s": wall_s,
+                     "images_per_s": len(jobs) / wall_s,
+                     "steps_executed": delta(stepper_stats(slot), before,
+                                             "steps_executed"),
+                     "checkpoints": n,
+                     "checkpoint_ms_mean": 1e3 * s / n if n else None})
+        for job, result in zip(jobs, results):
+            blob = check_envelope("guard_cost", job, result, lanes=True)
+            if blobs.setdefault(job["id"], blob) != blob:
+                raise AssertionError(f"guard_cost: job {job['id']}'s image "
+                                     "changed between runs")
+    get_stepper(slot).shutdown()
+    run = launched()
+    on = [r for r in runs if r["guard"]]
+    off = [r for r in runs if not r["guard"]]
+    emit("guard_cost", card=nvidia_smi_line(), runs=runs,
+         images_per_s_guard_off=statistics.mean(r["images_per_s"]
+                                                for r in off),
+         images_per_s_guard_on=statistics.mean(r["images_per_s"] for r in on),
+         checkpoint_ms_mean=statistics.mean(r["checkpoint_ms_mean"]
+                                            for r in on),
+         checkpoints_per_run=[r["checkpoints"] for r in runs])
+    if any(r["checkpoints"] for r in off) or not all(r["checkpoints"]
+                                                     for r in on):
+        raise AssertionError(f"guard_cost: checkpoints {runs}")
+    return run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -3423,7 +3994,10 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "xl_lane_serve", "xl_lane_burst",
                                            "xl_worker_checkpoint",
                                            "xl_img2img_serve",
-                                           "xl_img2img_lane_serve")),
+                                           "xl_img2img_lane_serve",
+                                           "guard_lane", "guard_nan",
+                                           "guard_solo", "guard_worker",
+                                           "guard_cost", "guard_xl")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -3441,6 +4015,7 @@ def kernels_line(runs: dict, tables: dict) -> None:
 def main() -> int:
     import shutil
 
+    t0 = time.perf_counter()
     torch = probe()
     # everything this run writes (checkpoints, residency.json, spools)
     # stays under the checkout and is removed when the run ends
@@ -3448,12 +4023,12 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     os.environ["SWARM_TPU_ROOT"] = str(root)
     try:
-        return run_phases(torch)
+        return run_phases(torch, t0)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def run_phases(torch) -> int:
+def run_phases(torch, t0: float) -> int:
     build()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -3504,6 +4079,20 @@ def run_phases(torch) -> int:
         runs["worker_serve"] = worker_serve_phase(
             torch, registry, pool, lane_blobs, burst_blobs, burst_ips, ckpt,
             {**img_blobs, **inpaint_blobs})
+        # the gray-failure guard: a wedged lane, a NaN row, a hung solo
+        # call, the healing ladder, and what the checkpoints cost
+        with LocalHive() as asset_hive:
+            asset_hive.assets.update(image_assets())
+            runs["guard_lane"] = guard_lane_phase(torch, registry, slot,
+                                                  asset_hive)
+        runs["guard_nan"] = guard_nan_phase(torch, registry, pool)
+        runs["guard_solo"] = guard_solo_phase(torch, registry, pool,
+                                              solo_blobs[1])
+        runs["guard_worker"] = guard_worker_phase(torch, registry, pool)
+        with LocalHive() as child_hive:
+            emit("guard_child", **guard_child(child_hive,
+                                              settings_root_dir()))
+        runs["guard_cost"] = guard_cost_phase(torch, registry, slot)
     # SDXL at 1024 px: the solo path, then the lanes and the worker
     with env(CHIASWARM_STEPPER="0"):
         runs["xl_serve"], xl_blobs, xl_ips = xl_serve_phase(torch, registry,
@@ -3519,10 +4108,12 @@ def run_phases(torch) -> int:
             asset_hive.assets.update(image_assets())
             runs.update(xl_img2img_serve_phase(torch, registry, slot,
                                                asset_hive))
+        runs["guard_xl"] = guard_xl_phase(torch, registry, slot)
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)
+    emit("script_wall", seconds=time.perf_counter() - t0)
     kernels_line(runs, tables)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

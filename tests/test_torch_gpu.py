@@ -1219,3 +1219,90 @@ def test_encode_stays_outside_the_seq_context(cuda_device):
     torch.cuda.synchronize()
     assert calls == [] and FUSED_KERNEL.launches == before
     assert z.shape == (1, 4, 32, 32) and torch.isfinite(z).all()
+
+
+# ---------------------------------------------------------------------------
+# the gray-failure guard on the card (tests/test_torch_guard.py on the CPU)
+
+
+def _guard_env(monkeypatch):
+    from chiaswarm_tpu_torch.serving import guard
+
+    monkeypatch.setenv("CHIASWARM_STEPPER", "1")
+    monkeypatch.setenv("CHIASWARM_STEPPER_LANE_WIDTH", "2")
+    monkeypatch.setenv("CHIASWARM_STEPPER_CKPT_EVERY", "2")
+    for name in (guard.ENV_CHAOS_WEDGE, guard.ENV_CHAOS_NAN,
+                 guard.ENV_CHAOS_SLOW, guard.ENV_ENABLE):
+        monkeypatch.delenv(name, raising=False)
+    guard.reset_chaos()
+    return guard
+
+
+def test_a_wedged_lane_pair_resumes_bit_for_bit_on_the_card(
+        cuda_device, monkeypatch, tmp_path):
+    """A txt2img and an inpaint job share a tiny_b1 lane of 2 on the card;
+    lane step 3 wedges inside its armed window (the host sleep stands in
+    for a wedged card: the window's ``event.synchronize()`` is inside the
+    same window). The watchdog condemns the lane from its own thread, both
+    jobs resume at step 2 in one fresh lane, and each image is its
+    uninterrupted run bit for bit (generator states in the checkpoint);
+    B1 ran at the same shapes."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    guard = _guard_env(monkeypatch)
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    ancestral = {"scheduler_type": "EulerAncestralDiscreteScheduler"}
+    jobs = [{"id": "txt", "model_name": "tiny_b1", "prompt": "a red door",
+             "num_inference_steps": 8, "seed": 4, "height": 64, "width": 64,
+             "content_type": "image/png"},
+            _image_job("inpaint", num_inference_steps=8)]
+    kernels.reset_launches()
+    # the formatter pops the nested parameters: a fresh copy each run
+    ref = synchronous_do_work_batch(
+        [dict(j, parameters=dict(ancestral)) for j in jobs], slot, registry)
+    ref_shapes = dict(KERNEL.shapes)
+    get_stepper(slot).shutdown()
+    monkeypatch.setenv(guard.ENV_HANG_FACTOR, "3")
+    monkeypatch.setenv(guard.ENV_HANG_FLOOR, "1")
+    monkeypatch.setenv(guard.ENV_CHAOS_WEDGE, "3:4.0")
+    guard.reset_chaos()
+    kernels.reset_launches()
+    healed = synchronous_do_work_batch(
+        [dict(j, parameters=dict(ancestral)) for j in jobs], slot, registry)
+    stats = get_stepper(slot).stats()
+    get_stepper(slot).shutdown(timeout_s=30)
+    assert stats["lanes_condemned"] == 1 and stats["rows_hung"] == 2
+    for before, after in zip(ref, healed):
+        assert after["pipeline_config"]["stepper"]["resume_step"] >= 1
+        assert (_png_u8(after) == _png_u8(before)).all()
+    assert set(KERNEL.shapes) == set(ref_shapes)
+
+
+def test_a_nan_row_retires_alone_on_the_card(cuda_device, monkeypatch,
+                                             tmp_path):
+    """Row 1 of a tiny_b1 lane of 2 poisoned after lane step 1: the
+    checkpoint's copy to the host finds it, its job's envelope is a
+    non-fatal ``invalid_output``, and row 0's image is its unpoisoned
+    twin's bit for bit."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    guard = _guard_env(monkeypatch)
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    jobs = [{"id": f"nan-{seed}", "model_name": "tiny_b1",
+             "prompt": "a red door", "num_inference_steps": 6, "seed": seed,
+             "height": 64, "width": 64, "content_type": "image/png"}
+            for seed in (5, 6)]
+    twin = synchronous_do_work_batch([dict(j) for j in jobs], slot, registry)
+    get_stepper(slot).shutdown()
+    monkeypatch.setenv(guard.ENV_CHAOS_NAN, "1:1")
+    guard.reset_chaos()
+    out = synchronous_do_work_batch([dict(j) for j in jobs], slot, registry)
+    stats = get_stepper(slot).stats()
+    get_stepper(slot).shutdown()
+    assert stats["rows_invalid"] == 1
+    assert out[1]["pipeline_config"]["error_kind"] == "invalid_output"
+    assert "fatal_error" not in out[1]
+    assert (_png_u8(out[0]) == _png_u8(twin[0])).all()

@@ -1226,10 +1226,15 @@ def test_worker_refuses_parts_of_the_next_slice(over):
 
 
 def test_worker_ignores_guard_enabled_and_logs_it(caplog):
+    # the name predates the guard's port: guard_enabled is now honoured (a
+    # device guard on every slot, tests/test_torch_guard.py), and startup
+    # no longer logs that the setting is ignored
     worker = tworker.Worker(settings=tsettings.Settings(guard_enabled=True),
                             pool=ChipPool(device="cpu"), registry=object(),
                             hive=object())
     with caplog.at_level("INFO", logger="chiaswarm_torch.worker"):
         worker.startup()
-    assert "guard_enabled is ignored" in caplog.text
+    assert "guard_enabled is ignored" not in caplog.text
     assert "1 slot(s)" in caplog.text
+    assert worker.guard.enabled
+    assert all(slot._guard is worker.guard for slot in worker.pool)

@@ -22,7 +22,8 @@ and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
 ``--width`` rows, N by default): one warm-up burst, then one under the
 profiler, with the lane steps it took and the launches per lane step.
 ``--sweep 1,2,4,8,16`` times that burst, unprofiled, at each pinned lane
-width (a warm-up burst first at each) and prints the images/s of each.
+width (a warm-up burst first at each) and prints the images/s of each
+and every job's ``generation_s``.
 
     python tools/torch_serve_profile.py [--model sdxl] [--steps 20]
            [--top 25] [--seq 4] [--trace serve_trace.json]
@@ -187,8 +188,9 @@ def lanes_main(args) -> int:
     jobs = burst_jobs(args.lanes, args.steps, args.model)
     os.environ["CHIASWARM_STEPPER"] = "1"
 
-    def burst(width: int) -> tuple[float, int]:
-        """One burst at a pinned lane width: (wall s, lane steps)."""
+    def burst(width: int) -> tuple[float, int, list[float]]:
+        """One burst at a pinned lane width: (wall s, lane steps, each
+        job's ``generation_s``)."""
         os.environ["CHIASWARM_STEPPER_LANE_WIDTH"] = str(width)
         before = stepper.stats().get("steps_executed", 0)
         t0 = time.perf_counter()
@@ -201,7 +203,8 @@ def lanes_main(args) -> int:
             if "error" in cfg or "stepper" not in cfg:
                 raise SystemExit(f"job {result['id']} was not served by a "
                                  f"lane: {cfg.get('error')}")
-        return wall_s, stepper.stats()["steps_executed"] - before
+        return (wall_s, stepper.stats()["steps_executed"] - before,
+                [r["pipeline_config"]["generation_s"] for r in results])
 
     line = {"device": torch.cuda.get_device_name(0), "model": args.model,
             "jobs": len(jobs),
@@ -212,19 +215,21 @@ def lanes_main(args) -> int:
             for width in (int(w) for w in args.sweep.split(",")):
                 stepper.shutdown()  # a fresh lane at the new width
                 burst(width)  # warm-up: cuDNN plans for the new batch
-                wall_s, steps = burst(width)
+                wall_s, steps, generation_s = burst(width)
                 sweep.append({"width": width, "wall_s": wall_s,
                               "lane_steps": steps,
-                              "images_per_s": len(jobs) / wall_s})
+                              "images_per_s": len(jobs) / wall_s,
+                              "generation_s": generation_s})
             line["sweep"] = sweep
         else:
             width = args.width or args.lanes
             burst(width)  # warm-up
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall_s, steps = burst(width)
+                wall_s, steps, generation_s = burst(width)
             summary = kernel_summary(prof, wall_s, args.top)
             line.update(width=width, lane_steps=steps,
+                        generation_s=generation_s,
                         images_per_s=len(jobs) / wall_s,
                         launches_per_lane_step=summary["kernel_launches"]
                         / max(1, steps), **summary)
