@@ -1,8 +1,9 @@
 """Diffusers-layout checkpoint directories -> the port's modules, the
 counterpart of ``chiaswarm_tpu/convert/torch_to_flax.py``:
 ``read_torch_weights`` (:38-68), ``load_checkpoint`` (:939-958) and the
-name rules of ``convert_vae`` (:448-508) and ``convert_text_encoder``
-(:579-614).
+name rules of ``convert_vae`` (:448-508), ``convert_text_encoder``
+(:579-614), ``convert_controlnet`` (:403-440) and ``convert_safety_checker``
+(:877-926).
 
 A snapshot holds one subdirectory per module (``unet/``, ``vae/``,
 ``text_encoder/``, ``text_encoder_2/`` for a second tower), each with
@@ -23,6 +24,14 @@ is a name check plus the aliases the JAX converters accept:
 - ``to_out.<leaf>`` -> ``to_out.0.<leaf>`` (the JAX converters accept both);
 - a text tower's keys without the ``text_model.`` prefix; its
   ``position_ids`` buffer (older CLIP checkpoints) is skipped.
+
+A ControlNet directory (diffusers ``ControlNetModel``) loads by the UNet's
+rules: its trunk has the UNet's names, beside ``controlnet_cond_embedding.*``,
+``controlnet_down_blocks.{i}`` and ``controlnet_mid_block``. A safety checker
+(``StableDiffusionSafetyChecker``) splits into its vision tower, nested under
+``vision_model.vision_model.`` beside ``visual_projection.weight``, and the
+four concept buffers (:func:`split_safety_checker`); a missing buffer
+raises, as in JAX.
 
 Keys with no parameter in the port are skipped with a debug log, as JAX
 skips them. A parameter the checkpoint lacks, a shape that does not match,
@@ -65,6 +74,13 @@ _OTHER_PATTERNS = ("*.bin", "*.pt", "*.pth", "*.ckpt")
 
 _VAE_ATTN_ALIASES = {"query": "to_q", "key": "to_k", "value": "to_v",
                      "proj_attn": "to_out.0"}
+
+
+#: the safety checker's concept buffers, each required
+SAFETY_BUFFERS = ("concept_embeds", "concept_embeds_weights",
+                  "special_care_embeds", "special_care_embeds_weights")
+
+_CHECKER_TRUNK = "vision_model.vision_model."
 
 
 class CheckpointError(RuntimeError):
@@ -191,12 +207,44 @@ class TensorLander:
                 "bytes_read": self.bytes, "tensors": self.tensors}
 
 
+def split_safety_checker(state: dict[str, torch.Tensor]
+                         ) -> tuple[dict[str, torch.Tensor],
+                                    dict[str, torch.Tensor]]:
+    """A safety checker's state dict -> (vision tower state in the port's
+    ``ClipVisionEncoder`` names, the four concept buffers), by JAX's
+    ``convert_safety_checker`` rules: the trunk under
+    ``vision_model.vision_model.`` loses its outer ``vision_model.``,
+    ``visual_projection.weight`` stays, anything else is skipped. Raises
+    :class:`CheckpointError` when a buffer is missing."""
+    tower: dict[str, torch.Tensor] = {}
+    buffers: dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        if key in SAFETY_BUFFERS:
+            buffers[key] = value
+        elif key == "visual_projection.weight":
+            tower[key] = value
+        elif key.startswith(_CHECKER_TRUNK):
+            tower[key[len("vision_model."):]] = value
+        else:
+            log.debug("safety checker conversion skipped %s", key)
+    missing = [k for k in SAFETY_BUFFERS if k not in buffers]
+    if missing:
+        raise CheckpointError(f"safety checker state is missing {missing}")
+    return tower, buffers
+
+
 def load_module(module: nn.Module, name: str, path: str | Path,
                 lander: TensorLander) -> list[str]:
     """Fill every parameter of ``module`` (the port's ``name`` module,
     storage already on its device at its serving dtypes) from the weight
     files under ``path``. Returns the checkpoint keys skipped."""
-    state = read_weights(path)
+    return fill_module(module, name, read_weights(path), lander, path)
+
+
+def fill_module(module: nn.Module, name: str,
+                state: dict[str, torch.Tensor], lander: TensorLander,
+                path: str | Path) -> list[str]:
+    """:func:`load_module` on a state dict already read from ``path``."""
     params = dict(module.named_parameters())
     source: dict[str, str] = {}
     skipped: list[str] = []

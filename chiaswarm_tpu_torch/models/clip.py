@@ -1,11 +1,19 @@
-"""CLIP text encoder, counterpart of ``chiaswarm_tpu/models/clip.py``
-(``ClipTextEncoder`` :133-185, layers and activations :25-78).
+"""CLIP towers, counterpart of ``chiaswarm_tpu/models/clip.py``: the text
+encoder (``ClipTextEncoder`` :133-185, layers and activations :25-78) and the
+safety checker's vision tower (``VisionConfig``/``ClipVisionEncoder``
+:79-131).
 
 Parameter names are HF ``CLIPTextModel``'s (``text_model.embeddings...``,
 ``text_model.encoder.layers.{i}.self_attn.q_proj`` ...), plus
 ``text_projection`` when the config has a projection, so a later slice can
 load the published safetensors with no renaming. The JAX package runs its
 text towers in float32 whatever the family's dtype; so does this one.
+
+The vision tower carries HF ``CLIPVisionModelWithProjection`` names
+(``vision_model.embeddings.patch_embedding``, ``vision_model.pre_layrnorm``,
+``vision_model.encoder.layers.{i}...``, ``visual_projection``) and runs in
+float32. Its 257 tokens stay on the plain attention path, as in JAX (the
+text tower's ``ClipLayer`` with a zero mask).
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+import dataclasses
 
 from chiaswarm_tpu_torch.models.configs import TextEncoderConfig
 
@@ -143,3 +153,85 @@ class ClipTextEncoder(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return seq, pooled
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """CLIP vision tower (ViT-L/14 defaults, the safety checker's trunk).
+    Field names match ``TextEncoderConfig`` so ``ClipLayer`` serves both."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    hidden_act: str = "quick_gelu"
+    image_size: int = 224
+    patch_size: int = 14
+    projection_dim: int = 768
+
+
+class ClipVisionEmbeddings(nn.Module):
+    def __init__(self, config: VisionConfig) -> None:
+        super().__init__()
+        self.patch_size = config.patch_size
+        self.class_embedding = nn.Parameter(torch.empty(config.hidden_size))
+        self.patch_embedding = nn.Conv2d(3, config.hidden_size,
+                                         config.patch_size,
+                                         stride=config.patch_size, bias=False)
+        n_pos = (config.image_size // config.patch_size) ** 2 + 1
+        self.position_embedding = nn.Embedding(n_pos, config.hidden_size)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> (B, 1 + patches, hidden). The patch conv (stride
+        = kernel) is computed as one GEMM over the unfolded patches: cuDNN
+        would run a float32 conv in TF32 under PyTorch's default
+        ``torch.backends.cudnn.allow_tf32``, and flipping that process-wide
+        flag here would race with a lane's float32 convs on another thread;
+        ``torch.matmul`` in float32 stays in full precision under the
+        default ``torch.backends.cuda.matmul.allow_tf32 = False``."""
+        b, c, h, w = pixel_values.shape
+        p = self.patch_size
+        gh, gw = h // p, w // p
+        patches = (pixel_values[:, :, :gh * p, :gw * p]
+                   .reshape(b, c, gh, p, gw, p)
+                   .permute(0, 2, 4, 1, 3, 5).reshape(b, gh * gw, c * p * p))
+        weight = self.patch_embedding.weight.reshape(
+            self.patch_embedding.out_channels, -1)
+        x = torch.matmul(patches, weight.t())
+        cls = self.class_embedding.expand(b, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        pos = torch.arange(x.shape[1], device=x.device)
+        return x + self.position_embedding(pos)[None]
+
+
+class ClipVisionTransformer(nn.Module):
+    def __init__(self, config: VisionConfig) -> None:
+        super().__init__()
+        self.embeddings = ClipVisionEmbeddings(config)
+        self.pre_layrnorm = nn.LayerNorm(config.hidden_size, eps=1e-5)
+        self.encoder = ClipEncoder(config)
+        self.post_layernorm = nn.LayerNorm(config.hidden_size, eps=1e-5)
+
+
+class ClipVisionEncoder(nn.Module):
+    """(B, 3, H, W) preprocessed pixels, NCHW float32 -> (B, projection_dim)
+    image embeddings: patch GEMM + CLS token + position embedding ->
+    ``pre_layrnorm`` -> the text tower's ``ClipLayer`` stack with a zero
+    (non-causal) mask -> ``post_layernorm`` on token 0 ->
+    ``visual_projection``."""
+
+    def __init__(self, config: VisionConfig) -> None:
+        super().__init__()
+        self.config = config
+        self.vision_model = ClipVisionTransformer(config)
+        self.visual_projection = nn.Linear(config.hidden_size,
+                                           config.projection_dim, bias=False)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        vm = self.vision_model
+        x = vm.pre_layrnorm(vm.embeddings(pixel_values.float()))
+        mask = torch.zeros((1, 1, x.shape[1], x.shape[1]),
+                           dtype=torch.float32, device=x.device)
+        for layer in vm.encoder.layers:
+            x = layer(x, mask)
+        return self.visual_projection(vm.post_layernorm(x[:, 0]))

@@ -16,8 +16,17 @@ cross-attention is pinned to the plain ``"xla"`` path, as in the reference.
 SDXL's added conditioning (``time_conditioning`` :289-310) is the
 ``add_embedding`` MLP over concat(pooled text, sinusoidal time ids), added
 to the time embedding; the SVD-class variant without a pooled branch comes
-with it. Not in this slice: class embeddings (upscalers, AudioLDM),
-ControlNet residual inputs and the DeepCache seam.
+with it.
+
+The time conditioning, the down trunk and the mid block (JAX
+``time_conditioning``/``down_trunk``/``mid_trunk`` :251-353) live in
+:class:`UNetTrunk`, which the ControlNet (``models/controlnet.py``) shares,
+so both keep diffusers' names. ControlNet residuals (``down_residuals``,
+``mid_residual``, JAX :359, :396-457) are added to the skips and to the mid
+block's output; each sum is cast back to the model dtype, as diffusers adds
+them (JAX keeps a bf16 model's sums in float32 from there on; in float32 the
+two are the same). Not in this slice: class embeddings (upscalers,
+AudioLDM) and the DeepCache seam.
 """
 
 from __future__ import annotations
@@ -255,10 +264,11 @@ class _Block(nn.Module):
         self.attentions = nn.ModuleList()
 
 
-class UNet(nn.Module):
-    """Returns the model prediction (epsilon/v per family), float32, for
-    NCHW latents ``sample`` (B, C, H, W), ``timesteps`` (B,) float (fractional
-    allowed) and ``encoder_hidden_states`` (B|divisor, S, cross_dim)."""
+class UNetTrunk(nn.Module):
+    """The part of the UNet a ControlNet shares: ``conv_in``, the time
+    embedding (and SDXL's ``add_embedding``), the down blocks and the mid
+    block, with diffusers' names. ``skip_channels`` lists the channels of
+    the down trunk's skips, in order."""
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
@@ -270,13 +280,6 @@ class UNet(nn.Module):
         channels = list(cfg.block_out_channels)
         n = len(channels)
         temb_dim = channels[0] * 4
-        ctx_dim = cfg.cross_attention_dim
-
-        def transformer(ch: int, level: int, depth: int) -> SpatialTransformer:
-            heads, head_dim = cfg.heads_for(ch, level)
-            return SpatialTransformer(ch, depth, heads, head_dim, ctx_dim,
-                                      cfg.use_linear_projection, cfg.attn_impl)
-
         self.conv_in = nn.Conv2d(cfg.sample_channels, channels[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(channels[0], temb_dim)
         if cfg.addition_embed_dim is not None:
@@ -286,7 +289,7 @@ class UNet(nn.Module):
             self.add_embedding = TimestepEmbedding(add_in, temb_dim)
 
         self.down_blocks = nn.ModuleList()
-        skip_channels = [channels[0]]
+        self.skip_channels = [channels[0]]
         prev = channels[0]
         for level, ch in enumerate(channels):
             block = _Block()
@@ -294,54 +297,46 @@ class UNet(nn.Module):
             for _ in range(cfg.layers_per_block):
                 block.resnets.append(ResnetBlock(prev, ch, temb_dim))
                 if depth > 0:
-                    block.attentions.append(transformer(ch, level, depth))
+                    block.attentions.append(
+                        self._transformer(ch, level, depth))
                 prev = ch
-                skip_channels.append(ch)
+                self.skip_channels.append(ch)
             if level < n - 1:
                 block.downsamplers = nn.ModuleList([Downsample(ch)])
-                skip_channels.append(ch)
+                self.skip_channels.append(ch)
             self.down_blocks.append(block)
 
         mid_ch = channels[-1]
         self.mid_block = _Block()
         self.mid_block.resnets.append(ResnetBlock(mid_ch, mid_ch, temb_dim))
         self.mid_block.attentions.append(
-            transformer(mid_ch, n - 1, max(cfg.transformer_depth) or 1))
+            self._transformer(mid_ch, n - 1, max(cfg.transformer_depth) or 1))
         self.mid_block.resnets.append(ResnetBlock(mid_ch, mid_ch, temb_dim))
 
-        self.up_blocks = nn.ModuleList()
-        for level in range(n - 1, -1, -1):
-            ch = channels[level]
-            block = _Block()
-            depth = cfg.transformer_depth[level]
-            for _ in range(cfg.layers_per_block + 1):
-                skip = skip_channels.pop()
-                block.resnets.append(ResnetBlock(prev + skip, ch, temb_dim))
-                if depth > 0:
-                    block.attentions.append(transformer(ch, level, depth))
-                prev = ch
-            if level > 0:
-                block.upsamplers = nn.ModuleList([Upsample(ch)])
-            self.up_blocks.append(block)
-
-        self.conv_norm_out = GroupNorm32(channels[0], eps=1e-5)
-        self.conv_out = Conv2d32(channels[0], cfg.out_channels, 3, padding=1)
-
-    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor | None,
-                added_cond: dict[str, torch.Tensor] | None = None
-                ) -> torch.Tensor:
+    def _transformer(self, ch: int, level: int,
+                     depth: int) -> SpatialTransformer:
         cfg = self.config
-        dtype = param_dtype(self)
+        heads, head_dim = cfg.heads_for(ch, level)
+        return SpatialTransformer(ch, depth, heads, head_dim,
+                                  cfg.cross_attention_dim,
+                                  cfg.use_linear_projection, cfg.attn_impl)
+
+    def time_conditioning(self, timesteps: torch.Tensor,
+                          added_cond: dict[str, torch.Tensor] | None,
+                          dtype: torch.dtype) -> torch.Tensor:
+        """The time embedding, plus SDXL's added conditioning."""
+        cfg = self.config
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
         if cfg.addition_embed_dim is not None:
             temb = temb + self._added_embedding(added_cond, dtype)
-        context = (None if encoder_hidden_states is None
-                   else encoder_hidden_states.to(dtype))
+        return temb
 
-        x = self.conv_in(sample.to(dtype))
+    def down_trunk(self, x: torch.Tensor, temb: torch.Tensor,
+                   context: torch.Tensor | None
+                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """From the post-``conv_in`` activation: (x, skips)."""
         skips = [x]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
@@ -352,21 +347,13 @@ class UNet(nn.Module):
             if hasattr(block, "downsamplers"):
                 x = block.downsamplers[0](x)
                 skips.append(x)
+        return x, skips
 
+    def mid_trunk(self, x: torch.Tensor, temb: torch.Tensor,
+                  context: torch.Tensor | None) -> torch.Tensor:
         x = self.mid_block.resnets[0](x, temb)
         x = self.mid_block.attentions[0](x, context)
-        x = self.mid_block.resnets[1](x, temb)
-
-        for block in self.up_blocks:
-            for j, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
-                if len(block.attentions):
-                    x = block.attentions[j](x, context)
-            if hasattr(block, "upsamplers"):
-                x = block.upsamplers[0](x)
-
-        x = F.silu(self.conv_norm_out(x)).to(dtype)
-        return self.conv_out(x)
+        return self.mid_block.resnets[1](x, temb)
 
     def _added_embedding(self, added_cond: dict[str, torch.Tensor] | None,
                          dtype: torch.dtype) -> torch.Tensor:
@@ -389,3 +376,66 @@ class UNet(nn.Module):
         else:
             add = ids_emb
         return self.add_embedding(add.to(dtype))
+
+
+class UNet(UNetTrunk):
+    """Returns the model prediction (epsilon/v per family), float32, for
+    NCHW latents ``sample`` (B, C, H, W), ``timesteps`` (B,) float (fractional
+    allowed) and ``encoder_hidden_states`` (B|divisor, S, cross_dim).
+    ``down_residuals``/``mid_residual`` take a ControlNet's residuals."""
+
+    def __init__(self, config: UNetConfig) -> None:
+        super().__init__(config)
+        cfg = config
+        channels = list(cfg.block_out_channels)
+        n = len(channels)
+        temb_dim = channels[0] * 4
+        skip_channels = list(self.skip_channels)
+        prev = channels[-1]
+        self.up_blocks = nn.ModuleList()
+        for level in range(n - 1, -1, -1):
+            ch = channels[level]
+            block = _Block()
+            depth = cfg.transformer_depth[level]
+            for _ in range(cfg.layers_per_block + 1):
+                skip = skip_channels.pop()
+                block.resnets.append(ResnetBlock(prev + skip, ch, temb_dim))
+                if depth > 0:
+                    block.attentions.append(
+                        self._transformer(ch, level, depth))
+                prev = ch
+            if level > 0:
+                block.upsamplers = nn.ModuleList([Upsample(ch)])
+            self.up_blocks.append(block)
+
+        self.conv_norm_out = GroupNorm32(channels[0], eps=1e-5)
+        self.conv_out = Conv2d32(channels[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor | None,
+                added_cond: dict[str, torch.Tensor] | None = None,
+                down_residuals: tuple[torch.Tensor, ...] | None = None,
+                mid_residual: torch.Tensor | None = None) -> torch.Tensor:
+        dtype = param_dtype(self)
+        temb = self.time_conditioning(timesteps, added_cond, dtype)
+        context = (None if encoder_hidden_states is None
+                   else encoder_hidden_states.to(dtype))
+
+        x, skips = self.down_trunk(self.conv_in(sample.to(dtype)), temb,
+                                   context)
+        if down_residuals is not None:
+            skips = [(s + r).to(dtype) for s, r in zip(skips, down_residuals)]
+        x = self.mid_trunk(x, temb, context)
+        if mid_residual is not None:
+            x = (x + mid_residual).to(dtype)
+
+        for block in self.up_blocks:
+            for j, resnet in enumerate(block.resnets):
+                x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
+                if len(block.attentions):
+                    x = block.attentions[j](x, context)
+            if hasattr(block, "upsamplers"):
+                x = block.upsamplers[0](x)
+
+        x = F.silu(self.conv_norm_out(x)).to(dtype)
+        return self.conv_out(x)

@@ -10,12 +10,16 @@ the JAX package: the 1024-pixel size cap, the server's ``parameters`` block
 unpacked (scheduler class name, ``upscale``, ``reuse_schedule``), default
 steps, server-listed unsupported arguments stripped, and the input images
 (``start_image_uri``, ``mask_image_uri``) fetched into ``image`` and
-``mask_image``. The workflows the JAX package routes to other workloads
-(audio, video, captions, stitch), DeepFloyd cascades and ControlNet's
-preprocessed inputs raise ``ValueError`` naming the later slice; the
-executor turns that into a fatal bad-request envelope, as it does for any
-malformed job. instruct-pix2pix's strength remap comes with its slice (the
-pipeline refuses those models).
+``mask_image``. A ``parameters.controlnet`` block (JAX :163-176) makes the
+job a ControlNet job: ``controlnet_model_name`` (default
+``lllyasviel/control_v11p_sd15_canny``), ``save_preprocessed_input`` from its
+``preprocess`` flag, and the fetched image through
+``workloads/controlnet.py::preprocess_image`` (off unless the job asks).
+The workflows the JAX package routes to other workloads (audio, video,
+captions, stitch) and DeepFloyd cascades raise ``ValueError`` naming the
+later slice; the executor turns that into a fatal bad-request envelope, as
+it does for any malformed job. instruct-pix2pix's strength remap comes with
+its slice (the pipeline refuses those models).
 
 The fetch crosses an open-network trust boundary: HEAD, then a streamed GET
 with connect and read timeouts, the content type checked on both, the body
@@ -109,14 +113,16 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
     args["upscale"] = parameters.get("upscale", False)
 
     if "start_image_uri" in args:
-        if parameters.get("controlnet") is not None:
-            raise ValueError("ControlNet inputs are not served by "
-                             "chiaswarm_tpu_torch yet (a later slice of the "
-                             "port)")
         args.pop("height", None)
         args.pop("width", None)
+        controlnet = parameters.get("controlnet")
         args["image"] = np.asarray(get_image(args.pop("start_image_uri"),
-                                             size))
+                                             size, controlnet))
+        if controlnet is not None:
+            args["controlnet_model_name"] = controlnet.get(
+                "controlnet_model_name", "lllyasviel/control_v11p_sd15_canny")
+            args["save_preprocessed_input"] = controlnet.get("preprocess",
+                                                             False)
 
     if "mask_image_uri" in args:
         args.pop("height", None)
@@ -279,11 +285,13 @@ def download_image(url: str, max_bytes: int = MAX_IMAGE_BYTES) -> Image.Image:
     return image.convert("RGB")
 
 
-def get_image(uri: str, size: tuple[int, int] | None) -> Image.Image:
+def get_image(uri: str, size: tuple[int, int] | None,
+              controlnet: dict | None = None) -> Image.Image:
     """Fetch an input image behind the guards: a HEAD first (an image
     content type, a Content-Length within the cap), then
     :func:`download_image`, then a LANCZOS thumbnail down to ``size`` (H, W)
-    or to :data:`MAX_SIZE`."""
+    or to :data:`MAX_SIZE`; a ControlNet job's image then goes through
+    ``workloads/controlnet.py::preprocess_image``."""
     try:
         head = _open(uri, "HEAD", HEAD_READ_TIMEOUT_S)
     except urllib.error.HTTPError as exc:
@@ -305,4 +313,8 @@ def get_image(uri: str, size: tuple[int, int] | None) -> Image.Image:
         image.thumbnail((size[1], size[0]), Image.Resampling.LANCZOS)
     elif image.height > MAX_SIZE or image.width > MAX_SIZE:
         image.thumbnail((MAX_SIZE, MAX_SIZE), Image.Resampling.LANCZOS)
+    if controlnet is not None:
+        from chiaswarm_tpu_torch.workloads.controlnet import preprocess_image
+
+        image = preprocess_image(image, controlnet)
     return image

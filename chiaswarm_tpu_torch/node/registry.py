@@ -24,6 +24,13 @@ victim's lanes retire at drain), load-per-job degradation and the
 that the worker's circuit breakers mirror in is copied and shared with the
 ledger's state enum (:meth:`model_states`).
 
+A ControlNet (:meth:`ModelRegistry.controlnet`, JAX :549-600) is a ledger
+entry of its own, under ``("controlnet", name, family, False, device)``:
+JAX's key (the last flag is its int8 choice, which waits for the
+quantization slice) plus the device the bundle lives on, since the port's
+multi-card pools build one slot per card. Evicting it retires the lanes
+keyed by it.
+
 LoRA and textual-inversion entries wait for their slice: the diffusion
 callback refuses those jobs before they reach the registry.
 """
@@ -42,6 +49,7 @@ from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily, get_family
 from chiaswarm_tpu_torch.node.settings import settings_root
 from chiaswarm_tpu_torch.pipelines.components import (
     Components,
+    ControlNetBundle,
     estimate_family_bytes,
 )
 from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
@@ -187,6 +195,38 @@ class ModelRegistry:
             model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
             estimate=lambda: self._estimate_bytes(model_name),
             priority=self._priority_for(model_name))
+
+    def controlnet(self, controlnet_name: str, family: ModelFamily,
+                   mesh: DeviceMesh | None = None) -> ControlNetBundle:
+        """The resident ControlNet ``controlnet_name`` for ``family``, on the
+        slot mesh's lead device (the registry's device when no mesh is
+        given). It loads from :func:`model_dir` (a diffusers
+        ``ControlNetModel`` directory); with none there, seeded random
+        weights only under ``allow_random``, else it is not available on
+        this node."""
+        device = self.device if mesh is None else mesh.lead
+
+        def load() -> ControlNetBundle:
+            ckpt = model_dir(controlnet_name)
+            if ckpt.exists():
+                log.info("loading controlnet %s from %s", controlnet_name,
+                         ckpt)
+                return ControlNetBundle.from_checkpoint(
+                    ckpt, controlnet_name, family, device=device)
+            if self.allow_random:
+                log.warning("no checkpoint for controlnet %s; using random "
+                            "weights", controlnet_name)
+                return ControlNetBundle.random(family, device=device,
+                                               model_name=controlnet_name)
+            raise ValueError(f"controlnet {controlnet_name!r} is not "
+                             f"available on this node (no checkpoint at "
+                             f"{ckpt})")
+
+        return self.residency.acquire(
+            ("controlnet", controlnet_name, family.name, False,
+             _device_key(device)), load,
+            model=controlnet_name, size_of=lambda b: b.param_bytes(),
+            priority=self._priority_for(controlnet_name))
 
 
 def _device_key(device: torch.device) -> str:

@@ -20,6 +20,11 @@ Three constructors:
 The text towers stay in float32 whatever ``dtype`` is (the JAX package runs
 them in float32); the UNet and VAE are cast to ``dtype`` except the modules
 the reference computes in float32 (norms, ``conv_out``).
+
+:class:`ControlNetBundle` (JAX :279-410) is a ControlNet attachable to a
+family's pipeline: the hint encoder (``embed``, float32) and the control
+branch (``net``, in the family's dtype), resident on one device, from a seed
+(its zero convs zero) or from a diffusers ``ControlNetModel`` directory.
 """
 
 from __future__ import annotations
@@ -37,6 +42,10 @@ from chiaswarm_tpu_torch.core.rng import row_seed
 from chiaswarm_tpu_torch.models.clip import ClipTextEncoder
 from chiaswarm_tpu_torch.models.common import cast_module
 from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily, get_family
+from chiaswarm_tpu_torch.models.controlnet import (
+    ControlCondEmbedding,
+    ControlNet,
+)
 from chiaswarm_tpu_torch.models.tokenizer import (
     HashTokenizer,
     Tokenizer,
@@ -223,3 +232,121 @@ class Components:
         modules = [*self.text_encoders, self.unet, self.vae]
         return sum(p.numel() * p.element_size()
                    for m in modules for p in m.parameters())
+
+
+#: the hint encoder's prefix in a diffusers ``ControlNetModel`` state dict
+HINT_PREFIX = "controlnet_cond_embedding."
+
+
+@dataclasses.dataclass(eq=False)  # identity: lanes key by the bundle
+class ControlNetBundle:
+    """A ControlNet for one family: ``embed`` (the hint encoder, float32,
+    run once per job) and ``net`` (the control branch, in ``dtype``), on
+    ``device``. Lanes key by the bundle itself, and the residency ledger
+    holds it under its own entry."""
+
+    family: ModelFamily
+    model_name: str
+    embed: ControlCondEmbedding
+    net: ControlNet
+    device: torch.device
+    dtype: torch.dtype
+    load_stats: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def _build(cls, family: ModelFamily | str, model_name: str | None,
+               device: str | torch.device | None, dtype: torch.dtype | None,
+               fill, precast: bool = False) -> "ControlNetBundle":
+        if isinstance(family, str):
+            family = FAMILIES[family]
+        dev = resolve_device(device)
+        if dtype is None:
+            dtype = _DTYPES[family.unet.dtype]
+        with torch.device("meta"):
+            embed = ControlCondEmbedding(family.unet.block_out_channels[0],
+                                         downscale=family.vae.downscale)
+            net = ControlNet(family.unet)
+        if precast:
+            cast_module(net, dtype)
+        embed, net = embed.to_empty(device=dev), net.to_empty(device=dev)
+        fill(embed, net)
+        cast_module(net, dtype)
+        for module in (embed, net):
+            module.eval().requires_grad_(False)
+        return cls(family=family,
+                   model_name=model_name or f"random/controlnet-{family.name}",
+                   embed=embed, net=net, device=dev, dtype=dtype)
+
+    @classmethod
+    def random(cls, family: ModelFamily | str, seed: int = 0,
+               device: str | torch.device | None = None,
+               dtype: torch.dtype | None = None,
+               model_name: str | None = None) -> "ControlNetBundle":
+        """Seeded weights with Flax's default distributions; the hint
+        encoder's ``conv_out`` and every ``controlnet_*`` conv zero, as a
+        fresh ControlNet's are (so its residuals are zero)."""
+
+        @torch.no_grad()
+        def fill(embed: nn.Module, net: nn.Module) -> None:
+            for index, module in enumerate((embed, net)):
+                dev = next(module.parameters()).device
+                gen = torch.Generator(device=dev).manual_seed(
+                    row_seed(seed, index))
+                flax_default_init(module, gen)
+            zero = [embed.conv_out, net.controlnet_mid_block,
+                    *net.controlnet_down_blocks]
+            for conv in zero:
+                conv.weight.zero_()
+                conv.bias.zero_()
+
+        return cls._build(family, model_name, device, dtype, fill)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str | Path,
+                        model_name: str | None = None,
+                        family: ModelFamily | str | None = None,
+                        device: str | torch.device | None = None,
+                        dtype: torch.dtype | None = None
+                        ) -> "ControlNetBundle":
+        """A diffusers ``ControlNetModel`` directory (or a pipeline snapshot
+        with a ``controlnet/`` subdirectory) on ``device`` (default
+        ``cuda``)."""
+        from chiaswarm_tpu_torch.convert.checkpoint import (
+            TensorLander,
+            fill_module,
+            read_weights,
+        )
+
+        checkpoint_dir = Path(checkpoint_dir)
+        if (checkpoint_dir / "controlnet").is_dir():
+            checkpoint_dir = checkpoint_dir / "controlnet"
+        model_name = model_name or checkpoint_dir.name
+        if family is None:
+            family = get_family(model_name)
+        state = read_weights(checkpoint_dir)
+        hint = {k[len(HINT_PREFIX):]: v for k, v in state.items()
+                if k.startswith(HINT_PREFIX)}
+        trunk = {k: v for k, v in state.items()
+                 if not k.startswith(HINT_PREFIX)}
+        lander = TensorLander(resolve_device(device))
+
+        def fill(embed: nn.Module, net: nn.Module) -> None:
+            fill_module(embed, "controlnet_cond_embedding", hint, lander,
+                        checkpoint_dir)
+            fill_module(net, "controlnet", trunk, lander, checkpoint_dir)
+
+        bundle = cls._build(family, model_name, device, dtype, fill,
+                            precast=True)
+        bundle.load_stats = lander.finish()
+        return bundle
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The diffusers ``ControlNetModel`` state dict of this bundle."""
+        state = dict(self.net.state_dict())
+        state.update((HINT_PREFIX + k, v)
+                     for k, v in self.embed.state_dict().items())
+        return state
+
+    def param_bytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for m in (self.embed, self.net) for p in m.parameters())

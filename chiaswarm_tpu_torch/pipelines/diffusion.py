@@ -47,8 +47,18 @@ starts at 0 and, after every step, re-projects the kept region of the clean
 latents (``schedulers/sampling.py::reproject_known``) with a renoise draw
 from each row's generator, after that step's own noise. The lanes carry the
 same row state (``stepper_step``'s ``known``/``mask``/``mask_on``).
-ControlNet, instruct-pix2pix, DeepCache reuse and tiled decode raise
-``ValueError`` naming the later slice that brings them.
+
+ControlNet (``submit``'s control preparation :1034-1052, the solo body
+:548-566, ``stepper_step_fn(has_control=True)`` :745-811 and
+``stepper_control_embed_fn`` :888-910): the conditioning image is resized
+onto the bucketed grid (LANCZOS), divided by 255 if it is uint8 or above 1,
+clipped to [0, 1] and embedded by the bundle's hint encoder once per job
+(:meth:`DiffusionPipeline.stepper_control_embed`, which the lanes call at
+admission too); each eval runs the control branch on the UNet's batch
+(the CFG batch under guidance) and the UNet takes its residuals. A lane
+step's rows carry their own hint and scale. instruct-pix2pix, DeepCache
+reuse and tiled decode raise ``ValueError`` naming the later slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -187,9 +197,8 @@ def _refuse_unported(req: GenerateRequest, components: Components) -> None:
     if components.family.image_conditioned:
         raise ValueError("instruct-pix2pix models are not served by "
                          "chiaswarm_tpu_torch yet (a later slice of the port)")
-    if req.controlnet is not None:
-        raise ValueError("ControlNet is not served by chiaswarm_tpu_torch yet "
-                         "(a later slice of the port)")
+    if req.controlnet is not None and req.control_image is None:
+        raise ValueError("controlnet requires a conditioning image")
     if req.reuse_schedule:
         raise ValueError("DeepCache reuse is not served by chiaswarm_tpu_torch "
                          "yet (a later slice of the port)")
@@ -320,13 +329,18 @@ class DiffusionPipeline:
                   noise: torch.Tensor, generators: list[torch.Generator],
                   height: int, width: int, start: int = 0,
                   init_latent: torch.Tensor | None = None,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None,
+                  control: Any = None, hint: torch.Tensor | None = None,
+                  control_scale: float = 1.0) -> torch.Tensor:
         """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device.
         With ``init_latent`` the loop starts at ladder index ``start`` from
         ``init_latent + noise * sigma[start]``; with ``mask`` ((B, 1, h, w),
         1 = regenerate, broadcast over channels) every step re-projects the kept
         region of ``init_latent`` with a renoise draw per row, after the
-        step's own noise."""
+        step's own noise. With ``control`` (a ``ControlNetBundle``) each eval
+        runs its branch on the UNet's batch with the job's ``hint`` (1, C0,
+        h, w) and feeds the residuals, times ``control_scale``, to the
+        UNet."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
         unet = self.c.unet
@@ -344,15 +358,22 @@ class DiffusionPipeline:
         state = init_sampler_state(x)
         rows = 2 * batch if use_cfg else batch
         added = self._added_cond(pooled_rows, height, width)
+        if control is not None:
+            hint = hint.expand(rows, -1, -1, -1)
         for i in range(start, steps):
             inp = scale_model_input(sched, x, i)
             t = timesteps[i].expand(rows)
+            inp_b = torch.cat([inp, inp], dim=0) if use_cfg else inp
+            down = mid = None
+            if control is not None:
+                down, mid = control.net(inp_b, t, ctx, hint, added,
+                                        control_scale)
+            out = unet(inp_b, t, ctx, added, down, mid)
             if use_cfg:
-                out = unet(torch.cat([inp, inp], dim=0), t, ctx, added)
                 eps_u, eps_c = out.chunk(2, dim=0)
                 eps = eps_u + guidance * (eps_c - eps_u)
             else:
-                eps = unet(inp, t, ctx, added)
+                eps = out
             step_noise = (randn_rows(generators, tuple(x.shape[1:]),
                                      self.c.device)
                           if sampler.kind in NOISY_KINDS else None)
@@ -417,6 +438,29 @@ class DiffusionPipeline:
                                self.c.device).expand(rows, 1, lh, lw)
         return mode, start, init_latent, mask_rows
 
+    def stepper_control_embed(self, controlnet: Any, control_image: Any,
+                              height: int, width: int) -> torch.Tensor:
+        """A job's conditioning image (H, W, 3) -> its hint embedding
+        (1, C0, h, w) on the bundle's device, once per job, for the solo
+        path and lane admission alike: resized onto the bucketed grid
+        (LANCZOS) when its size differs, divided by 255 if it is uint8 or
+        its max exceeds 1, clipped to [0, 1] (the hint encoder's range,
+        not the VAE's [-1, 1])."""
+        if control_image is None:
+            raise ValueError("controlnet requires a conditioning image")
+        cond = np.asarray(control_image)
+        as_u8 = cond.dtype == np.uint8
+        if cond.shape[:2] != (height, width):
+            cond = _resize_image(cond, height, width)
+        cond = np.asarray(cond, np.float32)
+        if as_u8 or cond.max() > 1.0:
+            cond = cond / 255.0
+        cond = np.clip(cond, 0.0, 1.0)
+        x = upload(torch.from_numpy(cond).permute(2, 0, 1)[None].contiguous(),
+                   controlnet.device)
+        with torch.inference_mode():
+            return controlnet.embed(x)
+
     def _decode_uint8(self, x: torch.Tensor) -> torch.Tensor:
         img = self.c.vae.decode(x)
         img = torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
@@ -461,7 +505,9 @@ class DiffusionPipeline:
                      mask: torch.Tensor | None = None,
                      mask_on: torch.Tensor | None = None,
                      renoise_generators: list[torch.Generator | None]
-                     | None = None
+                     | None = None, control: Any = None,
+                     cond: torch.Tensor | None = None,
+                     cscale: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """ONE denoise step over a lane of W rows -> (x, idx, old_denoised).
 
@@ -481,8 +527,12 @@ class DiffusionPipeline:
         (W, C, h, w) where their ``mask`` (W, 1, h, w) is 0, with a renoise
         draw from ``renoise_generators[b]`` after the step noise; the other
         rows draw nothing more and keep the plain step's value. Without
-        ``renoise_generators`` no row re-projects. Inactive rows compute and
-        are discarded: x, history and index keep their values."""
+        ``renoise_generators`` no row re-projects. A control lane passes its
+        ``ControlNetBundle`` as ``control`` with each row's hint embedding
+        ``cond`` (W, C0, h, w) and scale ``cscale`` (W,) float32: the branch
+        runs on the 2W rows, each row's residuals times its own scale.
+        Inactive rows compute and are discarded: x, history and index keep
+        their values."""
         with torch.inference_mode(), sequence_parallel(self.mesh):
             rows = SamplingSchedule(sigmas=sigmas, timesteps=timesteps)
             inp = scale_model_input_rows(rows, x, idx)
@@ -491,9 +541,15 @@ class DiffusionPipeline:
             f = self.c.family.vae.downscale
             added = self._added_cond([pooled_u, pooled_c], x.shape[2] * f,
                                      x.shape[3] * f)
-            out = self.c.unet(torch.cat([inp, inp], dim=0),
-                              torch.cat([t, t], dim=0),
-                              torch.cat([ctx_u, ctx_c], dim=0), added)
+            inp2 = torch.cat([inp, inp], dim=0)
+            t2 = torch.cat([t, t], dim=0)
+            ctx = torch.cat([ctx_u, ctx_c], dim=0)
+            down = mid = None
+            if control is not None:
+                down, mid = control.net(
+                    inp2, t2, ctx, torch.cat([cond, cond], dim=0), added,
+                    torch.cat([cscale, cscale]).reshape(-1, 1, 1, 1))
+            out = self.c.unet(inp2, t2, ctx, added, down, mid)
             eps_u, eps_c = out.chunk(2, dim=0)
             g = guidance.reshape(-1, 1, 1, 1)
             eps = torch.where(g > 1.0,
@@ -552,6 +608,10 @@ class DiffusionPipeline:
         mode, start, init_latent, mask = self.prepare_image_rows(
             req.init_image, req.mask, req.strength, steps, height, width,
             req.seed, batch)
+        hint = None
+        if req.controlnet is not None:
+            hint = self.stepper_control_embed(req.controlnet,
+                                              req.control_image, height, width)
 
         def rows(value: str | tuple[str, ...]) -> list[str]:
             vals = (list(value) if isinstance(value, (tuple, list))
@@ -581,7 +641,9 @@ class DiffusionPipeline:
                 batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
                 guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,
                 noise=noise, generators=generators, height=height,
-                width=width, start=start, init_latent=init_latent, mask=mask)
+                width=width, start=start, init_latent=init_latent, mask=mask,
+                control=req.controlnet, hint=hint,
+                control_scale=float(req.control_scale))
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,
@@ -598,6 +660,9 @@ class DiffusionPipeline:
             "batch": batch,
             "mode": mode,
         }
+        if req.controlnet is not None:
+            config["controlnet"] = req.controlnet.model_name
+            config["controlnet_scale"] = float(req.control_scale)
         return PendingImages(images, (height, width), (req.height, req.width),
                              req.batch), config
 

@@ -195,9 +195,9 @@ class _Entry:
         self.bytes = int(nbytes)
         self.priority = int(priority)
         self.last_used = float(last_used)
-        # the components object the value's lanes are keyed through:
-        # eviction retires those lanes
-        owner = getattr(value, "c", None)
+        # the object the value's lanes are keyed through (a pipeline's
+        # components, a ControlNet bundle itself): eviction retires them
+        owner = getattr(value, "c", value)
         self.owner_id = None if owner is None else id(owner)
 
 

@@ -67,7 +67,16 @@ Workload row state: an img2img row starts at its strength's ladder index
 from its encoded init image; an inpaint row starts at 0 and carries its
 clean latents (``known``) and latent-grid mask, and only such rows
 (``mask_on``) re-project and draw renoise, so a txt2img row beside them keeps
-its bits.
+its bits. A ControlNet job (JAX :184, :299-300, :725-729, :776, :836-855,
+:1694-1812) rides a lane of its own bundle: the lane key holds the
+``ControlNetBundle`` (by reference, as it holds the pipeline), each row
+carries its job's hint embedding (``cond``, embedded once at admission by
+``pipelines/diffusion.py::stepper_control_embed``) and conditioning scale
+(``cscale``), copied in at the row's slot like ``known`` and ``mask``, and
+the step runs the control branch on the lane's rows. A control job takes
+exactly one conditioning image, with no init image and no mask. The
+residency ledger's eviction of a bundle retires its lanes, as a pipeline's
+does.
 
 The gray-failure guard (``serving/guard.py``; JAX :473-610, :1003-1156,
 :1246-1376, :1630-1985):
@@ -102,7 +111,8 @@ The gray-failure guard (``serving/guard.py``; JAX :473-610, :1003-1156,
 
 Not here yet (``ROADMAP.md``): the overload admission cap and poll hints,
 the lane metrics but the checkpoint-seconds histogram (the step-seconds and
-resume-step histograms wait for ``/metrics``, their reader), ControlNet row state and DeepCache reuse lanes.
+resume-step histograms wait for ``/metrics``, their reader) and DeepCache
+reuse lanes.
 """
 
 from __future__ import annotations
@@ -262,6 +272,9 @@ class _RowJob:                    # must never compare tensor fields
     start_step: int = 0
     known0: torch.Tensor | None = None  # (n, C, h, w) clean init latents
     mask0: torch.Tensor | None = None   # (n, 1, h, w) 1 = regenerate
+    # a ControlNet job's rows: the pre-embedded hint and the scale
+    cond0: torch.Tensor | None = None   # (n, C0, h, w)
+    cscale: float = 1.0
     # a resumed job's rows splice in at ``resume_step`` with restored
     # latents (x0), multistep history and generators
     resume_step: int = 0
@@ -395,7 +408,7 @@ class Lane:
                  width: int, height: int, width_px: int, sampler,
                  width_bounds: tuple[int, int] | None = None) -> None:
         self._sched = sched
-        self.key = key
+        self.key = key  # (pipe, height, width, sampler, ControlNet bundle)
         self.pipe = pipe
         self.device = pipe.c.device
         self.width = int(width)
@@ -453,11 +466,13 @@ class Lane:
         self._h_guid = np.ones(w, np.float32)
         self._h_active = np.zeros(w, bool)
         self._h_mask_on = np.zeros(w, bool)
+        self._h_cscale = np.ones(w, np.float32)
         self._gens: list[torch.Generator | None] = [None] * w
 
     def _mirrors(self) -> tuple:
         return (self._h_start, self._h_idx, self._h_sig, self._h_ts,
-                self._h_guid, self._h_active, self._h_mask_on)
+                self._h_guid, self._h_active, self._h_mask_on,
+                self._h_cscale)
 
     # ---- submission side ----
 
@@ -637,6 +652,10 @@ class Lane:
                                     dtype=job.pooled_c.dtype,
                                     device=self.device),
         }
+        if job.cond0 is not None:
+            self._dev["cond"] = torch.zeros(
+                (w,) + tuple(job.cond0.shape[1:]), dtype=job.cond0.dtype,
+                device=self.device)
         self._sync_tables()
 
     def _sync_tables(self) -> None:
@@ -650,6 +669,7 @@ class Lane:
         dev["guid"] = _fresh(self._h_guid, self.device)
         dev["active"] = _fresh(self._h_active, self.device)
         dev["mask_on"] = _fresh(self._h_mask_on, self.device)
+        dev["cscale"] = _fresh(self._h_cscale, self.device)
 
     def _admit_locked(self) -> None:
         """Splice pending jobs into free row slots: the step boundary is
@@ -685,6 +705,9 @@ class Lane:
             dev["ctx_c"].index_copy_(0, sel, job.ctx_c)
             dev["pooled_u"].index_copy_(0, sel, job.pooled_u)
             dev["pooled_c"].index_copy_(0, sel, job.pooled_c)
+            if job.cond0 is not None:
+                dev["cond"].index_copy_(0, sel, job.cond0)
+                self._h_cscale[slots] = job.cscale
             self._h_idx[slots] = job.idx0
             self._h_start[slots] = job.start_step
             self._h_mask_on[slots] = job.known0 is not None
@@ -760,8 +783,9 @@ class Lane:
                     (pad,) + tuple(arr.shape[1:]))])
 
             for name in ("x", "old", "known", "mask", "idx", "ctx_u",
-                         "ctx_c", "pooled_u", "pooled_c"):
-                self._dev[name] = remap(self._dev[name])
+                         "ctx_c", "pooled_u", "pooled_c", "cond"):
+                if name in self._dev:
+                    self._dev[name] = remap(self._dev[name])
             self._sync_tables()
 
     @contextlib.contextmanager
@@ -827,7 +851,8 @@ class Lane:
                 generators=gens, pooled_u=dev["pooled_u"],
                 pooled_c=dev["pooled_c"], known=dev["known"],
                 mask=dev["mask"], mask_on=dev["mask_on"],
-                renoise_generators=renoise)
+                renoise_generators=renoise, control=self.key[4],
+                cond=dev.get("cond"), cscale=dev["cscale"])
             wedge_s = chaos.wedge_at(chaos_step)
             if wedge_s > 0:  # the scripted stand-in for a wedged card
                 log.warning("chaos: wedging lane %d step %d for %.1fs",
@@ -1198,7 +1223,9 @@ class StepScheduler:
                        job_id: Any = None,
                        resume: dict[str, Any] | None = None,
                        init_image: Any = None, strength: float = 0.8,
-                       mask: Any = None) -> Future:
+                       mask: Any = None, controlnet: Any = None,
+                       control_image: Any = None,
+                       control_scale: float = 1.0) -> Future:
         """Prepare a job's rows (tokenize, encode, ladder, initial noise;
         for img2img and inpaint the init image's VAE encode and the latent
         mask) and hand them to the matching lane. Returns a Future of
@@ -1211,7 +1238,10 @@ class StepScheduler:
         clean latents and the latent-grid mask. The image is encoded with
         the job's own seed through the solo path's batch-1 encode
         (``pipelines/diffusion.py::encode_init_image``) and shared by the
-        job's rows.
+        job's rows. ``controlnet`` (a ``ControlNetBundle``, with exactly one
+        ``control_image`` and no init image or mask) routes the job to that
+        bundle's lane; its hint is embedded here, once, and rides each row
+        with ``control_scale``.
 
         ``resume`` (a lane checkpoint, :meth:`Lane._maybe_checkpoint`)
         replaces the fresh noise: the rows splice in at its step with its
@@ -1227,6 +1257,11 @@ class StepScheduler:
             raise LaneReject("guidance <= 1 runs the solo (no-CFG) path")
         if mask is not None and init_image is None:
             raise LaneReject("inpainting requires an init image")
+        if controlnet is not None and (control_image is None
+                                       or mask is not None
+                                       or init_image is not None):
+            raise LaneReject("controlnet lanes take exactly a "
+                             "conditioning image")
         height, width = bucket_image_size(int(height or fam.default_size),
                                           int(width or fam.default_size))
         steps = max(1, int(steps))
@@ -1239,8 +1274,9 @@ class StepScheduler:
         if rows > bounds[1]:
             raise LaneReject(
                 f"{rows} rows exceed the lane width cap {bounds[1]}")
-        # the pipeline itself keys the lane: held by reference, never id()
-        key = (pipe, height, width, sampler)
+        # the pipeline (and a control lane's bundle) key the lane: held by
+        # reference, never id()
+        key = (pipe, height, width, sampler, controlnet)
         lane_rows = self.initial_width(rows, height, width)
         limit = self.width_limit_for(key)
         if limit is not None and limit < lane_rows:
@@ -1257,6 +1293,12 @@ class StepScheduler:
             workload, start_step, init_rows, mask_rows = \
                 pipe.prepare_image_rows(init_image, mask, strength, steps,
                                         height, width, int(seed), rows)
+            cond_rows = None
+            if controlnet is not None:
+                workload = "controlnet"
+                cond_rows = pipe.stepper_control_embed(
+                    controlnet, control_image, height, width
+                ).expand(rows, -1, -1, -1)
             restored = None
             if resume is not None:
                 try:
@@ -1291,7 +1333,8 @@ class StepScheduler:
             pooled_c=pooled_c[:rows], generators=generators,
             x0=x0, workload=workload, start_step=start_step,
             known0=init_rows if mask_rows is not None else None,
-            mask0=mask_rows, resume_step=resume_step, old0=old0,
+            mask0=mask_rows, cond0=cond_rows, cscale=float(control_scale),
+            resume_step=resume_step, old0=old0,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
                                          else self.row_deadline_s()))
         self._enqueue(key, pipe, job, lane_rows, height, width, sampler,
@@ -1391,12 +1434,13 @@ class StepScheduler:
     # ---- lifecycle / observability ----
 
     def retire_lanes_for_owner(self, owner_id: int) -> int:
-        """Ask every lane built on the components object with
-        ``id == owner_id`` to retire as soon as its rows drain (idle lanes
-        on the lane thread's next wakeup). Returns the number asked."""
+        """Ask every lane built on the components object, or keyed by the
+        ControlNet bundle, with ``id == owner_id`` to retire as soon as its
+        rows drain (idle lanes on the lane thread's next wakeup). Returns
+        the number asked."""
         with self._lock:
             lanes = [lane for key, lane in self._lanes.items()
-                     if id(key[0].c) == owner_id]
+                     if owner_id in (id(key[0].c), id(key[4]))]
         for lane in lanes:
             lane.request_retire()
         return len(lanes)
@@ -1555,9 +1599,9 @@ def aggregate_stats(steppers) -> dict[str, Any]:
 
 def retire_lanes_for_owner(owner_id: int) -> int:
     """Process-wide eviction -> lane retire: every scheduler's lanes built
-    on the components object ``id(c) == owner_id`` retire at drain. The
-    residency ledger calls it when it evicts a model
-    (``serving/residency.py``)."""
+    on the components object, or keyed by the ControlNet bundle, with
+    ``id == owner_id`` retire at drain. The residency ledger calls it when
+    it evicts a model or a bundle (``serving/residency.py``)."""
     return sum(sched.retire_lanes_for_owner(owner_id)
                for sched in list(_EXIT_SCHEDULERS))
 

@@ -1,4 +1,5 @@
-"""Stable-diffusion workload, txt2img, img2img and inpaint: counterpart of
+"""Stable-diffusion workload, txt2img, img2img, inpaint and ControlNet:
+counterpart of
 ``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
 lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
 ``stepper_finish`` :236-466, ``stepper_submit`` passing a lane checkpoint
@@ -10,22 +11,35 @@ channels, scaled to [0, 1]). On a family that is not instruct-pix2pix an
 ``image_guidance_scale`` maps to the img2img strength (the hive sends
 strength x 5), as in the JAX callback; such a job runs the solo path.
 
+A ``controlnet_model_name`` makes the fetched ``image`` the job's
+conditioning image, not an init image (JAX :73-91): the registry's resident
+``ControlNetBundle`` steers every eval at ``controlnet_scale``; a mask beside
+it, or an instruct-pix2pix model, is refused as in JAX. With
+``save_preprocessed_input`` the conditioning image comes back as a second
+artifact, ``preprocessed_input`` (JAX :166-170).
+
 The job binds to the registry's resident pipeline, generates, screens the
 decoded images (a poisoned trajectory raises ``InvalidOutput`` instead of
-uploading a flat frame), builds the artifact envelope, and returns the same
-config keys as the JAX callback: the pipeline's config, the safety fields
-the JAX callback emits when no safety checker is present, and the timing
-keys (and ``residency: per_job`` when the model is degraded to
-load-per-job). Inputs this slice does not serve raise ``ValueError`` naming
-the later slice, which the executor reports as a fatal bad-request
-envelope.
+uploading a flat frame), runs the safety checker over them
+(``workloads/safety.py::check_images``: ``nsfw`` and ``nsfw_flags``, or
+``safety_checker: "unavailable"`` on a node without a checker), builds the
+artifact envelope, and returns the same config keys as the JAX callback:
+the pipeline's config, the safety fields and the timing keys (and
+``residency: per_job`` when the model is degraded to load-per-job). Inputs
+this slice does not serve raise ``ValueError`` naming the later slice,
+which the executor reports as a fatal bad-request envelope.
 
-The lane workload hands an eligible txt2img, img2img or inpaint job to the
-slot's continuous-batching scheduler (``serving/stepper.py``) and finishes
-it into the JAX lane envelope's config keys, ``stepper`` stamp included. A
-job carrying anything a later slice serves is not eligible: it takes the
-solo path, which refuses it and names that slice. Neither is a job whose
-model came back degraded to load-per-job.
+The lane workload hands an eligible txt2img, img2img, inpaint or ControlNet
+job to the slot's continuous-batching scheduler (``serving/stepper.py``) and
+finishes it into the JAX lane envelope's config keys, ``stepper`` stamp and
+safety fields included. A job carrying anything a later slice serves is not
+eligible: it takes the solo path, which refuses it and names that slice.
+Neither is a job whose model came back degraded to load-per-job. The lane
+finish echoes ``preprocessed_input`` too, where the JAX lane finish drops it
+(``chiaswarm_tpu/workloads/diffusion.py::stepper_finish``), and renders a
+ControlNet job at its conditioning image's size, as the solo path does,
+where the JAX lane submit takes the family's default size: a job's artifacts
+do not depend on its route.
 """
 
 from __future__ import annotations
@@ -44,15 +58,10 @@ from chiaswarm_tpu_torch.pipelines.diffusion import (
 )
 from chiaswarm_tpu_torch.serving.guard import screen_images
 from chiaswarm_tpu_torch.serving.residency import is_transient
-
-#: what the JAX callback reports when no safety checker is installed
-#: (chiaswarm_tpu/workloads/safety.py::check_images)
-SAFETY_UNAVAILABLE = {"nsfw": False, "safety_checker": "unavailable"}
-
+from chiaswarm_tpu_torch.workloads.safety import check_images
 
 #: job arguments a later slice serves, and what each asks for
 _LATER = {
-    "controlnet_model_name": "ControlNet",
     "upscale": "the latent upscaler",
     "textual_inversion": "textual inversion",
     "lora": "LoRA",
@@ -81,6 +90,9 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        image_guidance_scale: float | None = None,
                        scheduler_type: str | None = None,
                        content_type: str = "image/png",
+                       controlnet_model_name: str | None = None,
+                       controlnet_scale: float = 1.0,
+                       save_preprocessed_input: bool = False,
                        **kwargs: Any):
     _refuse(kwargs)
     pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
@@ -94,6 +106,13 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         height, width = image.shape[:2]
     height = int(height or fam.default_size)
     width = int(width or fam.default_size)
+    controlnet = _control(registry, slot, fam, controlnet_model_name,
+                          mask_image)
+    control_image = None
+    if controlnet is not None:
+        # the fetched input is the conditioning image: it steers the
+        # generation instead of seeding its latents
+        control_image, image = image, None
     if image_guidance_scale is not None and not fam.image_conditioned:
         # the user's image guidance on a plain checkpoint: honoured as
         # img2img strength (the hive sends strength x 5)
@@ -114,6 +133,9 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         image_guidance_scale=float(image_guidance_scale
                                    if image_guidance_scale is not None
                                    else 1.5),
+        controlnet=controlnet,
+        control_image=control_image,
+        control_scale=float(controlnet_scale),
     )
     t0 = time.perf_counter()
     images, config = pipe(req)
@@ -124,9 +146,13 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
     with span("artifacts", images=int(images.shape[0])):  # PNG, base64
         proc = OutputProcessor(content_type)
         proc.add_images(np.asarray(images))
+        if control_image is not None and save_preprocessed_input:
+            proc.add_images(np.asarray(control_image, dtype=np.uint8),
+                            key="preprocessed_input")
         artifacts = proc.get_results()
 
-    config.update(SAFETY_UNAVAILABLE)
+    _, safety_fields = check_images(images, model_name, pipe.c.device)
+    config.update(safety_fields)
     config.update({
         "images_per_sec": round(images.shape[0] / max(elapsed, 1e-9), 4),
         "generation_s": round(elapsed, 3),
@@ -137,6 +163,25 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         # and serves load -> run -> release
         config["residency"] = "per_job"
     return artifacts, config
+
+
+def _control(registry, slot, fam, controlnet_model_name: str | None,
+             mask_image: Any) -> Any:
+    """The job's ``ControlNetBundle`` (None without a
+    ``controlnet_model_name``), after JAX's refusals: an instruct-pix2pix
+    model, or a mask beside the conditioning image."""
+    if controlnet_model_name is None:
+        return None
+    if fam.image_conditioned:
+        raise ValueError(
+            "instruct-pix2pix models do not support controlnet; the input "
+            "image already conditions generation")
+    if mask_image is not None:
+        raise ValueError(
+            "controlnet jobs cannot also carry a mask_image; the input "
+            "image is the conditioning image, not an inpainting source")
+    return registry.controlnet(controlnet_model_name, fam,
+                               mesh=getattr(slot, "mesh", None))
 
 
 def _mask_01(mask_image: np.ndarray | None) -> np.ndarray | None:
@@ -173,6 +218,9 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
         if SAMPLERS.get(kwargs.get("scheduler_type") or "") not in \
                 FEWSTEP_KINDS:
             return False
+    if kwargs.get("mask_image") is not None \
+            and kwargs.get("controlnet_model_name") is not None:
+        return False  # the solo path raises the user error
     height, width = kwargs.get("height"), kwargs.get("width")
     image = kwargs.get("image")
     if image is not None and getattr(image, "ndim", 0) >= 2:
@@ -201,13 +249,18 @@ class StepperTicket:
     t0: float
     mode: str
     denoise_steps: int
+    device: Any = None
+    controlnet_name: str | None = None
+    controlnet_scale: float = 1.0
+    control_image: np.ndarray | None = None
+    save_preprocessed_input: bool = False
 
 
 def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
                    job_id: Any = None) -> StepperTicket:
-    """Hand one formatted txt2img, img2img or inpaint job to the slot's
-    step scheduler. Raises ``LaneReject`` (or anything else) when the job
-    must run through the per-job path instead."""
+    """Hand one formatted txt2img, img2img, inpaint or ControlNet job to the
+    slot's step scheduler. Raises ``LaneReject`` (or anything else) when
+    the job must run through the per-job path instead."""
     from chiaswarm_tpu_torch.core.buckets import bucket_image_size
     from chiaswarm_tpu_torch.schedulers import resolve
     from chiaswarm_tpu_torch.serving.stepper import LaneReject, get_stepper
@@ -222,8 +275,19 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
             f"model {model_name!r} degraded to load-per-job (residency)")
     fam = pipe.c.family
     image = kwargs.get("image")
+    # ControlNet: the fetched input is the conditioning image (the solo
+    # callback's remap); the bundle keys the lane
+    controlnet_name = kwargs.get("controlnet_model_name")
+    controlnet = _control(registry, slot, fam, controlnet_name,
+                          kwargs.get("mask_image"))
+    control_image = None
+    if controlnet is not None:
+        control_image, image = image, None
     if image is not None:
         height, width = int(image.shape[0]), int(image.shape[1])
+    elif control_image is not None:
+        height, width = (int(control_image.shape[0]),
+                         int(control_image.shape[1]))
     else:
         height = int(kwargs.get("height") or fam.default_size)
         width = int(kwargs.get("width") or fam.default_size)
@@ -234,6 +298,8 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
     # None-check, not `or`: strength 0.0 (near-identity img2img) is valid
     strength = kwargs.get("strength")
     strength = 0.75 if strength is None else float(strength)
+    cscale = kwargs.get("controlnet_scale")
+    cscale = 1.0 if cscale is None else float(cscale)
     mask = _mask_01(kwargs.get("mask_image"))
     mode, start_step = image_plan(steps, strength, image is not None,
                                   mask is not None)
@@ -250,7 +316,8 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         steps=steps, guidance_scale=guidance, height=height, width=width,
         rows=rows, seed=int(seed), scheduler=kwargs.get("scheduler_type"),
         job_id=job_id, resume=resume, init_image=image, strength=strength,
-        mask=mask)
+        mask=mask, controlnet=controlnet, control_image=control_image,
+        control_scale=cscale)
     sampler = resolve(kwargs.get("scheduler_type"),
                       prediction_type=fam.prediction_type)
     return StepperTicket(
@@ -260,7 +327,10 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         rows=rows, seed=int(seed),
         content_type=kwargs.get("content_type", "image/png"),
         slot=slot, t0=time.perf_counter(), mode=mode,
-        denoise_steps=steps - start_step)
+        denoise_steps=steps - start_step, device=pipe.c.device,
+        controlnet_name=controlnet_name, controlnet_scale=cscale,
+        control_image=control_image,
+        save_preprocessed_input=bool(kwargs.get("save_preprocessed_input")))
 
 
 def stepper_finish(ticket: StepperTicket):
@@ -280,6 +350,10 @@ def stepper_finish(ticket: StepperTicket):
     with span("artifacts", images=int(images.shape[0])):  # PNG, base64
         proc = OutputProcessor(ticket.content_type)
         proc.add_images(images)
+        if ticket.control_image is not None and \
+                ticket.save_preprocessed_input:
+            proc.add_images(np.asarray(ticket.control_image, dtype=np.uint8),
+                            key="preprocessed_input")
         artifacts = proc.get_results()
     config = {
         "model_name": ticket.model_name,
@@ -295,7 +369,11 @@ def stepper_finish(ticket: StepperTicket):
         "seed": ticket.seed,
         "stepper": dict(lane_info),
     }
-    config.update(SAFETY_UNAVAILABLE)
+    if ticket.controlnet_name is not None:
+        config["controlnet"] = ticket.controlnet_name
+        config["controlnet_scale"] = ticket.controlnet_scale
+    _, safety_fields = check_images(images, ticket.model_name, ticket.device)
+    config.update(safety_fields)
     config.update({
         "images_per_sec": round(images.shape[0] / max(elapsed, 1e-9), 4),
         "generation_s": round(elapsed, 3),

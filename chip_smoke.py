@@ -9,9 +9,10 @@ each phase printing one JSON line:
 1. probe      — CUDA present; card name and power limit (the raw
                 ``nvidia-smi --query-gpu=name,power.limit`` line is printed
                 on its own too), torch / CUDA / nvcc versions, the PIL and
-                aiohttp versions (the worker's hive client is aiohttp's) and
+                aiohttp versions (the worker's hive client is aiohttp's),
                 whether a ``safetensors`` package is installed (the port
-                does not use one).
+                does not use one) and cv2's version (ControlNet's canny
+                mode calls ``cv2.Canny``).
 2. build      — builds every CUDA kernel from the checkout's sources, one
                 ``nvcc`` per source, all started together, and the host
                 artifact codec; prints each kernel's ptxas lines
@@ -303,6 +304,51 @@ each phase printing one JSON line:
 15p. guard_xl — guard_lane for SDXL at 1024 px (after the SDXL phases), two
                 txt2img jobs (seeds 1, 2): both resume at step 8 bit for
                 bit, their pooled text encoded again; B1 = 70 x dispatches.
+15q. safety_check — the NSFW safety checker at its published widths
+                (ViT-L/14: 1024 hidden, 24 layers, 16 heads, 4096
+                intermediate, patch 14 at 224, projection 768; 17 concept
+                and 3 special-care embeddings), random from a seed, written
+                as the standalone checker directory of the run's settings
+                root and loaded on the card and on the CPU in float32: two
+                512 px pictures and one at 1024 px, the card's embeddings
+                within 2e-4 (relative to the largest) of the CPU's, the
+                concept thresholds set from the CPU's so the first flags and
+                the second does not, the flags equal. Prints the checker's
+                bytes and its ms per image at 512 and 1024 px (host clock and
+                CUDA events around the whole check, preprocessing included;
+                the preprocessing's host ms; the tower's device ms alone).
+15r. safety_serve — that checker installed, its thresholds set from the
+                CPU embeddings of serve's seed-1 and seed-2 images (seed 1
+                flags): the two jobs solo (bit for bit serve's), the pair
+                admitted together into one adaptive lane (it grows to 4
+                rows), and SDXL's seed 1 at
+                1024 px: each envelope's ``nsfw``/``nsfw_flags`` equal the
+                CPU checker's flags on its decoded image, the solo pair
+                flags seed 1 alone; B1 = 10 (70) x evals. The directory is
+                removed after, so the other phases run without a checker.
+15s. controlnet_serve — a ControlNet at SD1.5's published widths (bf16,
+                its zero convs seeded) written as a diffusers-layout
+                directory and loaded through the registry with no random
+                fallback (tensors equal); Canny conditioning images fetched
+                from this script's hive. Solo: seeds 1 and 2 as txt2img,
+                seed 1 as a control job at scales 1.0, 0.5 and 0 on one map
+                and seed 2 at 0.5 on another (1024 px, resized): the scale-0
+                image bit for bit the txt2img image, B1 = 14 x evals (10 for
+                txt2img); the txt2img pair, then the control pair, each
+                admitted together into one adaptive lane of the same width:
+                the control pair's uint8 difference from its solo images at
+                most the txt2img pair's plus a small margin (a row given the
+                other's hint or scale strays by tens of levels); a two-image
+                job solo and in a lane pinned at 2 rows bit for bit (the
+                same composition); through the worker, a job with an annotated
+                ``start_image_uri`` and one with ``preprocess: true, type:
+                canny`` (its ``preprocessed_input`` echo cv2's edges
+                exactly). Every envelope error-free with the ``controlnet``
+                stamp. Prints ``generation_s`` of the control jobs against
+                txt2img and the bundle's bytes in the ledger.
+15t. xl_controlnet_serve — an SDXL ControlNet (random, zero convs seeded):
+                seed 1 at 1024 px as txt2img and as a control job, solo: B1
+                = 70 x 20 and 104 x 20. Prints both ``generation_s``.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -317,7 +363,8 @@ each phase printing one JSON line:
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
-                phases and the guard phases, and B3 under ``lane_seq_serve``
+                phases, the guard phases and the safety and ControlNet
+                phases, and B3 under ``lane_seq_serve``
                 and
                 ``seq_img2img``, with
                 their launches there and their numbers over those
@@ -425,11 +472,17 @@ def probe():
         safetensors_version = safetensors.__version__
     except ImportError:
         safetensors_version = None
+    try:  # ControlNet's canny preprocessing imports it when it runs
+        import cv2
+
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = None
     emit("probe", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
          python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version,
-         safetensors=safetensors_version)
+         safetensors=safetensors_version, cv2=cv2_version)
     return torch
 
 
@@ -529,12 +582,18 @@ KERNEL_SHAPES = [
     # (B, L, S, H, D, dtype, max abs error, relative L2, the phases that
     # launch it: the solo serve path (one job, CFG doubles the batch), a lone
     # job's lane of 2 rows in lane_serve (its adaptive lane may narrow to
-    # one row, batch 2), a lane of 8 rows in lane_burst, and lane_check's
-    # fp32 lane step over 4 rows at a 32x32 latent)
+    # one row, batch 2), two jobs admitted together, whose adaptive lane
+    # grows to 4 rows, in safety_serve and controlnet_serve, a lane of 8
+    # rows in lane_burst, and lane_check's fp32 lane step over 4 rows at a
+    # 32x32 latent)
     (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("serve",)),
     (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("serve",)),
     (4, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
     (4, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
+    (8, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2,
+     ("safety_serve", "controlnet_serve")),
+    (8, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2,
+     ("safety_serve", "controlnet_serve")),
     (16, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (8, 1024, 1024, 8, 40, "float32", 2e-4, 1e-4, ("lane_check",)),
@@ -3930,6 +3989,619 @@ def guard_cost_phase(torch, registry, slot) -> dict:
     return run
 
 
+# ---- the safety checker and ControlNet ----
+
+CHECKER_CONCEPTS = 17   # the published checker's concept embeddings
+CHECKER_SPECIAL = 3     # and its special-care embeddings
+CHECKER_BAR = 2e-4      # float32 card against float32 CPU
+CHECKER_TIMED = 10
+CN_MODEL = "lllyasviel/control_v11p_sd15_canny"  # the hive's default name
+XL_CN_MODEL = "diffusers/controlnet-canny-sdxl-1.0"
+CN_ZERO_CONV_STD = 0.01  # the seeded stand-in for trained zero convs
+# how far a control pair's lane images may stray from their solo images
+# beyond the txt2img pair's: uint8 levels of the largest difference, and
+# the share of values within one level
+CN_LANE_MARGIN = {"max": 3, "within_one": 0.05}
+# the SD1.5 ControlNet's down trunk adds 4 self-attentions at >= 1024
+# tokens an eval (two transformers at 4096 and two at 1024; its mid block
+# is at 64); SDXL's adds 4 at 4096, 20 at 1024 and its 10-deep mid block
+B1_LAUNCHES_PER_CONTROL_EVAL = B1_LAUNCHES_PER_UNET_EVAL + 4
+B1_LAUNCHES_PER_XL_CONTROL_EVAL = B1_LAUNCHES_PER_XL_EVAL + 4 + 20 + 10
+
+
+def checker_tower_state(torch, seed: int = 0) -> dict:
+    """The safety checker's CLIP vision tower at its published widths
+    (ViT-L/14: 1024 hidden, 24 layers, 16 heads, 4096 intermediate, patch
+    14 at 224, projection 768), random from ``seed`` on the host with Flax's
+    default distributions, in the checker's layout (the trunk under
+    ``vision_model.vision_model.``), float32."""
+    from chiaswarm_tpu_torch.models.clip import ClipVisionEncoder, VisionConfig
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+
+    tower = ClipVisionEncoder(VisionConfig())
+    gen = torch.Generator().manual_seed(seed)
+    flax_default_init(tower, gen)
+    with torch.no_grad():
+        tower.vision_model.embeddings.class_embedding.normal_(
+            0.0, 0.02, generator=gen)
+    return {("vision_model." + k if k.startswith("vision_model.") else k):
+            v for k, v in tower.state_dict().items()}
+
+
+def write_checker(torch, checker_dir: Path, state: dict) -> None:
+    """The tower as ``model.safetensors`` and the snapshot's
+    ``config.json`` (the concept buffers go in a file of their own,
+    ``write_concepts``)."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+
+    checker_dir.mkdir(parents=True, exist_ok=True)
+    save_file(state, checker_dir / "model.safetensors", {"format": "pt"})
+    (checker_dir / "config.json").write_text(json.dumps({"vision_config": {
+        "hidden_size": 1024, "intermediate_size": 4096,
+        "num_hidden_layers": 24, "num_attention_heads": 16,
+        "image_size": 224, "patch_size": 14, "projection_dim": 768}}))
+
+
+def write_concepts(torch, checker_dir: Path, embeds, flag: int) -> dict:
+    """The four concept buffers, as ``concepts.safetensors`` beside the
+    tower, such that of the images whose (unnormalised) ``embeds`` are given
+    image ``flag`` flags and the others do not: 17 concept and 3
+    special-care embeddings from seed 1, concept 0 along the flagged
+    image's direction away from the others', its threshold half way
+    between, every other threshold 0.05 above the images' cosines (no
+    special-care hit). Returns the thresholds and the least distance of a
+    cosine from its threshold."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+
+    e = embeds / np.linalg.norm(embeds, axis=-1, keepdims=True)
+    others = [i for i in range(len(e)) if i != flag]
+    rng = np.random.default_rng(1)
+    concept = rng.standard_normal((CHECKER_CONCEPTS, e.shape[1]))
+    special = rng.standard_normal((CHECKER_SPECIAL, e.shape[1]))
+    away = e[flag] - e[others].mean(axis=0)
+    concept[0] = away / np.linalg.norm(away)
+
+    def cos(b):
+        return e @ (b / np.linalg.norm(b, axis=-1, keepdims=True)).T
+
+    c, s = cos(concept), cos(special)
+    concept_t = c.max(axis=0) + 0.05
+    concept_t[0] = (c[flag, 0] + c[others, 0].max()) / 2
+    special_t = np.full(CHECKER_SPECIAL, s.max() + 0.05)
+    margin = float(min(np.abs(c - concept_t).min(),
+                       np.abs(s - special_t).min()))
+    if margin < 1e-3:
+        raise AssertionError(f"the concept thresholds sit within {margin} "
+                             "of a cosine")
+    save_file({
+        "concept_embeds": torch.from_numpy(concept.astype(np.float32)),
+        "concept_embeds_weights": torch.from_numpy(
+            concept_t.astype(np.float32)),
+        "special_care_embeds": torch.from_numpy(special.astype(np.float32)),
+        "special_care_embeds_weights": torch.from_numpy(
+            special_t.astype(np.float32))},
+        checker_dir / "concepts.safetensors", {"format": "pt"})
+    return {"flag_threshold": float(concept_t[0]),
+            "flag_cosines": c[:, 0].tolist(), "margin": margin}
+
+
+def checker_timing(torch, checker, image) -> dict:
+    """One image through the checker (preprocess on the host, the tower on
+    the card, the cosine head on the host): the median host-clock ms and
+    CUDA-event ms of ``CHECKER_TIMED`` whole calls, the preprocessing's
+    host ms, and the tower's device ms alone on an input already on the
+    card (events around it, behind a device sleep)."""
+    import numpy as np
+
+    batch = image[None]
+    checker(batch)  # warm
+    host, events, prep = [], [], []
+    for _ in range(CHECKER_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        checker(batch)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        t1 = time.perf_counter()
+        pixels = checker.preprocess(batch)
+        prep.append((time.perf_counter() - t1) * 1e3)
+    x = torch.from_numpy(np.ascontiguousarray(pixels)).permute(
+        0, 3, 1, 2).contiguous().cuda()
+    with torch.inference_mode():
+        tower_ms = time_ms(torch, lambda: checker.tower(x))
+    return {"host_ms": statistics.median(host),
+            "event_ms": statistics.median(events),
+            "preprocess_host_ms": statistics.median(prep),
+            "tower_device_ms": tower_ms}
+
+
+def safety_check_phase(torch) -> dict:
+    """The checker at its published widths, random from a seed, written as
+    the standalone checker directory of the run's settings root: loaded on
+    the card and on the CPU, both float32. Two 512 px pictures and one at
+    1024 px: the card's embeddings against the CPU's within 2e-4 (relative
+    to the largest), the concept thresholds then set from the CPU's so the
+    first flags and the second does not, and both checkers' flags equal.
+    Prints the checker's bytes and its ms per image at 512 and 1024 px.
+    Returns the checker directory and the tower's state."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.workloads import safety
+
+    t0 = time.perf_counter()
+    state = checker_tower_state(torch)
+    checker_dir = model_dir(safety.CHECKER_MODEL)
+    write_checker(torch, checker_dir, state)
+    images = np.stack([smooth_image(61, IMG_SIZE), smooth_image(62, IMG_SIZE)])
+    big = smooth_image(63, XL_SIZE)[None]
+    write_concepts(torch, checker_dir, np.ones((2, 768)) * [[1], [-1]], 0)
+    cpu = safety.SafetyChecker(checker_dir, "cpu")
+    want = cpu.embed(cpu.preprocess(images))
+    write_s = time.perf_counter() - t0
+    concepts = write_concepts(torch, checker_dir, want, 0)
+    cpu = safety.SafetyChecker(checker_dir, "cpu")
+    t1 = time.perf_counter()
+    card = safety.SafetyChecker(checker_dir, "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    got = card.embed(card.preprocess(images))
+    want_big = cpu.embed(cpu.preprocess(big))
+    got_big = card.embed(card.preprocess(big))
+    err = max(float(np.abs(got - want).max()),
+              float(np.abs(got_big - want_big).max()))
+    scale = max(1.0, float(np.abs(want).max()), float(np.abs(want_big).max()))
+    flags, cpu_flags = card(images), cpu(images)
+    out = {"param_bytes": card.param_bytes(), "write_s": write_s,
+           "load_s": load_s, "max_abs_err": err, "bar": CHECKER_BAR * scale,
+           "embed_abs_max": scale, "flags": flags, "cpu_flags": cpu_flags,
+           "big_flags": card(big), "big_cpu_flags": cpu(big), **concepts,
+           "px512": checker_timing(torch, card, images[0]),
+           "px1024": checker_timing(torch, card, big[0])}
+    emit("safety_check", **out)
+    if err > CHECKER_BAR * scale:
+        raise AssertionError(f"safety_check: the card's embeddings are "
+                             f"{err} off the CPU's")
+    if flags != cpu_flags or flags != [True, False] or \
+            out["big_flags"] != out["big_cpu_flags"]:
+        raise AssertionError(f"safety_check: flags {out}")
+    del card, cpu
+    return {"dir": checker_dir}
+
+
+def safety_serve_phase(torch, registry, slot, checker: dict,
+                       solo_blobs: dict) -> dict:
+    """The checker of safety_check in the standalone checker directory,
+    its thresholds set from the CPU embeddings of serve's seed-1 and seed-2
+    images so seed 1 flags and seed 2 does not: those two jobs solo (bit
+    for bit serve's images), the same pair admitted together into one
+    adaptive lane, and SDXL's seed 1 at 1024 px solo. Each envelope's ``nsfw`` and
+    ``nsfw_flags`` equal the CPU checker's flags on its decoded image; the
+    solo pair flags seed 1 alone. B1 = 10 x evals (70 for SDXL). The
+    checker directory is removed at the end, so later phases run without
+    one."""
+    import shutil
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+    from chiaswarm_tpu_torch.workloads import safety
+
+    checker_dir = checker["dir"]
+    cpu = safety.SafetyChecker(checker_dir, "cpu")
+    refs = np.stack([decode_png(solo_blobs[s]) for s in (1, 2)]).astype(
+        np.uint8)
+    concepts = write_concepts(torch, checker_dir,
+                              cpu.embed(cpu.preprocess(refs)), 0)
+    cpu = safety.SafetyChecker(checker_dir, "cpu")
+    safety._CACHE.clear()
+    checked: list = []
+
+    def hold(phase, result, job, lanes=False):
+        cfg = result["pipeline_config"]
+        blob = check_envelope(phase, job, result, lanes)
+        flags = cpu(decode_png(blob).astype(np.uint8)[None])
+        checked.append({"phase": phase, "id": job["id"],
+                        "nsfw": result["nsfw"], "nsfw_flags":
+                        cfg.get("nsfw_flags"), "cpu_flags": flags,
+                        "generation_s": cfg["generation_s"],
+                        "lane_width": cfg.get("stepper", {}).get(
+                            "lane_width")})
+        if cfg.get("nsfw_flags") != flags or result["nsfw"] != any(flags) \
+                or cfg["nsfw"] != any(flags):
+            raise AssertionError(f"{phase} {job['id']}: envelope "
+                                 f"{cfg.get('nsfw_flags')} against the CPU "
+                                 f"checker's {flags}")
+        return blob
+
+    kernels.reset_launches()
+    try:
+        with env(CHIASWARM_STEPPER="0"):
+            from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+
+            solo = {}
+            for job in JOBS[:2]:
+                job = dict(job, id=f"safety-{job['seed']}")
+                solo[job["seed"]] = hold("safety_serve_solo",
+                                         synchronous_do_work(
+                                             dict(job), slot, registry), job)
+            solo_launches = kernel_launches()
+            check_b1("safety_serve_solo", solo_launches,
+                     2 * SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL)
+        with env(CHIASWARM_STEPPER="1"):
+            pair = [dict(job, id=f"safety-lane-{job['seed']}")
+                    for job in JOBS[:2]]
+            get_stepper(slot).shutdown()
+            before = stepper_stats(slot)
+            with lane_admissions(hold={job["id"]: 0 for job in pair}):
+                results = synchronous_do_work_batch(
+                    [dict(j) for j in pair], slot, registry)
+            for result, job in zip(results, pair):
+                hold("safety_serve_lanes", result, job, lanes=True)
+            steps = delta(stepper_stats(slot), before, "steps_executed")
+            get_stepper(slot).shutdown()
+            lane_launches = {k: v - solo_launches[k]
+                             for k, v in kernel_launches().items()}
+            check_b1("safety_serve_lanes", lane_launches,
+                     steps * B1_LAUNCHES_PER_UNET_EVAL)
+        with env(CHIASWARM_STEPPER="0"):
+            job = dict(XL_JOBS[0], id="safety-sdxl-1")
+            before_xl = kernel_launches()
+            hold("safety_serve_xl", synchronous_do_work(dict(job), slot,
+                                                        registry), job)
+            xl_launches = {k: v - before_xl[k]
+                           for k, v in kernel_launches().items()}
+            check_b1("safety_serve_xl", xl_launches,
+                     SERVE_STEPS * B1_LAUNCHES_PER_XL_EVAL)
+        run = launched()
+    finally:
+        shutil.rmtree(checker_dir, ignore_errors=True)
+        safety._CACHE.clear()
+    solo_flags = [c["nsfw_flags"] for c in checked[:2]]
+    emit("safety_serve", checked=checked, lane_steps=steps, **concepts,
+         solo_bit_equal_serve={s: bool((decode_png(solo[s])
+                                        == decode_png(solo_blobs[s])).all())
+                               for s in solo})
+    if solo_flags != [[True], [False]]:
+        raise AssertionError(f"safety_serve: the solo pair flagged "
+                             f"{solo_flags}, not seed 1 alone")
+    return run
+
+
+def perturb_zero_convs(torch, bundle, seed: int) -> None:
+    """Seeded non-zero weights for the bundle's zero convs (the hint
+    encoder's ``conv_out`` and every ``controlnet_*`` conv): a fresh
+    ControlNet adds exactly nothing."""
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    with torch.no_grad():
+        for conv in (bundle.embed.conv_out, bundle.net.controlnet_mid_block,
+                     *bundle.net.controlnet_down_blocks):
+            for p in (conv.weight, conv.bias):
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=bundle.device)
+                        * CN_ZERO_CONV_STD)
+
+
+def canny_rgb(pixels, low: int = 100, high: int = 200):
+    import cv2
+    import numpy as np
+
+    return np.stack([cv2.Canny(pixels, low, high)] * 3, axis=-1)
+
+
+def control_assets() -> dict:
+    """The ControlNet phases' inputs: annotated (Canny) conditioning images
+    at 512 and 1024 px and a raw picture the worker's job preprocesses."""
+    return {"cond-71.png": png_bytes(canny_rgb(smooth_image(71, IMG_SIZE))),
+            "raw-72.png": png_bytes(smooth_image(72, IMG_SIZE)),
+            "cond-73-1024.png": png_bytes(canny_rgb(smooth_image(73,
+                                                                 XL_SIZE)))}
+
+
+def control_job(seed: int, scale: float, model: str = CN_MODEL,
+                asset: str = "/assets/cond-71.png", base=None, **block):
+    base = JOBS[0] if base is None else base
+    return dict(base, id=f"cn-{model.split('/')[-1]}-{seed}-{scale}",
+                seed=seed, start_image_uri=asset, controlnet_scale=scale,
+                parameters={"controlnet": {"controlnet_model_name": model,
+                                           **block}})
+
+
+def controlnet_serve_phase(torch, registry, pool, slot,
+                           hive: LocalHive) -> dict:
+    """A ControlNet at SD1.5's published widths (the UNet's down and mid
+    trunk, bf16; its zero convs seeded), written as a diffusers-layout
+    directory under the run's settings root and loaded through the
+    registry (the directory exists, so no random fallback; every tensor
+    equal to its source). Conditioning images are Canny edge maps fetched
+    from this script's hive. Solo: serve's seeds 1 and 2 as txt2img, seed 1
+    as a control job at scales 1.0, 0.5 and 0 on one map and seed 2 at 0.5
+    on another (at 1024 px, resized onto the bucket); the scale-0 image bit
+    for bit the txt2img image. Lanes: the two txt2img jobs admitted
+    together into one adaptive lane, then the two control jobs of seeds 1
+    (1.0) and 2 (0.5) likewise into a lane of the same width. A lane is
+    another batch composition than a solo run, so its images are not the
+    solo ones bit for bit on the card; the txt2img pair measures that
+    effect, and the control pair may stray from its solo images by no more
+    than ``CN_LANE_MARGIN`` beyond it (a row given the other row's hint or
+    scale strays by tens of levels). Then seed 5 with two images solo and in
+    a lane pinned at 2 rows, the solo run's composition: bit for bit. The
+    worker: a job with an annotated ``start_image_uri`` and one with
+    ``preprocess: true, type: canny`` (its ``preprocessed_input`` echo
+    exactly cv2's edges of the fetched picture). Every envelope
+    error-free with the ``controlnet`` stamp; B1 = 14 x control evals (10
+    for the txt2img job). Prints ``generation_s`` of the control jobs
+    against the txt2img job and the bundle's bytes in the ledger."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.node.executor import (
+        synchronous_do_work,
+        synchronous_do_work_batch,
+    )
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.components import ControlNetBundle
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    fam = FAMILIES["sd15"]
+    t0 = time.perf_counter()
+    source = ControlNetBundle.random(fam, seed=0, device="cuda",
+                                     model_name=CN_MODEL)
+    perturb_zero_convs(torch, source, seed=11)
+    state = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+    del source
+    target = model_dir(CN_MODEL)
+    target.mkdir(parents=True, exist_ok=True)
+    save_file(state, target / "diffusion_pytorch_model.safetensors",
+              {"format": "pt"})
+    write_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    bundle = registry.controlnet(CN_MODEL, fam)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    unequal = [k for k, v in bundle.state_dict().items()
+               if not torch.equal(v.cpu(), state[k])]
+    if unequal:
+        raise AssertionError(f"controlnet_serve: {len(unequal)} tensors "
+                             f"differ from their source: {unequal[:4]}")
+    [ledger_bytes] = [e.bytes for k, e in registry.residency._entries.items()
+                      if k[:2] == ("controlnet", CN_MODEL)]
+
+    results: dict = {}
+
+    def serve(phase, job, lanes):
+        result = synchronous_do_work(dict(job), slot, registry)
+        results[job["id"]] = (result, check_envelope(phase, job, result,
+                                                     lanes))
+        return result
+
+    def twin_grid(lanes: bool) -> str:
+        """The two-image job's 1x2 grid, its envelope checked."""
+        result = synchronous_do_work(dict(twin), slot, registry)
+        cfg = result["pipeline_config"]
+        if "error" in cfg or ("stepper" in cfg) != lanes or \
+                cfg.get("controlnet") != CN_MODEL:
+            raise AssertionError(f"controlnet_serve twin ({lanes}): {cfg}")
+        blob = result["artifacts"]["primary"]["blob"]
+        if png_hw(blob) != (IMG_SIZE, 2 * IMG_SIZE):
+            raise AssertionError(f"controlnet_serve twin grid {png_hw(blob)}")
+        return blob
+
+    def stamped(job_id, scale):
+        cfg = results[job_id][0]["pipeline_config"]
+        if cfg.get("controlnet") != CN_MODEL or \
+                cfg.get("controlnet_scale") != scale:
+            raise AssertionError(f"controlnet_serve {job_id}: stamps "
+                                 f"{cfg.get('controlnet')}, "
+                                 f"{cfg.get('controlnet_scale')}")
+
+    kernels.reset_launches()
+    plains = [dict(job, id=f"cn-txt2img-{job['seed']}") for job in JOBS[:2]]
+    plain = plains[0]
+    solo_jobs = [control_job(1, 1.0), control_job(1, 0.5),
+                 control_job(1, 0.0),
+                 control_job(2, 0.5, asset="/assets/cond-73-1024.png")]
+    with env(CHIASWARM_STEPPER="0"):
+        for job in plains:
+            serve("controlnet_serve_solo", job, False)
+        plain_launches = kernel_launches()
+        check_b1("controlnet_serve_txt2img", plain_launches,
+                 len(plains) * SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL)
+        for job in on_hive(hive, solo_jobs):
+            serve("controlnet_serve_solo", job, False)
+            stamped(job["id"], job["controlnet_scale"])
+        solo_launches = {k: v - plain_launches[k]
+                         for k, v in kernel_launches().items()}
+        check_b1("controlnet_serve_solo", solo_launches,
+                 len(solo_jobs) * SERVE_STEPS * B1_LAUNCHES_PER_CONTROL_EVAL)
+    txt2img = decode_png(results[plain["id"]][1])
+    zero = decode_png(results[solo_jobs[2]["id"]][1])
+    one = decode_png(results[solo_jobs[0]["id"]][1])
+    scale_zero_equal = bool((zero == txt2img).all())
+    steered = int(np.abs(one.astype(int) - txt2img.astype(int)).max())
+
+    plain_pair = [dict(job, id=f"cn-txt2img-lane-{job['seed']}")
+                  for job in plains]
+    pair = on_hive(hive, [dict(job, id=f"cn-lane-{job['seed']}")
+                          for job in (solo_jobs[0], solo_jobs[3])])
+    twin = on_hive(hive, [dict(control_job(5, 1.0), id="cn-twin-5",
+                               num_images_per_prompt=2)])[0]
+    with env(CHIASWARM_STEPPER="0"):
+        mark = kernel_launches()
+        twin_solo = twin_grid(False)
+        twin_launches = {k: v - mark[k] for k, v in kernel_launches().items()}
+        check_b1("controlnet_serve_twin", twin_launches,
+                 SERVE_STEPS * B1_LAUNCHES_PER_CONTROL_EVAL)
+
+    def lane_pair(jobs: list, per_step: int) -> tuple[int, dict, set]:
+        """``jobs`` admitted together into one fresh adaptive lane: its
+        steps, its B1 launches (``per_step`` a lane step) and the lanes'
+        (id, width)."""
+        get_stepper(slot).shutdown()
+        before, mark = stepper_stats(slot), kernel_launches()
+        with lane_admissions(hold={job["id"]: 0 for job in jobs}):
+            done = synchronous_do_work_batch([dict(j) for j in jobs], slot,
+                                             registry)
+        for result, job in zip(done, jobs):
+            results[job["id"]] = (result, check_envelope(
+                "controlnet_serve_lanes", job, result, True))
+        steps = delta(stepper_stats(slot), before, "steps_executed")
+        get_stepper(slot).shutdown()
+        launches = {k: v - mark[k] for k, v in kernel_launches().items()}
+        check_b1("controlnet_serve_lanes", launches, steps * per_step)
+        return steps, launches, {
+            (r["pipeline_config"]["stepper"]["lane"],
+             r["pipeline_config"]["stepper"]["lane_width"]) for r in done}
+
+    with env(CHIASWARM_STEPPER="1"):
+        _, _, plain_lanes = lane_pair(plain_pair, B1_LAUNCHES_PER_UNET_EVAL)
+        steps, lane_launches, lanes = lane_pair(
+            pair, B1_LAUNCHES_PER_CONTROL_EVAL)
+        for job in pair:
+            stamped(job["id"], job["controlnet_scale"])
+        witness = image_diffs(
+            {job["seed"]: results[job["id"]][1] for job in plain_pair},
+            {job["seed"]: results[job["id"]][1] for job in plains})
+        vs_solo = image_diffs(
+            {job["seed"]: results[job["id"]][1] for job in pair},
+            {job["seed"]: results[job["id"]][1]
+             for job in (solo_jobs[0], solo_jobs[3])})
+    with env(CHIASWARM_STEPPER="1", CHIASWARM_STEPPER_LANE_WIDTH="2"):
+        get_stepper(slot).shutdown()
+        before, mark = stepper_stats(slot), kernel_launches()
+        twin_equal = twin_grid(True) == twin_solo
+        twin_steps = delta(stepper_stats(slot), before, "steps_executed")
+        get_stepper(slot).shutdown()
+        check_b1("controlnet_serve_twin_lane",
+                 {k: v - mark[k] for k, v in kernel_launches().items()},
+                 twin_steps * B1_LAUNCHES_PER_CONTROL_EVAL)
+    with env(CHIASWARM_STEPPER="1"):
+        worker_jobs = on_hive(hive, [
+            dict(control_job(3, 1.0), id="cn-worker-annotated"),
+            dict(control_job(4, 1.0, asset="/assets/raw-72.png",
+                             preprocess=True, type="canny"),
+                 id="cn-worker-preprocess")])
+        before, mark = stepper_stats(slot), kernel_launches()
+        serve_through_worker(hive, pool, registry, worker_jobs)
+        steps_w = delta(stepper_stats(slot), before, "steps_executed")
+        get_stepper(slot).shutdown()
+        worker_launches = {k: v - mark[k]
+                           for k, v in kernel_launches().items()}
+        check_b1("controlnet_serve_worker", worker_launches,
+                 steps_w * B1_LAUNCHES_PER_CONTROL_EVAL)
+    by_id = {r["id"]: r for r in hive.results}
+    for job in worker_jobs:
+        result = by_id[job["id"]]
+        results[job["id"]] = (result, check_envelope(
+            "controlnet_serve_worker", job, result, True))
+        stamped(job["id"], 1.0)
+    echo = by_id["cn-worker-preprocess"]["artifacts"].get(
+        "preprocessed_input")
+    edges = canny_rgb(smooth_image(72, IMG_SIZE))
+    echo_exact = echo is not None and bool(
+        (decode_png(echo["blob"]) == edges).all())
+    if "preprocessed_input" in by_id["cn-worker-annotated"]["artifacts"]:
+        raise AssertionError("controlnet_serve: an echo without preprocess")
+    run = launched()
+    gen_s = {job_id: r["pipeline_config"]["generation_s"]
+             for job_id, (r, _) in results.items()}
+    control_s = [gen_s[j["id"]] for j in solo_jobs]
+    stray = {"max": max(d["max"] for d in vs_solo.values())
+             - max(d["max"] for d in witness.values()),
+             "within_one": min(d["within_one"] for d in witness.values())
+             - min(d["within_one"] for d in vs_solo.values())}
+    emit("controlnet_serve", write_s=write_s, load_s=load_s,
+         param_bytes=bundle.param_bytes(), ledger_bytes=ledger_bytes,
+         dtype=str(bundle.dtype), generation_s=gen_s,
+         control_over_txt2img=statistics.median(control_s)
+         / gen_s[plain["id"]],
+         scale_zero_bit_equal_txt2img=scale_zero_equal,
+         scale_one_max_diff_from_txt2img=steered, lane_steps=steps,
+         lanes=sorted(lanes), txt2img_lanes=sorted(plain_lanes),
+         lane_vs_solo=vs_solo, txt2img_lane_vs_solo=witness,
+         lane_stray_beyond_txt2img=stray, lane_margin=CN_LANE_MARGIN,
+         twin_bit_equal=twin_equal, twin_lane_steps=twin_steps,
+         worker_lane_steps=steps_w,
+         echo_is_the_canny_edges=echo_exact,
+         launches={"txt2img": plain_launches, "solo": solo_launches,
+                   "lanes": lane_launches, "worker": worker_launches})
+    if not scale_zero_equal:
+        raise AssertionError("controlnet_serve: the scale-0 image is not the "
+                             "txt2img image bit for bit")
+    if steered == 0:
+        raise AssertionError("controlnet_serve: scale 1.0 changed nothing")
+    if len(lanes) != 1 or len(plain_lanes) != 1 or \
+            {w for _, w in lanes} != {w for _, w in plain_lanes}:
+        raise AssertionError(f"controlnet_serve: the control pair rode lanes "
+                             f"{lanes}, the txt2img pair {plain_lanes}")
+    if stray["max"] > CN_LANE_MARGIN["max"] or \
+            stray["within_one"] > CN_LANE_MARGIN["within_one"]:
+        raise AssertionError(f"controlnet_serve: the control pair's lane "
+                             f"images {vs_solo} stray from their solo images "
+                             f"beyond the txt2img pair's {witness}")
+    if not twin_equal:
+        raise AssertionError("controlnet_serve: the two-image job's lane "
+                             "image is not its solo image bit for bit")
+    if not echo_exact:
+        raise AssertionError("controlnet_serve: the preprocessed_input echo "
+                             "is not the Canny edges of the fetched image")
+    return run
+
+
+def xl_controlnet_serve_phase(torch, registry, slot,
+                              hive: LocalHive) -> dict:
+    """An SDXL ControlNet (random through the registry, its zero convs then
+    seeded in place): xl_serve's seed 1 at 1024 px as txt2img and as a
+    control job on a Canny map, solo. B1 = 70 x 20 and 104 x 20; the
+    control envelope stamped. Prints both jobs' ``generation_s``."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.ops import kernels
+
+    bundle = registry.controlnet(XL_CN_MODEL, FAMILIES["sdxl"])
+    perturb_zero_convs(torch, bundle, seed=12)
+    plain = dict(XL_JOBS[0], id="xl-cn-txt2img-1")
+    job = on_hive(hive, [control_job(1, 1.0, XL_CN_MODEL,
+                                     "/assets/cond-73-1024.png",
+                                     base=XL_JOBS[0])])[0]
+    kernels.reset_launches()
+    with env(CHIASWARM_STEPPER="0"):
+        from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+
+        ref = synchronous_do_work(dict(plain), slot, registry)
+        check_envelope("xl_controlnet_serve", plain, ref, False)
+        mark = kernel_launches()
+        check_b1("xl_controlnet_serve_txt2img", mark,
+                 SERVE_STEPS * B1_LAUNCHES_PER_XL_EVAL)
+        result = synchronous_do_work(dict(job), slot, registry)
+        check_envelope("xl_controlnet_serve", job, result, False)
+    launches = {k: v - mark[k] for k, v in kernel_launches().items()}
+    cfg = result["pipeline_config"]
+    emit("xl_controlnet_serve", param_bytes=bundle.param_bytes(),
+         generation_s=cfg["generation_s"],
+         txt2img_generation_s=ref["pipeline_config"]["generation_s"],
+         control_over_txt2img=cfg["generation_s"]
+         / ref["pipeline_config"]["generation_s"],
+         launches=launches,
+         expected_flash_launches=SERVE_STEPS
+         * B1_LAUNCHES_PER_XL_CONTROL_EVAL)
+    check_b1("xl_controlnet_serve", launches,
+             SERVE_STEPS * B1_LAUNCHES_PER_XL_CONTROL_EVAL)
+    if cfg.get("controlnet") != XL_CN_MODEL:
+        raise AssertionError(f"xl_controlnet_serve: stamp {cfg}")
+    return launched()
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -3997,7 +4669,10 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "xl_img2img_lane_serve",
                                            "guard_lane", "guard_nan",
                                            "guard_solo", "guard_worker",
-                                           "guard_cost", "guard_xl")),
+                                           "guard_cost", "guard_xl",
+                                           "safety_serve",
+                                           "controlnet_serve",
+                                           "xl_controlnet_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -4109,6 +4784,16 @@ def run_phases(torch, t0: float) -> int:
             runs.update(xl_img2img_serve_phase(torch, registry, slot,
                                                asset_hive))
         runs["guard_xl"] = guard_xl_phase(torch, registry, slot)
+    # the safety checker and ControlNet, SD1.5 and SDXL
+    checker = safety_check_phase(torch)
+    runs["safety_serve"] = safety_serve_phase(torch, registry, slot, checker,
+                                              solo_blobs)
+    with LocalHive() as control_hive:
+        control_hive.assets.update(control_assets())
+        runs["controlnet_serve"] = controlnet_serve_phase(
+            torch, registry, pool, slot, control_hive)
+        runs["xl_controlnet_serve"] = xl_controlnet_serve_phase(
+            torch, registry, slot, control_hive)
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}

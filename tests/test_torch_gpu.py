@@ -6,7 +6,9 @@ dispatcher's routes to them (B3, and B2 under the scan drive, through a
 lane gives them (2W rows for a lane of W), one lane step against each
 row's solo step on a small float32 UNet through B1, and SDXL's side: B1 at
 its head dim 64 shapes, the tiny_xl pipeline on the card against its CPU
-run, and an SDXL-class lane pair against the solo pair.
+run, and an SDXL-class lane pair against the solo pair; the safety checker's
+vision tower against its CPU run, a ControlNet eval through B1 against the
+plain route, and a scale-0 control job against its txt2img twin.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1306,3 +1308,128 @@ def test_a_nan_row_retires_alone_on_the_card(cuda_device, monkeypatch,
     assert out[1]["pipeline_config"]["error_kind"] == "invalid_output"
     assert "fatal_error" not in out[1]
     assert (_png_u8(out[0]) == _png_u8(twin[0])).all()
+
+
+# ---------------------------------------------------------------------------
+# the safety checker's tower and ControlNet on the card
+
+
+def test_checker_tower_on_the_card_matches_its_cpu_run(cuda_device):
+    """The checker's vision tower (published depth cut to 4 layers, width
+    256, 257 tokens at 224 px) in float32 on the card against its CPU run
+    within 2e-4, with cuDNN's TF32 allowed (PyTorch's default): the patch
+    embedding is a GEMM, so no float32 conv of the tower runs in TF32."""
+    from chiaswarm_tpu_torch.models.clip import ClipVisionEncoder, VisionConfig
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+
+    tower = ClipVisionEncoder(VisionConfig(hidden_size=256,
+                                           intermediate_size=1024,
+                                           num_layers=4, num_heads=4,
+                                           projection_dim=128))
+    gen = torch.Generator().manual_seed(3)
+    flax_default_init(tower, gen)
+    with torch.no_grad():
+        tower.vision_model.embeddings.class_embedding.normal_(
+            0.0, 0.5, generator=gen)
+    pixels = torch.randn((3, 3, 224, 224), generator=gen)
+    with torch.inference_mode():
+        want = tower(pixels)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            got = tower.to(cuda_device)(pixels.to(cuda_device)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    assert (got - want).abs().max().item() <= 2e-4 * max(
+        1.0, want.abs().max().item())
+
+
+def _seeded_zero_convs(bundle, seed: int = 9, std: float = 0.05) -> None:
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    with torch.no_grad():
+        for conv in (bundle.embed.conv_out, bundle.net.controlnet_mid_block,
+                     *bundle.net.controlnet_down_blocks):
+            for p in (conv.weight, conv.bias):
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=bundle.device) * std)
+
+
+def test_control_unet_eval_matches_the_plain_route(cuda_device):
+    """One control eval (the ControlNet's residuals into the UNet, CFG
+    batch) on a small float32 family whose 1024-token level goes through
+    B1, against the plain attention route: relative L2 1e-4, B1 once per
+    self-attention at that level (1 in the ControlNet's down trunk, 1 down
+    and 2 up in the UNet)."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.models.configs import FAMILIES, UNetConfig
+    from chiaswarm_tpu_torch.pipelines.components import (
+        Components,
+        ControlNetBundle,
+    )
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    unet_cfg = UNetConfig(block_out_channels=(80, 160), layers_per_block=1,
+                          transformer_depth=(1, 1), attention_head_dim=2,
+                          cross_attention_dim=32, dtype="float32")
+    family = dataclasses.replace(FAMILIES["tiny"], unet=unet_cfg)
+    unet = Components.random(family, seed=0, device=cuda_device).unet
+    bundle = ControlNetBundle.random(family, seed=1, device=cuda_device)
+    _seeded_zero_convs(bundle)
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    x = torch.randn((2, 4, 32, 32), generator=gen).to(cuda_device)
+    ctx = torch.randn((2, 77, 32), generator=gen).to(cuda_device)
+    cond = torch.rand((1, 3, 64, 64), generator=gen).to(cuda_device)
+    t = torch.tensor([700.0, 700.0], device=cuda_device)
+
+    def control_eval():
+        with torch.inference_mode():
+            hint = bundle.embed(cond).expand(2, -1, -1, -1)
+            down, mid = bundle.net(x, t, ctx, hint, None, 0.8)
+            return unet(x, t, ctx, None, down, mid)
+
+    before = KERNEL.launches
+    got = control_eval()
+    torch.cuda.synchronize()
+    assert KERNEL.launches - before == 4
+    for module in (unet, bundle.net):
+        set_attn_impl(module, "xla")
+    want = control_eval()
+    assert KERNEL.launches - before == 4
+    with torch.inference_mode():
+        plain = unet(x, t, ctx)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-4, rel
+    assert ((want - plain).norm() / plain.norm()).item() > 1e-3
+
+
+def test_a_scale_zero_control_job_is_its_txt2img_job_bit_for_bit(
+        cuda_device, monkeypatch, tmp_path):
+    """On the card in bf16: a control job at scale 0 renders the txt2img
+    image of its seed bit for bit (the residuals are zeros added to the
+    skips), scale 1 does not, and B1 runs 4 times an eval (3 in the UNet at
+    1024 tokens, 1 in the ControlNet)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.pipelines.components import ControlNetBundle
+    from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
+
+    registry, _ = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    pipe = registry.pipeline("tiny_b1")
+    bundle = ControlNetBundle.random(FAMILIES["tiny_b1"], seed=1,
+                                     device=cuda_device)
+    _seeded_zero_convs(bundle, std=0.02)
+    cond = np.random.default_rng(4).integers(0, 256, (64, 64, 3),
+                                             dtype=np.uint8)
+    base = dict(prompt="a red door", negative_prompt="blurry", steps=4,
+                height=64, width=64, seed=5)
+    plain, _ = pipe(GenerateRequest(**base))
+    before = KERNEL.launches
+    zero, cfg = pipe(GenerateRequest(**base, controlnet=bundle,
+                                     control_image=cond, control_scale=0.0))
+    assert KERNEL.launches - before == 4 * 4
+    one, _ = pipe(GenerateRequest(**base, controlnet=bundle,
+                                  control_image=cond, control_scale=1.0))
+    assert np.array_equal(zero, plain)
+    assert not np.array_equal(one, plain)
+    assert cfg["controlnet_scale"] == 0.0

@@ -83,7 +83,9 @@ def test_package_has_the_slice_modules():
                   "serving.stepper", "node.settings", "node.logging_setup",
                   "node.resilience", "node.hive", "node.worker",
                   "obs.metrics", "obs.trace", "convert.safetensors_io",
-                  "convert.checkpoint", "serving.residency"):
+                  "convert.checkpoint", "serving.residency",
+                  "models.controlnet", "workloads.safety",
+                  "workloads.controlnet"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -100,7 +100,6 @@ def test_unbucketed_size_is_cropped_back(port_pipe):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("controlnet", object()),
     ("reuse_schedule", (1,)),
     ("tiled_decode", True),
 ])

@@ -16,6 +16,11 @@ four times, where B3 runs each ring attention in one launch);
 ``CHIASWARM_RING_FLASH=scan`` in the environment makes it the scan drive
 over B2.
 
+``--controlnet`` profiles the same job twice, as txt2img and as a
+ControlNet job at scale 1.0 (a ControlNet of the family's widths, random
+from a seed with its zero convs seeded too, on a seeded picture): both
+summaries and the control job's extra device ms and launches per eval.
+
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
 and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
@@ -23,12 +28,17 @@ and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
 profiler, with the lane steps it took and the launches per lane step.
 ``--sweep 1,2,4,8,16`` times that burst, unprofiled, at each pinned lane
 width (a warm-up burst first at each) and prints the images/s of each
-and every job's ``generation_s``.
+and every job's ``generation_s``. ``--checker`` times that burst,
+unprofiled, without and with a safety checker (ViT-L/14, random from a
+seed) in the node's checker directory, A B B A after a warm-up of each:
+the lanes' cost of checking each finished job.
 
     python tools/torch_serve_profile.py [--model sdxl] [--steps 20]
            [--top 25] [--seq 4] [--trace serve_trace.json]
+    python tools/torch_serve_profile.py [--model sdxl] --controlnet
     python tools/torch_serve_profile.py [--model sdxl] --lanes 8 [--width 8]
     python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
+    python tools/torch_serve_profile.py --lanes 8 --checker
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -60,10 +70,15 @@ def main(argv: list[str] | None = None) -> int:
                         help="pinned lane width (default: --lanes)")
     parser.add_argument("--sweep", default="",
                         help="comma-separated lane widths to time the burst at")
+    parser.add_argument("--checker", action="store_true",
+                        help="with --lanes: time the burst without (A) and "
+                             "with (B) a safety checker, A B B A")
+    parser.add_argument("--controlnet", action="store_true",
+                        help="profile the job as txt2img and as a "
+                             "ControlNet job")
     args = parser.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
     from chiaswarm_tpu_torch.pipelines.components import Components
@@ -92,9 +107,42 @@ def main(argv: list[str] | None = None) -> int:
                           negative_prompt="blurry", steps=args.steps,
                           guidance_scale=7.5, height=size, width=size,
                           seed=1)
-    pipe(req)  # warm-up: cuDNN heuristics, allocator, kernel library loads
-    torch.cuda.synchronize()
+    head = {"device": torch.cuda.get_device_name(0), "model": args.model,
+            "size": size, "steps": args.steps, "seq": args.seq,
+            "mesh_devices": None if mesh is None
+            else [str(d) for d in mesh.device_list]}
+    if args.controlnet:
+        import dataclasses
 
+        control = dataclasses.replace(
+            req, controlnet=seeded_controlnet(torch, args.model),
+            control_image=seeded_picture(size), control_scale=1.0)
+        plain, ctrl = profiled(torch, pipe, req), profiled(torch, pipe,
+                                                           control)
+        evals = args.steps
+        print(json.dumps({**head, "txt2img": plain, "controlnet": ctrl,
+                          "extra_device_ms_per_eval":
+                          (ctrl["device_kernel_ms"]
+                           - plain["device_kernel_ms"]) / evals,
+                          "extra_launches_per_eval":
+                          (ctrl["kernel_launches"]
+                           - plain["kernel_launches"]) / evals,
+                          "wall_ratio": ctrl["wall_s"] / plain["wall_s"]}))
+        return 0
+    summary = profiled(torch, pipe, req, args.trace, args.top)
+    print(json.dumps({**head, **summary}))
+    return 0
+
+
+def profiled(torch, pipe, req, trace: str | None = None,
+             top: int = 25) -> dict:
+    """One warm-up call of ``pipe(req)`` (cuDNN heuristics, allocator,
+    kernel library loads), then one under the profiler: its summary and
+    its CUDA-event span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe(req)
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -104,18 +152,38 @@ def main(argv: list[str] | None = None) -> int:
         end.record()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if args.trace:
-        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
+    return {"event_ms": start.elapsed_time(end),
+            **kernel_summary(prof, wall_s, top)}
 
-    summary = kernel_summary(prof, wall_s, args.top)
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "model": args.model,
-        "size": size, "steps": args.steps, "seq": args.seq,
-        "mesh_devices": None if mesh is None
-        else [str(d) for d in mesh.device_list],
-        "event_ms": start.elapsed_time(end), **summary}))
-    return 0
+
+def seeded_controlnet(torch, model: str):
+    """A ControlNet of the family's widths on the card, random from seed 0,
+    its zero convs drawn too (std 0.01): a fresh one would add zeros."""
+    from chiaswarm_tpu_torch.pipelines.components import ControlNetBundle
+
+    bundle = ControlNetBundle.random(model, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    with torch.no_grad():
+        for conv in (bundle.embed.conv_out, bundle.net.controlnet_mid_block,
+                     *bundle.net.controlnet_down_blocks):
+            for p in (conv.weight, conv.bias):
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.01)
+    return bundle
+
+
+def seeded_picture(size: int):
+    """A smooth uint8 (size, size, 3) picture from seed 3."""
+    import numpy as np
+    from PIL import Image
+
+    small = np.random.default_rng(3).integers(0, 256, (8, 8, 3),
+                                              dtype=np.uint8)
+    return np.asarray(Image.fromarray(small).resize((size, size),
+                                                    Image.BICUBIC))
 
 
 def kernel_summary(prof, wall_s: float, top: int) -> dict:
@@ -221,6 +289,10 @@ def lanes_main(args) -> int:
                               "images_per_s": len(jobs) / wall_s,
                               "generation_s": generation_s})
             line["sweep"] = sweep
+        elif args.checker:
+            line.update(width=args.width or args.lanes,
+                        **checker_ab(torch, burst, args.width or args.lanes,
+                                     len(jobs)))
         else:
             width = args.width or args.lanes
             burst(width)  # warm-up
@@ -237,6 +309,72 @@ def lanes_main(args) -> int:
         stepper.shutdown()
     print(json.dumps(line))
     return 0
+
+
+def checker_ab(torch, burst, width: int, n_jobs: int) -> dict:
+    """The burst at ``width`` without (A) and with (B) a safety checker in
+    the node's standalone checker directory (ViT-L/14, random from seed 0,
+    written to a temporary settings root): one warm-up of each (the first B
+    loads the checker), then A B B A, each burst's images/s and its jobs'
+    ``generation_s``. The checker is switched off by renaming its
+    directory; it stays loaded in the module cache, as on a node."""
+    import tempfile
+
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.workloads import safety
+
+    with tempfile.TemporaryDirectory(prefix="checker-ab-") as root:
+        os.environ["SWARM_TPU_ROOT"] = root
+        on = model_dir(safety.CHECKER_MODEL)
+        off = on.with_name(on.name + ".off")
+        write_random_checker(torch, on)
+        bursts = []
+        for label in ("B", "A", "A", "B", "B", "A"):
+            if (label == "B") != on.is_dir():
+                (off if label == "B" else on).rename(
+                    on if label == "B" else off)
+            wall_s, steps, generation_s = burst(width)
+            bursts.append({"checker": label == "B", "wall_s": wall_s,
+                           "lane_steps": steps,
+                           "images_per_s": n_jobs / wall_s,
+                           "generation_s": generation_s})
+            if label == "B":  # the cached checker the burst ran
+                checker = safety.get_checker(None, "cuda")
+    timed = bursts[2:]  # after a warm-up of each
+
+    def mean(flag: bool) -> float:
+        rates = [b["images_per_s"] for b in timed if b["checker"] == flag]
+        return sum(rates) / len(rates)
+
+    return {"checker_bytes": checker.param_bytes(), "bursts": timed,
+            "warm_up": bursts[:2],
+            "images_per_s_without": mean(False),
+            "images_per_s_with": mean(True),
+            "with_over_without": mean(True) / mean(False)}
+
+
+def write_random_checker(torch, directory) -> None:
+    """A ``StableDiffusionSafetyChecker`` snapshot at the published widths
+    (ViT-L/14; no ``config.json``, so the loader's defaults), random from
+    seed 0: the tower with Flax's default initialisers, 17 concept and 3
+    special-care embeddings with thresholds of 0.5."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.models.clip import ClipVisionEncoder, VisionConfig
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+
+    tower = ClipVisionEncoder(VisionConfig())
+    flax_default_init(tower, torch.Generator().manual_seed(0))
+    state = {("vision_model." + k if k.startswith("vision_model.") else k): v
+             for k, v in tower.state_dict().items()}
+    rng = np.random.default_rng(0)
+    for name, rows in (("concept_embeds", 17), ("special_care_embeds", 3)):
+        state[name] = torch.from_numpy(rng.standard_normal(
+            (rows, tower.config.projection_dim)).astype(np.float32))
+        state[name + "_weights"] = torch.full((rows,), 0.5)
+    directory.mkdir(parents=True)
+    save_file(state, directory / "model.safetensors", {"format": "pt"})
 
 
 if __name__ == "__main__":
