@@ -21,6 +21,13 @@ when its init image is encoded (the JAX package samples the posterior with
 a tag before the seed, so it never equals a ``(seed, row)`` stream. A job
 draws it once, whatever its rows, and its rows share the one encoded latent,
 as the JAX package repeats ``z`` over a job's rows.
+
+The latent upscaler draws three streams per row, one per stage (the
+posterior of its encode, the initial noise on the 2x grid, the step noise),
+where the JAX package folds the stage into the row's key
+(``pipelines/upscale.py:95-100``). Each comes from its own generator
+(:func:`stage_generators`), seeded from a hash of (seed, row, stage) in a
+domain of its own.
 """
 
 from __future__ import annotations
@@ -66,6 +73,27 @@ def posterior_seed(seed: int) -> int:
 def posterior_generator(seed: int) -> torch.Generator:
     """The CPU generator of job ``seed``'s one VAE posterior draw."""
     return torch.Generator(device="cpu").manual_seed(posterior_seed(seed))
+
+
+_STAGE_DOMAIN = b"chiaswarm-stage"
+
+
+def stage_seed(seed: int, row: int, stage: int) -> int:
+    """The 63-bit generator seed of stage ``stage`` of row ``row`` of job
+    ``seed``: a hash of a domain tag and the triple, so it equals no
+    :func:`row_seed` or :func:`posterior_seed` message."""
+    digest = hashlib.sha256(_STAGE_DOMAIN + struct.pack(
+        "<qqq", int(seed) & 0x7FFF_FFFF_FFFF_FFFF, int(row),
+        int(stage))).digest()
+    return int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def stage_generators(seed: int, rows: range, stage: int
+                     ) -> list[torch.Generator]:
+    """One CPU generator per row of ``rows`` for stage ``stage`` of job
+    ``seed``."""
+    return [torch.Generator(device="cpu").manual_seed(
+        stage_seed(seed, r, stage)) for r in rows]
 
 
 def row_generators(pairs: list[tuple[int, int]]) -> list[torch.Generator]:

@@ -25,8 +25,10 @@ so both keep diffusers' names. ControlNet residuals (``down_residuals``,
 ``mid_residual``, JAX :359, :396-457) are added to the skips and to the mid
 block's output; each sum is cast back to the model dtype, as diffusers adds
 them (JAX keeps a bf16 model's sums in float32 from there on; in float32 the
-two are the same). Not in this slice: class embeddings (upscalers,
-AudioLDM) and the DeepCache seam.
+two are the same). The 8-channel input of instruct-pix2pix and the x2
+latent upscaler is the config's ``sample_channels``. Not ported: class
+embeddings, which only the x4 upscaler and AudioLDM need (ROADMAP queue
+item 6), and the DeepCache seam.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """AutoencoderKL, counterpart of ``chiaswarm_tpu/models/vae.py``
-(``AutoencoderKL`` encode/decode :250-281).
+(``AutoencoderKL`` encode/decode :250-281, ``tiled_decode`` :282-342).
 
 NCHW inside; diffusers' ``AutoencoderKL`` parameter names
 (``encoder.down_blocks.{i}.resnets.{j}``, ``decoder.mid_block.attentions.0.
 to_out.0``, top-level ``quant_conv``/``post_quant_conv``). The mid-block
-attention stays on the plain ``"xla"`` path, as in the reference. Tiled
-decode (above 1024 px) is a later slice.
+attention stays on the plain ``"xla"`` path, as in the reference.
+:func:`tiled_decode` decodes outputs above 1024 px tile by tile.
 
 ``encode`` takes images (B, 3, H, W) in [-1, 1] and returns scaled latents;
 ``decode`` takes scaled latents and returns images in [-1, 1], float32.
@@ -205,3 +205,41 @@ class AutoencoderKL(nn.Module):
         dtype = param_dtype(self.decoder)
         z = self.post_quant_conv((z / self.config.scaling_factor).to(dtype))
         return self.decoder(z)
+
+
+def tiled_decode(vae: AutoencoderKL, z: torch.Tensor, *, tile: int = 64,
+                 overlap: int = 8) -> torch.Tensor:
+    """Memory-bounded decode of scaled latents ``z`` (B, C, h, w): latent
+    tiles of ``tile`` with ``overlap`` latents shared between neighbours,
+    decoded one after another (the peak is one tile's activations), each
+    weighted by the strictly positive ramp ``min((i + 1) / (ov + 1), 1)``
+    from both edges (``ov`` the overlap in pixels), summed, and divided by
+    the summed weight. Returns float32 images in [-1, 1]. A latent that one
+    tile covers is the plain decode: its weight divides out."""
+    b, _, h, w = z.shape
+    if h <= tile and w <= tile:
+        return vae.decode(z).float()
+    stride = tile - overlap
+    f = vae.config.downscale
+    rows = max(1, -(-(h - overlap) // stride))
+    cols = max(1, -(-(w - overlap) // stride))
+    canvas = torch.zeros((b, vae.config.in_channels, h * f, w * f),
+                         dtype=torch.float32, device=z.device)
+    weight = torch.zeros((1, 1, h * f, w * f), dtype=torch.float32,
+                         device=z.device)
+    ov = max(overlap * f, 1)
+    idx = torch.arange(tile * f, dtype=torch.float32, device=z.device)
+    ramp = torch.clamp((idx + 1.0) / (ov + 1.0), max=1.0)
+    edge = torch.minimum(ramp, ramp.flip(0))
+    tile_w = edge[:, None] * edge[None, :]
+    for i in range(rows):
+        for j in range(cols):
+            y0 = min(i * stride, max(h - tile, 0))
+            x0 = min(j * stride, max(w - tile, 0))
+            img = vae.decode(z[:, :, y0:y0 + tile, x0:x0 + tile]).float()
+            th, tw = img.shape[2:]
+            wt = tile_w[:th, :tw]
+            ys, xs = slice(y0 * f, y0 * f + th), slice(x0 * f, x0 * f + tw)
+            canvas[:, :, ys, xs] += img * wt
+            weight[:, :, ys, xs] += wt
+    return canvas / torch.clamp(weight, min=1e-8)

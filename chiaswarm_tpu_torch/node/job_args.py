@@ -15,11 +15,14 @@ job a ControlNet job: ``controlnet_model_name`` (default
 ``lllyasviel/control_v11p_sd15_canny``), ``save_preprocessed_input`` from its
 ``preprocess`` flag, and the fetched image through
 ``workloads/controlnet.py::preprocess_image`` (off unless the job asks).
-The workflows the JAX package routes to other workloads (audio, video,
-captions, stitch) and DeepFloyd cascades raise ``ValueError`` naming the
-later slice; the executor turns that into a fatal bad-request envelope, as
-it does for any malformed job. instruct-pix2pix's strength remap comes with
-its slice (the pipeline refuses those models).
+A ``timbrooks/instruct-pix2pix`` job with an input image conditions on
+``image_guidance_scale`` = strength x 5 (strength defaults to 0.6 and is
+dropped), JAX :177-180. ``lora``, ``cross_attention_scale`` and
+``textual_inversion`` ride through as job arguments. The workflows the JAX
+package routes to other workloads (audio, video, captions, stitch) and
+DeepFloyd cascades raise ``ValueError`` naming the later slice; the executor
+turns that into a fatal bad-request envelope, as it does for any malformed
+job.
 
 The fetch crosses an open-network trust boundary: HEAD, then a streamed GET
 with connect and read timeouts, the content type checked on both, the body
@@ -123,6 +126,10 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
                 "controlnet_model_name", "lllyasviel/control_v11p_sd15_canny")
             args["save_preprocessed_input"] = controlnet.get("preprocess",
                                                              False)
+        if args.get("model_name") == "timbrooks/instruct-pix2pix":
+            # pix2pix conditions on image guidance (1-5); the hive sends
+            # strength (0-1), as swarm/job_arguments.py:128-131 remaps it
+            args["image_guidance_scale"] = args.pop("strength", 0.6) * 5
 
     if "mask_image_uri" in args:
         args.pop("height", None)

@@ -31,8 +31,18 @@ quantization slice) plus the device the bundle lives on, since the port's
 multi-card pools build one slot per card. Evicting it retires the lanes
 keyed by it.
 
-LoRA and textual-inversion entries wait for their slice: the diffusion
-callback refuses those jobs before they reach the registry.
+:meth:`ModelRegistry.pipeline` selects the pipeline class by the
+family's ``kind``, as JAX does (:278-291): ``"upscaler"`` builds the x2
+``LatentUpscalePipeline`` (``pipelines/upscale.py``), ``"upscaler4"`` is
+refused (the x4 upscaler comes with the DeepFloyd cascade, ROADMAP queue
+item 6), the rest builds ``DiffusionPipeline``. A textual inversion and a
+LoRA at a scale key entries of their own, ``("pipeline", name,
+textual_inversion, (lora, scale), mesh key)`` as in JAX: each is built
+from its own ``Components``, the embedding rows appended to its private
+tables (``convert/textual_inversion.py``) and the LoRA merged into its
+private UNet (``convert/lora.py``) before the pipeline is handed out. Their
+files load from :func:`model_dir` of the adapter's name; a missing one is
+"not available on this node", the non-fatal ``model_unavailable`` kind.
 """
 
 from __future__ import annotations
@@ -43,6 +53,11 @@ from typing import Any
 
 import torch
 
+from chiaswarm_tpu_torch.convert.lora import load_lora, merge_lora
+from chiaswarm_tpu_torch.convert.textual_inversion import (
+    apply_textual_inversion,
+    load_embeddings,
+)
 from chiaswarm_tpu_torch.core.device import resolve_device
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
 from chiaswarm_tpu_torch.models.configs import FAMILIES, ModelFamily, get_family
@@ -53,6 +68,7 @@ from chiaswarm_tpu_torch.pipelines.components import (
     estimate_family_bytes,
 )
 from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
+from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
 from chiaswarm_tpu_torch.serving.residency import (
     ResidencyManager,
     default_budget_bytes,
@@ -171,11 +187,16 @@ class ModelRegistry:
                          f"node (no checkpoint at {ckpt})")
 
     def pipeline(self, model_name: str,
-                 mesh: DeviceMesh | None = None) -> DiffusionPipeline:
+                 textual_inversion: str | None = None,
+                 lora: str | None = None, lora_scale: float = 1.0,
+                 mesh: DeviceMesh | None = None
+                 ) -> DiffusionPipeline | LatentUpscalePipeline:
         """The pipeline of ``model_name`` for a slot's ``mesh``: its modules
         on the mesh's lead device (the registry's device when no mesh is
         given), ringing its large self-attentions over the mesh's ``seq``
-        axis when that is above 1. One ledger entry per (model,
+        axis when that is above 1; with ``textual_inversion`` and ``lora``
+        (at ``lora_scale``) applied to a private copy of the model. One
+        ledger entry per (model, inversion, (LoRA, scale),
         :func:`_mesh_cache_key`); a model over the budget comes back
         uncached (load-per-job), one over the hard limit raises
         ``ModelUnavailable``."""
@@ -183,18 +204,46 @@ class ModelRegistry:
         if reason is not None:
             raise ValueError(f"model {model_name!r} is quarantined on this "
                              f"node ({reason})")
+        if self.family_for(model_name).kind == "upscaler4":
+            raise ValueError(
+                f"model {model_name!r} is an x4 upscaler, which "
+                "chiaswarm_tpu_torch serves with the DeepFloyd cascade (a "
+                "later slice of the port, ROADMAP queue item 6)")
         device = self.device if mesh is None else mesh.lead
 
-        def build() -> DiffusionPipeline:
-            return DiffusionPipeline(
-                self._load_components(model_name, device),
-                mesh=mesh if seq_size(mesh) > 1 else None)
+        def build() -> DiffusionPipeline | LatentUpscalePipeline:
+            components = self._load_components(model_name, device)
+            if textual_inversion is not None:
+                apply_textual_inversion(components, load_embeddings(
+                    self._adapter_dir("textual inversion",
+                                      textual_inversion)))
+            if lora is not None:
+                n_merged = merge_lora(
+                    components.unet,
+                    load_lora(self._adapter_dir("LoRA", lora)),
+                    scale=float(lora_scale))
+                log.info("merged LoRA %s into %s (%d projections, scale "
+                         "%.3g)", lora, model_name, n_merged, lora_scale)
+            ring = mesh if seq_size(mesh) > 1 else None
+            if components.family.kind == "upscaler":
+                return LatentUpscalePipeline(components, mesh=ring)
+            return DiffusionPipeline(components, mesh=ring)
 
+        lora_key = (lora, float(lora_scale)) if lora is not None else None
         return self.residency.acquire(
-            ("pipeline", model_name, _mesh_cache_key(device, mesh)), build,
+            ("pipeline", model_name, textual_inversion, lora_key,
+             _mesh_cache_key(device, mesh)), build,
             model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
             estimate=lambda: self._estimate_bytes(model_name),
             priority=self._priority_for(model_name))
+
+    @staticmethod
+    def _adapter_dir(what: str, name: str) -> Path:
+        path = model_dir(name)
+        if not path.exists():
+            raise ValueError(f"{what} {name!r} is not available on this node "
+                             f"(no file at {path})")
+        return path
 
     def controlnet(self, controlnet_name: str, family: ModelFamily,
                    mesh: DeviceMesh | None = None) -> ControlNetBundle:

@@ -56,9 +56,20 @@ clipped to [0, 1] and embedded by the bundle's hint encoder once per job
 (:meth:`DiffusionPipeline.stepper_control_embed`, which the lanes call at
 admission too); each eval runs the control branch on the UNet's batch
 (the CFG batch under guidance) and the UNet takes its residuals. A lane
-step's rows carry their own hint and scale. instruct-pix2pix, DeepCache
-reuse and tiled decode raise ``ValueError`` naming the later slice that
-brings them.
+step's rows carry their own hint and scale.
+
+instruct-pix2pix (an ``image_conditioned`` family; the solo body :405-470,
+:527-545, ``submit`` :973-991 and its config :1195-1202): the init image is
+encoded as for img2img and divided by the VAE's scaling factor (the
+unscaled image latents); generation starts from pure noise at
+``sigmas[0]``; every eval runs the UNet once on the tripled batch [uncond,
+uncond, text] with the 8-channel input concat([x, x, x] scaled, [0, img,
+img]) and combines ``e_unc + ig (e_img - e_unc) + g (e_full - e_img)`` at the
+job's image guidance ``ig`` and text guidance ``g``. Such a job needs an
+init image and takes no mask and no ControlNet, as in JAX; it never rides a
+lane. ``GenerateRequest.tiled_decode`` decodes through
+``models/vae.py::tiled_decode``. DeepCache reuse raises ``ValueError``
+naming the later slice that brings it.
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from chiaswarm_tpu_torch.core.rng import (
     randn_rows,
     row_generators,
 )
+from chiaswarm_tpu_torch.models.vae import tiled_decode
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
@@ -138,14 +150,23 @@ def img2img_start_index(steps: int, strength: float) -> int:
 
 
 def image_plan(steps: int, strength: float, has_init: bool,
-               has_mask: bool) -> tuple[str, int]:
+               has_mask: bool, image_conditioned: bool = False
+               ) -> tuple[str, int]:
     """A job's mode and denoise start index: ``inpaint`` (a mask, which
     needs an init image) starts at 0 and re-projects the kept region every
     step; ``img2img`` skips the first (1 - strength) of the ladder;
-    ``txt2img`` starts at 0. The one derivation for the solo path, the
-    lanes and the lane envelope."""
+    ``txt2img`` starts at 0; on an ``image_conditioned`` family the job is
+    ``pix2pix`` (an init image, no mask), from pure noise at 0. The one
+    derivation for the solo path, the lanes and the lane envelope."""
     if has_mask and not has_init:
         raise ValueError("inpainting requires an init image with the mask")
+    if image_conditioned:
+        if not has_init:
+            raise ValueError("this model edits an input image; "
+                             "start_image_uri is required")
+        if has_mask:
+            raise ValueError("instruct-pix2pix models do not take a mask")
+        return "pix2pix", 0
     if has_mask:
         return "inpaint", 0
     if has_init:
@@ -193,18 +214,26 @@ def _resize_image(img: np.ndarray, height: int, width: int) -> np.ndarray:
     return resized.astype(np.float32) / 127.5 - 1.0
 
 
-def _refuse_unported(req: GenerateRequest, components: Components) -> None:
-    if components.family.image_conditioned:
-        raise ValueError("instruct-pix2pix models are not served by "
-                         "chiaswarm_tpu_torch yet (a later slice of the port)")
-    if req.controlnet is not None and req.control_image is None:
-        raise ValueError("controlnet requires a conditioning image")
+def _check_request(req: GenerateRequest, components: Components) -> None:
+    """JAX's refusals, in its order, and DeepCache reuse (a later slice)."""
+    image_plan(1, req.strength, req.init_image is not None,
+               req.mask is not None, components.family.image_conditioned)
+    if req.controlnet is not None:
+        if components.family.image_conditioned:
+            raise ValueError(
+                "instruct-pix2pix models do not support controlnet")
+        if req.control_image is None:
+            raise ValueError("controlnet requires a conditioning image")
     if req.reuse_schedule:
         raise ValueError("DeepCache reuse is not served by chiaswarm_tpu_torch "
                          "yet (a later slice of the port)")
-    if req.tiled_decode:
-        raise ValueError("tiled VAE decode is not served by "
-                         "chiaswarm_tpu_torch yet (a later slice of the port)")
+
+
+def to_uint8(img: torch.Tensor) -> torch.Tensor:
+    """Decoded images (B, 3, H, W) in [-1, 1] -> uint8 (B, H, W, 3) on
+    their device: (x + 1) * 127.5 + 0.5, clipped, truncated."""
+    img = torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
+    return img.permute(0, 2, 3, 1)
 
 
 @dataclasses.dataclass
@@ -331,7 +360,10 @@ class DiffusionPipeline:
                   init_latent: torch.Tensor | None = None,
                   mask: torch.Tensor | None = None,
                   control: Any = None, hint: torch.Tensor | None = None,
-                  control_scale: float = 1.0) -> torch.Tensor:
+                  control_scale: float = 1.0,
+                  image_cond: torch.Tensor | None = None,
+                  image_guidance: float = 1.5,
+                  tiled: bool = False) -> torch.Tensor:
         """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device.
         With ``init_latent`` the loop starts at ladder index ``start`` from
         ``init_latent + noise * sigma[start]``; with ``mask`` ((B, 1, h, w),
@@ -340,14 +372,27 @@ class DiffusionPipeline:
         step's own noise. With ``control`` (a ``ControlNetBundle``) each eval
         runs its branch on the UNet's batch with the job's ``hint`` (1, C0,
         h, w) and feeds the residuals, times ``control_scale``, to the
-        UNet."""
+        UNet. With ``image_cond`` (the scaled init latents, (B, C, h, w); an
+        instruct-pix2pix family) each eval runs the tripled batch and the
+        dual-guidance combine at ``image_guidance``. ``tiled`` decodes
+        through ``tiled_decode``."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
         unet = self.c.unet
 
         ctx, pooled = self._encode_text(ids)
         pooled_rows = [pooled]
-        if use_cfg:
+        pix2pix = image_cond is not None
+        if pix2pix:
+            # dual guidance rides a tripled batch: [uncond, image only,
+            # text and image]
+            nctx, npooled = self._encode_text(neg_ids)
+            ctx = torch.cat([nctx, nctx, ctx], dim=0)
+            pooled_rows = [npooled, npooled, pooled]
+            # unscaled image latents on the channels, zeros for uncond
+            img = image_cond / self.c.family.vae.scaling_factor
+            img3 = torch.cat([torch.zeros_like(img), img, img], dim=0)
+        elif use_cfg:
             nctx, npooled = self._encode_text(neg_ids)
             ctx = torch.cat([nctx, ctx], dim=0)
             pooled_rows = [npooled, pooled]
@@ -356,20 +401,28 @@ class DiffusionPipeline:
         if init_latent is not None:
             x = init_latent + x
         state = init_sampler_state(x)
-        rows = 2 * batch if use_cfg else batch
+        rows = (3 if pix2pix else 2 if use_cfg else 1) * batch
         added = self._added_cond(pooled_rows, height, width)
         if control is not None:
             hint = hint.expand(rows, -1, -1, -1)
         for i in range(start, steps):
             inp = scale_model_input(sched, x, i)
             t = timesteps[i].expand(rows)
-            inp_b = torch.cat([inp, inp], dim=0) if use_cfg else inp
+            if pix2pix:
+                inp_b = torch.cat([torch.cat([inp, inp, inp], dim=0), img3],
+                                  dim=1)
+            else:
+                inp_b = torch.cat([inp, inp], dim=0) if use_cfg else inp
             down = mid = None
             if control is not None:
                 down, mid = control.net(inp_b, t, ctx, hint, added,
                                         control_scale)
             out = unet(inp_b, t, ctx, added, down, mid)
-            if use_cfg:
+            if pix2pix:
+                e_unc, e_img, e_full = out.chunk(3, dim=0)
+                eps = (e_unc + image_guidance * (e_img - e_unc)
+                       + guidance * (e_full - e_img))
+            elif use_cfg:
                 eps_u, eps_c = out.chunk(2, dim=0)
                 eps = eps_u + guidance * (eps_c - eps_u)
             else:
@@ -384,7 +437,8 @@ class DiffusionPipeline:
                                      self.c.device)
                 x = reproject_known(sched, i, x, init_latent, mask, renoise)
 
-        return self._decode_uint8(x)
+        return self._decode_uint8(x, tiled=True) if tiled else \
+            self._decode_uint8(x)
 
     def encode_init_image(self, image: np.ndarray, height: int, width: int,
                           seed: int) -> torch.Tensor:
@@ -422,7 +476,8 @@ class DiffusionPipeline:
         (rows, 1, h, w). The solo path and lane admission both call this,
         so a job's rows do not depend on where it runs."""
         mode, start = image_plan(steps, strength, init_image is not None,
-                                 mask is not None)
+                                 mask is not None,
+                                 self.c.family.image_conditioned)
         init_latent = mask_rows = None
         if init_image is not None:
             init = np.asarray(init_image)
@@ -461,10 +516,10 @@ class DiffusionPipeline:
         with torch.inference_mode():
             return controlnet.embed(x)
 
-    def _decode_uint8(self, x: torch.Tensor) -> torch.Tensor:
-        img = self.c.vae.decode(x)
-        img = torch.clamp((img + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8)
-        return img.permute(0, 2, 3, 1)
+    def _decode_uint8(self, x: torch.Tensor,
+                      tiled: bool = False) -> torch.Tensor:
+        return to_uint8(tiled_decode(self.c.vae, x) if tiled
+                        else self.c.vae.decode(x))
 
     # ---------- lane programs (serving/stepper.py) ----------
 
@@ -598,7 +653,7 @@ class DiffusionPipeline:
         """Run a request on the device, leaving the uint8 images there
         until ``PendingImages.wait()``."""
         fam = self.c.family
-        _refuse_unported(req, self.c)
+        _check_request(req, self.c)
         height, width = bucket_image_size(req.height, req.width)
         batch = bucket_batch(req.batch)
         steps = max(int(req.steps), 1)
@@ -636,6 +691,9 @@ class DiffusionPipeline:
         generators = row_generators(pairs)
         noise = self._initial_noise(req, batch, lh, lw, generators)
 
+        image_cond = None
+        if mode == "pix2pix":
+            image_cond, init_latent = init_latent, None
         with sequence_parallel(self.mesh):
             images = self._generate(
                 batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
@@ -643,7 +701,10 @@ class DiffusionPipeline:
                 noise=noise, generators=generators, height=height,
                 width=width, start=start, init_latent=init_latent, mask=mask,
                 control=req.controlnet, hint=hint,
-                control_scale=float(req.control_scale))
+                control_scale=float(req.control_scale),
+                image_cond=image_cond,
+                image_guidance=float(req.image_guidance_scale),
+                tiled=req.tiled_decode)
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,
@@ -660,6 +721,8 @@ class DiffusionPipeline:
             "batch": batch,
             "mode": mode,
         }
+        if mode == "pix2pix":
+            config["image_guidance_scale"] = float(req.image_guidance_scale)
         if req.controlnet is not None:
             config["controlnet"] = req.controlnet.model_name
             config["controlnet_scale"] = float(req.control_scale)

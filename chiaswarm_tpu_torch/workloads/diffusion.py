@@ -1,4 +1,5 @@
-"""Stable-diffusion workload, txt2img, img2img, inpaint and ControlNet:
+"""Stable-diffusion workload, txt2img, img2img, inpaint, instruct-pix2pix and
+ControlNet, with the x2 upscale pass, LoRA and textual inversion:
 counterpart of
 ``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
 lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
@@ -7,9 +8,20 @@ through as ``resume`` :376-387).
 
 An ``image`` (the fetched ``start_image_uri``) sets the job's size and makes
 it img2img; a ``mask_image`` beside it makes it inpaint (averaged over its
-channels, scaled to [0, 1]). On a family that is not instruct-pix2pix an
+channels, scaled to [0, 1]). On an instruct-pix2pix family the image
+conditions every eval at ``image_guidance_scale`` (the job formatter maps
+the hive's strength to it, x 5); on any other family an
 ``image_guidance_scale`` maps to the img2img strength (the hive sends
-strength x 5), as in the JAX callback; such a job runs the solo path.
+strength x 5), as in the JAX callback; both run the solo path.
+
+``lora`` (at ``cross_attention_scale``) and ``textual_inversion`` pick the
+registry's adapter pipeline (its own ledger entry, the adapter merged into a
+private copy of the model) on the solo path and the lanes alike, and the
+config carries them. ``upscale`` runs the x2 latent upscaler
+(``upscaler_model_name``, default ``stabilityai/sd-x2-latent-upscaler``)
+over the generated images with the job's prompt and seed (JAX :149-155);
+the config takes its keys, and the safety check and the envelope see the
+upscaled images. Such a job runs the solo path.
 
 A ``controlnet_model_name`` makes the fetched ``image`` the job's
 conditioning image, not an init image (JAX :73-91): the registry's resident
@@ -25,21 +37,23 @@ uploading a flat frame), runs the safety checker over them
 ``safety_checker: "unavailable"`` on a node without a checker), builds the
 artifact envelope, and returns the same config keys as the JAX callback:
 the pipeline's config, the safety fields and the timing keys (and
-``residency: per_job`` when the model is degraded to load-per-job). Inputs
-this slice does not serve raise ``ValueError`` naming the later slice,
-which the executor reports as a fatal bad-request envelope.
+``residency: per_job`` when the model is degraded to load-per-job). DeepCache
+reuse, which a later slice serves, raises ``ValueError`` naming it, which
+the executor reports as a fatal bad-request envelope.
 
 The lane workload hands an eligible txt2img, img2img, inpaint or ControlNet
-job to the slot's continuous-batching scheduler (``serving/stepper.py``) and
-finishes it into the JAX lane envelope's config keys, ``stepper`` stamp and
-safety fields included. A job carrying anything a later slice serves is not
-eligible: it takes the solo path, which refuses it and names that slice.
-Neither is a job whose model came back degraded to load-per-job. The lane
-finish echoes ``preprocessed_input`` too, where the JAX lane finish drops it
-(``chiaswarm_tpu/workloads/diffusion.py::stepper_finish``), and renders a
-ControlNet job at its conditioning image's size, as the solo path does,
-where the JAX lane submit takes the family's default size: a job's artifacts
-do not depend on its route.
+job, with or without an adapter, to the slot's continuous-batching scheduler
+(``serving/stepper.py``), whose lanes key by the pipeline object (so an
+adapter's rows never share a lane with its base model's), and finishes it
+into the JAX lane envelope's config keys, ``stepper`` stamp, adapter stamps
+and safety fields included. An upscale job is not eligible, nor is a job
+carrying what a later slice serves: it takes the solo path, which refuses it
+and names that slice. Neither is a job whose model came back degraded to
+load-per-job. The lane finish echoes ``preprocessed_input`` too, where the
+JAX lane finish drops it (``chiaswarm_tpu/workloads/diffusion.py::
+stepper_finish``), and renders a ControlNet job at its conditioning image's
+size, as the solo path does, where the JAX lane submit takes the family's
+default size: a job's artifacts do not depend on its route.
 """
 
 from __future__ import annotations
@@ -56,17 +70,18 @@ from chiaswarm_tpu_torch.pipelines.diffusion import (
     GenerateRequest,
     image_plan,
 )
+from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
 from chiaswarm_tpu_torch.serving.guard import screen_images
 from chiaswarm_tpu_torch.serving.residency import is_transient
 from chiaswarm_tpu_torch.workloads.safety import check_images
 
 #: job arguments a later slice serves, and what each asks for
 _LATER = {
-    "upscale": "the latent upscaler",
-    "textual_inversion": "textual inversion",
-    "lora": "LoRA",
     "reuse_schedule": "DeepCache reuse",
 }
+
+#: the hive's x2 upscaler (swarm/job_arguments.py:104-110)
+DEFAULT_UPSCALER = "stabilityai/sd-x2-latent-upscaler"
 
 
 def _refuse(kwargs: dict[str, Any]) -> None:
@@ -90,12 +105,20 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        image_guidance_scale: float | None = None,
                        scheduler_type: str | None = None,
                        content_type: str = "image/png",
+                       upscale: bool = False,
+                       upscaler_model_name: str = DEFAULT_UPSCALER,
                        controlnet_model_name: str | None = None,
                        controlnet_scale: float = 1.0,
                        save_preprocessed_input: bool = False,
+                       textual_inversion: str | None = None,
+                       lora: str | None = None,
+                       cross_attention_scale: float = 1.0,
                        **kwargs: Any):
     _refuse(kwargs)
-    pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
+    mesh = getattr(slot, "mesh", None)
+    pipe = registry.pipeline(model_name, textual_inversion=textual_inversion,
+                             lora=lora, lora_scale=cross_attention_scale,
+                             mesh=mesh)
     degraded = is_transient(pipe)  # the load-per-job rung
     fam = pipe.c.family
     if fam.kind != "sd":
@@ -130,6 +153,7 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         init_image=image,
         strength=float(strength),
         mask=_mask_01(mask_image),
+        tiled_decode=max(height, width) > 1024,
         image_guidance_scale=float(image_guidance_scale
                                    if image_guidance_scale is not None
                                    else 1.5),
@@ -141,6 +165,17 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
     images, config = pipe(req)
     elapsed = time.perf_counter() - t0
 
+    if upscale:
+        # the x2 pass, 20 steps at guidance 0, with the job's own prompt
+        # and seed (swarm/diffusion/upscale.py:6-32)
+        upscaler = registry.pipeline(upscaler_model_name, mesh=mesh)
+        if not isinstance(upscaler, LatentUpscalePipeline):
+            raise ValueError(f"upscaler {upscaler_model_name!r} is a "
+                             f"{upscaler.c.family.kind} model, not an x2 "
+                             "latent upscaler")
+        images, up_config = upscaler(images, prompt=prompt or "", seed=seed)
+        config.update(up_config)
+
     screen_images(images, context="solo decode")
 
     with span("artifacts", images=int(images.shape[0])):  # PNG, base64
@@ -151,6 +186,8 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                             key="preprocessed_input")
         artifacts = proc.get_results()
 
+    config.update(_adapter_fields(textual_inversion, lora,
+                                  cross_attention_scale))
     _, safety_fields = check_images(images, model_name, pipe.c.device)
     config.update(safety_fields)
     config.update({
@@ -163,6 +200,19 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         # and serves load -> run -> release
         config["residency"] = "per_job"
     return artifacts, config
+
+
+def _adapter_fields(textual_inversion: str | None, lora: str | None,
+                    cross_attention_scale: float | None) -> dict[str, Any]:
+    """The config's adapter stamps, as the JAX callback writes them."""
+    fields: dict[str, Any] = {}
+    if textual_inversion is not None:
+        fields["textual_inversion"] = textual_inversion
+    if lora is not None:
+        fields["lora"] = lora
+        fields["cross_attention_scale"] = float(
+            1.0 if cross_attention_scale is None else cross_attention_scale)
+    return fields
 
 
 def _control(registry, slot, fam, controlnet_model_name: str | None,
@@ -210,6 +260,8 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
         return False
     if any(kwargs.get(key) for key in _LATER):
         return False  # the solo path refuses it, naming its slice
+    if kwargs.get("upscale"):
+        return False  # the x2 pass chains a second pipeline: solo
     if kwargs.get("image_guidance_scale") is not None:
         return False  # pix2pix guidance or the strength remap: solo
     guidance = kwargs.get("guidance_scale")
@@ -254,19 +306,26 @@ class StepperTicket:
     controlnet_scale: float = 1.0
     control_image: np.ndarray | None = None
     save_preprocessed_input: bool = False
+    adapters: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
                    job_id: Any = None) -> StepperTicket:
-    """Hand one formatted txt2img, img2img, inpaint or ControlNet job to the
-    slot's step scheduler. Raises ``LaneReject`` (or anything else) when
-    the job must run through the per-job path instead."""
+    """Hand one formatted txt2img, img2img, inpaint or ControlNet job, with
+    its LoRA or textual inversion, to the slot's step scheduler. Raises
+    ``LaneReject`` (or anything else) when the job must run through the
+    per-job path instead."""
     from chiaswarm_tpu_torch.core.buckets import bucket_image_size
     from chiaswarm_tpu_torch.schedulers import resolve
     from chiaswarm_tpu_torch.serving.stepper import LaneReject, get_stepper
 
     model_name = kwargs.get("model_name")
-    pipe = registry.pipeline(model_name, mesh=getattr(slot, "mesh", None))
+    scale = kwargs.get("cross_attention_scale")
+    pipe = registry.pipeline(
+        model_name, textual_inversion=kwargs.get("textual_inversion"),
+        lora=kwargs.get("lora"),
+        lora_scale=1.0 if scale is None else float(scale),
+        mesh=getattr(slot, "mesh", None))
     if is_transient(pipe):
         # degraded to load-per-job: a lane would hold the over-budget
         # weights between jobs (the executor's lane_resident_ok check
@@ -330,7 +389,9 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         denoise_steps=steps - start_step, device=pipe.c.device,
         controlnet_name=controlnet_name, controlnet_scale=cscale,
         control_image=control_image,
-        save_preprocessed_input=bool(kwargs.get("save_preprocessed_input")))
+        save_preprocessed_input=bool(kwargs.get("save_preprocessed_input")),
+        adapters=_adapter_fields(kwargs.get("textual_inversion"),
+                                 kwargs.get("lora"), scale))
 
 
 def stepper_finish(ticket: StepperTicket):
@@ -372,6 +433,7 @@ def stepper_finish(ticket: StepperTicket):
     if ticket.controlnet_name is not None:
         config["controlnet"] = ticket.controlnet_name
         config["controlnet_scale"] = ticket.controlnet_scale
+    config.update(ticket.adapters)
     _, safety_fields = check_images(images, ticket.model_name, ticket.device)
     config.update(safety_fields)
     config.update({

@@ -22,7 +22,12 @@ each phase printing one JSON line:
                 (batch 2 for a solo job, 4 for a lone job's lane of 2 rows,
                 16 for a lane of 8 rows) and for SDXL at 1024 px (head dim
                 64: batch 2 solo, 4 in a lane of 2, 8 in a lane of 4, 1
-                for a job without CFG) (max abs error 4e-3, two bf16 steps
+                for a job without CFG), for instruct-pix2pix's tripled batch
+                (batch 3 at head dims 40 and 80) and for the x2 upscaler
+                without CFG (batch 1, head dim 64: 16,384, 4,096 and 1,024
+                tokens after a 512 px job, 65,536, 16,384 and 4,096 after
+                a 1024 px SDXL job; the plain version at 65,536 tokens
+                timed over 3 calls) (max abs error 4e-3, two bf16 steps
                 at the largest outputs, and relative L2 1e-2), at
                 lane_check's and xl_check's fp32 shapes and at ragged fp32
                 shapes (2e-4 and
@@ -349,6 +354,44 @@ each phase printing one JSON line:
 15t. xl_controlnet_serve — an SDXL ControlNet (random, zero convs seeded):
                 seed 1 at 1024 px as txt2img and as a control job, solo: B1
                 = 70 x 20 and 104 x 20. Prints both ``generation_s``.
+15u. pix2pix_serve — instruct-pix2pix at its published widths (SD1.5's
+                UNet with an 8-channel ``conv_in``, bf16, random from seed
+                0) written as a diffusers-layout directory under
+                ``timbrooks__instruct-pix2pix`` and loaded with no random
+                fallback (tensors equal); one tripled-batch UNet eval
+                through B1 against its float32 copy on the plain route
+                (relative L2 3e-2, 10 launches); two jobs (strengths 0.3
+                and 0.6: image guidance 1.5 and 3.0) through the worker,
+                their pictures fetched from this script's hive, with the
+                lanes on: PNGs of the input's size, ``mode`` and
+                ``image_guidance_scale`` stamped, no lane, B1 = 10 x 20 a
+                job at batch 3; the first job again, bit for bit.
+15v. upscale_serve — the x2 upscaler at the JAX family's widths (bf16,
+                random from seed 0) written under
+                ``stabilityai__sd-x2-latent-upscaler`` and loaded (tensors
+                equal); serve's seed 1 with ``parameters.upscale`` through
+                ``synchronous_do_work`` with the lanes on and through the
+                worker: a 1024x1024 PNG, the four upscaler keys, no lane,
+                B1 = 10 x 20 + 16 x 20, the image bit for bit a direct
+                upscaler call on the job's own 512 px image and the
+                worker's image bit for bit the executor's. Prints
+                ``generation_s``, the pass's seconds and event ms, B1's
+                share of them (its launches by shape times the kernel
+                phase's ms) and the peak memory.
+15w. xl_upscale_serve — SDXL's seed 1 at 1024 px with ``parameters.
+                upscale``: a 2048x2048 PNG decoded in 25 tiles, B1 = 70 x
+                20 + 16 x 20, bit for bit a direct call; a latent of one
+                tile decodes bit for bit like the untiled decode. Prints
+                upscale_serve's numbers and the tiles.
+15x. adapters_serve — a seeded rank-4 LoRA on every transformer's
+                attention projections of SD1.5 (attn-procs and peft names)
+                and a two-vector inversion of ``<chip-smoke>``: the two
+                files merge to the same UNet bit for bit; scale 0 renders
+                the base image bit for bit; scales 1.0 and 0.5 are ledger
+                entries of their own (bytes printed); the inversion keeps a
+                prompt without its token bit for bit and changes one with
+                it; a two-image LoRA job solo and in a lane pinned at 2 rows
+                bit for bit; B1 = 10 x 20 a LoRA job.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -363,8 +406,9 @@ each phase printing one JSON line:
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
-                phases, the guard phases and the safety and ControlNet
-                phases, and B3 under ``lane_seq_serve``
+                phases, the guard phases, the safety and ControlNet
+                phases and the pix2pix, upscale and adapter phases, and B3
+                under ``lane_seq_serve``
                 and
                 ``seq_img2img``, with
                 their launches there and their numbers over those
@@ -613,9 +657,28 @@ KERNEL_SHAPES = [
     (1, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_serve",)),
     (1, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_lane_serve",)),
     (2, 1024, 1024, 10, 64, "float32", 2e-4, 1e-4, ("xl_check",)),
+    # instruct-pix2pix: SD1.5's UNet on the tripled batch [uncond, image,
+    # text + image] of one image
+    (3, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("pix2pix_serve",)),
+    (3, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("pix2pix_serve",)),
+    # the x2 upscaler (widths 384, 768, 768, head dim 64, no CFG) on the 2x
+    # latent grid: of a 512 px image (128x128 latents: 6 heads at 16,384
+    # tokens, 12 at 4,096 and 1,024) and of a 1024 px SDXL image (256x256:
+    # 6 heads at 65,536, 12 at 16,384 and 4,096)
+    (1, 16384, 16384, 6, 64, "bfloat16", 4e-3, 1e-2, ("upscale_serve",)),
+    (1, 4096, 4096, 12, 64, "bfloat16", 4e-3, 1e-2,
+     ("upscale_serve", "xl_upscale_serve")),
+    (1, 1024, 1024, 12, 64, "bfloat16", 4e-3, 1e-2, ("upscale_serve",)),
+    (1, 65536, 65536, 6, 64, "bfloat16", 4e-3, 1e-2, ("xl_upscale_serve",)),
+    (1, 16384, 16384, 12, 64, "bfloat16", 4e-3, 1e-2, ("xl_upscale_serve",)),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
 ]
+
+
+# above this many logits (B·H·L·S) the plain version takes a second or
+# more a call: it is timed over 3 calls after 1 warm-up, not 20 after 3
+PLAIN_FEW_CALLS_LOGITS = 1 << 33
 
 
 def _held(name: str, shape, out, ref, tol: float, rel_tol: float) -> dict:
@@ -656,6 +719,8 @@ def kernel_phase(torch) -> list[dict]:
         torch.cuda.synchronize()
         shape = [b, l, s, h, d]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        few = b * h * l * s > PLAIN_FEW_CALLS_LOGITS
+        plain_calls = {"warmup": 1, "iters": 3} if few else {}
         row = {
             "shape": shape, "dtype": dtype_name,
             "design": design(dtype_name, d),
@@ -663,7 +728,9 @@ def kernel_phase(torch) -> list[dict]:
                     rel_tol),
             "served": bool(paths), "paths": list(paths),
             "ms": time_ms(torch, lambda: flash_attention(q, k, v)),
-            "plain_ms": time_ms(torch, lambda: flash_attention_plain(q, k, v)),
+            "plain_ms": time_ms(torch, lambda: flash_attention_plain(q, k, v),
+                                **plain_calls),
+            "plain_timed_calls": plain_calls.get("iters", 20),
             "library_ms": time_ms(
                 torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             **attention_work(b, l, s, h, d, dtype),
@@ -1752,7 +1819,7 @@ class OnePipeline:
     def __init__(self, pipe) -> None:
         self.pipe = pipe
 
-    def pipeline(self, model_name: str, mesh=None):
+    def pipeline(self, model_name: str, mesh=None, **adapters):
         return self.pipe
 
 
@@ -4602,6 +4669,512 @@ def xl_controlnet_serve_phase(torch, registry, slot,
     return launched()
 
 
+# ---- instruct-pix2pix, the x2 upscale pass, LoRA and textual inversion ---
+
+P2P_MODEL = "timbrooks/instruct-pix2pix"  # the hive's name for pix2pix
+# strength 0.3 and 0.6 -> image guidance 1.5 and 3.0 (the formatter's x5)
+P2P_STRENGTHS = {61: 0.3, 62: 0.6}
+P2P_JOBS = [dict(JOBS[0], id=f"p2p-{seed}", seed=seed, model_name=P2P_MODEL,
+                 prompt="turn it into a snowy winter scene", strength=s,
+                 start_image_uri=f"/assets/init-{seed}.png")
+            for seed, s in P2P_STRENGTHS.items()]
+UPSCALER = "stabilityai/sd-x2-latent-upscaler"  # the callback's default
+UPSCALE_STEPS = 20  # the reference's upscale pass (swarm/diffusion/upscale.py)
+UPSCALE_JOB = dict(JOBS[0], id="upscale-sd15-1",
+                   parameters={"upscale": True})
+XL_UPSCALE_JOB = dict(XL_JOBS[0], id="upscale-sdxl-1",
+                      parameters={"upscale": True})
+LORA_RANK = 4
+LORA_MODEL = "chip-smoke/lora-attn-procs"
+LORA_PEFT_MODEL = "chip-smoke/lora-peft"
+TI_MODEL = "chip-smoke/concept"
+TI_TOKEN = "<chip-smoke>"
+
+
+def upscaler_b1_per_eval() -> int:
+    """B1's launches in one eval of the x2 upscaler's UNet, from its config:
+    a spatial self-attention per transformer block, down (``layers_per_block``
+    a level), mid (one) and up (one more a level), at every level with a
+    transformer; every level's grid has at least 1,024 tokens at the served
+    sizes, so each goes to B1. (1, 1, 1) at depth 1: 6 + 1 + 9 = 16."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+
+    unet = FAMILIES["upscaler_x2"].unet
+    levels = [d for d in unet.transformer_depth if d]
+    per_block = sum(d * (2 * unet.layers_per_block + 1) for d in levels)
+    return per_block + unet.transformer_depth[-1]
+
+
+def tiles_for(latent: int, tile: int = 64, overlap: int = 8) -> int:
+    """The tiles ``tiled_decode`` decodes for a square latent."""
+    if latent <= tile:
+        return 1
+    return max(1, -(-(latent - overlap) // (tile - overlap))) ** 2
+
+
+def write_model(torch, family: str, name: str, seed: int) -> dict:
+    """A model of ``family`` at its published widths, random from ``seed``
+    on the card, written as a diffusers-layout directory of ``name`` under
+    the run's settings root at its serving dtypes; returns its tensors (on
+    the host) by module and the write's seconds and bytes."""
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    t0 = time.perf_counter()
+    source = Components.random(family, seed=seed, device="cuda",
+                               model_name=name)
+    info = write_checkpoint(torch, source, model_dir(name), float32=False)
+    states = {m: {k: v.detach().cpu() for k, v in p.items()}
+              for m, p in module_states(source).items()}
+    del source
+    torch.cuda.empty_cache()
+    return {"states": states, "write_s": time.perf_counter() - t0,
+            "bytes": info["bytes"]}
+
+
+def check_loaded(torch, phase: str, pipe, states: dict) -> None:
+    """Every loaded tensor of ``pipe`` equal to its source."""
+    unequal = [f"{m}.{k}" for m, params in module_states(pipe.c).items()
+               for k, v in params.items()
+               if not torch.equal(v.detach().cpu(), states[m][k])]
+    if unequal:
+        raise AssertionError(f"{phase}: {len(unequal)} loaded tensors differ "
+                             f"from their source: {unequal[:4]}")
+
+
+def b1_shapes(run: dict) -> list:
+    return [[*k, n] for k, n in run["flash_attention"]["shapes"].items()]
+
+
+def pix2pix_serve_phase(torch, registry, pool, slot) -> dict:
+    """instruct-pix2pix at its published widths (SD1.5's UNet with an
+    8-channel ``conv_in``, bf16, random from seed 0) written as a
+    diffusers-layout directory under ``timbrooks__instruct-pix2pix`` and
+    loaded through the registry with no random fallback (every tensor equal
+    to its source). One tripled-batch UNet eval (3 x 8 x 64 x 64, B1's
+    route) against the same weights in float32 on the plain route, relative
+    L2 3e-2. Two jobs through the worker, their 512 px pictures fetched from
+    this script's hive, strengths 0.3 and 0.6: PNGs of the input's size,
+    ``mode: pix2pix`` and ``image_guidance_scale`` 1.5 and 3.0 stamped, no
+    lane (the lanes are on), B1 = 10 x 20 a job, all at the tripled batch;
+    the first job again through ``synchronous_do_work``, bit for bit."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    written = write_model(torch, "pix2pix", P2P_MODEL, seed=0)
+    t0 = time.perf_counter()
+    pipe = registry.pipeline(P2P_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check_loaded(torch, "pix2pix_serve", pipe, written["states"])
+    if tuple(pipe.c.unet.conv_in.weight.shape) != (320, 8, 3, 3):
+        raise AssertionError(f"pix2pix conv_in {pipe.c.unet.conv_in.weight.shape}")
+
+    # one tripled-batch eval: bf16 through B1 against float32 plain
+    gen = torch.Generator(device="cpu").manual_seed(61)
+    x = torch.randn((3, 8, 64, 64), generator=gen).cuda()
+    ctx = torch.randn((3, 77, 768), generator=gen).cuda()
+    t = torch.tensor([999.0, 999.0, 999.0], device="cuda")
+    unet32 = copy.deepcopy(pipe.c.unet)
+    cast_module(unet32, torch.float32)
+    set_attn_impl(unet32, "xla")
+    kernels.reset_launches()
+    with torch.inference_mode():
+        out = pipe.c.unet(x.to(torch.bfloat16), t,
+                          ctx.to(torch.bfloat16)).float()
+        eval_launches = kernel_launches()
+        ref = unet32(x, t, ctx).float()
+    del unet32
+    torch.cuda.empty_cache()
+    rel = float((out - ref).norm() / ref.norm())
+    check_b1("pix2pix_check", eval_launches, B1_LAUNCHES_PER_UNET_EVAL)
+    if not rel <= 3e-2:
+        raise AssertionError(f"pix2pix_check: relative L2 {rel} (bar 3e-2)")
+
+    with LocalHive() as hive:
+        hive.assets.update({f"init-{seed}.png": png_bytes(
+            smooth_image(seed, IMG_SIZE)) for seed in P2P_STRENGTHS})
+        jobs = on_hive(hive, P2P_JOBS)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        worker = serve_through_worker(hive, pool, registry, jobs)
+        run, launches = launched(), kernel_launches()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+        again = synchronous_do_work(dict(jobs[0]), slot, registry)
+    blobs, configs = {}, {}
+    for job in P2P_JOBS:
+        result = by_id[job["id"]]
+        blobs[job["id"]] = check_envelope("pix2pix_serve", job, result, False)
+        cfg = configs[job["id"]] = result["pipeline_config"]
+        want_ig = P2P_STRENGTHS[job["seed"]] * 5
+        if cfg.get("mode") != "pix2pix" or \
+                abs(cfg.get("image_guidance_scale", 0) - want_ig) > 1e-9:
+            raise AssertionError(f"pix2pix_serve {job['id']}: {cfg}")
+    repeat = check_envelope("pix2pix_serve", P2P_JOBS[0], again, False)
+    shapes = run["flash_attention"]["shapes"]
+    emit("pix2pix_serve", load_s=load_s, write_s=written["write_s"],
+         checkpoint_bytes=written["bytes"],
+         param_bytes=pipe.c.param_bytes(),
+         check={"rel_l2_vs_fp32_plain": rel, "tolerance": 3e-2,
+                "b1_launches": eval_launches["flash_attention"]},
+         generation_s=[c["generation_s"] for c in configs.values()],
+         image_guidance_scale=[c["image_guidance_scale"]
+                               for c in configs.values()],
+         job_seconds=[rows[j["id"]]["seconds"] for j in P2P_JOBS],
+         repeat_bit_equal=repeat == blobs[P2P_JOBS[0]["id"]],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, b1_shapes=b1_shapes(run))
+    check_b1("pix2pix_serve", launches, len(P2P_JOBS) * SERVE_STEPS
+             * B1_LAUNCHES_PER_UNET_EVAL)
+    if any(key[0] != 3 for key in shapes):
+        raise AssertionError(f"pix2pix_serve: B1 off the tripled batch: "
+                             f"{shapes}")
+    if repeat != blobs[P2P_JOBS[0]["id"]]:
+        raise AssertionError("pix2pix_serve: the same job twice differs")
+    return run
+
+
+def write_upscaler(torch, registry) -> tuple:
+    """The x2 upscaler at the JAX family's widths, bf16, random from seed 0,
+    written under ``stabilityai__sd-x2-latent-upscaler`` and loaded through
+    the registry (no random fallback; every tensor equal to its source)."""
+    written = write_model(torch, "upscaler_x2", UPSCALER, seed=0)
+    t0 = time.perf_counter()
+    upscaler = registry.pipeline(UPSCALER)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check_loaded(torch, "upscale_serve", upscaler, written["states"])
+    return upscaler, {"write_s": written["write_s"], "load_s": load_s,
+                      "checkpoint_bytes": written["bytes"],
+                      "param_bytes": upscaler.c.param_bytes()}
+
+
+def upscale_pass(torch, upscaler, image, prompt: str, seed: int) -> dict:
+    """A direct ``LatentUpscalePipeline`` call on one uint8 image: its
+    output, host seconds and CUDA-event ms (the pass's span on the device
+    timeline), its B1 launches by shape and its peak memory above what was
+    held before it."""
+    from chiaswarm_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out, cfg = upscaler(image[None], prompt=prompt, seed=seed)
+    end.record()
+    torch.cuda.synchronize()
+    return {"image": out[0], "config": cfg,
+            "seconds": time.perf_counter() - t0,
+            "events_ms": start.elapsed_time(end), "run": launched(),
+            "peak_bytes": torch.cuda.max_memory_allocated() - held}
+
+
+def b1_share(rows: list[dict], run: dict, events_ms: float) -> dict:
+    """B1's ms in a run (its launches by shape times the kernel phase's
+    median ms at each shape) and that over the run's event ms."""
+    ms = {shape_key(r): r["ms"] for r in rows}
+    b1_ms = sum(n * ms[key]
+                for key, n in run["flash_attention"]["shapes"].items())
+    return {"b1_ms": b1_ms, "b1_share": b1_ms / events_ms}
+
+
+def upscale_case(torch, phase: str, registry, slot, upscaler, job: dict,
+                 size: int, b1_rows: list,
+                 per_gen_eval: int) -> tuple[dict, dict, str]:
+    """``job`` (with ``parameters.upscale``) through
+    ``synchronous_do_work`` with the lanes on: a PNG of twice ``size``, the
+    four upscaler keys, no lane, B1 = the generation's evals x
+    ``per_gen_eval`` + 20 x ``upscaler_b1_per_eval()``; the envelope's image
+    bit for bit a direct upscaler call on the job's own ``size`` px image
+    (the same job without ``upscale``, solo) with its prompt and seed.
+    Returns the phase's launches, the numbers it prints and the envelope's
+    PNG."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+
+    plain = {k: v for k, v in job.items() if k != "parameters"}
+    with env(CHIASWARM_STEPPER="0"):
+        base = synchronous_do_work(dict(plain), slot, registry)
+    base_blob = check_envelope(phase, plain, base, False)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = synchronous_do_work(dict(job), slot, registry)
+    seconds = time.perf_counter() - t0
+    run, launches = launched(), kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cfg = result["pipeline_config"]
+    blob = check_envelope(phase, dict(job, height=2 * size, width=2 * size),
+                          result, False)
+    want = {"upscaler": UPSCALER, "scale": 2, "upscale_steps": UPSCALE_STEPS}
+    if any(cfg.get(k) != v for k, v in want.items()) or \
+            "upscale_scheduler" not in cfg:
+        raise AssertionError(f"{phase}: config {cfg}")
+    per_eval = upscaler_b1_per_eval()
+    check_b1(phase, launches, SERVE_STEPS * per_gen_eval
+             + UPSCALE_STEPS * per_eval)
+    direct = upscale_pass(torch, upscaler,
+                          decode_png(base_blob).astype("uint8"),
+                          job["prompt"], job["seed"])
+    check_b1(f"{phase}_direct", {k: v["launches"] for k, v in
+                                 direct["run"].items()},
+             UPSCALE_STEPS * per_eval)
+    got = decode_png(blob)
+    equal = bool((got == direct["image"].astype("int16")).all())
+    numbers = {"job_seconds": seconds, "generation_s": cfg["generation_s"],
+               "upscale_s": direct["seconds"],
+               "upscale_events_ms": direct["events_ms"],
+               **b1_share(b1_rows, direct["run"], direct["events_ms"]),
+               "upscale_peak_bytes": direct["peak_bytes"],
+               "job_max_memory_allocated": peak,
+               "upscale_scheduler": cfg["upscale_scheduler"],
+               "b1_per_upscaler_eval": per_eval,
+               "envelope_equals_direct_call": equal,
+               "launches": launches, "b1_shapes": b1_shapes(run),
+               "direct_b1_shapes": b1_shapes(direct["run"])}
+    if not equal:
+        raise AssertionError(f"{phase}: the envelope's image is not the "
+                             "direct upscaler call's bit for bit")
+    return run, numbers, blob
+
+
+def upscale_serve_phase(torch, registry, pool, slot,
+                        b1_rows: list) -> dict:
+    """The x2 upscale pass after an SD1.5 512 px job (serve's seed 1 with
+    ``parameters.upscale``): the upscaler written and loaded
+    (``write_upscaler``), the job through ``synchronous_do_work`` with the
+    lanes on (``upscale_case``: a 1024x1024 PNG, the upscaler keys, no
+    lane, B1 = 10 x 20 + 16 x 20, the image bit for bit a direct call on
+    the job's own 512 px image) and through the worker (bit for bit the
+    same). Prints ``generation_s``, the pass's seconds and event ms, B1's
+    share of them and the peak memory."""
+    upscaler, load = write_upscaler(torch, registry)
+    run, numbers, blob = upscale_case(
+        torch, "upscale_serve", registry, slot, upscaler, UPSCALE_JOB,
+        IMG_SIZE, b1_rows, B1_LAUNCHES_PER_UNET_EVAL)
+    with LocalHive() as hive:
+        serve_through_worker(hive, pool, registry, [UPSCALE_JOB])
+        result = hive.results[-1]
+    worker_blob = check_envelope(
+        "upscale_serve_worker", dict(UPSCALE_JOB, height=2 * IMG_SIZE,
+                                     width=2 * IMG_SIZE), result, False)
+    emit("upscale_serve", **load, **numbers,
+         worker_equals_executor=worker_blob == blob)
+    if worker_blob != blob:
+        raise AssertionError("upscale_serve: the worker's image is not the "
+                             "executor's bit for bit")
+    return run
+
+
+def xl_upscale_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
+    """SDXL's seed 1 at 1024 px with ``parameters.upscale`` (the upscaler of
+    upscale_serve): a 2048x2048 PNG decoded through ``tiled_decode``
+    (256x256 latents: 25 tiles of 64 with an overlap of 8), B1 = 70 x 20 +
+    16 x 20, the image bit for bit a direct call on the job's own image.
+    Then a latent of exactly one tile (64x64) decodes bit for bit like the
+    untiled decode. Prints the numbers upscale_serve prints and the tiles
+    counted by the decoder's calls."""
+    from chiaswarm_tpu_torch.models.vae import tiled_decode
+
+    upscaler = registry.pipeline(UPSCALER)
+    vae = upscaler.c.vae
+    calls = []
+    real = vae.decode
+
+    def counted(z):
+        calls.append(tuple(z.shape))
+        return real(z)
+
+    vae.decode = counted
+    try:
+        run, numbers, _ = upscale_case(
+            torch, "xl_upscale_serve", registry, slot, upscaler,
+            XL_UPSCALE_JOB, XL_SIZE, b1_rows, B1_LAUNCHES_PER_XL_EVAL)
+    finally:
+        del vae.decode
+    want_tiles = tiles_for(2 * XL_SIZE // vae.config.downscale)
+    # the job's decode and the direct call's: the same tiles twice
+    tiles = len(calls) // 2
+    z = torch.randn((1, 4, 64, 64), generator=torch.Generator().manual_seed(
+        5)).cuda()
+    with torch.inference_mode():
+        one_tile = bool(torch.equal(tiled_decode(vae, z), vae.decode(z)
+                                    .float()))
+    emit("xl_upscale_serve", **numbers, tiles=tiles, tile_shapes=sorted(
+        set(calls)), expected_tiles=want_tiles, one_tile_bit_equal=one_tile)
+    if tiles != want_tiles or len(calls) != 2 * want_tiles:
+        raise AssertionError(f"xl_upscale_serve: {len(calls)} tile decodes, "
+                             f"expected 2 x {want_tiles}")
+    if not one_tile:
+        raise AssertionError("xl_upscale_serve: one tile is not the plain "
+                             "decode bit for bit")
+    return run
+
+
+def lora_state(torch, unet, seed: int, peft: bool) -> dict:
+    """A seeded rank-4 LoRA on ``attn1``/``attn2`` ``to_q``/``to_k``/
+    ``to_v``/``to_out.0`` of every transformer block of ``unet``, in the
+    diffusers attn-procs names or the peft names (the same tensors)."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, w in unet.named_parameters():
+        m = re.match(r"^(.+\.attn[12])\.(to_q|to_k|to_v|to_out)(\.0)?"
+                     r"\.weight$", name)
+        if not m:
+            continue
+        base, proj = m.group(1), m.group(2)
+        out_f, in_f = w.shape
+        down = torch.randn((LORA_RANK, in_f), generator=gen) / in_f ** 0.5
+        up = torch.randn((out_f, LORA_RANK), generator=gen) * 0.05
+        if peft:
+            leaf = f"{base}.{proj}{'.0' if proj == 'to_out' else ''}"
+            state[f"{leaf}.lora_A.weight"] = down
+            state[f"{leaf}.lora_B.weight"] = up
+        else:
+            key = f"unet.{base}.processor.{proj}_lora"
+            state[f"{key}.down.weight"] = down
+            state[f"{key}.up.weight"] = up
+    return state
+
+
+def adapters_serve_phase(torch, registry, slot, solo_blob: str) -> dict:
+    """LoRA and textual inversion on SD1.5 (random base, seed 0): a seeded
+    rank-4 LoRA on every transformer's attention projections written once
+    with diffusers attn-procs names and once with peft names, and a seeded
+    two-vector inversion of ``<chip-smoke>``, under the run's settings
+    root. Gates: both LoRA files merge to the same UNet bit for bit; scale 0
+    renders serve's seed-1 image bit for bit; scales 1.0 and 0.5 are ledger
+    entries of their own (their bytes printed) and their images differ; the
+    inversion leaves a prompt without the token bit for bit serve's image
+    and changes one with it; a two-image LoRA job solo and in a lane pinned
+    at 2 rows bit for bit (the same composition); B1 = 10 x 20 a LoRA job,
+    as a base job's. Every envelope stamped as JAX stamps it."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    base = registry.pipeline("sd15")
+    for name, peft in ((LORA_MODEL, False), (LORA_PEFT_MODEL, True)):
+        model_dir(name).mkdir(parents=True, exist_ok=True)
+        save_file(lora_state(torch, base.c.unet, seed=12, peft=peft),
+                  model_dir(name) / "adapter.safetensors")
+    hidden = base.c.text_encoders[0].config.hidden_size
+    vectors = torch.randn((2, hidden), generator=torch.Generator()
+                          .manual_seed(13)) * 0.5
+    model_dir(TI_MODEL).mkdir(parents=True, exist_ok=True)
+    save_file({TI_TOKEN: vectors},
+              model_dir(TI_MODEL) / "learned_embeds.safetensors")
+
+    t0 = time.perf_counter()
+    merged = registry.pipeline("sd15", lora=LORA_MODEL, lora_scale=1.0)
+    torch.cuda.synchronize()
+    lora_load_s = time.perf_counter() - t0
+    peft_pipe = registry.pipeline("sd15", lora=LORA_PEFT_MODEL)
+    peft_params = dict(peft_pipe.c.unet.named_parameters())
+    formats_equal = all(torch.equal(v, peft_params[k])
+                        for k, v in merged.c.unet.named_parameters())
+    moved = sum(not torch.equal(v, dict(base.c.unet.named_parameters())[k])
+                for k, v in merged.c.unet.named_parameters())
+    del peft_pipe, peft_params
+
+    def serve(job_id, lanes=False, **over):
+        job = dict(JOBS[0], id=job_id, **over)
+        result = synchronous_do_work(job, slot, registry)
+        n = job.get("num_images_per_prompt", 1)
+        blob = check_envelope("adapters_serve", dict(job, width=n * 512),
+                              result, lanes)
+        return blob, result["pipeline_config"]
+
+    entries = {}
+
+    def note_entry(scale):
+        """The ledger entry of (LORA_MODEL, scale), read once it is built."""
+        entries[scale] = [e.bytes for k, e in
+                          registry.residency._entries.items()
+                          if k[:2] == ("pipeline", "sd15")
+                          and k[3] == (LORA_MODEL, scale)][0]
+
+    def stamps(cfg, want):
+        if any(cfg.get(k) != v for k, v in want.items()):
+            raise AssertionError(f"adapters_serve: stamps {cfg}")
+
+    blobs = {}
+    with env(CHIASWARM_STEPPER="0"):
+        base_blob, base_cfg = serve("adapters-base")
+        kernels.reset_launches()
+        blobs["1.0"], cfg = serve("lora-1.0", lora=LORA_MODEL,
+                                  cross_attention_scale=1.0)
+        lora_launches = kernel_launches()
+        lora_run = launched()
+        check_b1("adapters_serve_lora", lora_launches,
+                 SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL)
+        stamps(cfg, {"lora": LORA_MODEL, "cross_attention_scale": 1.0})
+        lora_generation_s = cfg["generation_s"]
+        note_entry(1.0)
+        blobs["0.5"], cfg = serve("lora-0.5", lora=LORA_MODEL,
+                                  cross_attention_scale=0.5)
+        stamps(cfg, {"lora": LORA_MODEL, "cross_attention_scale": 0.5})
+        note_entry(0.5)
+        blobs["0.0"], _ = serve("lora-0.0", lora=LORA_MODEL,
+                                cross_attention_scale=0.0)
+        note_entry(0.0)
+        blobs["ti_plain"], cfg = serve("ti-plain",
+                                       textual_inversion=TI_MODEL)
+        stamps(cfg, {"textual_inversion": TI_MODEL})
+        blobs["ti_token"], _ = serve(
+            "ti-token", textual_inversion=TI_MODEL,
+            prompt=f"a lighthouse on a cliff in the style of {TI_TOKEN}")
+        blobs["base_token"], _ = serve(
+            "base-token",
+            prompt=f"a lighthouse on a cliff in the style of {TI_TOKEN}")
+    # a two-image LoRA job: solo (CFG batch 4) and a lane pinned at 2 rows
+    grids = {}
+    for mode in ("0", "1"):
+        with env(CHIASWARM_STEPPER=mode, CHIASWARM_STEPPER_LANE_WIDTH="2"):
+            blob, cfg = serve(f"lora-pair-{mode}", lanes=mode == "1",
+                              lora=LORA_MODEL, num_images_per_prompt=2)
+        stamps(cfg, {"lora": LORA_MODEL})
+        grids[mode] = blob
+    get_stepper(slot).shutdown()
+    diff = np.abs(decode_png(blobs["1.0"]) - decode_png(base_blob))
+    result = {
+        "formats_merge_equal": formats_equal, "projections_moved": moved,
+        "lora_load_s": lora_load_s, "ledger_bytes_by_scale": entries,
+        "base_equals_serve": base_blob == solo_blob,
+        "scale_0_equals_base": blobs["0.0"] == base_blob,
+        "scales_differ": blobs["1.0"] != blobs["0.5"],
+        "lora_vs_base": {"max": int(diff.max()),
+                         "within_one": float((diff <= 1).mean())},
+        "ti_without_token_equals_base": blobs["ti_plain"] == base_blob,
+        "ti_token_changes_image": blobs["ti_token"] != blobs["base_token"],
+        "lane_pair_equals_solo_pair": grids["1"] == grids["0"],
+        "lora_generation_s": lora_generation_s,
+        "base_generation_s": base_cfg["generation_s"],
+        "launches": lora_launches, "b1_shapes": b1_shapes(lora_run)}
+    emit("adapters_serve", **result)
+    failed = [k for k in ("formats_merge_equal", "scale_0_equals_base",
+                          "scales_differ", "ti_without_token_equals_base",
+                          "ti_token_changes_image",
+                          "lane_pair_equals_solo_pair") if not result[k]]
+    if failed or set(entries) != {1.0, 0.5, 0.0} or moved == 0:
+        raise AssertionError(f"adapters_serve failed {failed}; ledger "
+                             f"entries by scale {entries}")
+    return lora_run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -4672,7 +5245,11 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "guard_cost", "guard_xl",
                                            "safety_serve",
                                            "controlnet_serve",
-                                           "xl_controlnet_serve")),
+                                           "xl_controlnet_serve",
+                                           "pix2pix_serve",
+                                           "upscale_serve",
+                                           "xl_upscale_serve",
+                                           "adapters_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -4794,6 +5371,16 @@ def run_phases(torch, t0: float) -> int:
             torch, registry, pool, slot, control_hive)
         runs["xl_controlnet_serve"] = xl_controlnet_serve_phase(
             torch, registry, slot, control_hive)
+    # instruct-pix2pix, the x2 upscale pass, LoRA and textual inversion
+    with env(CHIASWARM_STEPPER="1"):
+        runs["pix2pix_serve"] = pix2pix_serve_phase(torch, registry, pool,
+                                                    slot)
+        runs["upscale_serve"] = upscale_serve_phase(torch, registry, pool,
+                                                    slot, b1_rows)
+        runs["xl_upscale_serve"] = xl_upscale_serve_phase(torch, registry,
+                                                          slot, b1_rows)
+        runs["adapters_serve"] = adapters_serve_phase(torch, registry, slot,
+                                                      solo_blobs[1])
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}

@@ -1433,3 +1433,117 @@ def test_a_scale_zero_control_job_is_its_txt2img_job_bit_for_bit(
     assert np.array_equal(zero, plain)
     assert not np.array_equal(one, plain)
     assert cfg["controlnet_scale"] == 0.0
+
+
+def test_tiled_decode_on_the_card_matches_its_cpu_run(cuda_device):
+    """The tiny VAE in float32 (TF32 off) over a latent of 2 x 2 tiles on
+    the card and on the CPU within 1e-4, and a latent of one tile bit for
+    bit the untiled decode on the card."""
+    from chiaswarm_tpu_torch.models.vae import tiled_decode
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    vae = Components.random("tiny", seed=0, device="cpu").vae
+    z = torch.randn((1, 4, 100, 72), generator=torch.Generator()
+                    .manual_seed(1))
+    with torch.inference_mode():
+        ref = tiled_decode(vae, z)
+        vae = vae.to(cuda_device)
+        got = tiled_decode(vae, z.to(cuda_device))
+        one = z[:, :, :64, :48].to(cuda_device)
+        assert torch.equal(tiled_decode(vae, one), vae.decode(one).float())
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def test_lora_merge_lands_the_host_merge_on_the_card(cuda_device):
+    """A bf16 UNet on the card takes the float32 host merge cast once: its
+    weights equal the CPU merge of the same bf16 weights bit for bit."""
+    import re
+
+    from chiaswarm_tpu_torch.convert.lora import merge_lora
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    host = Components.random("tiny", seed=0, device="cpu").unet.to(
+        torch.bfloat16)
+    card = Components.random("tiny", seed=0, device="cpu").unet.to(
+        cuda_device, torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    state = {}
+    for name, w in host.named_parameters():
+        m = re.match(r"^(.+\.attn[12])\.(to_q|to_k|to_v|to_out)(\.0)?"
+                     r"\.weight$", name)
+        if m:
+            leaf = f"{m.group(1)}.{m.group(2)}{m.group(3) or ''}"
+            state[f"{leaf}.lora_A.weight"] = torch.randn(
+                (4, w.shape[1]), generator=gen)
+            state[f"{leaf}.lora_B.weight"] = torch.randn(
+                (w.shape[0], 4), generator=gen) * 0.1
+    assert merge_lora(host, state, 0.7) == merge_lora(card, state, 0.7) > 0
+    card_params = dict(card.named_parameters())
+    for name, w in host.named_parameters():
+        assert torch.equal(card_params[name].cpu(), w), name
+
+
+def test_textual_inversion_rows_land_on_the_card(cuda_device):
+    """An inversion applied to towers on the card: the new rows hold the
+    vectors, the token takes one id per vector, and the tower's output on
+    the card matches the same inversion on the CPU (float32, 1e-5)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.textual_inversion import (
+        apply_textual_inversion,
+    )
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    vectors = np.random.default_rng(2).normal(size=(2, 32)).astype(
+        np.float32)
+    outs = []
+    for device in ("cpu", cuda_device):
+        c = Components.random("tiny", seed=0, device="cpu")
+        c.text_encoders = [te.to(device) for te in c.text_encoders]
+        apply_textual_inversion(c, {"<sks>": vectors})
+        table = c.text_encoders[0].text_model.embeddings.token_embedding
+        assert table.weight.device.type == torch.device(device).type
+        assert torch.equal(table.weight[-2:].cpu(),
+                           torch.from_numpy(vectors))
+        ids = torch.from_numpy(c.tokenizers[0].encode_batch(
+            ["a <sks> boat"])).to(device)
+        assert {1000, 1001} <= set(ids[0].tolist())
+        with torch.inference_mode():
+            outs.append(c.text_encoders[0](ids)[0].cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-5)
+
+
+def test_upscaler_unet_eval_through_b1_matches_the_plain_route(cuda_device):
+    """The x2 upscaler's UNet at its published widths (bf16, random) on a
+    64x64 latent with its 8-channel input: B1 at 4,096 tokens (6 heads)
+    and 1,024 (12 heads) against the plain route, relative L2 3e-2 (the
+    repo's bf16 bar), 5 launches at each of the two levels."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.models.unet import UNet
+    from chiaswarm_tpu_torch.pipelines.components import flax_default_init
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+    from chiaswarm_tpu_torch.models.common import cast_module
+
+    with torch.device("meta"):
+        unet = UNet(FAMILIES["upscaler_x2"].unet)
+    unet = unet.to_empty(device=cuda_device).eval().requires_grad_(False)
+    flax_default_init(unet, torch.Generator(device=cuda_device)
+                      .manual_seed(0))
+    cast_module(unet, torch.bfloat16)
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn((1, 8, 64, 64), generator=gen).to(cuda_device,
+                                                      torch.bfloat16)
+    ctx = torch.randn((1, 77, 768), generator=gen).to(cuda_device,
+                                                      torch.bfloat16)
+    t = torch.tensor([500.0], device=cuda_device)
+    before = dict(KERNEL.shapes)
+    with torch.inference_mode():
+        got = unet(x, t, ctx).float()
+        new = {k: n - before.get(k, 0) for k, n in KERNEL.shapes.items()
+               if n != before.get(k, 0)}
+        set_attn_impl(unet, "xla")
+        want = unet(x, t, ctx).float()
+    assert new == {(1, 4096, 4096, 6, 64, "bfloat16"): 5,
+                   (1, 1024, 1024, 12, 64, "bfloat16"): 5}, new
+    rel = ((got - want).norm() / want.norm()).item()
+    assert torch.isfinite(got).all() and rel <= 3e-2, rel

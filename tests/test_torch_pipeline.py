@@ -101,7 +101,7 @@ def test_unbucketed_size_is_cropped_back(port_pipe):
 
 @pytest.mark.parametrize("field,value", [
     ("reuse_schedule", (1,)),
-    ("tiled_decode", True),
+    ("reuse_schedule", "every:2"),
 ])
 def test_unported_modes_raise_naming_the_slice(port_pipe, field, value):
     with pytest.raises(ValueError, match="later slice"):
@@ -164,7 +164,7 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     (_job(workflow="txt2audio"), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
-    (_job(lora="some-adapter"), "fatal", True),
+    (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
                                               job, kind, fatal):
@@ -179,7 +179,7 @@ def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
     (_job(workflow="txt2audio"), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
-    (_job(lora="some-adapter"), "fatal", True),
+    (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes_with_lanes_on(
         monkeypatch, port_registry, job, kind, fatal):

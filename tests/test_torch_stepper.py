@@ -746,10 +746,10 @@ def test_executor_ineligible_jobs_take_the_solo_path(monkeypatch, registry,
                                      registry)
     assert r["pipeline_config"].get("error") is None
     assert "stepper" not in r["pipeline_config"]
-    r = executor.synchronous_do_work(_job(13, lora="some-adapter"), slot,
-                                     registry)
+    r = executor.synchronous_do_work(
+        _job(13, parameters={"reuse_schedule": [1]}), slot, registry)
     assert r["pipeline_config"]["error_kind"] == "fatal"
-    assert "LoRA" in r["pipeline_config"]["error"]
+    assert "DeepCache" in r["pipeline_config"]["error"]
 
 
 def test_lane_envelope_matches_the_jax_lane_envelope(monkeypatch, registry,

@@ -21,6 +21,13 @@ ControlNet job at scale 1.0 (a ControlNet of the family's widths, random
 from a seed with its zero convs seeded too, on a seeded picture): both
 summaries and the control job's extra device ms and launches per eval.
 
+``--upscale`` profiles the job's generation, then the x2 latent upscale
+pass over its image (``pipelines/upscale.py::LatentUpscalePipeline``: the
+upscaler at the JAX family's widths, random bf16 weights from seed 0, 20
+steps; tiled decode above 1024 px): both summaries, B1's device ms and
+share of the pass, the pass's peak memory above the weights held, and its
+host seconds beside the generation's.
+
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
 and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
@@ -36,6 +43,7 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py [--model sdxl] [--steps 20]
            [--top 25] [--seq 4] [--trace serve_trace.json]
     python tools/torch_serve_profile.py [--model sdxl] --controlnet
+    python tools/torch_serve_profile.py [--model sdxl] --upscale
     python tools/torch_serve_profile.py [--model sdxl] --lanes 8 [--width 8]
     python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
     python tools/torch_serve_profile.py --lanes 8 --checker
@@ -76,6 +84,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--controlnet", action="store_true",
                         help="profile the job as txt2img and as a "
                              "ControlNet job")
+    parser.add_argument("--upscale", action="store_true",
+                        help="profile the job, then the x2 upscale pass "
+                             "over its image")
     args = parser.parse_args(argv)
 
     import torch
@@ -129,16 +140,50 @@ def main(argv: list[str] | None = None) -> int:
                            - plain["kernel_launches"]) / evals,
                           "wall_ratio": ctrl["wall_s"] / plain["wall_s"]}))
         return 0
+    if args.upscale:
+        print(json.dumps({**head, **upscale_profile(torch, pipe, req,
+                                                    args.top)}))
+        return 0
     summary = profiled(torch, pipe, req, args.trace, args.top)
     print(json.dumps({**head, **summary}))
     return 0
+
+
+def upscale_profile(torch, pipe, req, top: int) -> dict:
+    """The generation of ``req``, then the x2 pass over its image, each
+    profiled after a warm-up."""
+    import functools
+
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
+
+    generation = profiled(torch, pipe, req, top=top)
+    images, _ = pipe(req)
+    upscaler = LatentUpscalePipeline(Components.random(
+        "upscaler_x2", seed=0, device="cuda", dtype=torch.bfloat16))
+    run = functools.partial(upscaler, prompt=req.prompt, seed=req.seed)
+    upscale = profiled(torch, run, images, top=top)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, config = run(images)
+    torch.cuda.synchronize()
+    return {"generation": generation, "upscale": upscale,
+            "upscale_config": config, "output_hw": list(out.shape[1:3]),
+            "upscale_peak_bytes": torch.cuda.max_memory_allocated() - held,
+            "b1_ms_of_upscale": upscale["flash_attention"]["device_ms"],
+            "b1_share_of_upscale_device": upscale["flash_attention"]["share"],
+            "b1_share_of_upscale_events": upscale["flash_attention"]
+            ["device_ms"] / upscale["event_ms"],
+            "upscale_over_generation_wall": upscale["wall_s"]
+            / generation["wall_s"]}
 
 
 def profiled(torch, pipe, req, trace: str | None = None,
              top: int = 25) -> dict:
     """One warm-up call of ``pipe(req)`` (cuDNN heuristics, allocator,
     kernel library loads), then one under the profiler: its summary and
-    its CUDA-event span."""
+    its CUDA-event span. ``pipe`` is any callable of ``req``."""
     from torch.profiler import ProfilerActivity, profile
 
     pipe(req)
