@@ -276,3 +276,148 @@ def fill_module(module: nn.Module, name: str,
                   "(e.g. %s)", name, len(skipped), skipped[0])
     return skipped
 
+
+
+# ------------------------------------------------------------------ BLIP
+
+def _strip(state: dict[str, torch.Tensor], prefix: str
+           ) -> dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in state.items()
+            if k.startswith(prefix)}
+
+
+def convert_blip_vision(state: dict[str, torch.Tensor],
+                        prefix: str = "vision_model."
+                        ) -> dict[str, torch.Tensor]:
+    """A transformers ``BlipVisionModel`` state (under ``prefix``) -> the
+    port's ``models/blip.py::BlipVisionEncoder`` names, by JAX's
+    ``convert_blip_vision`` (``torch_to_flax.py:975-1000``): the class and
+    position embeddings lose their leading unit axes; the rest keeps its
+    names (the port's modules carry transformers' names)."""
+    s = _strip(state, prefix)
+    out = {}
+    for key, value in s.items():
+        if key == "embeddings.class_embedding":
+            value = value.reshape(-1)
+        elif key == "embeddings.position_embedding":
+            value = value.reshape(value.shape[-2:])
+        elif key.endswith("position_ids"):
+            continue
+        out[key] = value
+    return out
+
+
+def convert_blip_text(state: dict[str, torch.Tensor], prefix: str,
+                      with_lm_head: bool = True) -> dict[str, torch.Tensor]:
+    """A transformers ``BlipTextModel``/``BlipTextLMHeadModel`` state under
+    ``prefix`` (``text_decoder.``: the caption and answer head;
+    ``text_encoder.``: VQA's question tower, ``with_lm_head=False``) -> the
+    port's ``BlipTextModel`` names, by JAX's ``convert_blip_text``
+    (``torch_to_flax.py:1003-1057``): an LM-head model's trunk nests under
+    ``bert.``; the decoder's weight may be tied to the word embeddings and
+    absent, and its bias may be stored as ``cls.predictions.bias``."""
+    s = _strip(state, prefix)
+    if any(k.startswith("bert.") for k in s):
+        trunk = _strip(s, "bert.")
+    else:
+        trunk = s
+    out = {k: v for k, v in trunk.items()
+           if k.startswith(("embeddings.", "encoder."))
+           and not k.endswith("position_ids")}
+    if with_lm_head:
+        head = "cls.predictions."
+        out.update((k, v) for k, v in s.items()
+                   if k.startswith(head + "transform."))
+        out[head + "decoder.weight"] = s.get(
+            head + "decoder.weight",
+            trunk["embeddings.word_embeddings.weight"])
+        bias = s.get(head + "decoder.bias", s.get(head + "bias"))
+        if bias is not None:  # else fill_module names the missing bias
+            out[head + "decoder.bias"] = bias
+    return out
+
+
+# --------------------------------------------------------------- AudioLDM
+
+#: an AudioLDM snapshot's module subdirectories
+AUDIO_SUBDIRS = {"text_encoder": "text_encoder", "unet": "unet", "vae": "vae",
+                 "vocoder": "vocoder"}
+
+
+def convert_clap_text(state: dict[str, torch.Tensor]
+                      ) -> dict[str, torch.Tensor]:
+    """A transformers ``ClapTextModelWithProjection`` state -> the port's
+    ``models/clap.py`` names, by JAX's ``convert_clap_text``
+    (``torch_to_flax.py:617-654``): the trunk with or without its
+    ``text_model.`` prefix, ``text_projection.linear1``/``linear2``; the
+    embeddings' ``position_ids``/``token_type_ids`` buffers are skipped."""
+    out = {}
+    for key, value in state.items():
+        k = key.removeprefix("text_model.")
+        if k.startswith("embeddings.") and k.count(".") == 1:
+            continue  # non-parameter buffers
+        out[k if k.startswith("text_projection.") else "text_model." + k] = value
+    return out
+
+
+def fold_weight_norm(state: dict[str, torch.Tensor]
+                     ) -> dict[str, torch.Tensor]:
+    """Weight-norm pairs folded into plain ``weight`` tensors, w = g v /
+    ||v|| (the norm over every axis but 0, torch's default), for both
+    spellings JAX folds (``torch_to_flax.py:733-755``, :1085-1090):
+    ``weight_g``/``weight_v`` and ``parametrizations.weight.original0``/
+    ``original1``."""
+    spellings = ((".weight_v", ".weight_g"),
+                 (".parametrizations.weight.original1",
+                  ".parametrizations.weight.original0"))
+    for v_suffix, g_suffix in spellings:
+        folded = {}
+        for key, value in state.items():
+            if key.endswith(v_suffix):
+                base = key[: -len(v_suffix)]
+                g, v = state[base + g_suffix].float(), value.float()
+                norm = v.pow(2).sum(dim=tuple(range(1, v.dim())),
+                                    keepdim=True).sqrt()
+                folded[base + ".weight"] = g * v / norm.clamp_min(1e-12)
+            elif not key.endswith(g_suffix):
+                folded[key] = value
+        state = folded
+    return state
+
+
+def load_audio_checkpoint(checkpoint_dir: str | Path, model_name: str,
+                          family, device: str | torch.device | None = None):
+    """An AudioLDM-class diffusers snapshot -> ``AudioComponents`` on
+    ``device`` (JAX ``torch_to_flax.py:795-831``): ``text_encoder/``
+    (CLAP, :func:`convert_clap_text`), ``unet/`` (the UNet's rules, its
+    ``class_embedding`` Linear by name), ``vae/`` (the 1-channel mel VAE),
+    ``vocoder/`` (SpeechT5HifiGan, weight norm folded; its ``mean``/``scale``
+    buffers skipped), the tokenizer through ``load_tokenizer`` (the CLAP
+    tower's byte-level BPE in ``tokenizer/``). The modules are allocated at
+    their serving dtypes before the tensors land."""
+    from chiaswarm_tpu_torch.core.device import resolve_device
+    from chiaswarm_tpu_torch.models.tokenizer import load_tokenizer
+    from chiaswarm_tpu_torch.pipelines.audio import AudioComponents
+
+    checkpoint_dir = Path(checkpoint_dir)
+    text = family.text_encoder
+    tokenizer = load_tokenizer(checkpoint_dir, text.vocab_size,
+                               text.eos_token_id, text.max_length,
+                               bos_id=text.bos_token_id,
+                               pad_id=text.pad_token_id)
+    lander = TensorLander(resolve_device(device))
+
+    def fill(index: int, name: str, module: nn.Module) -> None:
+        path = checkpoint_dir / AUDIO_SUBDIRS[name]
+        state = read_weights(path)
+        if name == "text_encoder":
+            state = convert_clap_text(state)
+        elif name == "vocoder":
+            state = fold_weight_norm(state)
+        fill_module(module, "clap" if name == "text_encoder" else name,
+                    state, lander, path)
+
+    components = AudioComponents.build(family, model_name, device, fill,
+                                       tokenizer, precast=True)
+    lander.finish()
+    return components

@@ -182,3 +182,170 @@ def _skeleton(ctor: Callable[[Any], nn.Module], config: Any) -> nn.Module:
     """The module's parameter names and shapes, with no storage."""
     with torch.device("meta"):
         return ctor(config)
+
+
+# ------------------------------------------------------------------ BLIP
+
+def _dense(flat: dict, node: dict, name: str) -> None:
+    flat[f"{name}.weight"] = np.asarray(node["kernel"], np.float32).T
+    flat[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+def _norm(flat: dict, node: dict, name: str) -> None:
+    flat[f"{name}.weight"] = np.asarray(node["scale"], np.float32)
+    flat[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+
+
+_BLIP_TEXT_LAYER = {
+    "self_query": "attention.self.query", "self_key": "attention.self.key",
+    "self_value": "attention.self.value", "self_out": "attention.output.dense",
+    "cross_query": "crossattention.self.query",
+    "cross_key": "crossattention.self.key",
+    "cross_value": "crossattention.self.value",
+    "cross_out": "crossattention.output.dense",
+    "intermediate": "intermediate.dense", "output": "output.dense",
+}
+_BLIP_TEXT_NORMS = {"self_ln": "attention.output.LayerNorm",
+                    "cross_ln": "crossattention.output.LayerNorm",
+                    "output_ln": "output.LayerNorm"}
+
+
+def blip_state_from_flax(tree: dict, part: str) -> dict[str, torch.Tensor]:
+    """One tower of the JAX package's BLIP params (``part``: ``vision``,
+    ``decoder`` or ``encoder``; a Flax ``{"params": ...}`` tree) -> the
+    port's ``models/blip.py`` state dict. Every Flax leaf is used once, or
+    this raises; the port's strict ``load_state_dict`` checks the other
+    side."""
+    params = tree["params"]
+    flat: dict[str, np.ndarray] = {}
+    if part == "vision":
+        kernel = np.asarray(params["patch_embedding"]["kernel"], np.float32)
+        flat["embeddings.patch_embedding.weight"] = kernel.transpose(3, 2, 0, 1)
+        flat["embeddings.patch_embedding.bias"] = np.asarray(
+            params["patch_embedding"]["bias"], np.float32)
+        flat["embeddings.class_embedding"] = np.asarray(
+            params["class_embedding"], np.float32)
+        flat["embeddings.position_embedding"] = np.asarray(
+            params["position_embedding"], np.float32)
+        n = 2 + 2
+        for i in range(len([k for k in params if k.startswith("layers_")])):
+            node, t = params[f"layers_{i}"], f"encoder.layers.{i}"
+            _norm(flat, node["layer_norm1"], f"{t}.layer_norm1")
+            _norm(flat, node["layer_norm2"], f"{t}.layer_norm2")
+            _dense(flat, node["qkv"], f"{t}.self_attn.qkv")
+            _dense(flat, node["projection"], f"{t}.self_attn.projection")
+            _dense(flat, node["fc1"], f"{t}.mlp.fc1")
+            _dense(flat, node["fc2"], f"{t}.mlp.fc2")
+            n += 12
+        _norm(flat, params["post_layernorm"], "post_layernorm")
+        n += 2
+    else:
+        flat["embeddings.word_embeddings.weight"] = np.asarray(
+            params["word_embeddings"]["embedding"], np.float32)
+        flat["embeddings.position_embeddings.weight"] = np.asarray(
+            params["position_embeddings"], np.float32)
+        _norm(flat, params["embed_ln"], "embeddings.LayerNorm")
+        n = 4
+        for i in range(len([k for k in params if k.startswith("layer_")])):
+            node, t = params[f"layer_{i}"], f"encoder.layer.{i}"
+            for src, dst in _BLIP_TEXT_LAYER.items():
+                _dense(flat, node[src], f"{t}.{dst}")
+            for src, dst in _BLIP_TEXT_NORMS.items():
+                _norm(flat, node[src], f"{t}.{dst}")
+            n += 2 * (len(_BLIP_TEXT_LAYER) + len(_BLIP_TEXT_NORMS))
+        if "decoder" in params:
+            head = "cls.predictions."
+            _dense(flat, params["head_transform"], head + "transform.dense")
+            _norm(flat, params["head_ln"], head + "transform.LayerNorm")
+            _dense(flat, params["decoder"], head + "decoder")
+            n += 6
+    if n != len(list(_leaves(params))):
+        raise ValueError(f"BLIP {part}: {len(list(_leaves(params)))} Flax "
+                         f"params, {n} carried across")
+    return {k: torch.tensor(v) for k, v in flat.items()}
+
+
+# -------------------------------------------------------------- AudioLDM
+
+_CLAP_LAYER = {"query": "attention.self.query", "key": "attention.self.key",
+               "value": "attention.self.value",
+               "attn_out": "attention.output.dense",
+               "intermediate": "intermediate.dense", "output": "output.dense"}
+_CLAP_NORMS = {"attn_norm": "attention.output.LayerNorm",
+               "out_norm": "output.LayerNorm"}
+
+
+def _clap_state(params: dict) -> tuple[dict[str, np.ndarray], int]:
+    flat: dict[str, np.ndarray] = {}
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        flat[f"text_model.embeddings.{name}.weight"] = np.asarray(
+            params[name]["embedding"], np.float32)
+    _norm(flat, params["embed_norm"], "text_model.embeddings.LayerNorm")
+    n = 5
+    for i in range(len([k for k in params if k.startswith("layer_")])):
+        node, t = params[f"layer_{i}"], f"text_model.encoder.layer.{i}"
+        for src, dst in _CLAP_LAYER.items():
+            _dense(flat, node[src], f"{t}.{dst}")
+        for src, dst in _CLAP_NORMS.items():
+            _norm(flat, node[src], f"{t}.{dst}")
+        n += 2 * (len(_CLAP_LAYER) + len(_CLAP_NORMS))
+    _dense(flat, params["pooler"], "text_model.pooler.dense")
+    _dense(flat, params["proj1"], "text_projection.linear1")
+    _dense(flat, params["proj2"], "text_projection.linear2")
+    return flat, n + 6
+
+
+def _hifigan_state(params: dict, num_kernels: int
+                   ) -> tuple[dict[str, np.ndarray], int]:
+    """Flax kernels (K, I, O) -> Conv1d (O, I, K); the transposed convs'
+    flipped (K, I, O) kernels -> ConvTranspose1d (I, O, K) unflipped (the
+    JAX converter flips the checkpoint's kernel on the way in)."""
+    flat: dict[str, np.ndarray] = {}
+    n = 0
+    for path, node in params.items():
+        kernel = np.asarray(node.get("kernel"), np.float32) \
+            if "kernel" in node else None
+        if path.startswith("upsampler_"):
+            name = f"upsampler.{path.split('_')[1]}"
+            flat[f"{name}.weight"] = kernel[::-1].transpose(1, 2, 0).copy()
+            flat[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+            n += 2
+            continue
+        if path.startswith("resblocks_"):
+            _, up, kern = path.split("_")
+            base = f"resblocks.{int(up) * num_kernels + int(kern)}"
+            for conv, sub in node.items():
+                which, d = conv.rsplit("_", 1)
+                name = f"{base}.{which}.{d}"
+                flat[f"{name}.weight"] = np.asarray(
+                    sub["kernel"], np.float32).transpose(2, 1, 0).copy()
+                flat[f"{name}.bias"] = np.asarray(sub["bias"], np.float32)
+                n += 2
+            continue
+        flat[f"{path}.weight"] = kernel.transpose(2, 1, 0).copy()
+        flat[f"{path}.bias"] = np.asarray(node["bias"], np.float32)
+        n += 2
+    return flat, n
+
+
+def audio_state_from_flax(tree: dict[str, Any], family
+                          ) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's ``AudioComponents.params`` -> the port's float32
+    state dicts of ``text_encoder``, ``unet``, ``vae`` and ``vocoder``."""
+    out = {}
+    for name, (flat, n) in (
+            ("text_encoder", _clap_state(tree["text_encoder"]["params"])),
+            ("vocoder", _hifigan_state(
+                tree["vocoder"]["params"],
+                len(family.vocoder.resblock_kernel_sizes)))):
+        leaves = len(list(_leaves(tree[name]["params"])))
+        if n != leaves:
+            raise ValueError(f"{name}: {leaves} Flax params, {n} carried "
+                             "across")
+        out[name] = {k: torch.tensor(v) for k, v in flat.items()}
+    out["unet"] = _convert(_skeleton(UNet, family.unet), tree["unet"],
+                           _unet_path, len(family.unet.block_out_channels))
+    out["vae"] = _convert(_skeleton(AutoencoderKL, family.vae), tree["vae"],
+                          _vae_path, len(family.vae.block_out_channels))
+    return out

@@ -1,7 +1,8 @@
 // The tensor-core attention tile shared by kernels B1 (flash_attention.cu),
 // B2 (ring_flash_hop.cu) and B3 (ring_flash_fused.cu) of the PyTorch/CUDA
-// port, for Hopper (sm_90a), bf16 and fp16 with head dims 40, 64, 80, 128
-// and 160.
+// port, for Hopper (sm_90a), bf16 and fp16 with head dims 32, 40, 64, 80,
+// 128 and 160 (B2 and B3 instantiate it from 40 up; 32 is B1's, for
+// AudioLDM's UNet).
 //
 // One warpgroup (128 threads) owns 64 query rows of one (batch, head) and
 // advances their running-softmax state (m, l, acc) over a run of K/V, in the
@@ -60,9 +61,11 @@ struct Shape {
   static constexpr int kLoadChunks = D / 8;       // chunks read from memory
   // keys of one K/V tile; at D = 40 a 64-key tile keeps the block within
   // 128 registers a thread, so two blocks share an SM (measured on an H100:
-  // faster than one block of 128-key tiles for both kernels, PERF.md)
-  static constexpr int kBN = D == 40 ? 64 : (D <= 80 ? 128 : 64);
-  static constexpr int kMinBlocks = D == 40 ? 2 : 1;  // blocks an SM must hold
+  // faster than one block of 128-key tiles for both kernels, PERF.md). D =
+  // 32 (AudioLDM: 2,560 tokens, 4 heads, so only 160 blocks at batch 2)
+  // takes the same tile, so every block of such a grid is resident at once
+  static constexpr int kBN = D <= 40 ? 64 : (D <= 80 ? 128 : 64);
+  static constexpr int kMinBlocks = D <= 40 ? 2 : 1;  // blocks an SM must hold
   static constexpr int kTileBytes = kBN * kDp * 2;
   static constexpr int kStageBytes = 2 * kTileBytes;  // K tile, then V tile
   static constexpr int kStages = 3;  // tile i's V, tile i + 1's K, tile i + 2 landing
@@ -152,6 +155,24 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
 // written out.
 template <typename T, int N>
 struct WgmmaRS;
+
+template <>
+struct WgmmaRS<__nv_bfloat16, 32> {
+  template <int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
 
 template <>
 struct WgmmaRS<__nv_bfloat16, 40> {
@@ -276,6 +297,24 @@ struct WgmmaRS<__nv_bfloat16, 160> {
           "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
           "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct WgmmaRS<__half, 32> {
+  template <int kTransB>
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
           "n"(kTransB));
   }

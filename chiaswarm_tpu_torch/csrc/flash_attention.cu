@@ -28,6 +28,8 @@
 //   threads share a query, each owning a quarter of D (interleaved float2
 //   chunks), their partial dot products meeting through warp shuffles. The
 //   fp32 products keep the reference's arithmetic exactly (no bf16 p).
+// Head dims 32 (AudioLDM's UNet: Q K^T only two k16 steps deep, P V at N =
+// 32, 64-byte rows of four 16-byte chunks), 40, 64, 80, 128 and 160.
 // There is no padding of D to 128 lanes or of the sequence to the block:
 // those were TPU tiling needs. The strides of the (B, L, H, D) tensors are
 // read directly; only the head dimension must be contiguous, and on the
@@ -229,6 +231,7 @@ int launch(const Params& p, cudaStream_t stream) {
 template <typename T>
 int dispatch_head_dim(int head_dim, const Params& p, cudaStream_t stream) {
   switch (head_dim) {
+    case 32: return launch<T, 32>(p, stream);
     case 40: return launch<T, 40>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 80: return launch<T, 80>(p, stream);

@@ -1,16 +1,25 @@
-"""Prompt tokenizers: a trimmed copy of ``chiaswarm_tpu/models/tokenizer.py``.
+"""Tokenizers: a copy of ``chiaswarm_tpu/models/tokenizer.py``.
 
-Kept: the :class:`Tokenizer` protocol, :class:`AddedTokenMixin` (:35-62,
-the placeholder registry textual inversion will fill),
-:class:`ClipBpeTokenizer` (:76-156, CLIP byte-pair encoding over a
-checkpoint's ``vocab.json`` + ``merges.txt``), :class:`HashTokenizer`
-(:284, the deterministic vocab-file-free tokenizer of random-weight
-models, CLIP's specials: BOS = EOS - 1, padding with EOS) and
-:func:`load_tokenizer` (:378-408). The byte-level BPE of the audio
-families and the ``tokenizer.json`` wrapper of the T5 families wait for
-those families: :func:`load_tokenizer` refuses their files. The ids are
-the JAX package's for the same text and files, so a prompt conditions
-both backends identically.
+- :class:`Tokenizer` protocol and :class:`AddedTokenMixin` (:35-62, the
+  placeholder registry textual inversion fills);
+- :class:`ClipBpeTokenizer` (:76-156), CLIP byte-pair encoding over a
+  checkpoint's ``vocab.json`` + ``merges.txt``;
+- :class:`ByteLevelBpeTokenizer` (:159-275), GPT-2/RoBERTa byte-level BPE
+  over the same file names, AudioLDM's CLAP tokenizer;
+- :class:`HashTokenizer` (:278-337), the deterministic vocab-file-free
+  tokenizer of random-weight models, with the specials of CLIP (BOS =
+  EOS - 1, padding with EOS) or of a RoBERTa tower (its own BOS and pad);
+- :func:`load_tokenizer` (:368-408), which tells a byte-level vocab from
+  CLIP's by its pieces (:func:`_vocab_is_byte_level`);
+- :class:`WordPieceTokenizer` (:411-491), BERT WordPiece over a
+  ``vocab.txt``, which also decodes: BLIP's captions come back as ids.
+
+The ids are the JAX package's for the same text and files, so a prompt
+conditions both backends identically. Not ported: the ``tokenizer.json``
+wrapper (``HFTokenizer``), which needs the ``tokenizers`` package and
+serves only the DeepFloyd cascade (ROADMAP queue item 6):
+:func:`load_tokenizer` refuses such a file rather than hash a real
+checkpoint's prompts.
 """
 
 from __future__ import annotations
@@ -155,18 +164,140 @@ class ClipBpeTokenizer(AddedTokenMixin):
         return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
 
 
+def _bytes_to_unicode() -> dict[int, str]:
+    """GPT-2's reversible byte -> printable-unicode table (the byte-level
+    BPE alphabet RoBERTa-family vocab.json files are written in)."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+# the GPT-2/RoBERTa pre-tokenization pattern: unicode letter and number
+# classes through the ``regex`` package, and the JAX package's ``re``
+# approximation where it is missing
+try:
+    import regex as _regex
+
+    _GPT2_WORD_RE = _regex.compile(
+        r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
+        r"|\s+(?!\S)|\s+"
+    )
+except ImportError:  # pragma: no cover
+    _GPT2_WORD_RE = re.compile(
+        r"'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+| ?(?:[^\s\w]|_)+"
+        r"|\s+(?!\S)|\s+"
+    )
+
+
+class ByteLevelBpeTokenizer(AddedTokenMixin):
+    """GPT-2/RoBERTa byte-level BPE over ``vocab.json``/``merges.txt`` (the
+    CLAP tower's RobertaTokenizer): case-sensitive, bytes mapped through the
+    GPT-2 unicode table, the space carried as a leading ``Ġ`` on a piece,
+    RoBERTa's ``<s>``/``</s>``/``<pad>`` specials; unknown pieces map to
+    ``<unk>``."""
+
+    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
+                 max_length: int = 77) -> None:
+        self.vocab = vocab
+        self.ranks = {pair: i for i, pair in enumerate(merges)}
+        self.max_length = max_length
+        self.byte_map = _bytes_to_unicode()
+        self.bos_id = vocab.get("<s>", vocab.get("<|endoftext|>", 0))
+        self.eos_id = vocab.get("</s>", vocab.get("<|endoftext|>", 2))
+        self.pad_id = vocab.get("<pad>", 1)
+        self.unk_id = vocab.get("<unk>", self.eos_id)
+        self._cache: dict[str, list[str]] = {}
+
+    @classmethod
+    def from_dir(cls, path: str | Path, max_length: int = 77
+                 ) -> "ByteLevelBpeTokenizer":
+        path = Path(path)
+        with open(path / "vocab.json", encoding="utf-8") as fh:
+            vocab = json.load(fh)
+        merges: list[tuple[str, str]] = []
+        with open(path / "merges.txt", encoding="utf-8") as fh:
+            for line in fh:
+                line = line.rstrip("\n")
+                if not line or line.startswith("#version"):
+                    continue
+                a, _, b = line.partition(" ")
+                merges.append((a, b))
+        return cls(vocab, merges, max_length)
+
+    def _bpe(self, token: str) -> list[str]:
+        if token in self._cache:
+            return self._cache[token]
+        word = list(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 30))
+            if best not in self.ranks:
+                break
+            a, b = best
+            merged: list[str] = []
+            i = 0
+            while i < len(word):
+                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
+                    merged.append(a + b)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = merged
+        self._cache[token] = word
+        return word
+
+    def encode(self, text: str) -> list[int]:
+        ids = [self.bos_id]
+        for span in self._split_added(text):
+            if isinstance(span, list):  # textual-inversion placeholder run
+                ids.extend(span)
+                continue
+            for tok in _GPT2_WORD_RE.findall(span):
+                mapped = "".join(self.byte_map[b] for b in
+                                 tok.encode("utf-8"))
+                for piece in self._bpe(mapped):
+                    ids.append(self.vocab.get(piece, self.unk_id))
+                if len(ids) >= self.max_length - 1:
+                    break
+            if len(ids) >= self.max_length - 1:
+                break
+        ids = ids[: self.max_length - 1]
+        ids.append(self.eos_id)
+        ids += [self.pad_id] * (self.max_length - len(ids))
+        return ids
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
+
+
 class HashTokenizer(AddedTokenMixin):
-    """Deterministic, vocab-file-free tokenizer for random-weight models."""
+    """Deterministic, vocab-file-free tokenizer for random-weight models.
+    CLIP's convention by default (BOS = EOS - 1, padding with EOS); a
+    RoBERTa-family tower (CLAP) passes its own ``bos_id`` and ``pad_id``."""
 
     def __init__(self, vocab_size: int = 1000, max_length: int = 77,
-                 eos_id: int | None = None) -> None:
+                 eos_id: int | None = None, bos_id: int | None = None,
+                 pad_id: int | None = None, add_bos: bool = True) -> None:
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.eos_id = eos_id if eos_id is not None else vocab_size - 1
-        self.bos_id = self.eos_id - 1
+        self.bos_id = bos_id if bos_id is not None else self.eos_id - 1
+        self.pad_id = pad_id if pad_id is not None else self.eos_id
+        self.add_bos = add_bos
         # hashed ids never collide with the specials: masks and pooled
-        # readouts are derived from exact id equality
-        specials = {self.eos_id, self.bos_id}
+        # readouts are derived from exact id equality. Specials sit at the
+        # bottom (CLAP 0/1/2) or the top (CLIP) of the vocab; ids hash into
+        # the range between them
+        specials = {self.eos_id, self.bos_id, self.pad_id}
         self._lo = max((s + 1 for s in specials if s < vocab_size // 2),
                        default=0)
         self._hi = min((s for s in specials if s >= vocab_size // 2),
@@ -189,10 +320,12 @@ class HashTokenizer(AddedTokenMixin):
         return ids
 
     def encode(self, text: str) -> list[int]:
-        """bos + tokenize() body (truncated) + eos, padded with eos."""
-        ids = [self.bos_id] + self.tokenize(text)[: self.max_length - 2]
+        """[bos +] tokenize() body (truncated) + eos, padded with pad_id."""
+        head = [self.bos_id] if self.add_bos else []
+        n_special = len(head) + 1
+        ids = head + self.tokenize(text)[: self.max_length - n_special]
         ids.append(self.eos_id)
-        ids += [self.eos_id] * (self.max_length - len(ids))
+        ids += [self.pad_id] * (self.max_length - len(ids))
         return ids[: self.max_length]
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
@@ -210,35 +343,116 @@ def _vocab_is_byte_level(vocab_path: Path) -> bool:
 
 
 def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
-                   eos_id: int = 49407, max_length: int = 77) -> Tokenizer:
-    """:class:`ClipBpeTokenizer` when CLIP vocab files exist under the
-    checkpoint (itself, ``tokenizer/`` or ``text_encoder/``), else
+                   eos_id: int = 49407, max_length: int = 77,
+                   bos_id: int | None = None, pad_id: int | None = None,
+                   add_bos: bool = True) -> Tokenizer:
+    """:class:`ClipBpeTokenizer` or :class:`ByteLevelBpeTokenizer` when
+    vocab files exist under the checkpoint (itself, ``tokenizer/`` or
+    ``text_encoder/``), told apart by their pieces; else
     :class:`HashTokenizer`. Falling back on a REAL checkpoint is loud:
-    hash-bucketed ids next to loaded weights would condition on noise.
-    A byte-level vocab or a ``tokenizer.json`` (the audio and T5 families)
-    raises, worded for the executor's non-fatal ``model_unavailable``
-    kind: their tokenizers are not ported yet."""
+    hash-bucketed ids next to loaded weights would condition on noise. A
+    ``tokenizer.json`` (the T5 families) raises, worded for the executor's
+    non-fatal ``model_unavailable`` kind: its tokenizer comes with the
+    DeepFloyd cascade."""
     if checkpoint_dir is not None:
         path = Path(checkpoint_dir)
         for sub in ("", "tokenizer", "text_encoder"):
             cand = path / sub if sub else path
             if (cand / "vocab.json").exists() and (cand / "merges.txt").exists():
                 if _vocab_is_byte_level(cand / "vocab.json"):
-                    raise ValueError(
-                        f"the byte-level BPE tokenizer of {cand} is not "
-                        "available on this node (chiaswarm_tpu_torch does "
-                        "not port it yet)")
+                    return ByteLevelBpeTokenizer.from_dir(cand, max_length)
                 return ClipBpeTokenizer.from_dir(cand, max_length)
         for sub in ("", "tokenizer"):
             if ((path / sub if sub else path) / "tokenizer.json").exists():
                 raise ValueError(
                     f"the tokenizer.json tokenizer of {path} is not "
-                    "available on this node (chiaswarm_tpu_torch does not "
-                    "port it yet)")
+                    "available on this node (chiaswarm_tpu_torch ports it "
+                    "with the DeepFloyd cascade, ROADMAP queue item 6)")
         if path.exists():
             logging.getLogger("chiaswarm_torch.tokenizer").warning(
                 "checkpoint %s has no recognized tokenizer files "
                 "(vocab.json+merges.txt or tokenizer.json); falling back to "
                 "HashTokenizer — generations will NOT match the reference "
                 "model", path)
-    return HashTokenizer(vocab_size, max_length, eos_id)
+    return HashTokenizer(vocab_size, max_length, eos_id, bos_id=bos_id,
+                         pad_id=pad_id, add_bos=add_bos)
+
+
+class WordPieceTokenizer:
+    """BERT WordPiece over a ``vocab.txt`` (BLIP's text side): lowercase
+    basic tokenization, greedy longest match with ``##`` continuation
+    pieces. It also decodes: captions come back as ids. BLIP's ``[DEC]``
+    and ``[ENC]`` are registered after a stock 30,522-line BERT vocab when
+    the file lacks them."""
+
+    def __init__(self, vocab: dict[str, int], max_length: int = 64) -> None:
+        self.vocab = vocab
+        self.ids_to_tokens = {i: t for t, i in vocab.items()}
+        self.max_length = max_length
+        self.pad_id = vocab.get("[PAD]", 0)
+        self.unk_id = vocab.get("[UNK]", 100)
+        self.cls_id = vocab.get("[CLS]", 101)
+        self.sep_id = vocab.get("[SEP]", 102)
+        if "[DEC]" not in self.vocab:
+            for extra in ("[DEC]", "[ENC]"):
+                idx = len(self.vocab)
+                self.vocab[extra] = idx
+                self.ids_to_tokens[idx] = extra
+        self.bos_id = self.vocab["[DEC]"]
+
+    @classmethod
+    def from_vocab_file(cls, path: str | Path,
+                        max_length: int = 64) -> "WordPieceTokenizer":
+        vocab: dict[str, int] = {}
+        with open(path, encoding="utf-8") as fh:
+            for i, line in enumerate(fh):
+                vocab[line.rstrip("\n")] = i
+        return cls(vocab, max_length)
+
+    def _wordpiece(self, word: str) -> list[int]:
+        ids: list[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            piece_id = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    piece_id = self.vocab[sub]
+                    break
+                end -= 1
+            if piece_id is None:
+                return [self.unk_id]
+            ids.append(piece_id)
+            start = end
+        return ids
+
+    def tokenize(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for word in _basic_tokens(text):
+            ids.extend(self._wordpiece(word))
+        return ids
+
+    def encode(self, text: str, max_length: int | None = None) -> list[int]:
+        """[CLS] tokens [SEP] + [PAD] fill, fixed length."""
+        n = max_length or self.max_length
+        ids = [self.cls_id] + self.tokenize(text)[: n - 2] + [self.sep_id]
+        return ids + [self.pad_id] * (n - len(ids))
+
+    def decode(self, ids: Sequence[int]) -> str:
+        words: list[str] = []
+        stop = {self.pad_id, self.cls_id, self.sep_id, self.bos_id}
+        for i in ids:
+            i = int(i)
+            if i == self.sep_id:
+                break
+            if i in stop:
+                continue
+            tok = self.ids_to_tokens.get(i, "")
+            if tok.startswith("##") and words:
+                words[-1] += tok[2:]
+            else:
+                words.append(tok)
+        return " ".join(w for w in words if w)

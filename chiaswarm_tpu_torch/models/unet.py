@@ -26,9 +26,18 @@ so both keep diffusers' names. ControlNet residuals (``down_residuals``,
 block's output; each sum is cast back to the model dtype, as diffusers adds
 them (JAX keeps a bf16 model's sums in float32 from there on; in float32 the
 two are the same). The 8-channel input of instruct-pix2pix and the x2
-latent upscaler is the config's ``sample_channels``. Not ported: class
-embeddings, which only the x4 upscaler and AudioLDM need (ROADMAP queue
-item 6), and the DeepCache seam.
+latent upscaler is the config's ``sample_channels``.
+
+AudioLDM's UNet (JAX ``time_conditioning`` :275-288, ``TransformerBlock``
+:170-190): ``class_proj_dim`` adds ``class_embedding``, a Linear over float
+class labels (the L2-normalised CLAP text embedding, diffusers'
+``simple_projection``); with ``class_embeddings_concat`` it is concatenated
+after the time embedding, so every resnet's ``time_emb_proj`` takes twice
+the time embedding's width, else added to it. ``cross_attention_dim=None``
+gives transformer blocks with no ``norm2``/``attn2`` (self-attention and
+feed-forward only). Not ported: the x4 upscaler's table of noise-level
+embeddings (``num_class_embeds``, with the DeepFloyd cascade, ROADMAP queue
+item 6) and the DeepCache seam.
 """
 
 from __future__ import annotations
@@ -274,21 +283,28 @@ class UNetTrunk(nn.Module):
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
-        if config.num_class_embeds is not None or config.class_proj_dim is not None:
-            raise ValueError("class-conditioned UNets are not ported yet "
-                             "(a later slice of the port)")
+        if config.num_class_embeds is not None:
+            raise ValueError("UNets with a table of class embeddings (the x4 "
+                             "upscaler's noise level) are not ported yet (a "
+                             "later slice of the port, ROADMAP queue item 6)")
         self.config = config
         cfg = config
         channels = list(cfg.block_out_channels)
         n = len(channels)
-        temb_dim = channels[0] * 4
+        time_dim = channels[0] * 4
         self.conv_in = nn.Conv2d(cfg.sample_channels, channels[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedding(channels[0], temb_dim)
+        self.time_embedding = TimestepEmbedding(channels[0], time_dim)
+        if cfg.class_proj_dim is not None:
+            self.class_embedding = nn.Linear(cfg.class_proj_dim, time_dim)
+        # the width of the embedding every resnet projects
+        self.temb_dim = temb_dim = time_dim * (
+            2 if cfg.class_proj_dim is not None
+            and cfg.class_embeddings_concat else 1)
         if cfg.addition_embed_dim is not None:
             n_ids = 6 if cfg.addition_pooled_dim is not None else 3
             add_in = n_ids * cfg.addition_embed_dim + (
                 cfg.addition_pooled_dim or 0)
-            self.add_embedding = TimestepEmbedding(add_in, temb_dim)
+            self.add_embedding = TimestepEmbedding(add_in, time_dim)
 
         self.down_blocks = nn.ModuleList()
         self.skip_channels = [channels[0]]
@@ -325,12 +341,23 @@ class UNetTrunk(nn.Module):
 
     def time_conditioning(self, timesteps: torch.Tensor,
                           added_cond: dict[str, torch.Tensor] | None,
-                          dtype: torch.dtype) -> torch.Tensor:
-        """The time embedding, plus SDXL's added conditioning."""
+                          dtype: torch.dtype,
+                          class_labels: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+        """The time embedding, with AudioLDM's class embedding of the float
+        ``class_labels`` (B, class_proj_dim) and SDXL's added
+        conditioning."""
         cfg = self.config
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
+        if cfg.class_proj_dim is not None:
+            if class_labels is None:
+                raise ValueError("this family requires float class_labels "
+                                 "(e.g. AudioLDM's projected text embedding)")
+            class_emb = self.class_embedding(class_labels.to(dtype))
+            temb = (torch.cat([temb, class_emb], dim=-1)
+                    if cfg.class_embeddings_concat else temb + class_emb)
         if cfg.addition_embed_dim is not None:
             temb = temb + self._added_embedding(added_cond, dtype)
         return temb
@@ -383,15 +410,17 @@ class UNetTrunk(nn.Module):
 class UNet(UNetTrunk):
     """Returns the model prediction (epsilon/v per family), float32, for
     NCHW latents ``sample`` (B, C, H, W), ``timesteps`` (B,) float (fractional
-    allowed) and ``encoder_hidden_states`` (B|divisor, S, cross_dim).
-    ``down_residuals``/``mid_residual`` take a ControlNet's residuals."""
+    allowed) and ``encoder_hidden_states`` (B|divisor, S, cross_dim; None
+    for a family without cross-attention). ``down_residuals``/
+    ``mid_residual`` take a ControlNet's residuals; ``class_labels`` (B,
+    class_proj_dim) AudioLDM's conditioning."""
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__(config)
         cfg = config
         channels = list(cfg.block_out_channels)
         n = len(channels)
-        temb_dim = channels[0] * 4
+        temb_dim = self.temb_dim
         skip_channels = list(self.skip_channels)
         prev = channels[-1]
         self.up_blocks = nn.ModuleList()
@@ -417,9 +446,11 @@ class UNet(UNetTrunk):
                 encoder_hidden_states: torch.Tensor | None,
                 added_cond: dict[str, torch.Tensor] | None = None,
                 down_residuals: tuple[torch.Tensor, ...] | None = None,
-                mid_residual: torch.Tensor | None = None) -> torch.Tensor:
+                mid_residual: torch.Tensor | None = None,
+                class_labels: torch.Tensor | None = None) -> torch.Tensor:
         dtype = param_dtype(self)
-        temb = self.time_conditioning(timesteps, added_cond, dtype)
+        temb = self.time_conditioning(timesteps, added_cond, dtype,
+                                      class_labels)
         context = (None if encoder_hidden_states is None
                    else encoder_hidden_states.to(dtype))
 

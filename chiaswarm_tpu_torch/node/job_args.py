@@ -1,28 +1,40 @@
 """Job routing, argument normalization and the guarded input-image fetch:
-counterpart of ``chiaswarm_tpu/node/job_args.py`` (``format_args`` :53,
-:149-205; ``get_image``/``download_image`` and their guards :32-48,
-:205-305).
+counterpart of ``chiaswarm_tpu/node/job_args.py`` (``format_args`` :53-112,
+``_format_audio_args`` :127-135, :149-205; ``get_image``/``download_image``
+and their guards :32-48, :205-305).
 
-A hive job dict maps to ``(callback, kwargs)``. Every workflow the JAX
-package does not route elsewhere (none, ``txt2img``, ``img2img``,
-``inpaint``, any other name) goes to the stable-diffusion formatter, as in
-the JAX package: the 1024-pixel size cap, the server's ``parameters`` block
-unpacked (scheduler class name, ``upscale``, ``reuse_schedule``), default
-steps, server-listed unsupported arguments stripped, and the input images
-(``start_image_uri``, ``mask_image_uri``) fetched into ``image`` and
-``mask_image``. A ``parameters.controlnet`` block (JAX :163-176) makes the
-job a ControlNet job: ``controlnet_model_name`` (default
-``lllyasviel/control_v11p_sd15_canny``), ``save_preprocessed_input`` from its
-``preprocess`` flag, and the fetched image through
-``workloads/controlnet.py::preprocess_image`` (off unless the job asks).
-A ``timbrooks/instruct-pix2pix`` job with an input image conditions on
-``image_guidance_scale`` = strength x 5 (strength defaults to 0.6 and is
-dropped), JAX :177-180. ``lora``, ``cross_attention_scale`` and
-``textual_inversion`` ride through as job arguments. The workflows the JAX
-package routes to other workloads (audio, video, captions, stitch) and
-DeepFloyd cascades raise ``ValueError`` naming the later slice; the executor
-turns that into a fatal bad-request envelope, as it does for any malformed
-job.
+A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
+
+- ``stitch`` goes to ``workloads/stitch.py::stitch_callback``;
+- ``img2txt`` fetches ``start_image_uri`` through the guarded
+  :func:`get_image` into ``image`` (an array) and goes to
+  ``workloads/caption.py::caption_callback``;
+- ``txt2audio`` goes to ``workloads/audio.py::txt2audio_callback`` through
+  :func:`_format_audio_args`: 20 steps unless the job names a count,
+  ``scheduler_type`` from the ``parameters`` block, server-listed
+  unsupported arguments stripped. A TTS model name (:func:`is_tts_model`,
+  JAX ``pipelines/tts.py``) is refused: bark comes next in ROADMAP queue
+  item 6;
+- ``vid2vid``, ``img2vid``, ``txt2vid`` and ``DeepFloyd/`` models are
+  refused, naming ROADMAP queue item 6 (video, the cascade);
+- every other workflow (none, ``txt2img``, ``img2img``, ``inpaint``, any
+  other name) goes to the stable-diffusion formatter: the 1024-pixel size
+  cap, the server's ``parameters`` block unpacked (scheduler class name,
+  ``upscale``, ``reuse_schedule``), default steps, server-listed
+  unsupported arguments stripped, and the input images
+  (``start_image_uri``, ``mask_image_uri``) fetched into ``image`` and
+  ``mask_image``. A ``parameters.controlnet`` block (JAX :163-176) makes the
+  job a ControlNet job: ``controlnet_model_name`` (default
+  ``lllyasviel/control_v11p_sd15_canny``), ``save_preprocessed_input`` from
+  its ``preprocess`` flag, and the fetched image through
+  ``workloads/controlnet.py::preprocess_image`` (off unless the job asks).
+  A ``timbrooks/instruct-pix2pix`` job with an input image conditions on
+  ``image_guidance_scale`` = strength x 5 (strength defaults to 0.6 and is
+  dropped), JAX :177-180. ``lora``, ``cross_attention_scale`` and
+  ``textual_inversion`` ride through as job arguments.
+
+A refusal is a ``ValueError``, which the executor turns into a fatal
+bad-request envelope, as it does for any malformed job.
 
 The fetch crosses an open-network trust boundary: HEAD, then a streamed GET
 with connect and read timeouts, the content type checked on both, the body
@@ -66,17 +78,32 @@ READ_TIMEOUT_S = 60.0
 HEAD_READ_TIMEOUT_S = 30.0
 MAX_IMAGE_PIXELS = 16 * 1024 * 1024  # 16 Mpx; the served maximum is ~1 Mpx
 
-#: workflows the JAX package routes to other workloads, and what serves them
+#: workflows the JAX package serves that the port does not yet, and what
+#: serves them there (ROADMAP queue item 6)
 _LATER_WORKFLOWS = {
-    "txt2audio": "audio generation",
-    "stitch": "stitch",
-    "img2txt": "captioning",
     "vid2vid": "video",
     "img2vid": "video",
     "txt2vid": "video",
 }
 
+#: TTS model families of the JAX package (``pipelines/tts.py::TTS_FAMILIES``)
+TTS_FAMILIES = ("bark", "tiny_tts")
+
 FormatResult = tuple[Callable[..., tuple[dict, dict]], dict[str, Any]]
+
+
+def is_tts_model(model_name: str) -> bool:
+    """The bark/TTS routing gate, copied from JAX
+    ``pipelines/tts.py::is_tts_model``: a bark-family TAIL of the model name
+    ("suno/bark", "bark-small", the tiny family), not a substring, so
+    "acme/embark-audioldm" stays on the AudioLDM path."""
+    tail = (model_name or "").lower().rsplit("/", 1)[-1]
+    return tail.startswith("bark") or tail in TTS_FAMILIES
+
+
+def _later(what: str) -> ValueError:
+    return ValueError(f"{what} is not served by chiaswarm_tpu_torch yet (a "
+                      "later slice of the port, ROADMAP queue item 6)")
 
 
 def format_args(job: dict[str, Any], registry) -> FormatResult:
@@ -84,20 +111,53 @@ def format_args(job: dict[str, Any], registry) -> FormatResult:
     args = dict(job)
     args["registry"] = registry
     workflow = args.pop("workflow", None)
+
+    if workflow == "txt2audio":
+        if is_tts_model(str(args.get("model_name", ""))):
+            raise _later(f"text to speech ({args.get('model_name')!r})")
+        return _format_audio_args(args)
+
+    if workflow == "stitch":
+        from chiaswarm_tpu_torch.workloads.stitch import stitch_callback
+
+        return stitch_callback, args
+
+    if workflow == "img2txt":
+        from chiaswarm_tpu_torch.workloads.caption import caption_callback
+
+        if "start_image_uri" in args:
+            args["image"] = np.asarray(
+                get_image(args.pop("start_image_uri"), None))
+        return caption_callback, args
+
     if workflow in _LATER_WORKFLOWS:
-        raise ValueError(f"workflow {workflow!r} ({_LATER_WORKFLOWS[workflow]})"
-                         " is not served by chiaswarm_tpu_torch yet (a later "
-                         "slice of the port)")
+        raise _later(f"workflow {workflow!r} ({_LATER_WORKFLOWS[workflow]})")
     if str(args.get("model_name", "")).startswith("DeepFloyd/"):
-        raise ValueError("DeepFloyd cascades are not served by "
-                         "chiaswarm_tpu_torch yet (a later slice of the port)")
+        raise _later("DeepFloyd cascades")
     return _format_stable_diffusion_args(args)
+
+
+def _pop_parameters(args: dict[str, Any]) -> dict[str, Any]:
+    parameters = args.pop("parameters", {}) or {}
+    args.setdefault("prompt", "")
+    return parameters
 
 
 def _strip_unsupported(args: dict[str, Any], parameters: dict[str, Any]) -> None:
     """Server-driven capability negotiation."""
     for name in parameters.get("unsupported_pipeline_arguments", []):
         args.pop(name, None)
+
+
+def _format_audio_args(args: dict[str, Any]) -> FormatResult:
+    from chiaswarm_tpu_torch.workloads.audio import txt2audio_callback
+
+    parameters = _pop_parameters(args)
+    # AudioLDM's default is 20 steps (swarm/audio/audioldm.py:15-16)
+    args.setdefault("num_inference_steps", 20)
+    args["scheduler_type"] = parameters.pop("scheduler_type", None)
+    _strip_unsupported(args, parameters)
+    return txt2audio_callback, args
 
 
 def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
@@ -111,8 +171,7 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
                 f"The max image size is ({MAX_SIZE}, {MAX_SIZE}); "
                 f"got ({size[0]}, {size[1]}).")
 
-    parameters = args.pop("parameters", {}) or {}
-    args.setdefault("prompt", "")
+    parameters = _pop_parameters(args)
     args["upscale"] = parameters.get("upscale", False)
 
     if "start_image_uri" in args:

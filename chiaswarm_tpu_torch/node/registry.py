@@ -43,6 +43,15 @@ tables (``convert/textual_inversion.py``) and the LoRA merged into its
 private UNet (``convert/lora.py``) before the pipeline is handed out. Their
 files load from :func:`model_dir` of the adapter's name; a missing one is
 "not available on this node", the non-fatal ``model_unavailable`` kind.
+
+:meth:`ModelRegistry.caption_pipeline` (JAX :493-547) and
+:meth:`ModelRegistry.audio_pipeline` (JAX :354-389) serve img2txt and
+txt2audio: a BLIP directory in transformers' layout and an AudioLDM one in
+diffusers' layout under :func:`model_dir`, on the slot mesh's lead device,
+keyed ``("caption" | "audio", name, device)``. An unusable caption
+directory logs and, like a missing one, takes seeded tiny weights only
+under ``allow_random``, as in JAX. On a ``seq`` > 1 slot both raise
+(ROADMAP queue item 7).
 """
 
 from __future__ import annotations
@@ -200,10 +209,7 @@ class ModelRegistry:
         :func:`_mesh_cache_key`); a model over the budget comes back
         uncached (load-per-job), one over the hard limit raises
         ``ModelUnavailable``."""
-        reason = self._quarantined.get(model_name)
-        if reason is not None:
-            raise ValueError(f"model {model_name!r} is quarantined on this "
-                             f"node ({reason})")
+        self._check_quarantine(model_name)
         if self.family_for(model_name).kind == "upscaler4":
             raise ValueError(
                 f"model {model_name!r} is an x4 upscaler, which "
@@ -244,6 +250,107 @@ class ModelRegistry:
             raise ValueError(f"{what} {name!r} is not available on this node "
                              f"(no file at {path})")
         return path
+
+    def _check_quarantine(self, model_name: str) -> None:
+        reason = self._quarantined.get(model_name)
+        if reason is not None:
+            raise ValueError(f"model {model_name!r} is quarantined on this "
+                             f"node ({reason})")
+
+    def _one_card(self, what: str, model_name: str,
+                  mesh: DeviceMesh | None) -> torch.device:
+        """The device of a pipeline that does not ring: the slot mesh's lead
+        device (the registry's with no mesh). A ``seq`` > 1 slot raises: the
+        JAX package rings the audio program there (ROADMAP queue item 7)."""
+        if seq_size(mesh) > 1:
+            raise NotImplementedError(
+                f"{what} model {model_name!r} on a seq={seq_size(mesh)} "
+                "mesh is not served yet (ROADMAP queue item 7: the rings "
+                "serve SD1.x/SD2.x)")
+        return self.device if mesh is None else mesh.lead
+
+    def caption_pipeline(self, model_name: str,
+                         mesh: DeviceMesh | None = None):
+        """The resident BLIP captioner of ``model_name`` (JAX :493-547) on
+        the slot mesh's lead device: a transformers-layout directory under
+        :func:`model_dir`; one that cannot be loaded logs, and like no
+        directory at all gives seeded tiny weights under ``allow_random``,
+        else the model is not available on this node. One ledger entry per
+        ``("caption", name, device)``."""
+        from chiaswarm_tpu_torch.pipelines.caption import (
+            CaptionComponents,
+            CaptionPipeline,
+        )
+
+        self._check_quarantine(model_name)
+        device = self._one_card("caption", model_name, mesh)
+
+        def build() -> CaptionPipeline:
+            ckpt = model_dir(model_name)
+            components = None
+            if ckpt.exists():
+                try:
+                    log.info("loading caption model %s from %s", model_name,
+                             ckpt)
+                    components = CaptionComponents.from_checkpoint(
+                        ckpt, model_name, device=device)
+                except Exception as exc:
+                    log.warning("caption checkpoint at %s unusable (%s: %s)",
+                                ckpt, type(exc).__name__, exc)
+            if components is None and self.allow_random:
+                log.warning("no checkpoint for caption model %s; using "
+                            "random tiny weights", model_name)
+                components = CaptionComponents.random(
+                    "blip_tiny", model_name=model_name, device=device)
+            if components is None:
+                why = (f"checkpoint at {ckpt} is unusable"
+                       if ckpt.exists() else f"no checkpoint at {ckpt}")
+                raise ValueError(f"caption model {model_name!r} is not "
+                                 f"available on this node ({why})")
+            return CaptionPipeline(components)
+
+        return self.residency.acquire(
+            ("caption", model_name, _device_key(device)), build,
+            model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
+            priority=self._priority_for(model_name))
+
+    def audio_pipeline(self, model_name: str,
+                       mesh: DeviceMesh | None = None):
+        """The resident AudioLDM-class txt2audio pipeline of ``model_name``
+        (JAX :354-389) on the slot mesh's lead device: a diffusers-layout
+        directory under :func:`model_dir` (``convert/checkpoint.py::
+        load_audio_checkpoint``), seeded random weights of the family only
+        under ``allow_random``, else not available on this node. One ledger
+        entry per ``("audio", name, device)``."""
+        from chiaswarm_tpu_torch.convert.checkpoint import load_audio_checkpoint
+        from chiaswarm_tpu_torch.pipelines.audio import (
+            AudioComponents,
+            AudioPipeline,
+            get_audio_family,
+        )
+
+        self._check_quarantine(model_name)
+        device = self._one_card("audio", model_name, mesh)
+
+        def build() -> AudioPipeline:
+            ckpt = model_dir(model_name)
+            family = get_audio_family(model_name)
+            if ckpt.exists():
+                log.info("loading audio model %s from %s", model_name, ckpt)
+                return AudioPipeline(load_audio_checkpoint(
+                    ckpt, model_name, family, device=device))
+            if self.allow_random:
+                log.warning("no checkpoint for audio model %s; using random "
+                            "weights", model_name)
+                return AudioPipeline(AudioComponents.random(
+                    family, model_name=model_name, device=device))
+            raise ValueError(f"audio model {model_name!r} is not available "
+                             f"on this node (no checkpoint at {ckpt})")
+
+        return self.residency.acquire(
+            ("audio", model_name, _device_key(device)), build,
+            model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
+            priority=self._priority_for(model_name))
 
     def controlnet(self, controlnet_name: str, family: ModelFamily,
                    mesh: DeviceMesh | None = None) -> ControlNetBundle:

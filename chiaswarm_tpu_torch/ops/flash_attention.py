@@ -36,9 +36,9 @@ NEG_INF = -1e30  # finite stand-in: true -inf breaks exp() on fully-masked rows
 #: the order of float32 sums
 BLOCK_KV = 512
 
-#: head dims the kernel is instantiated for (SD1.x 40/80/160, SD2/SDXL 64,
-#: and the 128-lane width)
-SUPPORTED_HEAD_DIMS = (40, 64, 80, 128, 160)
+#: head dims the kernel is instantiated for (AudioLDM 32, SD1.x 40/80/160,
+#: SD2/SDXL 64, and the 128-lane width)
+SUPPORTED_HEAD_DIMS = (32, 40, 64, 80, 128, 160)
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 

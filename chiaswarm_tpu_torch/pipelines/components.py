@@ -66,9 +66,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize in place, in module order, with Flax's defaults."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d,
+                          nn.ConvTranspose1d)):
             w = m.weight
-            fan_in = w.shape[1] * math.prod(w.shape[2:])
+            # a transposed conv's weight is (in, out, k): its fan-in is in x k
+            fan_in = (w.shape[0 if isinstance(m, nn.ConvTranspose1d) else 1]
+                      * math.prod(w.shape[2:]))
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                   generator=generator)

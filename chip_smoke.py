@@ -27,7 +27,9 @@ each phase printing one JSON line:
                 without CFG (batch 1, head dim 64: 16,384, 4,096 and 1,024
                 tokens after a 512 px job, 65,536, 16,384 and 4,096 after
                 a 1024 px SDXL job; the plain version at 65,536 tokens
-                timed over 3 calls) (max abs error 4e-3, two bf16 steps
+                timed over 3 calls), for AudioLDM's UNet at head dim 32 (4
+                heads over 2,560 tokens at batch 2 and 1, 1,280 at batch 2)
+                (max abs error 4e-3, two bf16 steps
                 at the largest outputs, and relative L2 1e-2), at
                 lane_check's and xl_check's fp32 shapes and at ragged fp32
                 shapes (2e-4 and
@@ -392,6 +394,34 @@ each phase printing one JSON line:
                 prompt without its token bit for bit and changes one with
                 it; a two-image LoRA job solo and in a lane pinned at 2 rows
                 bit for bit; B1 = 10 x 20 a LoRA job.
+15y. stitch_serve — four PNGs (512, 768, 1024 and 256 px) served by this
+                script's hive as earlier results, one ``stitch`` job through
+                the worker: a 288x288 JPEG, four ``image_map`` rects whose
+                hrefs are the four URIs, byte for byte a CPU call of
+                ``stitch_callback`` on the same pictures; no kernel.
+15z. caption_serve — BLIP-base with its question tower at the published
+                widths (ViT-B/16 at 384 px, 12 x 768 BERT towers), random
+                from seed 0, written as a transformers directory with a
+                synthetic 30,524-entry ``vocab.txt`` and loaded with no
+                random fallback (tensors equal); a caption, a conditioned
+                caption and a VQA job through the worker: each text a direct
+                call's; the first decode step's logits within 2e-3 of a CPU
+                load of the same directory and the ids the CPU's up to the
+                first step whose top-two gap is below that bar (printed); no
+                kernel. Prints job seconds and the vision encode's device ms.
+15aa. audio_serve — AudioLDM at JAX's widths (UNet and VAE bf16, CLAP and
+                the vocoder float32), random from seed 0, written as a
+                diffusers directory with a synthetic byte-level vocab and
+                loaded with no random fallback (tensors equal); 10 s and 5 s
+                jobs at guidance 2.5 and a 10 s job at 1.0 through the
+                worker, 20 steps: B1 exactly 5 x UNet evals at each job's
+                head-dim-32 shape and no other kernel; ``audio/wav``
+                (``audio/mpeg`` with ffmpeg) of 160,000 / 80,000 samples; the
+                first job again, the same bytes; its waveform within 3e-2
+                relative L2 of the plain route; the vocoder on the card
+                (cuDNN's default TF32) within that bar of its CPU run.
+                Prints job seconds, ``generation_s``, device ms by stage,
+                B1's share and the peak memory.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -407,7 +437,8 @@ each phase printing one JSON line:
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
                 phases, the guard phases, the safety and ControlNet
-                phases and the pix2pix, upscale and adapter phases, and B3
+                phases, the pix2pix, upscale and adapter phases and
+                audio_serve (head dim 32), and B3
                 under ``lane_seq_serve``
                 and
                 ``seq_img2img``, with
@@ -671,8 +702,15 @@ KERNEL_SHAPES = [
     (1, 1024, 1024, 12, 64, "bfloat16", 4e-3, 1e-2, ("upscale_serve",)),
     (1, 65536, 65536, 6, 64, "bfloat16", 4e-3, 1e-2, ("xl_upscale_serve",)),
     (1, 16384, 16384, 12, 64, "bfloat16", 4e-3, 1e-2, ("xl_upscale_serve",)),
+    # AudioLDM's UNet at head dim 32: 4 heads over its level-0 latent,
+    # 2,560 tokens at a 10 s job and 1,280 at 5 s; CFG doubles the batch,
+    # guidance 1.0 does not
+    (2, 2560, 2560, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
+    (1, 2560, 2560, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
+    (2, 1280, 1280, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
+    (1, 1000, 333, 4, 32, "float32", 2e-4, 1e-4, ()),
 ]
 
 
@@ -5175,6 +5213,530 @@ def adapters_serve_phase(torch, registry, slot, solo_blob: str) -> dict:
     return lora_run
 
 
+# ---- the first non-diffusion workflows: stitch, img2txt, txt2audio --------
+
+STITCH_SIZES = (512, 768, 1024, 256)
+BLIP_MODEL = "Salesforce/blip-vqa-base"
+BLIP_VOCAB = 30524      # BERT's 30,522 word pieces + [DEC] and [ENC]
+BLIP_BAR = 2e-3         # card against CPU, float32 logits
+BLIP_WORDS = ("a", "photo", "of", "what", "color", "is", "the", "sky",
+              "cat", "dog", "on", "beach", "painting", "sunset", "lighthouse",
+              "cliff", "at", "golden", "hour", "oil", "##s", "##ing")
+CAPTION_CASES = (("caption", "", False), ("conditioned", "a photo of", False),
+                 ("vqa", "what color is the sky?", True))
+AUDIO_MODEL = "cvssp/audioldm-s-full-v2"
+CLAP_VOCAB = 50265      # RoBERTa's byte-level vocab
+AUDIO_BAR = 3e-2        # relative L2 of a bf16 UNet's waveform, B1 vs plain
+AUDIO_STEPS = 20
+AUDIO_JOBS = [{"id": f"audio-{seed}", "workflow": "txt2audio",
+               "model_name": AUDIO_MODEL,
+               "prompt": "rain on a tin roof, distant thunder",
+               "negative_prompt": "low quality",
+               "num_inference_steps": AUDIO_STEPS, "guidance_scale": guidance,
+               "audio_length_in_s": seconds, "seed": seed,
+               "content_type": "audio/wav"}
+              for seed, seconds, guidance in ((1, 10.0, 2.5), (2, 5.0, 2.5),
+                                              (3, 10.0, 1.0))]
+
+
+def audioldm_b1_per_eval() -> int:
+    """B1's launches in one eval of AudioLDM's UNet: its level-0 spatial
+    self-attentions (2,560 tokens at 10 s, 1,280 at 5 s; the deeper levels
+    stay under 1,024), ``layers_per_block`` down and one more up: 2 + 3."""
+    from chiaswarm_tpu_torch.pipelines.audio import AUDIOLDM
+
+    unet = AUDIOLDM.unet
+    return unet.transformer_depth[0] * (2 * unet.layers_per_block + 1)
+
+
+def stitch_serve_phase(torch, registry, pool) -> dict:
+    """Four PNGs served by this script's hive (512, 768, 1024 and 256 px)
+    as earlier jobs' ``resultUri`` through the worker as one ``stitch``
+    job: a 288x288 JPEG, four ``image_map`` rects whose hrefs are the four
+    URIs, the envelope's artifact byte for byte a CPU call of the port's
+    ``stitch_callback`` on the same pictures; no kernel."""
+    from PIL import Image
+
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.workloads.stitch import stitch_callback
+
+    pngs = {f"result-{i}.png": png_bytes(smooth_image(70 + i, size))
+            for i, size in enumerate(STITCH_SIZES)}
+    with LocalHive() as hive:
+        hive.assets.update(pngs)
+        job = {"id": "stitch-1", "workflow": "stitch", "model_name": "stitch",
+               "seed": 1, "content_type": "image/jpeg",
+               "jobs": [{"resultUri": f"{hive.uri}/assets/{name}",
+                         "model_name": "sd15", "fileName": name}
+                        for name in pngs]}
+        kernels.reset_launches()
+        worker = serve_through_worker(hive, pool, registry, [job])
+        run, launches = launched(), kernel_launches()
+        [result] = hive.results
+        rows = trace_rows(worker)
+    cfg = result["pipeline_config"]
+    if "error" in cfg:
+        raise AssertionError(f"stitch_serve failed: {cfg['error']}")
+    images = [Image.open(io.BytesIO(b)).convert("RGB") for b in pngs.values()]
+    want, want_cfg = stitch_callback(None, "stitch", seed=1, jobs=job["jobs"],
+                                     images=images)
+    artifact = result["artifacts"]["primary"]
+    size = Image.open(io.BytesIO(base64.b64decode(artifact["blob"]))).size
+    hrefs = [m["href"] for m in cfg["image_map"]]
+    emit("stitch_serve", job_seconds=rows[job["id"]]["seconds"],
+         jpeg_size=list(size), image_map=cfg["image_map"],
+         bytes=len(base64.b64decode(artifact["blob"])), launches=launches)
+    if artifact["content_type"] != "image/jpeg" or size != (288, 288):
+        raise AssertionError(f"stitch_serve: {artifact['content_type']} "
+                             f"{size}, not a 288x288 JPEG")
+    if hrefs != [j["resultUri"] for j in job["jobs"]]:
+        raise AssertionError(f"stitch_serve: hrefs {hrefs}")
+    if result["artifacts"] != want or cfg["image_map"] != want_cfg["image_map"]:
+        raise AssertionError("stitch_serve: the worker's collage differs from "
+                             "a CPU call of stitch_callback")
+    if sum(launches.values()):
+        raise AssertionError(f"stitch_serve launched {launches}")
+    return run
+
+
+def synthetic_wordpiece_vocab() -> list[str]:
+    """BLIP's vocab shape: BERT's specials at their ids ([PAD] 0, [UNK] 100,
+    [CLS] 101, [SEP] 102, [MASK] 103), a few words, word pieces and
+    continuation pieces made up to 30,522 lines, then [DEC] and [ENC]."""
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+    lines += ["[UNK]", "[CLS]", "[SEP]", "[MASK]", *BLIP_WORDS]
+    i = 0
+    while len(lines) < BLIP_VOCAB - 2:
+        lines.append(f"w{i}" if i % 3 else f"##w{i}")
+        i += 1
+    return lines + ["[DEC]", "[ENC]"]
+
+
+def write_blip(torch, path: Path) -> dict:
+    """BLIP-base with its question tower (``BLIP_BASE``: ViT-B/16 at 384 px,
+    12 x 768 BERT towers), random from seed 0 on the card, written as a
+    transformers ``BlipForQuestionAnswering`` directory (``model.safetensors``
+    in float32, ``vocab.txt``); returns its tensors on the host."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from chiaswarm_tpu_torch.pipelines.caption import (
+        CaptionComponents,
+        transformers_state,
+    )
+
+    t0 = time.perf_counter()
+    lines = synthetic_wordpiece_vocab()
+    source = CaptionComponents.random(
+        "blip_base", seed=0, vqa=True, device="cuda", model_name=BLIP_MODEL,
+        tokenizer=WordPieceTokenizer({t: i for i, t in enumerate(lines)}))
+    state = {k: v.detach().cpu().contiguous()
+             for k, v in transformers_state(source).items()}
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(state, path / "model.safetensors", {"format": "pt"})
+    (path / "vocab.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    del source
+    torch.cuda.empty_cache()
+    return {"state": state, "write_s": time.perf_counter() - t0,
+            "bytes": (path / "model.safetensors").stat().st_size}
+
+
+@contextlib.contextmanager
+def record_logits(pipe):
+    """Each LM-head call of ``pipe``'s answer/caption decoder, in order (the
+    prefill's logits, then one per decode step)."""
+    calls = []
+    head = pipe.c.decoder.lm_logits
+
+    def kept(x):
+        out = head(x)
+        calls.append(out.float().cpu())
+        return out
+
+    pipe.c.decoder.lm_logits = kept
+    try:
+        yield calls
+    finally:
+        del pipe.c.decoder.lm_logits
+
+
+def step_logits(calls: list, prompt_len: int) -> list:
+    """Per decode step, the logits that chose its token: the prefill's at
+    its last real position, then each step's."""
+    return [calls[0][0, prompt_len - 1]] + [c[0, 0] for c in calls[1:]]
+
+
+def caption_gate(name: str, card: list, cpu: list, sep: int) -> dict:
+    """The first step's logits within ``BLIP_BAR`` of the CPU's; the chosen
+    ids equal up to the first step whose top-two CPU logit gap is below the
+    bar (or SEP). Returns the step that ended the comparison."""
+    first_err = float((card[0] - cpu[0]).abs().max())
+    close_at = None
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) < BLIP_BAR:
+            close_at = t
+            break
+        if int(a.argmax()) != int(b.argmax()):
+            raise AssertionError(f"caption_serve {name}: step {t} chose "
+                                 f"{int(a.argmax())} on the card, "
+                                 f"{int(b.argmax())} on the CPU")
+        if int(b.argmax()) == sep:
+            break
+    if not first_err <= BLIP_BAR:
+        raise AssertionError(f"caption_serve {name}: first-step logits differ "
+                             f"by {first_err} (bar {BLIP_BAR})")
+    return {"first_step_max_abs_err": first_err, "close_step": close_at,
+            "steps_compared": t + 1}
+
+
+def caption_serve_phase(torch, strict, pool) -> dict:
+    """BLIP-base at its published widths with its question tower (random
+    from seed 0, written as a transformers directory with a synthetic
+    30,524-entry vocab, loaded by a registry with no random fallback, every
+    tensor equal to its source), one caption, one conditioned caption and
+    one VQA job through the worker on one picture from this script's hive:
+    each text equal to a direct call's on the card; the first decode step's
+    logits within 2e-3 of a CPU load of the same directory, the chosen ids
+    equal to the CPU's up to the first step whose top-two gap is below that
+    bar (printed); no kernel (577 vision tokens and 41 text tokens stay on
+    the plain path). Prints each job's seconds and the vision encode's
+    device ms."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.caption import (
+        CaptionComponents,
+        CaptionPipeline,
+        transformers_state,
+    )
+
+    written = write_blip(torch, model_dir(BLIP_MODEL))
+    t0 = time.perf_counter()
+    pipe = strict.caption_pipeline(BLIP_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    unequal = [k for k, v in transformers_state(pipe.c).items()
+               if not torch.equal(v.detach().cpu(), written["state"][k])]
+    if unequal or pipe.c.encoder is None:
+        raise AssertionError(f"caption_serve: loaded tensors differ "
+                             f"{unequal[:4]} (question tower: "
+                             f"{pipe.c.encoder is not None})")
+    picture = smooth_image(81, 512)
+    jobs = [{"id": f"caption-{case}", "workflow": "img2txt",
+             "model_name": BLIP_MODEL, "seed": 1, "prompt": prompt,
+             "start_image_uri": "/assets/picture.png",
+             "content_type": "application/json",
+             **({"parameters": {"model_type": "BlipForQuestionAnswering"}}
+                if vqa else {})} for case, prompt, vqa in CAPTION_CASES]
+    with LocalHive() as hive:
+        hive.assets["picture.png"] = png_bytes(picture)
+        kernels.reset_launches()
+        worker = serve_through_worker(hive, pool, strict,
+                                      on_hive(hive, jobs))
+        run, launches = launched(), kernel_launches()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+    cpu = CaptionPipeline(CaptionComponents.from_checkpoint(
+        model_dir(BLIP_MODEL), BLIP_MODEL, device="cpu"))
+    sep = pipe.c.config.text.sep_token_id
+    cases = {}
+    for (case, prompt, vqa), job in zip(CAPTION_CASES, jobs):
+        cfg = by_id[job["id"]]["pipeline_config"]
+        if "error" in cfg:
+            raise AssertionError(f"caption_serve {case}: {cfg['error']}")
+        with record_logits(pipe) as card_calls:
+            text = pipe(picture, prompt, vqa=vqa)
+        with record_logits(cpu) as cpu_calls:
+            cpu_text = cpu(picture, prompt, vqa=vqa)
+        plen = 1 if (vqa or not prompt) else len(
+            pipe.c.tokenizer.tokenize(prompt)[:16]) + 1
+        gate = caption_gate(case, step_logits(card_calls, plen),
+                            step_logits(cpu_calls, plen), sep)
+        if cfg["caption"] != text:
+            raise AssertionError(f"caption_serve {case}: the worker's text "
+                                 f"{cfg['caption']!r} != a direct call's "
+                                 f"{text!r}")
+        cases[case] = {"job_seconds": rows[job["id"]]["seconds"],
+                       "elapsed_s": cfg["elapsed_s"], "words": len(text.split()),
+                       "cpu_text_equal": text == cpu_text, **gate}
+    pixels = pipe.preprocess(picture)
+    encode_ms = time_ms(torch, lambda: pipe.c.vision(pixels))
+    emit("caption_serve", load_s=load_s, write_s=written["write_s"],
+         checkpoint_bytes=written["bytes"], param_bytes=pipe.c.param_bytes(),
+         cases=cases, vision_encode_ms=encode_ms,
+         vision_tokens=pipe.c.config.vision.num_tokens, launches=launches)
+    if sum(launches.values()):
+        raise AssertionError(f"caption_serve launched {launches}")
+    del cpu
+    return run
+
+
+def synthetic_byte_level_vocab() -> tuple[dict, list]:
+    """CLAP's tokenizer shape: RoBERTa's specials, the 256 byte symbols,
+    merges that build a few words with and without their leading ``Ġ``,
+    padded to 50,265 entries."""
+    from chiaswarm_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for ch in _bytes_to_unicode().values():
+        vocab.setdefault(ch, len(vocab))
+    merges = []
+    for word in ("rain", "on", "a", "tin", "roof", "distant", "thunder",
+                 "low", "quality", "dog", "bark", "ing"):
+        for piece in (word, "Ġ" + word):
+            cur = piece[0]
+            for ch in piece[1:]:
+                if (cur, ch) not in merges:
+                    merges.append((cur, ch))
+                cur += ch
+                vocab.setdefault(cur, len(vocab))
+    i = 0
+    while len(vocab) < CLAP_VOCAB:
+        vocab[f"Ġfiller{i}"] = len(vocab)
+        i += 1
+    return vocab, merges
+
+
+def write_audioldm(torch, path: Path) -> dict:
+    """AudioLDM at JAX's widths (``AUDIOLDM``: CLAP 12 x 768, the UNet
+    (128, 256, 384, 640) and the VAE in bf16, CLAP and the vocoder in
+    float32), random from seed 0 on the card, written as a diffusers
+    directory at those dtypes (``text_encoder/``, ``unet/``, ``vae/``,
+    ``vocoder/``, ``tokenizer/`` with a synthetic byte-level vocab);
+    returns its tensors on the host."""
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.pipelines.audio import AudioComponents
+
+    t0 = time.perf_counter()
+    source = AudioComponents.random("audioldm", seed=0, device="cuda",
+                                    model_name=AUDIO_MODEL)
+    states, total = {}, 0
+    for name in ("text_encoder", "unet", "vae", "vocoder"):
+        state = {k: v.detach().cpu().contiguous()
+                 for k, v in getattr(source, name).state_dict().items()}
+        (path / name).mkdir(parents=True, exist_ok=True)
+        file = path / name / ("model.safetensors" if name == "text_encoder"
+                              else "diffusion_pytorch_model.safetensors")
+        save_file(state, file, {"format": "pt"})
+        states[name] = state
+        total += file.stat().st_size
+    vocab, merges = synthetic_byte_level_vocab()
+    (path / "tokenizer").mkdir(parents=True, exist_ok=True)
+    (path / "tokenizer" / "vocab.json").write_text(json.dumps(vocab),
+                                                    encoding="utf-8")
+    (path / "tokenizer" / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges),
+        encoding="utf-8")
+    del source
+    torch.cuda.empty_cache()
+    return {"states": states, "write_s": time.perf_counter() - t0,
+            "bytes": total}
+
+
+def audio_samples(artifact: dict) -> "np.ndarray":
+    """An audio artifact's 16-bit samples: WAV through ``wave``, MP3
+    through the ffmpeg CLI."""
+    import shutil
+    import wave
+
+    import numpy as np
+
+    blob = base64.b64decode(artifact["blob"])
+    if artifact["content_type"] == "audio/wav":
+        with wave.open(io.BytesIO(blob)) as fh:
+            return np.frombuffer(fh.readframes(fh.getnframes()), "<i2")
+    proc = subprocess.run(
+        [shutil.which("ffmpeg"), "-hide_banner", "-loglevel", "error",
+         "-i", "pipe:0", "-f", "s16le", "-ac", "1", "-ar", "16000", "pipe:1"],
+        input=blob, capture_output=True, timeout=120, check=True)
+    return np.frombuffer(proc.stdout, "<i2")
+
+
+@contextlib.contextmanager
+def audio_stages(torch, pipe):
+    """CUDA-event ms of each stage of ``pipe``'s calls in the block (text,
+    denoise, VAE decode, vocoder), summed per stage, and the mel of the
+    last decode."""
+    rec = {"events": collections.defaultdict(list), "mel": None}
+    stages = {"text": "encode_text", "denoise": "denoise",
+              "vae_decode": "decode_mel", "vocoder": "vocode"}
+
+    def timed(stage, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            rec["events"][stage].append((start, end))
+            if stage == "vae_decode":
+                rec["mel"] = out
+            return out
+        return call
+
+    for stage, attr in stages.items():
+        setattr(pipe, attr, timed(stage, getattr(pipe, attr)))
+    try:
+        yield rec
+    finally:
+        for attr in stages.values():
+            delattr(pipe, attr)
+        torch.cuda.synchronize()
+        rec["ms"] = {stage: sum(s.elapsed_time(e) for s, e in evs)
+                     for stage, evs in rec["events"].items()}
+
+
+def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
+    """AudioLDM at JAX's widths (``write_audioldm``) loaded by a registry
+    with no random fallback (every tensor equal to its source, UNet and VAE
+    bf16, CLAP and vocoder float32), three 20-step jobs through the worker:
+    10 s at guidance 2.5, 5 s at 2.5, 10 s at 1.0. B1 exactly 5 x UNet
+    evals at each job's shape (100 at (2, 2560, 2560, 4, 32), 100 at (2,
+    1280, 1280, 4, 32), 100 at (1, 2560, 2560, 4, 32), bf16) and no other
+    kernel; ``audio/wav`` (``audio/mpeg`` where ffmpeg is on PATH); 160,000
+    and 80,000 samples; the first job again, the same bytes; its waveform
+    from a direct call within 3e-2 relative L2 of the same call with the
+    UNet's attention on the plain route, and the worker's WAV the direct
+    call's samples; the vocoder on the card (cuDNN's default TF32) against
+    its float32 CPU run on the same mel, within that bar. Prints each job's
+    seconds and ``generation_s``, the device ms of each stage (text,
+    denoise, VAE decode, vocoder), B1's share and the peak memory."""
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+    from chiaswarm_tpu_torch.workloads.audio import pcm16_wav
+
+    written = write_audioldm(torch, model_dir(AUDIO_MODEL))
+    t0 = time.perf_counter()
+    pipe = strict.audio_pipeline(AUDIO_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    unequal = [f"{m}.{k}" for m, state in written["states"].items()
+               for k, v in getattr(pipe.c, m).state_dict().items()
+               if not torch.equal(v.detach().cpu(), state[k])]
+    dtypes = {m: str(next(getattr(pipe.c, m).parameters()).dtype)
+              for m in written["states"]}
+    if unequal:
+        raise AssertionError(f"audio_serve: loaded tensors differ: "
+                             f"{unequal[:4]}")
+    if type(pipe.c.tokenizer).__name__ != "ByteLevelBpeTokenizer":
+        raise AssertionError(f"audio_serve: tokenizer {pipe.c.tokenizer}")
+
+    ffmpeg = shutil.which("ffmpeg")
+    want_type = "audio/mpeg" if ffmpeg else "audio/wav"
+    per_eval = audioldm_b1_per_eval()
+    with LocalHive() as hive:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        worker = serve_through_worker(hive, pool, strict, AUDIO_JOBS)
+        run, launches = launched(), kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+        again_job = dict(AUDIO_JOBS[0], id="audio-1-again")
+        serve_through_worker(hive, pool, strict, [again_job])
+        again = hive.results[-1]
+    want_shapes = collections.Counter()
+    jobs = {}
+    for job in AUDIO_JOBS:
+        result = by_id[job["id"]]
+        cfg = result["pipeline_config"]
+        if "error" in cfg:
+            raise AssertionError(f"audio_serve {job['id']}: {cfg['error']}")
+        artifact = result["artifacts"]["primary"]
+        samples = audio_samples(artifact)
+        want_n = int(job["audio_length_in_s"] * 16000)
+        exact = artifact["content_type"] == "audio/wav"
+        if artifact["content_type"] != want_type or (
+                len(samples) != want_n if exact
+                else abs(len(samples) - want_n) > 2 * 1152):
+            raise AssertionError(f"audio_serve {job['id']}: "
+                                 f"{artifact['content_type']} of "
+                                 f"{len(samples)} samples, want {want_type} "
+                                 f"of {want_n}")
+        rows_b1 = 2 if job["guidance_scale"] > 1.0 else 1
+        lt, lm = pipe._latent_shape(pipe._frames_for(
+            job["audio_length_in_s"]))[1:]
+        tokens = lt * lm
+        want_shapes[(rows_b1, tokens, tokens, 4, 32, "bfloat16")] += \
+            per_eval * AUDIO_STEPS
+        jobs[job["id"]] = {"job_seconds": rows[job["id"]]["seconds"],
+                           "generation_s": cfg["generation_s"],
+                           "samples": len(samples),
+                           "duration_s": cfg["duration_s"]}
+    got_shapes = collections.Counter(run["flash_attention"]["shapes"])
+    if got_shapes != want_shapes or sum(launches.values()) != \
+            launches["flash_attention"]:
+        raise AssertionError(f"audio_serve launched {launches} by shape "
+                             f"{dict(got_shapes)}, want {dict(want_shapes)}")
+    repeat_equal = (again["artifacts"]["primary"]
+                    == by_id[AUDIO_JOBS[0]["id"]]["artifacts"]["primary"])
+    if not repeat_equal:
+        raise AssertionError("audio_serve: the same job twice differs")
+
+    # the 10 s job by a direct call, its stages timed; the plain route
+    job = AUDIO_JOBS[0]
+    kw = dict(prompt=job["prompt"], negative_prompt=job["negative_prompt"],
+              steps=AUDIO_STEPS, guidance_scale=job["guidance_scale"],
+              duration_s=job["audio_length_in_s"], seed=job["seed"])
+    kernels.reset_launches()
+    with audio_stages(torch, pipe) as stages:
+        t1 = time.perf_counter()
+        wav, _, _ = pipe(**kw)
+        direct_s = time.perf_counter() - t1
+    direct_run = launched()
+    set_attn_impl(pipe.c.unet, "xla")
+    try:
+        plain, _, _ = pipe(**kw)
+    finally:
+        set_attn_impl(pipe.c.unet, "auto")
+    rel = float(np.linalg.norm(wav - plain) / np.linalg.norm(plain))
+    worker_samples = audio_samples(by_id[job["id"]]["artifacts"]["primary"])
+    wav_equal = (want_type != "audio/wav" or np.array_equal(
+        worker_samples, np.frombuffer(pcm16_wav(wav[0])[44:], "<i2")))
+    # the vocoder's float32 convs on the card (cuDNN, TF32 by default)
+    # against its CPU run on the same mel
+    mel = stages["mel"]
+    with torch.inference_mode():
+        card_wav = pipe.c.vocoder(mel).cpu()
+        cpu_voc = copy.deepcopy(pipe.c.vocoder).cpu()
+        cpu_wav = cpu_voc(mel.cpu())
+    del cpu_voc
+    voc_rel = float((card_wav - cpu_wav).norm() / cpu_wav.norm())
+    voc_err = float((card_wav - cpu_wav).abs().max())
+    share = b1_share(b1_rows, direct_run, stages["ms"]["denoise"])
+    total_ms = sum(stages["ms"].values())
+    emit("audio_serve", load_s=load_s, write_s=written["write_s"],
+         checkpoint_bytes=written["bytes"], param_bytes=pipe.c.param_bytes(),
+         dtypes=dtypes, ffmpeg=ffmpeg, content_type=want_type, jobs=jobs,
+         direct_10s={"seconds": direct_s, "stage_ms": stages["ms"],
+                     "device_ms": total_ms, **share,
+                     "b1_share_of_device": share["b1_ms"] / total_ms},
+         b1_vs_plain_rel_l2=rel, tolerance=AUDIO_BAR,
+         worker_wav_equals_direct=wav_equal, repeat_bytes_equal=repeat_equal,
+         vocoder_card_vs_cpu={"rel_l2": voc_rel, "max_abs_err": voc_err,
+                              "cudnn_allow_tf32":
+                                  torch.backends.cudnn.allow_tf32},
+         max_memory_allocated=peak, launches=launches,
+         b1_shapes=b1_shapes(run))
+    if not rel <= AUDIO_BAR:
+        raise AssertionError(f"audio_serve: B1 against the plain route: "
+                             f"relative L2 {rel} (bar {AUDIO_BAR})")
+    if not wav_equal:
+        raise AssertionError("audio_serve: the worker's WAV differs from a "
+                             "direct call's samples")
+    if not voc_rel <= AUDIO_BAR:
+        raise AssertionError(f"audio_serve: the vocoder on the card differs "
+                             f"from its CPU run by {voc_rel} relative L2")
+    return run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -5249,7 +5811,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "pix2pix_serve",
                                            "upscale_serve",
                                            "xl_upscale_serve",
-                                           "adapters_serve")),
+                                           "adapters_serve",
+                                           "audio_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -5381,6 +5944,14 @@ def run_phases(torch, t0: float) -> int:
                                                           slot, b1_rows)
         runs["adapters_serve"] = adapters_serve_phase(torch, registry, slot,
                                                       solo_blobs[1])
+        # stitch, img2txt and txt2audio, their models loaded with no random
+        # fallback
+        strict = ModelRegistry(allow_random=False, device="cuda")
+        runs["stitch_serve"] = stitch_serve_phase(torch, strict, pool)
+        runs["caption_serve"] = caption_serve_phase(torch, strict, pool)
+        runs["audio_serve"] = audio_serve_phase(torch, strict, pool, b1_rows)
+        del strict
+        torch.cuda.empty_cache()
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}

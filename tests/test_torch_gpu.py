@@ -8,7 +8,10 @@ row's solo step on a small float32 UNet through B1, and SDXL's side: B1 at
 its head dim 64 shapes, the tiny_xl pipeline on the card against its CPU
 run, and an SDXL-class lane pair against the solo pair; the safety checker's
 vision tower against its CPU run, a ControlNet eval through B1 against the
-plain route, and a scale-0 control job against its txt2img twin.
+plain route, and a scale-0 control job against its txt2img twin; B1 at
+AudioLDM's head dim 32 (bf16 and fp16 on the tensor cores at its serve
+shapes, ragged and strided, fp32 on the sweep, and its refusal of rows off
+16 bytes), B2 and B3 still at their own head dims.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -80,6 +83,9 @@ def test_kernel_matches_plain(cuda_device, b, l, s, h, d, dtype, tol):
 
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
+#: the head dims B2 and B3 take on the tensor cores (B1 alone takes 32)
+RING_TENSOR_CORE_HEAD_DIMS = tuple(d for d in SUPPORTED_HEAD_DIMS if d != 32)
+
 
 @pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
@@ -134,6 +140,69 @@ def test_tensor_core_kernel_refuses_misaligned_rows(cuda_device):
     before = KERNEL.launches
     flash_attention(fp32, fp32, fp32)
     assert KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
+@pytest.mark.parametrize("b,l,s", [(2, 2560, 2560), (1, 1280, 1280),
+                                   (2, 1000, 333), (1, 77, 130)])
+def test_head_dim_32_matches_plain_on_the_tensor_cores(cuda_device, dtype, b,
+                                                       l, s):
+    """AudioLDM's level-0 self-attention (4 heads of 32 over 2,560 tokens at
+    a 10 s job, 1,280 at 5 s) and ragged lengths, no multiple of the 64-key
+    tile or the 128-row block: Q K^T is two k16 steps deep and P V runs at
+    N = 32 over 64-byte rows."""
+    q, k, v = _qkv((b, l, 4, 32), (b, s, 4, 32), dtype, cuda_device, seed=32)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
+def test_head_dim_32_reads_strided_query_shards(cuda_device, dtype):
+    """At D = 32: a query shard strided across a batch of two and offset
+    along L, k/v heads-major."""
+    full = _qkv((2, 4 * 320, 4, 32), (2, 700, 4, 32), dtype, cuda_device)
+    q = full[0][:, 320:640]
+    k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in full[1:])
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               rtol=0, atol=4e-3)
+
+
+@pytest.mark.parametrize("b,l,s", [(2, 2560, 2560), (1, 1000, 333)])
+def test_head_dim_32_fp32_takes_the_sweep(cuda_device, b, l, s):
+    """fp32 at D = 32 on the CUDA-core sweep, TF32 off: 2e-4."""
+    q, k, v = _qkv((b, l, 4, 32), (b, s, 4, 32), torch.float32, cuda_device)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v),
+                               rtol=0, atol=2e-4)
+
+
+def test_head_dim_32_refuses_misaligned_rows(cuda_device):
+    """64-byte rows at D = 32: a data pointer or a sequence stride off 16
+    bytes raises on the tensor-core route, and nothing launches."""
+    buf = torch.zeros(1 + 64 * 32, device=cuda_device, dtype=torch.bfloat16)
+    shifted = buf[1:].view(1, 64, 1, 32)
+    before = KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, shifted, shifted)
+    # a sequence stride of 36 elements (72 bytes)
+    odd = torch.zeros(1, 64, 36, device=cuda_device,
+                      dtype=torch.float16)[..., :32].unsqueeze(2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(odd, odd, odd)
+    assert KERNEL.launches == before
 
 
 def test_kernel_reads_strided_inputs(cuda_device):
@@ -266,7 +335,7 @@ def test_ring_hop_kernel_refuses_what_it_does_not_take(cuda_device):
         tring.ring_flash_hop(q, k, v, m, lsum, strided)
 
 
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", RING_TENSOR_CORE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
 @pytest.mark.parametrize("l,s", [(1000, 1000), (300, 170)])
 def test_tensor_core_ring_hop_matches_plain(cuda_device, d, dtype, l, s):
@@ -402,7 +471,7 @@ def test_fused_ring_kernel_is_repeatable(cuda_device):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
-@pytest.mark.parametrize("d", SUPPORTED_HEAD_DIMS)
+@pytest.mark.parametrize("d", RING_TENSOR_CORE_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", TENSOR_CORE_DTYPES)
 def test_tensor_core_fused_ring_matches_plain(cuda_device, d, dtype):
     """B3's tensor-core route at every head dim in bf16 and fp16: 4 shards

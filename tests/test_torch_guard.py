@@ -612,6 +612,12 @@ def test_a_second_hang_takes_the_per_job_path(tiny_slot, monkeypatch):
     monkeypatch.setattr(tstepper.Lane, "condemn", condemn_and_rearm)
     tstepper.get_stepper(slot).note_step_seconds(0.3)
     _arm_wedge(monkeypatch)
+    # a floor above the suite's slowest honest tiny step (one outran a 1.3 s
+    # budget beside five loaded workers), so only the wedge, which sleeps
+    # far past it, condemns a lane
+    monkeypatch.setenv(tguard.ENV_HANG_FLOOR, "3")
+    monkeypatch.setenv(tguard.ENV_CHAOS_WEDGE, "3:10.0")
+    tguard.reset_chaos()
     # 6 steps: the fresh lane, resumed at 2, reaches its own step 3
     result = executor.synchronous_do_work(_job(1, num_inference_steps=6),
                                           slot, registry)

@@ -696,10 +696,21 @@ def test_workflow_routes_to_the_sd_formatter_as_in_jax(workflow, registry):
 @pytest.mark.parametrize("workflow", ["txt2audio", "stitch", "img2txt",
                                       "vid2vid", "img2vid", "txt2vid"])
 def test_other_workloads_stay_refused(workflow, registry):
+    """Video stays refused, naming ROADMAP queue item 6; stitch, img2txt and
+    txt2audio, served since the thirteenth slice, route to the callbacks the
+    JAX package routes them to (``tests/test_torch_stitch.py``,
+    ``test_torch_caption.py`` and ``test_torch_audio.py`` hold them)."""
     from chiaswarm_tpu_torch.node.job_args import format_args
 
-    with pytest.raises(ValueError, match="later slice"):
-        format_args({"workflow": workflow, "model_name": "tiny"}, registry)
+    served = {"txt2audio": "txt2audio_callback", "stitch": "stitch_callback",
+              "img2txt": "caption_callback"}
+    job = {"workflow": workflow, "model_name": "tiny"}
+    if workflow in served:
+        callback, _ = format_args(job, registry)
+        assert callback.__name__ == served[workflow]
+        return
+    with pytest.raises(ValueError, match="later slice.*item 6"):
+        format_args(job, registry)
 
 
 def _worker_serves(jobs: list[dict], lanes: str, monkeypatch) -> dict:

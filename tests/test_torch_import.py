@@ -85,7 +85,10 @@ def test_package_has_the_slice_modules():
                   "obs.metrics", "obs.trace", "convert.safetensors_io",
                   "convert.checkpoint", "serving.residency",
                   "models.controlnet", "workloads.safety",
-                  "workloads.controlnet"):
+                  "workloads.controlnet", "workloads.stitch",
+                  "models.blip", "pipelines.caption", "workloads.caption",
+                  "models.clap", "models.vocoder", "pipelines.audio",
+                  "workloads.audio"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -161,7 +161,7 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     # nothing listens on port 1: the fetch's refused connection is a
     # transient fault (retried by the worker), as in the JAX package
     (_job(start_image_uri="http://localhost:1/a.png"), "transient", False),
-    (_job(workflow="txt2audio"), "fatal", True),
+    (_job(workflow="txt2audio", model_name="suno/bark"), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
@@ -176,7 +176,7 @@ def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
     # nothing listens on port 1: the fetch's refused connection is a
     # transient fault (retried by the worker), as in the JAX package
     (_job(start_image_uri="http://localhost:1/a.png"), "transient", False),
-    (_job(workflow="txt2audio"), "fatal", True),
+    (_job(workflow="txt2audio", model_name="suno/bark"), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),

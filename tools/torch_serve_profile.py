@@ -28,6 +28,14 @@ steps; tiled decode above 1024 px): both summaries, B1's device ms and
 share of the pass, the pass's peak memory above the weights held, and its
 host seconds beside the generation's.
 
+``--audio`` profiles a 10 s txt2audio job instead (AudioLDM at the JAX
+family's widths, random weights from seed 0: UNet and VAE bf16, CLAP and
+the vocoder float32; 20 steps, guidance 2.5, the default sampler; ``--seconds``
+sets the length, ``--guidance`` the guidance): the summary with B1's device
+ms and share (head dim 32). ``--caption`` profiles BLIP-base (random from
+seed 0, its question tower too) on a 512 px picture: a caption, a
+conditioned caption and a VQA answer, each summary with its launches.
+
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
 and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
@@ -47,6 +55,8 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py [--model sdxl] --lanes 8 [--width 8]
     python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
     python tools/torch_serve_profile.py --lanes 8 --checker
+    python tools/torch_serve_profile.py --audio [--seconds 10] [--guidance 2.5]
+    python tools/torch_serve_profile.py --caption
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -87,6 +97,14 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--upscale", action="store_true",
                         help="profile the job, then the x2 upscale pass "
                              "over its image")
+    parser.add_argument("--audio", action="store_true",
+                        help="profile an AudioLDM txt2audio job")
+    parser.add_argument("--seconds", type=float, default=10.0,
+                        help="with --audio: the job's audio length")
+    parser.add_argument("--guidance", type=float, default=2.5,
+                        help="with --audio: the job's guidance scale")
+    parser.add_argument("--caption", action="store_true",
+                        help="profile BLIP-base captions and a VQA answer")
     args = parser.parse_args(argv)
 
     import torch
@@ -102,6 +120,10 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     if args.lanes:
         return lanes_main(args)
+    if args.audio:
+        return audio_main(torch, args)
+    if args.caption:
+        return caption_main(torch, args)
     mesh = None
     if args.seq > 1:
         n_cards = torch.cuda.device_count()
@@ -146,6 +168,58 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     summary = profiled(torch, pipe, req, args.trace, args.top)
     print(json.dumps({**head, **summary}))
+    return 0
+
+
+def audio_main(torch, args) -> int:
+    """One AudioLDM job profiled after a warm-up (``profiled``)."""
+    import functools
+
+    from chiaswarm_tpu_torch.pipelines.audio import (
+        AudioComponents,
+        AudioPipeline,
+    )
+
+    pipe = AudioPipeline(AudioComponents.random("audioldm", seed=0,
+                                                device="cuda"))
+    run = functools.partial(pipe, negative_prompt="low quality",
+                            steps=args.steps, guidance_scale=args.guidance,
+                            duration_s=args.seconds, seed=1)
+    summary = profiled(torch, run, "rain on a tin roof, distant thunder",
+                       args.trace, args.top)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "model": "audioldm", "seconds": args.seconds,
+                      "guidance": args.guidance, "steps": args.steps,
+                      "param_bytes": pipe.c.param_bytes(), **summary}))
+    return 0
+
+
+def caption_main(torch, args) -> int:
+    """BLIP-base's three modes, each profiled after a warm-up."""
+    import functools
+
+    from chiaswarm_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from chiaswarm_tpu_torch.pipelines.caption import (
+        CaptionComponents,
+        CaptionPipeline,
+    )
+
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+    vocab += ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "photo", "of",
+              "what", "color", "is", "the", "sky"]
+    vocab += [f"w{i}" for i in range(30522 - len(vocab))]
+    pipe = CaptionPipeline(CaptionComponents.random(
+        "blip_base", seed=0, device="cuda",
+        tokenizer=WordPieceTokenizer({t: i for i, t in enumerate(vocab)})))
+    picture = seeded_picture(512)
+    out = {"device": torch.cuda.get_device_name(0), "model": "blip_base",
+           "param_bytes": pipe.c.param_bytes()}
+    for mode, prompt, vqa in (("caption", "", False),
+                              ("conditioned", "a photo of", False),
+                              ("vqa", "what color is the sky?", True)):
+        run = functools.partial(pipe, prompt=prompt, vqa=vqa)
+        out[mode] = profiled(torch, run, picture, args.trace, args.top)
+    print(json.dumps(out))
     return 0
 
 
