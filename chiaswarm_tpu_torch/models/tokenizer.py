@@ -3,7 +3,8 @@
 - :class:`Tokenizer` protocol and :class:`AddedTokenMixin` (:35-62, the
   placeholder registry textual inversion fills);
 - :class:`ClipBpeTokenizer` (:76-156), CLIP byte-pair encoding over a
-  checkpoint's ``vocab.json`` + ``merges.txt``;
+  checkpoint's ``vocab.json`` + ``merges.txt``, sharing its file reader
+  and merge loop with the byte-level class (``_BpeTokenizer``);
 - :class:`ByteLevelBpeTokenizer` (:159-275), GPT-2/RoBERTa byte-level BPE
   over the same file names, AudioLDM's CLAP tokenizer;
 - :class:`HashTokenizer` (:278-337), the deterministic vocab-file-free
@@ -19,7 +20,8 @@ conditions both backends identically. Not ported: the ``tokenizer.json``
 wrapper (``HFTokenizer``), which needs the ``tokenizers`` package and
 serves only the DeepFloyd cascade (ROADMAP queue item 6):
 :func:`load_tokenizer` refuses such a file rather than hash a real
-checkpoint's prompts.
+checkpoint's prompts; and :class:`HashTokenizer`'s ``add_bos=False``,
+the T5 convention only that cascade uses.
 """
 
 from __future__ import annotations
@@ -81,27 +83,23 @@ def _basic_tokens(text: str) -> list[str]:
     return _WORD_RE.findall(text)
 
 
-class ClipBpeTokenizer(AddedTokenMixin):
-    """CLIP BPE over ``vocab.json``/``merges.txt`` (openai/clip format).
+class _BpeTokenizer(AddedTokenMixin):
+    """What CLIP's and the byte-level BPE share: the ``vocab.json`` +
+    ``merges.txt`` reader, the rank-ordered merge loop and the batch
+    encode. ``end_of_word`` is the suffix the last symbol of a word
+    carries before merging (CLIP's ``</w>``; none for byte-level BPE)."""
 
-    ASCII-oriented pre-tokenization (the CLIP regex's unicode classes
-    reduced to ASCII letter/digit classes); non-ASCII characters fall
-    through as single-symbol tokens and map to byte-level entries when the
-    vocab has them.
-    """
+    end_of_word = ""
 
     def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
                  max_length: int = 77) -> None:
         self.vocab = vocab
         self.ranks = {tuple(m): i for i, m in enumerate(merges)}
         self.max_length = max_length
-        self.bos_id = vocab.get("<|startoftext|>", 49406)
-        self.eos_id = vocab.get("<|endoftext|>", 49407)
         self._cache: dict[str, list[str]] = {}
 
     @classmethod
-    def from_dir(cls, path: str | Path,
-                 max_length: int = 77) -> "ClipBpeTokenizer":
+    def from_dir(cls, path: str | Path, max_length: int = 77):
         path = Path(path)
         with open(path / "vocab.json", encoding="utf-8") as fh:
             vocab = json.load(fh)
@@ -118,7 +116,7 @@ class ClipBpeTokenizer(AddedTokenMixin):
     def _bpe(self, token: str) -> list[str]:
         if token in self._cache:
             return self._cache[token]
-        word = list(token[:-1]) + [token[-1] + "</w>"]
+        word = list(token[:-1]) + [token[-1] + self.end_of_word]
         while len(word) > 1:
             pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
             best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 30))
@@ -137,6 +135,27 @@ class ClipBpeTokenizer(AddedTokenMixin):
             word = merged
         self._cache[token] = word
         return word
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
+
+
+class ClipBpeTokenizer(_BpeTokenizer):
+    """CLIP BPE over ``vocab.json``/``merges.txt`` (openai/clip format).
+
+    ASCII-oriented pre-tokenization (the CLIP regex's unicode classes
+    reduced to ASCII letter/digit classes); non-ASCII characters fall
+    through as single-symbol tokens and map to byte-level entries when the
+    vocab has them.
+    """
+
+    end_of_word = "</w>"
+
+    def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
+                 max_length: int = 77) -> None:
+        super().__init__(vocab, merges, max_length)
+        self.bos_id = vocab.get("<|startoftext|>", 49406)
+        self.eos_id = vocab.get("<|endoftext|>", 49407)
 
     def encode(self, text: str) -> list[int]:
         ids = [self.bos_id]
@@ -159,9 +178,6 @@ class ClipBpeTokenizer(AddedTokenMixin):
         ids.append(self.eos_id)
         ids += [self.eos_id] * (self.max_length - len(ids))  # CLIP pads w/ eos
         return ids
-
-    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
-        return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
 
 
 def _bytes_to_unicode() -> dict[int, str]:
@@ -197,7 +213,7 @@ except ImportError:  # pragma: no cover
     )
 
 
-class ByteLevelBpeTokenizer(AddedTokenMixin):
+class ByteLevelBpeTokenizer(_BpeTokenizer):
     """GPT-2/RoBERTa byte-level BPE over ``vocab.json``/``merges.txt`` (the
     CLAP tower's RobertaTokenizer): case-sensitive, bytes mapped through the
     GPT-2 unicode table, the space carried as a leading ``Ġ`` on a piece,
@@ -206,54 +222,12 @@ class ByteLevelBpeTokenizer(AddedTokenMixin):
 
     def __init__(self, vocab: dict[str, int], merges: list[tuple[str, str]],
                  max_length: int = 77) -> None:
-        self.vocab = vocab
-        self.ranks = {pair: i for i, pair in enumerate(merges)}
-        self.max_length = max_length
+        super().__init__(vocab, merges, max_length)
         self.byte_map = _bytes_to_unicode()
         self.bos_id = vocab.get("<s>", vocab.get("<|endoftext|>", 0))
         self.eos_id = vocab.get("</s>", vocab.get("<|endoftext|>", 2))
         self.pad_id = vocab.get("<pad>", 1)
         self.unk_id = vocab.get("<unk>", self.eos_id)
-        self._cache: dict[str, list[str]] = {}
-
-    @classmethod
-    def from_dir(cls, path: str | Path, max_length: int = 77
-                 ) -> "ByteLevelBpeTokenizer":
-        path = Path(path)
-        with open(path / "vocab.json", encoding="utf-8") as fh:
-            vocab = json.load(fh)
-        merges: list[tuple[str, str]] = []
-        with open(path / "merges.txt", encoding="utf-8") as fh:
-            for line in fh:
-                line = line.rstrip("\n")
-                if not line or line.startswith("#version"):
-                    continue
-                a, _, b = line.partition(" ")
-                merges.append((a, b))
-        return cls(vocab, merges, max_length)
-
-    def _bpe(self, token: str) -> list[str]:
-        if token in self._cache:
-            return self._cache[token]
-        word = list(token)
-        while len(word) > 1:
-            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
-            best = min(pairs, key=lambda p: self.ranks.get(p, 1 << 30))
-            if best not in self.ranks:
-                break
-            a, b = best
-            merged: list[str] = []
-            i = 0
-            while i < len(word):
-                if i < len(word) - 1 and word[i] == a and word[i + 1] == b:
-                    merged.append(a + b)
-                    i += 2
-                else:
-                    merged.append(word[i])
-                    i += 1
-            word = merged
-        self._cache[token] = word
-        return word
 
     def encode(self, text: str) -> list[int]:
         ids = [self.bos_id]
@@ -275,9 +249,6 @@ class ByteLevelBpeTokenizer(AddedTokenMixin):
         ids += [self.pad_id] * (self.max_length - len(ids))
         return ids
 
-    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
-        return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
-
 
 class HashTokenizer(AddedTokenMixin):
     """Deterministic, vocab-file-free tokenizer for random-weight models.
@@ -286,13 +257,12 @@ class HashTokenizer(AddedTokenMixin):
 
     def __init__(self, vocab_size: int = 1000, max_length: int = 77,
                  eos_id: int | None = None, bos_id: int | None = None,
-                 pad_id: int | None = None, add_bos: bool = True) -> None:
+                 pad_id: int | None = None) -> None:
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.eos_id = eos_id if eos_id is not None else vocab_size - 1
         self.bos_id = bos_id if bos_id is not None else self.eos_id - 1
         self.pad_id = pad_id if pad_id is not None else self.eos_id
-        self.add_bos = add_bos
         # hashed ids never collide with the specials: masks and pooled
         # readouts are derived from exact id equality. Specials sit at the
         # bottom (CLAP 0/1/2) or the top (CLIP) of the vocab; ids hash into
@@ -320,10 +290,8 @@ class HashTokenizer(AddedTokenMixin):
         return ids
 
     def encode(self, text: str) -> list[int]:
-        """[bos +] tokenize() body (truncated) + eos, padded with pad_id."""
-        head = [self.bos_id] if self.add_bos else []
-        n_special = len(head) + 1
-        ids = head + self.tokenize(text)[: self.max_length - n_special]
+        """bos + tokenize() body (truncated) + eos, padded with pad_id."""
+        ids = [self.bos_id] + self.tokenize(text)[: self.max_length - 2]
         ids.append(self.eos_id)
         ids += [self.pad_id] * (self.max_length - len(ids))
         return ids[: self.max_length]
@@ -344,8 +312,8 @@ def _vocab_is_byte_level(vocab_path: Path) -> bool:
 
 def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
                    eos_id: int = 49407, max_length: int = 77,
-                   bos_id: int | None = None, pad_id: int | None = None,
-                   add_bos: bool = True) -> Tokenizer:
+                   bos_id: int | None = None,
+                   pad_id: int | None = None) -> Tokenizer:
     """:class:`ClipBpeTokenizer` or :class:`ByteLevelBpeTokenizer` when
     vocab files exist under the checkpoint (itself, ``tokenizer/`` or
     ``text_encoder/``), told apart by their pieces; else
@@ -375,7 +343,7 @@ def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
                 "HashTokenizer — generations will NOT match the reference "
                 "model", path)
     return HashTokenizer(vocab_size, max_length, eos_id, bos_id=bos_id,
-                         pad_id=pad_id, add_bos=add_bos)
+                         pad_id=pad_id)
 
 
 class WordPieceTokenizer:

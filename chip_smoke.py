@@ -1686,7 +1686,7 @@ def settings_root_dir() -> Path:
 
 def bytes_to_unicode() -> dict[int, str]:
     """GPT-2's reversible byte -> printable-character table, the alphabet
-    CLIP's vocab is built on."""
+    CLIP's vocab and CLAP's byte-level vocab are built on."""
     bs = (list(range(ord("!"), ord("~") + 1))
           + list(range(ord("¡"), ord("¬") + 1))
           + list(range(ord("®"), ord("ÿ") + 1)))
@@ -5476,10 +5476,8 @@ def synthetic_byte_level_vocab() -> tuple[dict, list]:
     """CLAP's tokenizer shape: RoBERTa's specials, the 256 byte symbols,
     merges that build a few words with and without their leading ``Ġ``,
     padded to 50,265 entries."""
-    from chiaswarm_tpu_torch.models.tokenizer import _bytes_to_unicode
-
     vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
-    for ch in _bytes_to_unicode().values():
+    for ch in bytes_to_unicode().values():
         vocab.setdefault(ch, len(vocab))
     merges = []
     for word in ("rain", "on", "a", "tin", "roof", "distant", "thunder",

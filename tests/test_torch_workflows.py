@@ -198,3 +198,44 @@ def test_unported_workflows_stay_fatal_naming_item_6(job):
     result = got["later-1"]
     assert result["fatal_error"] is True
     assert "ROADMAP queue item 6" in result["pipeline_config"]["error"]
+
+
+@pytest.mark.parametrize("job", [
+    {"workflow": "img2txt", "model_name": "Salesforce/blip-vqa-base",
+     "prompt": "what is it?", "content_type": "application/json",
+     "parameters": {"model_type": "BlipForQuestionAnswering"}},
+    {"workflow": "txt2audio", "model_name": "cvssp/audioldm-s-full-v2",
+     "prompt": "rain", "content_type": "audio/wav"},
+], ids=["img2txt", "txt2audio"])
+def test_a_model_not_on_disk_is_refused_as_the_jax_worker_refuses_it(job):
+    """Without ``allow_random`` a model the node lacks is "not available on
+    this node" in both workers, and neither envelope is fatal. An img2txt
+    job carries the refusal as an error artifact in a successful envelope
+    (the caption workload turns every failure into one, so the envelope
+    has no ``error_kind``); a txt2audio job's envelope is of the non-fatal
+    ``model_unavailable`` kind, so the hive may route it to a node that has
+    the model."""
+    def jobs_of(uri):
+        return [dict(job, id="missing-1", seed=1,
+                     start_image_uri=f"{uri}/assets/image.png")]
+
+    want = _serve(JaxWorker, jsettings, JaxPool(n_slots=1),
+                  JaxRegistry(allow_random=False), jobs_of)["missing-1"]
+    got = _serve(tworker.Worker, tsettings, ChipPool(device="cpu"),
+                 ModelRegistry(allow_random=False, device="cpu"),
+                 jobs_of)["missing-1"]
+    config = got["pipeline_config"]
+    assert "not available on this node" in config["error"]
+    assert not got.get("fatal_error")
+    if job["workflow"] == "img2txt":
+        assert "error_kind" not in config
+        text = base64.b64decode(got["artifacts"]["primary"]["blob"]).decode()
+        assert config["error"] in json.loads(text)["caption"]
+    else:
+        assert config["error_kind"] == "model_unavailable"
+    strip = ("pipeline_config", "worker_name")
+    assert {k: v for k, v in got.items() if k not in strip} == \
+        {k: v for k, v in want.items() if k not in strip}
+    assert {k: v for k, v in config.items() if k not in TIMINGS} == \
+        {k: v for k, v in want["pipeline_config"].items()
+         if k not in TIMINGS}

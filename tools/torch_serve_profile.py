@@ -31,7 +31,7 @@ host seconds beside the generation's.
 ``--audio`` profiles a 10 s txt2audio job instead (AudioLDM at the JAX
 family's widths, random weights from seed 0: UNet and VAE bf16, CLAP and
 the vocoder float32; 20 steps, guidance 2.5, the default sampler; ``--seconds``
-sets the length, ``--guidance`` the guidance): the summary with B1's device
+sets the length): the summary with B1's device
 ms and share (head dim 32). ``--caption`` profiles BLIP-base (random from
 seed 0, its question tower too) on a 512 px picture: a caption, a
 conditioned caption and a VQA answer, each summary with its launches.
@@ -55,7 +55,7 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py [--model sdxl] --lanes 8 [--width 8]
     python tools/torch_serve_profile.py --lanes 8 --sweep 1,2,4,8,16
     python tools/torch_serve_profile.py --lanes 8 --checker
-    python tools/torch_serve_profile.py --audio [--seconds 10] [--guidance 2.5]
+    python tools/torch_serve_profile.py --audio [--seconds 10]
     python tools/torch_serve_profile.py --caption
 
 Needs one NVIDIA GPU; it refuses to run without one.
@@ -101,8 +101,6 @@ def main(argv: list[str] | None = None) -> int:
                         help="profile an AudioLDM txt2audio job")
     parser.add_argument("--seconds", type=float, default=10.0,
                         help="with --audio: the job's audio length")
-    parser.add_argument("--guidance", type=float, default=2.5,
-                        help="with --audio: the job's guidance scale")
     parser.add_argument("--caption", action="store_true",
                         help="profile BLIP-base captions and a VQA answer")
     args = parser.parse_args(argv)
@@ -183,13 +181,13 @@ def audio_main(torch, args) -> int:
     pipe = AudioPipeline(AudioComponents.random("audioldm", seed=0,
                                                 device="cuda"))
     run = functools.partial(pipe, negative_prompt="low quality",
-                            steps=args.steps, guidance_scale=args.guidance,
+                            steps=args.steps, guidance_scale=2.5,
                             duration_s=args.seconds, seed=1)
     summary = profiled(torch, run, "rain on a tin roof, distant thunder",
                        args.trace, args.top)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "model": "audioldm", "seconds": args.seconds,
-                      "guidance": args.guidance, "steps": args.steps,
+                      "guidance": 2.5, "steps": args.steps,
                       "param_bytes": pipe.c.param_bytes(), **summary}))
     return 0
 
