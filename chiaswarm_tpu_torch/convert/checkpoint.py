@@ -421,3 +421,70 @@ def load_audio_checkpoint(checkpoint_dir: str | Path, model_name: str,
                                        tokenizer, precast=True)
     lander.finish()
     return components
+
+
+# ------------------------------------------------------------------- Bark
+
+def _bark_stage(s: dict[str, torch.Tensor], fine_heads: int = 0
+                ) -> dict[str, torch.Tensor]:
+    """One transformers Bark stage (``BarkCausalModel`` or, with
+    ``fine_heads`` LM heads, ``BarkFineModel``) -> the port's
+    ``models/gpt.py`` names, by JAX's ``_bark_layer_map``
+    (``torch_to_flax.py:1093-1148``): the attention submodule named ``attn``
+    or ``attention`` (its causal-mask buffer ``bias`` skipped), absent
+    LayerNorm biases as zeros (Bark's LayerNorms have none), an absent fine
+    head tied to ``input_embeds_layers[k + 1]``."""
+    out = {}
+    for key, value in s.items():
+        parts = key.split(".")
+        if len(parts) > 2 and parts[2] in ("attn", "attention"):
+            if parts[-1] == "bias" and len(parts) == 4:
+                continue  # the causal-mask buffer
+            parts[2] = "attn"
+        out[".".join(parts)] = value
+    norms = [k[: -len(".weight")] for k in out
+             if k.endswith(".weight") and ("layernorm" in k)]
+    for norm in norms:
+        if norm + ".bias" not in out:
+            out[norm + ".bias"] = torch.zeros_like(out[norm + ".weight"])
+    for k in range(fine_heads):
+        head = f"lm_heads.{k}.weight"
+        if head not in out and f"input_embeds_layers.{k + 1}.weight" in out:
+            out[head] = out[f"input_embeds_layers.{k + 1}.weight"]
+    return out
+
+
+def _encodec_decoder(s: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A transformers ``EncodecModel`` state (weight norm folded) -> the
+    port's ``models/codec.py`` names, by JAX's ``convert_encodec_decoder``
+    (``torch_to_flax.py:1151-1195``): the quantizer's
+    ``layers.{k}.codebook.embed`` as ``codebooks.{k}.weight``, the decoder's
+    keys under ``decoder.`` as they are (the port keeps its positional
+    ``layers.{i}``); the encoder's keys are skipped by the load."""
+    out = {}
+    for key, value in s.items():
+        parts = key.split(".")
+        if parts[0] == "quantizer":
+            if parts[-1] == "embed":
+                out[f"codebooks.{parts[2]}.weight"] = value
+        elif parts[0] == "decoder":
+            out[".".join(parts[1:])] = value
+        else:
+            out[key] = value
+    return out
+
+
+def convert_bark(state: dict[str, torch.Tensor], family
+                 ) -> dict[str, dict[str, torch.Tensor]]:
+    """A transformers ``BarkModel`` state dict -> the port's ``semantic``,
+    ``coarse``, ``fine`` and ``codec`` state dicts (JAX ``convert_bark``,
+    ``torch_to_flax.py:1198-1216``), weight norm folded first
+    (:func:`fold_weight_norm`, both spellings)."""
+    state = fold_weight_norm(state)
+    return {
+        "semantic": _bark_stage(_strip(state, "semantic.")),
+        "coarse": _bark_stage(_strip(state, "coarse_acoustics.")),
+        "fine": _bark_stage(_strip(state, "fine_acoustics."),
+                            fine_heads=family.n_fine - 1),
+        "codec": _encodec_decoder(_strip(state, "codec_model.")),
+    }

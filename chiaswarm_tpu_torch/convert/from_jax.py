@@ -349,3 +349,96 @@ def audio_state_from_flax(tree: dict[str, Any], family
     out["vae"] = _convert(_skeleton(AutoencoderKL, family.vae), tree["vae"],
                           _vae_path, len(family.vae.block_out_channels))
     return out
+
+
+# ------------------------------------------------------------------- TTS
+
+_BARK_BLOCK = {"attn_qkv": "attn.att_proj", "attn_proj": "attn.out_proj",
+               "mlp_fc": "mlp.in_proj", "mlp_proj": "mlp.out_proj"}
+_BARK_NORMS = {"ln_1": "layernorm_1", "ln_2": "layernorm_2"}
+
+
+def _bark_gpt_state(params: dict) -> dict[str, np.ndarray]:
+    """A ``models/gpt.py`` GPT or FineGPT tree -> the port's (transformers')
+    names: Dense kernels transposed, ``wpe`` the position table."""
+    flat: dict[str, np.ndarray] = {}
+    for path, node in params.items():
+        if path == "wpe":
+            flat["position_embeds_layer.weight"] = np.asarray(node, np.float32)
+        elif path == "wte":
+            flat["input_embeds_layer.weight"] = np.asarray(
+                node["embedding"], np.float32)
+        elif path.startswith("wte_"):
+            flat[f"input_embeds_layers.{path[4:]}.weight"] = np.asarray(
+                node["embedding"], np.float32)
+        elif path == "ln_f":
+            _norm(flat, node, "layernorm_final")
+        elif path == "lm_head":
+            flat["lm_head.weight"] = np.asarray(node["kernel"], np.float32).T
+        elif path.startswith("lm_head_"):
+            flat[f"lm_heads.{path[8:]}.weight"] = np.asarray(
+                node["kernel"], np.float32).T
+        else:
+            t = f"layers.{path[2:]}"  # h_{i}
+            for src, dst in _BARK_BLOCK.items():
+                flat[f"{t}.{dst}.weight"] = np.asarray(
+                    node[src]["kernel"], np.float32).T
+            for src, dst in _BARK_NORMS.items():
+                _norm(flat, node[src], f"{t}.{dst}")
+    return flat
+
+
+def _codec_state(params: dict, transposed: set[int]
+                 ) -> dict[str, np.ndarray]:
+    """A ``models/codec.py`` CodecDecoder tree -> the port's names: conv
+    kernels (K, I, O) -> (O, I, K); the transposed convs' (K, I, O) ->
+    (I, O, K) flipped along K (a Flax ``ConvTranspose`` correlates the
+    dilated input with its kernel, PyTorch's convolves); the LSTM's
+    torch-layout leaves as they are."""
+    flat: dict[str, np.ndarray] = {}
+
+    def conv(node: dict, name: str, transpose: bool = False) -> None:
+        kernel = np.asarray(node["kernel"], np.float32)
+        flat[f"{name}.weight"] = (kernel[::-1].transpose(1, 2, 0).copy()
+                                  if transpose else
+                                  kernel.transpose(2, 1, 0).copy())
+        flat[f"{name}.bias"] = np.asarray(node["bias"], np.float32)
+
+    for path, node in params.items():
+        if path.startswith("codebook_"):
+            flat[f"codebooks.{path[9:]}.weight"] = np.asarray(
+                node["embedding"], np.float32)
+            continue
+        idx = int(path.split("_")[1])
+        base = f"layers.{idx}"
+        if "conv" in node:
+            conv(node["conv"], f"{base}.conv", idx in transposed)
+        elif "block_1" in node:
+            for sub, name in (("block_1", "block.1"), ("block_3", "block.3"),
+                              ("shortcut", "shortcut")):
+                if sub in node:
+                    conv(node[sub]["conv"], f"{base}.{name}.conv")
+        else:
+            for leaf, value in node.items():
+                flat[f"{base}.lstm.{leaf}"] = np.asarray(value, np.float32)
+    return flat
+
+
+def tts_state_from_flax(tree: dict[str, Any], family
+                        ) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's ``TTSComponents.params`` -> the port's float32
+    state dicts of ``semantic``, ``coarse``, ``fine`` and ``codec``. Every
+    Flax leaf is carried across exactly once."""
+    from chiaswarm_tpu_torch.models.codec import transpose_slots
+
+    out = {}
+    for name in ("semantic", "coarse", "fine", "codec"):
+        params = tree[name]["params"]
+        flat = (_codec_state(params, transpose_slots(family.codec))
+                if name == "codec" else _bark_gpt_state(params))
+        leaves = len(list(_leaves(params)))
+        if len(flat) != leaves:
+            raise ValueError(f"{name}: {leaves} Flax params, {len(flat)} "
+                             "carried across")
+        out[name] = {k: torch.tensor(v) for k, v in flat.items()}
+    return out

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-NEG_INF = -1e9
+from chiaswarm_tpu_torch.models.common import NEG_INF, mask_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,10 +388,6 @@ class BlipTextModel(nn.Module):
         return x
 
 
-def _ring_bias(ok: torch.Tensor) -> torch.Tensor:
-    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
-
-
 @torch.inference_mode()
 def generate_text(model: BlipTextModel, prompt_ids: torch.Tensor,
                   enc_states: torch.Tensor, enc_mask: torch.Tensor | None, *,
@@ -430,7 +426,7 @@ def generate_text(model: BlipTextModel, prompt_ids: torch.Tensor,
     ok = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < alen)
     logits = model(prompt_ids, causal=True, cross_kvs=cross_kvs,
                    cross_bias=cross_bias, caches=caches, index=0,
-                   ring_bias=_ring_bias(ok)[None, None])
+                   ring_bias=mask_bias(ok)[None, None])
     tok = logits[:, alen - 1].argmax(dim=-1)
     done = tok == eos
     out = [tok]
@@ -440,7 +436,7 @@ def generate_text(model: BlipTextModel, prompt_ids: torch.Tensor,
         logits = model(tok[:, None], causal=True, cross_kvs=cross_kvs,
                        cross_bias=cross_bias, caches=caches, index=idx,
                        pos_index=alen + t,
-                       ring_bias=_ring_bias(ok)[None, None, None])
+                       ring_bias=mask_bias(ok)[None, None, None])
         nxt = logits[:, 0].argmax(dim=-1)
         nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
         done = done | (nxt == eos)

@@ -13,6 +13,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+#: the additive mask value of the JAX attention modules
+NEG_INF = -1e9
+
+
+def mask_bias(ok: torch.Tensor) -> torch.Tensor:
+    """A visibility mask -> the additive float32 bias (0 or ``NEG_INF``)."""
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
 
 def num_groups(channels: int) -> int:
     """32 GroupNorm groups when divisible (the SD standard); largest divisor

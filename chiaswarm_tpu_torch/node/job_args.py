@@ -9,12 +9,13 @@ A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
 - ``img2txt`` fetches ``start_image_uri`` through the guarded
   :func:`get_image` into ``image`` (an array) and goes to
   ``workloads/caption.py::caption_callback``;
-- ``txt2audio`` goes to ``workloads/audio.py::txt2audio_callback`` through
+- ``txt2audio`` with a TTS model name (``pipelines/tts.py::
+  is_tts_model``, the one copy of the gate) goes to
+  ``workloads/audio.py::tts_callback`` with its arguments as they are
+  (JAX :61-68); any other model to ``txt2audio_callback`` through
   :func:`_format_audio_args`: 20 steps unless the job names a count,
   ``scheduler_type`` from the ``parameters`` block, server-listed
-  unsupported arguments stripped. A TTS model name (:func:`is_tts_model`,
-  JAX ``pipelines/tts.py``) is refused: bark comes next in ROADMAP queue
-  item 6;
+  unsupported arguments stripped;
 - ``vid2vid``, ``img2vid``, ``txt2vid`` and ``DeepFloyd/`` models are
   refused, naming ROADMAP queue item 6 (video, the cascade);
 - every other workflow (none, ``txt2img``, ``img2img``, ``inpaint``, any
@@ -86,19 +87,7 @@ _LATER_WORKFLOWS = {
     "txt2vid": "video",
 }
 
-#: TTS model families of the JAX package (``pipelines/tts.py::TTS_FAMILIES``)
-TTS_FAMILIES = ("bark", "tiny_tts")
-
 FormatResult = tuple[Callable[..., tuple[dict, dict]], dict[str, Any]]
-
-
-def is_tts_model(model_name: str) -> bool:
-    """The bark/TTS routing gate, copied from JAX
-    ``pipelines/tts.py::is_tts_model``: a bark-family TAIL of the model name
-    ("suno/bark", "bark-small", the tiny family), not a substring, so
-    "acme/embark-audioldm" stays on the AudioLDM path."""
-    tail = (model_name or "").lower().rsplit("/", 1)[-1]
-    return tail.startswith("bark") or tail in TTS_FAMILIES
 
 
 def _later(what: str) -> ValueError:
@@ -113,8 +102,11 @@ def format_args(job: dict[str, Any], registry) -> FormatResult:
     workflow = args.pop("workflow", None)
 
     if workflow == "txt2audio":
+        from chiaswarm_tpu_torch.pipelines.tts import is_tts_model
+        from chiaswarm_tpu_torch.workloads.audio import tts_callback
+
         if is_tts_model(str(args.get("model_name", ""))):
-            raise _later(f"text to speech ({args.get('model_name')!r})")
+            return tts_callback, args
         return _format_audio_args(args)
 
     if workflow == "stitch":

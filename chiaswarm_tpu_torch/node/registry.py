@@ -44,14 +44,17 @@ private UNet (``convert/lora.py``) before the pipeline is handed out. Their
 files load from :func:`model_dir` of the adapter's name; a missing one is
 "not available on this node", the non-fatal ``model_unavailable`` kind.
 
-:meth:`ModelRegistry.caption_pipeline` (JAX :493-547) and
-:meth:`ModelRegistry.audio_pipeline` (JAX :354-389) serve img2txt and
-txt2audio: a BLIP directory in transformers' layout and an AudioLDM one in
-diffusers' layout under :func:`model_dir`, on the slot mesh's lead device,
-keyed ``("caption" | "audio", name, device)``. An unusable caption
-directory logs and, like a missing one, takes seeded tiny weights only
-under ``allow_random``, as in JAX. On a ``seq`` > 1 slot both raise
-(ROADMAP queue item 7).
+:meth:`ModelRegistry.caption_pipeline` (JAX :493-547),
+:meth:`ModelRegistry.audio_pipeline` (JAX :354-389) and
+:meth:`ModelRegistry.tts_pipeline` (JAX :451-491) serve img2txt and
+txt2audio: a BLIP directory in transformers' layout, an AudioLDM one in
+diffusers' layout and a Bark one in transformers' layout under
+:func:`model_dir`, on the slot mesh's lead device, keyed ``("caption" |
+"audio" | "tts", name, device)``. An unusable caption or Bark directory
+logs and, like a missing one, takes seeded weights only under
+``allow_random``, as in JAX. On a ``seq`` > 1 slot the first two raise
+(ROADMAP queue item 7); TTS, which JAX never rings, runs on the slot's
+lead card.
 """
 
 from __future__ import annotations
@@ -349,6 +352,50 @@ class ModelRegistry:
 
         return self.residency.acquire(
             ("audio", model_name, _device_key(device)), build,
+            model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
+            priority=self._priority_for(model_name))
+
+    def tts_pipeline(self, model_name: str,
+                     mesh: DeviceMesh | None = None):
+        """The resident bark-class TTS pipeline of ``model_name`` (JAX
+        :451-491) on the slot mesh's lead device: a transformers
+        ``BarkModel`` directory under :func:`model_dir`
+        (``TTSComponents.from_checkpoint``); one that cannot be loaded logs
+        and, like no directory at all, gives seeded random weights of the
+        family under ``allow_random``, else the model is not available on
+        this node. One ledger entry per ``("tts", name, device)``: JAX's key
+        plus the device, as every one-card entry of the port."""
+        from chiaswarm_tpu_torch.pipelines.tts import (
+            TTSComponents,
+            TTSPipeline,
+            get_tts_family,
+        )
+
+        self._check_quarantine(model_name)
+        # JAX builds it on the default device whatever the slot: it never
+        # rings, so a seq slot serves it on its lead card
+        device = self.device if mesh is None else mesh.lead
+
+        def build() -> TTSPipeline:
+            family = get_tts_family(model_name)
+            ckpt = model_dir(model_name)
+            if ckpt.exists():
+                try:
+                    log.info("loading tts model %s from %s", model_name, ckpt)
+                    return TTSPipeline(TTSComponents.from_checkpoint(
+                        ckpt, model_name, family, device=device))
+                except Exception as exc:
+                    log.warning("tts checkpoint at %s unusable (%s: %s)",
+                                ckpt, type(exc).__name__, exc)
+            if self.allow_random:
+                log.warning("tts model %s: using random weights", model_name)
+                return TTSPipeline(TTSComponents.random(
+                    family, model_name=model_name, device=device))
+            raise ValueError(f"tts model {model_name!r} is not available on "
+                             f"this node (no checkpoint at {ckpt})")
+
+        return self.residency.acquire(
+            ("tts", model_name, _device_key(device)), build,
             model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
             priority=self._priority_for(model_name))
 

@@ -48,13 +48,15 @@ from chiaswarm_tpu_torch.core.buckets import bucket_batch
 from chiaswarm_tpu_torch.core.device import resolve_device, upload
 from chiaswarm_tpu_torch.core.rng import randn_rows, row_generators, row_seed
 from chiaswarm_tpu_torch.models.clap import ClapTextConfig, ClapTextEncoder
-from chiaswarm_tpu_torch.models.common import cast_module
 from chiaswarm_tpu_torch.models.configs import UNetConfig, VAEConfig
 from chiaswarm_tpu_torch.models.tokenizer import HashTokenizer, Tokenizer
 from chiaswarm_tpu_torch.models.unet import UNet
 from chiaswarm_tpu_torch.models.vae import AutoencoderKL
 from chiaswarm_tpu_torch.models.vocoder import HifiGan, HifiGanConfig
-from chiaswarm_tpu_torch.pipelines.components import _DTYPES, flax_default_init
+from chiaswarm_tpu_torch.pipelines.components import (
+    build_modules,
+    flax_default_init,
+)
 from chiaswarm_tpu_torch.schedulers import (
     NOISY_KINDS,
     ScheduleConfig,
@@ -178,17 +180,8 @@ class AudioComponents:
         if isinstance(family, str):
             family = AUDIO_FAMILIES[family]
         dev = resolve_device(device)
-        modules = {}
-        for index, name in enumerate(MODULES):
-            ctor, config, dtype = _ctor(family, name)
-            with torch.device("meta"):
-                module = ctor(config)
-            if precast:
-                cast_module(module, _DTYPES[dtype])
-            module = module.to_empty(device=dev)
-            fill(index, name, module)
-            cast_module(module, _DTYPES[dtype])
-            modules[name] = module.eval().requires_grad_(False)
+        modules = build_modules([(name, *_ctor(family, name))
+                                 for name in MODULES], dev, fill, precast)
         return cls(family=family,
                    model_name=model_name or f"random/{family.name}",
                    tokenizer=tokenizer or hash_tokenizer(family),

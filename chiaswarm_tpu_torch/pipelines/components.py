@@ -117,6 +117,22 @@ def _empty(ctor, config, device: torch.device,
     return module.to_empty(device=device)
 
 
+def build_modules(specs, device: torch.device, fill,
+                  precast: bool = False) -> dict[str, nn.Module]:
+    """``specs``: (name, constructor, config, dtype name) in fill order.
+    Each module gets uninitialized storage on ``device``, is filled by
+    ``fill(index, name, module)`` and cast to its dtype (before the fill
+    too with ``precast``; modules marked ``keep_fp32`` stay float32), in
+    eval mode without gradients."""
+    modules = {}
+    for index, (name, ctor, config, dtype) in enumerate(specs):
+        dtype = _DTYPES[dtype]
+        module = _empty(ctor, config, device, dtype if precast else None)
+        fill(index, name, module)
+        modules[name] = cast_module(module, dtype).eval().requires_grad_(False)
+    return modules
+
+
 @dataclasses.dataclass
 class Components:
     family: ModelFamily

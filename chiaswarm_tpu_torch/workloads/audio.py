@@ -1,14 +1,18 @@
-"""The txt2audio workload (AudioLDM-class), a copy of the txt2audio half
-of ``chiaswarm_tpu/workloads/audio.py`` (the reference's
-swarm/audio/audioldm.py: 20 steps and 10 s of 16 kHz audio by default).
+"""The txt2audio workload, a copy of ``chiaswarm_tpu/workloads/audio.py``:
+AudioLDM-class audio (``txt2audio_callback``; the reference's
+swarm/audio/audioldm.py: 20 steps and 10 s of 16 kHz audio by default) and
+bark-class text to speech (``tts_callback``; swarm/audio/bark.py:11-38).
 
 The artifact is MP3 (``audio/mpeg``) when an ``ffmpeg`` binary is on PATH,
 encoded through its CLI as the reference's pydub does, else WAV
 (``audio/wav``) through the standard library's ``wave``: content
 negotiation, as in JAX, not a device fallback. The pipeline comes resident
 from the registry on the slot's lead device (``pipelines/audio.py``); a
-``seq`` > 1 slot raises (ROADMAP queue item 7). Text to speech
-(``tts_callback``, bark) is a later slice.
+``seq`` > 1 slot raises (ROADMAP queue item 7). A TTS job's voice preset
+comes as arrays (``parameters.history`` or ``parameters.voice_preset``:
+{semantic_prompt, coarse_prompt, fine_prompt}); a preset named by a string
+is refused with a ``ValueError`` (a fatal envelope), since the worker ships
+no preset files.
 """
 
 from __future__ import annotations
@@ -106,5 +110,44 @@ def txt2audio_callback(slot, model_name: str, *, seed: int,
         duration_s=float(audio_length_in_s),
         seed=seed,
         scheduler=scheduler_type,
+    )
+    return _finalize_audio(slot, t0, wav, sr, config)
+
+
+def tts_callback(slot, model_name: str, *, seed: int,
+                 registry=None,
+                 prompt: str = "",
+                 audio_length_in_s: float = 4.0,
+                 temperature: float = 0.7,
+                 voice_preset_tokens: list[int] | None = None,
+                 parameters: dict | None = None,
+                 **_ignored: Any):
+    """Bark-class TTS: three GPT stages and the codec decode
+    (``pipelines/tts.py``), one waveform of ``audio_length_in_s``."""
+    if registry is None:
+        raise ValueError("tts requires the model registry")
+    parameters = parameters or {}
+    pipe = registry.tts_pipeline(model_name,
+                                 mesh=getattr(slot, "mesh", None))
+    t0 = time.perf_counter()
+    history = parameters.get("history") or parameters.get("voice_preset")
+    if isinstance(history, str):
+        # upstream bark names presets ("v2/en_speaker_6") resolved from
+        # bundled npz files this worker does not ship; a ValueError marks
+        # the job fatal (swarm/generator.py:34-41 taxonomy)
+        raise ValueError(
+            f"named voice preset {history!r} is not available on this "
+            "worker; send the preset arrays as parameters.history = "
+            "{semantic_prompt, coarse_prompt, fine_prompt}")
+    if history is not None:
+        history = {k: np.asarray(v) for k, v in history.items()}
+    wav, sr, config = pipe(
+        prompt or "",
+        duration_s=float(audio_length_in_s),
+        seed=seed,
+        temperature=float(temperature),
+        voice_preset_tokens=(voice_preset_tokens
+                             or parameters.get("voice_preset_tokens")),
+        history=history,
     )
     return _finalize_audio(slot, t0, wav, sr, config)

@@ -422,6 +422,24 @@ each phase printing one JSON line:
                 (cuDNN's default TF32) within that bar of its CPU run.
                 Prints job seconds, ``generation_s``, device ms by stage,
                 B1's share and the peak memory.
+15ab. tts_serve — Bark at its published widths (three 24 x 1,024 GPTs in
+                bf16, vocabularies 129,600 / 12,096 / 1,056, the 8-codebook
+                EnCodec at 24 kHz in float32; 1.10 B parameters), random
+                from seed 0 through the registry's ``allow_random``
+                fallback; a 4 s job at temperature 0.7, one with a
+                ``history`` preset of Bark's shapes and one naming a preset
+                by a string through the worker, then the first again: WAV
+                (MP3 with ffmpeg) of ``frames x 320`` samples at 24 kHz, the
+                same bytes twice, the named preset JAX's fatal envelope, no
+                kernel launched; the semantic stage at ``top_k = 1`` against
+                a float32 CPU forward of the same weights over the ids the
+                card fed back (first-step logits within 0.08, every id the
+                CPU's where its top-two gap is at least that); the codec
+                within 1e-2 relative L2 of its CPU run. Prints job seconds,
+                ``generation_s``, the served jobs' device ms by stage,
+                decode tokens/s, the busy share and launches per decode
+                step (``tools/torch_serve_profile.py``'s ``tts_profile``)
+                and the peak memory.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -5341,22 +5359,23 @@ def write_blip(torch, path: Path) -> dict:
 
 
 @contextlib.contextmanager
-def record_logits(pipe):
-    """Each LM-head call of ``pipe``'s answer/caption decoder, in order (the
-    prefill's logits, then one per decode step)."""
+def record_logits(owner, attr: str):
+    """Each call of ``owner``'s LM-head method ``attr`` in the block, its
+    output on the host, in order (the prefill's logits, then one per
+    decode step)."""
     calls = []
-    head = pipe.c.decoder.lm_logits
+    head = getattr(owner, attr)
 
     def kept(x):
         out = head(x)
         calls.append(out.float().cpu())
         return out
 
-    pipe.c.decoder.lm_logits = kept
+    setattr(owner, attr, kept)
     try:
         yield calls
     finally:
-        del pipe.c.decoder.lm_logits
+        delattr(owner, attr)
 
 
 def step_logits(calls: list, prompt_len: int) -> list:
@@ -5365,26 +5384,27 @@ def step_logits(calls: list, prompt_len: int) -> list:
     return [calls[0][0, prompt_len - 1]] + [c[0, 0] for c in calls[1:]]
 
 
-def caption_gate(name: str, card: list, cpu: list, sep: int) -> dict:
-    """The first step's logits within ``BLIP_BAR`` of the CPU's; the chosen
-    ids equal up to the first step whose top-two CPU logit gap is below the
-    bar (or SEP). Returns the step that ended the comparison."""
+def logit_gate(name: str, bar: float, card: list, cpu: list,
+               stop: int) -> dict:
+    """The first step's logits within ``bar`` of the CPU's; the chosen ids
+    equal up to the first step whose top-two CPU logit gap is below the bar
+    (or the ``stop`` id). Returns the step that ended the comparison."""
     first_err = float((card[0] - cpu[0]).abs().max())
     close_at = None
     for t, (a, b) in enumerate(zip(card, cpu)):
         top2 = b.topk(2).values
-        if float(top2[0] - top2[1]) < BLIP_BAR:
+        if float(top2[0] - top2[1]) < bar:
             close_at = t
             break
         if int(a.argmax()) != int(b.argmax()):
-            raise AssertionError(f"caption_serve {name}: step {t} chose "
+            raise AssertionError(f"{name}: step {t} chose "
                                  f"{int(a.argmax())} on the card, "
                                  f"{int(b.argmax())} on the CPU")
-        if int(b.argmax()) == sep:
+        if int(b.argmax()) == stop:
             break
-    if not first_err <= BLIP_BAR:
-        raise AssertionError(f"caption_serve {name}: first-step logits differ "
-                             f"by {first_err} (bar {BLIP_BAR})")
+    if not first_err <= bar:
+        raise AssertionError(f"{name}: first-step logits differ by "
+                             f"{first_err} (bar {bar})")
     return {"first_step_max_abs_err": first_err, "close_step": close_at,
             "steps_compared": t + 1}
 
@@ -5445,14 +5465,15 @@ def caption_serve_phase(torch, strict, pool) -> dict:
         cfg = by_id[job["id"]]["pipeline_config"]
         if "error" in cfg:
             raise AssertionError(f"caption_serve {case}: {cfg['error']}")
-        with record_logits(pipe) as card_calls:
+        with record_logits(pipe.c.decoder, "lm_logits") as card_calls:
             text = pipe(picture, prompt, vqa=vqa)
-        with record_logits(cpu) as cpu_calls:
+        with record_logits(cpu.c.decoder, "lm_logits") as cpu_calls:
             cpu_text = cpu(picture, prompt, vqa=vqa)
         plen = 1 if (vqa or not prompt) else len(
             pipe.c.tokenizer.tokenize(prompt)[:16]) + 1
-        gate = caption_gate(case, step_logits(card_calls, plen),
-                            step_logits(cpu_calls, plen), sep)
+        gate = logit_gate(f"caption_serve {case}", BLIP_BAR,
+                          step_logits(card_calls, plen),
+                          step_logits(cpu_calls, plen), sep)
         if cfg["caption"] != text:
             raise AssertionError(f"caption_serve {case}: the worker's text "
                                  f"{cfg['caption']!r} != a direct call's "
@@ -5532,9 +5553,9 @@ def write_audioldm(torch, path: Path) -> dict:
             "bytes": total}
 
 
-def audio_samples(artifact: dict) -> "np.ndarray":
+def audio_samples(artifact: dict, rate: int = 16000) -> "np.ndarray":
     """An audio artifact's 16-bit samples: WAV through ``wave``, MP3
-    through the ffmpeg CLI."""
+    through the ffmpeg CLI (decoded at ``rate``)."""
     import shutil
     import wave
 
@@ -5546,30 +5567,38 @@ def audio_samples(artifact: dict) -> "np.ndarray":
             return np.frombuffer(fh.readframes(fh.getnframes()), "<i2")
     proc = subprocess.run(
         [shutil.which("ffmpeg"), "-hide_banner", "-loglevel", "error",
-         "-i", "pipe:0", "-f", "s16le", "-ac", "1", "-ar", "16000", "pipe:1"],
+         "-i", "pipe:0", "-f", "s16le", "-ac", "1", "-ar", str(rate),
+         "pipe:1"],
         input=blob, capture_output=True, timeout=120, check=True)
     return np.frombuffer(proc.stdout, "<i2")
 
 
+AUDIO_STAGES = {"text": "encode_text", "denoise": "denoise",
+                "vae_decode": "decode_mel", "vocoder": "vocode"}
+
+
 @contextlib.contextmanager
-def audio_stages(torch, pipe):
-    """CUDA-event ms of each stage of ``pipe``'s calls in the block (text,
-    denoise, VAE decode, vocoder), summed per stage, and the mel of the
-    last decode."""
-    rec = {"events": collections.defaultdict(list), "mel": None}
-    stages = {"text": "encode_text", "denoise": "denoise",
-              "vae_decode": "decode_mel", "vocoder": "vocode"}
+def timed_stages(torch, pipe, stages: dict):
+    """CUDA-event ms (``ms``: summed per stage; ``ms_each``: per call) and
+    host seconds (``host_s_each``) of each stage (``stage: method of pipe``)
+    of ``pipe``'s calls in the block, and each stage's last first argument
+    and output (``args``, ``out``)."""
+    rec = {"events": collections.defaultdict(list),
+           "host_s_each": collections.defaultdict(list), "args": {},
+           "out": {}}
 
     def timed(stage, fn):
         def call(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             out = fn(*args, **kw)
             end.record()
+            rec["host_s_each"][stage].append(time.perf_counter() - t0)
             rec["events"][stage].append((start, end))
-            if stage == "vae_decode":
-                rec["mel"] = out
+            rec["args"][stage] = args[0] if args else None
+            rec["out"][stage] = out
             return out
         return call
 
@@ -5581,8 +5610,9 @@ def audio_stages(torch, pipe):
         for attr in stages.values():
             delattr(pipe, attr)
         torch.cuda.synchronize()
-        rec["ms"] = {stage: sum(s.elapsed_time(e) for s, e in evs)
-                     for stage, evs in rec["events"].items()}
+        rec["ms_each"] = {stage: [s.elapsed_time(e) for s, e in evs]
+                          for stage, evs in rec["events"].items()}
+        rec["ms"] = {stage: sum(ms) for stage, ms in rec["ms_each"].items()}
 
 
 def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
@@ -5684,7 +5714,7 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
               steps=AUDIO_STEPS, guidance_scale=job["guidance_scale"],
               duration_s=job["audio_length_in_s"], seed=job["seed"])
     kernels.reset_launches()
-    with audio_stages(torch, pipe) as stages:
+    with timed_stages(torch, pipe, AUDIO_STAGES) as stages:
         t1 = time.perf_counter()
         wav, _, _ = pipe(**kw)
         direct_s = time.perf_counter() - t1
@@ -5700,7 +5730,7 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
         worker_samples, np.frombuffer(pcm16_wav(wav[0])[44:], "<i2")))
     # the vocoder's float32 convs on the card (cuDNN, TF32 by default)
     # against its CPU run on the same mel
-    mel = stages["mel"]
+    mel = stages["out"]["vae_decode"]
     with torch.inference_mode():
         card_wav = pipe.c.vocoder(mel).cpu()
         cpu_voc = copy.deepcopy(pipe.c.vocoder).cpu()
@@ -5732,6 +5762,243 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
     if not voc_rel <= AUDIO_BAR:
         raise AssertionError(f"audio_serve: the vocoder on the card differs "
                              f"from its CPU run by {voc_rel} relative L2")
+    return run
+
+
+TTS_MODEL = "suno/bark"  # random weights from seed 0 (the registry's fallback)
+TTS_TEXT = "Hello, my name is Suno. And, uh, I like pizza."
+TTS_SECONDS = 4.0
+TTS_SEM_STEPS = 32      # semantic steps held against the float32 CPU run
+TTS_LOGIT_BAR = 0.08    # bf16 card against float32 CPU, first-step logits
+TTS_CODEC_BAR = 1e-2    # relative L2 of the codec's waveform, card vs CPU
+TTS_STAGES = {"semantic": "_semantic", "coarse": "_coarse", "fine": "_fine",
+              "codec": "decode_codes"}
+
+
+def tts_preset(seed: int) -> dict:
+    """A voice preset of Bark's shapes (a bundled speaker's: ~6 s of
+    history), random from ``seed``, as JSON lists."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"semantic_prompt": rng.integers(0, 10_000, 300).tolist(),
+            "coarse_prompt": rng.integers(0, 1024, (2, 450)).tolist(),
+            "fine_prompt": rng.integers(0, 1024, (8, 450)).tolist()}
+
+
+TTS_JOBS = [{"id": "tts-1", "workflow": "txt2audio", "model_name": TTS_MODEL,
+             "prompt": TTS_TEXT, "audio_length_in_s": TTS_SECONDS, "seed": 1,
+             "content_type": "audio/wav"}]
+TTS_JOBS += [dict(TTS_JOBS[0], id="tts-preset", seed=2,
+                  parameters={"history": tts_preset(2)}),
+             dict(TTS_JOBS[0], id="tts-named", seed=3,
+                  parameters={"voice_preset": "v2/en_speaker_6"})]
+
+
+def profile_tool():
+    """``tools/torch_serve_profile.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_profile", ROOT / "tools" / "torch_serve_profile.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def tts_semantic_gate(torch, pipe) -> dict:
+    """The semantic stage at ``top_k = 1`` for ``TTS_SEM_STEPS`` steps on
+    the card (bf16), and one float32 CPU forward of the same weights over
+    the card's prefill and the ids it fed back (teacher forcing, so a close
+    pick does not carry into later steps): ``logit_gate`` at
+    ``TTS_LOGIT_BAR`` over the stage's allowed ids (the first step's logits
+    within the bar, the ids equal up to the first close step), then every
+    later step's id the CPU's wherever the CPU's top-two gap is at least
+    the bar. Prints each step's error."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.models.gpt import init_caches
+
+    fam = pipe.c.family
+    allowed, eos = fam.semantic_vocab + 1, fam.semantic_vocab
+    L = fam.max_input_semantic_length
+    with record_logits(pipe.c.semantic.lm_head, "forward") as calls:
+        pipe._semantic(TTS_TEXT, pipe.generator(1), 0.0, 1, TTS_SEM_STEPS,
+                       None)
+    card = [c[:allowed] for c in step_logits(calls, L + 1)]
+    fed, done = [], False
+    for c in card:  # the ids the decode embedded: the picks, then the pad
+        fed.append(eos if done else int(c.argmax()))
+        done = done or fed[-1] == eos
+    sem = cast_module(copy.deepcopy(pipe.c.semantic).cpu(), torch.float32)
+    with torch.inference_mode():
+        prefill = pipe.semantic_embeds(TTS_TEXT, None).cpu().float()
+        seq = torch.cat([prefill, sem.input_embeds_layer(
+            torch.tensor([fed[:-1]]))], dim=1)
+        n = seq.shape[1]
+        logits, _ = sem(None, init_caches(sem.config, 1, "cpu", torch.float32,
+                                          length=n), 0, n, embeds=seq)
+    del sem
+    cpu = [logits[0, L + t, :allowed] for t in range(len(card))]
+    gate = logit_gate("tts_serve semantic", TTS_LOGIT_BAR, card, cpu, eos)
+    errs = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+    compared = 0
+    for t, (a, b) in enumerate(zip(card, cpu)):
+        top2 = b.topk(2).values
+        if float(top2[0] - top2[1]) < TTS_LOGIT_BAR:
+            continue
+        compared += 1
+        if int(a.argmax()) != int(b.argmax()):
+            raise AssertionError(f"tts_serve semantic: step {t} chose "
+                                 f"{int(a.argmax())} on the card, "
+                                 f"{int(b.argmax())} on the CPU (forced)")
+    return {**gate, "bar": TTS_LOGIT_BAR, "steps": len(card),
+            "forced_steps_compared": compared,
+            "step_max_abs_err": max(errs),
+            "step_mean_max_abs_err": sum(errs) / len(errs),
+            "first_step_rel_l2": float((card[0] - cpu[0]).norm()
+                                       / cpu[0].norm()),
+            "first_step_logit_range": [float(cpu[0].min()),
+                                       float(cpu[0].max())]}
+
+
+def tts_serve_phase(torch, registry, pool) -> dict:
+    """Bark at its published widths (three 24 x 1,024 GPTs in bf16 with
+    vocabularies 129,600 / 12,096 / 1,056 and the 8-codebook EnCodec at
+    24 kHz in float32), random from seed 0 through the registry's
+    ``allow_random`` fallback; through the worker a 4 s job at the default
+    temperature 0.7, a job with a ``history`` preset of Bark's shapes and a
+    job naming a preset by a string, then the first job again. Gates: the
+    served envelopes error-free with ``audio/wav`` (``audio/mpeg`` with
+    ffmpeg) of ``frames x 320`` samples at 24,000 Hz; the repeat the same
+    bytes; the named preset JAX's fatal envelope; no port kernel launched;
+    the semantic stage at ``top_k = 1`` against a float32 CPU run of the
+    same weights (``tts_semantic_gate``); the codec's waveform on the card
+    within 1e-2 relative L2 of its float32 CPU run on the same codes.
+    Prints job seconds and ``generation_s``, the served jobs' device ms and
+    host seconds by stage, decode tokens/s, the busy share and launches per
+    decode step from the profile tool, and the peak memory."""
+    import copy
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from chiaswarm_tpu_torch.pipelines.tts import TTSPipeline
+
+    t0 = time.perf_counter()
+    pipe = registry.tts_pipeline(TTS_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    fam = pipe.c.family
+    hop, rate = fam.codec.hop_length, fam.codec.sampling_rate
+    params = {m.__class__.__name__ + ":" + name: sum(
+        p.numel() for p in m.parameters())
+        for name, m in zip(("semantic", "coarse", "fine", "codec"),
+                           pipe.c.modules())}
+    if fam.name != "bark" or (hop, rate) != (320, 24000):
+        raise AssertionError(f"tts_serve: family {fam.name}, hop {hop}, "
+                             f"rate {rate}")
+    ffmpeg = shutil.which("ffmpeg")
+    want_type = "audio/mpeg" if ffmpeg else "audio/wav"
+    tool = profile_tool()
+    with LocalHive() as hive:
+        from chiaswarm_tpu_torch.ops import kernels
+
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with tool.counted_decode_steps(pipe) as calls, \
+                timed_stages(torch, pipe, TTS_STAGES) as stages:
+            worker = serve_through_worker(hive, pool, registry, TTS_JOBS)
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+        serve_through_worker(hive, pool, registry,
+                             [dict(TTS_JOBS[0], id="tts-1-again")])
+        again = hive.results[-1]
+        run, launches = launched(), kernel_launches()
+    jobs = {}
+    for job in TTS_JOBS[:2]:
+        result = by_id[job["id"]]
+        cfg = result["pipeline_config"]
+        if "error" in cfg:
+            raise AssertionError(f"tts_serve {job['id']}: {cfg['error']}")
+        artifact = result["artifacts"]["primary"]
+        samples = audio_samples(artifact, rate)
+        want_n = cfg["frames"] * hop
+        exact = artifact["content_type"] == "audio/wav"
+        if (artifact["content_type"] != want_type or cfg["sample_rate"] != rate
+                or (len(samples) != want_n if exact
+                    else abs(len(samples) - want_n) > 2 * 1152)):
+            raise AssertionError(f"tts_serve {job['id']}: "
+                                 f"{artifact['content_type']} of "
+                                 f"{len(samples)} samples at "
+                                 f"{cfg['sample_rate']} Hz, want {want_type} "
+                                 f"of {want_n} at {rate}")
+        jobs[job["id"]] = {"job_seconds": rows[job["id"]]["seconds"],
+                           "generation_s": cfg["generation_s"],
+                           "semantic_tokens": cfg["semantic_tokens"],
+                           "frames": cfg["frames"], "samples": len(samples),
+                           "duration_s": cfg["duration_s"]}
+    named = by_id["tts-named"]
+    named_error = named["pipeline_config"].get("error", "")
+    if named.get("fatal_error") is not True \
+            or "named voice preset" not in named_error:
+        raise AssertionError(f"tts_serve: the named preset's envelope: "
+                             f"{named.get('fatal_error')} {named_error!r}")
+    repeat_equal = (again["artifacts"]["primary"]
+                    == by_id["tts-1"]["artifacts"]["primary"])
+    if not repeat_equal:
+        raise AssertionError("tts_serve: the same job twice differs")
+    if any(launches.values()):
+        raise AssertionError(f"tts_serve launched kernels: {launches}")
+
+    # the served jobs' stages, in the order the worker ran them
+    steps = []
+    for stage, n in calls:
+        if stage == "semantic":
+            steps.append({"semantic": 0, "coarse": 0})
+        steps[-1][stage] += n
+    host = stages["host_s_each"]
+    served = {"stage_ms": stages["ms_each"], "stage_host_s": dict(host),
+              "device_ms": [sum(ms) for ms in zip(*stages["ms_each"].values())],
+              "decode_steps": steps,
+              "semantic_tokens_per_s": [
+                  d["semantic"] / s for d, s in zip(steps, host["semantic"])],
+              "coarse_tokens_per_s": [
+                  d["coarse"] / s for d, s in zip(steps, host["coarse"])]}
+    # the codec on the card (cuDNN's default TF32) against its float32 CPU
+    # run on the same codes
+    codes = stages["args"]["codec"]
+    cpu_codec = TTSPipeline(dataclasses.replace(
+        pipe.c, codec=copy.deepcopy(pipe.c.codec).cpu(),
+        device=torch.device("cpu")))
+    card_wav = pipe.decode_codes(codes)
+    cpu_wav = cpu_codec.decode_codes(codes)
+    del cpu_codec
+    codec_rel = float(np.linalg.norm(card_wav - cpu_wav)
+                      / np.linalg.norm(cpu_wav))
+    semantic_gate = tts_semantic_gate(torch, pipe)
+    profile = tool.tts_profile(torch, pipe, TTS_SECONDS, warm_up=False)
+    profile["top"] = profile["top"][:8]
+    emit("tts_serve", load_s=load_s, param_bytes=pipe.c.param_bytes(),
+         params=params, dtypes={name: str(next(m.parameters()).dtype)
+                                for name, m in zip(
+                                    ("semantic", "coarse", "fine", "codec"),
+                                    pipe.c.modules())},
+         ffmpeg=ffmpeg, content_type=want_type, jobs=jobs,
+         repeat_bytes_equal=repeat_equal, named_preset_error=named_error,
+         launches=launches, served=served, profile=profile,
+         semantic_vs_cpu=semantic_gate,
+         codec_vs_cpu={"rel_l2": codec_rel,
+                       "max_abs_err": float(np.abs(card_wav - cpu_wav).max()),
+                       "frames": int(codes.shape[1]), "bar": TTS_CODEC_BAR,
+                       "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32},
+         max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
+    if not codec_rel <= TTS_CODEC_BAR:
+        raise AssertionError(f"tts_serve: the codec on the card differs from "
+                             f"its CPU run by {codec_rel} relative L2")
     return run
 
 
@@ -5950,6 +6217,8 @@ def run_phases(torch, t0: float) -> int:
         runs["audio_serve"] = audio_serve_phase(torch, strict, pool, b1_rows)
         del strict
         torch.cuda.empty_cache()
+        # text to speech: Bark's three GPT stages and the EnCodec decode
+        runs["tts_serve"] = tts_serve_phase(torch, registry, pool)
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}

@@ -50,6 +50,17 @@ from chiaswarm_tpu_torch.node.registry import ModelRegistry
 from chiaswarm_tpu_torch.pipelines import audio as taudio
 from chiaswarm_tpu_torch.workloads import audio as tworkload
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BAR = 2e-4
 TEXTS = ["a dog barking in the rain", "Thunder, then SILENCE.",
          "café crème 42 ünïcode", "", "  spaced   out  ", "x" * 300]

@@ -42,6 +42,17 @@ from chiaswarm_tpu_torch.pipelines.caption import (
 )
 from chiaswarm_tpu_torch.workloads import caption as tcaption
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 BAR = 2e-4
 WORDS = ["a", "dog", "cat", "on", "the", "beach", "red", "##s", "##ing",
          "run", "what", "is", "color", "photo", "of", "##ly", "sun", "set"]

@@ -56,6 +56,17 @@ from chiaswarm_tpu_torch.pipelines.diffusion import (
 )
 from tests.torch_export import write_checkpoint
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PROMPT = "a lighthouse on a cliff at golden hour, oil painting"
 DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
 

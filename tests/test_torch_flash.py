@@ -28,6 +28,17 @@ from chiaswarm_tpu_torch.ops.flash_attention import (
     flash_attention_plain,
 )
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CASES = [
     (2, 64, 64, 4, 40),     # the tests/test_ops.py cases
     (1, 100, 77, 2, 64),

@@ -11,7 +11,10 @@ vision tower against its CPU run, a ControlNet eval through B1 against the
 plain route, and a scale-0 control job against its txt2img twin; B1 at
 AudioLDM's head dim 32 (bf16 and fp16 on the tensor cores at its serve
 shapes, ragged and strided, fp32 on the sweep, and its refusal of rows off
-16 bytes), B2 and B3 still at their own head dims.
+16 bytes), B2 and B3 still at their own head dims; text to speech (the
+tiny family on the card against its CPU run, launching no kernel of the
+port; the same job twice, the same bytes; two layers at Bark's width in
+bf16 following the float32 CPU decode).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1616,3 +1619,111 @@ def test_upscaler_unet_eval_through_b1_matches_the_plain_route(cuda_device):
                    (1, 1024, 1024, 12, 64, "bfloat16"): 5}, new
     rel = ((got - want).norm() / want.norm()).item()
     assert torch.isfinite(got).all() and rel <= 3e-2, rel
+
+
+# ------------------------------------------------------- text to speech
+
+def _tts_on(components, device):
+    """``components`` (drawn once, on the CPU) with every module on
+    ``device``: a copy, the CPU modules kept."""
+    import copy
+    import dataclasses
+
+    from chiaswarm_tpu_torch.pipelines.tts import MODULES
+
+    return dataclasses.replace(
+        components, device=device,
+        **{name: copy.deepcopy(getattr(components, name)).to(device)
+           for name in MODULES})
+
+
+def test_tts_pipeline_on_the_card_matches_its_cpu_run(cuda_device):
+    """tiny_tts in float32 (TF32 off) at temperature 0 and ``top_k = 1``:
+    the same config (token counts) and waveform within 1e-4 of the CPU's,
+    and no kernel of the port launched (the stages attend in plain
+    PyTorch, as JAX does outside any Pallas kernel)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.ops import (  # noqa: F401 (registers B1-B3)
+        flash_attention as _b1,
+        kernels,
+        ring_flash_attention as _b23,
+    )
+    from chiaswarm_tpu_torch.pipelines.tts import TTSComponents, TTSPipeline
+
+    cpu = TTSComponents.random("tiny_tts", seed=5, device="cpu")
+    history = {"semantic_prompt": np.arange(20) % 50,
+               "coarse_prompt": np.arange(48).reshape(2, 24) % 16,
+               "fine_prompt": np.arange(96).reshape(4, 24) % 16}
+    kw = dict(duration_s=0.5, seed=3, temperature=0.0, top_k=1,
+              history=history)
+    want, _, want_cfg = TTSPipeline(cpu)("hello there, world", **kw)
+    kernels.reset_launches()
+    got, _, got_cfg = TTSPipeline(_tts_on(cpu, cuda_device))(
+        "hello there, world", **kw)
+    assert sum(k.launches for k in kernels.KERNELS.values()) == 0
+    assert got_cfg == want_cfg
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_tts_same_job_twice_gives_the_same_bytes_on_the_card(cuda_device):
+    """Sampling at temperature 0.7 from the job's generator on the card:
+    the same seed, the same waveform bytes; another seed, others."""
+    from chiaswarm_tpu_torch.pipelines.tts import TTSComponents, TTSPipeline
+
+    pipe = TTSPipeline(TTSComponents.random("tiny_tts", seed=6,
+                                            device=cuda_device))
+    a = pipe("a dog barking in the rain", duration_s=0.5, seed=11)
+    b = pipe("a dog barking in the rain", duration_s=0.5, seed=11)
+    c = pipe("a dog barking in the rain", duration_s=0.5, seed=12)
+    assert a[0].tobytes() == b[0].tobytes() and a[2] == b[2]
+    assert a[0].tobytes() != c[0].tobytes()
+
+
+def test_bark_width_decode_in_bf16_follows_the_fp32_cpu_decode(cuda_device):
+    """Two layers at Bark's width (1,024 wide, 16 heads) in bf16 on the
+    card against the same weights in float32 on the CPU: a padded prefill
+    and 16 decode steps at ``top_k = 1``. The first step's logits within
+    3e-2 relative L2 (bf16 weights and activations), the ids equal up to
+    the first step whose top-two CPU logit gap is below 0.1."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.models.gpt import GPT, GPTConfig
+    from chiaswarm_tpu_torch.pipelines.tts import _random_fill, _stage_decode
+
+    cfg = GPTConfig(vocab_size=12_096, n_layer=2, n_head=16, n_embd=1024,
+                    block_size=1024)
+    cpu = GPT(cfg)
+    _random_fill(cpu, torch.Generator().manual_seed(0))
+    cpu.eval().requires_grad_(False)
+    card = cast_module(copy.deepcopy(cpu), torch.bfloat16).to(cuda_device)
+    prompt = torch.randint(0, 12_096, (1, 40),
+                           generator=torch.Generator().manual_seed(1))
+    masks = torch.zeros(2, cfg.out_vocab)
+    runs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda_device)):
+        steps = []
+        head = model.lm_head.forward
+
+        def kept(x, head=head, steps=steps):
+            out = head(x)
+            steps.append(out.float().cpu())
+            return out
+
+        model.lm_head.forward = kept
+        ids = _stage_decode(model, prompt.to(dev), None, 33,
+                            torch.Generator(device=dev), prefill_len=40,
+                            max_new=16, top_k=1, temperature=0.0,
+                            step_masks=masks.to(dev), eos_id=-1, pad_id=0)
+        del model.lm_head.forward
+        runs[name] = (ids.cpu()[0], [steps[0][0, 32]]
+                      + [s[0, 0] for s in steps[1:]])
+    first_cpu, first_card = runs["cpu"][1][0], runs["card"][1][0]
+    rel = float((first_card - first_cpu).norm() / first_cpu.norm())
+    assert rel <= 3e-2, rel
+    for t, logits in enumerate(runs["cpu"][1]):
+        top2 = logits.topk(2).values
+        if float(top2[0] - top2[1]) < 0.1:
+            break
+        assert int(runs["card"][0][t]) == int(runs["cpu"][0][t]), t

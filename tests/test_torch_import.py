@@ -88,7 +88,8 @@ def test_package_has_the_slice_modules():
                   "workloads.controlnet", "workloads.stitch",
                   "models.blip", "pipelines.caption", "workloads.caption",
                   "models.clap", "models.vocoder", "pipelines.audio",
-                  "workloads.audio"):
+                  "workloads.audio", "models.gpt", "models.codec",
+                  "pipelines.tts"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -28,6 +28,17 @@ from chiaswarm_tpu_torch.models.configs import FAMILIES
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

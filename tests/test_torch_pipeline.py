@@ -40,6 +40,17 @@ from chiaswarm_tpu_torch.pipelines.diffusion import (
     GenerateRequest,
 )
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 PROMPT = "a lighthouse on a cliff at golden hour"
 
 
@@ -161,7 +172,10 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     # nothing listens on port 1: the fetch's refused connection is a
     # transient fault (retried by the worker), as in the JAX package
     (_job(start_image_uri="http://localhost:1/a.png"), "transient", False),
-    (_job(workflow="txt2audio", model_name="suno/bark"), "fatal", True),
+    # a voice preset named by a string: text to speech refuses it (JAX's
+    # ValueError, no preset files on the worker)
+    (_job(workflow="txt2audio", model_name="tiny_tts",
+          parameters={"voice_preset": "v2/en_speaker_6"}), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
@@ -176,7 +190,10 @@ def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
     # nothing listens on port 1: the fetch's refused connection is a
     # transient fault (retried by the worker), as in the JAX package
     (_job(start_image_uri="http://localhost:1/a.png"), "transient", False),
-    (_job(workflow="txt2audio", model_name="suno/bark"), "fatal", True),
+    # a voice preset named by a string: text to speech refuses it (JAX's
+    # ValueError, no preset files on the worker)
+    (_job(workflow="txt2audio", model_name="tiny_tts",
+          parameters={"voice_preset": "v2/en_speaker_6"}), "fatal", True),
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),

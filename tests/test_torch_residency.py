@@ -46,6 +46,17 @@ from chiaswarm_tpu_torch.serving.residency import (
 from chiaswarm_tpu_torch.serving.stepper import get_stepper
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(autouse=True)
 def _root(tmp_path, monkeypatch):
     monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))

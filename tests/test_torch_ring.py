@@ -55,6 +55,17 @@ from chiaswarm_tpu_torch.parallel.context import (
 )
 from chiaswarm_tpu_torch.parallel.ring_attention import KVRing, ring_attention
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 RTOL = ATOL = 2e-4
 SPEC = P(None, "seq", None, None)
 

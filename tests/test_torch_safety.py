@@ -46,6 +46,17 @@ from chiaswarm_tpu_torch.serving.stepper import get_stepper
 from chiaswarm_tpu_torch.workloads import safety as tsafety
 from tests.test_safety import write_checker_fixture
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CFG = dict(hidden_size=16, intermediate_size=32, num_layers=2, num_heads=2,
            image_size=28, patch_size=14, projection_dim=8)
 N_CONCEPTS, N_SPECIAL = 5, 2

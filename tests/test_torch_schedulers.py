@@ -22,6 +22,17 @@ from chiaswarm_tpu.schedulers import sampling as js
 from chiaswarm_tpu_torch.schedulers import common as tc
 from chiaswarm_tpu_torch.schedulers import sampling as ts
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 KINDS = ["euler", "ddim", "heun", "euler_ancestral", "lcm", "dpmpp_2m"]

@@ -53,6 +53,17 @@ from chiaswarm_tpu_torch.schedulers import sampling as tsampling
 from chiaswarm_tpu_torch.serving.residency import ResidencyManager
 from chiaswarm_tpu_torch.serving.stepper import get_stepper
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 PROMPT = "a lighthouse on a cliff at golden hour"
 CATALOG = [{"name": "tiny_xl", "family": "tiny_xl"}]

@@ -8,9 +8,12 @@ but ``generation_s``, ``elapsed_s`` and ``slot`` (timings and the slot's
 device), the audio's samples within 2e-4 (times 32767, as 16-bit PCM) of
 JAX's. Both registries hand out pipelines on one set of tiny weights (the
 port's carried across from JAX's), and the port's audio pipeline starts
-from JAX's initial draw. Then the jobs the port still refuses, text to
-speech, video and a DeepFloyd cascade: fatal envelopes naming ROADMAP
-queue item 6.
+from JAX's initial draw. A burst of two text-to-speech jobs (one served
+at temperature 0, one naming its voice preset by a string) through both
+workers: the same envelopes. Then the jobs the port still refuses, video
+and a DeepFloyd cascade: fatal envelopes naming ROADMAP queue item 6; and
+a model not on disk (a caption, an AudioLDM and a Bark model), refused as
+the JAX worker refuses it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import wave
 import jax
 import numpy as np
 import pytest
+import torch
 
 from chiaswarm_tpu.core.chip_pool import ChipPool as JaxPool
 from chiaswarm_tpu.node import settings as jsettings
@@ -47,6 +51,17 @@ from chiaswarm_tpu_torch.pipelines.caption import (
 from chiaswarm_tpu_torch.workloads import audio as tworkload
 from tests.fake_hive import FakeHive
 from tests.test_torch_audio import _jax_noise
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """One intra-op thread for this file's tiny models: the suite's workers
+    share the CPU, and many small ops wait on an oversubscribed thread pool
+    far longer than they compute."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -182,13 +197,68 @@ def test_a_burst_of_the_new_workflows_matches_the_jax_worker(tiny_weights):
     assert got["vqa-1"]["pipeline_config"]["caption"]
 
 
+def _tts_jobs(uri: str) -> list[dict]:
+    return [
+        {"id": "tts-1", "workflow": "txt2audio", "seed": 6,
+         "model_name": "tiny_tts", "prompt": "hello there, world",
+         "audio_length_in_s": 0.4, "temperature": 0.0,
+         "content_type": "audio/wav"},
+        {"id": "tts-preset", "workflow": "txt2audio", "seed": 7,
+         "model_name": "suno/bark", "prompt": "hi",
+         "content_type": "audio/wav",
+         "parameters": {"voice_preset": "v2/en_speaker_6"}},
+    ]
+
+
+def test_a_tts_burst_matches_the_jax_worker():
+    """Text to speech through both workers on one burst, both registries
+    handing out pipelines on one set of tiny weights: the decode at
+    temperature 0 (argmax in both packages) gives the same envelope but
+    the timings, the samples within 2e-4; a preset named by a string is the
+    same fatal envelope in both."""
+    from chiaswarm_tpu.pipelines import tts as jtts
+    from chiaswarm_tpu_torch.pipelines import tts as ttts
+
+    weights = jtts.TTSComponents.random("tiny_tts", seed=4)
+    j_tts = jtts.TTSPipeline(weights)
+    t_tts = ttts.TTSPipeline(ttts.TTSComponents.from_jax(
+        weights.params, "tiny_tts", device="cpu"))
+    j_registry = JaxRegistry(allow_random=True)
+    j_registry.tts_pipeline = lambda name: j_tts
+    t_registry = ModelRegistry(allow_random=True, device="cpu")
+    t_registry.tts_pipeline = lambda name, mesh=None: t_tts
+
+    want = _serve(JaxWorker, jsettings, JaxPool(n_slots=1), j_registry,
+                  _tts_jobs)
+    got = _serve(tworker.Worker, tsettings, ChipPool(device="cpu"),
+                 t_registry, _tts_jobs)
+    assert set(got) == set(want) == {"tts-1", "tts-preset"}
+    for job_id, ref in want.items():
+        out = got[job_id]
+        assert set(out) == set(ref), job_id
+        assert {k: v for k, v in out["pipeline_config"].items()
+                if k not in TIMINGS} == \
+            {k: v for k, v in ref["pipeline_config"].items()
+             if k not in TIMINGS}, job_id
+    served = got["tts-1"]
+    assert "error" not in served["pipeline_config"]
+    assert served["artifacts"]["primary"]["content_type"] == "audio/wav"
+    a, b = _samples(served), _samples(want["tts-1"])
+    frames = served["pipeline_config"]["frames"]
+    assert a.shape == b.shape == (frames * ttts.TINY_TTS.codec.hop_length,)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 7
+    refused = got["tts-preset"]
+    assert refused["fatal_error"] is True
+    assert "named voice preset" in refused["pipeline_config"]["error"]
+    assert refused["artifacts"] == want["tts-preset"]["artifacts"]
+
+
 @pytest.mark.parametrize("job", [
-    {"workflow": "txt2audio", "model_name": "suno/bark"},
     {"workflow": "txt2vid", "model_name": "damo-vilab/text-to-video-ms-1.7b"},
     {"workflow": "img2vid", "model_name": "stabilityai/stable-video-diffusion"},
     {"workflow": "vid2vid", "model_name": "sd15"},
     {"model_name": "DeepFloyd/IF-I-XL-v1.0", "prompt": "a cat"},
-], ids=["tts", "txt2vid", "img2vid", "vid2vid", "deepfloyd"])
+], ids=["txt2vid", "img2vid", "vid2vid", "deepfloyd"])
 def test_unported_workflows_stay_fatal_naming_item_6(job):
     def jobs_of(uri):
         return [dict(job, id="later-1", seed=1)]
@@ -206,7 +276,9 @@ def test_unported_workflows_stay_fatal_naming_item_6(job):
      "parameters": {"model_type": "BlipForQuestionAnswering"}},
     {"workflow": "txt2audio", "model_name": "cvssp/audioldm-s-full-v2",
      "prompt": "rain", "content_type": "audio/wav"},
-], ids=["img2txt", "txt2audio"])
+    {"workflow": "txt2audio", "model_name": "suno/bark", "prompt": "hello",
+     "content_type": "audio/wav"},
+], ids=["img2txt", "txt2audio", "tts"])
 def test_a_model_not_on_disk_is_refused_as_the_jax_worker_refuses_it(job):
     """Without ``allow_random`` a model the node lacks is "not available on
     this node" in both workers, and neither envelope is fatal. An img2txt

@@ -35,6 +35,12 @@ sets the length): the summary with B1's device
 ms and share (head dim 32). ``--caption`` profiles BLIP-base (random from
 seed 0, its question tower too) on a 512 px picture: a caption, a
 conditioned caption and a VQA answer, each summary with its launches.
+``--tts`` profiles a 4 s text-to-speech job (Bark at its published widths,
+random weights from seed 0: three 24-layer GPTs in bf16, the EnCodec
+decoder in float32; ``--seconds`` sets the length) at the default
+temperature 0.7 and ``top_k`` 50: the summary (CUDA activity only: a job
+launches some half a million kernels), the semantic and coarse decode
+steps it took and the launches per step.
 
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
@@ -57,6 +63,7 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py --lanes 8 --checker
     python tools/torch_serve_profile.py --audio [--seconds 10]
     python tools/torch_serve_profile.py --caption
+    python tools/torch_serve_profile.py --tts [--seconds 4]
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -64,6 +71,7 @@ Needs one NVIDIA GPU; it refuses to run without one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -99,10 +107,13 @@ def main(argv: list[str] | None = None) -> int:
                              "over its image")
     parser.add_argument("--audio", action="store_true",
                         help="profile an AudioLDM txt2audio job")
-    parser.add_argument("--seconds", type=float, default=10.0,
-                        help="with --audio: the job's audio length")
+    parser.add_argument("--seconds", type=float, default=None,
+                        help="with --audio (10) or --tts (4): the job's "
+                             "audio length")
     parser.add_argument("--caption", action="store_true",
                         help="profile BLIP-base captions and a VQA answer")
+    parser.add_argument("--tts", action="store_true",
+                        help="profile a Bark text-to-speech job")
     args = parser.parse_args(argv)
 
     import torch
@@ -122,6 +133,8 @@ def main(argv: list[str] | None = None) -> int:
         return audio_main(torch, args)
     if args.caption:
         return caption_main(torch, args)
+    if args.tts:
+        return tts_main(torch, args)
     mesh = None
     if args.seq > 1:
         n_cards = torch.cuda.device_count()
@@ -178,15 +191,16 @@ def audio_main(torch, args) -> int:
         AudioPipeline,
     )
 
+    seconds = 10.0 if args.seconds is None else args.seconds
     pipe = AudioPipeline(AudioComponents.random("audioldm", seed=0,
                                                 device="cuda"))
     run = functools.partial(pipe, negative_prompt="low quality",
                             steps=args.steps, guidance_scale=2.5,
-                            duration_s=args.seconds, seed=1)
+                            duration_s=seconds, seed=1)
     summary = profiled(torch, run, "rain on a tin roof, distant thunder",
                        args.trace, args.top)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "model": "audioldm", "seconds": args.seconds,
+                      "model": "audioldm", "seconds": seconds,
                       "guidance": 2.5, "steps": args.steps,
                       "param_bytes": pipe.c.param_bytes(), **summary}))
     return 0
@@ -221,6 +235,92 @@ def caption_main(torch, args) -> int:
     return 0
 
 
+TTS_TEXT = "Hello, my name is Suno. And, uh, I like pizza."
+
+
+@contextlib.contextmanager
+def counted_decode_steps(pipe):
+    """Each ``_stage_decode`` call of ``pipe`` in the block, as (stage,
+    max_new)."""
+    from chiaswarm_tpu_torch.pipelines import tts
+
+    calls = []
+    decode = tts._stage_decode
+
+    def counted(gpt, *args, **kw):
+        calls.append(("semantic" if gpt is pipe.c.semantic else "coarse",
+                      kw["max_new"]))
+        return decode(gpt, *args, **kw)
+
+    tts._stage_decode = counted
+    try:
+        yield calls
+    finally:
+        tts._stage_decode = decode
+
+
+def tts_decode_launches(torch, pipe, steps: tuple[int, int] = (2, 12)
+                        ) -> float:
+    """Kernel launches of one coarse decode step: two decodes of the coarse
+    stage behind one 887-slot prefill, ``steps`` tokens each, under the
+    profiler; their difference over the steps' difference."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chiaswarm_tpu_torch.pipelines.tts import _stage_decode
+
+    fam = pipe.c.family
+    P = fam.coarse_prefill
+    prompt = torch.full((1, P), fam.coarse_semantic_pad, dtype=torch.int64,
+                        device=pipe.c.device)
+    masks = torch.zeros(2, fam.coarse.out_vocab, device=pipe.c.device)
+    counts = []
+    for n in steps:
+        def run(n=n):
+            _stage_decode(pipe.c.coarse, prompt, None, P - 40,
+                          pipe.generator(0), prefill_len=P, max_new=n,
+                          top_k=50, temperature=0.7, step_masks=masks,
+                          eos_id=-1, pad_id=0)
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return (counts[1] - counts[0]) / (steps[1] - steps[0])
+
+
+def tts_profile(torch, pipe, seconds: float, top: int = 25,
+                warm_up: bool = True) -> dict:
+    """One Bark job profiled (CUDA activity only; after a warm-up job
+    unless the pipeline is warm), with its decode steps by stage and the
+    launches of one decode step."""
+    import functools
+
+    run = functools.partial(pipe, duration_s=seconds, seed=1)
+    with counted_decode_steps(pipe) as calls:
+        summary = profiled(torch, run, TTS_TEXT, top=top, cpu=False,
+                           warm_up=warm_up)
+    steps = {"semantic": 0, "coarse": 0}
+    for stage, n in calls[len(calls) // 2 if warm_up else 0:]:
+        steps[stage] += n
+    return {**summary, "decode_steps": steps,
+            "launches_per_decode_step": tts_decode_launches(torch, pipe)}
+
+
+def tts_main(torch, args) -> int:
+    from chiaswarm_tpu_torch.pipelines.tts import TTSComponents, TTSPipeline
+
+    seconds = 4.0 if args.seconds is None else args.seconds
+    pipe = TTSPipeline(TTSComponents.random("bark", seed=0, device="cuda"))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "model": "bark", "seconds": seconds,
+                      "param_bytes": pipe.c.param_bytes(),
+                      **tts_profile(torch, pipe, seconds, args.top)}))
+    return 0
+
+
 def upscale_profile(torch, pipe, req, top: int) -> dict:
     """The generation of ``req``, then the x2 pass over its image, each
     profiled after a warm-up."""
@@ -252,17 +352,23 @@ def upscale_profile(torch, pipe, req, top: int) -> dict:
 
 
 def profiled(torch, pipe, req, trace: str | None = None,
-             top: int = 25) -> dict:
+             top: int = 25, cpu: bool = True, warm_up: bool = True) -> dict:
     """One warm-up call of ``pipe(req)`` (cuDNN heuristics, allocator,
-    kernel library loads), then one under the profiler: its summary and
-    its CUDA-event span. ``pipe`` is any callable of ``req``."""
+    kernel library loads; left out for a ``pipe`` already warm), then one
+    under the profiler (CPU and CUDA activity, CUDA's alone without
+    ``cpu``): its summary and its CUDA-event span. ``pipe`` is any
+    callable of ``req``."""
     from torch.profiler import ProfilerActivity, profile
 
-    pipe(req)
+    if warm_up:
+        pipe(req)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         start.record()
         pipe(req)
