@@ -33,6 +33,12 @@ rules: its trunk has the UNet's names, beside ``controlnet_cond_embedding.*``,
 four concept buffers (:func:`split_safety_checker`); a missing buffer
 raises, as in JAX.
 
+A video snapshot (:func:`load_video_checkpoint`) holds ``unet/``, ``vae/``
+and ``text_encoder/`` or ``image_encoder/``: a ModelScope or SVD UNet and
+SVD's temporal VAE load strictly (:func:`check_strict`: a missing, extra or
+misshapen key raises ``ValueError`` in JAX's words), and a plain SD UNet
+inflates into a text family (:func:`inflate_2d`).
+
 Keys with no parameter in the port are skipped with a debug log, as JAX
 skips them. A parameter the checkpoint lacks, a shape that does not match,
 a directory without weight files or a malformed file raises
@@ -420,6 +426,146 @@ def load_audio_checkpoint(checkpoint_dir: str | Path, model_name: str,
     components = AudioComponents.build(family, model_name, device, fill,
                                        tokenizer, precast=True)
     lander.finish()
+    return components
+
+
+# ------------------------------------------------------------------ video
+
+def _slots(module: nn.Module, name: str, state: dict[str, torch.Tensor]
+           ) -> tuple[dict[str, str], list[str]]:
+    """{the port's parameter name: checkpoint key} and the keys with no
+    slot (a text tower's ``position_ids`` buffer aside)."""
+    params = dict(module.named_parameters())
+    source, extra = {}, []
+    for key in state:
+        target = canonical_name(name, key)
+        if target in params:
+            source[target] = key
+        elif key.rsplit(".", 1)[-1] != "position_ids":
+            extra.append(key)
+    return source, extra
+
+
+def check_strict(module: nn.Module, name: str,
+                 state: dict[str, torch.Tensor], model_name: str) -> None:
+    """JAX's ``_strict_match`` (``pipelines/video.py:435-459``): every
+    parameter comes from the snapshot and every snapshot key has a slot,
+    at the module's shape, so a video family's trained temporal weights are
+    never silently replaced. Raises ``ValueError`` in JAX's words."""
+    params = dict(module.named_parameters())
+    source, extra = _slots(module, name, state)
+    missing = sorted(set(params) - set(source))
+    if missing or extra:
+        raise ValueError(
+            f"{model_name}: video UNet snapshot does not convert "
+            f"completely — {len(missing)} module leaves missing from the "
+            f"checkpoint (e.g. {missing[:3]}), {len(extra)} checkpoint "
+            f"keys with no module slot (e.g. {sorted(extra)[:3]})")
+    bad = [t for t, k in source.items()
+           if tuple(state[k].shape) != tuple(params[t].shape)
+           and not (name == "vae" and state[k].dim() == 4
+                    and params[t].dim() == 2)]
+    if bad:
+        raise ValueError(
+            f"{model_name}: converted leaf shapes disagree with the family "
+            f"config at {bad[:3]} (checkpoint "
+            f"{[tuple(state[source[t]].shape) for t in bad[:3]]} vs config "
+            f"{[tuple(params[t].shape) for t in bad[:3]]})")
+
+
+_TEMPORAL_TAGS = ("temp_convs", "temp_attentions", "transformer_in")
+_ZERO_OUTPUTS = ("to_out", "conv4", "proj_out")
+
+
+@torch.no_grad()
+def inflate_2d(unet: nn.Module, state: dict[str, torch.Tensor],
+               lander: TensorLander) -> None:
+    """JAX's ``_inflate_2d`` (``pipelines/video.py:462-501``) for a text
+    family fed a plain SD snapshot: the spatial parameters land from it
+    (a missing one raises); the temporal modules start at identity: norms
+    one, biases and the output projections (``conv4``, ``proj_out``,
+    ``to_out``) zero, the rest N(0, 0.02) from a CPU generator seeded 0."""
+    source, _ = _slots(unet, "unet", state)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    lander.after_allocation()
+    for target, param in unet.named_parameters():
+        if target in source:
+            value = state[source[target]]
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"2D inflation: {target} is "
+                                 f"{tuple(value.shape)} in the checkpoint, "
+                                 f"{tuple(param.shape)} in the family")
+            lander.land(param, value)
+            continue
+        if not any(tag in target for tag in _TEMPORAL_TAGS):
+            raise ValueError(
+                f"2D inflation: spatial UNet leaf {target!r} missing from "
+                f"the converted checkpoint (converter/key mismatch for "
+                f"this architecture variant)")
+        mod_name, leaf = target.rsplit(".", 1)
+        norm = isinstance(unet.get_submodule(mod_name),
+                          (nn.GroupNorm, nn.LayerNorm))
+        if norm and leaf == "weight":
+            param.fill_(1.0)
+        elif leaf == "bias" or any(t in target for t in _ZERO_OUTPUTS):
+            param.zero_()
+        else:
+            lander.land(param, torch.randn(param.shape, generator=gen) * 0.02)
+
+
+def load_video_checkpoint(checkpoint_dir: str | Path, model_name: str,
+                          family, device: str | torch.device | None = None):
+    """A diffusers video snapshot -> ``VideoComponents`` on ``device``
+    (JAX ``VideoComponents.from_checkpoint``, ``pipelines/video.py:313-
+    423``): ``unet/``, ``vae/`` and ``text_encoder/`` with its BPE
+    ``tokenizer/`` (text families), or ``image_encoder/`` (a
+    ``CLIPVisionModelWithProjection``, the port's ``ClipVisionEncoder``
+    names). A ModelScope or SVD UNet and SVD's temporal VAE load strictly
+    (:func:`check_strict`); a plain SD UNet (no ``temp_convs`` or
+    ``transformer_in`` keys) inflates into a text family
+    (:func:`inflate_2d`); an SVD-class family refuses a 2D snapshot before
+    any module is built. The modules are allocated at their serving dtypes
+    before the tensors land."""
+    from chiaswarm_tpu_torch.core.device import resolve_device
+    from chiaswarm_tpu_torch.models.tokenizer import load_tokenizer
+    from chiaswarm_tpu_torch.pipelines.video import VideoComponents
+
+    root = Path(checkpoint_dir)
+    unet_state = read_weights(root / "unet")
+    if family.image_conditioned and not any(
+            ".spatial_res_block." in k for k in unet_state):
+        raise ValueError(
+            f"{model_name}: not an SVD-class spatio-temporal UNet snapshot "
+            f"(no spatial_res_block keys). Image-conditioned families cannot "
+            f"be 2D-inflated — the published UNetSpatioTemporalConditionModel"
+            f" layout is required.")
+    native = family.image_conditioned or any(
+        ".temp_convs." in k or k.startswith("transformer_in.")
+        for k in unet_state)
+    cond = "image_encoder" if family.image_conditioned else "text_encoder"
+    states = {cond: read_weights(root / cond), "unet": unet_state,
+              "vae": read_weights(root / "vae")}
+    tokenizer = None
+    if not family.image_conditioned:
+        te = family.text_encoder
+        tokenizer = load_tokenizer(root, te.vocab_size, te.eos_token_id,
+                                   te.max_position_embeddings)
+    lander = TensorLander(resolve_device(device))
+
+    def fill(index: int, name: str, module: nn.Module) -> None:
+        state = states[name]
+        if name == "unet" and not native:
+            inflate_2d(module, state, lander)
+            return
+        if name == "unet":
+            check_strict(module, name, state, model_name)
+        elif name == "vae" and family.image_conditioned:
+            check_strict(module, name, state, f"{model_name} (vae)")
+        fill_module(module, name, state, lander, root / name)
+
+    components = VideoComponents.build(family, model_name, device, fill,
+                                       tokenizer, precast=True)
+    components.load_stats = lander.finish()
     return components
 
 

@@ -7,7 +7,8 @@ returns ``{"text_encoder_{i}": state_dict, "unet": ..., "vae": ...}`` in the
 port's (diffusers) names:
 
 - Dense kernels ``(in, out)`` -> Linear weights ``(out, in)``;
-- conv kernels HWIO -> OIHW;
+- conv kernels HWIO -> OIHW, and the video families' (3, 1, 1, I, O) frame
+  convs -> (O, I, 3, 1, 1);
 - norm ``scale`` -> ``weight``; ``embedding`` -> ``weight``.
 
 The map runs from the port's side: each module is instantiated on the
@@ -112,7 +113,7 @@ def _text_path(module: str, n_levels: int) -> str:
 
 def _lookup(tree: dict, path: str) -> dict:
     node = tree
-    for part in path.split("/"):
+    for part in filter(None, path.split("/")):
         if part not in node:
             raise KeyError(f"Flax tree has no {path!r} (missing {part!r})")
         node = node[part]
@@ -138,7 +139,10 @@ def _convert(module: nn.Module, flax_tree: dict,
             key = leaf
         value = np.asarray(node[key], dtype=np.float32)
         if key == "kernel":
-            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            # (kT, kH, kW, I, O) / HWIO / (in, out) -> torch's (O, I, ...)
+            value = (value.transpose(4, 3, 0, 1, 2) if value.ndim == 5
+                     else value.transpose(3, 2, 0, 1) if value.ndim == 4
+                     else value.T)
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(f"{name}: Flax {fpath}/{key} has shape "
                              f"{value.shape}, the port expects {tuple(p.shape)}")
@@ -441,4 +445,134 @@ def tts_state_from_flax(tree: dict[str, Any], family
             raise ValueError(f"{name}: {leaves} Flax params, {len(flat)} "
                              "carried across")
         out[name] = {k: torch.tensor(v) for k, v in flat.items()}
+    return out
+
+
+# ----------------------------------------------------------------- video
+
+def _video_inner(rest: str) -> str:
+    """Inside a video block (after its ``{side}_{level}_{kind}_{j}``
+    root): the inverse of JAX's ``_temp_conv_inner``,
+    ``_temporal_block_inner`` and ``_st_attention_inner``
+    (``convert/torch_to_flax.py:226-401``). ``""`` is the root itself (the
+    ``time_mixer``'s ``mix_factor`` sits there)."""
+    if rest == "time_mixer":
+        return ""
+    m = re.fullmatch(r"conv([1-4])\.(\d)", rest)
+    if m:  # TemporalConvLayer: index 0 the GroupNorm, the last the conv
+        k, idx = m.groups()
+        return f"norm{k}" if idx == "0" else f"conv{k}"
+    m = re.fullmatch(r"(spatial|temporal)_res_block\.(.+)", rest)
+    if m:
+        return f"{m.group(1)}/{m.group(2)}"
+    m = re.fullmatch(r"temporal_transformer_blocks\.(\d+)\.(.+)", rest)
+    if m:
+        inner = (m.group(2).replace("ff_in.net.0.proj", "ff_in/proj_in")
+                 .replace("ff_in.net.2", "ff_in/proj_out"))
+        inner = _attn_path(f"transformer_blocks.0.{inner}")
+        return inner.replace("transformer_blocks_0/",
+                             f"temporal_blocks_{m.group(1)}/", 1)
+    if rest.startswith("time_pos_embed."):
+        return rest.replace(".", "/")
+    return _attn_path(rest)
+
+
+def _join(root: str, inner: str) -> str:
+    return f"{root}/{inner}" if inner else root
+
+
+def _video_unet_path(module: str, n_levels: int) -> str:
+    """The port's ``UNet3D``/``UNetSpatioTemporal`` names -> JAX's
+    ``models/video_unet.py`` paths."""
+    m = re.fullmatch(r"(down|up)_blocks\.(\d+)\.(resnets|attentions|temp_convs"
+                     r"|temp_attentions)\.(\d+)(?:\.(.+))?", module)
+    if m:
+        side, idx, kind, j, rest = m.groups()
+        level = int(idx) if side == "down" else n_levels - 1 - int(idx)
+        kind = {"temp_convs": "tconvs", "temp_attentions": "tattns"}.get(
+            kind, kind)
+        return _join(f"{side}_{level}_{kind}_{j}", _video_inner(rest or ""))
+    m = re.fullmatch(r"mid_block\.(resnets|attentions|temp_convs|"
+                     r"temp_attentions)\.(\d+)(?:\.(.+))?", module)
+    if m:
+        kind, j, rest = m.groups()
+        root = {"resnets": f"mid_resnets_{j}", "attentions": "mid_attention",
+                "temp_convs": f"mid_tconvs_{j}",
+                "temp_attentions": "mid_tattn"}[kind]
+        return _join(root, _video_inner(rest or ""))
+    if module.startswith("transformer_in."):
+        return "transformer_in/" + _attn_path(module.split(".", 1)[1])
+    return _unet_path(module, n_levels)
+
+
+def _temporal_vae_path(module: str, n_levels: int) -> str:
+    """The port's ``AutoencoderKLTemporalDecoder`` names -> JAX's."""
+    if not module.startswith("decoder."):
+        return _vae_path(module, n_levels)
+    rest = module.removeprefix("decoder.")
+    m = re.fullmatch(r"mid_block\.resnets\.(\d+)(?:\.(.+))?", rest)
+    if m:
+        return _join(f"decoder/mid_resnets_{m.group(1)}",
+                     _video_inner(m.group(2) or ""))
+    m = re.fullmatch(r"mid_block\.attentions\.0\.(.+)", rest)
+    if m:
+        return "decoder/mid_attention/" + m.group(1).replace("to_out.0",
+                                                             "to_out")
+    m = re.fullmatch(r"up_blocks\.(\d+)\.resnets\.(\d+)(?:\.(.+))?", rest)
+    if m:
+        level = n_levels - 1 - int(m.group(1))
+        return _join(f"decoder/up_{level}_resnets_{m.group(2)}",
+                     _video_inner(m.group(3) or ""))
+    m = re.fullmatch(r"up_blocks\.(\d+)\.upsamplers\.0\.conv", rest)
+    if m:
+        return f"decoder/up_{n_levels - 1 - int(m.group(1))}_upsample"
+    return f"decoder/{rest}"  # conv_in, conv_norm_out, conv_out, time_conv_out
+
+
+def _vision_path(module: str, n_levels: int) -> str:
+    """The port's ``ClipVisionEncoder`` (transformers'
+    ``CLIPVisionModelWithProjection`` names) -> JAX's ``ClipVisionEncoder``
+    (the inverse of ``convert_clip_vision``)."""
+    if module == "visual_projection":
+        return module
+    rest = module.removeprefix("vision_model.")
+    if rest == "embeddings":
+        return ""  # class_embedding sits at the root
+    if rest.startswith("embeddings."):
+        return rest.removeprefix("embeddings.")
+    m = re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", rest)
+    if m:
+        return f"layers_{m.group(1)}/" + m.group(2).replace(
+            "mlp.", "").replace(".", "/")
+    return rest  # pre_layrnorm / post_layernorm
+
+
+def video_state_from_flax(tree: dict[str, Any], family
+                          ) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's ``VideoComponents.params`` (numpy) -> the port's
+    float32 state dicts: ``text_encoder`` (text families) or
+    ``image_encoder`` (SVD-class), ``unet`` (``UNet3D`` or
+    ``UNetSpatioTemporal``) and ``vae`` (``AutoencoderKL`` or
+    ``AutoencoderKLTemporalDecoder``)."""
+    from chiaswarm_tpu_torch.models.clip import ClipVisionEncoder
+    from chiaswarm_tpu_torch.pipelines.video import (
+        make_video_unet,
+        make_video_vae,
+    )
+
+    n_unet = len(family.unet.block_out_channels)
+    n_vae = len(family.vae.block_out_channels)
+    out = {"unet": _convert(_skeleton(make_video_unet, family), tree["unet"],
+                            _video_unet_path, n_unet),
+           "vae": _convert(_skeleton(make_video_vae, family), tree["vae"],
+                           _temporal_vae_path if family.image_conditioned
+                           else _vae_path, n_vae)}
+    if family.image_conditioned:
+        out["image_encoder"] = _convert(
+            _skeleton(ClipVisionEncoder, family.vision),
+            tree["image_encoder"], _vision_path, 0)
+    else:
+        out["text_encoder"] = _convert(
+            _skeleton(ClipTextEncoder, family.text_encoder),
+            tree["text_encoder"], _text_path, 0)
     return out

@@ -22,6 +22,12 @@ a tag before the seed, so it never equals a ``(seed, row)`` stream. A job
 draws it once, whatever its rows, and its rows share the one encoded latent,
 as the JAX package repeats ``z`` over a job's rows.
 
+A vid2vid chunk encodes one init frame per row; row r's posterior comes
+from :func:`posterior_row_generator` (row 0's is the job's
+``posterior_generator``). An img2vid job's conditioning frame is
+noise-augmented from a per-job stream of its own
+(:func:`noise_aug_generator`).
+
 The latent upscaler draws three streams per row, one per stage (the
 posterior of its encode, the initial noise on the 2x grid, the step noise),
 where the JAX package folds the stage into the row's key
@@ -73,6 +79,33 @@ def posterior_seed(seed: int) -> int:
 def posterior_generator(seed: int) -> torch.Generator:
     """The CPU generator of job ``seed``'s one VAE posterior draw."""
     return torch.Generator(device="cpu").manual_seed(posterior_seed(seed))
+
+
+def posterior_row_generator(seed: int, row: int) -> torch.Generator:
+    """The CPU generator of the VAE posterior draw of row ``row`` of job
+    ``seed``, for a job whose rows each encode their own init image (a
+    vid2vid chunk's frames): row 0 is :func:`posterior_generator` itself, so
+    a one-frame stack draws what a one-image job draws; row r > 0 hashes
+    the domain tag with the (seed, row) pair, a message of another length."""
+    if row == 0:
+        return posterior_generator(seed)
+    digest = hashlib.sha256(_POSTERIOR_DOMAIN + struct.pack(
+        "<qq", int(seed) & 0x7FFF_FFFF_FFFF_FFFF, int(row))).digest()
+    return torch.Generator(device="cpu").manual_seed(
+        int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+_NOISE_AUG_DOMAIN = b"chiaswarm-noise-aug"
+
+
+def noise_aug_generator(seed: int) -> torch.Generator:
+    """The CPU generator of job ``seed``'s one noise-augmentation draw (an
+    img2vid job's conditioning frame, JAX's ``akey``): a hash in a domain
+    of its own."""
+    digest = hashlib.sha256(_NOISE_AUG_DOMAIN + struct.pack(
+        "<q", int(seed) & 0x7FFF_FFFF_FFFF_FFFF)).digest()
+    return torch.Generator(device="cpu").manual_seed(
+        int.from_bytes(digest[:8], "little") & 0x7FFF_FFFF_FFFF_FFFF)
 
 
 _STAGE_DOMAIN = b"chiaswarm-stage"

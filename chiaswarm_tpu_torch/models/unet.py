@@ -79,10 +79,16 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int) -> None:
+    """Two-layer MLP; ``hidden_dim`` is diffusers' ``out_dim`` variant (SVD's
+    ``time_pos_embed``: C -> 4C -> C), None keeps both layers at
+    ``out_dim``."""
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 hidden_dim: int | None = None) -> None:
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, out_dim)
-        self.linear_2 = nn.Linear(out_dim, out_dim)
+        hidden = hidden_dim or out_dim
+        self.linear_1 = nn.Linear(in_dim, hidden)
+        self.linear_2 = nn.Linear(hidden, out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(x)))
@@ -186,9 +192,15 @@ class CrossAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    """Self-attention, cross-attention and GEGLU feed-forward. A ``pinned``
+    block (the video UNets' frame attention) keeps its ``attn_impl`` when
+    ``set_attn_impl`` steers the spatial ones."""
+
     def __init__(self, dim: int, num_heads: int, head_dim: int,
-                 context_dim: int | None, attn_impl: str) -> None:
+                 context_dim: int | None, attn_impl: str,
+                 pinned: bool = False) -> None:
         super().__init__()
+        self.pinned = pinned
         self.norm1 = LayerNorm32(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, dim, num_heads, head_dim, attn_impl)
         self.has_cross_attn = context_dim is not None

@@ -243,3 +243,120 @@ def tiled_decode(vae: AutoencoderKL, z: torch.Tensor, *, tile: int = 64,
             canvas[:, :, ys, xs] += img * wt
             weight[:, :, ys, xs] += wt
     return canvas / torch.clamp(weight, min=1e-8)
+
+
+# ------------------------------------------- SVD's temporal-decoder VAE
+
+
+class Conv3d32(nn.Conv3d):
+    """A frame-axis conv the JAX module runs in float32."""
+
+    keep_fp32 = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class VaeSpatioTemporalResBlock(nn.Module):
+    """The temb-free ``SpatioTemporalResBlock`` of diffusers'
+    ``TemporalDecoder`` (JAX ``models/vae.py:134-160``): the spatial resnet
+    at eps 1e-6, the temporal one at 1e-5 over (F, H, W), and the SWITCHED
+    blend (1 - a)·spatial + a·temporal, ``mix_factor`` initialised at 0."""
+
+    def __init__(self, in_channels: int, out_channels: int) -> None:
+        super().__init__()
+        from chiaswarm_tpu_torch.models.video_unet import (
+            AlphaBlender,
+            TemporalResnetBlock,
+        )
+
+        self.spatial_res_block = VaeResnetBlock(in_channels, out_channels)
+        self.temporal_res_block = TemporalResnetBlock(out_channels, None,
+                                                      1e-5)
+        self.time_mixer = AlphaBlender(0.0)
+
+    def forward(self, x: torch.Tensor, f: int) -> torch.Tensor:
+        s = self.spatial_res_block(x)
+        bf, c, hh, ww = s.shape
+        s = s.reshape(bf // f, f, c, hh, ww).permute(0, 2, 1, 3, 4)
+        t = self.temporal_res_block(s)
+        a = self.time_mixer.alpha(s.dtype)
+        out = (1.0 - a) * s + a * t
+        return out.permute(0, 2, 1, 3, 4).reshape(bf, c, hh, ww)
+
+
+class _TemporalMid(nn.Module):
+    def __init__(self, channels: int) -> None:
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            VaeSpatioTemporalResBlock(channels, channels) for _ in range(2)])
+        self.attentions = nn.ModuleList([VaeAttention(channels)])
+
+
+class TemporalDecoder(nn.Module):
+    """diffusers ``TemporalDecoder`` (JAX ``TemporalVaeDecoder``
+    :163-221): no ``post_quant_conv``; the mid block is two spatio-temporal
+    resnets around one attention, pinned to the plain path as the 2D VAE's
+    is; every up resnet is spatio-temporal; ``time_conv_out``, a float32
+    (3, 1, 1) conv, runs on the decoded RGB. Takes unscaled latents
+    (B, F, C, h, w) and returns (B, F, 3, H, W) float32 in [-1, 1]."""
+
+    def __init__(self, config: VAEConfig) -> None:
+        super().__init__()
+        if config.layers_per_block != 2:
+            raise ValueError("TemporalDecoder requires layers_per_block=2 "
+                             "(the published layout)")
+        chans = list(config.block_out_channels)
+        self.conv_in = nn.Conv2d(config.latent_channels, chans[-1], 3,
+                                 padding=1)
+        self.mid_block = _TemporalMid(chans[-1])
+        self.up_blocks = nn.ModuleList()
+        prev = chans[-1]
+        for level in range(len(chans) - 1, -1, -1):
+            ch = chans[level]
+            block = _Block()
+            for _ in range(config.layers_per_block + 1):
+                block.resnets.append(VaeSpatioTemporalResBlock(prev, ch))
+                prev = ch
+            if level > 0:
+                block.upsamplers = nn.ModuleList([_Upsample(ch)])
+            self.up_blocks.append(block)
+        self.conv_norm_out = GroupNorm32(chans[0], eps=1e-6)
+        self.conv_out = Conv2d32(chans[0], config.in_channels, 3, padding=1)
+        self.time_conv_out = Conv3d32(config.in_channels, config.in_channels,
+                                      (3, 1, 1), padding=(1, 0, 0))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        b, f = z.shape[:2]
+        dtype = self.conv_in.weight.dtype
+        x = self.conv_in(z.reshape(b * f, *z.shape[2:]).to(dtype))
+        mid = self.mid_block
+        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x, f)), f)
+        for block in self.up_blocks:
+            for resnet in block.resnets:
+                x = resnet(x, f)
+            if hasattr(block, "upsamplers"):
+                x = block.upsamplers[0](x)
+        x = self.conv_out(F.silu(self.conv_norm_out(x)).to(dtype))
+        x = x.reshape(b, f, *x.shape[1:]).permute(0, 2, 1, 3, 4)
+        return self.time_conv_out(x).permute(0, 2, 1, 3, 4)
+
+
+class AutoencoderKLTemporalDecoder(nn.Module):
+    """SVD's VAE (JAX :224-247): the standard encoder with its top-level
+    ``quant_conv`` and the temporal decoder. ``encode_moments`` takes
+    images (B, 3, H, W) and returns (mean, clipped logvar); ``decode``
+    takes scaled latents (B, F, C, h, w) and returns (B, F, 3, H, W)."""
+
+    def __init__(self, config: VAEConfig) -> None:
+        super().__init__()
+        self.config = config
+        self.encoder = Encoder(config)
+        self.decoder = TemporalDecoder(config)
+        self.quant_conv = Conv2d32(2 * config.latent_channels,
+                                   2 * config.latent_channels, 1)
+
+    encode_moments = AutoencoderKL.encode_moments
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.decoder(z / self.config.scaling_factor)

@@ -1,7 +1,8 @@
 """Job routing, argument normalization and the guarded input-image fetch:
 counterpart of ``chiaswarm_tpu/node/job_args.py`` (``format_args`` :53-112,
-``_format_audio_args`` :127-135, :149-205; ``get_image``/``download_image``
-and their guards :32-48, :205-305).
+``_format_audio_args`` :127-135, ``_format_txt2vid_args`` :138-146,
+:149-205; ``get_image``/``download_image`` and their guards :32-48,
+:205-305).
 
 A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
 
@@ -16,8 +17,16 @@ A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
   :func:`_format_audio_args`: 20 steps unless the job names a count,
   ``scheduler_type`` from the ``parameters`` block, server-listed
   unsupported arguments stripped;
-- ``vid2vid``, ``img2vid``, ``txt2vid`` and ``DeepFloyd/`` models are
-  refused, naming ROADMAP queue item 6 (video, the cascade);
+- ``vid2vid`` goes to ``workloads/video.py::vid2vid_callback`` with its
+  arguments as they are; ``txt2vid`` to ``txt2vid_callback`` through
+  :func:`_format_txt2vid_args` (25 steps unless the job names a count,
+  ``num_images_per_prompt`` dropped, ``scheduler_type`` from the
+  ``parameters`` block, server-listed unsupported arguments stripped);
+  ``img2vid`` to ``img2vid_callback`` with the same ``parameters``
+  handling, ``prompt`` dropped (no text tower) and ``start_image_uri``
+  fetched through :func:`get_image` into ``image`` (JAX :85-105, :138-146);
+- ``DeepFloyd/`` models are refused, naming ROADMAP queue item 6 (the
+  cascade);
 - every other workflow (none, ``txt2img``, ``img2img``, ``inpaint``, any
   other name) goes to the stable-diffusion formatter: the 1024-pixel size
   cap, the server's ``parameters`` block unpacked (scheduler class name,
@@ -79,14 +88,6 @@ READ_TIMEOUT_S = 60.0
 HEAD_READ_TIMEOUT_S = 30.0
 MAX_IMAGE_PIXELS = 16 * 1024 * 1024  # 16 Mpx; the served maximum is ~1 Mpx
 
-#: workflows the JAX package serves that the port does not yet, and what
-#: serves them there (ROADMAP queue item 6)
-_LATER_WORKFLOWS = {
-    "vid2vid": "video",
-    "img2vid": "video",
-    "txt2vid": "video",
-}
-
 FormatResult = tuple[Callable[..., tuple[dict, dict]], dict[str, Any]]
 
 
@@ -122,8 +123,26 @@ def format_args(job: dict[str, Any], registry) -> FormatResult:
                 get_image(args.pop("start_image_uri"), None))
         return caption_callback, args
 
-    if workflow in _LATER_WORKFLOWS:
-        raise _later(f"workflow {workflow!r} ({_LATER_WORKFLOWS[workflow]})")
+    if workflow == "vid2vid":
+        from chiaswarm_tpu_torch.workloads.video import vid2vid_callback
+
+        return vid2vid_callback, args
+
+    if workflow == "img2vid":
+        from chiaswarm_tpu_torch.workloads.video import img2vid_callback
+
+        parameters = _pop_parameters(args)
+        args.pop("prompt", None)  # image-conditioned: no text tower
+        args["scheduler_type"] = parameters.pop("scheduler_type", None)
+        _strip_unsupported(args, parameters)
+        if "start_image_uri" in args:
+            args["image"] = np.asarray(
+                get_image(args.pop("start_image_uri"), None))
+        return img2vid_callback, args
+
+    if workflow == "txt2vid":
+        return _format_txt2vid_args(args)
+
     if str(args.get("model_name", "")).startswith("DeepFloyd/"):
         raise _later("DeepFloyd cascades")
     return _format_stable_diffusion_args(args)
@@ -150,6 +169,17 @@ def _format_audio_args(args: dict[str, Any]) -> FormatResult:
     args["scheduler_type"] = parameters.pop("scheduler_type", None)
     _strip_unsupported(args, parameters)
     return txt2audio_callback, args
+
+
+def _format_txt2vid_args(args: dict[str, Any]) -> FormatResult:
+    from chiaswarm_tpu_torch.workloads.video import txt2vid_callback
+
+    parameters = _pop_parameters(args)
+    args.setdefault("num_inference_steps", 25)
+    args.pop("num_images_per_prompt", None)
+    args["scheduler_type"] = parameters.pop("scheduler_type", None)
+    _strip_unsupported(args, parameters)
+    return txt2vid_callback, args
 
 
 def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:

@@ -45,16 +45,19 @@ files load from :func:`model_dir` of the adapter's name; a missing one is
 "not available on this node", the non-fatal ``model_unavailable`` kind.
 
 :meth:`ModelRegistry.caption_pipeline` (JAX :493-547),
-:meth:`ModelRegistry.audio_pipeline` (JAX :354-389) and
-:meth:`ModelRegistry.tts_pipeline` (JAX :451-491) serve img2txt and
-txt2audio: a BLIP directory in transformers' layout, an AudioLDM one in
-diffusers' layout and a Bark one in transformers' layout under
-:func:`model_dir`, on the slot mesh's lead device, keyed ``("caption" |
-"audio" | "tts", name, device)``. An unusable caption or Bark directory
-logs and, like a missing one, takes seeded weights only under
-``allow_random``, as in JAX. On a ``seq`` > 1 slot the first two raise
-(ROADMAP queue item 7); TTS, which JAX never rings, runs on the slot's
-lead card.
+:meth:`ModelRegistry.audio_pipeline` (JAX :354-389),
+:meth:`ModelRegistry.tts_pipeline` (JAX :451-491) and
+:meth:`ModelRegistry.video_pipeline` (JAX :392-449) serve img2txt,
+txt2audio, txt2vid and img2vid: a BLIP directory in transformers' layout,
+an AudioLDM one in diffusers' layout, a Bark one in transformers' layout
+and a video one in diffusers' layout under :func:`model_dir`, on the slot
+mesh's lead device, keyed ``("caption" | "audio" | "tts" | "video", name,
+device)``. An unusable caption, Bark or video directory logs and, like a
+missing one, takes seeded weights only under ``allow_random``, as in JAX.
+On a ``seq`` > 1 slot caption, audio and video raise (ROADMAP queue item
+7; JAX rings the first two and the video clip there); TTS, which JAX never
+rings, runs on the slot's lead card. vid2vid runs through
+:meth:`ModelRegistry.pipeline`.
 """
 
 from __future__ import annotations
@@ -352,6 +355,63 @@ class ModelRegistry:
 
         return self.residency.acquire(
             ("audio", model_name, _device_key(device)), build,
+            model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
+            priority=self._priority_for(model_name))
+
+    def video_pipeline(self, model_name: str,
+                       mesh: DeviceMesh | None = None):
+        """The resident video pipeline of ``model_name`` (JAX :392-449):
+        ``Img2VidPipeline`` for an SVD-class family, ``VideoPipeline`` for a
+        text family (``pipelines/video.py::get_video_family``), on the slot
+        mesh's lead device. A diffusers video snapshot under
+        :func:`model_dir` (``VideoComponents.from_checkpoint``: strict for
+        ModelScope and SVD snapshots, a plain SD one inflated into a text
+        family); one that cannot be loaded logs and, like no directory at
+        all, gives seeded random weights of the family under
+        ``allow_random``, else the model is not available on this node. One
+        ledger entry per ``("video", name, device)``, sized by
+        ``param_bytes``. A ``seq`` > 1 slot raises (JAX rings the clip
+        there, ROADMAP queue item 7)."""
+        from chiaswarm_tpu_torch.pipelines.video import (
+            Img2VidPipeline,
+            VideoComponents,
+            VideoPipeline,
+            get_video_family,
+        )
+
+        self._check_quarantine(model_name)
+        device = self._one_card("video", model_name, mesh)
+
+        def build() -> VideoPipeline | Img2VidPipeline:
+            family = get_video_family(model_name)
+            pipeline_cls = (Img2VidPipeline if family.image_conditioned
+                            else VideoPipeline)
+            ckpt = model_dir(model_name)
+            components = None
+            if ckpt.exists():
+                try:
+                    log.info("loading video model %s from %s (strict "
+                             "temporal conversion; 2D snapshots inflate "
+                             "for text families only)", model_name, ckpt)
+                    components = VideoComponents.from_checkpoint(
+                        ckpt, model_name, family, device=device)
+                except Exception as exc:
+                    log.warning("video checkpoint at %s unusable (%s: %s)",
+                                ckpt, type(exc).__name__, exc)
+            if components is None and self.allow_random:
+                log.warning("video model %s: using random weights",
+                            model_name)
+                components = VideoComponents.random(
+                    family, model_name=model_name, device=device)
+            if components is None:
+                why = (f"checkpoint at {ckpt} is unusable"
+                       if ckpt.exists() else f"no checkpoint at {ckpt}")
+                raise ValueError(f"video model {model_name!r} is not "
+                                 f"available on this node ({why})")
+            return pipeline_cls(components)
+
+        return self.residency.acquire(
+            ("video", model_name, _device_key(device)), build,
             model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
             priority=self._priority_for(model_name))
 

@@ -66,7 +66,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
     """Initialize in place, in module order, with Flax's defaults."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d,
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d,
                           nn.ConvTranspose1d)):
             w = m.weight
             # a transposed conv's weight is (in, out, k): its fan-in is in x k

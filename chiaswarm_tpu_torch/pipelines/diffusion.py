@@ -41,8 +41,11 @@ img2img and inpaint (``submit``'s ``has_init``/``has_mask`` preparation,
 :960-1015): the init image is resized onto the bucketed grid and encoded by
 the VAE encoder with its posterior sampled (:func:`encode_init_image`, one
 batch-1 encode per job, outside any sequence-parallel context, as the JAX
-package runs it outside ``seq_parallel_wrap``); img2img starts the ladder at
-:func:`img2img_start_index` from ``init + noise * sigma[start]``; inpaint
+package runs it outside ``seq_parallel_wrap``); a per-row stack of init
+images (vid2vid's frames, on the solo path) encodes each row's image alone,
+its posterior from that row's stream (:meth:`encode_init_rows`); img2img
+starts the ladder at :func:`img2img_start_index` from
+``init + noise * sigma[start]``; inpaint
 starts at 0 and, after every step, re-projects the kept region of the clean
 latents (``schedulers/sampling.py::reproject_known``) with a renoise draw
 from each row's generator, after that step's own noise. The lanes carry the
@@ -84,7 +87,7 @@ from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
 from chiaswarm_tpu_torch.core.rng import (
-    posterior_generator,
+    posterior_row_generator,
     randn_rows,
     row_generators,
 )
@@ -130,6 +133,7 @@ class GenerateRequest:
     sample_seed_rows: tuple[tuple[int, int], ...] | None = None
     # explicit standard-normal initial noise, (B|1, H/f, W/f, C)
     init_noise: np.ndarray | None = None
+    # (H, W, 3) for the job, or (n, H, W, 3): one per row (vid2vid frames)
     init_image: np.ndarray | None = None
     strength: float = 0.8
     mask: np.ndarray | None = None
@@ -441,15 +445,16 @@ class DiffusionPipeline:
             self._decode_uint8(x)
 
     def encode_init_image(self, image: np.ndarray, height: int, width: int,
-                          seed: int) -> torch.Tensor:
+                          seed: int, row: int = 0) -> torch.Tensor:
         """One job's init image (H, W, 3), uint8 or float in [-1, 1], at the
         bucketed size -> its scaled latents (1, C, H/f, W/f) float32 on the
         device, the posterior sampled with the job's own
-        ``core/rng.py::posterior_generator``. Always a batch-1 encode (the
-        solo path and the lanes call this one function, so a job's latents
-        do not depend on where it runs), and never under a sequence-parallel
-        context: the encoder's attention stays local, as the JAX package
-        runs its encode outside ``seq_parallel_wrap``."""
+        ``core/rng.py::posterior_generator`` (row ``row``'s
+        ``posterior_row_generator`` for a per-row init stack). Always a
+        batch-1 encode (the solo path and the lanes call this one function,
+        so a job's latents do not depend on where it runs), and never under
+        a sequence-parallel context: the encoder's attention stays local, as
+        the JAX package runs its encode outside ``seq_parallel_wrap``."""
         img = _to_float_image(image)
         if img.shape != (height, width, 3):
             raise ValueError(f"init image {img.shape} != requested "
@@ -458,8 +463,8 @@ class DiffusionPipeline:
         channels = self.c.family.vae.latent_channels
         x = upload(torch.from_numpy(img).permute(2, 0, 1)[None].contiguous(),
                    self.c.device)
-        noise = randn_rows([posterior_generator(seed)], (channels, lh, lw),
-                           self.c.device)
+        noise = randn_rows([posterior_row_generator(seed, row)],
+                           (channels, lh, lw), self.c.device)
         with torch.inference_mode(), sequence_parallel(None):
             return self.c.vae.encode(x, noise)
 
@@ -481,10 +486,14 @@ class DiffusionPipeline:
         init_latent = mask_rows = None
         if init_image is not None:
             init = np.asarray(init_image)
-            if init.shape[:2] != (height, width):
-                init = _resize_image(init, height, width)
-            init_latent = self.encode_init_image(
-                init, height, width, seed).expand(rows, -1, -1, -1)
+            if init.ndim == 4:
+                init_latent = self.encode_init_rows(init, height, width,
+                                                    seed, rows)
+            else:
+                if init.shape[:2] != (height, width):
+                    init = _resize_image(init, height, width)
+                init_latent = self.encode_init_image(
+                    init, height, width, seed).expand(rows, -1, -1, -1)
         if mask is not None:
             lh, lw = self._latent_hw(height, width)
             m = latent_mask(np.asarray(mask, np.float32), lh, lw,
@@ -492,6 +501,26 @@ class DiffusionPipeline:
             mask_rows = upload(torch.from_numpy(m)[None, None],
                                self.c.device).expand(rows, 1, lh, lw)
         return mode, start, init_latent, mask_rows
+
+    def encode_init_rows(self, frames: np.ndarray, height: int, width: int,
+                         seed: int, rows: int) -> torch.Tensor:
+        """A per-row init stack (n, H, W, 3), one image per row (vid2vid's
+        frames, JAX ``encode_init_image`` on (B, H, W, 3)) -> (rows, C, h, w):
+        each frame resized onto the bucketed grid and encoded alone, its
+        posterior drawn from its own row's stream; a bucketed batch is
+        padded with the last frame's latent, as in JAX. A one-frame stack
+        gives what a one-image job gives."""
+        if len(frames) > rows:
+            raise ValueError(f"{len(frames)} init images for a batch of "
+                             f"{rows}")
+        latents = []
+        for row, frame in enumerate(frames):
+            if frame.shape[:2] != (height, width):
+                frame = _resize_image(frame, height, width)
+            latents.append(self.encode_init_image(frame, height, width, seed,
+                                                  row=row))
+        latents += [latents[-1]] * (rows - len(latents))
+        return torch.cat(latents, dim=0)
 
     def stepper_control_embed(self, controlnet: Any, control_image: Any,
                               height: int, width: int) -> torch.Tensor:
@@ -733,10 +762,12 @@ class DiffusionPipeline:
 def set_attn_impl(unet: torch.nn.Module, attn_impl: str) -> None:
     """Force the spatial self-attention dispatch of every transformer block
     of a built UNet (the JAX package rebuilds its UNet with the replaced
-    config); the parity tests and the chip check drive both routes."""
+    config); the parity tests and the chip check drive both routes. The
+    video UNets' frame attentions (``pinned``) stay on the plain path, as
+    JAX pins them."""
     from chiaswarm_tpu_torch.models.unet import TransformerBlock
 
     unet.config = dataclasses.replace(unet.config, attn_impl=attn_impl)
     for module in unet.modules():
-        if isinstance(module, TransformerBlock):
+        if isinstance(module, TransformerBlock) and not module.pinned:
             module.attn1.attn_impl = attn_impl

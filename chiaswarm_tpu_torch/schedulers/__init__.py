@@ -13,6 +13,7 @@ from chiaswarm_tpu_torch.schedulers.sampling import (
     SamplerState,
     SamplingSchedule,
     init_sampler_state,
+    make_edm_schedule,
     make_sampling_schedule,
     reproject_known,
     reproject_known_rows,
@@ -33,6 +34,7 @@ __all__ = [
     "SamplingSchedule",
     "ScheduleConfig",
     "init_sampler_state",
+    "make_edm_schedule",
     "make_noise_schedule",
     "make_sampling_schedule",
     "reproject_known",

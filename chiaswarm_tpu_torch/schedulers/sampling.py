@@ -115,6 +115,19 @@ def make_sampling_schedule(schedule: NoiseSchedule, num_steps: int,
     return SamplingSchedule(sigmas=sigmas.to(_F32), timesteps=timesteps.to(_F32))
 
 
+def make_edm_schedule(sigma_min: float, sigma_max: float,
+                      num_steps: int) -> SamplingSchedule:
+    """The EDM continuous-sigma schedule of SVD-class families (JAX
+    :107-118): Karras sigmas over (``sigma_min``, ``sigma_max``) and a
+    trailing zero, conditioned on the continuous timestep ``0.25 *
+    log(sigma)`` in float32, never rounded to a train step (diffusers'
+    EulerDiscrete with ``timestep_type="continuous"``)."""
+    sig = karras_sigmas(sigma_min, sigma_max, num_steps)
+    return SamplingSchedule(
+        sigmas=torch.cat([sig, torch.zeros(1, dtype=_F32)]).to(_F32),
+        timesteps=(0.25 * torch.log(sig)).to(_F32))
+
+
 def scale_model_input(sched: SamplingSchedule, sample: torch.Tensor,
                       i: int) -> torch.Tensor:
     """x / sqrt(sigma^2 + 1): k-diffusion coordinates back to the VP

@@ -440,6 +440,42 @@ each phase printing one JSON line:
                 decode tokens/s, the busy share and launches per decode
                 step (``tools/torch_serve_profile.py``'s ``tts_profile``)
                 and the peak memory.
+15ac. txt2vid_serve — ModelScope at its published widths (the UNet3D and
+                VAE bf16, the 23-layer CLIP-H tower float32; 1.84 B
+                parameters), random from seed 0 through the registry's
+                fallback; a txt2vid job at the defaults (256 px, 25 frames
+                bucketed to 32, 25 steps, guidance 9.0), the same job again
+                and one at guidance 1.0 through the worker: ``video/mp4`` of
+                25 frames of 256x256 (read back with OpenCV), a JPEG
+                thumbnail, JAX's config keys; the repeat's frames bit for
+                bit; B1 exactly 5 x evals at (64|32,1024,1024,5,64) and no
+                other kernel; one eval through B1 within 3e-2 relative L2 of
+                the plain route and one at 2 frames within 5e-2 of a float32
+                CPU eval. Prints job seconds, ``generation_s``,
+                ``frames_per_sec``, device ms by stage (text encode,
+                denoise, decode), the container's host seconds, B1's ms and
+                share, launches an eval, the busy share and top kernels
+                (``tools/torch_serve_profile.py``'s ``video_profile``) and
+                the peak memory.
+15ad. img2vid_serve — SVD at its published widths (the spatio-temporal UNet
+                and temporal VAE bf16, ViT-H/14 float32; 2.25 B
+                parameters), random from seed 0; a job from a start image
+                on this script's hive at the defaults (512 px, 14 frames
+                bucketed to 16, guidance 1.0 -> 3.0, ``IMG2VID_STEPS``), the
+                same job again and the same seed on another image: 14
+                frames of 512x512, the repeat bit for bit, the other image
+                other frames; B1 exactly 5 x evals at (32,4096,4096,5,64)
+                and (32,1024,1024,10,64); the eval gates. Prints
+                txt2vid_serve's numbers.
+15ae. vid2vid_serve — the run's SD1.5 on a 12-frame 512x910 mp4v clip
+                served over HTTP, strength 0.6, 20 steps (chunks of 8 and 4
+                frames, 12 evals each), and the same job again: 12 frames
+                of 512x910, the repeat bit for bit; B1 exactly 5 x evals at
+                (16|8,7680,7680,8,40) and (16|8,1920,1920,8,80); each
+                frame's init latent its own encode (none equal); a
+                one-frame stack the one-image img2img path bit for bit.
+                Prints job seconds, the encodes' and generate calls'
+                device ms, B1's ms and share and the peak memory.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -455,8 +491,8 @@ each phase printing one JSON line:
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
                 phases, the guard phases, the safety and ControlNet
-                phases, the pix2pix, upscale and adapter phases and
-                audio_serve (head dim 32), and B3
+                phases, the pix2pix, upscale and adapter phases,
+                audio_serve (head dim 32) and the three video phases, and B3
                 under ``lane_seq_serve``
                 and
                 ``seq_img2img``, with
@@ -565,18 +601,40 @@ def probe():
         safetensors_version = safetensors.__version__
     except ImportError:
         safetensors_version = None
-    try:  # ControlNet's canny preprocessing imports it when it runs
+    try:  # ControlNet's canny preprocessing and the video workloads
         import cv2
 
         cv2_version = cv2.__version__
+        cv2_video = cv2_video_io(cv2)
     except ImportError:
-        cv2_version = None
+        cv2_version = cv2_video = None
     emit("probe", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
          python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version,
-         safetensors=safetensors_version, cv2=cv2_version)
+         safetensors=safetensors_version, cv2=cv2_version,
+         cv2_video=cv2_video)
     return torch
+
+
+def cv2_video_io(cv2) -> dict:
+    """OpenCV's video I/O backends and whether its writer opens the two
+    containers the video workloads encode (mp4v in .mp4, VP90 in .webm)."""
+    import tempfile
+
+    registry = cv2.videoio_registry
+    out = {"backends": [registry.getBackendName(b)
+                        for b in registry.getBackends()],
+           "writers": [registry.getBackendName(b)
+                       for b in registry.getWriterBackends()]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for suffix, fourcc in ((".mp4", "mp4v"), (".webm", "VP90")):
+            writer = cv2.VideoWriter(str(Path(tmp) / f"probe{suffix}"),
+                                     cv2.VideoWriter_fourcc(*fourcc), 8.0,
+                                     (64, 64))
+            out[fourcc] = bool(writer.isOpened())
+            writer.release()
+    return out
 
 
 def build() -> None:
@@ -726,6 +784,20 @@ KERNEL_SHAPES = [
     (2, 2560, 2560, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
     (1, 2560, 2560, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
     (2, 1280, 1280, 4, 32, "bfloat16", 4e-3, 1e-2, ("audio_serve",)),
+    # the video UNets' spatial self-attention over folded frames (head dim
+    # 64, 5 heads at the 320-channel level): ModelScope at 256 px, 25 frames
+    # bucketed to 32, with CFG (batch 64) and without (32); SVD at 512 px,
+    # 14 frames bucketed to 16, CFG (4,096 tokens, and 10 heads at 1,024);
+    # vid2vid's SD1.5 at 512x960 (a 16:9 clip at 512 px height) over 8- and
+    # 4-frame chunks with CFG
+    (64, 1024, 1024, 5, 64, "bfloat16", 4e-3, 1e-2, ("txt2vid_serve",)),
+    (32, 1024, 1024, 5, 64, "bfloat16", 4e-3, 1e-2, ("txt2vid_serve",)),
+    (32, 4096, 4096, 5, 64, "bfloat16", 4e-3, 1e-2, ("img2vid_serve",)),
+    (32, 1024, 1024, 10, 64, "bfloat16", 4e-3, 1e-2, ("img2vid_serve",)),
+    (16, 7680, 7680, 8, 40, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
+    (16, 1920, 1920, 8, 80, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
+    (8, 7680, 7680, 8, 40, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
+    (8, 1920, 1920, 8, 80, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
     (1, 1000, 333, 4, 32, "float32", 2e-4, 1e-4, ()),
@@ -2183,8 +2255,9 @@ class LocalHive:
     thread of this script by the standard library's ``http.server``. Every
     poll hands out every queued job (the reference hive's semantics).
     ``faults`` maps a job id to the HTTP statuses its first uploads get.
-    ``assets`` maps a name to the PNG bytes ``GET``/``HEAD /assets/<name>``
-    serve as ``image/png`` (the jobs' input images)."""
+    ``assets`` maps a name to the bytes ``GET``/``HEAD /assets/<name>``
+    serve, as ``image/png`` unless ``asset_types`` names another type (the
+    jobs' input images and clips)."""
 
     def __init__(self) -> None:
         import http.server
@@ -2196,6 +2269,7 @@ class LocalHive:
         self.result_t: list[float] = []
         self.faults: dict[str, list[int]] = {}
         self.assets: dict[str, bytes] = {}
+        self.asset_types: dict[str, str] = {}  # image/png unless named
         self.work_t: list[float] = []  # when each poll that handed out work
         self.posts = 0
         hive = self
@@ -2218,7 +2292,8 @@ class LocalHive:
                 if not self.path.startswith("/assets/") or body is None:
                     return False
                 self.send_response(200)
-                self.send_header("Content-Type", "image/png")
+                self.send_header("Content-Type",
+                                 hive.asset_types.get(name, "image/png"))
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 if with_body:
@@ -6002,6 +6077,502 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     return run
 
 
+VIDEO_TXT_MODEL = "damo-vilab/text-to-video-ms-1.7b"  # random, seed 0
+VIDEO_IMG_MODEL = "stabilityai/stable-video-diffusion-img2vid"  # random
+VIDEO_PROMPT = "a red fox running through fresh snow at dawn, cinematic"
+TXT2VID_JOBS = [
+    {"id": "txt2vid-1", "workflow": "txt2vid", "model_name": VIDEO_TXT_MODEL,
+     "prompt": VIDEO_PROMPT, "seed": 1, "content_type": "video/mp4"},
+    {"id": "txt2vid-1-again", "workflow": "txt2vid",
+     "model_name": VIDEO_TXT_MODEL, "prompt": VIDEO_PROMPT, "seed": 1,
+     "content_type": "video/mp4"},
+    {"id": "txt2vid-nocfg", "workflow": "txt2vid",
+     "model_name": VIDEO_TXT_MODEL, "prompt": VIDEO_PROMPT, "seed": 2,
+     "guidance_scale": 1.0, "content_type": "video/mp4"},
+]
+IMG2VID_STEPS = 25
+IMG2VID_JOBS = [
+    {"id": "img2vid-1", "workflow": "img2vid", "model_name": VIDEO_IMG_MODEL,
+     "start_image_uri": "/assets/svd-a.png", "seed": 1,
+     "num_inference_steps": IMG2VID_STEPS, "content_type": "video/mp4"},
+    {"id": "img2vid-1-again", "workflow": "img2vid",
+     "model_name": VIDEO_IMG_MODEL, "start_image_uri": "/assets/svd-a.png",
+     "seed": 1, "num_inference_steps": IMG2VID_STEPS,
+     "content_type": "video/mp4"},
+    {"id": "img2vid-b", "workflow": "img2vid", "model_name": VIDEO_IMG_MODEL,
+     "start_image_uri": "/assets/svd-b.png", "seed": 1,
+     "num_inference_steps": IMG2VID_STEPS, "content_type": "video/mp4"},
+]
+VID2VID_FRAMES = 12
+VID2VID_HW = (512, 910)  # a 16:9 clip at 512 px height, even width
+VID2VID_STEPS = 20
+VID2VID_STRENGTH = 0.6
+VID2VID_JOBS = [
+    {"id": f"vid2vid-{tag}", "workflow": "vid2vid", "model_name": "sd15",
+     "video_uri": "/assets/clip.mp4", "prompt": "a watercolor painting",
+     "negative_prompt": "blurry", "seed": 1,
+     "num_inference_steps": VID2VID_STEPS, "strength": VID2VID_STRENGTH,
+     "content_type": "video/mp4"} for tag in ("1", "1-again")]
+# relative L2 of one bf16 UNet eval through B1 against the plain route (as
+# the SD phases' bar), and of a bf16 eval on the card at 2 frames against
+# a float32 CPU eval of the same weights
+VIDEO_PLAIN_BAR = 3e-2
+VIDEO_CPU_BAR = 5e-2
+#: B1 launches an eval at each of its shapes: a level's spatial attentions
+#: (2 down, 3 up); level 0 at ModelScope's 256 px, levels 0 and 1 at SVD's
+#: 512 px and SD1.5's 512x960
+VIDEO_B1_PER_EVAL = 5
+#: the config keys of JAX's callbacks (chiaswarm_tpu/workloads/video.py),
+#: on a node without a safety checker, with the ``seed`` its slot adds
+VIDEO_CONFIG_KEYS = {
+    "txt2vid": {"model_name", "family", "mode", "frames", "steps",
+                "guidance_scale", "size", "compiled_size", "scheduler",
+                "nsfw", "safety_checker", "fps", "generation_s",
+                "frames_per_sec", "slot", "seed"},
+    "img2vid": {"model_name", "family", "mode", "frames", "steps", "fps",
+                "motion_bucket_id", "noise_aug_strength", "guidance_scale",
+                "size", "compiled_size", "scheduler", "nsfw",
+                "safety_checker", "generation_s", "frames_per_sec", "slot",
+                "seed"},
+    "vid2vid": {"nsfw", "safety_checker", "model_name", "frames", "fps",
+                "compute_cost", "seed"},
+}
+
+
+def clip_frames(blob_b64: str):
+    """The frames of a base64 mp4 as uint8 RGB (F, H, W, 3), read back
+    with OpenCV."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "clip.mp4"
+        path.write_bytes(base64.b64decode(blob_b64))
+        cap = cv2.VideoCapture(str(path))
+        frames = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+        cap.release()
+    return np.stack(frames) if frames else np.zeros((0, 0, 0, 3), np.uint8)
+
+
+def check_video_envelope(phase: str, kind: str, result: dict, frames: int,
+                         hw: tuple[int, int]):
+    """An error-free envelope: a ``video/mp4`` primary of ``frames`` frames
+    of ``hw`` (read back with OpenCV), a JPEG thumbnail of frame 0's size,
+    and JAX's config keys. Returns the decoded frames."""
+    from PIL import Image
+
+    cfg = result["pipeline_config"]
+    if "error" in cfg:
+        raise AssertionError(f"{phase} {result['id']}: {cfg['error']}")
+    primary = result["artifacts"]["primary"]
+    thumb = result["artifacts"].get("thumbnail") or {}
+    got = clip_frames(primary["blob"])
+    jpeg = Image.open(io.BytesIO(base64.b64decode(thumb.get("blob", ""))))
+    if (primary["content_type"] != "video/mp4"
+            or thumb.get("content_type") != "image/jpeg"
+            or jpeg.format != "JPEG" or jpeg.size != (hw[1], hw[0])
+            or got.shape[:3] != (frames, *hw)):
+        raise AssertionError(
+            f"{phase} {result['id']}: {primary['content_type']} of "
+            f"{got.shape}, thumbnail {thumb.get('content_type')} "
+            f"{jpeg.format} {jpeg.size}; want video/mp4 of {frames} frames "
+            f"of {hw} and a JPEG")
+    if set(cfg) != VIDEO_CONFIG_KEYS[kind]:
+        raise AssertionError(f"{phase} {result['id']}: config keys "
+                             f"{sorted(set(cfg) ^ VIDEO_CONFIG_KEYS[kind])} "
+                             "differ from JAX's")
+    return got
+
+
+@contextlib.contextmanager
+def timed_container():
+    """Host seconds of each ``workloads/video.py::_video_artifacts`` call
+    (the container's encode, frame 0's JPEG and thumbnail)."""
+    from chiaswarm_tpu_torch.workloads import video
+
+    real, seconds = video._video_artifacts, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    video._video_artifacts = timed
+    try:
+        yield seconds
+    finally:
+        video._video_artifacts = real
+
+
+def video_jobs_table(ids, by_id: dict, rows: dict, stages: dict | None,
+                     container_s: list) -> dict:
+    """Each served job's seconds (poll receipt to settled upload),
+    ``generation_s`` and ``frames_per_sec``; the device ms of each stage
+    (in the order the worker ran them) and the container's host seconds."""
+    jobs = {}
+    for job_id in ids:
+        cfg = by_id[job_id]["pipeline_config"]
+        jobs[job_id] = {"job_seconds": rows[job_id]["seconds"],
+                        "generation_s": cfg.get("generation_s"),
+                        "frames_per_sec": cfg.get("frames_per_sec")}
+    return {"jobs": jobs, "stage_ms_each": None if stages is None
+            else stages["ms_each"], "container_s_each": container_s}
+
+
+def video_eval_gates(torch, pipe, rows: int, frames: int,
+                     b1_launches: int) -> dict:
+    """One UNet eval of ``pipe``'s family on the card (bf16, ``rows`` clips
+    of ``frames`` frames at the family's default size, ``b1_launches`` B1
+    launches) against the same eval on the plain route
+    (``VIDEO_PLAIN_BAR``), and one at 2 frames and a 32x32 latent against a
+    float32 CPU eval of the same weights (``VIDEO_CPU_BAR``)."""
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+    from chiaswarm_tpu_torch.pipelines.video import make_video_unet
+
+    fam = pipe.c.family
+    cfg = fam.unet
+    unet = pipe.c.unet
+    gen = torch.Generator().manual_seed(7)
+
+    def inputs(b: int, f: int, hw: int):
+        sample = torch.randn((b, f, cfg.sample_channels, hw, hw),
+                             generator=gen)
+        ctx = torch.randn((b, 1 if fam.image_conditioned else 77,
+                           cfg.cross_attention_dim), generator=gen)
+        t = torch.full((b,), 0.5 if fam.image_conditioned else 500.0)
+        ids = (torch.tensor([[6.0, 127.0, 0.02]] * b)
+               if fam.image_conditioned else None)
+        return sample, t, ctx, ids
+
+    def run(module, args, device):
+        sample, t, ctx, ids = (None if a is None else a.to(device)
+                               for a in args)
+        with torch.inference_mode():
+            out = module(sample, t, ctx,
+                         None if ids is None else {"time_ids": ids})
+        return out.float().cpu()
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    served = inputs(rows, frames, fam.default_size // fam.vae.downscale)
+    kernels.reset_launches()
+    b1 = run(unet, served, "cuda")
+    launches = kernel_launches()
+    set_attn_impl(unet, "xla")
+    try:
+        plain = run(unet, served, "cuda")
+    finally:
+        set_attn_impl(unet, "auto")
+    small = inputs(1, 2, 32)
+    card = run(unet, small, "cuda")
+    with torch.device("meta"):
+        cpu_unet = make_video_unet(fam)
+    cpu_unet = cpu_unet.to_empty(device="cpu")
+    cpu_unet.load_state_dict(unet.state_dict(), strict=True)
+    t0 = time.perf_counter()
+    cpu = run(cpu_unet.eval(), small, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu_unet
+    out = {"served_eval": {"shape": list(served[0].shape),
+                           "b1_launches": launches["flash_attention"],
+                           "rel_l2_vs_plain": rel(b1, plain),
+                           "bar": VIDEO_PLAIN_BAR},
+           "two_frames_vs_cpu_fp32": {"shape": list(small[0].shape),
+                                      "rel_l2": rel(card, cpu),
+                                      "max_abs_err": float(
+                                          (card - cpu).abs().max()),
+                                      "cpu_s": cpu_s, "bar": VIDEO_CPU_BAR}}
+    check_b1(f"one {fam.name} eval", launches, b1_launches)
+    if not rel(b1, plain) <= VIDEO_PLAIN_BAR:
+        raise AssertionError(f"{fam.name}: B1 against the plain route: "
+                             f"relative L2 {rel(b1, plain)}")
+    if not rel(card, cpu) <= VIDEO_CPU_BAR:
+        raise AssertionError(f"{fam.name}: the card against the CPU: "
+                             f"relative L2 {rel(card, cpu)}")
+    return out
+
+
+def video_shares(b1_rows: list, run: dict, stages: dict) -> dict:
+    """Device ms by stage over the served jobs, B1's ms (its launches by
+    shape times the kernel phase's ms) and its shares of the denoise and of
+    all stages."""
+    totals = stages["ms"]
+    share = b1_share(b1_rows, run, totals["denoise"])
+    return {"stage_ms": totals, "device_ms": sum(totals.values()),
+            "b1_ms": share["b1_ms"], "b1_share_of_denoise": share["b1_share"],
+            "b1_share_of_device": share["b1_ms"] / sum(totals.values())}
+
+
+def txt2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
+    """ModelScope at its published widths, random from seed 0 through the
+    registry's ``allow_random`` fallback; a hive txt2vid job at the defaults
+    (256 px, 25 frames bucketed to 32, 25 steps, guidance 9.0, 8 fps), the
+    same job again and one at guidance 1.0, through the worker. Gates: the
+    envelopes, the repeat's frames bit for bit, B1 exactly 5 x evals at
+    (64, 1024, 1024, 5, 64) and (32, ...) and no other kernel, one eval
+    against the plain route and one against the CPU. Prints job seconds,
+    ``generation_s``, ``frames_per_sec``, device ms by stage, B1's ms and
+    share, launches an eval, the busy share and top kernels
+    (``tools/torch_serve_profile.py``), the peak memory."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.video import MODELSCOPE
+
+    t0 = time.perf_counter()
+    pipe = registry.video_pipeline(VIDEO_TXT_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if pipe.c.family != MODELSCOPE:
+        raise AssertionError(f"txt2vid_serve: family {pipe.c.family.name}")
+    params = {name: sum(p.numel() for p in m.parameters())
+              for name, m in zip(("text_encoder", "unet", "vae"),
+                                 pipe.c.modules())}
+    stage_names = {"encode": "encode_text", "denoise": "denoise",
+                   "decode": "decode"}
+    with LocalHive() as hive:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_stages(torch, pipe, stage_names) as stages, \
+                timed_container() as container:
+            worker = serve_through_worker(hive, pool, registry, TXT2VID_JOBS)
+        run, launches = launched(), kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+    frames, want = {}, collections.Counter()
+    for job in TXT2VID_JOBS:
+        frames[job["id"]] = check_video_envelope(
+            "txt2vid_serve", "txt2vid", by_id[job["id"]], 25, (256, 256))
+        batch = 64 if job.get("guidance_scale", 9.0) > 1.0 else 32
+        want[(batch, 1024, 1024, 5, 64, "bfloat16")] += VIDEO_B1_PER_EVAL * 25
+    got = collections.Counter(run["flash_attention"]["shapes"])
+    if got != want or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"txt2vid_serve launched {launches} by shape "
+                             f"{dict(got)}, want {dict(want)}")
+    repeat_equal = bool(np.array_equal(frames["txt2vid-1"],
+                                       frames["txt2vid-1-again"]))
+    if not repeat_equal:
+        raise AssertionError("txt2vid_serve: the same job twice differs")
+    gates = video_eval_gates(torch, pipe, rows=2, frames=32,
+                             b1_launches=VIDEO_B1_PER_EVAL)
+    profile = profile_tool().video_profile(torch, pipe, "txt2vid",
+                                           warm_up=False, top=8)
+    emit("txt2vid_serve", load_s=load_s, params=params,
+         param_bytes=pipe.c.param_bytes(),
+         **video_jobs_table([j["id"] for j in TXT2VID_JOBS], by_id, rows,
+                            stages, container),
+         **video_shares(b1_rows, run, stages),
+         launches_per_eval=launches["flash_attention"] / (3 * 25),
+         launches=launches, b1_shapes=b1_shapes(run),
+         repeat_frames_equal=repeat_equal, evals=gates, profile=profile,
+         max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
+    return run
+
+
+def img2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
+    """SVD at its published widths (the spatio-temporal UNet, ViT-H/14 as
+    the image tower, the temporal VAE), random from seed 0 through the
+    registry's fallback; a job from a start image served by this script's
+    hive at the defaults (512 px, 14 frames bucketed to 16, motion bucket
+    127, noise-aug 0.02, guidance 1.0 -> 3.0, ``IMG2VID_STEPS`` steps), the
+    same job again and the same seed on another start image, through the
+    worker. Gates: the envelopes, the repeat bit for bit, another start
+    image other frames, B1 exactly 5 x evals at (32, 4096, 4096, 5, 64) and
+    (32, 1024, 1024, 10, 64) and no other kernel, the eval gates. Prints
+    txt2vid_serve's numbers."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.video import SVD
+
+    t0 = time.perf_counter()
+    pipe = registry.video_pipeline(VIDEO_IMG_MODEL)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if pipe.c.family != SVD:
+        raise AssertionError(f"img2vid_serve: family {pipe.c.family.name}")
+    params = {name: sum(p.numel() for p in m.parameters())
+              for name, m in zip(("image_encoder", "unet", "vae"),
+                                 pipe.c.modules())}
+    stage_names = {"encode": "encode_image", "denoise": "denoise",
+                   "decode": "decode"}
+    with LocalHive() as hive:
+        hive.assets.update({"svd-a.png": png_bytes(smooth_image(61, 512)),
+                            "svd-b.png": png_bytes(smooth_image(62, 512))})
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_stages(torch, pipe, stage_names) as stages, \
+                timed_container() as container:
+            worker = serve_through_worker(hive, pool, registry,
+                                          on_hive(hive, IMG2VID_JOBS))
+        run, launches = launched(), kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+    frames, want = {}, collections.Counter()
+    for job in IMG2VID_JOBS:
+        frames[job["id"]] = check_video_envelope(
+            "img2vid_serve", "img2vid", by_id[job["id"]], 14, (512, 512))
+        for shape in ((32, 4096, 4096, 5, 64), (32, 1024, 1024, 10, 64)):
+            want[(*shape, "bfloat16")] += VIDEO_B1_PER_EVAL * IMG2VID_STEPS
+    got = collections.Counter(run["flash_attention"]["shapes"])
+    if got != want or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"img2vid_serve launched {launches} by shape "
+                             f"{dict(got)}, want {dict(want)}")
+    repeat_equal = bool(np.array_equal(frames["img2vid-1"],
+                                       frames["img2vid-1-again"]))
+    other_differs = not np.array_equal(frames["img2vid-1"],
+                                       frames["img2vid-b"])
+    if not (repeat_equal and other_differs):
+        raise AssertionError(f"img2vid_serve: repeat equal {repeat_equal}, "
+                             f"another start image differs {other_differs}")
+    gates = video_eval_gates(torch, pipe, rows=1, frames=16,
+                             b1_launches=2 * VIDEO_B1_PER_EVAL)
+    profile = profile_tool().video_profile(
+        torch, pipe, "img2vid", steps=IMG2VID_STEPS, warm_up=False, top=8)
+    emit("img2vid_serve", load_s=load_s, params=params,
+         param_bytes=pipe.c.param_bytes(), steps=IMG2VID_STEPS,
+         **video_jobs_table([j["id"] for j in IMG2VID_JOBS], by_id, rows,
+                            stages, container),
+         **video_shares(b1_rows, run, stages),
+         launches_per_eval=(launches["flash_attention"]
+                            / (3 * IMG2VID_STEPS)),
+         launches=launches, b1_shapes=b1_shapes(run),
+         repeat_frames_equal=repeat_equal,
+         other_image_differs=other_differs, evals=gates, profile=profile,
+         max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
+    return run
+
+
+def vid2vid_clip() -> tuple[bytes, list]:
+    """``VID2VID_FRAMES`` frames of a smooth picture panning 8 px a frame,
+    at ``VID2VID_HW``, as an mp4v clip at 24 fps (and the frames)."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    h, w = VID2VID_HW
+    base = smooth_image(70, w)[:h]
+    frames = [np.ascontiguousarray(np.roll(base, 8 * i, axis=1))
+              for i in range(VID2VID_FRAMES)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "clip.mp4"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"),
+                                 24.0, (w, h))
+        if not writer.isOpened():
+            raise AssertionError("OpenCV cannot write mp4v on this node")
+        for frame in frames:
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        writer.release()
+        return path.read_bytes(), frames
+
+
+def vid2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
+    """The run's SD1.5 on a 12-frame 16:9 clip at 512 px height written
+    with OpenCV and served over HTTP: a vid2vid job at strength 0.6 and 20
+    steps (two chunks, 8 and 4 frames, 12 evals each) and the same job
+    again, through the worker. Gates: the envelopes (12 frames of 512x910),
+    the repeat bit for bit, B1 exactly 5 x evals at each of its four
+    shapes and no other kernel, each frame's init latent its own encode
+    (twelve a job, no two equal), and a one-frame stack the one-image
+    img2img path bit for bit (direct calls). Prints job seconds, device ms
+    of the encodes, the generate calls and the decodes, B1's ms and share,
+    the container's host seconds and the peak memory. The generate calls'
+    event ms hold the denoise and the decode; the encodes are outside them.
+    vid2vid's UNet is SD1.5's, held against the plain route and in float32
+    by the check phase."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
+
+    pipe = registry.pipeline("sd15")
+    clip, source = vid2vid_clip()
+    with LocalHive() as hive:
+        hive.assets["clip.mp4"] = clip
+        hive.asset_types["clip.mp4"] = "video/mp4"
+        jobs = [dict(job, video_uri=hive.uri + job["video_uri"])
+                for job in VID2VID_JOBS]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        stage_names = {"generate": "_generate"}
+        with watch_pipe(torch, pipe) as encodes, \
+                timed_stages(torch, pipe, stage_names) as stages, \
+                timed_container() as container:
+            worker = serve_through_worker(hive, pool, registry, jobs)
+        run, launches = launched(), kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        by_id = {r["id"]: r for r in hive.results}
+        rows = trace_rows(worker)
+    frames = {job["id"]: check_video_envelope(
+        "vid2vid_serve", "vid2vid", by_id[job["id"]], VID2VID_FRAMES,
+        VID2VID_HW) for job in VID2VID_JOBS}
+    start = round(VID2VID_STEPS * (1 - VID2VID_STRENGTH))
+    evals = VID2VID_STEPS - start
+    want = collections.Counter()
+    for batch in (16, 8):  # the 8- and 4-frame chunks under CFG
+        for shape in ((7680, 7680, 8, 40), (1920, 1920, 8, 80)):
+            want[(batch, *shape, "bfloat16")] += \
+                VIDEO_B1_PER_EVAL * evals * len(VID2VID_JOBS)
+    got = collections.Counter(run["flash_attention"]["shapes"])
+    if got != want or sum(launches.values()) != launches["flash_attention"]:
+        raise AssertionError(f"vid2vid_serve launched {launches} by shape "
+                             f"{dict(got)}, want {dict(want)}")
+    repeat_equal = bool(np.array_equal(frames["vid2vid-1"],
+                                       frames["vid2vid-1-again"]))
+    latents = [z for z, _, _ in encodes["encodes"]]
+    n_encodes = len(latents)
+    distinct = all(not torch.equal(latents[i], latents[j])
+                   for i in range(VID2VID_FRAMES)
+                   for j in range(i + 1, VID2VID_FRAMES))
+    cfg = by_id["vid2vid-1"]["pipeline_config"]
+    if not (repeat_equal and distinct
+            and n_encodes == VID2VID_FRAMES * len(VID2VID_JOBS)
+            and cfg["frames"] == VID2VID_FRAMES
+            and cfg["compute_cost"] == 512 * 512 * VID2VID_STEPS
+            * VID2VID_FRAMES):
+        raise AssertionError(f"vid2vid_serve: repeat equal {repeat_equal}, "
+                             f"{n_encodes} encodes, distinct {distinct}, "
+                             f"config {cfg}")
+    # a one-frame stack against the one-image img2img path, direct calls
+    h, w = VID2VID_HW
+    req = dict(prompt="a watercolor painting", negative_prompt="blurry",
+               steps=VID2VID_STEPS, guidance_scale=7.5, height=h, width=w,
+               seed=1, strength=VID2VID_STRENGTH)
+    one_image, _ = pipe(GenerateRequest(init_image=source[0], **req))
+    one_frame, _ = pipe(GenerateRequest(init_image=source[0][None], **req))
+    one_frame_equal = bool(np.array_equal(one_image, one_frame))
+    if not one_frame_equal:
+        raise AssertionError("vid2vid_serve: a one-frame stack differs from "
+                             "the one-image img2img path")
+    share = b1_share(b1_rows, run, stages["ms"]["generate"])
+    emit("vid2vid_serve", frames=VID2VID_FRAMES, size=list(VID2VID_HW),
+         steps=VID2VID_STEPS, strength=VID2VID_STRENGTH, evals_a_chunk=evals,
+         **video_jobs_table([j["id"] for j in VID2VID_JOBS], by_id, rows,
+                            None, container),
+         encode_ms=sum(encodes["encode_ms"]),
+         generate_ms=stages["ms"]["generate"], **share,
+         launches_per_eval=(launches["flash_attention"]
+                            / (evals * 2 * len(VID2VID_JOBS))),
+         launches=launches, b1_shapes=b1_shapes(run),
+         repeat_frames_equal=repeat_equal, init_latents_distinct=distinct,
+         one_frame_equals_img2img=one_frame_equal,
+         max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
+    return run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -6077,7 +6648,9 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "upscale_serve",
                                            "xl_upscale_serve",
                                            "adapters_serve",
-                                           "audio_serve")),
+                                           "audio_serve", "txt2vid_serve",
+                                           "img2vid_serve",
+                                           "vid2vid_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -6219,6 +6792,13 @@ def run_phases(torch, t0: float) -> int:
         torch.cuda.empty_cache()
         # text to speech: Bark's three GPT stages and the EnCodec decode
         runs["tts_serve"] = tts_serve_phase(torch, registry, pool)
+        # video: txt2vid (ModelScope), img2vid (SVD), vid2vid (SD1.5)
+        runs["txt2vid_serve"] = txt2vid_serve_phase(torch, registry, pool,
+                                                    b1_rows)
+        runs["img2vid_serve"] = img2vid_serve_phase(torch, registry, pool,
+                                                    b1_rows)
+        runs["vid2vid_serve"] = vid2vid_serve_phase(torch, registry, pool,
+                                                    b1_rows)
     encode_check_phase(torch, registry)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}

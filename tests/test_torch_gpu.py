@@ -14,7 +14,9 @@ shapes, ragged and strided, fp32 on the sweep, and its refusal of rows off
 16 bytes), B2 and B3 still at their own head dims; text to speech (the
 tiny family on the card against its CPU run, launching no kernel of the
 port; the same job twice, the same bytes; two layers at Bark's width in
-bf16 following the float32 CPU decode).
+bf16 following the float32 CPU decode); video (B1 at the spatial
+self-attentions of ModelScope's, SVD's and vid2vid's folded frames, the
+tiny video UNets on the card against their CPU run).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1727,3 +1729,63 @@ def test_bark_width_decode_in_bf16_follows_the_fp32_cpu_decode(cuda_device):
         if float(top2[0] - top2[1]) < 0.1:
             break
         assert int(runs["card"][0][t]) == int(runs["cpu"][0][t]), t
+
+
+# ---------------------------------------------------------------------------
+# video: B1 over folded frames, the tiny video UNets on the card
+
+
+@pytest.mark.parametrize("b,l,h,d", [
+    (64, 1024, 5, 64),   # ModelScope at 256 px, 32 frames, CFG
+    (32, 1024, 5, 64),   # the same at guidance 1.0
+    (32, 4096, 5, 64),   # SVD at 512 px, 16 frames, CFG
+    (32, 1024, 10, 64),  # SVD's second level
+    (16, 7680, 8, 40),   # vid2vid's 8-frame chunk at 512x960, CFG
+    (16, 1920, 8, 80),
+    (8, 7680, 8, 40),    # its 4-frame chunk
+    (8, 1920, 8, 80),
+])
+def test_kernel_matches_plain_at_video_shapes(cuda_device, b, l, h, d):
+    """B1 at the spatial self-attentions of the video paths' folded frames,
+    bf16, against its plain version at the kernel phase's bars."""
+    q, k, v = _qkv((b, l, h, d), (b, l, h, d), torch.bfloat16, cuda_device,
+                   seed=b + l + d)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("family", ["tiny_vid", "tiny_svd"])
+def test_tiny_video_unet_on_the_card_matches_its_cpu_run(cuda_device, family):
+    """The tiny video UNets (float32, TF32 off) on the card against their
+    CPU run at 3 frames of 16x16 latents (256 tokens: the plain path, as
+    head dim 8 is no kernel's): the temporal convs, norms and blends, and
+    the frame attentions, within 1e-4."""
+    import copy
+
+    from chiaswarm_tpu_torch.pipelines.video import VideoComponents
+
+    cpu = VideoComponents.random(family, seed=3, device="cpu")
+    card = copy.deepcopy(cpu.unet).to(cuda_device)
+    fam = cpu.family
+    gen = torch.Generator().manual_seed(4)
+    sample = torch.randn((2, 3, fam.unet.sample_channels, 16, 16),
+                         generator=gen)
+    ctx = torch.randn((2, 1 if fam.image_conditioned else 7,
+                       fam.unet.cross_attention_dim), generator=gen)
+    t = torch.tensor([0.7, -1.2] if fam.image_conditioned else [3.0, 250.0])
+    ids = torch.tensor([[6.0, 127.0, 0.02], [7.0, 60.0, 0.1]])
+    added = {"time_ids": ids} if fam.image_conditioned else None
+    with torch.inference_mode():
+        want = cpu.unet(sample, t, ctx, added)
+        got = card(sample.to(cuda_device), t.to(cuda_device),
+                   ctx.to(cuda_device),
+                   None if added is None
+                   else {"time_ids": ids.to(cuda_device)}).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert want.abs().mean() > 1e-2

@@ -696,14 +696,17 @@ def test_workflow_routes_to_the_sd_formatter_as_in_jax(workflow, registry):
 @pytest.mark.parametrize("workflow", ["txt2audio", "stitch", "img2txt",
                                       "vid2vid", "img2vid", "txt2vid"])
 def test_other_workloads_stay_refused(workflow, registry):
-    """Video stays refused, naming ROADMAP queue item 6; stitch, img2txt and
-    txt2audio, served since the thirteenth slice, route to the callbacks the
-    JAX package routes them to (``tests/test_torch_stitch.py``,
-    ``test_torch_caption.py`` and ``test_torch_audio.py`` hold them)."""
+    """The other workloads route to the callbacks the JAX package routes
+    them to: stitch, img2txt and txt2audio since the thirteenth slice, and
+    the three video workflows (``tests/test_torch_stitch.py``,
+    ``test_torch_caption.py``, ``test_torch_audio.py`` and
+    ``test_torch_video_pipeline.py`` hold them); what the port still refuses
+    names ROADMAP queue item 6."""
     from chiaswarm_tpu_torch.node.job_args import format_args
 
     served = {"txt2audio": "txt2audio_callback", "stitch": "stitch_callback",
-              "img2txt": "caption_callback"}
+              "img2txt": "caption_callback", "vid2vid": "vid2vid_callback",
+              "img2vid": "img2vid_callback", "txt2vid": "txt2vid_callback"}
     job = {"workflow": workflow, "model_name": "tiny"}
     if workflow in served:
         callback, _ = format_args(job, registry)

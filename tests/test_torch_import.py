@@ -89,7 +89,8 @@ def test_package_has_the_slice_modules():
                   "models.blip", "pipelines.caption", "workloads.caption",
                   "models.clap", "models.vocoder", "pipelines.audio",
                   "workloads.audio", "models.gpt", "models.codec",
-                  "pipelines.tts"):
+                  "pipelines.tts", "models.video_unet", "pipelines.video",
+                  "workloads.video"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -10,10 +10,13 @@ JAX's. Both registries hand out pipelines on one set of tiny weights (the
 port's carried across from JAX's), and the port's audio pipeline starts
 from JAX's initial draw. A burst of two text-to-speech jobs (one served
 at temperature 0, one naming its voice preset by a string) through both
-workers: the same envelopes. Then the jobs the port still refuses, video
-and a DeepFloyd cascade: fatal envelopes naming ROADMAP queue item 6; and
-a model not on disk (a caption, an AudioLDM and a Bark model), refused as
-the JAX worker refuses it.
+workers: the same envelopes. A burst of a txt2vid, an img2vid and a
+vid2vid job through both workers, the registries handing out video and SD
+pipelines on shared tiny weights: the same envelope keys, configs (but the
+timings) and frame counts. Then the job the port still refuses, a DeepFloyd
+cascade: a fatal envelope naming ROADMAP queue item 6; and a model not on
+disk (a caption, an AudioLDM, a Bark, a ModelScope and an SVD model),
+refused as the JAX worker refuses it.
 """
 
 from __future__ import annotations
@@ -117,9 +120,10 @@ class _JaxNoiseAudio(taudio.AudioPipeline):
         return super().__call__(**kw, init_noise=noise)
 
 
-def _serve(worker_cls, settings_mod, pool, registry, jobs_of) -> dict:
+def _serve(worker_cls, settings_mod, pool, registry, jobs_of,
+           hive_cls=FakeHive) -> dict:
     async def scenario():
-        hive = FakeHive()
+        hive = hive_cls()
         uri = await hive.start()
         jobs = jobs_of(uri)
         hive.jobs.extend(jobs)
@@ -254,11 +258,8 @@ def test_a_tts_burst_matches_the_jax_worker():
 
 
 @pytest.mark.parametrize("job", [
-    {"workflow": "txt2vid", "model_name": "damo-vilab/text-to-video-ms-1.7b"},
-    {"workflow": "img2vid", "model_name": "stabilityai/stable-video-diffusion"},
-    {"workflow": "vid2vid", "model_name": "sd15"},
     {"model_name": "DeepFloyd/IF-I-XL-v1.0", "prompt": "a cat"},
-], ids=["txt2vid", "img2vid", "vid2vid", "deepfloyd"])
+], ids=["deepfloyd"])
 def test_unported_workflows_stay_fatal_naming_item_6(job):
     def jobs_of(uri):
         return [dict(job, id="later-1", seed=1)]
@@ -278,7 +279,12 @@ def test_unported_workflows_stay_fatal_naming_item_6(job):
      "prompt": "rain", "content_type": "audio/wav"},
     {"workflow": "txt2audio", "model_name": "suno/bark", "prompt": "hello",
      "content_type": "audio/wav"},
-], ids=["img2txt", "txt2audio", "tts"])
+    {"workflow": "txt2vid", "model_name": "damo-vilab/text-to-video-ms-1.7b",
+     "prompt": "a cat", "content_type": "video/mp4"},
+    {"workflow": "img2vid",
+     "model_name": "stabilityai/stable-video-diffusion-img2vid",
+     "content_type": "video/mp4"},
+], ids=["img2txt", "txt2audio", "tts", "txt2vid", "img2vid"])
 def test_a_model_not_on_disk_is_refused_as_the_jax_worker_refuses_it(job):
     """Without ``allow_random`` a model the node lacks is "not available on
     this node" in both workers, and neither envelope is fatal. An img2txt
@@ -286,7 +292,7 @@ def test_a_model_not_on_disk_is_refused_as_the_jax_worker_refuses_it(job):
     (the caption workload turns every failure into one, so the envelope
     has no ``error_kind``); a txt2audio job's envelope is of the non-fatal
     ``model_unavailable`` kind, so the hive may route it to a node that has
-    the model."""
+    the model; so is a txt2vid or img2vid job's."""
     def jobs_of(uri):
         return [dict(job, id="missing-1", seed=1,
                      start_image_uri=f"{uri}/assets/image.png")]
@@ -311,3 +317,143 @@ def test_a_model_not_on_disk_is_refused_as_the_jax_worker_refuses_it(job):
     assert {k: v for k, v in config.items() if k not in TIMINGS} == \
         {k: v for k, v in want["pipeline_config"].items()
          if k not in TIMINGS}
+
+
+# ---------------------------------------------------------------------------
+# video: txt2vid, img2vid and vid2vid on one burst
+
+
+def _clip_bytes() -> bytes:
+    """A 3-frame 64 px mp4 clip at 12 fps, written with OpenCV."""
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    fd, name = tempfile.mkstemp(suffix=".mp4")
+    path = Path(name)
+    try:
+        writer = cv2.VideoWriter(name, cv2.VideoWriter_fourcc(*"mp4v"), 12.0,
+                                 (64, 64))
+        for i in range(3):
+            writer.write(np.full((64, 64, 3), 60 * i + 20, np.uint8))
+        writer.release()
+        return path.read_bytes()
+    finally:
+        import os
+
+        os.close(fd)
+        path.unlink()
+
+
+class _ClipHive(FakeHive):
+    """A hive that also serves ``/assets/clip.mp4``."""
+
+    clip = b""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._app.router.add_route("*", "/assets/clip.mp4", self._clip)
+
+    async def _clip(self, request):
+        from aiohttp import web
+
+        return web.Response(body=self.clip, content_type="video/mp4")
+
+
+def _video_jobs(uri: str) -> list[dict]:
+    return [
+        {"id": "txt2vid-1", "workflow": "txt2vid", "seed": 8,
+         "model_name": "tiny_vid", "prompt": "a lighthouse",
+         "num_frames": 3, "num_inference_steps": 2, "height": 64,
+         "width": 64, "content_type": "video/mp4"},
+        {"id": "img2vid-1", "workflow": "img2vid", "seed": 9,
+         "model_name": "tiny_svd", "start_image_uri": f"{uri}/assets/image.png",
+         "num_frames": 3, "num_inference_steps": 2, "height": 64,
+         "width": 64, "content_type": "video/mp4"},
+        {"id": "vid2vid-1", "workflow": "vid2vid", "seed": 10,
+         "model_name": "tiny", "prompt": "a watercolor",
+         "video_uri": f"{uri}/assets/clip.mp4", "num_inference_steps": 3,
+         "strength": 0.5, "content_type": "video/mp4"},
+    ]
+
+
+def _frame_count(result: dict) -> int:
+    import tempfile
+    from pathlib import Path
+
+    from chiaswarm_tpu_torch.workloads.video import _read_frames
+
+    blob = base64.b64decode(result["artifacts"]["primary"]["blob"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "out.mp4"
+        path.write_bytes(blob)
+        frames, _ = _read_frames(str(path))
+    return len(frames)
+
+
+@pytest.fixture(scope="module")
+def video_burst():
+    """The burst through both workers, once: (JAX's results, the port's)."""
+    import os
+    import tempfile
+
+    from chiaswarm_tpu.pipelines import diffusion as jdiff
+    from chiaswarm_tpu.pipelines import video as jvideo
+    from chiaswarm_tpu_torch.pipelines import diffusion as tdiff
+    from chiaswarm_tpu_torch.pipelines import video as tvideo
+    from tests.test_torch_video import tiny_components
+    from tests.test_torch_video_pipeline import tiny_sd_pipes
+
+    _ClipHive.clip = _clip_bytes()
+    (j_vid, t_vid), (j_svd, t_svd) = (tiny_components("tiny_vid", 1),
+                                      tiny_components("tiny_svd", 2))
+    j_sd, t_sd = tiny_sd_pipes()
+    j_pipes = {"tiny_vid": jvideo.VideoPipeline(j_vid),
+               "tiny_svd": jvideo.Img2VidPipeline(j_svd)}
+    t_pipes = {"tiny_vid": tvideo.VideoPipeline(t_vid),
+               "tiny_svd": tvideo.Img2VidPipeline(t_svd)}
+    assert isinstance(j_sd, jdiff.DiffusionPipeline)
+    assert isinstance(t_sd, tdiff.DiffusionPipeline)
+    j_registry = JaxRegistry(allow_random=True)
+    j_registry.video_pipeline = lambda name, mesh=None: j_pipes[name]
+    j_registry.pipeline = lambda name, **kw: j_sd
+    t_registry = ModelRegistry(allow_random=True, device="cpu")
+    t_registry.video_pipeline = lambda name, mesh=None: t_pipes[name]
+    t_registry.pipeline = lambda name, **kw: t_sd
+    before = os.environ.get("SWARM_TPU_ROOT")
+    with tempfile.TemporaryDirectory() as root:
+        os.environ["SWARM_TPU_ROOT"] = root
+        try:
+            want = _serve(JaxWorker, jsettings, JaxPool(n_slots=1),
+                          j_registry, _video_jobs, _ClipHive)
+            got = _serve(tworker.Worker, tsettings, ChipPool(device="cpu"),
+                         t_registry, _video_jobs, _ClipHive)
+        finally:
+            if before is None:
+                os.environ.pop("SWARM_TPU_ROOT", None)
+            else:
+                os.environ["SWARM_TPU_ROOT"] = before
+    return want, got
+
+
+@pytest.mark.parametrize("job_id", ["txt2vid-1", "img2vid-1", "vid2vid-1"])
+def test_a_video_burst_matches_the_jax_worker(job_id, video_burst):
+    """Both workers serve each of the three video workflows on one burst:
+    the same envelope keys, the same ``pipeline_config`` but the timings,
+    the same artifacts' content types and the same frame counts (the
+    frames themselves differ: each package draws its own noise)."""
+    want, got = (results[job_id] for results in video_burst)
+    config = got["pipeline_config"]
+    assert "error" not in config, config
+    assert set(got) == set(want)
+    timings = (*TIMINGS, "frames_per_sec")
+    assert {k: v for k, v in config.items() if k not in timings} == \
+        {k: v for k, v in want["pipeline_config"].items()
+         if k not in timings}
+    assert set(config) == set(want["pipeline_config"])
+    assert {name: a["content_type"] for name, a in got["artifacts"].items()} \
+        == {name: a["content_type"] for name, a in want["artifacts"].items()} \
+        == {"primary": "video/mp4", "thumbnail": "image/jpeg"}
+    assert _frame_count(got) == _frame_count(want) == 3
+    assert not got.get("fatal_error")

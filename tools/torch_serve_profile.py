@@ -42,6 +42,14 @@ temperature 0.7 and ``top_k`` 50: the summary (CUDA activity only: a job
 launches some half a million kernels), the semantic and coarse decode
 steps it took and the launches per step.
 
+``--video txt2vid`` profiles a ModelScope txt2vid job (the family's
+published widths, random weights from seed 0: the UNet3D and VAE bf16, the
+CLIP-H text tower float32; 25 frames at 256 px, guidance 9.0, ``--steps``
+steps); ``--video img2vid`` an SVD img2vid job (the spatio-temporal UNet
+and temporal VAE bf16, ViT-H/14 float32; 14 frames at 512 px from a seeded
+picture, guidance 1.0 -> 3.0): the summary (CUDA activity only) with B1's
+device ms and share and the launches an eval.
+
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
 and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
@@ -64,6 +72,7 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py --audio [--seconds 10]
     python tools/torch_serve_profile.py --caption
     python tools/torch_serve_profile.py --tts [--seconds 4]
+    python tools/torch_serve_profile.py --video txt2vid|img2vid [--steps 25]
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -114,6 +123,10 @@ def main(argv: list[str] | None = None) -> int:
                         help="profile BLIP-base captions and a VQA answer")
     parser.add_argument("--tts", action="store_true",
                         help="profile a Bark text-to-speech job")
+    parser.add_argument("--video", choices=("txt2vid", "img2vid"),
+                        default=None,
+                        help="profile a ModelScope txt2vid or an SVD img2vid "
+                             "job")
     args = parser.parse_args(argv)
 
     import torch
@@ -135,6 +148,8 @@ def main(argv: list[str] | None = None) -> int:
         return caption_main(torch, args)
     if args.tts:
         return tts_main(torch, args)
+    if args.video:
+        return video_main(torch, args)
     mesh = None
     if args.seq > 1:
         n_cards = torch.cuda.device_count()
@@ -318,6 +333,51 @@ def tts_main(torch, args) -> int:
                       "model": "bark", "seconds": seconds,
                       "param_bytes": pipe.c.param_bytes(),
                       **tts_profile(torch, pipe, seconds, args.top)}))
+    return 0
+
+
+VIDEO_PROMPT = "a red fox running through fresh snow at dawn, cinematic"
+
+
+def video_profile(torch, pipe, workflow: str, steps: int = 25,
+                  top: int = 25, warm_up: bool = True) -> dict:
+    """One video job of ``pipe`` (a ``VideoPipeline`` for ``txt2vid``, an
+    ``Img2VidPipeline`` for ``img2vid``) at its family's defaults and
+    ``steps`` steps, profiled (CUDA activity only; after a warm-up job
+    unless the pipeline is warm): the summary, B1's launches an eval and
+    its share of the device time."""
+    import functools
+
+    if workflow == "txt2vid":
+        run = functools.partial(pipe, steps=steps, guidance_scale=9.0,
+                                seed=1)
+        arg = VIDEO_PROMPT
+    else:
+        run = functools.partial(pipe, steps=steps, seed=1)
+        arg = seeded_picture(pipe.c.family.default_size)
+    summary = profiled(torch, run, arg, top=top, cpu=False, warm_up=warm_up)
+    b1 = summary["flash_attention"]
+    return {**summary, "steps": steps,
+            "b1_launches_per_eval": b1["calls"] / steps,
+            "b1_share_of_device": b1["share"]}
+
+
+def video_main(torch, args) -> int:
+    from chiaswarm_tpu_torch.pipelines.video import (
+        Img2VidPipeline,
+        VideoComponents,
+        VideoPipeline,
+    )
+
+    family = "modelscope_t2v" if args.video == "txt2vid" else "svd_img2vid"
+    components = VideoComponents.random(family, seed=0, device="cuda")
+    pipe = (VideoPipeline if args.video == "txt2vid"
+            else Img2VidPipeline)(components)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "workflow": args.video, "family": family,
+                      "param_bytes": components.param_bytes(),
+                      **video_profile(torch, pipe, args.video, args.steps,
+                                      args.top)}))
     return 0
 
 
