@@ -33,6 +33,15 @@ rules: its trunk has the UNet's names, beside ``controlnet_cond_embedding.*``,
 four concept buffers (:func:`split_safety_checker`); a missing buffer
 raises, as in JAX.
 
+A DeepFloyd-class cascade snapshot (:func:`load_cascade_checkpoint`, JAX
+:699-727) holds ``text_encoder/`` (a transformers ``T5EncoderModel``:
+``shared.weight``, or its tied alias ``encoder.embed_tokens.weight``, and
+``encoder.*``; JAX's names :665-697), ``unet/`` (stage 1) and ``unet_sr/``
+(stage 2), with a ``tokenizer.json`` or none. The x4 upscaler loads as any
+diffusers snapshot (``Components.from_checkpoint``): its UNet's
+``class_embedding.weight`` table, the three-level f = 4 VAE and the ViT-H
+text tower by their names.
+
 A video snapshot (:func:`load_video_checkpoint`) holds ``unet/``, ``vae/``
 and ``text_encoder/`` or ``image_encoder/``: a ModelScope or SVD UNet and
 SVD's temporal VAE load strictly (:func:`check_strict`: a missing, extra or
@@ -425,6 +434,43 @@ def load_audio_checkpoint(checkpoint_dir: str | Path, model_name: str,
 
     components = AudioComponents.build(family, model_name, device, fill,
                                        tokenizer, precast=True)
+    lander.finish()
+    return components
+
+
+# ---------------------------------------------------------------- cascade
+
+#: a cascade module -> its subdirectory in a snapshot
+CASCADE_SUBDIRS = {"t5": "text_encoder", "unet1": "unet", "unet2": "unet_sr"}
+
+
+def load_cascade_checkpoint(checkpoint_dir: str | Path, model_name: str,
+                            family, device: str | torch.device | None = None):
+    """A DeepFloyd-class snapshot -> ``CascadeComponents`` on ``device``,
+    the modules allocated at their serving dtypes before the tensors land;
+    the tokenizer through ``load_tokenizer`` with T5's convention (no BOS,
+    padding with id 0)."""
+    from chiaswarm_tpu_torch.core.device import resolve_device
+    from chiaswarm_tpu_torch.models.tokenizer import load_tokenizer
+    from chiaswarm_tpu_torch.pipelines.cascade import CascadeComponents
+
+    checkpoint_dir = Path(checkpoint_dir)
+    t5 = family.t5
+    tokenizer = load_tokenizer(checkpoint_dir, t5.vocab_size, t5.eos_token_id,
+                               t5.max_length, pad_id=t5.pad_token_id,
+                               add_bos=False)
+    lander = TensorLander(resolve_device(device))
+
+    def fill(index: int, name: str, module: nn.Module) -> None:
+        path = checkpoint_dir / CASCADE_SUBDIRS[name]
+        state = read_weights(path)
+        if name == "t5" and "shared.weight" not in state \
+                and "encoder.embed_tokens.weight" in state:
+            state["shared.weight"] = state.pop("encoder.embed_tokens.weight")
+        fill_module(module, name, state, lander, path)
+
+    components = CascadeComponents.build(family, model_name, device, fill,
+                                         tokenizer, precast=True)
     lander.finish()
     return components
 

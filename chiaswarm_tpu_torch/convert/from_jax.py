@@ -188,6 +188,51 @@ def _skeleton(ctor: Callable[[Any], nn.Module], config: Any) -> nn.Module:
         return ctor(config)
 
 
+# ------------------------------------------------------------- cascade
+
+def t5_state_from_flax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """The JAX package's ``T5Encoder`` params (a Flax ``{"params": ...}``
+    tree) -> the port's ``models/t5.py`` state dict (transformers'
+    ``T5EncoderModel`` names). Every Flax leaf is used once, or this
+    raises."""
+    params = tree["params"]
+    flat: dict[str, np.ndarray] = {
+        "shared.weight": params["token_embedding"]["embedding"],
+        "encoder.final_layer_norm.weight": params["final_layer_norm"]["scale"],
+    }
+    for i in range(config.num_layers):
+        node, t = params[f"block_{i}"], f"encoder.block.{i}.layer"
+        attn = node["attention"]
+        for proj in "qkvo":
+            flat[f"{t}.0.SelfAttention.{proj}.weight"] = np.asarray(
+                attn[proj]["kernel"]).T
+        if i == 0:
+            flat[f"{t}.0.SelfAttention.relative_attention_bias.weight"] = \
+                attn["relative_attention_bias"]
+        flat[f"{t}.0.layer_norm.weight"] = node["attn_norm"]["scale"]
+        for proj in ("wi_0", "wi_1", "wo"):
+            flat[f"{t}.1.DenseReluDense.{proj}.weight"] = np.asarray(
+                node[proj]["kernel"]).T
+        flat[f"{t}.1.layer_norm.weight"] = node["ff_norm"]["scale"]
+    n_leaves = len(list(_leaves(params)))
+    if n_leaves != len(flat):
+        raise ValueError(f"T5 params: {n_leaves} Flax leaves, {len(flat)} "
+                         "carried across")
+    return {k: torch.tensor(np.asarray(v, np.float32))
+            for k, v in flat.items()}
+
+
+def cascade_state_from_flax(params: dict[str, Any], family
+                            ) -> dict[str, dict[str, torch.Tensor]]:
+    """The JAX package's ``CascadeComponents.params`` (``t5``, ``unet1``,
+    ``unet2``) -> the port's float32 state dicts under the same keys."""
+    out = {"t5": t5_state_from_flax(params["t5"], family.t5)}
+    for name, cfg in (("unet1", family.stage1), ("unet2", family.stage2)):
+        out[name] = _convert(_skeleton(UNet, cfg), params[name], _unet_path,
+                             len(cfg.block_out_channels))
+    return out
+
+
 # ------------------------------------------------------------------ BLIP
 
 def _dense(flat: dict, node: dict, name: str) -> None:

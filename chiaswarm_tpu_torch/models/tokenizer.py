@@ -9,19 +9,22 @@
   over the same file names, AudioLDM's CLAP tokenizer;
 - :class:`HashTokenizer` (:278-337), the deterministic vocab-file-free
   tokenizer of random-weight models, with the specials of CLIP (BOS =
-  EOS - 1, padding with EOS) or of a RoBERTa tower (its own BOS and pad);
+  EOS - 1, padding with EOS), of a RoBERTa tower (its own BOS and pad) or
+  of T5 (``add_bos=False``, padding with id 0);
+- :class:`HFTokenizer` (:339-365), a serialized HuggingFace
+  ``tokenizer.json`` (the T5 snapshots of the DeepFloyd cascade) through
+  the ``tokenizers`` package, padded and cut to a static length;
 - :func:`load_tokenizer` (:368-408), which tells a byte-level vocab from
-  CLIP's by its pieces (:func:`_vocab_is_byte_level`);
+  CLIP's by its pieces (:func:`_vocab_is_byte_level`) and reads a
+  ``tokenizer.json`` when no vocab files are found;
 - :class:`WordPieceTokenizer` (:411-491), BERT WordPiece over a
   ``vocab.txt``, which also decodes: BLIP's captions come back as ids.
 
 The ids are the JAX package's for the same text and files, so a prompt
-conditions both backends identically. Not ported: the ``tokenizer.json``
-wrapper (``HFTokenizer``), which needs the ``tokenizers`` package and
-serves only the DeepFloyd cascade (ROADMAP queue item 6):
-:func:`load_tokenizer` refuses such a file rather than hash a real
-checkpoint's prompts; and :class:`HashTokenizer`'s ``add_bos=False``,
-the T5 convention only that cascade uses.
+conditions both backends identically. Where the ``tokenizers`` package is
+not installed, a snapshot whose only tokenizer is a ``tokenizer.json``
+raises ``ModelUnavailable`` naming the package (the executor's non-fatal
+``model_unavailable`` kind): a real checkpoint's prompts are never hashed.
 """
 
 from __future__ import annotations
@@ -253,16 +256,18 @@ class ByteLevelBpeTokenizer(_BpeTokenizer):
 class HashTokenizer(AddedTokenMixin):
     """Deterministic, vocab-file-free tokenizer for random-weight models.
     CLIP's convention by default (BOS = EOS - 1, padding with EOS); a
-    RoBERTa-family tower (CLAP) passes its own ``bos_id`` and ``pad_id``."""
+    RoBERTa-family tower (CLAP) passes its own ``bos_id`` and ``pad_id``;
+    T5 passes ``add_bos=False`` and ``pad_id=0``."""
 
     def __init__(self, vocab_size: int = 1000, max_length: int = 77,
                  eos_id: int | None = None, bos_id: int | None = None,
-                 pad_id: int | None = None) -> None:
+                 pad_id: int | None = None, add_bos: bool = True) -> None:
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.eos_id = eos_id if eos_id is not None else vocab_size - 1
         self.bos_id = bos_id if bos_id is not None else self.eos_id - 1
         self.pad_id = pad_id if pad_id is not None else self.eos_id
+        self.add_bos = add_bos
         # hashed ids never collide with the specials: masks and pooled
         # readouts are derived from exact id equality. Specials sit at the
         # bottom (CLAP 0/1/2) or the top (CLIP) of the vocab; ids hash into
@@ -290,11 +295,48 @@ class HashTokenizer(AddedTokenMixin):
         return ids
 
     def encode(self, text: str) -> list[int]:
-        """bos + tokenize() body (truncated) + eos, padded with pad_id."""
-        ids = [self.bos_id] + self.tokenize(text)[: self.max_length - 2]
+        """[bos +] tokenize() body (truncated) + eos, padded with pad_id."""
+        head = [self.bos_id] if self.add_bos else []
+        ids = head + self.tokenize(text)[: self.max_length - len(head) - 1]
         ids.append(self.eos_id)
         ids += [self.pad_id] * (self.max_length - len(ids))
         return ids[: self.max_length]
+
+    def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
+        return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
+
+
+class HFTokenizer(AddedTokenMixin):
+    """A serialized HuggingFace ``tokenizer.json`` through the ``tokenizers``
+    package (imported here, so a node without it can still import this
+    module): the tokenizer's own ids (its post-processor adds T5's EOS), cut
+    and padded with ``pad_id`` to a static length."""
+
+    def __init__(self, tokenizer_file: str | Path, max_length: int = 77,
+                 pad_id: int = 0) -> None:
+        try:
+            from tokenizers import Tokenizer as _Tok
+        except ImportError as exc:
+            from chiaswarm_tpu_torch.serving.residency import ModelUnavailable
+
+            raise ModelUnavailable(
+                f"the tokenizer.json tokenizer at {tokenizer_file} is not "
+                "available on this node (it needs the 'tokenizers' package, "
+                "which is not installed)") from exc
+        self._tok = _Tok.from_file(str(tokenizer_file))
+        self.max_length = max_length
+        self.pad_id = pad_id
+
+    def encode(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for span in self._split_added(text):
+            if isinstance(span, list):  # textual-inversion placeholder run
+                ids.extend(span)
+            else:
+                ids.extend(self._tok.encode(span).ids)
+        ids = ids[: self.max_length]
+        ids += [self.pad_id] * (self.max_length - len(ids))
+        return ids
 
     def encode_batch(self, texts: Sequence[str]) -> np.ndarray:
         return np.asarray([self.encode(t) for t in texts], dtype=np.int32)
@@ -313,15 +355,15 @@ def _vocab_is_byte_level(vocab_path: Path) -> bool:
 def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
                    eos_id: int = 49407, max_length: int = 77,
                    bos_id: int | None = None,
-                   pad_id: int | None = None) -> Tokenizer:
+                   pad_id: int | None = None,
+                   add_bos: bool = True) -> Tokenizer:
     """:class:`ClipBpeTokenizer` or :class:`ByteLevelBpeTokenizer` when
     vocab files exist under the checkpoint (itself, ``tokenizer/`` or
-    ``text_encoder/``), told apart by their pieces; else
-    :class:`HashTokenizer`. Falling back on a REAL checkpoint is loud:
-    hash-bucketed ids next to loaded weights would condition on noise. A
-    ``tokenizer.json`` (the T5 families) raises, worded for the executor's
-    non-fatal ``model_unavailable`` kind: its tokenizer comes with the
-    DeepFloyd cascade."""
+    ``text_encoder/``), told apart by their pieces; then
+    :class:`HFTokenizer` over a ``tokenizer.json`` (itself or
+    ``tokenizer/``: the T5 snapshots); else :class:`HashTokenizer`.
+    Falling back on a REAL checkpoint is loud: hash-bucketed ids next to
+    loaded weights would condition on noise."""
     if checkpoint_dir is not None:
         path = Path(checkpoint_dir)
         for sub in ("", "tokenizer", "text_encoder"):
@@ -331,11 +373,9 @@ def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
                     return ByteLevelBpeTokenizer.from_dir(cand, max_length)
                 return ClipBpeTokenizer.from_dir(cand, max_length)
         for sub in ("", "tokenizer"):
-            if ((path / sub if sub else path) / "tokenizer.json").exists():
-                raise ValueError(
-                    f"the tokenizer.json tokenizer of {path} is not "
-                    "available on this node (chiaswarm_tpu_torch ports it "
-                    "with the DeepFloyd cascade, ROADMAP queue item 6)")
+            cand = (path / sub if sub else path) / "tokenizer.json"
+            if cand.exists():
+                return HFTokenizer(cand, max_length)
         if path.exists():
             logging.getLogger("chiaswarm_torch.tokenizer").warning(
                 "checkpoint %s has no recognized tokenizer files "
@@ -343,7 +383,7 @@ def load_tokenizer(checkpoint_dir: str | Path | None, vocab_size: int = 49408,
                 "HashTokenizer — generations will NOT match the reference "
                 "model", path)
     return HashTokenizer(vocab_size, max_length, eos_id, bos_id=bos_id,
-                         pad_id=pad_id)
+                         pad_id=pad_id, add_bos=add_bos)
 
 
 class WordPieceTokenizer:

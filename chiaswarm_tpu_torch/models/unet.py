@@ -35,9 +35,12 @@ class labels (the L2-normalised CLAP text embedding, diffusers'
 after the time embedding, so every resnet's ``time_emb_proj`` takes twice
 the time embedding's width, else added to it. ``cross_attention_dim=None``
 gives transformer blocks with no ``norm2``/``attn2`` (self-attention and
-feed-forward only). Not ported: the x4 upscaler's table of noise-level
-embeddings (``num_class_embeds``, with the DeepFloyd cascade, ROADMAP queue
-item 6) and the DeepCache seam.
+feed-forward only).
+
+The SD x4 upscaler's noise level (JAX :266-274): ``num_class_embeds`` adds
+``class_embedding``, an ``nn.Embedding(num_class_embeds, time_dim)`` whose
+row at each integer class label is added to the time embedding; such a
+family raises without labels, as in JAX. Not ported: the DeepCache seam.
 """
 
 from __future__ import annotations
@@ -295,10 +298,6 @@ class UNetTrunk(nn.Module):
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__()
-        if config.num_class_embeds is not None:
-            raise ValueError("UNets with a table of class embeddings (the x4 "
-                             "upscaler's noise level) are not ported yet (a "
-                             "later slice of the port, ROADMAP queue item 6)")
         self.config = config
         cfg = config
         channels = list(cfg.block_out_channels)
@@ -306,6 +305,9 @@ class UNetTrunk(nn.Module):
         time_dim = channels[0] * 4
         self.conv_in = nn.Conv2d(cfg.sample_channels, channels[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(channels[0], time_dim)
+        if cfg.num_class_embeds is not None:
+            self.class_embedding = nn.Embedding(cfg.num_class_embeds,
+                                                time_dim)
         if cfg.class_proj_dim is not None:
             self.class_embedding = nn.Linear(cfg.class_proj_dim, time_dim)
         # the width of the embedding every resnet projects
@@ -356,13 +358,19 @@ class UNetTrunk(nn.Module):
                           dtype: torch.dtype,
                           class_labels: torch.Tensor | None = None
                           ) -> torch.Tensor:
-        """The time embedding, with AudioLDM's class embedding of the float
-        ``class_labels`` (B, class_proj_dim) and SDXL's added
+        """The time embedding, with the x4 upscaler's table row of the
+        integer ``class_labels`` (B,), AudioLDM's class embedding of the
+        float ``class_labels`` (B, class_proj_dim) and SDXL's added
         conditioning."""
         cfg = self.config
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
+        if cfg.num_class_embeds is not None:
+            if class_labels is None:
+                raise ValueError("this family requires class_labels "
+                                 "(e.g. the x4-upscaler noise level)")
+            temb = temb + self.class_embedding(class_labels.long()).to(dtype)
         if cfg.class_proj_dim is not None:
             if class_labels is None:
                 raise ValueError("this family requires float class_labels "
@@ -424,8 +432,9 @@ class UNet(UNetTrunk):
     NCHW latents ``sample`` (B, C, H, W), ``timesteps`` (B,) float (fractional
     allowed) and ``encoder_hidden_states`` (B|divisor, S, cross_dim; None
     for a family without cross-attention). ``down_residuals``/
-    ``mid_residual`` take a ControlNet's residuals; ``class_labels`` (B,
-    class_proj_dim) AudioLDM's conditioning."""
+    ``mid_residual`` take a ControlNet's residuals; ``class_labels`` the
+    x4 upscaler's integer noise levels (B,) or AudioLDM's float
+    conditioning (B, class_proj_dim)."""
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__(config)

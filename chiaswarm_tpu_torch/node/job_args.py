@@ -25,8 +25,8 @@ A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
   ``img2vid`` to ``img2vid_callback`` with the same ``parameters``
   handling, ``prompt`` dropped (no text tower) and ``start_image_uri``
   fetched through :func:`get_image` into ``image`` (JAX :85-105, :138-146);
-- ``DeepFloyd/`` models are refused, naming ROADMAP queue item 6 (the
-  cascade);
+- ``DeepFloyd/`` models go to ``workloads/cascade.py::cascade_callback``
+  with their arguments as they are (JAX :107-110);
 - every other workflow (none, ``txt2img``, ``img2img``, ``inpaint``, any
   other name) goes to the stable-diffusion formatter: the 1024-pixel size
   cap, the server's ``parameters`` block unpacked (scheduler class name,
@@ -91,11 +91,6 @@ MAX_IMAGE_PIXELS = 16 * 1024 * 1024  # 16 Mpx; the served maximum is ~1 Mpx
 FormatResult = tuple[Callable[..., tuple[dict, dict]], dict[str, Any]]
 
 
-def _later(what: str) -> ValueError:
-    return ValueError(f"{what} is not served by chiaswarm_tpu_torch yet (a "
-                      "later slice of the port, ROADMAP queue item 6)")
-
-
 def format_args(job: dict[str, Any], registry) -> FormatResult:
     """Route one hive job. Raises on malformed or unserved input."""
     args = dict(job)
@@ -144,7 +139,9 @@ def format_args(job: dict[str, Any], registry) -> FormatResult:
         return _format_txt2vid_args(args)
 
     if str(args.get("model_name", "")).startswith("DeepFloyd/"):
-        raise _later("DeepFloyd cascades")
+        from chiaswarm_tpu_torch.workloads.cascade import cascade_callback
+
+        return cascade_callback, args
     return _format_stable_diffusion_args(args)
 
 

@@ -33,9 +33,9 @@ keyed by it.
 
 :meth:`ModelRegistry.pipeline` selects the pipeline class by the
 family's ``kind``, as JAX does (:278-291): ``"upscaler"`` builds the x2
-``LatentUpscalePipeline`` (``pipelines/upscale.py``), ``"upscaler4"`` is
-refused (the x4 upscaler comes with the DeepFloyd cascade, ROADMAP queue
-item 6), the rest builds ``DiffusionPipeline``. A textual inversion and a
+``LatentUpscalePipeline`` and ``"upscaler4"`` the SD x4
+``Upscale4xPipeline`` (``pipelines/upscale.py``; on a ``seq`` > 1 slot it
+raises, ROADMAP queue item 7), the rest builds ``DiffusionPipeline``. A textual inversion and a
 LoRA at a scale key entries of their own, ``("pipeline", name,
 textual_inversion, (lora, scale), mesh key)`` as in JAX: each is built
 from its own ``Components``, the embedding rows appended to its private
@@ -43,6 +43,14 @@ tables (``convert/textual_inversion.py``) and the LoRA merged into its
 private UNet (``convert/lora.py``) before the pipeline is handed out. Their
 files load from :func:`model_dir` of the adapter's name; a missing one is
 "not available on this node", the non-fatal ``model_unavailable`` kind.
+
+:meth:`ModelRegistry.cascade_pipeline` (JAX :306-352) serves the
+``DeepFloyd/`` cascade: a directory under :func:`model_dir` with
+``text_encoder/`` (T5), ``unet/`` (stage 1) and ``unet_sr/`` (stage 2)
+(``convert/checkpoint.py::load_cascade_checkpoint``), seeded random
+weights of the family only under ``allow_random``, else not available on
+this node; one ledger entry per ``("cascade", name, mesh key)`` sized by
+its measured footprint. A ``seq`` > 1 slot raises (ROADMAP queue item 7).
 
 :meth:`ModelRegistry.caption_pipeline` (JAX :493-547),
 :meth:`ModelRegistry.audio_pipeline` (JAX :354-389),
@@ -83,7 +91,10 @@ from chiaswarm_tpu_torch.pipelines.components import (
     estimate_family_bytes,
 )
 from chiaswarm_tpu_torch.pipelines.diffusion import DiffusionPipeline
-from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
+from chiaswarm_tpu_torch.pipelines.upscale import (
+    LatentUpscalePipeline,
+    Upscale4xPipeline,
+)
 from chiaswarm_tpu_torch.serving.residency import (
     ResidencyManager,
     default_budget_bytes,
@@ -205,7 +216,8 @@ class ModelRegistry:
                  textual_inversion: str | None = None,
                  lora: str | None = None, lora_scale: float = 1.0,
                  mesh: DeviceMesh | None = None
-                 ) -> DiffusionPipeline | LatentUpscalePipeline:
+                 ) -> (DiffusionPipeline | LatentUpscalePipeline
+                       | Upscale4xPipeline):
         """The pipeline of ``model_name`` for a slot's ``mesh``: its modules
         on the mesh's lead device (the registry's device when no mesh is
         given), ringing its large self-attentions over the mesh's ``seq``
@@ -217,13 +229,12 @@ class ModelRegistry:
         ``ModelUnavailable``."""
         self._check_quarantine(model_name)
         if self.family_for(model_name).kind == "upscaler4":
-            raise ValueError(
-                f"model {model_name!r} is an x4 upscaler, which "
-                "chiaswarm_tpu_torch serves with the DeepFloyd cascade (a "
-                "later slice of the port, ROADMAP queue item 6)")
+            # the cascade's stage 3, which does not run on a seq slot
+            self._one_card("x4 upscaler", model_name, mesh)
         device = self.device if mesh is None else mesh.lead
 
-        def build() -> DiffusionPipeline | LatentUpscalePipeline:
+        def build() -> (DiffusionPipeline | LatentUpscalePipeline
+                        | Upscale4xPipeline):
             components = self._load_components(model_name, device)
             if textual_inversion is not None:
                 apply_textual_inversion(components, load_embeddings(
@@ -239,6 +250,8 @@ class ModelRegistry:
             ring = mesh if seq_size(mesh) > 1 else None
             if components.family.kind == "upscaler":
                 return LatentUpscalePipeline(components, mesh=ring)
+            if components.family.kind == "upscaler4":
+                return Upscale4xPipeline(components)
             return DiffusionPipeline(components, mesh=ring)
 
         lora_key = (lora, float(lora_scale)) if lora is not None else None
@@ -274,6 +287,46 @@ class ModelRegistry:
                 "mesh is not served yet (ROADMAP queue item 7: the rings "
                 "serve SD1.x/SD2.x)")
         return self.device if mesh is None else mesh.lead
+
+    def cascade_pipeline(self, model_name: str,
+                         mesh: DeviceMesh | None = None):
+        """The resident DeepFloyd-class cascade of ``model_name`` (JAX
+        :306-352) on the slot mesh's lead device: a directory under
+        :func:`model_dir` (``text_encoder/``, ``unet/``, ``unet_sr/``),
+        seeded random weights of the family only under ``allow_random``,
+        else the model is not available on this node. One ledger entry per
+        ``("cascade", name, mesh key)``."""
+        from chiaswarm_tpu_torch.convert.checkpoint import (
+            load_cascade_checkpoint,
+        )
+        from chiaswarm_tpu_torch.pipelines.cascade import (
+            CascadeComponents,
+            CascadePipeline,
+            get_cascade_family,
+        )
+
+        self._check_quarantine(model_name)
+        device = self._one_card("cascade", model_name, mesh)
+
+        def build() -> CascadePipeline:
+            ckpt = model_dir(model_name)
+            family = get_cascade_family(model_name)
+            if ckpt.exists():
+                log.info("loading cascade %s from %s", model_name, ckpt)
+                return CascadePipeline(load_cascade_checkpoint(
+                    ckpt, model_name, family, device=device))
+            if self.allow_random:
+                log.warning("no checkpoint for cascade %s; using random "
+                            "weights", model_name)
+                return CascadePipeline(CascadeComponents.random(
+                    family, model_name=model_name, device=device))
+            raise ValueError(f"cascade model {model_name!r} is not available "
+                             f"on this node (no checkpoint at {ckpt})")
+
+        return self.residency.acquire(
+            ("cascade", model_name, _mesh_cache_key(device, mesh)), build,
+            model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
+            priority=self._priority_for(model_name))
 
     def caption_pipeline(self, model_name: str,
                          mesh: DeviceMesh | None = None):

@@ -6,6 +6,12 @@ keys/values, with the JAX package's ``impl`` kinds:
 - ``"xla"``   — plain matmul-softmax, mirroring ``_xla_attention``: fp32
                 logits, softmax weights cast to the input type before the V
                 product. Always correct; the reference for the kernel tests.
+                Past :data:`PLAIN_LOGITS_BYTES` of fp32 logits it runs the
+                queries in blocks whose logits fit under that bound (each
+                query row's softmax reads that row alone, so it is the same
+                function); at or below the bound it is one call, as before.
+                The f = 4 VAE's mid block at a 256x256 latent (65,536
+                tokens) would need 17 GiB of logits at once.
 - ``"flash"`` — kernel B1 (ops/flash_attention.py): the CUDA kernel on a
                 CUDA tensor, its plain blockwise version on a CPU tensor.
 - ``"ring"`` / ``"ring_flash"`` — sequence-parallel kinds over the mesh of
@@ -60,6 +66,11 @@ FLASH_MIN_TOKENS = 1024
 #: the token count from which self-attention rings under a seq mesh
 RING_MIN_TOKENS = 1024
 
+#: the most fp32 logits (B·H·L·S elements, 4 bytes each) the plain path
+#: holds at once; past it, the queries go in blocks (1 GiB: SDXL's VAE mid
+#: block at 16,384 tokens is exactly this and stays one call)
+PLAIN_LOGITS_BYTES = 1 << 30
+
 
 def _env_impl() -> str | None:
     """CHIASWARM_ATTENTION: operator steer of the ``auto`` pick.
@@ -68,13 +79,27 @@ def _env_impl() -> str | None:
     return raw if raw in _IMPLS else None
 
 
-def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float) -> torch.Tensor:
-    """Plain attention with the numerics of the JAX ``_xla_attention``."""
+def _plain_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
     # (B, L, H, D) x (B, S, H, D) -> (B, H, L, S), logits in fp32
     logits = torch.einsum("blhd,bshd->bhls", q.float(), k.float())
     weights = torch.softmax(logits * scale, dim=-1).to(q.dtype)
     return torch.einsum("bhls,bshd->blhd", weights, v)
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float,
+                  max_logits_bytes: int = PLAIN_LOGITS_BYTES) -> torch.Tensor:
+    """Plain attention with the numerics of the JAX ``_xla_attention``, in
+    blocks of queries whose fp32 logits stay within ``max_logits_bytes``
+    when all of them would not."""
+    b, l, h, _ = q.shape
+    row_bytes = b * h * k.shape[1] * 4
+    if l * row_bytes <= max_logits_bytes:
+        return _plain_block(q, k, v, scale)
+    rows = max(1, max_logits_bytes // row_bytes)
+    return torch.cat([_plain_block(q[:, i:i + rows], k, v, scale)
+                      for i in range(0, l, rows)], dim=1)
 
 
 def _route_kind(kind: str, env_forced: bool, cuda: bool, l: int, s: int,

@@ -71,13 +71,18 @@ img]) and combines ``e_unc + ig (e_img - e_unc) + g (e_full - e_img)`` at the
 job's image guidance ``ig`` and text guidance ``g``. Such a job needs an
 init image and takes no mask and no ControlNet, as in JAX; it never rides a
 lane. ``GenerateRequest.tiled_decode`` decodes through
-``models/vae.py::tiled_decode``. DeepCache reuse raises ``ValueError``
-naming the later slice that brings it.
+``models/vae.py::tiled_decode``. A ``reuse_schedule`` is ignored, as the
+JAX package ignores it while DeepCache is off (its default,
+``chiaswarm_tpu/pipelines/diffusion.py::deepcache_enabled`` :103-109): the
+job runs the plain program. With ``CHIASWARM_DEEPCACHE`` on, where JAX
+reuses features, it raises ``ValueError`` naming ROADMAP queue item 5,
+which ports DeepCache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
@@ -112,6 +117,17 @@ from chiaswarm_tpu_torch.schedulers import (
     scale_model_input,
     scale_model_input_rows,
 )
+
+
+#: the JAX package's DeepCache switch (off unless set to 1/true/on/yes)
+ENV_DEEPCACHE = "CHIASWARM_DEEPCACHE"
+
+
+def deepcache_enabled() -> bool:
+    """Is DeepCache feature reuse switched on? Off by default: every
+    per-job ``reuse_schedule`` is then ignored, as in JAX."""
+    return os.environ.get(ENV_DEEPCACHE, "").strip().lower() in (
+        "1", "true", "on", "yes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +235,9 @@ def _resize_image(img: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def _check_request(req: GenerateRequest, components: Components) -> None:
-    """JAX's refusals, in its order, and DeepCache reuse (a later slice)."""
+    """JAX's refusals, in its order, and DeepCache reuse while
+    ``CHIASWARM_DEEPCACHE`` is on (ROADMAP queue item 5); off, a
+    ``reuse_schedule`` is ignored, as in JAX."""
     image_plan(1, req.strength, req.init_image is not None,
                req.mask is not None, components.family.image_conditioned)
     if req.controlnet is not None:
@@ -228,9 +246,10 @@ def _check_request(req: GenerateRequest, components: Components) -> None:
                 "instruct-pix2pix models do not support controlnet")
         if req.control_image is None:
             raise ValueError("controlnet requires a conditioning image")
-    if req.reuse_schedule:
-        raise ValueError("DeepCache reuse is not served by chiaswarm_tpu_torch "
-                         "yet (a later slice of the port)")
+    if req.reuse_schedule and deepcache_enabled():
+        raise ValueError(f"DeepCache reuse ({ENV_DEEPCACHE} on) is not "
+                         "served by chiaswarm_tpu_torch yet (a later slice "
+                         "of the port, ROADMAP queue item 5)")
 
 
 def to_uint8(img: torch.Tensor) -> torch.Tensor:

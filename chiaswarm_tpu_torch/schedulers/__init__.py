@@ -3,6 +3,7 @@
 from chiaswarm_tpu_torch.schedulers.common import (
     NoiseSchedule,
     ScheduleConfig,
+    add_noise,
     make_noise_schedule,
 )
 from chiaswarm_tpu_torch.schedulers.sampling import (
@@ -33,6 +34,7 @@ __all__ = [
     "SamplerState",
     "SamplingSchedule",
     "ScheduleConfig",
+    "add_noise",
     "init_sampler_state",
     "make_edm_schedule",
     "make_noise_schedule",

@@ -85,6 +85,16 @@ def make_noise_schedule(config: ScheduleConfig) -> NoiseSchedule:
                          sigmas=sigmas)
 
 
+def add_noise(schedule: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """The forward process q(x_t | x_0) at integer train timesteps ``t``
+    (JAX :78-85): sqrt(a_t) x0 + sqrt(1 - a_t) noise, ``a_t`` indexed in
+    ``alphas_cumprod`` and broadcast over the trailing dims."""
+    a = schedule.alphas_cumprod[t.cpu().long()].to(x0.device, x0.dtype)
+    a = a.reshape(a.shape + (1,) * (x0.ndim - a.ndim))
+    return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
+
+
 def karras_sigmas(sigma_min, sigma_max, n: int, rho: float = 7.0) -> torch.Tensor:
     """Karras et al. (2022) sigma ladder, high to low, length n."""
     ramp = linspace32(0.0, 1.0, n)

@@ -37,19 +37,22 @@ uploading a flat frame), runs the safety checker over them
 ``safety_checker: "unavailable"`` on a node without a checker), builds the
 artifact envelope, and returns the same config keys as the JAX callback:
 the pipeline's config, the safety fields and the timing keys (and
-``residency: per_job`` when the model is degraded to load-per-job). DeepCache
-reuse, which a later slice serves, raises ``ValueError`` naming it, which
-the executor reports as a fatal bad-request envelope.
+``residency: per_job`` when the model is degraded to load-per-job). A
+``reuse_schedule`` reaches the request, which ignores it while DeepCache is
+off (JAX's default) and refuses it, naming ROADMAP queue item 5, while
+``CHIASWARM_DEEPCACHE`` is on: the executor reports that as a fatal
+bad-request envelope.
 
 The lane workload hands an eligible txt2img, img2img, inpaint or ControlNet
 job, with or without an adapter, to the slot's continuous-batching scheduler
 (``serving/stepper.py``), whose lanes key by the pipeline object (so an
 adapter's rows never share a lane with its base model's), and finishes it
 into the JAX lane envelope's config keys, ``stepper`` stamp, adapter stamps
-and safety fields included. An upscale job is not eligible, nor is a job
-carrying what a later slice serves: it takes the solo path, which refuses it
-and names that slice. Neither is a job whose model came back degraded to
-load-per-job. The lane finish echoes ``preprocessed_input`` too, where the
+and safety fields included. An upscale job is not eligible, nor is a
+``reuse_schedule`` job while DeepCache is on: it takes the solo path, which
+refuses it and names item 5 (off, the schedule is ignored and the job rides
+the plain lane, as in JAX). Neither is a job whose model came back degraded
+to load-per-job. The lane finish echoes ``preprocessed_input`` too, where the
 JAX lane finish drops it (``chiaswarm_tpu/workloads/diffusion.py::
 stepper_finish``), and renders a ControlNet job at its conditioning image's
 size, as the solo path does, where the JAX lane submit takes the family's
@@ -68,6 +71,7 @@ from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
 from chiaswarm_tpu_torch.obs.trace import span
 from chiaswarm_tpu_torch.pipelines.diffusion import (
     GenerateRequest,
+    deepcache_enabled,
     image_plan,
 )
 from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
@@ -75,20 +79,8 @@ from chiaswarm_tpu_torch.serving.guard import screen_images
 from chiaswarm_tpu_torch.serving.residency import is_transient
 from chiaswarm_tpu_torch.workloads.safety import check_images
 
-#: job arguments a later slice serves, and what each asks for
-_LATER = {
-    "reuse_schedule": "DeepCache reuse",
-}
-
 #: the hive's x2 upscaler (swarm/job_arguments.py:104-110)
 DEFAULT_UPSCALER = "stabilityai/sd-x2-latent-upscaler"
-
-
-def _refuse(kwargs: dict[str, Any]) -> None:
-    for key, what in _LATER.items():
-        if kwargs.get(key):
-            raise ValueError(f"{what} is not served by chiaswarm_tpu_torch "
-                             "yet (a later slice of the port)")
 
 
 def diffusion_callback(slot, model_name: str, *, seed: int, registry,
@@ -113,8 +105,8 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
                        textual_inversion: str | None = None,
                        lora: str | None = None,
                        cross_attention_scale: float = 1.0,
+                       reuse_schedule: Any = None,
                        **kwargs: Any):
-    _refuse(kwargs)
     mesh = getattr(slot, "mesh", None)
     pipe = registry.pipeline(model_name, textual_inversion=textual_inversion,
                              lora=lora, lora_scale=cross_attention_scale,
@@ -160,6 +152,7 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         controlnet=controlnet,
         control_image=control_image,
         control_scale=float(controlnet_scale),
+        reuse_schedule=reuse_schedule,
     )
     t0 = time.perf_counter()
     images, config = pipe(req)
@@ -258,7 +251,7 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
 
     if not stepper_enabled():
         return False
-    if any(kwargs.get(key) for key in _LATER):
+    if kwargs.get("reuse_schedule") and deepcache_enabled():
         return False  # the solo path refuses it, naming its slice
     if kwargs.get("upscale"):
         return False  # the x2 pass chains a second pipeline: solo

@@ -11,8 +11,9 @@ each phase printing one JSON line:
                 on its own too), torch / CUDA / nvcc versions, the PIL and
                 aiohttp versions (the worker's hive client is aiohttp's),
                 whether a ``safetensors`` package is installed (the port
-                does not use one) and cv2's version (ControlNet's canny
-                mode calls ``cv2.Canny``).
+                does not use one), the ``tokenizers`` version or null (a
+                snapshot's ``tokenizer.json`` needs it) and cv2's version
+                (ControlNet's canny mode calls ``cv2.Canny``).
 2. build      — builds every CUDA kernel from the checkout's sources, one
                 ``nvcc`` per source, all started together, and the host
                 artifact codec; prints each kernel's ptxas lines
@@ -30,7 +31,12 @@ each phase printing one JSON line:
                 timed over 3 calls), for AudioLDM's UNet at head dim 32 (4
                 heads over 2,560 tokens at batch 2 and 1, 1,280 at batch 2)
                 (max abs error 4e-3, two bf16 steps
-                at the largest outputs, and relative L2 1e-2), at
+                at the largest outputs, and relative L2 1e-2), for the
+                DeepFloyd cascade (IF-II-L's stage 2 at 256 px: 8 heads at
+                4,096 tokens and 16 at 1,024, head dim 64, batch 2 and 1;
+                the SD x4 upscaler at a 256x256 latent under CFG: 8 heads at
+                16,384 and 4,096 tokens, head dim 64, and 8 at 1,024, head
+                dim 128), at
                 lane_check's and xl_check's fp32 shapes and at ragged fp32
                 shapes (2e-4 and
                 1e-4, TF32 off); CUDA-event median times of the kernel, the
@@ -476,6 +482,31 @@ each phase printing one JSON line:
                 one-frame stack the one-image img2img path bit for bit.
                 Prints job seconds, the encodes' and generate calls'
                 device ms, B1's ms and share and the peak memory.
+15af. cascade_check — the run's models released from the registry's
+                ledger first (``release_models``: a squeeze to a zero
+                budget); the DeepFloyd cascade (T5-XXL, IF-I-XL's base,
+                IF-II-L's super-resolution; ~6.2 B parameters) and the SD x4
+                upscaler (~0.9 B) drawn at their published widths through
+                the registry's random fallback. One bf16 eval of the stage-2
+                UNet at a 256 px input and of the x4 UNet at a 256x256
+                latent with its class label, each through B1 (11 and 16
+                launches) against the plain route, relative L2 3e-2; one
+                prompt through T5-XXL in bf16 (finite embeddings); one x4
+                VAE decode at a 256x256 latent (the mid block's 65,536-token
+                attention on the plain path, in blocks of queries): its ms
+                and peak memory over the level before.
+15ag. cascade_serve — three DeepFloyd jobs through ``synchronous_do_work``
+                (the hive's defaults: 50 base and 30 super-resolution steps
+                at guidance 7.0, the x4 pass at 75 steps and 9.0; the same
+                job again; a guidance-1.0 job at 20 and 10 steps): each a
+                1024x1024 PNG with the cascade's config (three stages, the
+                x4 keys), the repeat bit for bit, B1 exactly by shape from
+                the configs (1,530 launches at the defaults), B2 and B3
+                never. Prints each job's seconds, ``generation_s``, device
+                ms by stage (T5, stage 1, stage 2, the x4's text, denoise
+                and decode), B1's ms and share, the peak memory, and the
+                default job under ``tools/torch_serve_profile.py``'s
+                ``cascade_profile`` (busy share, B1's share, top kernels).
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -492,7 +523,8 @@ each phase printing one JSON line:
                 ``worker_serve``, the four SDXL serve phases, the image
                 phases, the guard phases, the safety and ControlNet
                 phases, the pix2pix, upscale and adapter phases,
-                audio_serve (head dim 32) and the three video phases, and B3
+                audio_serve (head dim 32), the three video phases and
+                cascade_serve (head dim 128 among its shapes), and B3
                 under ``lane_seq_serve``
                 and
                 ``seq_img2img``, with
@@ -601,6 +633,12 @@ def probe():
         safetensors_version = safetensors.__version__
     except ImportError:
         safetensors_version = None
+    try:  # a snapshot's tokenizer.json (the DeepFloyd cascade's T5)
+        import tokenizers
+
+        tokenizers_version = tokenizers.__version__
+    except ImportError:
+        tokenizers_version = None
     try:  # ControlNet's canny preprocessing and the video workloads
         import cv2
 
@@ -612,8 +650,8 @@ def probe():
          device_count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc=nvcc.strip().splitlines()[-1],
          python=sys.version.split()[0], pil=pil, aiohttp=aiohttp_version,
-         safetensors=safetensors_version, cv2=cv2_version,
-         cv2_video=cv2_video)
+         safetensors=safetensors_version, tokenizers=tokenizers_version,
+         cv2=cv2_version, cv2_video=cv2_video)
     return torch
 
 
@@ -798,6 +836,16 @@ KERNEL_SHAPES = [
     (16, 1920, 1920, 8, 80, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
     (8, 7680, 7680, 8, 40, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
     (8, 1920, 1920, 8, 80, "bfloat16", 4e-3, 1e-2, ("vid2vid_serve",)),
+    # the DeepFloyd cascade: IF-II-L's stage 2 at 256 px (8 heads at 4,096
+    # tokens, 16 at 1,024, head dim 64), with CFG and at guidance 1.0; the
+    # SD x4 upscaler at a 256x256 latent, always under CFG (8 heads at
+    # 16,384 and 4,096 tokens at head dim 64, 8 at 1,024 at head dim 128)
+    (2, 4096, 4096, 8, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    (2, 1024, 1024, 16, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    (1, 4096, 4096, 8, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    (1, 1024, 1024, 16, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    (2, 16384, 16384, 8, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    (2, 1024, 1024, 8, 128, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
     (1, 1000, 333, 4, 32, "float32", 2e-4, 1e-4, ()),
@@ -6573,6 +6621,278 @@ def vid2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
     return run
 
 
+CASCADE_MODEL = "DeepFloyd/IF-I-XL-v1.0"  # random, seed 0 (the fallback)
+X4_MODEL = "stabilityai/stable-diffusion-x4-upscaler"  # the callback's default
+CASCADE_PROMPT = "a photo of a red fox in fresh snow, detailed fur, 8k"
+CASCADE_JOBS = [
+    {"id": "if-1", "model_name": CASCADE_MODEL, "prompt": CASCADE_PROMPT,
+     "negative_prompt": "blurry", "seed": 1, "content_type": "image/png"},
+    {"id": "if-1-again", "model_name": CASCADE_MODEL,
+     "prompt": CASCADE_PROMPT, "negative_prompt": "blurry", "seed": 1,
+     "content_type": "image/png"},
+    {"id": "if-nocfg", "model_name": CASCADE_MODEL, "prompt": CASCADE_PROMPT,
+     "seed": 2, "guidance_scale": 1.0, "num_inference_steps": 20,
+     "sr_steps": 10, "content_type": "image/png"},
+]
+#: B1 a job at the hive's defaults: 30 stage-2 evals x 11, 75 x4 evals x 16
+B1_LAUNCHES_PER_CASCADE_JOB = 1530
+# relative L2 of one bf16 UNet eval through B1 against the plain route
+CASCADE_PLAIN_BAR = 3e-2
+CASCADE_STAGES = {"t5": "encode_text", "stage1": "stage1",
+                  "stage2": "stage2"}
+X4_STAGES = {"x4_text": "encode_text", "x4_denoise": "denoise",
+             "x4_decode": "decode"}
+
+
+def unet_b1_shapes(cfg, hw: int, batch: int) -> collections.Counter:
+    """B1's launches in one bf16 eval of a UNet of config ``cfg`` at a
+    ``hw`` x ``hw`` input, by shape: a spatial self-attention per
+    transformer block (``layers_per_block`` down, one more up, the mid
+    block's at the last level) at each level whose grid has at least
+    1,024 tokens."""
+    shapes = collections.Counter()
+    last = len(cfg.block_out_channels) - 1
+    for level, ch in enumerate(cfg.block_out_channels):
+        blocks = cfg.transformer_depth[level] * (2 * cfg.layers_per_block + 1)
+        if level == last:
+            blocks += max(cfg.transformer_depth) or 1
+        tokens = (hw >> level) ** 2
+        if blocks and tokens >= 1024:
+            heads, head_dim = cfg.heads_for(ch, level)
+            shapes[(batch, tokens, tokens, heads, head_dim,
+                    "bfloat16")] += blocks
+    return shapes
+
+
+def cascade_b1_want(job: dict) -> collections.Counter:
+    """B1's launches by shape for one cascade job, from the configs: the
+    base (64 px: no level reaches 1,024 tokens), the super-resolution's
+    ``sr_steps`` evals at 256 px, CFG batch 2 above guidance 1.0, and the
+    x4 upscaler's 75 evals at a 256x256 latent, always under CFG."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.pipelines.cascade import IF_XL
+    from chiaswarm_tpu_torch.pipelines.upscale import (
+        DEFAULT_X4_GUIDANCE,
+        DEFAULT_X4_STEPS,
+    )
+
+    cfg_batch = 2 if job.get("guidance_scale", 7.0) > 1.0 else 1
+    want = collections.Counter()
+    for unet, hw, batch, evals in (
+            (IF_XL.stage1, IF_XL.base_size, cfg_batch,
+             job.get("num_inference_steps", 50)),
+            (IF_XL.stage2, IF_XL.sr_size, cfg_batch, job.get("sr_steps", 30)),
+            (FAMILIES["upscaler_x4"].unet, IF_XL.sr_size,
+             2 if DEFAULT_X4_GUIDANCE > 1.0 else 1, DEFAULT_X4_STEPS)):
+        for shape, n in unet_b1_shapes(unet, hw, batch).items():
+            want[shape] += n * evals
+    return want
+
+
+def release_models(torch, registry) -> dict:
+    """Evict every model of ``registry``'s ledger (a squeeze to a zero
+    budget, then the budget back) and return the cache to the card:
+    ``memory_allocated`` before and after."""
+    import gc
+
+    ledger = registry.residency
+    before = torch.cuda.memory_allocated()
+    budget, hard = ledger.budget_bytes, ledger.hard_limit_bytes
+    ledger.set_budget(0, hard)
+    ledger.set_budget(budget, hard)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"memory_allocated_before": before,
+            "memory_allocated_after": torch.cuda.memory_allocated()}
+
+
+def cascade_check_phase(torch, registry) -> None:
+    """The run's earlier models released (``release_models``); the cascade
+    and the x4 upscaler drawn at their published widths through the
+    registry's random fallback (they stay resident for cascade_serve). One
+    bf16 eval of the stage-2 UNet at a 256 px input and of the x4 UNet at
+    a 256x256 latent with its class label, each through B1 (11 and 16
+    launches) against the plain route (``CASCADE_PLAIN_BAR``); one prompt
+    through the full-width T5-XXL in bf16 (finite embeddings); one x4 VAE
+    decode at a 256x256 latent (its mid block attends over 65,536 tokens on
+    the plain path, in blocks of queries): its ms and its peak
+    ``max_memory_allocated`` over the level before."""
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.pipelines.cascade import IF_XL
+    from chiaswarm_tpu_torch.pipelines.diffusion import set_attn_impl
+
+    released = release_models(torch, registry)
+    t0 = time.perf_counter()
+    pipe = registry.cascade_pipeline(CASCADE_MODEL)
+    torch.cuda.synchronize()
+    cascade_draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    up = registry.pipeline(X4_MODEL)
+    torch.cuda.synchronize()
+    x4_draw_s = time.perf_counter() - t0
+    params = {name: sum(p.numel() for p in m.parameters())
+              for name, m in (("t5", pipe.c.t5), ("stage1", pipe.c.unet1),
+                              ("stage2", pipe.c.unet2),
+                              ("x4_unet", up.c.unet), ("x4_vae", up.c.vae),
+                              ("x4_text", up.c.text_encoders[0]))}
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to("cuda")
+
+    def rel(a, b) -> float:
+        return float((a - b).norm() / b.norm())
+
+    def eval_gate(name: str, unet, want: collections.Counter, *args,
+                  **kwargs) -> dict:
+        kernels.reset_launches()
+        with torch.inference_mode():
+            b1 = unet(*args, **kwargs).float()
+        run, launches = launched(), kernel_launches()
+        set_attn_impl(unet, "xla")
+        try:
+            with torch.inference_mode():
+                plain = unet(*args, **kwargs).float()
+        finally:
+            set_attn_impl(unet, "auto")
+        got = collections.Counter(run["flash_attention"]["shapes"])
+        out = {"shape": list(args[0].shape), "b1_launches": launches,
+               "b1_shapes": b1_shapes(run), "rel_l2_vs_plain": rel(b1, plain),
+               "bar": CASCADE_PLAIN_BAR, "finite": bool(b1.isfinite().all())}
+        check_b1(name, launches, sum(want.values()))
+        if got != want or not out["finite"] \
+                or not out["rel_l2_vs_plain"] <= CASCADE_PLAIN_BAR:
+            raise AssertionError(f"cascade_check {name}: {out}, want {want}")
+        return out
+
+    t = torch.full((2,), 500.0, device="cuda")
+    stage2 = eval_gate("stage2", pipe.c.unet2,
+                       unet_b1_shapes(IF_XL.stage2, 256, 2),
+                       randn(2, 6, 256, 256), t, randn(2, 77, 4096))
+    x4 = eval_gate("x4", up.c.unet,
+                   unet_b1_shapes(up.c.family.unet, 256, 2),
+                   randn(2, 7, 256, 256), t, randn(2, 77, 1024),
+                   class_labels=torch.full((2,), 20, device="cuda"))
+    ids = pipe.c.tokenizer.encode_batch([CASCADE_PROMPT])
+    with torch.inference_mode():
+        emb = pipe.encode_text(ids, None)
+    torch.cuda.synchronize()
+    t5 = {"shape": list(emb.shape), "dtype": str(emb.dtype),
+          "finite": bool(emb.isfinite().all()),
+          "std": float(emb.std()), "max_abs": float(emb.abs().max()),
+          "t5_dtype": str(pipe.c.t5.shared.weight.dtype)}
+    z = randn(1, 4, 256, 256)
+    torch.cuda.synchronize()
+    level = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.inference_mode():
+        img = up.c.vae.decode(z)
+    end.record()
+    torch.cuda.synchronize()
+    decode = {"latent": list(z.shape), "image": list(img.shape),
+              "ms": start.elapsed_time(end),
+              "peak_over_level_bytes": torch.cuda.max_memory_allocated()
+              - level, "finite": bool(img.isfinite().all())}
+    emit("cascade_check", **released, cascade_draw_s=cascade_draw_s,
+         x4_draw_s=x4_draw_s, params=params,
+         param_bytes={"cascade": pipe.c.param_bytes(),
+                      "x4": up.c.param_bytes()},
+         stage2_eval=stage2, x4_eval=x4, t5=t5, x4_decode=decode,
+         nvidia_smi=nvidia_smi_line())
+    if not (t5["finite"] and t5["shape"] == [1, 77, 4096]):
+        raise AssertionError(f"cascade_check: T5-XXL in bf16 gave {t5}")
+    if decode["image"] != [1, 3, 1024, 1024] or not decode["finite"]:
+        raise AssertionError(f"cascade_check: the x4 decode gave {decode}")
+
+
+def cascade_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
+    """DeepFloyd jobs through ``synchronous_do_work`` (``CASCADE_JOBS``: the
+    hive's defaults, 50 base and 30 super-resolution steps at guidance
+    7.0 then the x4 upscaler's 75 steps at 9.0, twice; and a guidance-1.0
+    job at 20 and 10 steps), the models of cascade_check. Gates: each
+    envelope error-free with a 1024x1024 PNG and the cascade's config
+    (three stages, the x4 keys); the repeat bit for bit; B1 exactly
+    ``cascade_b1_want`` by shape a job (1,530 at the defaults), B2 and B3
+    never. Prints each job's seconds, ``generation_s``, device ms by stage
+    (T5, stage 1, stage 2, the x4's text, denoise and decode), B1's ms and
+    share of the device ms and the peak memory; then the default job under
+    ``tools/torch_serve_profile.py``'s ``cascade_profile`` (busy share, B1's
+    share, top kernels)."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.ops import kernels
+
+    pipe = registry.cascade_pipeline(CASCADE_MODEL)
+    up = registry.pipeline(X4_MODEL)
+    jobs, blobs = {}, {}
+    total = collections.Counter()
+    kernels.reset_launches()
+    with timed_stages(torch, pipe, CASCADE_STAGES) as stages, \
+            timed_stages(torch, up, X4_STAGES) as x4_stages:
+        for job in CASCADE_JOBS:
+            before = launched()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = synchronous_do_work(dict(job), slot, registry)
+            seconds = time.perf_counter() - t0
+            after = launched()
+            cfg = result["pipeline_config"]
+            blobs[job["id"]] = check_envelope(
+                "cascade_serve", dict(job, height=1024, width=1024), result,
+                False)
+            want_cfg = {"mode": "cascade_txt2img", "stages": 3,
+                        "stage3_passes": 1, "size": [1024, 1024],
+                        "upscaler": X4_MODEL, "scale": 4,
+                        "upscale_steps": 75, "upscale_noise_level": 20,
+                        "steps": job.get("num_inference_steps", 50),
+                        "sr_steps": job.get("sr_steps", 30)}
+            if any(cfg.get(k) != v for k, v in want_cfg.items()):
+                raise AssertionError(f"cascade_serve {job['id']}: {cfg}")
+            got = collections.Counter({
+                k: n - before["flash_attention"]["shapes"].get(k, 0)
+                for k, n in after["flash_attention"]["shapes"].items()})
+            got = +got
+            others = {name: after[name]["launches"] - before[name]["launches"]
+                      for name in after if name != "flash_attention"}
+            want = cascade_b1_want(job)
+            if got != want or any(others.values()):
+                raise AssertionError(
+                    f"cascade_serve {job['id']}: B1 by shape {dict(got)}, "
+                    f"want {dict(want)}; others {others}")
+            total += got
+            jobs[job["id"]] = {"job_seconds": seconds,
+                               "generation_s": cfg["generation_s"],
+                               "b1_launches": sum(got.values()),
+                               "max_memory_allocated":
+                               torch.cuda.max_memory_allocated()}
+    if sum(cascade_b1_want(CASCADE_JOBS[0]).values()) != \
+            B1_LAUNCHES_PER_CASCADE_JOB:
+        raise AssertionError("cascade_serve: the default job's B1 count is "
+                             "not 1,530")
+    run = launched()
+    ms_each = {**stages["ms_each"], **x4_stages["ms_each"]}
+    b1_ms = {shape_key(r): r["ms"] for r in b1_rows}
+    for i, job in enumerate(CASCADE_JOBS):
+        row = jobs[job["id"]]
+        row["stage_ms"] = {stage: ms[i] for stage, ms in ms_each.items()}
+        row["device_ms"] = sum(row["stage_ms"].values())
+        row["b1_ms"] = sum(n * b1_ms[k] for k, n in
+                           cascade_b1_want(job).items())
+        row["b1_share_of_device"] = row["b1_ms"] / row["device_ms"]
+    repeat_equal = blobs["if-1"] == blobs["if-1-again"]
+    if not repeat_equal:
+        raise AssertionError("cascade_serve: the same job twice differs")
+    profile = profile_tool().cascade_profile(torch, pipe, up, warm_up=False,
+                                             top=8)
+    emit("cascade_serve", jobs=jobs, repeat_png_equal=repeat_equal,
+         launches={name: r["launches"] for name, r in run.items()},
+         b1_shapes=b1_shapes(run), profile=profile,
+         nvidia_smi=nvidia_smi_line())
+    return run
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -6650,7 +6970,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "adapters_serve",
                                            "audio_serve", "txt2vid_serve",
                                            "img2vid_serve",
-                                           "vid2vid_serve")),
+                                           "vid2vid_serve",
+                                           "cascade_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -6800,6 +7121,9 @@ def run_phases(torch, t0: float) -> int:
         runs["vid2vid_serve"] = vid2vid_serve_phase(torch, registry, pool,
                                                     b1_rows)
     encode_check_phase(torch, registry)
+    # the DeepFloyd cascade, after every earlier model is released
+    cascade_check_phase(torch, registry)
+    runs["cascade_serve"] = cascade_serve_phase(torch, registry, slot, b1_rows)
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

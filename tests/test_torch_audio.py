@@ -3,8 +3,8 @@
 
 - ``ByteLevelBpeTokenizer`` over a byte-level vocab the test writes,
   ``HashTokenizer`` with the CLAP tower's specials, and ``load_tokenizer``'s
-  choice of class, pinned to JAX's; a ``tokenizer.json`` is refused as
-  ``model_unavailable`` (JAX wraps it with the ``tokenizers`` package).
+  choice of class, pinned to JAX's, a ``tokenizer.json`` (the T5
+  snapshots') included: both wrap it with the ``tokenizers`` package.
 - ``ClapTextEncoder``, the class-conditioned cross-attention-free UNet and
   ``HifiGan`` (the tiny config and the published widths on a short mel)
   within 2e-4 of JAX's in float32, the params carried across by
@@ -125,6 +125,7 @@ def test_hash_tokenizer_with_clap_specials_matches_jax(text):
 
 def test_load_tokenizer_picks_the_class_jax_picks(tmp_path):
     from chiaswarm_tpu_torch.node.resilience import classify_exception
+    from tests.test_torch_cascade import write_unigram_tokenizer
     from tests.test_torch_checkpoint import write_vocab
 
     write_byte_level(tmp_path / "byte" / "tokenizer")
@@ -137,11 +138,18 @@ def test_load_tokenizer_picks_the_class_jax_picks(tmp_path):
         ref = jtok.load_tokenizer(*args, bos_id=0, pad_id=1)
         assert type(ours).__name__ == type(ref).__name__ == cls
         assert ours.encode(TEXTS[0]) == ref.encode(TEXTS[0])
-    (tmp_path / "t5" / "tokenizer").mkdir(parents=True)
-    (tmp_path / "t5" / "tokenizer" / "tokenizer.json").write_text("{}")
-    with pytest.raises(ValueError, match="item 6") as info:
-        ttok.load_tokenizer(tmp_path / "t5")
-    assert classify_exception(info.value) == "model_unavailable"
+    # a T5 snapshot's tokenizer.json: the tokenizers package's ids in both
+    write_unigram_tokenizer(tmp_path / "t5" / "tokenizer" / "tokenizer.json")
+    ours = ttok.load_tokenizer(tmp_path / "t5", 1000, 1, 77, pad_id=0)
+    ref = jtok.load_tokenizer(tmp_path / "t5", 1000, 1, 77, pad_id=0)
+    assert type(ours).__name__ == type(ref).__name__ == "HFTokenizer"
+    assert ours.encode(TEXTS[0]) == ref.encode(TEXTS[0])
+    # a broken one is not hashed: it raises
+    (tmp_path / "broken" / "tokenizer").mkdir(parents=True)
+    (tmp_path / "broken" / "tokenizer" / "tokenizer.json").write_text("{}")
+    with pytest.raises(Exception) as info:
+        ttok.load_tokenizer(tmp_path / "broken")
+    assert classify_exception(info.value) != "model_unavailable"
 
 
 def _close(got: torch.Tensor, want) -> None:

@@ -274,12 +274,20 @@ def test_no_vocab_files_fall_back_loudly_to_hash(tmp_path, caplog):
     assert "falling back" not in caplog.text  # no checkpoint: no warning
 
 
-def test_unported_tokenizer_files_are_model_unavailable(tmp_path):
+def test_unported_tokenizer_files_are_model_unavailable(tmp_path,
+                                                         monkeypatch):
+    """A ``tokenizer.json`` on a node without the ``tokenizers`` package
+    is "not available on this node" (``ModelUnavailable``, naming the
+    package), never hashed."""
+    import sys
+
     from chiaswarm_tpu_torch.node.resilience import classify_exception
+    from chiaswarm_tpu_torch.serving.residency import ModelUnavailable
 
     (tmp_path / "tokenizer").mkdir()
     (tmp_path / "tokenizer" / "tokenizer.json").write_text("{}")
-    with pytest.raises(ValueError) as info:
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    with pytest.raises(ModelUnavailable, match="'tokenizers' package") as info:
         load_tokenizer(tmp_path)
     assert classify_exception(info.value) == "model_unavailable"
 

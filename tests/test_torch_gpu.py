@@ -16,7 +16,10 @@ tiny family on the card against its CPU run, launching no kernel of the
 port; the same job twice, the same bytes; two layers at Bark's width in
 bf16 following the float32 CPU decode); video (B1 at the spatial
 self-attentions of ModelScope's, SVD's and vid2vid's folded frames, the
-tiny video UNets on the card against their CPU run).
+tiny video UNets on the card against their CPU run); the DeepFloyd cascade
+(B1 at its stage-2 and x4 upscaler shapes, head dim 128 among them, the
+plain path in blocks of queries against SDPA at 16,384 tokens, a T5-XXL
+layer in bf16 on the card against float32 on the CPU).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1789,3 +1792,72 @@ def test_tiny_video_unet_on_the_card_matches_its_cpu_run(cuda_device, family):
                    else {"time_ids": ids.to(cuda_device)}).cpu()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     assert want.abs().mean() > 1e-2
+
+
+@pytest.mark.parametrize("b,l,h,d,dtype", [
+    (2, 4096, 8, 64, torch.bfloat16),    # IF-II-L's stage 2 and the x4
+    (2, 1024, 16, 64, torch.bfloat16),   # stage 2's 1,024-token level
+    (2, 16384, 8, 64, torch.bfloat16),   # the x4 at a 256x256 latent
+    (2, 1024, 8, 128, torch.bfloat16),   # the x4's 1,024-channel level
+    (2, 1024, 8, 128, torch.float16),
+])
+def test_kernel_matches_plain_at_cascade_shapes(cuda_device, b, l, h, d,
+                                                dtype):
+    """B1 at the DeepFloyd cascade's self-attentions (head dim 128 at the
+    x4 upscaler's deepest level), against its plain version at the kernel
+    phase's bars."""
+    q, k, v = _qkv((b, l, h, d), (b, l, h, d), dtype, cuda_device,
+                   seed=l + h + d)
+    before = KERNEL.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    ref = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+def test_blocked_plain_attention_matches_sdpa_at_16384_tokens(cuda_device):
+    """The plain path in blocks of queries (the bound lowered to a quarter
+    of its 1 GiB, so 16,384 tokens take four blocks) at the VAE mid block's
+    head dim 512, bf16, against ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    q, k, v = _qkv((1, 16384, 1, 512), (1, 16384, 1, 512), torch.bfloat16,
+                   cuda_device, seed=16)
+    out = tattn.xla_attention(q, k, v, 512 ** -0.5,
+                              max_logits_bytes=tattn.PLAIN_LOGITS_BYTES // 4)
+    ref = F.scaled_dot_product_attention(
+        *(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel <= 1e-2
+
+
+def test_t5_block_in_bf16_on_the_card_follows_fp32_on_the_cpu(cuda_device):
+    """The T5-XXL-width layer (block 0: d_model 4096, 64 heads, d_ff
+    10240, the position bias and a padding mask, then the final RMSNorm)
+    in bf16 on the card against float32 on the CPU: finite, within the
+    bf16 bar (3e-2 relative L2). A second block drifts past the bar, on
+    the card as in a bf16 run on the CPU: the unscaled scores of random
+    weights make a sharp softmax."""
+    import copy
+
+    from chiaswarm_tpu_torch.models.common import cast_module
+    from chiaswarm_tpu_torch.models.t5 import T5Config, T5Encoder
+    from chiaswarm_tpu_torch.pipelines.cascade import init_t5
+
+    cfg = T5Config(num_layers=1, vocab_size=512, dtype="float32")
+    cpu = T5Encoder(cfg)
+    init_t5(cpu, torch.Generator().manual_seed(0))
+    card = cast_module(copy.deepcopy(cpu), torch.bfloat16).to(cuda_device)
+    ids = torch.randint(2, 512, (2, 77), generator=torch.Generator()
+                        .manual_seed(1))
+    ids[1, 20:] = 0
+    with torch.inference_mode():
+        want = cpu(ids, ids != 0)
+        got = card(ids.to(cuda_device), (ids != 0).to(cuda_device)).cpu()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() <= 3e-2

@@ -90,7 +90,8 @@ def test_package_has_the_slice_modules():
                   "models.clap", "models.vocoder", "pipelines.audio",
                   "workloads.audio", "models.gpt", "models.codec",
                   "pipelines.tts", "models.video_unet", "pipelines.video",
-                  "workloads.video"):
+                  "workloads.video", "models.t5", "pipelines.cascade",
+                  "workloads.cascade"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -214,13 +214,21 @@ def test_bf16_cast_keeps_the_float32_modules():
 
 
 def test_unet_refuses_unported_conditioning():
-    """Class-conditioned UNets (the x4 upscaler's noise level) still wait
-    for their slice; SDXL's added conditioning is served and held against
-    JAX in ``tests/test_torch_sdxl.py``."""
+    """The x4 upscaler's noise-level table is served now (held against JAX
+    in ``tests/test_torch_cascade.py``): the UNet builds its
+    ``class_embedding`` table and, as JAX's, refuses an eval without class
+    labels. SDXL's added conditioning is held in
+    ``tests/test_torch_sdxl.py``."""
     from chiaswarm_tpu_torch.models.unet import UNet
 
-    with pytest.raises(ValueError, match="later slice"):
-        UNet(FAMILIES["tiny_up4"].unet)
+    cfg = FAMILIES["tiny_up4"].unet
+    unet = UNet(cfg)
+    assert tuple(unet.class_embedding.weight.shape) == (
+        cfg.num_class_embeds, 4 * cfg.block_out_channels[0])
+    with torch.no_grad(), pytest.raises(ValueError,
+                                        match="requires class_labels"):
+        unet(torch.zeros((1, 7, 16, 16)), torch.zeros((1,)),
+             torch.zeros((1, 77, 32)))
 
 
 def test_configs_are_a_copy_of_the_reference():

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import json
 import struct
 
@@ -114,8 +115,19 @@ def test_unbucketed_size_is_cropped_back(port_pipe):
     ("reuse_schedule", (1,)),
     ("reuse_schedule", "every:2"),
 ])
-def test_unported_modes_raise_naming_the_slice(port_pipe, field, value):
-    with pytest.raises(ValueError, match="later slice"):
+def test_unported_modes_raise_naming_the_slice(monkeypatch, port_pipe, field,
+                                              value):
+    """A ``reuse_schedule`` is ignored while DeepCache is off (the JAX
+    package's default): the image and config are the plain request's, bit
+    for bit. With ``CHIASWARM_DEEPCACHE`` on, where JAX reuses features,
+    the port refuses it, naming ROADMAP queue item 5."""
+    monkeypatch.delenv("CHIASWARM_DEEPCACHE", raising=False)
+    plain, plain_cfg = port_pipe(_request(GenerateRequest, steps=2))
+    got, cfg = port_pipe(_request(GenerateRequest, steps=2, **{field: value}))
+    np.testing.assert_array_equal(got, plain)
+    assert cfg == plain_cfg
+    monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
+    with pytest.raises(ValueError, match="later slice.*item 5"):
         port_pipe(_request(GenerateRequest, **{field: value}))
 
 
@@ -168,6 +180,43 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     assert got["pipeline_config"]["slot"]["platform"] == "cpu"
 
 
+@pytest.mark.parametrize("stepper", ["0", "1"])
+def test_a_reuse_schedule_job_is_served_as_the_jax_worker_serves_it(
+        monkeypatch, port_registry, stepper):
+    """DeepCache off (the default in both packages): a job carrying
+    ``parameters.reuse_schedule`` gets the JAX executor's envelope keys on
+    the solo path and in the lanes, and its image is the plain job's bit
+    for bit on the port."""
+    from chiaswarm_tpu.core.chip_pool import ChipPool as JaxPool
+    from chiaswarm_tpu.node.executor import synchronous_do_work as jax_do_work
+    from chiaswarm_tpu.node.registry import ModelRegistry as JaxRegistry
+    from chiaswarm_tpu.serving.stepper import get_stepper as jax_stepper
+
+    monkeypatch.setenv("CHIASWARM_STEPPER", stepper)
+    monkeypatch.delenv("CHIASWARM_DEEPCACHE", raising=False)
+    job = _job(parameters={"reuse_schedule": [1, 2]})
+    jax_registry = JaxRegistry(catalog=[{"name": "tiny", "family": "tiny"}],
+                               allow_random=True)
+    jax_slot = JaxPool(n_slots=1).slots[0]
+    try:
+        ref = jax_do_work(copy.deepcopy(job), jax_slot, jax_registry)
+    finally:
+        jax_stepper(jax_slot).shutdown()
+    with _slot() as slot:
+        got = executor.synchronous_do_work(copy.deepcopy(job), slot,
+                                           port_registry)
+        plain = executor.synchronous_do_work(_job(), slot, port_registry)
+    for result in (ref, got, plain):
+        assert "error" not in result["pipeline_config"], result
+        assert ("stepper" in result["pipeline_config"]) is (stepper == "1")
+    assert set(got) == set(ref)
+    assert set(got["artifacts"]) == set(ref["artifacts"])
+    assert set(got["pipeline_config"]) == set(ref["pipeline_config"])
+    assert "reuse_schedule" not in got["pipeline_config"]
+    assert (got["artifacts"]["primary"]["blob"]
+            == plain["artifacts"]["primary"]["blob"])
+
+
 @pytest.mark.parametrize("job,kind,fatal", [
     # nothing listens on port 1: the fetch's refused connection is a
     # transient fault (retried by the worker), as in the JAX package
@@ -176,13 +225,19 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, port_registry):
     # ValueError, no preset files on the worker)
     (_job(workflow="txt2audio", model_name="tiny_tts",
           parameters={"voice_preset": "v2/en_speaker_6"}), "fatal", True),
-    (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
+    # the cascade workload reads the image count before it loads a model,
+    # and refuses a malformed one as JAX's does
+    (_job(model_name="DeepFloyd/IF-I-XL-v1.0", num_images_per_prompt="two"),
+     "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
+    # refused while DeepCache is on (each test switches it on), naming
+    # ROADMAP queue item 5; off, the schedule is ignored
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
                                               job, kind, fatal):
     monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
     _assert_error_envelope(port_registry, job, kind, fatal)
 
 
@@ -194,13 +249,19 @@ def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
     # ValueError, no preset files on the worker)
     (_job(workflow="txt2audio", model_name="tiny_tts",
           parameters={"voice_preset": "v2/en_speaker_6"}), "fatal", True),
-    (_job(model_name="DeepFloyd/IF-I-XL-v1.0"), "fatal", True),
+    # the cascade workload reads the image count before it loads a model,
+    # and refuses a malformed one as JAX's does
+    (_job(model_name="DeepFloyd/IF-I-XL-v1.0", num_images_per_prompt="two"),
+     "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
+    # refused while DeepCache is on (each test switches it on), naming
+    # ROADMAP queue item 5; off, the schedule is ignored
     (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes_with_lanes_on(
         monkeypatch, port_registry, job, kind, fatal):
     monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
     _assert_error_envelope(port_registry, job, kind, fatal)
 
 

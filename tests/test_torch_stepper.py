@@ -746,10 +746,14 @@ def test_executor_ineligible_jobs_take_the_solo_path(monkeypatch, registry,
                                      registry)
     assert r["pipeline_config"].get("error") is None
     assert "stepper" not in r["pipeline_config"]
+    # a reuse schedule rides the lanes while DeepCache is off (ignored, as
+    # in JAX); switched on, the job takes the solo path, which refuses it
+    monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
     r = executor.synchronous_do_work(
         _job(13, parameters={"reuse_schedule": [1]}), slot, registry)
     assert r["pipeline_config"]["error_kind"] == "fatal"
     assert "DeepCache" in r["pipeline_config"]["error"]
+    assert "item 5" in r["pipeline_config"]["error"]
 
 
 def test_lane_envelope_matches_the_jax_lane_envelope(monkeypatch, registry,

@@ -9,8 +9,7 @@ package.
 - One upscaler UNet eval with the spatial self-attention forced to
   ``"flash"`` (B1's plain version on the CPU) against JAX flash in interpret
   mode.
-- The registry's class selection (x2 served, x4 refused naming the
-  cascade's item), ``diffusion_callback`` with ``upscale=True`` end to end
+- The registry's class selection (the x2 and the x4 served by kind), ``diffusion_callback`` with ``upscale=True`` end to end
   against JAX's, the routing of ``parameters.upscale`` to the solo path, and
   a node without the upscaler's directory.
 """
@@ -257,8 +256,9 @@ def test_registry_selects_the_class_by_kind():
     assert registry.pipeline("random/tiny_up") is up
     snap = registry.residency.snapshot()
     assert snap["resident_bytes"] == up.c.param_bytes()
-    with pytest.raises(ValueError, match="cascade.*item 6"):
-        registry.pipeline("random/tiny_up4")
+    up4 = registry.pipeline("random/tiny_up4")
+    assert isinstance(up4, tup.Upscale4xPipeline)
+    assert registry.pipeline("random/tiny_up4") is up4
 
 
 @pytest.fixture()

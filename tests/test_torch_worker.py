@@ -365,12 +365,17 @@ def test_estimate_family_bytes_matches_jax(family):
 
 
 def test_estimate_refuses_families_the_port_does_not_build():
-    """A class-conditioned family (the x4 upscaler) still has no modules in
-    the port; SDXL has had them since its slice."""
+    """The class-conditioned x4 upscaler has modules in the port since the
+    cascade's slice: its estimate is JAX's (held on ``tiny_up4``; the
+    published family counts its 1,000-row noise-level table too)."""
+    from chiaswarm_tpu.pipelines.components import (
+        estimate_family_bytes as jax_estimate,
+    )
     from chiaswarm_tpu_torch.pipelines.components import estimate_family_bytes
 
-    with pytest.raises(ValueError, match="not ported yet"):
-        estimate_family_bytes("upscaler_x4")
+    assert estimate_family_bytes("tiny_up4") == jax_estimate("tiny_up4")
+    assert estimate_family_bytes("upscaler_x4") > estimate_family_bytes(
+        "upscaler_x2")
 
 
 def _drive_metrics(mod, stats_cls):

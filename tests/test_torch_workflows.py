@@ -13,8 +13,8 @@ at temperature 0, one naming its voice preset by a string) through both
 workers: the same envelopes. A burst of a txt2vid, an img2vid and a
 vid2vid job through both workers, the registries handing out video and SD
 pipelines on shared tiny weights: the same envelope keys, configs (but the
-timings) and frame counts. Then the job the port still refuses, a DeepFloyd
-cascade: a fatal envelope naming ROADMAP queue item 6; and a model not on
+timings) and frame counts. A DeepFloyd cascade job (the tiny cascade and
+the tiny x4 upscaler) served through the port's worker; and a model not on
 disk (a caption, an AudioLDM, a Bark, a ModelScope and an SVD model),
 refused as the JAX worker refuses it.
 """
@@ -258,17 +258,36 @@ def test_a_tts_burst_matches_the_jax_worker():
 
 
 @pytest.mark.parametrize("job", [
-    {"model_name": "DeepFloyd/IF-I-XL-v1.0", "prompt": "a cat"},
+    {"model_name": "DeepFloyd/tiny_cascade", "prompt": "a cat",
+     "num_inference_steps": 2, "sr_steps": 2,
+     "upscaler_model_name": "random/tiny_up4"},
 ], ids=["deepfloyd"])
-def test_unported_workflows_stay_fatal_naming_item_6(job):
+def test_unported_workflows_stay_fatal_naming_item_6(job, monkeypatch):
+    """The DeepFloyd cascade, the last workflow the port refused, is served
+    through the worker now: the tiny cascade (16 then 64 px) and the tiny
+    x4 upscaler (stage 3 at 2 steps instead of 75) give a 256 px PNG."""
+    from PIL import Image
+
+    from chiaswarm_tpu_torch.pipelines.upscale import Upscale4xPipeline
+
+    defaults = list(Upscale4xPipeline.__call__.__defaults__)
+    defaults[2] = 2  # (prompt, negative_prompt, steps, ...)
+    monkeypatch.setattr(Upscale4xPipeline.__call__, "__defaults__",
+                        tuple(defaults))
+
     def jobs_of(uri):
         return [dict(job, id="later-1", seed=1)]
 
     got = _serve(tworker.Worker, tsettings, ChipPool(device="cpu"),
                  ModelRegistry(allow_random=True, device="cpu"), jobs_of)
     result = got["later-1"]
-    assert result["fatal_error"] is True
-    assert "ROADMAP queue item 6" in result["pipeline_config"]["error"]
+    cfg = result["pipeline_config"]
+    assert "fatal_error" not in result and "error" not in cfg, cfg
+    assert cfg["mode"] == "cascade_txt2img" and cfg["stages"] == 3
+    assert cfg["size"] == [256, 256] and cfg["upscale_steps"] == 2
+    png = Image.open(io.BytesIO(base64.b64decode(
+        result["artifacts"]["primary"]["blob"])))
+    assert png.format == "PNG" and png.size == (256, 256)
 
 
 @pytest.mark.parametrize("job", [

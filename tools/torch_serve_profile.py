@@ -50,6 +50,14 @@ and temporal VAE bf16, ViT-H/14 float32; 14 frames at 512 px from a seeded
 picture, guidance 1.0 -> 3.0): the summary (CUDA activity only) with B1's
 device ms and share and the launches an eval.
 
+``--cascade`` profiles a DeepFloyd cascade job (IF-I-XL's base, IF-II-L's
+super-resolution and T5-XXL at their published widths, random bf16 weights
+from seed 0; then the SD x4 upscaler, random from seed 0: UNet and VAE bf16,
+the CLIP-H tower float32) at the hive's defaults: 50 base steps and 30
+super-resolution steps at guidance 7.0, then 75 x4 steps at 9.0, 1024 px
+out: the summary (CUDA activity only) with B1's launches, device ms and
+share.
+
 ``--lanes N`` profiles a burst of N jobs through the continuous-batching
 lanes instead (``node/executor.py::synchronous_do_work_batch``, steps 20
 and 12 and guidance 7.5 and 5.0 alternating, the lane pinned at
@@ -73,6 +81,7 @@ the lanes' cost of checking each finished job.
     python tools/torch_serve_profile.py --caption
     python tools/torch_serve_profile.py --tts [--seconds 4]
     python tools/torch_serve_profile.py --video txt2vid|img2vid [--steps 25]
+    python tools/torch_serve_profile.py --cascade
 
 Needs one NVIDIA GPU; it refuses to run without one.
 """
@@ -127,6 +136,8 @@ def main(argv: list[str] | None = None) -> int:
                         default=None,
                         help="profile a ModelScope txt2vid or an SVD img2vid "
                              "job")
+    parser.add_argument("--cascade", action="store_true",
+                        help="profile a DeepFloyd cascade job")
     args = parser.parse_args(argv)
 
     import torch
@@ -150,6 +161,8 @@ def main(argv: list[str] | None = None) -> int:
         return tts_main(torch, args)
     if args.video:
         return video_main(torch, args)
+    if args.cascade:
+        return cascade_main(torch, args)
     mesh = None
     if args.seq > 1:
         n_cards = torch.cuda.device_count()
@@ -378,6 +391,46 @@ def video_main(torch, args) -> int:
                       "param_bytes": components.param_bytes(),
                       **video_profile(torch, pipe, args.video, args.steps,
                                       args.top)}))
+    return 0
+
+
+CASCADE_PROMPT = "a photo of a red fox in fresh snow, detailed fur, 8k"
+
+
+def cascade_profile(torch, pipe, upscaler, top: int = 25,
+                    warm_up: bool = True) -> dict:
+    """One DeepFloyd job of ``pipe`` (a ``CascadePipeline``) at its
+    defaults with ``upscaler`` (an ``Upscale4xPipeline``) as its stage 3,
+    profiled (CUDA activity only; after a warm-up job unless both are
+    warm): the summary and B1's launches and share of the device time."""
+    import functools
+
+    run = functools.partial(pipe, negative_prompt="blurry", seed=1,
+                            upscaler=upscaler)
+    summary = profiled(torch, run, CASCADE_PROMPT, top=top, cpu=False,
+                       warm_up=warm_up)
+    b1 = summary["flash_attention"]
+    return {**summary, "b1_launches": b1["calls"],
+            "b1_share_of_device": b1["share"]}
+
+
+def cascade_main(torch, args) -> int:
+    from chiaswarm_tpu_torch.pipelines.cascade import (
+        CascadeComponents,
+        CascadePipeline,
+    )
+    from chiaswarm_tpu_torch.pipelines.components import Components
+    from chiaswarm_tpu_torch.pipelines.upscale import Upscale4xPipeline
+
+    pipe = CascadePipeline(CascadeComponents.random("if_xl", seed=0,
+                                                    device="cuda"))
+    upscaler = Upscale4xPipeline(Components.random("upscaler_x4", seed=0,
+                                                   device="cuda"))
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "family": "if_xl", "upscaler": "upscaler_x4",
+                      "param_bytes": pipe.c.param_bytes()
+                      + upscaler.c.param_bytes(),
+                      **cascade_profile(torch, pipe, upscaler, args.top)}))
     return 0
 
 
