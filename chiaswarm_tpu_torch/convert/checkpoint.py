@@ -105,8 +105,10 @@ class CheckpointError(RuntimeError):
 
 def weight_files(path: str | Path) -> list[Path]:
     """The weight files of one module directory: its safetensors files,
-    else its torch pickles."""
+    else its torch pickles. A file is its own list."""
     path = Path(path)
+    if path.is_file():
+        return [path]
     files = sorted(path.glob("*.safetensors"))
     if not files:
         for pattern in _OTHER_PATTERNS:

@@ -621,3 +621,237 @@ def video_state_from_flax(tree: dict[str, Any], family
             _skeleton(ClipTextEncoder, family.text_encoder),
             tree["text_encoder"], _text_path, 0)
     return out
+
+
+# ------------------------------------------------ ControlNet detectors
+
+_DETECTOR_LEAVES = {"bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}
+
+
+def _detector_state(skeleton: nn.Module, tree: dict,
+                    path_of: Callable[[str, str], str],
+                    flipped: Callable[[str], bool] = lambda module: False
+                    ) -> dict[str, torch.Tensor]:
+    """A detector's Flax params (a ``{"params": ...}`` tree) -> the state
+    dict of ``skeleton`` (the port's network on ``meta``). ``path_of(module,
+    leaf)`` names the Flax leaf of each tensor, its leaf already in Flax's
+    words (``kernel``, ``scale``, ``bias``, ``mean``, ``var``, or the
+    parameter's own name). Conv kernels HWIO -> OIHW (``flipped`` ones, JAX's
+    transposed convs stored flipped as (kh, kw, in, out), -> torch's
+    unflipped (in, out, kh, kw)), dense kernels transposed, other leaves
+    reshaped to the port's shape. BatchNorm counters are 0. Every Flax leaf
+    is used once, or this raises."""
+    params = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+    for name, slot in skeleton.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            out[name] = torch.zeros((), dtype=torch.long)
+            continue
+        module, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if leaf == "weight":
+            leaf = "kernel" if slot.dim() >= 2 else "scale"
+        leaf = _DETECTOR_LEAVES.get(leaf, leaf)
+        path = path_of(module, leaf)
+        *parent, key = path.split("/")
+        value = np.asarray(_lookup(params, "/".join(parent))[key], np.float32)
+        if key == "kernel" and value.ndim == 4:
+            value = (value[::-1, ::-1].transpose(2, 3, 0, 1)
+                     if flipped(module) else value.transpose(3, 2, 0, 1))
+        elif key == "kernel" and value.ndim == 2:
+            value = value.T
+        elif value.size == slot.numel():
+            value = value.reshape(slot.shape)
+        if tuple(value.shape) != tuple(slot.shape):
+            raise ValueError(f"{name}: Flax {path} has shape {value.shape}, "
+                             f"the port expects {tuple(slot.shape)}")
+        out[name] = torch.tensor(np.ascontiguousarray(value))
+        used.add(path)
+    unused = {_joined(p, k) for p, k in _leaves(params)} - used
+    if unused:
+        raise ValueError(f"Flax params with no counterpart in the port: "
+                         f"{sorted(unused)[:8]}")
+    return out
+
+
+def _joined(module: str, leaf: str) -> str:
+    return f"{module}/{leaf}" if module else leaf
+
+
+def hed_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's ``HEDNetwork`` params -> the port's (``ControlNetHED.pth``)
+    names."""
+    from chiaswarm_tpu_torch.models.hed import HEDNetwork
+
+    def path_of(module: str, leaf: str) -> str:
+        module = re.sub(r"^(block\d)\.convs\.(\d+)$", r"\1/convs_\2", module)
+        return _joined(module.replace(".", "/"), leaf)
+
+    return _detector_state(_skeleton(lambda _: HEDNetwork(), None), tree,
+                           path_of)
+
+
+_LINEART_PATHS = [(r"model0\.1", "stem/conv"), (r"model1\.0", "down_0"),
+                  (r"model1\.3", "down_1"),
+                  (r"model2\.(\d+)\.conv_block\.1", r"res_\1/conv_a/conv"),
+                  (r"model2\.(\d+)\.conv_block\.5", r"res_\1/conv_b/conv"),
+                  (r"model3\.0", "up_0"), (r"model3\.3", "up_1"),
+                  (r"model4\.1", "head/conv")]
+
+
+def lineart_state_from_flax(tree: dict, n_blocks: int
+                            ) -> dict[str, torch.Tensor]:
+    """JAX's ``LineartGenerator`` params -> the port's (``sk_model.pth``)
+    names; the transposed convs' kernels unflipped."""
+    from chiaswarm_tpu_torch.models.lineart import LineartGenerator
+
+    def path_of(module: str, leaf: str) -> str:
+        for pattern, repl in _LINEART_PATHS:
+            if re.fullmatch(pattern, module):
+                return f"{re.sub(pattern, repl, module)}/{leaf}"
+        raise KeyError(f"no Flax path for lineart module {module!r}")
+
+    return _detector_state(_skeleton(LineartGenerator, n_blocks), tree,
+                           path_of, lambda m: m.startswith("model3."))
+
+
+def mlsd_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's ``MLSDNetwork`` params -> the port's
+    (``mlsd_large_512_fp32.pth``) names."""
+    from chiaswarm_tpu_torch.models.mlsd import MLSDNetwork
+
+    skeleton = _skeleton(lambda _: MLSDNetwork(), None)
+    seq_len = {i: len(f.conv) for i, f in
+               enumerate(skeleton.backbone.features) if i > 0}
+
+    def path_of(module: str, leaf: str) -> str:
+        if module.startswith("backbone.features.0."):
+            sub = {"0": "conv", "1": "bn"}[module.rsplit(".", 1)[1]]
+            return f"stem/{sub}/{leaf}"
+        m = re.fullmatch(r"backbone\.features\.(\d+)\.conv\.(\d+)(?:\.(\d))?",
+                         module)
+        if m:
+            i, j, part = int(m.group(1)), int(m.group(2)), m.group(3)
+            if part is not None:  # a conv-BN-ReLU6 stage
+                sub = {"0": "conv", "1": "bn"}[part]
+                return f"ir_{i}/layer_{j}/{sub}/{leaf}"
+            name = "project" if j == seq_len[i] - 2 else "project_bn"
+            return f"ir_{i}/{name}/{leaf}"
+        m = re.fullmatch(r"(block\d+)\.(conv\d)(?:\.(\d))?", module)
+        if m is None:
+            raise KeyError(f"no Flax path for M-LSD module {module!r}")
+        block, conv, part = m.groups()
+        if part is None:  # block23's head conv
+            return f"{block}/{conv}/{leaf}"
+        return f"{block}/{conv}/{ {'0': 'conv', '1': 'bn'}[part]}/{leaf}"
+
+    return _detector_state(skeleton, tree, path_of)
+
+
+def openpose_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """JAX's ``BodyPoseNet`` params -> the port's (controlnet_aux's
+    ``model0.conv1_1`` ...) names: JAX drops the stage prefix."""
+    from chiaswarm_tpu_torch.models.openpose import BodyPoseNet
+
+    return _detector_state(
+        _skeleton(lambda _: BodyPoseNet(), None), tree,
+        lambda module, leaf: f"{module.split('.', 1)[1]}/{leaf}")
+
+
+_DPT_LAYER = {"attention.attention.query": "query",
+              "attention.attention.key": "key",
+              "attention.attention.value": "value",
+              "attention.output.dense": "attn_out",
+              "intermediate.dense": "intermediate",
+              "output.dense": "output",
+              "layernorm_before": "layernorm_before",
+              "layernorm_after": "layernorm_after"}
+
+
+def _dpt_module(module: str) -> str:
+    m = re.fullmatch(r"dpt\.encoder\.layer\.(\d+)\.(.+)", module)
+    if m:
+        return f"layer_{m.group(1)}/{_DPT_LAYER[m.group(2)]}"
+    for pattern, repl in (
+            (r"dpt\.embeddings", ""),
+            (r"dpt\.embeddings\.patch_embeddings\.projection",
+             "patch_embedding"),
+            (r"neck\.reassemble_stage\.readout_projects\.(\d+)\.0",
+             r"readout_\1"),
+            (r"neck\.reassemble_stage\.layers\.(\d+)\.projection",
+             r"reassemble_proj_\1"),
+            (r"neck\.reassemble_stage\.layers\.(\d+)\.resize",
+             r"reassemble_resize_\1"),
+            (r"neck\.convs\.(\d+)", r"neck_conv_\1"),
+            (r"neck\.fusion_stage\.layers\.(\d+)\.projection",
+             r"fusion_\1_proj"),
+            (r"neck\.fusion_stage\.layers\.(\d+)\.residual_layer(\d)"
+             r"\.convolution(\d)", r"fusion_\1_res\2_conv\3"),
+            (r"head\.head\.0", "head_conv1"), (r"head\.head\.2", "head_conv2"),
+            (r"head\.head\.4", "head_conv3")):
+        if re.fullmatch(pattern, module):
+            return re.sub(pattern, repl, module)
+    raise KeyError(f"no Flax path for DPT module {module!r}")
+
+
+def dpt_state_from_flax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """JAX's ``DPTDepth`` params -> the port's (transformers'
+    ``DPTForDepthEstimation``) names; the x4 and x2 reassemble transposed
+    convs unflipped."""
+    from chiaswarm_tpu_torch.models.dpt import DPTDepth
+
+    return _detector_state(
+        _skeleton(DPTDepth, config), tree,
+        lambda module, leaf: _joined(_dpt_module(module), leaf),
+        lambda m: m.endswith(".resize") and any(
+            f"layers.{i}." in m for i, f in
+            enumerate(config.reassemble_factors) if f > 1))
+
+
+_UPERNET_BN = {"scale": "bn_scale", "bias": "bn_bias", "mean": "bn_mean",
+               "var": "bn_var"}
+
+
+def _upernet_path(module: str, leaf: str) -> str:
+    m = re.fullmatch(r"(.+)\.batch_norm", module)
+    if m:
+        return f"{_upernet_module(m.group(1))}/{_UPERNET_BN[leaf]}"
+    return _joined(_upernet_module(module), leaf)
+
+
+def _upernet_module(module: str) -> str:
+    m = re.fullmatch(r"backbone\.encoder\.stages\.(\d+)\.layers\.(\d+)"
+                     r"(?:\.(\w+))?", module)
+    if m:
+        s, i, sub = m.groups()
+        return f"stage{s}_layer{i}" + (f"/{sub}" if sub else "")
+    for pattern, repl in (
+            (r"backbone\.embeddings\.patch_embeddings", "patch_embed"),
+            (r"backbone\.embeddings\.layernorm", "embed_norm"),
+            (r"backbone\.encoder\.stages\.(\d+)\.downsampling_layer\.0",
+             r"down_norm_\1"),
+            (r"backbone\.encoder\.stages\.(\d+)\.downsampling_layer\.1",
+             r"down_conv_\1"),
+            (r"decode_head\.psp_modules\.(\d+)\.1", r"psp_\1"),
+            (r"decode_head\.lateral_convs\.(\d+)", r"lateral_\1"),
+            (r"decode_head\.fpn_convs\.(\d+)", r"fpn_\1"),
+            (r"decode_head\.(bottleneck|fpn_bottleneck|classifier)", r"\1")):
+        if re.fullmatch(pattern, module):
+            return re.sub(pattern, repl, module)
+    m = re.fullmatch(r"backbone\.hidden_states_norms\.stage(\d)", module)
+    if m:
+        return f"out_norm_{int(m.group(1)) - 1}"
+    m = re.fullmatch(r"(.+)\.conv", module)
+    if m:  # a conv module's conv
+        return f"{_upernet_module(m.group(1))}/conv"
+    raise KeyError(f"no Flax path for UperNet module {module!r}")
+
+
+def upernet_state_from_flax(tree: dict, config) -> dict[str, torch.Tensor]:
+    """JAX's ``UperNetSeg`` params -> the port's (transformers'
+    ``UperNetForSemanticSegmentation``) names."""
+    from chiaswarm_tpu_torch.models.upernet import UperNetSeg
+
+    return _detector_state(_skeleton(UperNetSeg, config), tree,
+                           _upernet_path)

@@ -37,7 +37,8 @@ A hive job dict maps to ``(callback, kwargs)``, as in the JAX package:
   job a ControlNet job: ``controlnet_model_name`` (default
   ``lllyasviel/control_v11p_sd15_canny``), ``save_preprocessed_input`` from
   its ``preprocess`` flag, and the fetched image through
-  ``workloads/controlnet.py::preprocess_image`` (off unless the job asks).
+  ``workloads/controlnet.py::preprocess_image`` (off unless the job asks),
+  any detector on the registry's device, the slot's card.
   A ``timbrooks/instruct-pix2pix`` job with an input image conditions on
   ``image_guidance_scale`` = strength x 5 (strength defaults to 0.6 and is
   dropped), JAX :177-180. ``lora``, ``cross_attention_scale`` and
@@ -197,13 +198,20 @@ def _format_stable_diffusion_args(args: dict[str, Any]) -> FormatResult:
         args.pop("height", None)
         args.pop("width", None)
         controlnet = parameters.get("controlnet")
-        args["image"] = np.asarray(get_image(args.pop("start_image_uri"),
-                                             size, controlnet))
+        image = get_image(args.pop("start_image_uri"), size)
         if controlnet is not None:
+            from chiaswarm_tpu_torch.workloads.controlnet import (
+                preprocess_image,
+            )
+
+            # a detector runs on the slot's card
+            image = preprocess_image(image, controlnet,
+                                     getattr(args["registry"], "device", None))
             args["controlnet_model_name"] = controlnet.get(
                 "controlnet_model_name", "lllyasviel/control_v11p_sd15_canny")
             args["save_preprocessed_input"] = controlnet.get("preprocess",
                                                              False)
+        args["image"] = np.asarray(image)
         if args.get("model_name") == "timbrooks/instruct-pix2pix":
             # pix2pix conditions on image guidance (1-5); the hive sends
             # strength (0-1), as swarm/job_arguments.py:128-131 remaps it
@@ -370,13 +378,13 @@ def download_image(url: str, max_bytes: int = MAX_IMAGE_BYTES) -> Image.Image:
     return image.convert("RGB")
 
 
-def get_image(uri: str, size: tuple[int, int] | None,
-              controlnet: dict | None = None) -> Image.Image:
+def get_image(uri: str, size: tuple[int, int] | None) -> Image.Image:
     """Fetch an input image behind the guards: a HEAD first (an image
     content type, a Content-Length within the cap), then
     :func:`download_image`, then a LANCZOS thumbnail down to ``size`` (H, W)
-    or to :data:`MAX_SIZE`; a ControlNet job's image then goes through
-    ``workloads/controlnet.py::preprocess_image``."""
+    or to :data:`MAX_SIZE`. (JAX's ``get_image`` also preprocesses a
+    ControlNet job's image; the port's formatter does that after the fetch,
+    with the slot's device.)"""
     try:
         head = _open(uri, "HEAD", HEAD_READ_TIMEOUT_S)
     except urllib.error.HTTPError as exc:
@@ -398,8 +406,4 @@ def get_image(uri: str, size: tuple[int, int] | None,
         image.thumbnail((size[1], size[0]), Image.Resampling.LANCZOS)
     elif image.height > MAX_SIZE or image.width > MAX_SIZE:
         image.thumbnail((MAX_SIZE, MAX_SIZE), Image.Resampling.LANCZOS)
-    if controlnet is not None:
-        from chiaswarm_tpu_torch.workloads.controlnet import preprocess_image
-
-        image = preprocess_image(image, controlnet)
     return image

@@ -362,6 +362,31 @@ each phase printing one JSON line:
 15t. xl_controlnet_serve — an SDXL ControlNet (random, zero convs seeded):
                 seed 1 at 1024 px as txt2img and as a control job, solo: B1
                 = 70 x 20 and 104 x 20. Prints both ``generation_s``.
+15t2. preprocess_check — the six learned ControlNet detectors at their
+                published widths (HED, M-LSD large, lineart with 3 blocks,
+                the CMU body-pose net, DPT-Large at 384 px, UperNet-ConvNeXt-
+                small at 512 px; 496 M float32 parameters, ~2.0 GB), seeded
+                on the CPU, written under ``<settings root>/models/<name>``
+                in their published files' layouts and loaded on the card
+                through ``from_checkpoint`` (tensors equal, the files' unused
+                keys dropped). On one 512x512 picture: each network's output
+                on the card against the CPU within ``tf32_bar`` of its conv
+                depth (cuDNN's TF32 on), the continuous maps (HED, lineart,
+                DPT) 99% within one level of the CPU's, the threshold maps'
+                agreement and non-zero share printed; no kernel of the port.
+                Prints load seconds, bytes, the network's device ms and the
+                host ms of preparing and post-processing.
+15t3. preprocess_serve — ControlNet jobs with ``preprocess: true`` at 512
+                px (4 steps) through ``synchronous_do_work``, their picture
+                fetched from this script's hive: with the detector
+                directories aside, the eight stand-in modes and openpose's
+                fatal envelope naming its directory; with them back, the
+                nine learned modes solo (each detector loaded on the card)
+                and a depth and a seg job in one lane. Every envelope
+                error-free with the ``controlnet`` stamp, its
+                ``preprocessed_input`` echo exactly the port's own map of
+                the picture, B1 = 14 x evals and no other kernel. Prints the
+                preprocess seconds against ``generation_s`` a mode.
 15u. pix2pix_serve — instruct-pix2pix at its published widths (SD1.5's
                 UNet with an 8-channel ``conv_in``, bf16, random from seed
                 0) written as a diffusers-layout directory under
@@ -771,14 +796,16 @@ KERNEL_SHAPES = [
     # (B, L, S, H, D, dtype, max abs error, relative L2, the phases that
     # launch it: the solo serve path (one job, CFG doubles the batch), a lone
     # job's lane of 2 rows in lane_serve (its adaptive lane may narrow to
-    # one row, batch 2), two jobs admitted together, whose adaptive lane
+    # one row, batch 2) and preprocess_serve's detector pair, two jobs admitted together, whose adaptive lane
     # grows to 4 rows, in safety_serve and controlnet_serve, a lane of 8
     # rows in lane_burst, and lane_check's fp32 lane step over 4 rows at a
     # 32x32 latent)
     (2, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("serve",)),
     (2, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("serve",)),
-    (4, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
-    (4, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_serve",)),
+    (4, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2,
+     ("lane_serve", "preprocess_serve")),
+    (4, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2,
+     ("lane_serve", "preprocess_serve")),
     (8, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2,
      ("safety_serve", "controlnet_serve")),
     (8, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2,
@@ -4850,6 +4877,353 @@ def xl_controlnet_serve_phase(torch, registry, slot,
 
 # ---- instruct-pix2pix, the x2 upscale pass, LoRA and textual inversion ---
 
+# the learned ControlNet preprocessors: (class, published file, seed,
+# options) at their published widths, and the serve phase's modes
+PREPROCESS_STEPS = 4    # per served job: B1 is held per control eval
+STANDIN_MODES = ("scribble", "softedge", "depth", "normal", "normalbae",
+                 "seg", "mlsd", "lineart")
+LEARNED_MODES = STANDIN_MODES + ("openpose",)
+CONTINUOUS_MAPS = {"hed", "lineart", "dpt"}  # the others threshold
+PREPROCESS_WITHIN_ONE = 0.99  # share of a continuous map within one level
+PREPROCESS_PAIR = ("depth", "seg")   # the detector jobs sharing a lane
+# DPT's last conv feeds a ReLU: PyTorch's default draw of its one bias can
+# leave the whole depth map 0 (the seed's does), so it is set positive
+DPT_HEAD_BIAS = 0.1
+
+
+def detector_specs() -> dict:
+    """Each detector's (class, published file, seed, options, conv depth)
+    at its published widths: HED and M-LSD on 512 px canvases, lineart
+    with 3 blocks on a 512 px canvas, body-pose at a 368 px box, DPT-Large
+    (ViT-L/16 at 384 px), UperNet-ConvNeXt-small at 512 px."""
+    from chiaswarm_tpu_torch.models import dpt, hed, lineart, mlsd
+    from chiaswarm_tpu_torch.models import openpose, upernet
+
+    small = upernet.UPERNET_CONVNEXT_SMALL
+    return {
+        "hed": (hed.HEDDetector, "ControlNetHED.pth", 81, {},
+                hed.CONV_DEPTH),
+        "mlsd": (mlsd.MLSDDetector, "mlsd_large_512_fp32.pth", 82, {},
+                 mlsd.CONV_DEPTH),
+        "lineart": (lineart.LineartDetector, "sk_model.pth", 83,
+                    {"n_blocks": 3}, lineart.conv_depth(3)),
+        "openpose": (openpose.OpenposeDetector, "body_pose_model.pth", 84,
+                     {}, openpose.CONV_DEPTH),
+        "dpt": (dpt.DPTDetector, "model.safetensors", 85,
+                {"config": dpt.DPT_LARGE}, dpt.CONV_DEPTH),
+        "upernet": (upernet.UperNetDetector, "model.safetensors", 86,
+                    {"config": small}, upernet.conv_depth(small)),
+    }
+
+
+def published_file_state(torch, name: str, state: dict) -> dict:
+    """A detector's state dict in its published file's layout: body-pose's
+    convs without their stage module; DPT's snapshot with the final
+    ``dpt.layernorm`` and the first fusion layer's unused residual unit,
+    UperNet's with an auxiliary FCN head (keys both packages drop)."""
+    gen = torch.Generator().manual_seed(len(name))
+    if name == "openpose":
+        return {k.split(".", 1)[1]: v for k, v in state.items()}
+    extra = {}
+    if name == "dpt":
+        extra = {"dpt.layernorm.weight": (1024,), "dpt.layernorm.bias": (1024,),
+                 **{f"neck.fusion_stage.layers.0.residual_layer1.convolution"
+                    f"{i}.{leaf}": (256, 256, 3, 3) if leaf == "weight"
+                    else (256,) for i in (1, 2) for leaf in ("weight", "bias")}}
+    elif name == "upernet":
+        extra = {"auxiliary_head.convs.0.conv.weight": (256, 384, 3, 3),
+                 **{f"auxiliary_head.convs.0.batch_norm.{leaf}": (256,)
+                    for leaf in ("weight", "bias", "running_mean",
+                                 "running_var")},
+                 "auxiliary_head.classifier.weight": (150, 256, 1, 1),
+                 "auxiliary_head.classifier.bias": (150,)}
+    return {**state, **{k: torch.randn(shape, generator=gen) * 0.02
+                        for k, shape in extra.items()}}
+
+
+def host_split(fn, iters: int = 5) -> float:
+    """Median host-clock ms of ``fn`` (numpy and cv2 work)."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def preprocess_check_phase(torch) -> dict:
+    """The six ControlNet detectors at their published widths
+    (``detector_specs``), each with PyTorch's default initialisation drawn
+    from its seed on the CPU (DPT's last bias ``DPT_HEAD_BIAS``), written
+    under ``<settings root>/models/<name>`` in its published file's layout
+    (``published_file_state``) and loaded on the card through its
+    ``from_checkpoint``: every tensor equal to its
+    source, the file's dropped keys absent. On one 512x512 picture
+    (``smooth_image(72)``, the serve phase's), each detector's network
+    output on the card against the same detector on the CPU, within
+    ``tf32_bar`` of its conv depth (cuDNN's TF32 on, PyTorch's default;
+    UperNet's logits, the others' host outputs); then the final maps, the
+    card's from the card's output through the host post-processing: a
+    continuous map (HED, lineart, DPT) with ``PREPROCESS_WITHIN_ONE`` of
+    its pixels within one level of the CPU's; a threshold map's (M-LSD,
+    UperNet, body-pose) agreement and non-zero share printed (random
+    weights may leave it empty). No kernel of the port is launched. Prints
+    each detector's write and load seconds, bytes on the card, the
+    network's device ms (CUDA events, median of 20), the detector's ms
+    with its upload and download (host clock), the host ms of preparing
+    the input and of the post-processing (median of 5)."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.convert.safetensors_io import save_file
+    from chiaswarm_tpu_torch.models.annotator import tf32_bar, upload_nhwc
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    picture = smooth_image(72, IMG_SIZE)
+    rows, failures = {}, []
+    for name, (cls, file, seed, opts, depth) in detector_specs().items():
+        t0 = time.perf_counter()
+        cpu = cls.random(seed, "cpu", **opts)
+        if name == "dpt":  # a ReLU'd depth all 0 under the drawn head
+            with torch.no_grad():
+                cpu.net.head.head[4].bias.fill_(DPT_HEAD_BIAS)
+        source = {k: v for k, v in cpu.net.state_dict().items()}
+        on_disk = published_file_state(torch, name, source)
+        target = model_dir(name)
+        target.mkdir(parents=True, exist_ok=True)
+        if file.endswith(".safetensors"):
+            save_file(on_disk, target / file, {"format": "pt"})
+        else:
+            torch.save(on_disk, target / file)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = cls.from_checkpoint(target, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = card.net.state_dict()
+        unequal = [k for k, v in loaded.items()
+                   if not torch.equal(v.cpu(), source[k])]
+        dropped = sorted(set(on_disk) - set(source))
+        if unequal or set(loaded) != set(source) or \
+                any(k in loaded for k in dropped):
+            raise AssertionError(f"preprocess_check {name}: {len(unequal)} "
+                                 f"tensors differ from their source "
+                                 f"({unequal[:3]}), dropped {dropped[:3]}")
+        x, ctx = card.prepare(picture)
+        t_x = upload_nhwc(x, card.device)
+        with torch.inference_mode():
+            if name == "upernet":  # the logits: the argmax leaves a map
+                want = [cpu.net(torch.from_numpy(x).permute(0, 3, 1, 2)
+                                .contiguous()).numpy()]
+                got = [card.net(t_x).cpu().numpy()]
+            else:
+                want, got = cpu.forward(x), card.forward(x)
+            net_ms = time_ms(torch, lambda: card.net(t_x))
+        if name == "upernet":  # the CPU's argmax from its logits
+            cpu_out = want[0][0].argmax(0).astype(np.uint8)
+            card_out = card.forward(x)
+        else:
+            cpu_out, card_out = want, got
+        want = [np.asarray(w) for w in (want if isinstance(want, (list, tuple))
+                                        else [want])]
+        got = [np.asarray(g) for g in (got if isinstance(got, (list, tuple))
+                                       else [got])]
+        scale = max(float(np.abs(w).max()) for w in want)
+        rel = max(float(np.abs(g - w).max()) for g, w in zip(got, want)) \
+            / max(scale, 1e-30)
+        card_map = card.finish(card_out, ctx).astype(np.int16)
+        cpu_map = cpu.finish(cpu_out, ctx).astype(np.int16)
+        diff = np.abs(card_map - cpu_map)
+        row = {
+            "params": sum(p.numel() for p in card.net.parameters()),
+            "param_bytes": card.param_bytes(), "write_s": write_s,
+            "load_s": load_s, "file_bytes": sum(
+                f.stat().st_size for f in target.iterdir()),
+            "dropped_keys": len(dropped), "net_ms": net_ms,
+            "detector_ms": host_split(lambda: card.forward(x)),
+            "prepare_ms": host_split(lambda: card.prepare(picture)),
+            "post_ms": host_split(lambda: card.finish(card_out, ctx)),
+            "output_scale": scale, "rel_err_vs_cpu": rel,
+            "bar": tf32_bar(depth), "conv_depth": depth,
+            "map_equal_share": float((diff == 0).mean()),
+            "map_within_one_share": float((diff <= 1).mean()),
+            "map_max_diff": int(diff.max()),
+            "map_nonzero_share": float((card_map != 0).any(axis=-1).mean()
+                                       if card_map.ndim == 3
+                                       else (card_map != 0).mean()),
+            "continuous": name in CONTINUOUS_MAPS}
+        rows[name] = row
+        if not (scale > 0 and rel <= row["bar"]):
+            failures.append(f"{name}: network output {rel} of its scale "
+                            f"{scale} from the CPU's (bar {row['bar']})")
+        if row["continuous"] and \
+                row["map_within_one_share"] < PREPROCESS_WITHIN_ONE:
+            failures.append(f"{name}: {row['map_within_one_share']} of the "
+                            "map within one level of the CPU's")
+        del cpu, card
+        torch.cuda.empty_cache()
+    launches = kernel_launches()
+    emit("preprocess_check", wall_s=time.perf_counter() - t_phase,
+         detectors=rows,
+         param_bytes_all=sum(r["param_bytes"] for r in rows.values()),
+         launches=launches, tf32=torch.backends.cudnn.allow_tf32,
+         nvidia_smi=nvidia_smi_line())
+    if any(launches.values()):
+        raise AssertionError(f"preprocess_check launched {launches}")
+    if failures:
+        raise AssertionError(f"preprocess_check: {failures}")
+    return rows
+
+
+def preprocess_serve_phase(torch, registry, slot, hive: LocalHive) -> dict:
+    """ControlNet jobs with ``preprocess: true`` at 512 px (``PREPROCESS_STEPS``
+    steps, SD1.5 and controlnet_serve's ControlNet), their picture
+    (``raw-72.png``) fetched from this script's hive, through
+    ``synchronous_do_work`` on the solo path. First with the detector
+    directories moved aside and the cache cleared: one job for each
+    stand-in mode, and the openpose job's fatal envelope naming its
+    directory. Then with the directories back and the cache cleared: one
+    job for each of the nine learned modes (each detector loaded on the
+    card by its first job), and ``PREPROCESS_PAIR`` admitted together into
+    one adaptive lane. Gates: every envelope error-free with a 512x512 PNG
+    and the ``controlnet`` stamp; its ``preprocessed_input`` echo exactly
+    the port's own map of the fetched picture (``preprocess_image`` on the
+    card again: the stand-in's map, or the host post-processing of the
+    card's network output); B1 = 14 x control evals and no other kernel.
+    Prints, a mode, the preprocess seconds (that call, host clock) against
+    the job's ``generation_s``."""
+    import numpy as np
+    from PIL import Image
+
+    from chiaswarm_tpu_torch.node.executor import (
+        synchronous_do_work,
+        synchronous_do_work_batch,
+    )
+    from chiaswarm_tpu_torch.node.registry import model_dir
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+    from chiaswarm_tpu_torch.workloads import controlnet as tcontrol
+
+    t_phase = time.perf_counter()
+    picture = smooth_image(72, IMG_SIZE)
+    names = list(detector_specs())
+    aside = settings_root_dir() / "detectors-aside"
+    aside.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        model_dir(name).rename(aside / name)
+    tcontrol.clear_detectors()
+    kernels.reset_launches()
+    modes: dict = {}
+
+    def job_for(mode: str, stage: str, seed: int) -> dict:
+        return on_hive(hive, [dict(
+            control_job(seed, 1.0, asset="/assets/raw-72.png",
+                        preprocess=True, type=mode),
+            id=f"pre-{stage}-{mode}", num_inference_steps=PREPROCESS_STEPS)])[0]
+
+    def held(stage: str, mode: str, job: dict, result: dict,
+             lanes: bool) -> None:
+        check_envelope(f"preprocess_serve_{stage}", job, result, lanes)
+        cfg = result["pipeline_config"]
+        if cfg.get("controlnet") != CN_MODEL:
+            raise AssertionError(f"preprocess_serve {job['id']}: {cfg}")
+        echo = result["artifacts"].get("preprocessed_input")
+        t0 = time.perf_counter()
+        own = np.asarray(tcontrol.preprocess_image(
+            Image.fromarray(picture), {"preprocess": True, "type": mode},
+            "cuda"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        equal = echo is not None and bool(
+            (decode_png(echo["blob"]) == own).all())
+        modes[f"{stage}:{mode}"] = {
+            "preprocess_s": seconds, "generation_s": cfg["generation_s"],
+            "preprocess_over_generation": seconds / cfg["generation_s"],
+            "echo_is_own_map": equal,
+            "map_nonzero_share": float((own != 0).any(axis=-1).mean()),
+            "stepper": cfg.get("stepper")}
+        if not equal:
+            raise AssertionError(f"preprocess_serve {job['id']}: the echo is "
+                                 "not the port's own map of the picture")
+
+    with env(CHIASWARM_STEPPER="0"):
+        for i, mode in enumerate(STANDIN_MODES):
+            job = job_for(mode, "standin", 40 + i)
+            held("standin", mode, job,
+                 synchronous_do_work(dict(job), slot, registry), False)
+        standin_launches = kernel_launches()
+        check_b1("preprocess_serve_standins", standin_launches,
+                 len(STANDIN_MODES) * PREPROCESS_STEPS
+                 * B1_LAUNCHES_PER_CONTROL_EVAL)
+        refused = synchronous_do_work(job_for("openpose", "standin", 48),
+                                      slot, registry)
+        error = str(refused["pipeline_config"].get("error", ""))
+        if not refused.get("fatal_error") or \
+                str(model_dir("openpose")) not in error or \
+                kernel_launches() != standin_launches:
+            raise AssertionError(f"preprocess_serve: openpose without "
+                                 f"weights gave {refused['pipeline_config']}")
+    standins = dict(tcontrol._DETECTORS)
+    if set(standins.values()) != {None}:
+        raise AssertionError(f"preprocess_serve: detectors {standins} "
+                             "without their directories")
+
+    tcontrol.clear_detectors()
+    for name in names:
+        (aside / name).rename(model_dir(name))
+    with env(CHIASWARM_STEPPER="0"):
+        mark = kernel_launches()
+        for i, mode in enumerate(LEARNED_MODES):
+            job = job_for(mode, "detector", 50 + i)
+            held("detector", mode, job,
+                 synchronous_do_work(dict(job), slot, registry), False)
+        detector_launches = {k: v - mark[k]
+                             for k, v in kernel_launches().items()}
+        check_b1("preprocess_serve_detectors", detector_launches,
+                 len(LEARNED_MODES) * PREPROCESS_STEPS
+                 * B1_LAUNCHES_PER_CONTROL_EVAL)
+    loaded = {k[0]: str(det.device) for k, det in tcontrol._DETECTORS.items()
+              if det is not None}
+    if sorted(loaded) != sorted(names) or \
+            any(not d.startswith("cuda") for d in loaded.values()):
+        raise AssertionError(f"preprocess_serve: detectors on {loaded}")
+    detector_bytes = sum(det.param_bytes()
+                         for det in tcontrol._DETECTORS.values())
+
+    pair = [job_for(mode, "lane", 60 + i)
+            for i, mode in enumerate(PREPROCESS_PAIR)]
+    with env(CHIASWARM_STEPPER="1"):
+        get_stepper(slot).shutdown()
+        before, mark = stepper_stats(slot), kernel_launches()
+        with lane_admissions(hold={job["id"]: 0 for job in pair}):
+            done = synchronous_do_work_batch([dict(j) for j in pair], slot,
+                                             registry)
+        steps = delta(stepper_stats(slot), before, "steps_executed")
+        get_stepper(slot).shutdown()
+        lane_launches = {k: v - mark[k] for k, v in kernel_launches().items()}
+        check_b1("preprocess_serve_lane", lane_launches,
+                 steps * B1_LAUNCHES_PER_CONTROL_EVAL)
+    for mode, job, result in zip(PREPROCESS_PAIR, pair, done):
+        held("lane", mode, job, result, True)
+    lanes = {(r["pipeline_config"]["stepper"]["lane"],
+              r["pipeline_config"]["stepper"]["lane_width"]) for r in done}
+    run = launched()
+    emit("preprocess_serve", wall_s=time.perf_counter() - t_phase,
+         steps=PREPROCESS_STEPS, modes=modes,
+         lane_steps=steps, lanes=sorted(lanes), detectors_on=loaded,
+         detector_bytes=detector_bytes, openpose_refusal=error,
+         launches={"standins": standin_launches,
+                   "detectors": detector_launches, "lane": lane_launches},
+         b1_shapes=b1_shapes(run), nvidia_smi=nvidia_smi_line())
+    if len(lanes) != 1:
+        raise AssertionError(f"preprocess_serve: the pair rode lanes {lanes}")
+    tcontrol.clear_detectors()
+    torch.cuda.empty_cache()
+    return run
+
+
 P2P_MODEL = "timbrooks/instruct-pix2pix"  # the hive's name for pix2pix
 # strength 0.3 and 0.6 -> image guidance 1.5 and 3.0 (the formatter's x5)
 P2P_STRENGTHS = {61: 0.3, 62: 0.6}
@@ -6964,6 +7338,7 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "safety_serve",
                                            "controlnet_serve",
                                            "xl_controlnet_serve",
+                                           "preprocess_serve",
                                            "pix2pix_serve",
                                            "upscale_serve",
                                            "xl_upscale_serve",
@@ -7092,6 +7467,11 @@ def run_phases(torch, t0: float) -> int:
         runs["controlnet_serve"] = controlnet_serve_phase(
             torch, registry, pool, slot, control_hive)
         runs["xl_controlnet_serve"] = xl_controlnet_serve_phase(
+            torch, registry, slot, control_hive)
+        # the learned preprocessors: their detectors on the card, then
+        # their jobs through the SD1.5 ControlNet
+        preprocess_check_phase(torch)
+        runs["preprocess_serve"] = preprocess_serve_phase(
             torch, registry, slot, control_hive)
     # instruct-pix2pix, the x2 upscale pass, LoRA and textual inversion
     with env(CHIASWARM_STEPPER="1"):

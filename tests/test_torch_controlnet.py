@@ -21,7 +21,7 @@ seed at a small scale: a fresh one is a no-op and would prove nothing.
 - The registry, the routing of ``parameters.controlnet`` against JAX's, the
   envelopes (stamps and the ``preprocessed_input`` echo) against the JAX
   executor's, the refusals, and the preprocessing modes against JAX's and
-  ``cv2.Canny``.
+  ``cv2.Canny`` (the detector modes in ``tests/test_torch_preprocessors.py``).
 """
 
 from __future__ import annotations
@@ -709,11 +709,25 @@ def test_preprocessing_is_off_unless_asked():
         assert jcontrol.preprocess_image(image, block) is image
 
 
-@pytest.mark.parametrize("kind", tcontrol.LATER_MODES)
-def test_learned_modes_are_refused_naming_item_6(kind):
-    with pytest.raises(ValueError, match="ROADMAP queue item 6"):
-        tcontrol.preprocess_image(Image.fromarray(_cond_image()),
-                                  {"preprocess": True, "type": kind})
+@pytest.mark.parametrize("kind", ("scribble", "softedge", "depth", "normal",
+                                  "normalbae", "seg", "mlsd", "lineart",
+                                  "openpose"))
+def test_learned_modes_are_refused_naming_item_6(kind, monkeypatch):
+    """Each learned mode is served (this test held their refusal until the
+    detectors were ported): with no detector directory, the cv2 stand-in;
+    openpose, which has none, by a detector in the cache. An unknown type
+    is still refused."""
+    from chiaswarm_tpu_torch.models.openpose import OpenposeDetector
+
+    monkeypatch.setattr(tcontrol, "_DETECTORS", {})
+    if kind == "openpose":
+        tcontrol._DETECTORS[("openpose", "cpu")] = OpenposeDetector.random(
+            0, "cpu", box_size=64)
+    image = Image.fromarray(_cond_image())
+    out = tcontrol.preprocess_image(image, {"preprocess": True,
+                                            "type": kind}, device="cpu")
+    assert out is not image and out.mode == "RGB"
+    assert out.size == image.size
     with pytest.raises(ValueError, match="not supported"):
         tcontrol.preprocess_image(Image.fromarray(_cond_image()),
                                   {"preprocess": True, "type": "bogus"})

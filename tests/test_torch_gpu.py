@@ -19,7 +19,11 @@ self-attentions of ModelScope's, SVD's and vid2vid's folded frames, the
 tiny video UNets on the card against their CPU run); the DeepFloyd cascade
 (B1 at its stage-2 and x4 upscaler shapes, head dim 128 among them, the
 plain path in blocks of queries against SDPA at 16,384 tokens, a T5-XXL
-layer in bf16 on the card against float32 on the CPU).
+layer in bf16 on the card against float32 on the CPU); the six ControlNet
+detectors (HED, M-LSD, lineart, body-pose, DPT, UperNet at their published
+widths) on the card against their CPU run with cuDNN's TF32 allowed, within
+``models/annotator.py::tf32_bar`` of their conv depth, and a detector whose
+weights are wrong raising on the card instead of serving its stand-in.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1861,3 +1865,91 @@ def test_t5_block_in_bf16_on_the_card_follows_fp32_on_the_cpu(cuda_device):
         got = card(ids.to(cuda_device), (ids != 0).to(cuda_device)).cpu()
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert ((got - want).norm() / want.norm()).item() <= 3e-2
+
+
+def _detector_cases():
+    """(name, class, options, conv depth): the six ControlNet detectors at
+    their published widths, canvases cut to 128 px, DPT cut to 4 layers and
+    UperNet to depths (1, 1, 3, 1) to keep the CPU side short."""
+    import dataclasses
+
+    from chiaswarm_tpu_torch.models import dpt, hed, lineart, mlsd
+    from chiaswarm_tpu_torch.models import openpose, upernet
+
+    dpt_cfg = dataclasses.replace(dpt.DPT_LARGE, num_layers=4,
+                                  backbone_out_indices=(0, 1, 2, 3))
+    seg_cfg = dataclasses.replace(upernet.UPERNET_CONVNEXT_SMALL,
+                                  depths=(1, 1, 3, 1), image_size=128)
+    return {
+        "hed": (hed.HEDDetector, {"canvas": 128}, hed.CONV_DEPTH),
+        "mlsd": (mlsd.MLSDDetector, {"canvas": 128}, mlsd.CONV_DEPTH),
+        "lineart": (lineart.LineartDetector, {"canvas": 128, "n_blocks": 3},
+                    lineart.conv_depth(3)),
+        "openpose": (openpose.OpenposeDetector, {"box_size": 128},
+                     openpose.CONV_DEPTH),
+        "dpt": (dpt.DPTDetector, {"config": dpt_cfg}, dpt.CONV_DEPTH),
+        "upernet": (upernet.UperNetDetector, {"config": seg_cfg},
+                    upernet.conv_depth(seg_cfg)),
+    }
+
+
+@pytest.mark.parametrize("name", ["hed", "mlsd", "lineart", "openpose", "dpt",
+                                  "upernet"])
+def test_detector_on_the_card_matches_its_cpu_run(cuda_device, name):
+    """A detector's network on the card against its CPU run on the same
+    weights and input, with cuDNN's TF32 allowed (PyTorch's default, which
+    the port serves with): within ``tf32_bar`` of its conv depth (2**-11 a
+    convolution, relative to the output's largest magnitude); UperNet's
+    logits, the others' host outputs."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.models.annotator import tf32_bar
+
+    cls, opts, depth = _detector_cases()[name]
+    cpu = cls.random(3, "cpu", **opts)
+    card = cls.from_state(cpu.net.state_dict(), cuda_device, **opts)
+    image = np.random.default_rng(4).integers(0, 256, (96, 160, 3),
+                                              dtype=np.uint8)
+    x, _ = cpu.prepare(image)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        if name == "upernet":
+            t = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+            with torch.inference_mode():
+                want = [cpu.net(t).numpy()]
+                got = [card.net(t.to(cuda_device)).cpu().numpy()]
+        else:
+            want, got = cpu.forward(x), card.forward(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = [np.asarray(w) for w in (want if isinstance(want, (list, tuple))
+                                    else [want])]
+    got = [np.asarray(g) for g in (got if isinstance(got, (list, tuple))
+                                   else [got])]
+    scale = max(float(np.abs(w).max()) for w in want)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    assert scale > 0 and err <= tf32_bar(depth) * scale, (err, scale)
+
+
+def test_a_detector_with_wrong_weights_raises_on_the_card(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """A HED directory holding another network's weights fails the job on
+    the card: the load raises, every time, and no stand-in is served."""
+    from PIL import Image
+
+    from chiaswarm_tpu_torch.convert.checkpoint import CheckpointError
+    from chiaswarm_tpu_torch.models.lineart import LineartGenerator
+    from chiaswarm_tpu_torch.workloads import controlnet
+
+    monkeypatch.setenv("SWARM_TPU_ROOT", str(tmp_path))
+    monkeypatch.setattr(controlnet, "_DETECTORS", {})
+    target = tmp_path / "models" / "hed"
+    target.mkdir(parents=True)
+    torch.save(LineartGenerator(1).state_dict(), target / "ControlNetHED.pth")
+    image = Image.new("RGB", (64, 48), (30, 140, 200))
+    for _ in range(2):
+        with pytest.raises(CheckpointError, match="ControlNetHED"):
+            controlnet.preprocess_image(
+                image, {"preprocess": True, "type": "softedge"}, cuda_device)
+    assert controlnet._DETECTORS == {}

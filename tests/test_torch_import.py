@@ -91,7 +91,10 @@ def test_package_has_the_slice_modules():
                   "workloads.audio", "models.gpt", "models.codec",
                   "pipelines.tts", "models.video_unet", "pipelines.video",
                   "workloads.video", "models.t5", "pipelines.cascade",
-                  "workloads.cascade"):
+                  "workloads.cascade", "workloads.ade_palette",
+                  "models.annotator", "models.hed", "models.lineart",
+                  "models.mlsd", "models.openpose", "models.dpt",
+                  "models.upernet"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",
