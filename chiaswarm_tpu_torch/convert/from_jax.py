@@ -120,12 +120,10 @@ def _lookup(tree: dict, path: str) -> dict:
     return node
 
 
-def _convert(module: nn.Module, flax_tree: dict,
-             path_of: Callable[[str, int], str], n_levels: int
-             ) -> dict[str, torch.Tensor]:
-    params = flax_tree["params"]
-    used: set[tuple[str, str]] = set()
-    out: dict[str, torch.Tensor] = {}
+def _flax_leaves(module: nn.Module, params: dict,
+                 path_of: Callable[[str, int], str], n_levels: int):
+    """(port parameter name, parameter, Flax path, Flax key, Flax leaf) for
+    every parameter of ``module``."""
     for name, p in module.named_parameters():
         mod_name, leaf = name.rsplit(".", 1)
         fpath = path_of(mod_name, n_levels)
@@ -137,12 +135,28 @@ def _convert(module: nn.Module, flax_tree: dict,
                 raise KeyError(f"{fpath!r} has no kernel/scale/embedding")
         else:
             key = leaf
-        value = np.asarray(node[key], dtype=np.float32)
-        if key == "kernel":
-            # (kT, kH, kW, I, O) / HWIO / (in, out) -> torch's (O, I, ...)
-            value = (value.transpose(4, 3, 0, 1, 2) if value.ndim == 5
-                     else value.transpose(3, 2, 0, 1) if value.ndim == 4
-                     else value.T)
+        yield name, p, fpath, key, node[key]
+
+
+def _torch_layout(value: np.ndarray, key: str) -> np.ndarray:
+    """A Flax kernel (kT, kH, kW, I, O) / HWIO / (in, out) -> torch's
+    (O, I, ...); any other leaf as it is."""
+    if key != "kernel":
+        return value
+    return (value.transpose(4, 3, 0, 1, 2) if value.ndim == 5
+            else value.transpose(3, 2, 0, 1) if value.ndim == 4
+            else value.T)
+
+
+def _convert(module: nn.Module, flax_tree: dict,
+             path_of: Callable[[str, int], str], n_levels: int
+             ) -> dict[str, torch.Tensor]:
+    params = flax_tree["params"]
+    used: set[tuple[str, str]] = set()
+    out: dict[str, torch.Tensor] = {}
+    for name, p, fpath, key, raw in _flax_leaves(module, params, path_of,
+                                                 n_levels):
+        value = _torch_layout(np.asarray(raw, dtype=np.float32), key)
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(f"{name}: Flax {fpath}/{key} has shape "
                              f"{value.shape}, the port expects {tuple(p.shape)}")
@@ -179,6 +193,35 @@ def params_from_flax(tree: dict[str, Any], family: ModelFamily | str
                            _unet_path, len(family.unet.block_out_channels))
     out["vae"] = _convert(_skeleton(AutoencoderKL, family.vae), tree["vae"],
                           _vae_path, len(family.vae.block_out_channels))
+    return out
+
+
+def int8_from_flax(tree: dict[str, Any], family: ModelFamily | str
+                   ) -> dict[str, dict[str, tuple[torch.Tensor,
+                                                  torch.Tensor]]]:
+    """The JAX package's int8 param tree (``convert/quantize.py``'s
+    ``Int8Param`` leaves, read by their ``q`` and ``scale``) -> ``{component:
+    {port parameter name: (int8 codes, float32 scales)}}`` in the port's
+    layout, both transposed as the weight is: the tests' seam for holding
+    the port's codes and scales equal to JAX's."""
+    if isinstance(family, str):
+        family = FAMILIES[family]
+    parts = [(f"text_encoder_{i}", _skeleton(ClipTextEncoder, cfg),
+              _text_path, 0) for i, cfg in enumerate(family.text_encoders)]
+    parts += [("unet", _skeleton(UNet, family.unet), _unet_path,
+               len(family.unet.block_out_channels)),
+              ("vae", _skeleton(AutoencoderKL, family.vae), _vae_path,
+               len(family.vae.block_out_channels))]
+    out: dict[str, dict[str, tuple[torch.Tensor, torch.Tensor]]] = {}
+    for part, module, path_of, n_levels in parts:
+        out[part] = {}
+        for name, _, _, key, raw in _flax_leaves(
+                module, tree[part]["params"], path_of, n_levels):
+            if hasattr(raw, "q") and hasattr(raw, "scale"):
+                out[part][name] = tuple(
+                    torch.from_numpy(np.array(_torch_layout(np.asarray(a),
+                                                            key)))
+                    for a in (raw.q, raw.scale))
     return out
 
 

@@ -122,6 +122,22 @@ class DeviceSlot:
         finally:
             self._admitted.release()
 
+    def call_multi(self, callback: Callable[..., list], **kwargs) -> list:
+        """:meth:`__call__` for a coalesced callback that returns a LIST of
+        per-job (artifacts, config): the per-job seeds ride inside
+        ``kwargs["jobs"]`` and each config records its own (JAX
+        :112-125)."""
+        if not self._admitted.acquire(blocking=False):
+            raise SlotBusy(f"{self.identifier} is busy")
+        try:
+            model_name = kwargs.pop("model_name", None)
+            seed = int(kwargs.pop("seed", 0))
+            with self._running:
+                outs = callback(self, model_name, seed=seed, **kwargs)
+            return [(artifacts, dict(config)) for artifacts, config in outs]
+        finally:
+            self._admitted.release()
+
 
 class ChipPool:
     """Partition devices into mesh slots.

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 #: the additive mask value of the JAX attention modules
 NEG_INF = -1e9
@@ -82,9 +83,16 @@ def cast_module(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def param_dtype(module: nn.Module) -> torch.dtype:
     """The compute dtype of a module: its first non-float32-pinned
-    parameter's dtype."""
+    parameter's dtype (an int8 leaf's, ``convert/quantize.py``, is the
+    dtype it dequantizes into)."""
     for m in module.modules():
         if getattr(m, "keep_fp32", False):
+            continue
+        plists = getattr(m, "parametrizations", None)
+        if plists is not None:  # a quantized leaf's codes and scales
+            for plist in plists.values():
+                return plist[0].dtype
+        if isinstance(m, parametrize.ParametrizationList):
             continue
         for p in m.parameters(recurse=False):
             return p.dtype

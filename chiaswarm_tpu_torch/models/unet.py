@@ -434,7 +434,17 @@ class UNet(UNetTrunk):
     for a family without cross-attention). ``down_residuals``/
     ``mid_residual`` take a ControlNet's residuals; ``class_labels`` the
     x4 upscaler's integer noise levels (B,) or AudioLDM's float
-    conditioning (B, class_proj_dim)."""
+    conditioning (B, class_proj_dim).
+
+    The DeepCache seam (JAX ``models/unet.py`` :360-491): ``return_deep``
+    runs the full network and also returns the activation entering the
+    level-0 up block (the level-1 upsample's output, (B, C1, h, w) with
+    C1 = ``block_out_channels[1]``), the cache-refresh eval; ``cached_deep``
+    (that activation) runs the shallow replay: ``conv_in`` and the level-0
+    down blocks (they feed the level-0 skips), then the cache in place of
+    every deeper level, the mid block and the deeper up path, then the
+    level-0 up blocks. A ControlNet's residuals reach only the level-0 skips
+    there."""
 
     def __init__(self, config: UNetConfig) -> None:
         super().__init__(config)
@@ -468,22 +478,54 @@ class UNet(UNetTrunk):
                 added_cond: dict[str, torch.Tensor] | None = None,
                 down_residuals: tuple[torch.Tensor, ...] | None = None,
                 mid_residual: torch.Tensor | None = None,
-                class_labels: torch.Tensor | None = None) -> torch.Tensor:
+                class_labels: torch.Tensor | None = None,
+                cached_deep: torch.Tensor | None = None,
+                return_deep: bool = False
+                ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+        if (cached_deep is not None or return_deep) and \
+                len(self.config.block_out_channels) < 2:
+            raise ValueError(
+                "DeepCache needs a deep/shallow split: this UNet has a "
+                "single resolution level")
+        if cached_deep is not None and return_deep:
+            raise ValueError("shallow replay already carries the cache; "
+                             "return_deep only applies to full passes")
         dtype = param_dtype(self)
         temb = self.time_conditioning(timesteps, added_cond, dtype,
                                       class_labels)
         context = (None if encoder_hidden_states is None
                    else encoder_hidden_states.to(dtype))
 
-        x, skips = self.down_trunk(self.conv_in(sample.to(dtype)), temb,
-                                   context)
-        if down_residuals is not None:
-            skips = [(s + r).to(dtype) for s, r in zip(skips, down_residuals)]
-        x = self.mid_trunk(x, temb, context)
-        if mid_residual is not None:
-            x = (x + mid_residual).to(dtype)
+        x = self.conv_in(sample.to(dtype))
+        if cached_deep is not None:
+            # the shallow replay: the level-0 down blocks feed the level-0
+            # skips, the cache stands in for everything deeper
+            skips = [x]
+            block = self.down_blocks[0]
+            for j, resnet in enumerate(block.resnets):
+                x = resnet(x, temb)
+                if len(block.attentions):
+                    x = block.attentions[j](x, context)
+                skips.append(x)
+            if down_residuals is not None:
+                skips = [(s + r).to(dtype)
+                         for s, r in zip(skips, down_residuals)]
+            x = cached_deep.to(dtype)
+            up_blocks = self.up_blocks[-1:]
+        else:
+            x, skips = self.down_trunk(x, temb, context)
+            if down_residuals is not None:
+                skips = [(s + r).to(dtype)
+                         for s, r in zip(skips, down_residuals)]
+            x = self.mid_trunk(x, temb, context)
+            if mid_residual is not None:
+                x = (x + mid_residual).to(dtype)
+            up_blocks = self.up_blocks
 
-        for block in self.up_blocks:
+        deep = None
+        for n, block in enumerate(up_blocks):
+            if return_deep and n == len(up_blocks) - 1:
+                deep = x  # what the shallow replay splices back in
             for j, resnet in enumerate(block.resnets):
                 x = resnet(torch.cat([x, skips.pop()], dim=1), temb)
                 if len(block.attentions):
@@ -492,4 +534,5 @@ class UNet(UNetTrunk):
                 x = block.upsamplers[0](x)
 
         x = F.silu(self.conv_norm_out(x)).to(dtype)
-        return self.conv_out(x)
+        out = self.conv_out(x)
+        return (out, deep) if return_deep else out

@@ -2,8 +2,9 @@
 (``_error_payload``/``_result``/``error_result``/``_format``/``_execute``
 :62-212, ``_stepper_submit``/``_stepper_collect``/``_stepper_resubmit``
 :215-343, ``synchronous_do_work`` :346-367, ``job_rows`` :386,
-``single_chip_rows`` :397-416, ``rows_cap`` :418,
-``synchronous_do_work_batch`` :458-593, and the async
+``_coalesce_key`` :370-384, ``single_chip_rows`` :397-416, ``rows_cap``
+:418, ``_row_chunks`` :428-455, ``synchronous_do_work_batch`` :458-593,
+and the async
 ``do_work``/``do_work_batch`` :47-59, which the worker awaits: each runs its
 synchronous twin on a thread of the event loop's default executor).
 
@@ -22,7 +23,18 @@ load-per-job (``registry.lane_resident_ok``, JAX :230-238). A model that
 cannot fit even transiently raises ``ModelUnavailable``: the non-fatal
 ``model_unavailable`` envelope.
 Both paths run on the slot's device. ``CHIASWARM_STEPPER=0`` sends every job
-down the solo path. Coalesced bursts are a later slice (``ROADMAP.md``).
+down the solo path.
+
+A burst (:func:`synchronous_do_work_batch`) submits its lane jobs first;
+then the rest of its compatible diffusion jobs (every one under
+``CHIASWARM_STEPPER=0``; under lanes the residue they turn away, such as
+guidance-1.0 jobs) are grouped by :func:`_coalesce_key`, chunked by
+:func:`_row_chunks` so no program carries more rows than ``rows_cap`` allows,
+and each group of two or more runs as one batched program
+(``workloads/diffusion.py::diffusion_coalesced_callback``), with a
+``coalesced`` span in each member's trace. A group that raises, or returns
+a wrong count, falls back to per-job runs with a WARNING, as in JAX; the
+singles run last.
 
 The gray-failure guard (``serving/guard.py``): a diffusion job's solo call
 runs under the hang watchdog (``watch_solo``; a hung call raises
@@ -369,18 +381,119 @@ def rows_cap(rows_max: int, data_width: int, per_device_rows: int = 1) -> int:
     return dw * max(-(-rows_max // dw), max(1, int(per_device_rows)))
 
 
+def _coalesce_key(kwargs: dict[str, Any]) -> tuple:
+    """The group of a formatted diffusion job: its model, the fetched image
+    and mask shapes (an image job may carry no height/width; masks of
+    another size would not stack) and the ``COALESCE_KEYS`` values."""
+    import numpy as np
+
+    from chiaswarm_tpu_torch.workloads.diffusion import COALESCE_KEYS
+
+    image = kwargs.get("image")
+    mask = kwargs.get("mask_image")
+    return ((kwargs.get("model_name"),
+             None if image is None else tuple(np.asarray(image).shape),
+             None if mask is None else tuple(np.asarray(mask).shape))
+            + tuple(repr(kwargs.get(k)) for k in COALESCE_KEYS))
+
+
+def _row_chunks(group: list, data_width: int) -> list[list]:
+    """Split a compatible group (items ``(i, job_id, content_type,
+    kwargs)``) so no batched program carries more rows per device than its
+    heaviest member's solo run or the profitable batch (:func:`rows_cap`):
+    greedy, in order."""
+    chunks: list[list] = []
+    cur: list = []
+    cur_rows = cur_max = 0
+    per_device = single_chip_rows(group[0][3]) if group else 1
+    for item in group:
+        rows = job_rows(item[3])
+        if cur and cur_rows + rows > rows_cap(max(cur_max, rows),
+                                              data_width, per_device):
+            chunks.append(cur)
+            cur, cur_rows, cur_max = [], 0, 0
+        cur.append(item)
+        cur_rows += rows
+        cur_max = max(cur_max, rows)
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _run_group(group: list, slot, registry, results: list,
+               singles: list, jobs: list[dict[str, Any]]) -> None:
+    """One coalesced program for ``group`` (items ``(i, job_id,
+    content_type, kwargs)``): each member's result lands in ``results``; on
+    a failure, or a wrong count of results, every member goes to
+    ``singles`` (JAX :521-577)."""
+    from chiaswarm_tpu_torch.core.rng import draw_seed
+    from chiaswarm_tpu_torch.workloads.diffusion import (
+        COALESCE_KEYS,
+        diffusion_callback,
+        diffusion_coalesced_callback,
+    )
+
+    kwargs0 = group[0][3]
+    shared = {k: kwargs0.get(k) for k in COALESCE_KEYS}
+    per_job = []
+    for _, _, _, kwargs in group:
+        seed = kwargs.get("seed")  # 0 is a valid pinned seed
+        per_job.append({
+            "prompt": kwargs.get("prompt"),
+            "negative_prompt": kwargs.get("negative_prompt"),
+            "num_images_per_prompt": kwargs.get("num_images_per_prompt", 1),
+            "seed": draw_seed() if seed is None else int(seed),
+            "image": kwargs.get("image"),
+            "mask_image": kwargs.get("mask_image"),
+            # the solo callback's default, not the error payload's jpeg
+            "content_type": kwargs.get("content_type", "image/png"),
+        })
+    ids = [job_id for _, job_id, _, _ in group]
+    spans = []
+    for i, _, _, _ in group:
+        trace = obs_trace.job_trace(jobs[i])
+        if trace is not None:
+            spans.append(trace.tail().child("coalesced", jobs=len(group)))
+    try:
+        outs = slot.call_multi(
+            diffusion_coalesced_callback, model_name=kwargs0.get("model_name"),
+            seed=per_job[0]["seed"], registry=registry, jobs=per_job,
+            **shared)
+        if len(outs) != len(group):  # never drop a job silently
+            raise RuntimeError(f"coalesced callback returned {len(outs)} "
+                               f"results for {len(group)} jobs")
+        log.info("coalesced %d jobs onto one program: %s", len(group), ids)
+        for (i, job_id, _, _), (artifacts, config) in zip(group, outs):
+            results[i] = _result(job_id, artifacts, config)
+    except Exception as exc:
+        log.warning("coalesced run %s failed (%s); falling back to per-job "
+                    "execution", ids, exc)
+        singles.extend((i, (job_id, content_type, diffusion_callback, kwargs))
+                       for i, job_id, content_type, kwargs in group)
+    finally:
+        for group_span in spans:
+            group_span.end()
+
+
 def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
                               registry) -> list[dict]:
     """Run a burst of jobs: every lane-eligible job is submitted first, so
-    their rows share the lanes' steps, then the rest run one at a time
-    through the per-job path, as do lane jobs the lane fails. Results keep
-    the jobs' order. Coalescing the ineligible residue into one batched
-    program is a later slice (``ROADMAP.md``)."""
+    their rows share the lanes' steps; compatible diffusion jobs of the rest
+    run as coalesced groups (the module docstring); then the singles, and
+    lane jobs the lane failed, one at a time through the per-job path.
+    Results keep the jobs' order."""
+    from chiaswarm_tpu_torch.workloads.diffusion import (
+        coalescable,
+        diffusion_callback,
+    )
+
     if len(jobs) == 1:
         return [synchronous_do_work(jobs[0], slot, registry)]
     results: list[dict | None] = [None] * len(jobs)
     singles: list[tuple[int, tuple]] = []
     tickets: list[tuple[int, tuple, Any]] = []
+    groups: dict[tuple, list[tuple[int, Any, str, dict]]] = {}
+
     def traced(i: int):
         return obs_trace.activate(obs_trace.job_trace(jobs[i]))
 
@@ -394,8 +507,21 @@ def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
             ticket = _stepper_submit(*formatted, slot, registry)
         if ticket is not None:
             tickets.append((i, formatted, ticket))
+        elif formatted[2] is diffusion_callback and coalescable(formatted[3]):
+            job_id, content_type, _, kwargs = formatted
+            groups.setdefault(_coalesce_key(kwargs), []).append(
+                (i, job_id, content_type, kwargs))
         else:
             singles.append((i, formatted))
+    data_width = max(1, int(getattr(slot, "data_width", 1)))
+    for whole in groups.values():
+        for group in _row_chunks(whole, data_width):
+            if len(group) == 1:
+                i, job_id, content_type, kwargs = group[0]
+                singles.append((i, (job_id, content_type, diffusion_callback,
+                                    kwargs)))
+            else:
+                _run_group(group, slot, registry, results, singles, jobs)
     collected = _collect_lanes(tickets, slot, registry, traced)
     for i, formatted, _ in tickets:
         if collected[i] is not None:

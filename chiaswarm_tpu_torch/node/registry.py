@@ -25,11 +25,20 @@ that the worker's circuit breakers mirror in is copied and shared with the
 ledger's state enum (:meth:`model_states`).
 
 A ControlNet (:meth:`ModelRegistry.controlnet`, JAX :549-600) is a ledger
-entry of its own, under ``("controlnet", name, family, False, device)``:
-JAX's key (the last flag is its int8 choice, which waits for the
-quantization slice) plus the device the bundle lives on, since the port's
-multi-card pools build one slot per card. Evicting it retires the lanes
-keyed by it.
+entry of its own, under ``("controlnet", name, family, quantize, device)``:
+JAX's key (``quantize`` is its int8 choice) plus the device the bundle
+lives on, since the port's multi-card pools build one slot per card.
+Evicting it retires the lanes keyed by it.
+
+int8 weights (``CHIASWARM_WEIGHTS=int8``, ``convert/quantize.py``, JAX
+:255-276 and :561-600): a diffusion (``kind == "sd"``) pipeline and a
+ControlNet bundle are quantized after the LoRA and textual-inversion
+merges (an inversion's rows change its table's absmax) and before they are
+handed out; a slot mesh of more than one device declines, with JAX's
+warning. The int8 choice joins both ledger keys (a pipeline's as a
+trailing ``"int8"``, so a bf16 key is JAX's), so a node that switches
+formats never serves the other format's entry, and a model never measured
+is planned at ``bytes_per_param()`` (1 under int8, else 2).
 
 :meth:`ModelRegistry.pipeline` selects the pipeline class by the
 family's ``kind``, as JAX does (:278-291): ``"upscaler"`` builds the x2
@@ -77,6 +86,11 @@ from typing import Any
 import torch
 
 from chiaswarm_tpu_torch.convert.lora import load_lora, merge_lora
+from chiaswarm_tpu_torch.convert.quantize import (
+    bytes_per_param,
+    int8_wanted,
+    maybe_quantize_,
+)
 from chiaswarm_tpu_torch.convert.textual_inversion import (
     apply_textual_inversion,
     load_embeddings,
@@ -190,10 +204,12 @@ class ModelRegistry:
 
     def _estimate_bytes(self, model_name: str) -> int | None:
         """Pre-load reservation of a model never measured: its family's
-        bf16 estimate, or None (load, then measure) for a family whose
-        modules the port does not build."""
+        estimate at the serving weight density (``bytes_per_param``), or
+        None (load, then measure) for a family whose modules the port does
+        not build."""
         try:
-            return estimate_family_bytes(self.family_for(model_name))
+            return estimate_family_bytes(self.family_for(model_name),
+                                         bytes_per_param())
         except ValueError:  # the port's modules refuse the family
             return None
 
@@ -247,6 +263,9 @@ class ModelRegistry:
                     scale=float(lora_scale))
                 log.info("merged LoRA %s into %s (%d projections, scale "
                          "%.3g)", lora, model_name, n_merged, lora_scale)
+            # int8 after the merges, before the pipeline is handed out
+            maybe_quantize_(components.modules(), family=components.family,
+                            mesh=mesh)
             ring = mesh if seq_size(mesh) > 1 else None
             if components.family.kind == "upscaler":
                 return LatentUpscalePipeline(components, mesh=ring)
@@ -255,9 +274,11 @@ class ModelRegistry:
             return DiffusionPipeline(components, mesh=ring)
 
         lora_key = (lora, float(lora_scale)) if lora is not None else None
+        quantize = int8_wanted(self.family_for(model_name), mesh)
         return self.residency.acquire(
             ("pipeline", model_name, textual_inversion, lora_key,
-             _mesh_cache_key(device, mesh)), build,
+             _mesh_cache_key(device, mesh)) + (("int8",) if quantize else ()),
+            build,
             model=model_name, size_of=lambda pipe: pipe.c.param_bytes(),
             estimate=lambda: self._estimate_bytes(model_name),
             priority=self._priority_for(model_name))
@@ -519,27 +540,33 @@ class ModelRegistry:
         given). It loads from :func:`model_dir` (a diffusers
         ``ControlNetModel`` directory); with none there, seeded random
         weights only under ``allow_random``, else it is not available on
-        this node."""
+        this node. Under int8 weights a bundle for a one-device slot is
+        quantized as the base pipeline is, and the choice keys its entry."""
         device = self.device if mesh is None else mesh.lead
+        quantize = int8_wanted(family, mesh)
 
         def load() -> ControlNetBundle:
             ckpt = model_dir(controlnet_name)
             if ckpt.exists():
                 log.info("loading controlnet %s from %s", controlnet_name,
                          ckpt)
-                return ControlNetBundle.from_checkpoint(
+                bundle = ControlNetBundle.from_checkpoint(
                     ckpt, controlnet_name, family, device=device)
-            if self.allow_random:
+            elif self.allow_random:
                 log.warning("no checkpoint for controlnet %s; using random "
                             "weights", controlnet_name)
-                return ControlNetBundle.random(family, device=device,
-                                               model_name=controlnet_name)
-            raise ValueError(f"controlnet {controlnet_name!r} is not "
-                             f"available on this node (no checkpoint at "
-                             f"{ckpt})")
+                bundle = ControlNetBundle.random(family, device=device,
+                                                 model_name=controlnet_name)
+            else:
+                raise ValueError(f"controlnet {controlnet_name!r} is not "
+                                 f"available on this node (no checkpoint at "
+                                 f"{ckpt})")
+            if quantize:
+                maybe_quantize_(bundle.modules(), family=family)
+            return bundle
 
         return self.residency.acquire(
-            ("controlnet", controlnet_name, family.name, False,
+            ("controlnet", controlnet_name, family.name, quantize,
              _device_key(device)), load,
             model=controlnet_name, size_of=lambda b: b.param_bytes(),
             priority=self._priority_for(controlnet_name))

@@ -7,7 +7,8 @@ hive-session families, the residency families (:530-636), which
 ``serving/residency.py`` registers on :data:`REGISTRY` with zeroes, and the
 gray-failure guard's ``chiaswarm_guard_*`` families (:704-780), which each
 worker's ``serving/guard.py::DeviceGuard`` registers on the worker's
-registry with zeroes.
+registry with zeroes, and the step-collapse families (:472-530), which
+``pipelines/diffusion.py`` seeds on :data:`REGISTRY` with zeroes.
 
 Each worker owns its own :class:`Registry` (hermetic test workers must not
 bleed counters into each other); process-wide state, such as the hive
@@ -446,3 +447,44 @@ def guard_quarantined_gauge(registry: Registry | None = None) -> Gauge:
     return (registry or REGISTRY).gauge(
         "chiaswarm_guard_quarantined_devices",
         "devices currently quarantined out of the serving mesh")
+
+
+# ---- step collapse: DeepCache feature reuse (JAX :472-530) ----
+
+#: the UNet eval modes: ``full`` runs every level (the cache refresh too);
+#: ``reuse`` replays the cached deep activation and recomputes only the
+#: shallow level-0 blocks
+STEPPER_UNET_EVAL_MODES = ("full", "reuse")
+
+#: per-image UNet-eval buckets: powers of two over the step lattice
+UNET_EVAL_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+def unet_evals_counter(registry: Registry | None = None) -> Counter:
+    """Per-row UNet evaluations by mode (``full`` vs DeepCache ``reuse``):
+    full / (full + reuse) is the share of the per-step cost traffic still
+    pays."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_stepper_unet_evals_total",
+        "per-row UNet evaluations, by mode (full vs DeepCache reuse)",
+        labelnames=("mode",))
+
+
+def steps_skipped_counter(registry: Registry | None = None) -> Counter:
+    """Denoise steps whose deep UNet blocks were skipped by DeepCache
+    reuse (per row). Zero while reuse jobs flow means misaligned lane mates
+    kept forcing full evals."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_stepper_steps_skipped_total",
+        "denoise steps served from the DeepCache deep-feature cache "
+        "(per row)")
+
+
+def unet_evals_per_image_histogram(
+        registry: Registry | None = None) -> Histogram:
+    """Full UNet evaluations each finished image paid, observed once per
+    row at retirement (lanes) or submit (solo)."""
+    return (registry or REGISTRY).histogram(
+        "chiaswarm_stepper_unet_evals_per_image",
+        "full UNet evaluations per finished image",
+        buckets=UNET_EVAL_BUCKETS)

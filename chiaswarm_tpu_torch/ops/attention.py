@@ -39,8 +39,12 @@ would not, it raises; under a seq mesh every kind rings alike. Ring kinds
 in the knob are advisory: with no mesh they fall back to the ``auto``
 pick.
 
-The fake-quant and numerics taps of the JAX dispatcher are off by default
-there and are not ported.
+Low-precision activations (``CHIASWARM_ACTIVATIONS=int8|fp8``, off by
+default): q, k and v are fake-quantized per tensor at entry, before any
+route, as JAX's dispatcher does (``:192-199``); B1 and the rings then take
+the dequantized tensors in their own dtype (``convert/quantize.py``). The
+numerics taps of the JAX dispatcher are off by default there and are not
+ported.
 """
 
 from __future__ import annotations
@@ -50,6 +54,10 @@ from typing import Literal
 
 import torch
 
+from chiaswarm_tpu_torch.convert.quantize import (
+    activations_format,
+    fake_quant_activation,
+)
 from chiaswarm_tpu_torch.core.mesh import seq_size
 from chiaswarm_tpu_torch.ops.flash_attention import flash_attention
 from chiaswarm_tpu_torch.ops.ring_flash_attention import ring_flash_attention
@@ -147,6 +155,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"expected (B, L, H, D) tensors, got {tuple(q.shape)}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    fmt = activations_format()
+    if fmt != "off":
+        q, k, v = (fake_quant_activation(t, fmt) for t in (q, k, v))
     mesh = active_seq_mesh()
     route = _route(impl, q.device.type, q.shape[1], k.shape[1], seq_size(mesh))
     if route == "ring_flash":

@@ -85,25 +85,29 @@ def flax_default_init(module: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.bias)
 
 
-_FAMILY_BYTES_CACHE: dict[str, int] = {}
+_FAMILY_BYTES_CACHE: dict[tuple[str, int], int] = {}
 
 
-def estimate_family_bytes(family: ModelFamily | str) -> int:
-    """Serving-footprint estimate (bf16, 2 bytes a param) of one family's full
-    param set, counted on the port's modules built on the ``meta`` device
-    (no storage): the counterpart of the JAX package's
+def estimate_family_bytes(family: ModelFamily | str,
+                          bytes_per_param: int = 2) -> int:
+    """Serving-footprint estimate (bf16's 2 bytes a param by default, 1
+    under int8 weights) of one family's full param set, counted on the
+    port's modules built on the ``meta`` device (no storage): the
+    counterpart of the JAX package's
     ``pipelines/components.py::estimate_family_bytes`` (:120), which the
-    worker's default-pool policy reads (``core/mesh.py``). Raises for a
-    family whose modules the port does not build yet."""
+    worker's default-pool policy reads (``core/mesh.py``) and the registry
+    plans with. Raises for a family whose modules the port does not build
+    yet."""
     if isinstance(family, str):
         family = FAMILIES[family]
-    if family.name not in _FAMILY_BYTES_CACHE:
+    key = (family.name, int(bytes_per_param))
+    if key not in _FAMILY_BYTES_CACHE:
         with torch.device("meta"):
             modules = [ClipTextEncoder(cfg) for cfg in family.text_encoders]
             modules += [UNet(family.unet), AutoencoderKL(family.vae)]
         total = sum(p.numel() for m in modules for p in m.parameters())
-        _FAMILY_BYTES_CACHE[family.name] = total * 2
-    return _FAMILY_BYTES_CACHE[family.name]
+        _FAMILY_BYTES_CACHE[key] = total * int(bytes_per_param)
+    return _FAMILY_BYTES_CACHE[key]
 
 
 def _empty(ctor, config, device: torch.device,
@@ -247,10 +251,17 @@ class Components:
         components.load_stats = lander.finish()
         return components
 
+    def modules(self) -> list[nn.Module]:
+        """The modules whose parameters the bundle holds (the JAX tree's
+        ``text_encoder_{i}``, ``unet`` and ``vae``)."""
+        return [*self.text_encoders, self.unet, self.vae]
+
     def param_bytes(self) -> int:
-        modules = [*self.text_encoders, self.unet, self.vae]
+        """The bytes the parameters hold on the device: an int8 leaf's
+        codes and scales (``convert/quantize.py``), never what it
+        dequantizes into."""
         return sum(p.numel() * p.element_size()
-                   for m in modules for p in m.parameters())
+                   for m in self.modules() for p in m.parameters())
 
 
 #: the hint encoder's prefix in a diffusers ``ControlNetModel`` state dict
@@ -366,6 +377,9 @@ class ControlNetBundle:
                      for k, v in self.embed.state_dict().items())
         return state
 
+    def modules(self) -> list[nn.Module]:
+        return [self.embed, self.net]
+
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size()
-                   for m in (self.embed, self.net) for p in m.parameters())
+                   for m in self.modules() for p in m.parameters())

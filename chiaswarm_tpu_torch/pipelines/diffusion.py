@@ -71,23 +71,49 @@ img]) and combines ``e_unc + ig (e_img - e_unc) + g (e_full - e_img)`` at the
 job's image guidance ``ig`` and text guidance ``g``. Such a job needs an
 init image and takes no mask and no ControlNet, as in JAX; it never rides a
 lane. ``GenerateRequest.tiled_decode`` decodes through
-``models/vae.py::tiled_decode``. A ``reuse_schedule`` is ignored, as the
-JAX package ignores it while DeepCache is off (its default,
-``chiaswarm_tpu/pipelines/diffusion.py::deepcache_enabled`` :103-109): the
-job runs the plain program. With ``CHIASWARM_DEEPCACHE`` on, where JAX
-reuses features, it raises ``ValueError`` naming ROADMAP queue item 5,
-which ports DeepCache.
+``models/vae.py::tiled_decode``.
+
+DeepCache (JAX :75-160, the solo reuse branch :486-595, the lane program
+:836-874): with ``CHIASWARM_DEEPCACHE`` on, a request's ``reuse_schedule``
+(ladder indices, or ``"every:N"``) is canonicalized by
+:func:`normalize_reuse_schedule`; the solo loop carries the deep activation
+across steps: a full eval refreshes it (``UNet(return_deep=True)``), a
+scheduled step with a valid cache replays it (``cached_deep=``) and runs
+only the level-0 blocks. The config then reads ``unet_evals`` (full evals),
+``steps_skipped`` and ``reuse_schedule``, and the step-collapse counters of
+``obs/metrics.py`` move. Off (the default), the schedule is ignored and the
+program is the plain one; the instruct-pix2pix and ControlNet programs
+ignore it too, as JAX's ``submit`` does, and ``_generate`` and
+``stepper_step`` refuse reuse with them in JAX's words. ``stepper_step``
+takes the lane form: each row's two cache halves and one lane-wide
+``reuse_now`` flag the lane decides.
+
+Coalesced image jobs (JAX :195-201, :997-1025): with ``init_groups`` set,
+``init_image`` is a per-JOB stack (J, H, W, 3) and ``mask`` a per-job
+(J, H, W) stack; job j's image is encoded at batch 1 with its own seed (the
+encode its solo run makes) and repeated over its ``n_rows``. Without it a
+4-D ``init_image`` keeps meaning one image per ROW (vid2vid's frames).
+
+Low-precision activations (``CHIASWARM_ACTIVATIONS=int8|fp8``,
+``convert/quantize.py``): the solo program fake-quantizes the text context
+once (``unet.ctx``) and the UNet input every step (``unet.in``) as JAX's
+does; the lane programs do not, as in JAX. q, k and v are quantized at the
+attention dispatcher on every path.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
 
+from chiaswarm_tpu_torch.convert.quantize import (
+    activations_format,
+    fake_quant_activation,
+)
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
@@ -98,6 +124,12 @@ from chiaswarm_tpu_torch.core.rng import (
 )
 from chiaswarm_tpu_torch.models.vae import tiled_decode
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.obs.metrics import (
+    STEPPER_UNET_EVAL_MODES,
+    steps_skipped_counter,
+    unet_evals_counter,
+    unet_evals_per_image_histogram,
+)
 from chiaswarm_tpu_torch.parallel.context import sequence_parallel
 from chiaswarm_tpu_torch.pipelines.components import Components
 from chiaswarm_tpu_torch.schedulers import (
@@ -123,11 +155,72 @@ from chiaswarm_tpu_torch.schedulers import (
 ENV_DEEPCACHE = "CHIASWARM_DEEPCACHE"
 
 
+#: the step-collapse families, seeded with zeroes (JAX :88-99)
+_UNET_EVALS = unet_evals_counter()
+_STEPS_SKIPPED = steps_skipped_counter()
+_EVALS_PER_IMAGE = unet_evals_per_image_histogram()
+for _mode in STEPPER_UNET_EVAL_MODES:
+    _UNET_EVALS.inc(0, mode=_mode)
+_STEPS_SKIPPED.inc(0)
+
+
 def deepcache_enabled() -> bool:
     """Is DeepCache feature reuse switched on? Off by default: every
     per-job ``reuse_schedule`` is then ignored, as in JAX."""
     return os.environ.get(ENV_DEEPCACHE, "").strip().lower() in (
         "1", "true", "on", "yes")
+
+
+def normalize_reuse_schedule(steps: int, schedule: Iterable[int] | str,
+                             start_step: int = 0) -> tuple[int, ...]:
+    """A per-job DeepCache schedule, canonical (JAX :112-160): ladder
+    indices whose deep blocks replay the cache, or ``"every:N"`` (refresh
+    every Nth executed step, reuse the rest). Indices must lie strictly
+    inside ``(start_step, steps)``: the first executed step fills the
+    cache. Returns a sorted, deduplicated tuple; a malformed schedule is a
+    ``ValueError`` (the lanes turn it into ``LaneReject``, the solo path
+    into a fatal bad request)."""
+    if isinstance(schedule, str):
+        text = schedule.strip().lower()
+        if not text.startswith("every:"):
+            raise ValueError(
+                f"reuse_schedule string must be 'every:N', got "
+                f"{schedule!r}")
+        try:
+            cadence = int(text.split(":", 1)[1])
+        except ValueError as exc:
+            raise ValueError(
+                f"reuse_schedule cadence in {schedule!r} is not an "
+                f"integer") from exc
+        if cadence < 2:
+            raise ValueError("reuse cadence must be >= 2 (1 would never "
+                             "refresh the cache)")
+        schedule = [i for i in range(start_step + 1, steps)
+                    if (i - start_step) % cadence != 0]
+    try:
+        out = sorted({int(i) for i in schedule})
+    except (TypeError, ValueError) as exc:
+        raise ValueError(
+            f"reuse_schedule must be 'every:N' or an iterable of "
+            f"ladder indices, got {schedule!r}") from exc
+    for i in out:
+        if not start_step < i < steps:
+            raise ValueError(
+                f"reuse step {i} outside the executed ladder "
+                f"({start_step}, {steps}) — the first executed step "
+                f"must run the full UNet to fill the cache")
+    return tuple(out)
+
+
+def note_unet_evals(rows: int, full: int, reused: int) -> None:
+    """The step-collapse counters for ``rows`` images that paid ``full``
+    full evals and ``reused`` shallow ones each."""
+    _UNET_EVALS.inc(rows * full, mode="full")
+    if reused:
+        _UNET_EVALS.inc(rows * reused, mode="reuse")
+        _STEPS_SKIPPED.inc(rows * reused)
+    for _ in range(rows):
+        _EVALS_PER_IMAGE.observe(full)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +242,14 @@ class GenerateRequest:
     sample_seed_rows: tuple[tuple[int, int], ...] | None = None
     # explicit standard-normal initial noise, (B|1, H/f, W/f, C)
     init_noise: np.ndarray | None = None
-    # (H, W, 3) for the job, or (n, H, W, 3): one per row (vid2vid frames)
+    # (H, W, 3) for the job, or (n, H, W, 3): one per row (vid2vid frames),
+    # or with ``init_groups`` one per coalesced job
     init_image: np.ndarray | None = None
     strength: float = 0.8
     mask: np.ndarray | None = None
+    # coalesced img2img/inpaint: init_groups[j] = (encode seed, n_rows) of
+    # job j; ``init_image`` (J, H, W, 3) and ``mask`` (J, H, W) are per job
+    init_groups: tuple[tuple[int, int], ...] | None = None
     tiled_decode: bool = False
     controlnet: Any = None
     control_image: np.ndarray | None = None
@@ -235,9 +332,7 @@ def _resize_image(img: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def _check_request(req: GenerateRequest, components: Components) -> None:
-    """JAX's refusals, in its order, and DeepCache reuse while
-    ``CHIASWARM_DEEPCACHE`` is on (ROADMAP queue item 5); off, a
-    ``reuse_schedule`` is ignored, as in JAX."""
+    """JAX's refusals, in its order."""
     image_plan(1, req.strength, req.init_image is not None,
                req.mask is not None, components.family.image_conditioned)
     if req.controlnet is not None:
@@ -246,10 +341,18 @@ def _check_request(req: GenerateRequest, components: Components) -> None:
                 "instruct-pix2pix models do not support controlnet")
         if req.control_image is None:
             raise ValueError("controlnet requires a conditioning image")
-    if req.reuse_schedule and deepcache_enabled():
-        raise ValueError(f"DeepCache reuse ({ENV_DEEPCACHE} on) is not "
-                         "served by chiaswarm_tpu_torch yet (a later slice "
-                         "of the port, ROADMAP queue item 5)")
+
+
+def reuse_plan(req: GenerateRequest, components: Components, steps: int,
+               start: int) -> tuple[int, ...]:
+    """The solo program's DeepCache schedule (JAX :1091-1098): the
+    request's, canonical, only with DeepCache on and never for the
+    instruct-pix2pix or ControlNet programs; () otherwise."""
+    if req.reuse_schedule and deepcache_enabled() \
+            and not components.family.image_conditioned \
+            and req.controlnet is None:
+        return normalize_reuse_schedule(steps, req.reuse_schedule, start)
+    return ()
 
 
 def to_uint8(img: torch.Tensor) -> torch.Tensor:
@@ -386,7 +489,8 @@ class DiffusionPipeline:
                   control_scale: float = 1.0,
                   image_cond: torch.Tensor | None = None,
                   image_guidance: float = 1.5,
-                  tiled: bool = False) -> torch.Tensor:
+                  tiled: bool = False,
+                  reuse: tuple[int, ...] = ()) -> torch.Tensor:
         """Encode -> denoise loop -> decode -> uint8 (B, H, W, 3) on device.
         With ``init_latent`` the loop starts at ladder index ``start`` from
         ``init_latent + noise * sigma[start]``; with ``mask`` ((B, 1, h, w),
@@ -398,10 +502,18 @@ class DiffusionPipeline:
         UNet. With ``image_cond`` (the scaled init latents, (B, C, h, w); an
         instruct-pix2pix family) each eval runs the tripled batch and the
         dual-guidance combine at ``image_guidance``. ``tiled`` decodes
-        through ``tiled_decode``."""
+        through ``tiled_decode``. ``reuse`` (a canonical DeepCache
+        schedule) replays the deep activation at those steps once a full
+        eval has filled it."""
         sched = make_sampling_schedule(self.noise_schedule, steps, sampler)
         timesteps = sched.timesteps.to(self.c.device)
         unet = self.c.unet
+        if reuse and (image_cond is not None or control is not None):
+            # dual guidance and the ControlNet trunk both feed the deep
+            # blocks every step
+            raise ValueError("DeepCache reuse supports the plain "
+                             "txt2img/img2img/inpaint programs only")
+        act = activations_format()
 
         ctx, pooled = self._encode_text(ids)
         pooled_rows = [pooled]
@@ -419,6 +531,7 @@ class DiffusionPipeline:
             nctx, npooled = self._encode_text(neg_ids)
             ctx = torch.cat([nctx, ctx], dim=0)
             pooled_rows = [npooled, pooled]
+        ctx = fake_quant_activation(ctx, act)  # "unet.ctx", once
 
         x = noise * sched.sigmas[start]
         if init_latent is not None:
@@ -428,8 +541,10 @@ class DiffusionPipeline:
         added = self._added_cond(pooled_rows, height, width)
         if control is not None:
             hint = hint.expand(rows, -1, -1, -1)
+        cache = None  # DeepCache: the deep activation of the last full eval
         for i in range(start, steps):
-            inp = scale_model_input(sched, x, i)
+            # "unet.in": every branch's batch derives from this tensor
+            inp = fake_quant_activation(scale_model_input(sched, x, i), act)
             t = timesteps[i].expand(rows)
             if pix2pix:
                 inp_b = torch.cat([torch.cat([inp, inp, inp], dim=0), img3],
@@ -440,7 +555,12 @@ class DiffusionPipeline:
             if control is not None:
                 down, mid = control.net(inp_b, t, ctx, hint, added,
                                         control_scale)
-            out = unet(inp_b, t, ctx, added, down, mid)
+            if not reuse:
+                out = unet(inp_b, t, ctx, added, down, mid)
+            elif i in reuse and cache is not None:
+                out = unet(inp_b, t, ctx, added, cached_deep=cache)
+            else:
+                out, cache = unet(inp_b, t, ctx, added, return_deep=True)
             if pix2pix:
                 e_unc, e_img, e_full = out.chunk(3, dim=0)
                 eps = (e_unc + image_guidance * (e_img - e_unc)
@@ -489,7 +609,9 @@ class DiffusionPipeline:
 
     def prepare_image_rows(self, init_image: Any, mask: Any,
                            strength: float, steps: int, height: int,
-                           width: int, seed: int, rows: int
+                           width: int, seed: int, rows: int,
+                           init_groups: tuple[tuple[int, int], ...] | None
+                           = None
                            ) -> tuple[str, int, torch.Tensor | None,
                                       torch.Tensor | None]:
         """One job's image inputs for ``rows`` rows at the bucketed size:
@@ -498,10 +620,15 @@ class DiffusionPipeline:
         (:meth:`encode_init_image`) and expanded to (rows, C, h, w), and the
         mask quantized by :func:`latent_mask` and expanded to
         (rows, 1, h, w). The solo path and lane admission both call this,
-        so a job's rows do not depend on where it runs."""
+        so a job's rows do not depend on where it runs. With
+        ``init_groups`` the image and mask are per-job stacks of coalesced
+        jobs (:meth:`_group_rows`)."""
         mode, start = image_plan(steps, strength, init_image is not None,
                                  mask is not None,
                                  self.c.family.image_conditioned)
+        if init_groups is not None and init_image is not None:
+            return (mode, start, *self._group_rows(
+                init_image, mask, init_groups, height, width, rows))
         init_latent = mask_rows = None
         if init_image is not None:
             init = np.asarray(init_image)
@@ -520,6 +647,41 @@ class DiffusionPipeline:
             mask_rows = upload(torch.from_numpy(m)[None, None],
                                self.c.device).expand(rows, 1, lh, lw)
         return mode, start, init_latent, mask_rows
+
+    def _group_rows(self, images: Any, masks: Any,
+                    groups: tuple[tuple[int, int], ...], height: int,
+                    width: int, rows: int
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Coalesced jobs' per-job stacks -> per-row (rows, C, h, w) init
+        latents and (rows, 1, h, w) masks (or None): job j's image encoded
+        at batch 1 with its own seed, as its solo run encodes it, and its
+        mask quantized, each repeated over its rows; the bucket is padded
+        with the last row (JAX :997-1025)."""
+        images = np.asarray(images)
+        if len(images) != len(groups):
+            raise ValueError(f"{len(images)} init images for "
+                             f"{len(groups)} coalesced jobs")
+        latents = []
+        for frame, (enc_seed, n_rows) in zip(images, groups):
+            if frame.shape[:2] != (height, width):
+                frame = _resize_image(frame, height, width)
+            latents.append(self.encode_init_image(
+                frame, height, width, int(enc_seed)).expand(
+                    int(n_rows), -1, -1, -1))
+        init = torch.cat(latents, dim=0)
+        init = torch.cat([init, init[-1:].expand(
+            (rows - init.shape[0],) + tuple(init.shape[1:]))])
+        if masks is None:
+            return init, None
+        lh, lw = self._latent_hw(height, width)
+        f = self.c.family.vae.downscale
+        m = np.concatenate([
+            np.repeat(latent_mask(np.asarray(mj, np.float32), lh, lw, f)[None],
+                      int(n_rows), axis=0)
+            for mj, (_, n_rows) in zip(np.asarray(masks), groups)])
+        m = np.concatenate([m, np.repeat(m[-1:], rows - len(m), axis=0)])
+        return init, upload(torch.from_numpy(m)[:, None].contiguous(),
+                            self.c.device)
 
     def encode_init_rows(self, frames: np.ndarray, height: int, width: int,
                          seed: int, rows: int) -> torch.Tensor:
@@ -610,8 +772,9 @@ class DiffusionPipeline:
                      renoise_generators: list[torch.Generator | None]
                      | None = None, control: Any = None,
                      cond: torch.Tensor | None = None,
-                     cscale: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     cscale: torch.Tensor | None = None,
+                     cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                     reuse_now: bool = False) -> tuple:
         """ONE denoise step over a lane of W rows -> (x, idx, old_denoised).
 
         Per row: latents ``x`` (W, C, h, w), step and start index (W,), its
@@ -635,7 +798,16 @@ class DiffusionPipeline:
         ``cond`` (W, C0, h, w) and scale ``cscale`` (W,) float32: the branch
         runs on the 2W rows, each row's residuals times its own scale.
         Inactive rows compute and are discarded: x, history and index keep
-        their values."""
+        their values.
+
+        A DeepCache lane passes each row's cached deep activations as
+        ``cache`` = (uncond halves, cond halves), (W, C1, h, w) each, and the
+        lane-wide ``reuse_now`` its thread decided: True replays them
+        (``cached_deep``), False runs the full UNet and refreshes them. It
+        gets ``(x, idx, old_denoised, cache)`` back (JAX :836-874)."""
+        if cache is not None and control is not None:
+            raise ValueError("DeepCache reuse lanes do not take the "
+                             "ControlNet branch")
         with torch.inference_mode(), sequence_parallel(self.mesh):
             rows = SamplingSchedule(sigmas=sigmas, timesteps=timesteps)
             inp = scale_model_input_rows(rows, x, idx)
@@ -652,7 +824,15 @@ class DiffusionPipeline:
                 down, mid = control.net(
                     inp2, t2, ctx, torch.cat([cond, cond], dim=0), added,
                     torch.cat([cscale, cscale]).reshape(-1, 1, 1, 1))
-            out = self.c.unet(inp2, t2, ctx, added, down, mid)
+            if cache is None:
+                out = self.c.unet(inp2, t2, ctx, added, down, mid)
+            elif reuse_now:
+                out = self.c.unet(inp2, t2, ctx, added,
+                                  cached_deep=torch.cat(cache, dim=0))
+            else:
+                out, deep = self.c.unet(inp2, t2, ctx, added,
+                                        return_deep=True)
+                cache = tuple(deep.chunk(2, dim=0))
             eps_u, eps_c = out.chunk(2, dim=0)
             g = guidance.reshape(-1, 1, 1, 1)
             eps = torch.where(g > 1.0,
@@ -674,6 +854,8 @@ class DiffusionPipeline:
             act = active.reshape(-1, 1, 1, 1)
             x_next = torch.where(act, x_next, x)
             old_next = torch.where(act, state.old_denoised, old_denoised)
+            if cache is not None:
+                return x_next, idx + active.to(idx.dtype), old_next, cache
             return x_next, idx + active.to(idx.dtype), old_next
 
     def _row_noise(self, generators: list[torch.Generator | None],
@@ -710,7 +892,8 @@ class DiffusionPipeline:
         lh, lw = self._latent_hw(height, width)
         mode, start, init_latent, mask = self.prepare_image_rows(
             req.init_image, req.mask, req.strength, steps, height, width,
-            req.seed, batch)
+            req.seed, batch, req.init_groups)
+        reuse = reuse_plan(req, self.c, steps, start)
         hint = None
         if req.controlnet is not None:
             hint = self.stepper_control_embed(req.controlnet,
@@ -752,7 +935,10 @@ class DiffusionPipeline:
                 control_scale=float(req.control_scale),
                 image_cond=image_cond,
                 image_guidance=float(req.image_guidance_scale),
-                tiled=req.tiled_decode)
+                tiled=req.tiled_decode, reuse=reuse)
+        # step-collapse accounting: the full evals each image paid
+        full_evals = (steps - start) - len(reuse)
+        note_unet_evals(req.batch, full_evals, len(reuse))
         config = {
             "model_name": self.c.model_name,
             "family": fam.name,
@@ -761,14 +947,16 @@ class DiffusionPipeline:
             # the ladder actually executed: img2img's strength maps to a
             # start index, an observable contract
             "denoise_steps": steps - start,
-            "unet_evals": steps - start,
-            "steps_skipped": 0,
+            "unet_evals": full_evals,
+            "steps_skipped": len(reuse),
             "guidance_scale": float(req.guidance_scale),
             "size": [req.height, req.width],
             "compiled_size": [height, width],
             "batch": batch,
             "mode": mode,
         }
+        if reuse:
+            config["reuse_schedule"] = list(reuse)
         if mode == "pix2pix":
             config["image_guidance_scale"] = float(req.image_guidance_scale)
         if req.controlnet is not None:

@@ -8,9 +8,9 @@ What it copies, with the JAX package's behaviour and numbers:
 - **Measured footprints.** Every load measures the live modules
   (``Components.param_bytes``: the bytes of every parameter, which is what
   JAX's ``measured_param_bytes`` sums) and remembers them per model in
-  ``<settings root>/residency.json``, in the JAX file's format (section
-  ``bf16``: the port serves no int8 weights), so the next load and the
-  worker's mesh policy plan with real numbers.
+  ``<settings root>/residency.json``, in the JAX file's format (one
+  section per serving weight format, ``bf16`` or ``int8``), so the next
+  load and the worker's mesh policy plan with real numbers.
 - **Donation: evict-then-load under one reservation.** A miss reserves the
   model's remembered (or estimated) footprint first, evicting victims in
   (priority, LRU) order until it fits, and only then loads: a swap never
@@ -178,9 +178,13 @@ def is_transient(value: Any) -> bool:
     return bool(getattr(value, "_residency_transient", False))
 
 
-#: the section of residency.json the port's footprints live in (JAX keys
-#: its sections by ``CHIASWARM_WEIGHTS``; the port serves bf16 only)
-WEIGHTS_FORMAT = "bf16"
+def current_weights_format() -> str:
+    """The section of residency.json the footprints live in, the serving
+    weight format (``CHIASWARM_WEIGHTS``, ``convert/quantize.py``; JAX
+    :210-216): an int8 footprint must not size a bf16 restart's
+    reservations."""
+    raw = os.environ.get("CHIASWARM_WEIGHTS", "").strip().lower()
+    return raw or "bf16"
 
 
 class _Entry:
@@ -308,15 +312,15 @@ class ResidencyManager:
         return settings_root() / "residency.json"
 
     def _load_footprints(self) -> None:
-        """Restore the ``bf16`` section (JAX's other sections are kept
-        as they are when the file is written back)."""
+        """Restore the current weight format's section (the others are
+        kept as they are when the file is written back)."""
         path = self._persist_path
         if path is None or not path.is_file():
             return
         try:
             data = json.loads(path.read_text(encoding="utf-8"))
             sections = data.get("footprints") or {}
-            raw = sections.get(WEIGHTS_FORMAT) or {}
+            raw = sections.get(current_weights_format()) or {}
             self._footprints = {str(m): int(b) for m, b in raw.items()
                                 if int(b) > 0}
             self._persisted_sections = {
@@ -334,7 +338,7 @@ class ResidencyManager:
             return
         try:
             sections = dict(getattr(self, "_persisted_sections", {}))
-            sections[WEIGHTS_FORMAT] = dict(self._footprints)
+            sections[current_weights_format()] = dict(self._footprints)
             path.parent.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(path.suffix + ".tmp")
             tmp.write_text(json.dumps(

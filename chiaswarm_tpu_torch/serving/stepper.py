@@ -109,10 +109,26 @@ The gray-failure guard (``serving/guard.py``; JAX :473-610, :1003-1156,
   keys are not the port's noise stream), is rejected loudly and the job
   restarts at 0.
 
+DeepCache reuse lanes (JAX :417-466, :838-849, :984-1000, :1105-1125,
+:1205-1220, :1322-1336, :1724-1767, :1823-1830, :1946-1957): with
+``CHIASWARM_DEEPCACHE`` on, a job's ``reuse_schedule`` is canonicalized as
+the solo path does it (a malformed one is :class:`LaneReject`; a ControlNet
+job's is ignored, as in JAX) and the job rides a lane keyed apart from the
+plain ones. Each row carries its two deep-cache halves (``cache_u``,
+``cache_c``), its schedule as a row of the reuse table, a cache-valid flag
+and its skipped tally. The lane thread decides each step for the whole
+lane on the host: replay the caches only when every active row wants reuse
+at its current step and holds a valid cache; a misaligned mate degrades the
+step to a full eval, which refreshes every active row's cache. A retiring row's
+``info`` carries ``unet_evals`` and ``steps_skipped``; ``stats()`` counts
+``steps_reused`` and ``row_steps_reused``; checkpoints carry the caches,
+the flag, the tally and the schedule, and a resume under another schedule
+is refused.
+
 Not here yet (``ROADMAP.md``): the overload admission cap and poll hints,
-the lane metrics but the checkpoint-seconds histogram (the step-seconds and
-resume-step histograms wait for ``/metrics``, their reader) and DeepCache
-reuse lanes.
+the lane metrics but the checkpoint-seconds histogram and the step-collapse
+families of ``obs/metrics.py`` (the step-seconds and resume-step histograms
+wait for ``/metrics``, their reader).
 """
 
 from __future__ import annotations
@@ -142,9 +158,15 @@ from chiaswarm_tpu_torch.core.buckets import (
 )
 from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.rng import row_generators
+from chiaswarm_tpu_torch.models.common import param_dtype
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
-from chiaswarm_tpu_torch.pipelines.diffusion import PendingImages
+from chiaswarm_tpu_torch.pipelines.diffusion import (
+    PendingImages,
+    deepcache_enabled,
+    image_plan,
+    normalize_reuse_schedule,
+)
 from chiaswarm_tpu_torch.schedulers import (
     FEWSTEP_KINDS,
     NOISY_KINDS,
@@ -174,6 +196,11 @@ _CKPT_SECONDS = obs_metrics.REGISTRY.histogram(
     "wall time of one lane checkpoint (device->host copy, finite check, "
     "generator states)",
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0))
+
+# the step-collapse families (obs/metrics.py; seeded by pipelines/diffusion)
+_UNET_EVALS = obs_metrics.unet_evals_counter()
+_STEPS_SKIPPED = obs_metrics.steps_skipped_counter()
+_EVALS_PER_IMAGE = obs_metrics.unet_evals_per_image_histogram()
 
 #: the version of the port's lane checkpoint (JAX's envelope keys plus
 #: ``generators``)
@@ -279,6 +306,13 @@ class _RowJob:                    # must never compare tensor fields
     # latents (x0), multistep history and generators
     resume_step: int = 0
     old0: torch.Tensor | None = None    # (n, C, h, w) restored history
+    # DeepCache: the canonical schedule, and a resumed row's caches (n, C1,
+    # h, w), validity and skipped tally
+    reuse_schedule: tuple[int, ...] = ()
+    cache_u0: torch.Tensor | None = None
+    cache_c0: torch.Tensor | None = None
+    cache_ok0: bool = False
+    skipped0: int = 0
     future: Future = dataclasses.field(default_factory=Future)
     admitted_at_step: int = -1
     slots: list[int] = dataclasses.field(default_factory=list)
@@ -406,10 +440,14 @@ class Lane:
 
     def __init__(self, sched: "StepScheduler", key: tuple, pipe, *,
                  width: int, height: int, width_px: int, sampler,
-                 width_bounds: tuple[int, int] | None = None) -> None:
+                 width_bounds: tuple[int, int] | None = None,
+                 reuse: bool = False) -> None:
         self._sched = sched
-        self.key = key  # (pipe, height, width, sampler, ControlNet bundle)
+        # (pipe, height, width, sampler, ControlNet bundle, reuse)
+        self.key = key
         self.pipe = pipe
+        # a DeepCache lane carries per-row deep caches (keyed apart)
+        self.reuse = bool(reuse)
         self.device = pipe.c.device
         self.width = int(width)
         self.height = int(height)
@@ -467,12 +505,18 @@ class Lane:
         self._h_active = np.zeros(w, bool)
         self._h_mask_on = np.zeros(w, bool)
         self._h_cscale = np.ones(w, np.float32)
+        # DeepCache row state: the steps each row's schedule reuses, a
+        # valid cache (a full step ran since admission), the skipped tally
+        self._h_reuse = np.zeros((w, self.steps_cap), bool)
+        self._h_cache_ok = np.zeros(w, bool)
+        self._h_skipped = np.zeros(w, np.int64)
         self._gens: list[torch.Generator | None] = [None] * w
 
     def _mirrors(self) -> tuple:
         return (self._h_start, self._h_idx, self._h_sig, self._h_ts,
                 self._h_guid, self._h_active, self._h_mask_on,
-                self._h_cscale)
+                self._h_cscale, self._h_reuse, self._h_cache_ok,
+                self._h_skipped)
 
     # ---- submission side ----
 
@@ -656,6 +700,12 @@ class Lane:
             self._dev["cond"] = torch.zeros(
                 (w,) + tuple(job.cond0.shape[1:]), dtype=job.cond0.dtype,
                 device=self.device)
+        if self.reuse:
+            unet = self.pipe.c.unet
+            shape = (w, unet.config.block_out_channels[1]) + tuple(x.shape[2:])
+            for half in ("cache_u", "cache_c"):
+                self._dev[half] = torch.zeros(shape, dtype=param_dtype(unet),
+                                              device=self.device)
         self._sync_tables()
 
     def _sync_tables(self) -> None:
@@ -708,6 +758,21 @@ class Lane:
             if job.cond0 is not None:
                 dev["cond"].index_copy_(0, sel, job.cond0)
                 self._h_cscale[slots] = job.cscale
+            if self.reuse:
+                # a fresh row starts cache-invalid (its first step runs the
+                # full network); a resumed one brings its checkpointed state
+                for half, rows0 in (("cache_u", job.cache_u0),
+                                    ("cache_c", job.cache_c0)):
+                    if rows0 is None:
+                        dev[half].index_fill_(0, sel, 0.0)
+                    else:
+                        dev[half].index_copy_(0, sel, rows0)
+                self._h_reuse[slots, :] = False
+                for step_j in job.reuse_schedule:
+                    if 0 <= int(step_j) < self.steps_cap:
+                        self._h_reuse[slots, int(step_j)] = True
+                self._h_cache_ok[slots] = job.cache_ok0
+                self._h_skipped[slots] = job.skipped0
             self._h_idx[slots] = job.idx0
             self._h_start[slots] = job.start_step
             self._h_mask_on[slots] = job.known0 is not None
@@ -783,7 +848,8 @@ class Lane:
                     (pad,) + tuple(arr.shape[1:]))])
 
             for name in ("x", "old", "known", "mask", "idx", "ctx_u",
-                         "ctx_c", "pooled_u", "pooled_c", "cond"):
+                         "ctx_c", "pooled_u", "pooled_c", "cond", "cache_u",
+                         "cache_c"):
                 if name in self._dev:
                     self._dev[name] = remap(self._dev[name])
             self._sync_tables()
@@ -841,9 +907,19 @@ class Lane:
         masked = self._h_active & self._h_mask_on
         renoise = ([self._gens[s] if masked[s] else None
                     for s in range(self.width)] if masked.any() else None)
+        # the DeepCache decision, on the host, for the whole lane: replay
+        # only when every active row wants reuse at its step and holds a
+        # valid cache; a misaligned mate makes this a full eval
+        reuse_now = False
+        if self.reuse and self._h_active.any():
+            step_of = np.minimum(self._h_idx, self.steps_cap - 1)
+            wants = self._h_reuse[np.arange(self.width), step_of]
+            reuse_now = bool(np.all(
+                ~self._h_active | (wants & self._h_cache_ok)))
+        cache = ((dev["cache_u"], dev["cache_c"]) if self.reuse else None)
         t0 = time.perf_counter()
         with self._watched(budget, f"step {this_step}"):
-            dev["x"], dev["idx"], dev["old"] = self.pipe.stepper_step(
+            out = self.pipe.stepper_step(
                 sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
                 x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
                 sigmas=dev["sig"], timesteps=dev["ts"], guidance=dev["guid"],
@@ -852,7 +928,11 @@ class Lane:
                 pooled_c=dev["pooled_c"], known=dev["known"],
                 mask=dev["mask"], mask_on=dev["mask_on"],
                 renoise_generators=renoise, control=self.key[4],
-                cond=dev.get("cond"), cscale=dev["cscale"])
+                cond=dev.get("cond"), cscale=dev["cscale"], cache=cache,
+                reuse_now=reuse_now)
+            dev["x"], dev["idx"], dev["old"] = out[:3]
+            if self.reuse:
+                dev["cache_u"], dev["cache_c"] = out[3]
             wedge_s = chaos.wedge_at(chaos_step)
             if wedge_s > 0:  # the scripted stand-in for a wedged card
                 log.warning("chaos: wedging lane %d step %d for %.1fs",
@@ -881,6 +961,16 @@ class Lane:
                             "after step %d", self.lane_id, row, this_step)
                 dev["x"][row] = float("nan")
         active = int(self._h_active.sum())
+        if reuse_now:
+            # every active row skipped its deep blocks this step
+            self._h_skipped[self._h_active] += 1
+            _UNET_EVALS.inc(active, mode="reuse")
+            _STEPS_SKIPPED.inc(active)
+            self._sched._count(steps_reused=1, row_steps_reused=active)
+        else:
+            if self.reuse:  # a full step refreshed every active row's cache
+                self._h_cache_ok[self._h_active] = True
+            _UNET_EVALS.inc(active, mode="full")
         self._h_idx[self._h_active] += 1
         self.steps_executed += 1
         self._sched._count(steps_executed=1, row_steps_active=active,
@@ -948,6 +1038,16 @@ class Lane:
                     max(0.0, job.admitted_t - job.submitted_t), 6)
                 if job.admitted_t else 0.0,
             }
+            # the full evals this row paid over its whole trajectory (the
+            # skipped tally survives a resume), observed once per row
+            skipped = (int(self._h_skipped[job.slots[0]])
+                       if self.reuse and job.slots else 0)
+            evals = (job.steps - job.start_step) - skipped
+            for _ in range(job.n_rows):
+                _EVALS_PER_IMAGE.observe(evals)
+            if self.reuse:
+                info["unet_evals"] = evals
+                info["steps_skipped"] = skipped
             # handoff BEFORE releasing the slots: busy() reads "_pending or
             # _handoff or _rows", so releasing first would let a draining
             # caller see an idle lane while this future is unresolved
@@ -992,6 +1092,9 @@ class Lane:
                            f"checkpoint at step {self.steps_executed}"):
             x = self._dev["x"].to("cpu")
             old = self._dev["old"].to("cpu")
+            if self.reuse:
+                cache_u = self._dev["cache_u"].to("cpu")
+                cache_c = self._dev["cache_c"].to("cpu")
         poisoned: list[_RowJob] = []
         for job in jobs.values():
             sel = list(job.slots)
@@ -1014,6 +1117,17 @@ class Lane:
                 "generators": [pack_array(self._gens[s].get_state())
                                for s in sel],
             }
+            if self.reuse:
+                # the deep caches, their validity and the skipped tally:
+                # a resumed row replays the remaining reuse decisions bit
+                # for bit; the schedule is recorded for validation
+                self._ckpt_mem[id(job)].update({
+                    "reuse_schedule": [int(j) for j in job.reuse_schedule],
+                    "cache_u": pack_array(cache_u[sel]),
+                    "cache_c": pack_array(cache_c[sel]),
+                    "cache_ok": bool(self._h_cache_ok[sel[0]]),
+                    "skipped": int(self._h_skipped[sel[0]]),
+                })
         for job in poisoned:
             self._poison_rows(job)
         _CKPT_SECONDS.observe(time.perf_counter() - t0)
@@ -1225,7 +1339,8 @@ class StepScheduler:
                        init_image: Any = None, strength: float = 0.8,
                        mask: Any = None, controlnet: Any = None,
                        control_image: Any = None,
-                       control_scale: float = 1.0) -> Future:
+                       control_scale: float = 1.0,
+                       reuse_schedule: Any = None) -> Future:
         """Prepare a job's rows (tokenize, encode, ladder, initial noise;
         for img2img and inpaint the init image's VAE encode and the latent
         mask) and hand them to the matching lane. Returns a Future of
@@ -1248,7 +1363,12 @@ class StepScheduler:
         latents, history and generator states; an image row's start,
         ``known`` and mask come from the job's own inputs as above. A
         payload :meth:`_validate_resume` refuses is logged and counted
-        (``resumes_rejected``), and the job restarts at step 0."""
+        (``resumes_rejected``), and the job restarts at step 0.
+
+        ``reuse_schedule`` (with ``CHIASWARM_DEEPCACHE`` on, and no
+        ``controlnet``: ignored otherwise, as in JAX) sends the job to a
+        DeepCache lane of its key; one that does not normalize is a
+        :class:`LaneReject`."""
         fam = pipe.c.family
         if fam.kind != "sd" or fam.image_conditioned:
             raise LaneReject(f"family {fam.name!r} does not ride lanes")
@@ -1274,9 +1394,21 @@ class StepScheduler:
         if rows > bounds[1]:
             raise LaneReject(
                 f"{rows} rows exceed the lane width cap {bounds[1]}")
+        reuse: tuple[int, ...] = ()
+        if reuse_schedule and deepcache_enabled() and controlnet is None:
+            # the schedule lies inside the executed ladder: img2img's
+            # starts at its strength's index
+            _, start0 = image_plan(steps, strength, init_image is not None,
+                                   mask is not None)
+            try:
+                reuse = normalize_reuse_schedule(steps, reuse_schedule,
+                                                 start0)
+            except ValueError as exc:
+                # the solo path raises the canonical user error
+                raise LaneReject(str(exc)) from exc
         # the pipeline (and a control lane's bundle) key the lane: held by
-        # reference, never id()
-        key = (pipe, height, width, sampler, controlnet)
+        # reference, never id(); DeepCache lanes are keyed apart
+        key = (pipe, height, width, sampler, controlnet, bool(reuse))
         lane_rows = self.initial_width(rows, height, width)
         limit = self.width_limit_for(key)
         if limit is not None and limit < lane_rows:
@@ -1305,17 +1437,27 @@ class StepScheduler:
                     restored = self._validate_resume(
                         pipe, resume, steps=steps, rows=rows, height=height,
                         width=width, guidance=float(guidance_scale),
-                        start=start_step, workload=workload)
+                        start=start_step, workload=workload,
+                        reuse_schedule=reuse)
                 except ResumeReject as exc:
                     log.error("resume state for job %s rejected (%s); "
                               "restarting at step 0", job_id, exc)
                     self._count(resumes_rejected=1)
             resume_step, old0 = 0, None
+            cache_u0 = cache_c0 = None
+            cache_ok0, skipped0 = False, 0
             if restored is not None:
                 resume_step = restored["step"]
                 generators = restored["generators"]
                 x0 = upload(restored["x"], pipe.c.device)
                 old0 = upload(restored["old"], pipe.c.device)
+                if reuse:
+                    # the deep caches, validity and tally splice back in:
+                    # the remaining reuse decisions replay bit for bit
+                    cache_u0 = upload(restored["cache_u"], pipe.c.device)
+                    cache_c0 = upload(restored["cache_c"], pipe.c.device)
+                    cache_ok0 = restored["cache_ok"]
+                    skipped0 = restored["skipped"]
             else:
                 # one generator per row, the solo path's (seed, row) pairs
                 generators = row_generators([(int(seed), r)
@@ -1334,7 +1476,9 @@ class StepScheduler:
             x0=x0, workload=workload, start_step=start_step,
             known0=init_rows if mask_rows is not None else None,
             mask0=mask_rows, cond0=cond_rows, cscale=float(control_scale),
-            resume_step=resume_step, old0=old0,
+            resume_step=resume_step, old0=old0, reuse_schedule=reuse,
+            cache_u0=cache_u0, cache_c0=cache_c0, cache_ok0=cache_ok0,
+            skipped0=skipped0,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
                                          else self.row_deadline_s()))
         self._enqueue(key, pipe, job, lane_rows, height, width, sampler,
@@ -1344,13 +1488,17 @@ class StepScheduler:
     def _validate_resume(self, pipe, resume: dict[str, Any], *, steps: int,
                          rows: int, height: int, width: int,
                          guidance: float, start: int,
-                         workload: str) -> dict[str, Any]:
+                         workload: str,
+                         reuse_schedule: tuple[int, ...] = ()
+                         ) -> dict[str, Any]:
         """Hold a checkpoint against the job it claims to resume (JAX
-        :1870-1945, with the port's noise state in place of the threefry
-        keys): ``{"step", "x", "old", "generators"}`` on the host, or
-        :class:`ResumeReject`. Every field is hostile until proven: a JAX
-        lane checkpoint (``keys``, no ``generators``) is refused, since its
-        noise stream is not the port's."""
+        :1870-1985, with the port's noise state in place of the threefry
+        keys): ``{"step", "x", "old", "generators"}`` on the host (and a
+        DeepCache job's ``cache_u``, ``cache_c``, ``cache_ok``,
+        ``skipped``), or :class:`ResumeReject`. Every field is hostile
+        until proven: a JAX lane checkpoint (``keys``, no ``generators``) is
+        refused, since its noise stream is not the port's, and so is one
+        stepped under another reuse schedule."""
         if resume.get("kind") != "lane":
             raise ResumeReject(
                 f"not a lane checkpoint (kind={resume.get('kind')!r})")
@@ -1404,7 +1552,41 @@ class StepScheduler:
             except (RuntimeError, TypeError, ValueError) as exc:
                 raise ResumeReject(f"bad generator state: {exc}") from exc
             generators.append(gen)
-        return {"step": step, "x": x, "old": old, "generators": generators}
+        restored = {"step": step, "x": x, "old": old,
+                    "generators": generators}
+        try:
+            ck_reuse = tuple(int(j) for j in
+                             (resume.get("reuse_schedule") or ()))
+        except (TypeError, ValueError) as exc:
+            raise ResumeReject(f"corrupt reuse_schedule: {exc}") from exc
+        if ck_reuse != tuple(reuse_schedule):
+            raise ResumeReject(
+                f"reuse-schedule mismatch: checkpoint {list(ck_reuse)}, "
+                f"job {list(reuse_schedule)}")
+        if reuse_schedule:
+            try:
+                cache_u = unpack_array(resume["cache_u"])
+                cache_c = unpack_array(resume["cache_c"])
+                cache_ok = bool(resume["cache_ok"])
+                skipped = int(resume["skipped"])
+            except (KeyError, TypeError, ValueError) as exc:
+                raise ResumeReject(
+                    f"corrupt DeepCache state: {exc}") from exc
+            unet = pipe.c.unet
+            want = (rows, unet.config.block_out_channels[1], lh, lw)
+            if tuple(cache_u.shape) != want or tuple(cache_c.shape) != want:
+                raise ResumeReject(f"deep-cache shape {tuple(cache_u.shape)}"
+                                   f" != {want}")
+            dtype = param_dtype(unet)
+            if cache_u.dtype != dtype or cache_c.dtype != dtype:
+                raise ResumeReject(f"deep-cache dtype {cache_u.dtype}, lanes "
+                                   f"carry {dtype}")
+            if not 0 <= skipped < steps:
+                raise ResumeReject(
+                    f"skipped tally {skipped} outside [0, {steps})")
+            restored.update(cache_u=cache_u, cache_c=cache_c,
+                            cache_ok=cache_ok, skipped=skipped)
+        return restored
 
     def _enqueue(self, key, pipe, job, lane_rows, height, width, sampler,
                  bounds) -> None:
@@ -1423,7 +1605,7 @@ class StepScheduler:
             if lane is None or not lane.try_enqueue(job):
                 lane = Lane(self, key, pipe, width=lane_rows, height=height,
                             width_px=width, sampler=sampler,
-                            width_bounds=bounds)
+                            width_bounds=bounds, reuse=key[5])
                 self._lanes[key] = lane
                 created = True
                 if not lane.try_enqueue(job):

@@ -39,24 +39,32 @@ artifact envelope, and returns the same config keys as the JAX callback:
 the pipeline's config, the safety fields and the timing keys (and
 ``residency: per_job`` when the model is degraded to load-per-job). A
 ``reuse_schedule`` reaches the request, which ignores it while DeepCache is
-off (JAX's default) and refuses it, naming ROADMAP queue item 5, while
-``CHIASWARM_DEEPCACHE`` is on: the executor reports that as a fatal
-bad-request envelope.
+off (JAX's default) and serves it with feature reuse while
+``CHIASWARM_DEEPCACHE`` is on (the config's ``unet_evals``,
+``steps_skipped`` and ``reuse_schedule``); one that does not normalize is a
+fatal bad request, as in JAX.
 
 The lane workload hands an eligible txt2img, img2img, inpaint or ControlNet
 job, with or without an adapter, to the slot's continuous-batching scheduler
 (``serving/stepper.py``), whose lanes key by the pipeline object (so an
 adapter's rows never share a lane with its base model's), and finishes it
 into the JAX lane envelope's config keys, ``stepper`` stamp, adapter stamps
-and safety fields included. An upscale job is not eligible, nor is a
-``reuse_schedule`` job while DeepCache is on: it takes the solo path, which
-refuses it and names item 5 (off, the schedule is ignored and the job rides
-the plain lane, as in JAX). Neither is a job whose model came back degraded
-to load-per-job. The lane finish echoes ``preprocessed_input`` too, where the
+and safety fields included; a ``reuse_schedule`` job rides a DeepCache
+lane while DeepCache is on (its lane stamp carries ``unet_evals`` and
+``steps_skipped``) and the plain lane while it is off. An upscale job is not
+eligible, nor is a job whose model came back degraded to load-per-job. The lane finish echoes ``preprocessed_input`` too, where the
 JAX lane finish drops it (``chiaswarm_tpu/workloads/diffusion.py::
 stepper_finish``), and renders a ControlNet job at its conditioning image's
 size, as the solo path does, where the JAX lane submit takes the family's
 default size: a job's artifacts do not depend on its route.
+
+Coalesced bursts (JAX :469-600, keyed by :data:`COALESCE_KEYS` :204-215):
+compatible txt2img, img2img and inpaint jobs that do not ride a lane run as
+ONE batched program through :func:`diffusion_coalesced_callback`: per-row
+prompts and (seed, row) noise streams, and for image jobs per-job init and
+mask stacks each encoded with its own job's seed (``GenerateRequest.
+init_groups``), so every job's images are its solo run's up to the batch's
+numerics. Each job gets its own envelope config, with ``"coalesced": n``.
 """
 
 from __future__ import annotations
@@ -71,7 +79,6 @@ from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
 from chiaswarm_tpu_torch.obs.trace import span
 from chiaswarm_tpu_torch.pipelines.diffusion import (
     GenerateRequest,
-    deepcache_enabled,
     image_plan,
 )
 from chiaswarm_tpu_torch.pipelines.upscale import LatentUpscalePipeline
@@ -251,8 +258,6 @@ def stepper_eligible(kwargs: dict[str, Any]) -> bool:
 
     if not stepper_enabled():
         return False
-    if kwargs.get("reuse_schedule") and deepcache_enabled():
-        return False  # the solo path refuses it, naming its slice
     if kwargs.get("upscale"):
         return False  # the x2 pass chains a second pipeline: solo
     if kwargs.get("image_guidance_scale") is not None:
@@ -369,7 +374,7 @@ def stepper_submit(slot, registry, kwargs: dict[str, Any], seed: int,
         rows=rows, seed=int(seed), scheduler=kwargs.get("scheduler_type"),
         job_id=job_id, resume=resume, init_image=image, strength=strength,
         mask=mask, controlnet=controlnet, control_image=control_image,
-        control_scale=cscale)
+        control_scale=cscale, reuse_schedule=kwargs.get("reuse_schedule"))
     sampler = resolve(kwargs.get("scheduler_type"),
                       prediction_type=fam.prediction_type)
     return StepperTicket(
@@ -437,3 +442,128 @@ def stepper_finish(ticket: StepperTicket):
                  else str(ticket.slot)),
     })
     return artifacts, config
+
+
+# ---- coalesced bursts (JAX :196-220, :469-600) -------------------------
+
+#: the fields compatible jobs share, one batched program apart from the
+#: per-job prompts, seeds, images and content types
+COALESCE_KEYS = ("num_inference_steps", "guidance_scale", "height",
+                 "width", "scheduler_type", "textual_inversion", "lora",
+                 "cross_attention_scale", "strength", "reuse_schedule")
+#: ControlNet conditions on its image, pix2pix carries its image guidance
+_UNCOALESCABLE = ("controlnet_model_name", "image_guidance_scale")
+
+
+def coalescable(kwargs: dict[str, Any]) -> bool:
+    """May this formatted diffusion job share a batched program? Not an
+    upscale job (its x2 pass runs with the job's own prompt and seed), nor
+    a ControlNet or pix2pix one."""
+    return (not kwargs.get("upscale")
+            and all(kwargs.get(k) is None for k in _UNCOALESCABLE))
+
+
+def diffusion_coalesced_callback(slot, model_name: str, *, seed: int,
+                                 registry, jobs: list[dict[str, Any]],
+                                 **shared: Any):
+    """Run several compatible jobs as one batched program. ``jobs`` holds
+    each job's own fields (prompt, negative_prompt, num_images_per_prompt,
+    seed, image, mask_image, content_type); ``shared`` the
+    :data:`COALESCE_KEYS` the executor found equal. Returns one
+    (artifacts, config) a job, in order."""
+    first = jobs[0]
+    prompts: list[str] = []
+    negs: list[str] = []
+    seed_rows: list[tuple[int, int]] = []
+    counts: list[int] = []
+    for job in jobs:
+        n = max(1, int(job.get("num_images_per_prompt", 1)))
+        prompts += [str(job.get("prompt") or "")] * n
+        negs += [str(job.get("negative_prompt") or "")] * n
+        seed_rows += [(int(job["seed"]), r) for r in range(n)]
+        counts.append(n)
+
+    def opt(key: str, default):
+        value = shared.get(key)  # present but None means the default
+        return default if value is None else value
+
+    pipe = registry.pipeline(
+        model_name, textual_inversion=shared.get("textual_inversion"),
+        lora=shared.get("lora"),
+        lora_scale=opt("cross_attention_scale", 1.0),
+        mesh=getattr(slot, "mesh", None))
+    fam = pipe.c.family
+    # img2img and inpaint: per-job init and mask stacks, each job's image
+    # encoded with its own seed (the key keeps shapes uniform)
+    init_stack = mask_stack = init_groups = None
+    if first.get("image") is not None:
+        if fam.image_conditioned:
+            raise ValueError("image-conditioned (pix2pix) jobs do not "
+                             "coalesce")
+        init_stack = np.stack([np.asarray(j["image"]) for j in jobs])
+        init_groups = tuple((int(j["seed"]), n)
+                            for j, n in zip(jobs, counts))
+        if first.get("mask_image") is not None:
+            mask_stack = np.stack([_mask_01(j["mask_image"]) for j in jobs])
+        height, width = init_stack.shape[1:3]
+    else:
+        height = int(opt("height", fam.default_size))
+        width = int(opt("width", fam.default_size))
+    reuse = shared.get("reuse_schedule")
+    req = GenerateRequest(
+        prompt=tuple(prompts),
+        negative_prompt=tuple(negs),
+        steps=int(opt("num_inference_steps", 30)),
+        guidance_scale=float(opt("guidance_scale", 7.5)),
+        height=int(height),
+        width=int(width),
+        batch=len(prompts),
+        seed=int(first["seed"]),
+        sample_seed_rows=tuple(seed_rows),
+        scheduler=shared.get("scheduler_type"),
+        init_image=init_stack,
+        init_groups=init_groups,
+        strength=float(opt("strength", 0.75)),
+        mask=mask_stack,
+        tiled_decode=max(int(height), int(width)) > 1024,
+        # part of the key, so every member shares one schedule
+        reuse_schedule=tuple(reuse) if isinstance(reuse, (list, tuple))
+        else reuse,
+    )
+    t0 = time.perf_counter()
+    images, base_config = pipe(req)
+    elapsed = time.perf_counter() - t0
+    # a poisoned frame fails the whole program; the executor then re-runs
+    # every member alone, and the poisoned one gets its own envelope
+    screen_images(images, context="coalesced decode")
+
+    results = []
+    offset = 0
+    for job, n in zip(jobs, counts):
+        imgs = images[offset:offset + n]
+        offset += n
+        with span("artifacts", images=n):  # PNG, base64
+            proc = OutputProcessor(job.get("content_type", "image/png"))
+            proc.add_images(imgs)
+            artifacts = proc.get_results()
+        config = dict(base_config)
+        config["seed"] = int(job["seed"])
+        config["batch"] = n
+        config.update(_adapter_fields(
+            shared.get("textual_inversion"), shared.get("lora"),
+            opt("cross_attention_scale", 1.0)))
+        _, safety_fields = check_images(imgs, model_name, pipe.c.device)
+        config.update(safety_fields)
+        config.update({
+            "coalesced": len(jobs),
+            # this job's images over the program's wall time (solo
+            # semantics); the program's own rate beside it
+            "images_per_sec": round(n / max(elapsed, 1e-9), 4),
+            "batch_images_per_sec": round(
+                images.shape[0] / max(elapsed, 1e-9), 4),
+            "generation_s": round(elapsed, 3),
+            "slot": (slot.descriptor() if hasattr(slot, "descriptor")
+                     else str(slot)),
+        })
+        results.append((artifacts, config))
+    return results

@@ -21,7 +21,9 @@ each phase printing one JSON line:
 3. kernel     — holds kernel B1 (flash attention) against its plain PyTorch
                 version at the UNet's shapes for SD1.5 at 512 px in bf16
                 (batch 2 for a solo job, 4 for a lone job's lane of 2 rows,
-                16 for a lane of 8 rows) and for SDXL at 1024 px (head dim
+                16 for a lane of 8 rows, 6 for a three-job coalesced
+                program without the bucket's padding row, which is held
+                off the path) and for SDXL at 1024 px (head dim
                 64: batch 2 solo, 4 in a lane of 2, 8 in a lane of 4, 1
                 for a job without CFG), for instruct-pix2pix's tripled batch
                 (batch 3 at head dims 40 and 80) and for the x2 upscaler
@@ -457,7 +459,7 @@ each phase printing one JSON line:
                 bf16, vocabularies 129,600 / 12,096 / 1,056, the 8-codebook
                 EnCodec at 24 kHz in float32; 1.10 B parameters), random
                 from seed 0 through the registry's ``allow_random``
-                fallback; a 4 s job at temperature 0.7, one with a
+                fallback; a 2 s job at temperature 0.7, one with a
                 ``history`` preset of Bark's shapes and one naming a preset
                 by a string through the worker, then the first again: WAV
                 (MP3 with ffmpeg) of ``frames x 320`` samples at 24 kHz, the
@@ -532,6 +534,45 @@ each phase printing one JSON line:
                 and decode), B1's ms and share, the peak memory, and the
                 default job under ``tools/torch_serve_profile.py``'s
                 ``cascade_profile`` (busy share, B1's share, top kernels).
+15ah. quant_check — ``convert/quantize.py`` on the card: ``quantize_leaf``
+                of a dense and a conv weight (bf16) and SD1.5's token table
+                (float32, scaled along its embedding dim) with codes and
+                scales equal to the CPU's; ``fake_quant_activation`` int8
+                and fp8 on a bf16 (2, 4096, 8, 40) tensor within one code of
+                the CPU's; fp8 supported (capability 9.0); the dequant's
+                and the fake-quant's device ms.
+15ai. int8_serve — ``CHIASWARM_WEIGHTS=int8``: SD1.5 (its own ledger entry,
+                the seed-0 draw quantized) on serve's seed 1 solo and in a
+                lane, SDXL's seed 1 solo: each image within the JAX int8
+                gate (mean abs < 4 levels, relative L2 < 0.05) of its bf16
+                twin, quantized leaves counted, the int8 entries under 0.8x
+                the bf16 entries' ledger bytes, B1 = 10 x evals (70 for
+                SDXL); load seconds, ``generation_s`` and launches per
+                denoise step against bf16's (the profiler, CUDA activity).
+15aj. int8_controlnet_serve — the same, a control job (seed 1, scale 1.0)
+                through an int8 bundle of controlnet_serve's directory:
+                its ledger key carries the int8 flag, B1 = 14 x evals; the
+                bf16 twin's difference printed.
+15ak. activations_serve — serve's seed 1 solo under
+                ``CHIASWARM_ACTIVATIONS=fp8`` (engaged, no degradation
+                warning) and ``int8``: each within the int8 gate of the bf16
+                image, B1 = 10 x evals; ``generation_s`` beside bf16's.
+15al. deepcache_serve — ``CHIASWARM_DEEPCACHE=1``: seed 1 at
+                ``reuse_schedule`` ``every:2`` solo and in a lane
+                (``unet_evals`` 10, ``steps_skipped`` 10, B1 150 a job: 100
+                at 4,096 tokens, 50 at 1,024), without the schedule (200),
+                SDXL at ``every:2`` (700, none in a shallow eval); the lane
+                within the card's lane bar of the solo image; each
+                ``quality_report`` against its full-step twin printed, not
+                gated (random weights); ``generation_s`` full vs reused.
+15am. coalesce_serve — ``CHIASWARM_STEPPER=0``: serve's three jobs as one
+                burst through ``synchronous_do_work_batch`` (batch 3,
+                bucketed to 4: B1 100 at (8,4096,4096,8,40) and 100 at
+                (8,1024,1024,8,80)) and two img2img jobs at strength 0.75
+                (B1 at batch 4): every config ``"coalesced"``, each image
+                within the int8 gate of its solo run (a row of another
+                batch composition, ROADMAP §3d), images/s of the burst
+                against its jobs one at a time.
 16. shapes_held — every shape at which a phase from 8 on launched a kernel
                 is one its kernel phase (3-5) held against the plain
                 version; each phase's launches by shape.
@@ -579,6 +620,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()  # every phase line carries its seconds since this
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -615,7 +657,9 @@ def vs_library(ms: float, library_ms: float | None) -> float | None:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -807,9 +851,9 @@ KERNEL_SHAPES = [
     (4, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2,
      ("lane_serve", "preprocess_serve")),
     (8, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2,
-     ("safety_serve", "controlnet_serve")),
+     ("safety_serve", "controlnet_serve", "coalesce_serve")),
     (8, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2,
-     ("safety_serve", "controlnet_serve")),
+     ("safety_serve", "controlnet_serve", "coalesce_serve")),
     (16, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_burst",)),
     (8, 1024, 1024, 8, 40, "float32", 2e-4, 1e-4, ("lane_check",)),
@@ -873,6 +917,11 @@ KERNEL_SHAPES = [
     (1, 1024, 1024, 16, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
     (2, 16384, 16384, 8, 64, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
     (2, 1024, 1024, 8, 128, "bfloat16", 4e-3, 1e-2, ("cascade_serve",)),
+    # SD1.5 at batch 3 under CFG: a coalesced burst of three jobs runs at
+    # the bucketed batch 4 (the (8, ...) rows above, coalesce_serve), as the
+    # JAX program pads; these hold B1 at the unpadded three rows
+    (6, 4096, 4096, 8, 40, "bfloat16", 4e-3, 1e-2, ()),
+    (6, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ()),
     (1, 1000, 1000, 2, 64, "float32", 2e-4, 1e-4, ()),
     (2, 300, 300, 2, 160, "float32", 2e-4, 1e-4, ()),
     (1, 1000, 333, 4, 32, "float32", 2e-4, 1e-4, ()),
@@ -6264,7 +6313,7 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
 
 TTS_MODEL = "suno/bark"  # random weights from seed 0 (the registry's fallback)
 TTS_TEXT = "Hello, my name is Suno. And, uh, I like pizza."
-TTS_SECONDS = 4.0
+TTS_SECONDS = 2.0  # cut from 4.0 to keep the run inside its time limit
 TTS_SEM_STEPS = 32      # semantic steps held against the float32 CPU run
 TTS_LOGIT_BAR = 0.08    # bf16 card against float32 CPU, first-step logits
 TTS_CODEC_BAR = 1e-2    # relative L2 of the codec's waveform, card vs CPU
@@ -6364,7 +6413,7 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     """Bark at its published widths (three 24 x 1,024 GPTs in bf16 with
     vocabularies 129,600 / 12,096 / 1,056 and the 8-codebook EnCodec at
     24 kHz in float32), random from seed 0 through the registry's
-    ``allow_random`` fallback; through the worker a 4 s job at the default
+    ``allow_random`` fallback; through the worker a 2 s job at the default
     temperature 0.7, a job with a ``history`` preset of Bark's shapes and a
     job naming a preset by a string, then the first job again. Gates: the
     served envelopes error-free with ``audio/wav`` (``audio/mpeg`` with
@@ -7267,6 +7316,429 @@ def cascade_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
     return run
 
 
+# ---- the rest of the SD surface: int8 weights, activation fake-quant,
+# DeepCache reuse, coalesced bursts (after the cascade phases, which release
+# the run's models first; the registry draws them again from seed 0)
+
+#: the int8 image gate: mean abs uint8 difference and relative L2 against
+#: the bf16 twin (the JAX package's tests/test_residency.py:341-345)
+QUANT_GATE = {"mean_abs": 4.0, "rel_l2": 0.05}
+DEEPCACHE_SCHEDULE = "every:2"
+#: B1 at 512 px: full eval 5 at 4,096 tokens and 5 at 1,024; shallow 5 + 0
+DEEPCACHE_B1 = {4096: 100, 1024: 50}
+COALESCE_IMG_JOBS = [dict(IMG_JOBS[0], id=f"coalesce-img2img-{seed}",
+                          seed=seed, start_image_uri=f"/assets/init-{src}.png")
+                     for seed, src in ((61, 31), (62, 32))]
+
+
+def quant_gate(blob: str, ref_blob: str) -> dict:
+    """An image against its twin: mean abs uint8 difference, relative L2,
+    max, and whether both are inside :data:`QUANT_GATE`."""
+    import numpy as np
+
+    a, b = decode_png(blob).astype("float32"), decode_png(ref_blob)
+    diff = np.abs(a - b)
+    rel = float(np.linalg.norm(diff) / max(np.linalg.norm(b), 1e-9))
+    out = {"mean_abs": float(diff.mean()), "rel_l2": rel,
+           "max": int(diff.max())}
+    out["passed"] = (out["mean_abs"] < QUANT_GATE["mean_abs"]
+                     and rel < QUANT_GATE["rel_l2"])
+    return out
+
+
+def b1_by_tokens(run: dict) -> dict:
+    """B1's launches of a run by (batch, tokens)."""
+    out: dict = collections.Counter()
+    for key, n in run["flash_attention"]["shapes"].items():
+        out[f"{key[0]}x{key[1]}"] += n
+    return dict(out)
+
+
+def launches_per_step(torch, pipe, steps=(4, 12)) -> float:
+    """Kernel launches of one 512 px denoise step of ``pipe``'s solo path:
+    two jobs under the profiler (CUDA activity), their difference over the
+    steps' difference."""
+    from chiaswarm_tpu_torch.pipelines.diffusion import GenerateRequest
+
+    tool = profile_tool()
+    counts = []
+    for n in steps:
+        req = GenerateRequest(prompt=JOBS[0]["prompt"], steps=n,
+                              guidance_scale=7.5, height=512, width=512,
+                              seed=1)
+        counts.append(tool.profiled(torch, pipe, req, cpu=False,
+                                    warm_up=False)["kernel_launches"])
+    return (counts[1] - counts[0]) / (steps[1] - steps[0])
+
+
+def xl_pipeline(registry):
+    """The registry's SDXL pipeline, its towers on the synthetic vocab (a
+    fresh draw after a release has the default tokenizer)."""
+    pipe = registry.pipeline(XL_MODEL)
+    pipe.c.tokenizers = xl_tokenizers()
+    return pipe
+
+
+def ledger_bytes(registry, key_head: tuple) -> list:
+    return [(list(map(str, k)), e.bytes)
+            for k, e in registry.residency._entries.items()
+            if k[:len(key_head)] == key_head]
+
+
+def quant_check_phase(torch) -> None:
+    """``quantize_leaf`` on the card against the CPU for a dense weight
+    (1280, 320), a conv weight (640, 320, 3, 3), both bf16, and SD1.5's
+    token table (49408, 768) float32 scaled along its embedding dim: codes
+    and scales equal. ``fake_quant_activation`` int8 and fp8 on a bf16
+    (2, 4096, 8, 40) tensor on the card against the CPU: within one code.
+    Prints the dequant's and the fake-quant's device ms."""
+    from chiaswarm_tpu_torch.convert.quantize import (
+        Int8Weight,
+        fake_quant_activation,
+        fp8_supported,
+        quantize_leaf,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    leaves = {"dense": ((1280, 320), torch.bfloat16, 0),
+              "conv": ((640, 320, 3, 3), torch.bfloat16, 0),
+              "embedding": ((49408, 768), torch.float32, -1)}
+    out = {}
+    for name, (shape, dtype, axis) in leaves.items():
+        w = (torch.randn(shape, generator=gen) * 0.05).to(dtype)
+        q_c, s_c = quantize_leaf(w, axis)
+        q_g, s_g = quantize_leaf(w.cuda(), axis)
+        out[name] = {"codes_equal": bool(torch.equal(q_g.cpu(), q_c)),
+                     "scales_equal": bool(torch.equal(s_g.cpu(), s_c)),
+                     "scale_shape": list(s_c.shape)}
+        if name == "conv":
+            deq = Int8Weight(axis, dtype)
+            out[name]["dequant_ms"] = time_ms(torch, lambda: deq(q_g, s_g))
+    x = torch.randn((2, 4096, 8, 40), generator=gen).to(torch.bfloat16)
+    acts = {}
+    for fmt in ("int8", "fp8"):
+        got = fake_quant_activation(x.cuda(), fmt).cpu().float()
+        want = fake_quant_activation(x, fmt).float()
+        scale = x.float().abs().max() / (127.0 if fmt == "int8" else 448.0)
+        if fmt == "int8":
+            codes = [torch.round(t / scale).int() for t in (got, want)]
+        else:
+            codes = [(t / scale).to(torch.float8_e4m3fn).view(torch.uint8)
+                     .int() for t in (got, want)]
+        xg = x.cuda()
+        acts[fmt] = {"max_code_diff": int((codes[0] - codes[1]).abs().max()),
+                     "equal_share": float((got == want).float().mean()),
+                     "ms": time_ms(torch,
+                                   lambda: fake_quant_activation(xg, fmt))}
+    emit("quant_check", leaves=out, activations=acts,
+         fp8_supported=fp8_supported(),
+         capability=list(torch.cuda.get_device_capability()))
+    bad = [n for n, r in out.items()
+           if not (r["codes_equal"] and r["scales_equal"])]
+    if bad or any(a["max_code_diff"] > 1 for a in acts.values()) \
+            or not fp8_supported():
+        raise AssertionError(f"quant_check: leaves {bad} differ from the "
+                             f"CPU, or activations {acts}")
+
+
+def int8_serve_phase(torch, registry, slot, solo_blobs: dict,
+                     lane_blobs: dict, xl_blobs: dict) -> dict:
+    """``CHIASWARM_WEIGHTS=int8``: SD1.5 (a ledger entry of its own, the
+    same seed-0 draw quantized) on serve's seed 1 solo and in a lane, SDXL's
+    seed 1 solo. Each image within :data:`QUANT_GATE` of its bf16 twin from
+    the earlier phases; quantized leaves counted; the int8 entry's ledger
+    bytes under 0.8x the bf16 entry's; B1 = 10 x evals (SD1.5) and 70 x
+    evals (SDXL). Prints the bytes, load seconds, ``generation_s`` and the
+    launches per denoise step against bf16's."""
+    from chiaswarm_tpu_torch.convert.quantize import quantized_leaf_count
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    runs = {}
+    bf16 = registry.pipeline("sd15")
+    bf16_bytes = ledger_bytes(registry, ("pipeline", "sd15"))
+    xl_pipeline(registry)
+    with env(CHIASWARM_WEIGHTS="int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = registry.pipeline("sd15")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        leaves = quantized_leaf_count(pipe.c.modules())
+        entries = ledger_bytes(registry, ("pipeline", "sd15"))
+        configs: list = []
+        with env(CHIASWARM_STEPPER="0"):
+            seconds, blobs = run_jobs(torch, "int8_serve", slot, registry,
+                                      jobs=JOBS[:1], configs=configs)
+            check_b1("int8_serve", kernel_launches(),
+                     SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL)
+            runs["int8_serve"] = launched()
+        before = stepper_stats(slot)
+        with env(CHIASWARM_STEPPER="1"):
+            lane_s, lane = run_jobs(torch, "int8_lane_serve", slot, registry,
+                                    lanes=True, jobs=JOBS[:1],
+                                    configs=configs)
+            steps = delta(stepper_stats(slot), before, "steps_executed")
+            check_b1("int8_lane_serve", kernel_launches(),
+                     steps * B1_LAUNCHES_PER_UNET_EVAL)
+            runs["int8_lane_serve"] = launched()
+        get_stepper(slot).shutdown()
+        per_step = {"int8": launches_per_step(torch, pipe),
+                    "bf16": launches_per_step(torch, bf16)}
+        t1 = time.perf_counter()
+        xl = xl_pipeline(registry)
+        torch.cuda.synchronize()
+        xl_load_s = time.perf_counter() - t1
+        with env(CHIASWARM_STEPPER="0"):
+            xl_s, xl_out = run_jobs(torch, "xl_int8_serve", slot, registry,
+                                    jobs=XL_JOBS[:1], configs=configs)
+            check_b1("xl_int8_serve", kernel_launches(),
+                     SERVE_STEPS * B1_LAUNCHES_PER_XL_EVAL)
+            runs["xl_int8_serve"] = launched()
+        xl_leaves = quantized_leaf_count(xl.c.modules())
+        xl_entries = ledger_bytes(registry, ("pipeline", XL_MODEL))
+    int8_bytes = [b for k, b in entries if k[-1] == "int8"]
+    gates = {"solo": quant_gate(blobs[1], solo_blobs[1]),
+             "lane": quant_gate(lane[1], lane_blobs[1]),
+             "sdxl": quant_gate(xl_out[1], xl_blobs[1])}
+    emit("int8_serve", load_s=load_s, quantized_leaves=leaves,
+         ledger=entries, bf16_ledger=bf16_bytes,
+         param_bytes={"int8": pipe.c.param_bytes(),
+                      "bf16": bf16.c.param_bytes()},
+         xl_load_s=xl_load_s, xl_quantized_leaves=xl_leaves,
+         xl_ledger=xl_entries, job_seconds=seconds + lane_s + xl_s,
+         generation_s=[c["generation_s"] for c in configs],
+         lane_steps=steps, launches_per_step=per_step, vs_bf16=gates,
+         b1=[b1_by_tokens(r) for r in runs.values()])
+    ratio = int8_bytes[0] / max(b for k, b in entries if k[-1] != "int8")
+    xl_ratio = (min(b for _, b in xl_entries)
+                / max(b for _, b in xl_entries))
+    if not (leaves and xl_leaves and ratio < 0.8 and xl_ratio < 0.8
+            and all(g["passed"] for g in gates.values())):
+        raise AssertionError(f"int8_serve: leaves {leaves}/{xl_leaves}, "
+                             f"bytes ratios {ratio}/{xl_ratio}, gates "
+                             f"{gates}")
+    return runs
+
+
+def int8_controlnet_serve_phase(torch, registry, slot,
+                                hive: LocalHive) -> dict:
+    """``CHIASWARM_WEIGHTS=int8``: serve's seed 1 as a control job (scale
+    1.0 on the Canny map cond-71) through the int8 pipeline and an int8
+    bundle of the ControlNet controlnet_serve wrote: its ledger key carries
+    the int8 flag, B1 = 14 x control evals. The bf16 twin of the job (both
+    entries bf16) runs first; the difference is printed."""
+    from chiaswarm_tpu_torch.convert.quantize import quantized_leaf_count
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+
+    job = on_hive(hive, [control_job(1, 1.0)])[0]
+    blobs, seconds = {}, {}
+    for fmt in ("bf16", "int8"):
+        with env(CHIASWARM_WEIGHTS=fmt, CHIASWARM_STEPPER="0"):
+            from chiaswarm_tpu_torch.ops import kernels
+
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            result = synchronous_do_work(dict(job), slot, registry)
+            seconds[fmt] = time.perf_counter() - t0
+            blobs[fmt] = check_envelope("int8_controlnet_serve", job, result,
+                                        False)
+            if fmt == "int8":
+                run = launched()
+                check_b1("int8_controlnet_serve", kernel_launches(),
+                         SERVE_STEPS * B1_LAUNCHES_PER_CONTROL_EVAL)
+    keys = ledger_bytes(registry, ("controlnet", CN_MODEL))
+    int8_keys = [(k, b) for k, b in keys if k[3] == "True"]
+    bundles = [e.value for k, e in registry.residency._entries.items()
+               if k[:2] == ("controlnet", CN_MODEL) and k[3]]
+    emit("int8_controlnet_serve", ledger=keys, job_seconds=seconds,
+         bundle_quantized_leaves=quantized_leaf_count(bundles[0].modules())
+         if bundles else 0,
+         vs_bf16=quant_gate(blobs["int8"], blobs["bf16"]),
+         b1=b1_by_tokens(run))
+    if not int8_keys or not bundles:
+        raise AssertionError(f"int8_controlnet_serve: no int8 bundle in the "
+                             f"ledger: {keys}")
+    return run
+
+
+def activations_serve_phase(torch, registry, slot, solo_blobs: dict) -> dict:
+    """Serve's seed 1 solo under ``CHIASWARM_ACTIVATIONS=fp8`` (engaged on
+    the card, no degradation warning) and ``int8``: each image within
+    :data:`QUANT_GATE` of the bf16 image, B1 = 10 x evals. Prints
+    ``generation_s`` beside the bf16 job's."""
+    import logging
+
+    from chiaswarm_tpu_torch.convert import quantize
+
+    records: list = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Catch(level=logging.WARNING)
+    logging.getLogger("chiaswarm_torch.quantize").addHandler(handler)
+    runs, gates, gen_s = {}, {}, {}
+    try:
+        for fmt in ("fp8", "int8"):
+            configs: list = []
+            with env(CHIASWARM_ACTIVATIONS=fmt, CHIASWARM_STEPPER="0"):
+                engaged = quantize.activations_format()
+                _, blobs = run_jobs(torch, f"activations_{fmt}", slot,
+                                    registry, configs=configs,
+                                    jobs=[dict(JOBS[0],
+                                               id=f"act-{fmt}-sd15-1")])
+                check_b1(f"activations_{fmt}", kernel_launches(),
+                         SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL)
+                runs[f"activations_{fmt}"] = launched()
+            gates[fmt] = dict(quant_gate(blobs[1], solo_blobs[1]),
+                              engaged=engaged)
+            gen_s[fmt] = configs[0]["generation_s"]
+        configs = []
+        with env(CHIASWARM_STEPPER="0"):
+            run_jobs(torch, "activations_off", slot, registry,
+                     configs=configs, jobs=[dict(JOBS[0], id="act-off-1")])
+        gen_s["off"] = configs[0]["generation_s"]
+    finally:
+        logging.getLogger("chiaswarm_torch.quantize").removeHandler(handler)
+    emit("activations_serve", vs_bf16=gates, generation_s=gen_s,
+         warnings=records)
+    if records or gates["fp8"]["engaged"] != "fp8" or \
+            not all(g["passed"] for g in gates.values()):
+        raise AssertionError(f"activations_serve: {gates}, warnings "
+                             f"{records}")
+    return runs
+
+
+def deepcache_serve_phase(torch, registry, slot, solo_blobs: dict,
+                          lane_blobs: dict, xl_blobs: dict) -> dict:
+    """``CHIASWARM_DEEPCACHE=1``: serve's seed 1 with ``parameters.
+    reuse_schedule`` ``every:2`` solo and in a lane (``unet_evals`` 10,
+    ``steps_skipped`` 10; B1 150 a job, 100 at 4,096 tokens and 50 at 1,024,
+    at batch 2 solo and 4 in the lane of 2), the job without the schedule
+    (B1 200), SDXL's seed 1 at ``every:2`` (B1 = 70 x 10 full evals, none in
+    a shallow one). The lane against the solo image within the card's lane
+    bar (the plain lane-vs-solo difference plus ``CN_LANE_MARGIN``). Prints
+    each ``quality_report`` against its full-step twin (not gated: random
+    weights) and ``generation_s`` full against reused."""
+    from chiaswarm_tpu_torch.obs.quality import quality_report
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    def reuse():  # the formatter pops a job's parameters: one per job
+        return {"reuse_schedule": DEEPCACHE_SCHEDULE}
+
+    job = dict(JOBS[0], id="deepcache-sd15-1")
+    runs, configs, blobs = {}, {}, {}
+    xl_pipeline(registry)
+    with env(CHIASWARM_DEEPCACHE="1"):
+        for name, lanes, jobs in (
+                ("deepcache_serve", False, [dict(job, parameters=reuse())]),
+                ("deepcache_lane_serve", True,
+                 [dict(job, parameters=reuse())]),
+                ("deepcache_full", False, [dict(job)]),
+                ("xl_deepcache_serve", False,
+                 [dict(XL_JOBS[0], id="deepcache-sdxl-1",
+                       parameters=reuse())])):
+            cfgs: list = []
+            with env(CHIASWARM_STEPPER="1" if lanes else "0"):
+                _, out = run_jobs(torch, name, slot, registry, lanes=lanes,
+                                  jobs=jobs, configs=cfgs)
+                runs[name] = launched()
+            get_stepper(slot).shutdown()
+            configs[name], blobs[name] = cfgs[0], out[1]
+    want = {"deepcache_serve": {"2x4096": 100, "2x1024": 50},
+            "deepcache_lane_serve": {"4x4096": 100, "4x1024": 50},
+            "deepcache_full": {"2x4096": 100, "2x1024": 100},
+            "xl_deepcache_serve": {
+                "2x4096": 10 * 10, "2x1024": 10 * 60}}
+    got = {name: b1_by_tokens(run) for name, run in runs.items()}
+    accounting = {name: {k: (cfg.get("stepper") or cfg).get(k)
+                         for k in ("unet_evals", "steps_skipped")}
+                  for name, cfg in configs.items()}
+    lane_gap = image_diffs({1: blobs["deepcache_lane_serve"]},
+                           {1: blobs["deepcache_serve"]})[1]
+    plain_gap = image_diffs({1: lane_blobs[1]}, {1: solo_blobs[1]})[1]
+    emit("deepcache_serve", b1=got, expected_b1=want, accounting=accounting,
+         reuse_schedule=configs["deepcache_serve"].get("reuse_schedule"),
+         quality={
+             "solo": quality_report(decode_png(blobs["deepcache_serve"]),
+                                    decode_png(blobs["deepcache_full"])),
+             "lane": quality_report(
+                 decode_png(blobs["deepcache_lane_serve"]),
+                 decode_png(lane_blobs[1])),
+             "sdxl": quality_report(decode_png(blobs["xl_deepcache_serve"]),
+                                    decode_png(xl_blobs[1]))},
+         full_vs_serve=image_diffs({1: blobs["deepcache_full"]},
+                                   {1: solo_blobs[1]})[1],
+         lane_vs_solo=lane_gap, plain_lane_vs_solo=plain_gap,
+         generation_s={n: c["generation_s"] for n, c in configs.items()})
+    if got != want:
+        raise AssertionError(f"deepcache_serve: B1 {got}, expected {want}")
+    for name in ("deepcache_serve", "deepcache_lane_serve",
+                 "xl_deepcache_serve"):
+        if accounting[name] != {"unet_evals": 10, "steps_skipped": 10}:
+            raise AssertionError(f"{name} accounting {accounting[name]}")
+    if (lane_gap["max"] > plain_gap["max"] + CN_LANE_MARGIN["max"]
+            or lane_gap["within_one"] < plain_gap["within_one"]
+            - CN_LANE_MARGIN["within_one"]):
+        raise AssertionError(f"deepcache lane strays {lane_gap} from its "
+                             f"solo image, past the plain lane's {plain_gap}")
+    return runs
+
+
+def coalesce_serve_phase(torch, registry, slot, hive: LocalHive) -> dict:
+    """``CHIASWARM_STEPPER=0``: serve's three jobs as one burst through
+    ``synchronous_do_work_batch`` (one program at batch 3, bucketed to 4 as
+    in JAX: B1 at (8,4096,4096,8,40) and (8,1024,1024,8,80), 100 each), then
+    two img2img jobs at strength 0.75 on two fetched pictures (batch 2: B1
+    at batch 4, 75 each). Every config reads ``"coalesced"``; each image
+    within :data:`QUANT_GATE` of its solo run (the same jobs one at a time
+    after; a row of another batch composition, ROADMAP §3d: cuDNN's 3x3
+    convolutions are not batch-invariant, 8-14 levels at most on the card,
+    where another job's image or seed gives tens); images/s of each burst
+    against its jobs one at a time."""
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.ops import kernels
+
+    bursts = {"coalesce_serve": [dict(j, id=f"coalesce-{j['seed']}")
+                                 for j in JOBS],
+              "coalesce_img2img_serve": on_hive(hive, COALESCE_IMG_JOBS)}
+    want = {"coalesce_serve": {"8x4096": 100, "8x1024": 100},
+            "coalesce_img2img_serve": {"4x4096": 75, "4x1024": 75}}
+    runs, report = {}, {}
+    with env(CHIASWARM_STEPPER="0"):
+        for name, jobs in bursts.items():
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            results = synchronous_do_work_batch([dict(j) for j in jobs],
+                                                slot, registry)
+            burst_s = time.perf_counter() - t0
+            runs[name] = launched()
+            blobs = {}
+            for job, result in zip(jobs, results):
+                blobs[job["seed"]] = check_envelope(name, job, result, False)
+                coalesced = result["pipeline_config"].get("coalesced")
+                if coalesced != len(jobs):
+                    raise AssertionError(f"{name}: job {job['id']} did not "
+                                         f"coalesce ({coalesced})")
+            solo_s, solo = run_jobs(torch, f"{name}_one_at_a_time", slot,
+                                    registry, jobs=[dict(j) for j in jobs])
+            diffs = {seed: dict(image_diffs({seed: blob}, solo)[seed],
+                                **quant_gate(blob, solo[seed]))
+                     for seed, blob in blobs.items()}
+            report[name] = {
+                "burst_s": burst_s, "one_at_a_time_s": solo_s,
+                "images_per_s": len(jobs) / burst_s,
+                "images_per_s_one_at_a_time": len(jobs) / sum(solo_s),
+                "vs_solo": diffs, "b1": b1_by_tokens(runs[name])}
+            if report[name]["b1"] != want[name] or not all(
+                    d["passed"] for d in diffs.values()):
+                raise AssertionError(f"{name}: {report[name]}, B1 expected "
+                                     f"{want[name]}")
+    emit("coalesce_serve", **report)
+    return runs
+
+
 def kernel_entry(name: str, rows: list[dict], run: dict, **extra) -> dict:
     """One kernel of the kernels line: its launches in a served phase
     (``run``, from ``launched``) and its per-launch numbers from its kernel
@@ -7346,7 +7818,17 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "audio_serve", "txt2vid_serve",
                                            "img2vid_serve",
                                            "vid2vid_serve",
-                                           "cascade_serve")),
+                                           "cascade_serve", "int8_serve",
+                                           "int8_lane_serve",
+                                           "xl_int8_serve",
+                                           "int8_controlnet_serve",
+                                           "activations_fp8",
+                                           "activations_int8",
+                                           "deepcache_serve",
+                                           "deepcache_lane_serve",
+                                           "xl_deepcache_serve",
+                                           "coalesce_serve",
+                                           "coalesce_img2img_serve")),
         entry("ring_flash_hop", "seq_serve_scan",
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
@@ -7504,6 +7986,21 @@ def run_phases(torch, t0: float) -> int:
     # the DeepFloyd cascade, after every earlier model is released
     cascade_check_phase(torch, registry)
     runs["cascade_serve"] = cascade_serve_phase(torch, registry, slot, b1_rows)
+    # the rest of the SD surface: int8 weights, activation fake-quant,
+    # DeepCache reuse and coalesced bursts (SD1.5 and SDXL drawn again)
+    quant_check_phase(torch)
+    runs.update(int8_serve_phase(torch, registry, slot, solo_blobs,
+                                 lane_blobs, xl_blobs))
+    with LocalHive() as control_hive:
+        control_hive.assets.update(control_assets())
+        runs["int8_controlnet_serve"] = int8_controlnet_serve_phase(
+            torch, registry, slot, control_hive)
+    runs.update(activations_serve_phase(torch, registry, slot, solo_blobs))
+    runs.update(deepcache_serve_phase(torch, registry, slot, solo_blobs,
+                                      lane_blobs, xl_blobs))
+    with LocalHive() as asset_hive:
+        asset_hive.assets.update(image_assets())
+        runs.update(coalesce_serve_phase(torch, registry, slot, asset_hive))
     tables = {"flash_attention": b1_rows, "ring_flash_hop": b2_rows,
               "ring_flash_fused": b3_rows}
     check_held(runs, tables)

@@ -23,7 +23,11 @@ layer in bf16 on the card against float32 on the CPU); the six ControlNet
 detectors (HED, M-LSD, lineart, body-pose, DPT, UperNet at their published
 widths) on the card against their CPU run with cuDNN's TF32 allowed, within
 ``models/annotator.py::tf32_bar`` of their conv depth, and a detector whose
-weights are wrong raising on the card instead of serving its stand-in.
+weights are wrong raising on the card instead of serving its stand-in; the
+rest of the SD surface (B1 at a three-job burst's batch-6 shapes, SD1.5's
+UNet under int8 weights against its bf16 twin, the int8 and fp8 fake-quant
+and ``quantize_leaf`` on the card against the CPU, DeepCache's shallow
+eval launching B1 at level 0 only).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -1953,3 +1957,119 @@ def test_a_detector_with_wrong_weights_raises_on_the_card(cuda_device,
             controlnet.preprocess_image(
                 image, {"preprocess": True, "type": "softedge"}, cuda_device)
     assert controlnet._DETECTORS == {}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the SD surface: int8 weights, activation fake-quant, DeepCache
+# and coalesced bursts
+
+
+@pytest.mark.parametrize("b,l,h,d", [(6, 4096, 8, 40), (6, 1024, 8, 80)])
+def test_kernel_matches_plain_at_a_three_row_burst(cuda_device, b, l, h, d):
+    """B1 at SD1.5's batch-3 program under CFG (a three-job burst without
+    the bucket's padding row): the kernel phase's bars."""
+    q, k, v = _qkv((b, l, h, d), (b, l, h, d), torch.bfloat16, cuda_device)
+    out = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    diff = (out.float() - ref.float())
+    assert diff.abs().max().item() <= 4e-3
+    assert (diff.norm() / ref.float().norm()).item() <= 1e-2
+
+
+def _sd15_unet(device, dtype=torch.bfloat16):
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    return Components.random(FAMILIES["sd15"], seed=0, device=device,
+                             dtype=dtype).unet
+
+
+def _unet_inputs(device, hw: int, cross: int, seed: int = 3):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((2, 4, hw, hw), generator=gen).to(device)
+    t = torch.tensor([901.0, 250.0], device=device)
+    ctx = torch.randn((2, 77, cross), generator=gen).to(device)
+    return x, t, ctx
+
+
+def test_int8_unet_forward_follows_its_bf16_twin(cuda_device, monkeypatch):
+    """SD1.5's UNet quantized on the card (``CHIASWARM_WEIGHTS=int8``) at a
+    64x64 latent: 10 B1 launches as in bf16, the output within 5e-2
+    relative L2 of the bf16 twin's (JAX's int8 gate), its weights under
+    half the bytes."""
+    from chiaswarm_tpu_torch.convert.quantize import (
+        maybe_quantize_,
+        quantized_leaf_count,
+    )
+
+    unet = _sd15_unet(cuda_device)
+    x, t, ctx = _unet_inputs(cuda_device, 64, 768)
+    with torch.inference_mode():
+        ref = unet(x, t, ctx)
+    fp_bytes = sum(p.numel() * p.element_size() for p in unet.parameters())
+    monkeypatch.setenv("CHIASWARM_WEIGHTS", "int8")
+    assert maybe_quantize_([unet]) > 0 and quantized_leaf_count(unet) > 0
+    before = KERNEL.launches
+    with torch.inference_mode():
+        got = unet(x, t, ctx)
+    torch.cuda.synchronize()
+    assert KERNEL.launches - before == 10
+    rel = ((got - ref).float().norm() / ref.float().norm()).item()
+    assert 0 < rel <= 5e-2, rel
+    q_bytes = sum(p.numel() * p.element_size() for p in unet.parameters())
+    assert q_bytes < 0.55 * fp_bytes
+
+
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+def test_fake_quant_on_the_card_matches_the_cpu(cuda_device, fmt):
+    """``fake_quant_activation`` and ``quantize_leaf`` on the card give the
+    CPU's codes (the divisor rides as a tensor: PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal)."""
+    from chiaswarm_tpu_torch.convert.quantize import (
+        fake_quant_activation,
+        fp8_supported,
+        quantize_leaf,
+    )
+
+    assert fp8_supported()
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = (torch.randn((2, 4096, 8, 40), generator=gen) * 3).to(torch.bfloat16)
+    assert torch.equal(fake_quant_activation(x.to(cuda_device), fmt).cpu(),
+                       fake_quant_activation(x, fmt))
+    w = torch.randn((640, 320, 3, 3), generator=gen).to(torch.bfloat16)
+    q, s = quantize_leaf(w.to(cuda_device))
+    q_c, s_c = quantize_leaf(w)
+    assert torch.equal(q.cpu(), q_c) and torch.equal(s.cpu(), s_c)
+
+
+@pytest.mark.parametrize("family,hw,full,shallow", [
+    ("sd15", 64, 10, 5), ("sdxl", 128, 70, 0)])
+def test_a_shallow_eval_launches_b1_at_level_zero_only(cuda_device, family,
+                                                        hw, full, shallow):
+    """DeepCache's shallow replay runs only the level-0 blocks: SD1.5's five
+    self-attentions at 4,096 tokens, none for SDXL (its level 0 has no
+    attention); the refresh eval launches a full eval's B1, and replaying
+    its own cache reproduces its output."""
+    from chiaswarm_tpu_torch.models.configs import FAMILIES
+    from chiaswarm_tpu_torch.pipelines.components import Components
+
+    fam = FAMILIES[family]
+    unet = Components.random(fam, seed=0, device=cuda_device).unet
+    x, t, ctx = _unet_inputs(cuda_device, hw, fam.unet.cross_attention_dim)
+    added = None
+    if fam.unet.addition_embed_dim is not None:
+        added = {"time_ids": torch.tensor(
+            [[1024.0, 1024, 0, 0, 1024, 1024]] * 2, device=cuda_device),
+            "text_embeds": torch.zeros((2, fam.unet.addition_pooled_dim),
+                                       device=cuda_device)}
+    with torch.inference_mode():
+        before = KERNEL.launches
+        out, deep = unet(x, t, ctx, added, return_deep=True)
+        torch.cuda.synchronize()
+        mid = KERNEL.launches
+        replay = unet(x, t, ctx, added, cached_deep=deep)
+        torch.cuda.synchronize()
+    assert mid - before == full and KERNEL.launches - mid == shallow
+    assert deep.shape == (2, fam.unet.block_out_channels[1], hw, hw)
+    rel = ((replay - out).float().norm() / out.float().norm()).item()
+    assert rel <= 1e-2, rel

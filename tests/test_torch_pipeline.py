@@ -115,20 +115,31 @@ def test_unbucketed_size_is_cropped_back(port_pipe):
     ("reuse_schedule", (1,)),
     ("reuse_schedule", "every:2"),
 ])
-def test_unported_modes_raise_naming_the_slice(monkeypatch, port_pipe, field,
-                                              value):
+def test_unported_modes_raise_naming_the_slice(monkeypatch, jax_pipe,
+                                              port_pipe, field, value):
     """A ``reuse_schedule`` is ignored while DeepCache is off (the JAX
     package's default): the image and config are the plain request's, bit
-    for bit. With ``CHIASWARM_DEEPCACHE`` on, where JAX reuses features,
-    the port refuses it, naming ROADMAP queue item 5."""
+    for bit. With ``CHIASWARM_DEEPCACHE`` on the port serves it with feature
+    reuse, as JAX does (the slice that refused it is ported): the image
+    within one uint8 level of JAX's and the config, DeepCache's accounting
+    included, equal."""
     monkeypatch.delenv("CHIASWARM_DEEPCACHE", raising=False)
     plain, plain_cfg = port_pipe(_request(GenerateRequest, steps=2))
     got, cfg = port_pipe(_request(GenerateRequest, steps=2, **{field: value}))
     np.testing.assert_array_equal(got, plain)
     assert cfg == plain_cfg
     monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
-    with pytest.raises(ValueError, match="later slice.*item 5"):
-        port_pipe(_request(GenerateRequest, **{field: value}))
+    noise = np.random.default_rng(0).standard_normal(
+        (1, 32, 32, 4)).astype(np.float32)
+    j_img, j_cfg = jax_pipe(_request(JaxRequest, init_noise=noise,
+                                     **{field: value}))
+    t_img, t_cfg = port_pipe(_request(GenerateRequest, init_noise=noise,
+                                      **{field: value}))
+    diff = np.abs(t_img.astype(np.int16) - np.asarray(j_img).astype(np.int16))
+    assert diff.max() <= 1, f"max uint8 difference {diff.max()}"
+    assert t_cfg == j_cfg
+    assert t_cfg["steps_skipped"] > 0
+    assert t_cfg["unet_evals"] + t_cfg["steps_skipped"] == 4
 
 
 def _job(**kw):
@@ -230,9 +241,9 @@ def test_a_reuse_schedule_job_is_served_as_the_jax_worker_serves_it(
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0", num_images_per_prompt="two"),
      "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
-    # refused while DeepCache is on (each test switches it on), naming
-    # ROADMAP queue item 5; off, the schedule is ignored
-    (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
+    # DeepCache on (each test switches it on): a schedule that reuses the
+    # first step, which fills the cache, is JAX's bad request
+    (_job(parameters={"reuse_schedule": [0, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
                                               job, kind, fatal):
@@ -254,9 +265,9 @@ def test_unserved_jobs_become_error_envelopes(monkeypatch, port_registry,
     (_job(model_name="DeepFloyd/IF-I-XL-v1.0", num_images_per_prompt="two"),
      "fatal", True),
     (_job(height=2048, width=512), "fatal", True),
-    # refused while DeepCache is on (each test switches it on), naming
-    # ROADMAP queue item 5; off, the schedule is ignored
-    (_job(parameters={"reuse_schedule": [1, 2]}), "fatal", True),
+    # DeepCache on (each test switches it on): a schedule that reuses the
+    # first step, which fills the cache, is JAX's bad request
+    (_job(parameters={"reuse_schedule": [0, 2]}), "fatal", True),
 ])
 def test_unserved_jobs_become_error_envelopes_with_lanes_on(
         monkeypatch, port_registry, job, kind, fatal):

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import gc
 import io
 import time
@@ -740,20 +741,33 @@ def test_executor_falls_back_when_the_lane_faults(monkeypatch, registry,
 
 
 def test_executor_ineligible_jobs_take_the_solo_path(monkeypatch, registry,
-                                                     slot):
+                                                     slot, jax_pipe):
     monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
     r = executor.synchronous_do_work(_job(12, guidance_scale=1.0), slot,
                                      registry)
     assert r["pipeline_config"].get("error") is None
     assert "stepper" not in r["pipeline_config"]
-    # a reuse schedule rides the lanes while DeepCache is off (ignored, as
-    # in JAX); switched on, the job takes the solo path, which refuses it
+    # a reuse schedule rides the plain lane while DeepCache is off (ignored,
+    # as in JAX); switched on, the job rides a DeepCache lane with the
+    # accounting JAX's reuse lane gives the same job
+    from chiaswarm_tpu.serving.stepper import StepScheduler as JaxScheduler
+
     monkeypatch.setenv("CHIASWARM_DEEPCACHE", "1")
-    r = executor.synchronous_do_work(
-        _job(13, parameters={"reuse_schedule": [1]}), slot, registry)
-    assert r["pipeline_config"]["error_kind"] == "fatal"
-    assert "DeepCache" in r["pipeline_config"]["error"]
-    assert "item 5" in r["pipeline_config"]["error"]
+    job = _job(13, num_inference_steps=3, parameters={"reuse_schedule": [1]})
+    r = executor.synchronous_do_work(copy.deepcopy(job), slot, registry)
+    assert "error" not in r["pipeline_config"], r
+    jax_sched = JaxScheduler()
+    try:
+        _, jax_lane = jax_sched.submit_request(
+            jax_pipe, prompt=job["prompt"], steps=3, guidance_scale=7.5,
+            height=64, width=64, rows=1, seed=job["seed"],
+            reuse_schedule=[1]).result(timeout=300)
+    finally:
+        jax_sched.shutdown()
+    lane = r["pipeline_config"]["stepper"]
+    assert set(lane) == set(jax_lane)
+    assert lane["unet_evals"] == jax_lane["unet_evals"] == 2
+    assert lane["steps_skipped"] == jax_lane["steps_skipped"] == 1
 
 
 def test_lane_envelope_matches_the_jax_lane_envelope(monkeypatch, registry,
