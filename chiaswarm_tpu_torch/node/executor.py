@@ -1,7 +1,8 @@
 """Job executor: counterpart of ``chiaswarm_tpu/node/executor.py``
 (``_error_payload``/``_result``/``error_result``/``_format``/``_execute``
 :62-212, ``_stepper_submit``/``_stepper_collect``/``_stepper_resubmit``
-:215-343, ``synchronous_do_work`` :346-367, ``job_rows`` :386,
+:215-343, ``synchronous_do_work`` :346-367 (with ``checkpoint_scope`` :355, :589 and
+``job_profile`` :179, :551), ``job_rows`` :386,
 ``_coalesce_key`` :370-384, ``single_chip_rows`` :397-416, ``rows_cap``
 :418, ``_row_chunks`` :428-455, ``synchronous_do_work_batch`` :458-593,
 and the async
@@ -46,6 +47,13 @@ resumes at that step (the lane-rebuild rung); a second hang takes the per-job
 path. A burst re-admits its condemned jobs together, in order, once every
 job of the burst has left its lane, so they share a fresh lane in the slots
 and at the width they held (a lane row's bits depend on both).
+
+Durability: each job's run binds the slot's checkpoint spool (attached by a
+worker with heartbeats on) with ``checkpoint_scope``, so the solo path's
+phase markers land under the job's id; lanes write their own step-boundary
+checkpoints. With ``CHIASWARM_PROFILE_DIR`` set, each solo call and
+coalesced program records a profiler trace there (``obs/profiling.py``;
+skipped while another capture holds the profiler).
 """
 
 from __future__ import annotations
@@ -63,8 +71,13 @@ from chiaswarm_tpu_torch.node.output_processor import (
     make_result,
     make_text_result,
 )
-from chiaswarm_tpu_torch.node.resilience import NONFATAL_KINDS, classify_exception
+from chiaswarm_tpu_torch.node.resilience import (
+    NONFATAL_KINDS,
+    checkpoint_scope,
+    classify_exception,
+)
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.obs.profiling import job_profile
 from chiaswarm_tpu_torch.serving.guard import (
     InvalidOutput,
     LaneHung,
@@ -177,7 +190,8 @@ def _execute(job_id, content_type, callback, kwargs, slot) -> dict:
     watch_key = (str(kwargs.get("model_name")), kwargs.get("height"),
                  kwargs.get("width"))
     try:
-        with watch_solo(slot, watched_steps, key=watch_key):
+        with job_profile(job_id, device=getattr(slot, "device", None)), \
+                watch_solo(slot, watched_steps, key=watch_key):
             artifacts, config = slot(callback, **kwargs)
     except InvalidOutput as exc:
         _note_invalid(slot, kwargs.get("model_name"))
@@ -331,8 +345,11 @@ def synchronous_do_work(job: dict[str, Any], slot, registry) -> dict[str, Any]:
     log.info("processing job %s", job.get("id"))
     # the job's span tree follows it into this thread: the format, encode,
     # step, decode and artifacts spans below attach under the worker's
-    # open "execute" phase (obs/trace.py)
-    with obs_trace.activate(obs_trace.job_trace(job)):
+    # open "execute" phase (obs/trace.py); the checkpoint scope binds the
+    # worker's spool for the solo path's phase markers
+    with obs_trace.activate(obs_trace.job_trace(job)), \
+            checkpoint_scope(getattr(slot, "_checkpoint_spool", None),
+                             job.get("id")):
         formatted, fatal = _format(job, registry)
         if formatted is None:
             return fatal
@@ -455,10 +472,13 @@ def _run_group(group: list, slot, registry, results: list,
         if trace is not None:
             spans.append(trace.tail().child("coalesced", jobs=len(group)))
     try:
-        outs = slot.call_multi(
-            diffusion_coalesced_callback, model_name=kwargs0.get("model_name"),
-            seed=per_job[0]["seed"], registry=registry, jobs=per_job,
-            **shared)
+        with job_profile(f"coalesced-{ids[0]}",
+                         device=getattr(slot, "device", None)):
+            outs = slot.call_multi(
+                diffusion_coalesced_callback,
+                model_name=kwargs0.get("model_name"),
+                seed=per_job[0]["seed"], registry=registry, jobs=per_job,
+                **shared)
         if len(outs) != len(group):  # never drop a job silently
             raise RuntimeError(f"coalesced callback returned {len(outs)} "
                                f"results for {len(group)} jobs")
@@ -529,6 +549,7 @@ def synchronous_do_work_batch(jobs: list[dict[str, Any]], slot,
         else:
             singles.append((i, formatted))
     for i, formatted in singles:
-        with traced(i):
+        with traced(i), checkpoint_scope(
+                getattr(slot, "_checkpoint_spool", None), formatted[0]):
             results[i] = _execute(*formatted, slot)
     return [r for r in results if r is not None]

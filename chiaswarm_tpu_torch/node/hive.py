@@ -1,12 +1,16 @@
 """Hive protocol client, the HTTP control plane to the job queue: a copy of
-``chiaswarm_tpu/node/hive.py`` (``HiveClient``, ``BadWorkerError`` and the
-poll-constant re-exports). The wire is the JAX worker's, so a node switched
+``chiaswarm_tpu/node/hive.py`` (``HiveClient`` with ``post_heartbeat``
+:150-168, ``BadWorkerError`` and the poll-constant re-exports). The wire is the JAX worker's, so a node switched
 from one package to the other needs no hive change:
 
 - ``GET  {uri}/api/work``    poll for jobs (``worker_version`` and
   ``worker_name`` as query parameters)
 - ``POST {uri}/api/results`` upload artifact envelopes
 - ``GET  {uri}/api/models``  model catalog
+- ``POST {uri}/api/heartbeat`` lease keep-alive with the in-flight ids and
+  their latest checkpoints: not part of the reference wire, called only
+  with ``heartbeat_s > 0`` against a lease-aware hive, and any failure is
+  tolerated by the worker
 
 Bearer-token auth and the ``chiaSWARM.worker/<version>`` user agent, with
 ``WORKER_VERSION`` from ``chiaswarm_tpu_torch/__init__.py``. A 400 from the
@@ -137,6 +141,24 @@ class HiveClient:
                 try:
                     return await response.json()
                 except Exception:  # non-JSON 2xx body: the upload landed
+                    return {"status": response.status}
+
+    async def post_heartbeat(self, session: aiohttp.ClientSession,
+                             payload: dict[str, Any]) -> dict[str, Any]:
+        """Lease keep-alive for a lease-aware hive: ``payload`` carries the
+        worker name, its in-flight job ids and their latest resume
+        checkpoints (``node/worker.py::_heartbeat_loop``)."""
+        with _observe("heartbeat"):
+            async with session.post(
+                f"{self.api}/heartbeat",
+                data=json.dumps(payload),
+                headers=self._headers(),
+                timeout=aiohttp.ClientTimeout(total=10),
+            ) as response:
+                response.raise_for_status()
+                try:
+                    return await response.json()
+                except Exception:  # non-JSON 2xx: the beat still landed
                     return {"status": response.status}
 
     async def get_models(self, session: aiohttp.ClientSession) -> list[dict]:

@@ -2,8 +2,10 @@
 a copy of ``chiaswarm_tpu/node/resilience.py`` (``classify_exception``
 :131, ``classify_result`` :211, ``backoff_delay`` :234, ``Backoff`` :248,
 ``CircuitBreaker`` :279, ``BreakerBoard`` :343, ``hive_reachable_error``
-:521, ``HiveSession`` :532, ``DeadLetterSpool`` :619, ``ResilienceStats``
-:893-941), the degradation ladder of the worker (``node/worker.py``):
+:521, ``HiveSession`` :532, ``DeadLetterSpool`` :619, ``CheckpointSpool``
+:682-811, ``checkpoint_scope`` :822, ``phase_checkpoint`` :837,
+``ResilienceStats`` :893-941), the degradation ladder of the worker
+(``node/worker.py``):
 
 - :func:`classify_exception` / :func:`classify_result` sort failures into
   kinds: ``transient`` and ``oom`` retry locally with capped backoff (an
@@ -20,19 +22,27 @@ a copy of ``chiaswarm_tpu/node/resilience.py`` (``classify_exception``
 - :class:`DeadLetterSpool` keeps result envelopes that exhausted their
   upload retries on disk, one JSON file each in the JAX format; the worker
   replays them on its next start.
+- :class:`CheckpointSpool` keeps each in-flight job's latest resume state
+  on disk, one JSON file per hive job id, named as JAX names it (the same
+  file for the same id); lanes write it at step boundaries, the solo path
+  records phase markers through :func:`phase_checkpoint` inside the
+  executor's :func:`checkpoint_scope`, and the worker's heartbeat pushes
+  each changed file to a lease-aware hive. Durability never fails the job:
+  a write that raises ``OSError`` is logged and the job runs on.
 
-The checkpoint spool (``CheckpointSpool``, ``checkpoint_scope``,
-``phase_checkpoint``) waits for the heartbeat loop of a later slice.
 Stdlib only and synchronous.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import json
 import logging
 import random
 import re
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable
@@ -596,6 +606,165 @@ class DeadLetterSpool:
         if not self.directory.is_dir():
             return 0
         return sum(1 for _ in self.directory.glob("*.json"))
+
+
+# ---------------------------------------------------------------------------
+# checkpoint spool (step-boundary resume state)
+# ---------------------------------------------------------------------------
+
+
+class CheckpointSpool:
+    """Disk spool of in-flight job checkpoints, the resume-state twin of the
+    dead-letter spool, namespaced per worker the same way.
+
+    One JSON file per job id, overwritten as the job progresses (lanes
+    snapshot their rows at step boundaries, ``serving/stepper.py``; the solo
+    path records coarser phase markers). The worker's heartbeat pushes the
+    latest state to a lease-aware hive, so a job redelivered after this
+    worker dies resumes at its step on a survivor instead of at step 0.
+
+    - files live under ``<root>/checkpoints/<worker name>/``: workers sharing
+      a settings root never read or collect each other's state;
+    - a corrupt snapshot is skipped loudly: parked as ``.bad``, counted in
+      ``corrupt_skipped``, never returned;
+    - a job's checkpoint goes when its upload is acked
+      (``node/worker.py::_deliver``), and startup clears leftovers: after a
+      restart the hive's pushed copy is the authority.
+
+    Thread-safe: lane threads save while the heartbeat's thread loads.
+    """
+
+    def __init__(self, directory: Path | str) -> None:
+        self.directory = Path(directory)
+        self._lock = threading.Lock()
+        self.written = 0
+        self.corrupt_skipped = 0
+        # per-job write sequence (file name -> self.written at its last
+        # save): the heartbeat's has-it-changed probe (an mtime can repeat
+        # across saves on a coarse clock)
+        self._versions: dict[str, int] = {}
+
+    def _path_for(self, job_id: Any) -> Path:
+        # a digest of the full id: sanitizing alone would let "job 1" and
+        # "job_1" share a file, and one job resume the other's trajectory
+        raw = str(job_id or "job")
+        digest = hashlib.sha256(raw.encode("utf-8")).hexdigest()[:12]
+        name = re.sub(r"[^A-Za-z0-9._-]+", "_", raw)[:80]
+        return self.directory / f"{name}-{digest}.ckpt.json"
+
+    def save(self, job_id: Any, state: dict[str, Any]) -> Path:
+        payload = json.dumps(state, sort_keys=True)
+        path = self._path_for(job_id)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(".json.tmp")
+        tmp.write_text(payload, encoding="utf-8")
+        tmp.replace(path)
+        with self._lock:
+            self.written += 1
+            self._versions[path.name] = self.written
+        return path
+
+    def load(self, job_id: Any) -> dict[str, Any] | None:
+        path = self._path_for(job_id)
+        if not path.is_file():
+            return None
+        try:
+            return json.loads(path.read_text(encoding="utf-8"))
+        except (OSError, json.JSONDecodeError) as exc:
+            log.error("corrupt checkpoint %s (%s); parking as .bad: the job "
+                      "restarts from scratch", path, exc)
+            with self._lock:
+                self.corrupt_skipped += 1
+            try:
+                path.replace(path.with_suffix(".json.bad"))
+            except OSError:
+                pass
+            return None
+
+    def version(self, job_id: Any) -> int | None:
+        """Monotone write sequence of a job's checkpoint, or None if absent;
+        a file this process never wrote (an external ``checkpoint_dir``)
+        reports 0, which still reads as present."""
+        path = self._path_for(job_id)
+        with self._lock:
+            seq = self._versions.get(path.name)
+        if seq is not None:
+            return seq
+        return 0 if path.is_file() else None
+
+    def discard(self, job_id: Any) -> None:
+        """The job settled: its resume state is garbage."""
+        path = self._path_for(job_id)
+        with self._lock:
+            self._versions.pop(path.name, None)
+        try:
+            path.unlink()
+        except FileNotFoundError:
+            pass
+        except OSError as exc:
+            log.warning("checkpoint GC for %s failed: %s", job_id, exc)
+
+    def clear(self) -> int:
+        """Startup: drop every leftover checkpoint, parked ``.bad`` files and
+        orphaned ``.tmp`` files of a crash mid-save included."""
+        with self._lock:
+            self._versions.clear()
+        if not self.directory.is_dir():
+            return 0
+        removed = 0
+        for path in self.directory.glob("*.ckpt.json*"):
+            try:
+                path.unlink()
+                removed += 1
+            except OSError:
+                pass
+        if removed:
+            log.info("cleared %d stale checkpoint(s) from %s", removed,
+                     self.directory)
+        return removed
+
+    def depth(self) -> int:
+        if not self.directory.is_dir():
+            return 0
+        return sum(1 for _ in self.directory.glob("*.ckpt.json"))
+
+
+# the executor binds (spool, job id) for one job's run so workload callbacks
+# can record phase checkpoints without threading the spool through them
+_CKPT_SCOPE: contextvars.ContextVar = contextvars.ContextVar(
+    "chiaswarm_torch_checkpoint_scope", default=None)
+
+
+@contextlib.contextmanager
+def checkpoint_scope(spool: CheckpointSpool | None, job_id: Any):
+    """Bind :func:`phase_checkpoint` to (spool, job_id) for this thread's
+    run of one job (``node/executor.py``). With no spool (heartbeats off)
+    the scope, and every ``phase_checkpoint`` inside it, does nothing."""
+    if spool is None or job_id is None:
+        yield
+        return
+    token = _CKPT_SCOPE.set((spool, job_id))
+    try:
+        yield
+    finally:
+        _CKPT_SCOPE.reset(token)
+
+
+def phase_checkpoint(phase: str, **extra: Any) -> None:
+    """Record a coarse phase boundary of the current solo-path job
+    (``encoded``, ``denoised``; ``workloads/diffusion.py``): the solo loop
+    keeps no step state to resume from, so the marker tells the hive how far
+    a job that died got."""
+    scope = _CKPT_SCOPE.get()
+    if scope is None:
+        return
+    spool, job_id = scope
+    try:
+        spool.save(job_id, {"version": 1, "kind": "phase",
+                            "phase": str(phase), **extra})
+    except OSError as exc:  # durability must never fail the job
+        log.warning("phase checkpoint %r for %s failed: %s", phase,
+                    job_id, exc)
 
 
 # ---------------------------------------------------------------------------

@@ -38,11 +38,39 @@ applies ``residency_budget_bytes`` and ``residency_prefetch`` to it, its
 mesh policy reads the ledger's measured footprints before the family
 estimates, and an empty poll lets the ledger prefetch (``note_idle``).
 
-Left for the next worker slice, and refused when a setting asks for them
-(``heartbeat_s``, ``health_port``, ``overload_control``, several hive uris,
-``hive_front_uri``): the heartbeat loop with checkpoints and resume (and
-the placement hints its acks carry, ``note_placement``), the health server
-and ``/metrics``, the overload controller, federation over hive shards.
+With a lease-aware hive (all opt-in, as in JAX):
+
+- **Lease heartbeats** (``heartbeat_s > 0``; JAX :309-323, :681, :1408-1576):
+  a ``CheckpointSpool`` under ``<root>/checkpoints/<worker>`` (cleared at
+  startup) is attached to every slot, so lanes write each job's
+  step-boundary state by its hive id and the solo path its phase markers.
+  Every ``heartbeat_s`` a busy beat names the in-flight ids and carries each
+  checkpoint changed since the last beat (read in a thread); an idle beat
+  carries the metrics snapshot alone, at most every 2 s. A lease the hive
+  reports lost is counted and warned once (the ``lost`` set is replaced, not
+  accumulated); the ack's placement hint reaches the residency ledger
+  (``note_placement``). A redelivered job's ``resume`` rides into the lanes
+  (``serving/stepper.py::submit_request``), its ``attempt`` and resume step
+  into its trace, and it never coalesces (``_burst_key``). An acked upload
+  collects the job's checkpoint.
+- **Overload control** (``overload_control``; ``node/overload.py``, JAX
+  :1314, :1873-1968): before a burst runs, jobs the estimator predicts will
+  miss their deadline (the lanes' step EWMA as measured on the card times
+  their steps, behind the queue) are shed as non-fatal ``overloaded``
+  envelopes through the normal result path, before any kernel runs; the
+  poll loop waits while the queued backlog outlasts the backpressure
+  budget; brownout caps lane admissions (``set_admission_cap``).
+- **The health server** (``health_port`` or ``health_bind_ephemeral``; JAX
+  :805-1130): ``/healthz`` (:meth:`Worker.health`, with the card's memory),
+  ``/metrics`` (the worker's registry and the process one, Prometheus text),
+  ``/debug/traces`` (Chrome events or ``?format=tree``, after ``?since=``)
+  and ``/debug/profile?seconds=N`` (``obs/profiling.py``: a CUDA + CPU
+  capture on a card; 409 ``busy`` while another runs), with JAX's 400, 409
+  and 500 answers. ``/debug/numerics`` is not served.
+
+Left for the next worker slice, and refused when a setting asks for them:
+several hive uris and ``hive_front_uri`` (federation over hive shards, the
+hive epoch handshake).
 
 ``python -m chiaswarm_tpu_torch.node.worker`` runs one worker on the
 machine's CUDA cards. There is no CPU fallback: pass ``pool=`` and
@@ -52,6 +80,7 @@ machine's CUDA cards. There is no CPU fallback: pass ``pool=`` and
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import random
 import re
@@ -82,12 +111,14 @@ from chiaswarm_tpu_torch.node.executor import (
 )
 from chiaswarm_tpu_torch.node.hive import BadWorkerError, HiveClient
 from chiaswarm_tpu_torch.node.logging_setup import setup_logging
+from chiaswarm_tpu_torch.node.overload import OverloadController
 from chiaswarm_tpu_torch.node.registry import ModelRegistry
 from chiaswarm_tpu_torch.node.resilience import (
     BREAKER_KINDS,
     RETRYABLE_KINDS,
     Backoff,
     BreakerBoard,
+    CheckpointSpool,
     DeadLetterSpool,
     HiveSession,
     ResilienceStats,
@@ -103,12 +134,25 @@ from chiaswarm_tpu_torch.node.settings import (
     settings_root,
 )
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
+from chiaswarm_tpu_torch.obs import profiling as obs_profiling
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.serving import guard as _guard
 
 log = logging.getLogger("chiaswarm_torch.worker")
 
 _LATER = "the next worker slice of chiaswarm_tpu_torch"
+
+#: the lanes' stats the worker mirrors into its registry (JAX :1008-1027)
+_STEPPER_COUNTERS = ("steps_executed", "rows_admitted",
+                     "rows_admitted_midflight", "rows_completed",
+                     "rows_expired", "rows_failed", "lanes_created",
+                     "lanes_failed", "row_steps_active", "row_steps_padded",
+                     "rows_resumed", "resumes_rejected",
+                     "checkpoints_written", "lanes_evict_retired",
+                     "lanes_condemned", "rows_hung", "rows_invalid",
+                     "steps_slow")
+_STEPPER_GAUGES = ("lanes_live", "rows_active", "lane_rows_total",
+                   "lane_occupancy", "padding_waste")
 
 
 def _burst_key(job: dict) -> tuple | None:
@@ -229,7 +273,19 @@ class Worker:
             "chiaswarm_jobs_total",
             "jobs settled (uploaded or dead-lettered), by final outcome",
             labelnames=("outcome",))
+        self.metrics.add_collector(self._collect_metrics)
         self.stats = ResilienceStats(self.metrics)
+        # always built (its chiaswarm_overload_* families render zeroes from
+        # the first scrape), consulted only with overload_control
+        self.overload = OverloadController(
+            margin=self.settings.overload_margin,
+            backpressure_s=(float(self.settings.backpressure_s)
+                            or self.settings.job_deadline_s / 2.0),
+            brownout_sheds=self.settings.overload_brownout_sheds,
+            window_s=self.settings.overload_window_s,
+            cooldown_s=self.settings.overload_cooldown_s,
+            admission_cap_rows=self.settings.overload_admission_cap,
+            metrics_registry=self.metrics)
         # the per-worker device-health ledger and healing ladder; always
         # built (its chiaswarm_guard_* families read 0 from the start),
         # its rungs applied only with guard_enabled
@@ -269,8 +325,20 @@ class Worker:
             self.metrics)
         for when in obs_metrics.DEAD_LETTER_REPLAY_WHEN:
             self._dl_replayed.inc(0, when=when)
-        # jobs between poll receipt and settled upload
+        # the resume-state spool beside the dead-letter spool; attached to
+        # the slots only with heartbeats on, the one path that ships a
+        # checkpoint anywhere (with them off, lanes pay no spool write)
+        self.checkpoints = CheckpointSpool(self._checkpoint_dir())
+        if float(self.settings.heartbeat_s or 0) > 0:
+            for slot in self.pool:
+                slot._checkpoint_spool = self.checkpoints
+        # jobs between poll receipt and settled upload: the id set the
+        # heartbeat keeps leased (insertion-ordered, stable payloads)
         self._inflight: dict[Any, float] = {}
+        # the heartbeat's metrics-snapshot throttle, and where the health
+        # server bound (host, port)
+        self._last_metrics = float("-inf")
+        self.health_address: tuple[str, int] | None = None
         # the operator's residency settings, pushed into the registry's
         # ledger: an explicit budget, and the prefetch toggle (idle polls
         # start demand-driven warm loads, _ask_for_work)
@@ -286,13 +354,6 @@ class Worker:
     def _refuse_later_parts(self) -> None:
         s = self.settings
         asked = []
-        if float(s.heartbeat_s or 0) > 0:
-            asked.append("heartbeat_s > 0 (lease heartbeats, checkpoints "
-                         "and resume)")
-        if int(s.health_port or 0) > 0 or s.health_bind_ephemeral:
-            asked.append("health_port (the health server and /metrics)")
-        if s.overload_control:
-            asked.append("overload_control (the overload controller)")
         if len(s.hive_uris()) > 1:
             asked.append("several hive uris (federation over hive shards)")
         if str(s.hive_front_uri or "").strip():
@@ -305,6 +366,11 @@ class Worker:
     def _spool_dirname(self) -> str:
         return re.sub(r"[^A-Za-z0-9._-]+", "_",
                       self.settings.worker_name or "worker")
+
+    def _checkpoint_dir(self) -> Path:
+        if self.settings.checkpoint_dir:
+            return Path(self.settings.checkpoint_dir).expanduser()
+        return settings_root() / "checkpoints" / self._spool_dirname()
 
     def _breaker_state_path(self) -> Path:
         spool = self._dead_letter_dir()
@@ -457,9 +523,30 @@ class Worker:
                 "results spool to dead-letter and replay on heal",
                 self.hive_session.consecutive_failures, source, assumed)
 
+    def _note_placement(self, raw: Any) -> None:
+        """Feed a heartbeat ack's ``placement`` hint (the fleet planner's
+        models for this worker) into the residency ledger, whose next idle
+        poll warms hinted models first. A malformed or absent hint is
+        ignored: it is advisory."""
+        if not isinstance(raw, (list, tuple)) or not raw:
+            return
+        residency = getattr(self.registry, "residency", None)
+        if residency is None:
+            return
+        try:
+            residency.note_placement([str(m) for m in raw])
+        except Exception:  # stub registries
+            log.debug("placement hint dropped", exc_info=True)
+
     async def run(self) -> None:
         self.startup()
         self._replay_dead_letters()
+        # a redelivered job arrives with the hive's copy of its checkpoint:
+        # leftovers of an earlier run would only shadow it
+        self.checkpoints.clear()
+        # bind the health endpoint before any task starts: a port clash
+        # fails fast instead of leaving unsupervised tasks behind
+        health_runner = await self._start_health_server()
         loop = asyncio.get_running_loop()
         signals = self._install_signal_handlers(loop)
         slot_tasks = [
@@ -470,6 +557,11 @@ class Worker:
                                           name="results")
         poll_task = asyncio.create_task(self._poll_loop(), name="poll")
         tasks = slot_tasks + [result_task, poll_task]
+        if float(self.settings.heartbeat_s or 0) > 0:
+            # heartbeats outlive the poll loop: they keep the leases of
+            # draining in-flight jobs until the final cancellation below
+            tasks.append(asyncio.create_task(self._heartbeat_loop(),
+                                             name="heartbeat"))
         try:
             await self._stop.wait()
             await self._shutdown(poll_task, slot_tasks, result_task)
@@ -481,6 +573,8 @@ class Worker:
             self._spool_unsent_results()
             # refresh persisted breaker cooldowns (they survive restarts)
             self.breakers.save()
+            if health_runner is not None:
+                await health_runner.cleanup()
             self._remove_signal_handlers(loop, signals)
 
     async def _shutdown(self, poll_task, slot_tasks, result_task) -> None:
@@ -537,12 +631,266 @@ class Worker:
             self._finish_trace(trace, result, settled="dead_letter")
             self.result_queue.task_done()
 
+    # ---- health (JAX :805-1130) ----
+
+    def _devices(self) -> list[str]:
+        """The pool's devices, de-duplicated (a one-card seq mesh is one)."""
+        return sorted({d for slot in self.pool
+                       for d in _guard._slot_devices(slot)})
+
+    def _profile_device(self) -> str:
+        """What ``/debug/profile`` captures: CUDA activity when the pool
+        runs on a card, the CPU alone when it runs on the CPU."""
+        return ("cuda" if any(d.startswith("cuda") for d in self._devices())
+                else "cpu")
+
+    def health(self) -> dict[str, Any]:
+        """``/healthz``: JAX's keys for the ported parts (the per-shard
+        ``hive_shards`` and ``hive_epoch`` wait for federation), and
+        ``device_memory``, each card's ``memory_allocated`` and
+        ``max_memory_allocated``."""
+        from chiaswarm_tpu_torch import WORKER_VERSION
+
+        devices = self._devices()
+        data: dict[str, Any] = {
+            "status": "ok",
+            "worker_version": WORKER_VERSION,
+            "worker_name": self.settings.worker_name,
+            "backend": self._profile_device(),
+            "devices": len(devices),
+            "slots": len(self.pool),
+            "jobs_done": self.jobs_done,
+            "queue_depth": self.work_queue.qsize(),
+            "results_pending": self.result_queue.qsize(),
+            "breakers": self.breakers.states(),
+            "dead_letter_depth": self.dead_letters.depth(),
+            "poll_consecutive_errors": self._poll_backoff.failures,
+            "checkpoint_depth": self.checkpoints.depth(),
+            "checkpoints_written": self.checkpoints.written,
+            "checkpoints_corrupt_skipped": self.checkpoints.corrupt_skipped,
+            "inflight_jobs": len(self._inflight),
+            "hive_session": self.hive_session.snapshot(),
+        }
+        data.update(self.stats.snapshot())
+        data["stepper"] = self._stepper_health()
+        data["guard"] = self.guard.snapshot()
+        # the measured hang-budget suggestion from this process's lane
+        # step-seconds histogram, beside the priors
+        data["guard"]["suggested_hang_budget"] = _guard.suggest_hang_budget()
+        data["chips_in_service"] = sum(
+            len(_guard._slot_devices(slot)) or 1 for slot in self.pool)
+        data["overload"] = dict(self.overload.snapshot(),
+                                enabled=bool(self.settings.overload_control))
+        residency = getattr(self.registry, "residency", None)
+        if residency is not None:
+            data["residency"] = residency.snapshot()
+        model_states = getattr(self.registry, "model_states", None)
+        if callable(model_states):
+            data["models"] = model_states()
+        data["device_memory"] = {
+            d: {"allocated_bytes": torch.cuda.memory_allocated(d),
+                "max_allocated_bytes": torch.cuda.max_memory_allocated(d)}
+            for d in devices if d.startswith("cuda")}
+        return data
+
+    def _fleet_metrics(self) -> dict[str, Any]:
+        """The compact snapshot a heartbeat carries (JAX :877-924): demand
+        (the arrival EWMA), supply (lane occupancy, cards in service) and
+        state (overload, residency). Host dicts only; a failing part leaves
+        a partial snapshot."""
+        data: dict[str, Any] = {
+            "queue_depth": self.work_queue.qsize(),
+            "inflight_jobs": len(self._inflight),
+            "jobs_done": self.jobs_done,
+            "jobs_shed": self.stats.jobs_shed,
+            "jobs_failed": self.stats.jobs_failed,
+            "chips_in_service": sum(
+                len(_guard._slot_devices(slot)) or 1 for slot in self.pool),
+        }
+        try:
+            stepper = self._stepper_health()
+            data.update(
+                arrival_rate_rows_s=float(
+                    stepper.get("arrival_rate") or 0.0),
+                lane_occupancy=float(stepper.get("lane_occupancy") or 0.0),
+                padding_waste=float(stepper.get("padding_waste") or 0.0),
+                lanes_live=int(stepper.get("lanes_live") or 0),
+                step_seconds_ewma=float(
+                    stepper.get("step_seconds_ewma") or 0.0))
+        except Exception:  # lanes absent or stubbed: no demand half
+            pass
+        try:
+            data["overload"] = self.overload.fleet_view()
+        except Exception:
+            pass
+        residency = getattr(self.registry, "residency", None)
+        if residency is not None:
+            try:
+                snap = residency.snapshot()
+                data["residency"] = {
+                    "resident_models": len(
+                        snap.get("resident_models") or ()),
+                    "resident_bytes": snap.get("resident_bytes", 0),
+                    "budget_bytes": snap.get("budget_bytes", 0),
+                    "evictions": snap.get("evictions", 0),
+                }
+            except Exception:  # stub registries
+                pass
+        return data
+
+    def _stepper_health(self) -> dict[str, Any]:
+        """The lanes' stats (JAX :926-940): occupancy against padding,
+        rows spliced mid-flight, steps executed, the step EWMA."""
+        from chiaswarm_tpu_torch.serving.stepper import (
+            aggregate_stats,
+            stepper_enabled,
+        )
+
+        steppers = [st for st in
+                    (getattr(slot, "_stepper", None) for slot in self.pool)
+                    if st is not None]
+        data = {"enabled": stepper_enabled()}
+        data.update(aggregate_stats(steppers))
+        return data
+
+    def _collect_metrics(self) -> None:
+        """Scrape-time mirror of the state the registry does not see change
+        (JAX :942-1030): queue depths, spools, leases, breakers, the lanes'
+        stats."""
+        m = self.metrics
+        m.gauge("chiaswarm_work_queue_depth",
+                "jobs queued and not yet claimed by a slot").set(
+            self.work_queue.qsize())
+        m.gauge("chiaswarm_results_pending",
+                "finished results waiting for upload").set(
+            self.result_queue.qsize())
+        m.counter("chiaswarm_jobs_done_total",
+                  "jobs that completed execution on this worker").set_to(
+            self.jobs_done)
+        m.gauge("chiaswarm_dead_letter_depth",
+                "result envelopes spooled on disk (all shard spools)").set(
+            self.dead_letters.depth())
+        m.gauge("chiaswarm_poll_consecutive_errors",
+                "current poll-loop error streak (drives the backoff; "
+                "worst shard)").set(self._poll_backoff.failures)
+        m.gauge("chiaswarm_checkpoint_depth",
+                "in-flight resume checkpoints on disk").set(
+            self.checkpoints.depth())
+        m.counter("chiaswarm_checkpoints_written_total",
+                  "lane/phase resume checkpoints written").set_to(
+            self.checkpoints.written)
+        m.counter("chiaswarm_checkpoints_corrupt_total",
+                  "corrupt checkpoint files skipped loudly").set_to(
+            self.checkpoints.corrupt_skipped)
+        m.gauge("chiaswarm_inflight_jobs",
+                "jobs between poll receipt and settled upload (the "
+                "lease-heartbeat set)").set(len(self._inflight))
+        obs_metrics.hive_session_state_gauge(m).set(
+            1 if self.hive_session.in_outage else 0)
+        obs_metrics.trace_spans_evicted_counter(m).set_to(
+            self.traces.spans_evicted)
+        state_code = {"closed": 0, "half_open": 1, "open": 2}
+        breaker_state = m.gauge(
+            "chiaswarm_breaker_state",
+            "per-model circuit breaker (0=closed 1=half-open 2=open)",
+            labelnames=("model",))
+        breaker_failures = m.gauge(
+            "chiaswarm_breaker_consecutive_failures",
+            "per-model consecutive breaker-counted failures",
+            labelnames=("model",))
+        for model, snap in self.breakers.states().items():
+            breaker_state.set(state_code.get(snap["state"], 2), model=model)
+            breaker_failures.set(snap["consecutive_failures"], model=model)
+        stepper = self._stepper_health()
+        for key in _STEPPER_COUNTERS:
+            m.counter(f"chiaswarm_stepper_{key}_total",
+                      f"step scheduler: cumulative {key}").set_to(
+                stepper.get(key, 0))
+        for key in _STEPPER_GAUGES:
+            m.gauge(f"chiaswarm_stepper_{key}",
+                    f"step scheduler: current {key}").set(
+                stepper.get(key, 0))
+        m.gauge("chiaswarm_stepper_enabled",
+                "1 when CHIASWARM_STEPPER lane routing is on").set(
+            1 if stepper.get("enabled") else 0)
+
+    async def _start_health_server(self):
+        """Serve ``/healthz``, ``/metrics``, ``/debug/traces`` and
+        ``/debug/profile`` on ``health_host`` (loopback by default) at
+        ``health_port``, or an ephemeral port with ``health_bind_ephemeral``
+        (``self.health_address`` says which). None when neither is set."""
+        port = int(self.settings.health_port or 0)
+        if port <= 0 and not self.settings.health_bind_ephemeral:
+            return None
+        from aiohttp import web
+
+        async def healthz(_request):
+            return web.json_response(self.health())
+
+        async def metrics_endpoint(_request):
+            body = obs_metrics.render_all([self.metrics,
+                                           obs_metrics.REGISTRY])
+            return web.Response(
+                body=body.encode("utf-8"),
+                headers={"Content-Type": obs_metrics.CONTENT_TYPE})
+
+        async def traces_endpoint(request):
+            # ?since=<seq> is the scrape cursor: only traces pushed after
+            # it return, and the cursor block shows an eviction gap
+            since = None
+            if request.query.get("since"):
+                try:
+                    since = int(request.query["since"])
+                except ValueError:
+                    return web.json_response(
+                        {"status": "error",
+                         "error": "since must be an integer ring "
+                                  "sequence number"}, status=400)
+            cursor = self.traces.cursor()
+            if request.query.get("format") == "tree":
+                return web.json_response(
+                    {"traces": self.traces.to_dicts(since),
+                     "cursor": cursor})
+            doc = self.traces.to_chrome(since)
+            doc["cursor"] = cursor
+            return web.json_response(doc)
+
+        async def profile_endpoint(request):
+            try:
+                seconds = float(request.query.get("seconds", "5"))
+            except ValueError:
+                return web.json_response(
+                    {"status": "error", "error": "seconds must be a "
+                     "number"}, status=400)
+            out = request.query.get("dir") or None
+            # the capture blocks for its duration: off the event loop
+            result = await asyncio.get_running_loop().run_in_executor(
+                None, functools.partial(obs_profiling.capture, seconds, out,
+                                        self._profile_device()))
+            status = {"ok": 200, "busy": 409}.get(result.get("status"), 500)
+            return web.json_response(result, status=status)
+
+        app = web.Application()
+        app.router.add_get("/healthz", healthz)
+        app.router.add_get("/metrics", metrics_endpoint)
+        app.router.add_get("/debug/traces", traces_endpoint)
+        app.router.add_get("/debug/profile", profile_endpoint)
+        runner = web.AppRunner(app)
+        await runner.setup()
+        host = self.settings.health_host or "127.0.0.1"
+        site = web.TCPSite(runner, host, max(port, 0))
+        await site.start()
+        bound_port = runner.addresses[0][1] if runner.addresses else port
+        self.health_address = (host, bound_port)
+        log.info("health endpoints on %s:%d (/healthz /metrics "
+                 "/debug/traces /debug/profile)", host, bound_port)
+        return runner
+
     # ---- the healing ladder (serving/guard.py) ----
 
     def _apply_heal_rungs(self) -> None:
         """Apply the rungs the device guard queued since the last poll (JAX
-        :1324-1365), and mirror the lanes' guard counters into the worker's
-        registry. The lane rebuild happened lane-side at condemnation.
+        :1324-1365). The lane rebuild happened lane-side at condemnation.
 
         - ``cache_flush``: the port keeps no executable cache to drop, so
           the rung re-colds what warm-up built: every lane's warm widths
@@ -554,7 +902,6 @@ class Worker:
         - ``device_quarantine``: :meth:`_quarantine_device`.
         - ``restart``: the graceful drain, then exit code
           ``GUARD_RESTART_EXIT_CODE``."""
-        self._mirror_lane_counters()
         if not self.settings.guard_enabled:
             return
         for action in self.guard.take_actions():
@@ -606,22 +953,6 @@ class Worker:
                       "mesh shrunk to %d healthy device(s)", device, reason,
                       slot.index, len(healthy))
 
-    def _mirror_lane_counters(self) -> None:
-        """The guard's lane counters as ``chiaswarm_stepper_<key>_total``
-        on the worker's registry (the JAX worker's collector, :1011-1025,
-        for these keys)."""
-        from chiaswarm_tpu_torch.serving.stepper import aggregate_stats
-
-        steppers = [slot._stepper for slot in self.pool
-                    if getattr(slot, "_stepper", None) is not None]
-        totals = aggregate_stats(steppers) if steppers else {}
-        for key in ("lanes_condemned", "rows_hung", "rows_invalid",
-                    "steps_slow", "rows_resumed", "resumes_rejected"):
-            self.metrics.counter(
-                f"chiaswarm_stepper_{key}_total",
-                f"step scheduler: cumulative {key}").set_to(
-                    totals.get(key, 0))
-
     # ---- tasks ----
 
     async def _poll_loop(self) -> None:
@@ -637,6 +968,20 @@ class Worker:
                         pass
                 if self._stop.is_set():
                     return
+                # predictive backpressure: the controller throttles intake
+                # as soon as the queued backlog's drain estimate outruns
+                # the budget, before the queue is full of jobs it would shed
+                if self.settings.overload_control:
+                    throttle = self.overload.poll_throttle(
+                        self.work_queue.qsize(), len(self.pool))
+                    if throttle > 0:
+                        self.stats.polls_backpressured += 1
+                        try:
+                            await asyncio.wait_for(self._stop.wait(),
+                                                   timeout=throttle)
+                        except asyncio.TimeoutError:
+                            pass
+                        continue
                 delay = await self._ask_for_work(session)
                 self._apply_heal_rungs()
                 try:
@@ -663,6 +1008,9 @@ class Worker:
         self._note_hive_ok()
         self._poll_backoff.reset()
         poll_http_s = time.perf_counter() - t_poll
+        # the brownout cap, refreshed on every poll: it lands promptly under
+        # load and lifts on the next (possibly idle) poll once cleared
+        self._push_admission_caps()
         for job in jobs:
             if job.get("id") in self._inflight:
                 # a hive may redeliver a job back to the worker still
@@ -674,7 +1022,9 @@ class Worker:
                 continue
             log.info("got job %s", job.get("id"))
             # the job's trace is born at hive receipt; its "poll" phase
-            # covers the queue wait until a slot picks the job up
+            # covers the queue wait until a slot picks the job up. A
+            # redelivered job carries its lineage: the delivery attempt and
+            # the checkpoint step it resumes from
             resume = job.get("resume")
             try:
                 queued_s = max(0.0, float(job.get("queued_s") or 0.0))
@@ -706,6 +1056,117 @@ class Worker:
                 except Exception:  # prefetch must never stop polls
                     log.exception("residency prefetch tick failed")
         return float(self.settings.poll_idle_s)
+
+    def _push_admission_caps(self) -> None:
+        """Mirror the overload controller's brownout admission cap into
+        every slot's step scheduler (None lifts it)."""
+        cap = (self.overload.admission_cap()
+               if self.settings.overload_control else None)
+        for slot in self.pool:
+            stepper = getattr(slot, "_stepper", None)
+            if stepper is not None:
+                stepper.set_admission_cap(cap)
+
+    async def _heartbeat_loop(self) -> None:
+        """Lease keep-alive (JAX :1408-1576, one hive): every
+        ``heartbeat_s`` tell the hive which jobs are in flight here, with
+        each checkpoint changed since the last beat. A hive that reassigned
+        a lease answers with the lost ids: the local run goes on (the first
+        upload wins hive-side), the loss is counted and warned once."""
+        interval = float(self.settings.heartbeat_s)
+        # the metrics snapshot refreshes at most every ~2 s: leases can
+        # beat at 20 Hz, and an autoscaler reads seconds-scale state
+        metrics_every = max(interval, 2.0)
+        pushed: dict[Any, int] = {}  # job id -> spool version last pushed
+        # leases the hive already reported lost: counted once per loss
+        lost_reported: set[str] = set()
+
+        def build_jobs(ids: list) -> list[dict]:
+            # in a thread: latent-sized files would stall the event loop.
+            # A None checkpoint means unchanged since the last beat (the
+            # hive keeps its copy)
+            jobs = []
+            for job_id in ids:
+                version = self.checkpoints.version(job_id)
+                if (version is None or pushed.get(job_id) == version
+                        or str(job_id) in lost_reported):
+                    # a lost lease's checkpoint custody moved with it
+                    jobs.append({"id": job_id, "checkpoint": None})
+                    continue
+                checkpoint = self.checkpoints.load(job_id)
+                if checkpoint is not None:
+                    pushed[job_id] = version
+                jobs.append({"id": job_id, "checkpoint": checkpoint})
+            return jobs
+
+        async def idle_beat() -> None:
+            # nothing in flight: a metrics-only beat at the metrics cadence,
+            # so the hive sees idle capacity too
+            if time.monotonic() - self._last_metrics < metrics_every:
+                return
+            try:
+                ack = await self.hive.post_heartbeat(session, {
+                    "worker_name": self.settings.worker_name,
+                    "jobs": [],
+                    "metrics": self._fleet_metrics(),
+                })
+                self._note_hive_ok()
+                if isinstance(ack, dict):
+                    self._note_placement(ack.get("placement"))
+                self._last_metrics = time.monotonic()
+            except Exception as exc:
+                self._note_hive_failure("heartbeat", exc)
+                log.debug("idle heartbeat failed: %s", exc)
+
+        async with aiohttp.ClientSession() as session:
+            while True:
+                await asyncio.sleep(interval)
+                if self._stop.is_set() and not self._inflight:
+                    return
+                if not self._inflight:
+                    pushed.clear()
+                    lost_reported.clear()
+                    await idle_beat()
+                    continue
+                inflight = list(self._inflight)
+                for job_id in [j for j in pushed if j not in self._inflight]:
+                    pushed.pop(job_id, None)
+                lost_reported &= {str(j) for j in inflight}
+                payload = {
+                    "worker_name": self.settings.worker_name,
+                    "jobs": await asyncio.to_thread(build_jobs, inflight),
+                }
+                if time.monotonic() - self._last_metrics >= metrics_every:
+                    payload["metrics"] = self._fleet_metrics()
+                    self._last_metrics = time.monotonic()
+                try:
+                    response = await self.hive.post_heartbeat(session,
+                                                              payload)
+                    self._note_hive_ok()
+                    # a malformed 2xx body counts as a failed beat, never a
+                    # loop exit
+                    lost_raw = response.get("lost") or []
+                    if not isinstance(lost_raw, list):
+                        raise TypeError("non-list 'lost' in heartbeat "
+                                        f"response: {lost_raw!r}")
+                    reported = {str(j) for j in lost_raw}
+                    self._note_placement(response.get("placement"))
+                except Exception as exc:
+                    # a reference hive has no heartbeat endpoint, and a
+                    # partitioned hive is exactly when beats go on
+                    self._note_hive_failure("heartbeat", exc)
+                    log.debug("heartbeat failed: %s", exc)
+                    continue
+                self.stats.lease_heartbeats += 1
+                reported &= {str(j) for j in inflight}
+                lost = sorted(reported - lost_reported)
+                # replaced, not accumulated: a job the hive stops reporting
+                # lost was leased back to us, and a later loss warns anew
+                lost_reported = reported
+                if lost:
+                    self.stats.leases_lost += len(lost)
+                    log.warning("hive reassigned lease(s) for %s; local "
+                                "work continues, upload will dedupe", lost)
 
     async def _next_job(self) -> dict | None:
         """Block for the next queued job; None once the worker is draining
@@ -866,6 +1327,8 @@ class Worker:
             out = await asyncio.wait_for(call, timeout=budget)
         except asyncio.TimeoutError:
             self.stats.jobs_timed_out += len(jobs)
+            # the estimator learns the slowness a timeout proves
+            self.overload.note_service(jobs[0].get("workflow"), budget)
             log.error("burst %s exceeded its %.0fs deadline",
                       [job.get("id") for job in jobs], budget)
             return [error_result(
@@ -912,6 +1375,11 @@ class Worker:
                          f"(circuit breaker open)", kind="quarantined")
             else:
                 ready.append(i)
+        # deadline-aware admission: jobs predicted to miss their deadline
+        # behind the local backlog shed before any kernel runs, as
+        # non-fatal "overloaded" envelopes (capacity, not failure)
+        if ready and self.settings.overload_control:
+            ready = self._shed_gate(burst, results, ready)
         if ready:
             attempt = await self._attempt([burst[i] for i in ready], slot)
             for i, result in zip(ready, attempt):
@@ -944,6 +1412,93 @@ class Worker:
             if trace is not None and results[i] is not None:
                 obs_trace.attach(results[i], trace)
         return [result for result in results if result is not None]
+
+    def _job_deadline_s(self, job: dict) -> float:
+        """A job's end-to-end deadline (JAX :1873-1899): its own
+        ``deadline_s``, else the operator's per-family override
+        (``family_deadline_s``), else the per-workflow setting."""
+        raw = job.get("deadline_s")
+        if raw is not None:
+            try:
+                value = float(raw)
+                if value > 0:
+                    return value
+            except (TypeError, ValueError):
+                pass
+        table = self.settings.family_deadline_s or {}
+        if table:
+            family = self._model_family(job.get("model_name"))
+            if family is not None and family in table:
+                try:
+                    value = float(table[family])
+                    if value > 0:
+                        return value
+                except (TypeError, ValueError):
+                    pass
+        return self.settings.deadline_for(job.get("workflow"))
+
+    @staticmethod
+    def _model_family(model_name: Any) -> str | None:
+        """Catalog family of a model name (None when unresolvable)."""
+        if not model_name:
+            return None
+        try:
+            from chiaswarm_tpu_torch.models.configs import get_family
+
+            return str(get_family(str(model_name)).name)
+        except Exception:
+            return None
+
+    def _shed_gate(self, burst: list[dict], results: list,
+                   ready: list[int]) -> list[int]:
+        """Admission verdicts for a burst about to run (JAX :1914-1967);
+        returns the indices that survive. A shed job's envelope settles
+        through the normal result path."""
+        now = time.monotonic()
+        stepper = self._stepper_health()
+        step_ewma = float(stepper.get("step_seconds_ewma") or 0.0)
+        queued = self.work_queue.qsize()
+        slots = len(self.pool)
+        admitted: list[int] = []
+        for i in ready:
+            job = burst[i]
+            received = self._inflight.get(job.get("id"))
+            # the job's age: the hive's queue time (a lease-aware hive's
+            # "queued_s" stamp) plus the local queue wait
+            try:
+                queued_s = max(0.0, float(job.get("queued_s") or 0.0))
+            except (TypeError, ValueError):
+                queued_s = 0.0
+            lane_estimate = None
+            if stepper.get("enabled") and step_ewma > 0.0:
+                try:
+                    steps = int(job.get("num_inference_steps") or 0)
+                except (TypeError, ValueError):
+                    steps = 0
+                if steps > 0:
+                    lane_estimate = steps * step_ewma
+            decision = self.overload.should_shed(
+                workflow=job.get("workflow"),
+                waited_s=queued_s + (0.0 if received is None
+                                     else max(0.0, now - received)),
+                deadline_s=self._job_deadline_s(job),
+                # burst mates admitted ahead of this job are backlog too
+                queued_ahead=queued + len(admitted), slots=slots,
+                lane_estimate_s=lane_estimate)
+            if not decision.shed:
+                admitted.append(i)
+                continue
+            self.stats.jobs_shed += 1
+            log.warning("job %s shed at admission: %s", job.get("id"),
+                        decision.reason)
+            results[i] = error_result(
+                job, f"shed by overload control on this node "
+                     f"({decision.reason}); a less-loaded node may "
+                     f"still serve it", kind="overloaded")
+        if len(admitted) < len(ready):
+            # sheds may have tripped (or extended) brownout: cap the lanes
+            self._push_admission_caps()
+        return admitted
 
     def _record_outcomes(self, outcomes: dict[str, set[str]]) -> None:
         """Feed the per-model circuit breakers, ONE record per model per
@@ -996,6 +1551,8 @@ class Worker:
             if spooled is not None:
                 self.dead_letters.discard(spooled)
                 self._replayed_paths.discard(str(spooled))
+            # the job settled: its resume checkpoint is garbage
+            self.checkpoints.discard(result.get("id"))
         elif spooled is None:
             self.dead_letters.spool(result)
             self.stats.results_dead_lettered += 1
@@ -1019,10 +1576,25 @@ class Worker:
         trace.meta["outcome"] = outcome
         trace.meta["settled"] = settled
         trace.finish(self.traces)
+        service_s = 0.0
         for phase in trace.root.children:
             self._phase_seconds.observe(phase.duration_s, phase=phase.name)
+            if phase.name in ("execute", "upload"):
+                service_s += phase.duration_s
         self._job_seconds.observe(trace.root.duration_s)
         self._jobs_total.inc(outcome=outcome)
+        if outcome == "ok" and service_s > 0.0:
+            # the admission estimator's service EWMA learns a successful
+            # job's worker-side cost (execute + upload), per job of the
+            # attempt its execute phase spanned; failures would drag it
+            # toward zero and re-admit the jobs being shed
+            try:
+                attempt_jobs = max(1, int(
+                    trace.meta.get("attempt_jobs") or 1))
+            except (TypeError, ValueError):
+                attempt_jobs = 1
+            self.overload.note_service(trace.meta.get("workflow"),
+                                       service_s / attempt_jobs)
 
     async def _upload_with_retry(self, session, result) -> bool:
         retries = max(1, int(self.settings.upload_retries))

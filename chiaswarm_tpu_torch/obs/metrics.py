@@ -1,25 +1,36 @@
 """Prometheus-style metrics registry: counters, gauges, histograms. A copy of
 ``chiaswarm_tpu/obs/metrics.py`` (:31-387 and :806-831), trimmed to what the
 worker (``node/worker.py``) and ``node/resilience.py::ResilienceStats`` use:
-:class:`Registry`, :class:`Counter`, :class:`Gauge`, :class:`Histogram`,
-:func:`render_all`, the process-global :data:`REGISTRY`, the dead-letter and
-hive-session families, the residency families (:530-636), which
-``serving/residency.py`` registers on :data:`REGISTRY` with zeroes, and the
-gray-failure guard's ``chiaswarm_guard_*`` families (:704-780), which each
-worker's ``serving/guard.py::DeviceGuard`` registers on the worker's
-registry with zeroes, and the step-collapse families (:472-530), which
+:class:`Registry` (with its scrape-time collectors), :class:`Counter`,
+:class:`Gauge`, :class:`Histogram` (with ``percentile``/``percentiles``,
+:204-250), :func:`render_all`, the process-global :data:`REGISTRY`, the
+dead-letter and hive-session families, the resume-step histogram
+(:409-430), the residency families (:530-636), which
+``serving/residency.py`` registers on :data:`REGISTRY` with zeroes, the
+overload families (:630-702), which each worker's
+``node/overload.py::OverloadController`` registers on the worker's registry
+with zeroes, the gray-failure guard's ``chiaswarm_guard_*`` families
+(:704-780), which each worker's ``serving/guard.py::DeviceGuard`` registers
+on the worker's registry with zeroes, the trace-ring eviction counter
+(:779-790), and the step-collapse families (:472-530), which
 ``pipelines/diffusion.py`` seeds on :data:`REGISTRY` with zeroes.
 
 Each worker owns its own :class:`Registry` (hermetic test workers must not
 bleed counters into each other); process-wide state, such as the hive
-client's request counts, lives on :data:`REGISTRY`. Stdlib only.
+client's request counts and the lanes' step seconds, lives on
+:data:`REGISTRY`, and ``/metrics`` serves both. The port's own family,
+:func:`kernel_launches_counter`, mirrors each hand-written kernel's launch
+count at scrape time (``ops/kernels.py``). Stdlib only.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
-from typing import Any, Iterable, Sequence
+from typing import Any, Callable, Iterable, Sequence
+
+log = logging.getLogger("chiaswarm_torch.obs")
 
 #: default histogram buckets (seconds): poll blips (~ms) through whole
 #: jobs (~minutes)
@@ -170,6 +181,43 @@ class Histogram(_Metric):
         with self._lock:
             return self._sums.get(self._key(labels), 0.0)
 
+    def percentile(self, q: float, **labels: Any) -> float | None:
+        """Estimate the q-quantile (q in [0, 1]) from the bucket counts by
+        linear interpolation inside the covering bucket (Prometheus'
+        ``histogram_quantile``, computed locally). None for an empty
+        series; mass above the last finite bucket clamps to that bound."""
+        key = self._key(labels)
+        with self._lock:
+            # copied under the lock: observe() mutates the list in place
+            counts = list(self._counts.get(key) or ())
+            total = self._totals.get(key, 0)
+        if not counts or total <= 0:
+            return None
+        q = min(max(float(q), 0.0), 1.0)
+        rank = q * total
+        cum = 0
+        for i, n in enumerate(counts):
+            if not n:
+                continue
+            lo = self.buckets[i - 1] if i else 0.0
+            hi = self.buckets[i]
+            if cum + n >= rank:
+                frac = (rank - cum) / n
+                return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+            cum += n
+        return self.buckets[-1]  # overflow mass: clamp to the last bound
+
+    def percentiles(self, qs: Sequence[float] = (0.5, 0.9, 0.99),
+                    **labels: Any) -> dict[str, float] | None:
+        """{"p50": ..., "p90": ..., ...} or None when empty."""
+        out = {}
+        for q in qs:
+            v = self.percentile(q, **labels)
+            if v is None:
+                return None
+            out[f"p{str(round(q * 100, 1)).rstrip('0').rstrip('.')}"] = v
+        return out
+
     def render(self) -> list[str]:
         lines = []
         if self.help:
@@ -194,7 +242,7 @@ class Histogram(_Metric):
         return lines
 
 class Registry:
-    """Named metric families.
+    """Named metric families and scrape-time collector callbacks.
 
     ``counter``/``gauge``/``histogram`` are get-or-create: asking twice
     for the same name returns the same object (so modules can declare
@@ -205,6 +253,7 @@ class Registry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._metrics: dict[str, _Metric] = {}
+        self._collectors: list[Callable[[], None]] = []
 
     def _get_or_create(self, cls, name: str, help: str,
                        labelnames: Sequence[str], **kwargs) -> Any:
@@ -239,12 +288,29 @@ class Registry:
         with self._lock:
             return self._metrics.get(name)
 
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Register a callback run before every render: the place to mirror
+        state kept elsewhere (lane stats, queue depths, breaker states,
+        kernel launches) into gauges and counters at scrape time."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def collect(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # a broken mirror must never break scrapes
+                log.exception("metrics collector failed")
+
     def _sorted_metrics(self) -> list[_Metric]:
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
 
     def render(self) -> str:
         """Prometheus text exposition format (version 0.0.4)."""
+        self.collect()
         lines: list[str] = []
         for metric in self._sorted_metrics():
             lines.extend(metric.render())
@@ -257,9 +323,39 @@ def render_all(registries: Iterable[Registry]) -> str:
     return "".join(r.render() for r in registries)
 
 
-#: process-global registry (the hive client's request counts); worker-
-#: scoped counters live on each worker's own Registry (hermetic tests)
+#: process-global registry (the hive client's request counts, the lanes'
+#: step timing); worker-scoped counters live on each worker's own Registry
+#: (hermetic tests)
 REGISTRY = Registry()
+
+#: resume-step buckets: powers of two over the step lattice
+RESUME_STEP_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+
+
+def resume_step_histogram(registry: Registry | None = None) -> Histogram:
+    """Step index at which redelivered rows splice back into a lane,
+    observed by ``serving/stepper.py`` at admission: a redelivered job that
+    resumed records step >= 1 here (and in its result's
+    ``pipeline_config.stepper.resume_step``); a distribution stuck at low
+    steps means leases expire faster than the checkpoint cadence
+    (``CHIASWARM_STEPPER_CKPT_EVERY``) pushes progress. Unlabeled: lane ids
+    would leak one series per rebuilt lane."""
+    return (registry or REGISTRY).histogram(
+        "chiaswarm_stepper_resume_step",
+        "step index at which resumed (redelivered) rows spliced into "
+        "a lane",
+        buckets=RESUME_STEP_BUCKETS)
+
+
+def kernel_launches_counter(registry: Registry | None = None) -> Counter:
+    """Launches of the port's hand-written kernels, by kernel and launched
+    shape ``BxLxSxHxD:dtype`` (``ops/kernels.py``, mirrored at scrape time):
+    a worker's ``/metrics`` shows which kernels its jobs went through, at
+    which shapes. The port's own family; the JAX package has none."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_kernel_launches_total",
+        "launches of the hand-written CUDA kernels, by kernel and shape",
+        labelnames=("kernel", "shape"))
 
 
 #: when a dead-letter envelope was replayed back into the upload queue:
@@ -384,6 +480,78 @@ def residency_load_seconds_histogram(
                  60.0, 120.0, 300.0))
 
 
+# ---- overload-control families (node/overload.py) ----
+#
+# The controller is per worker (hermetic test workers must not bleed shed
+# counts into each other): it takes the worker's registry and pre-seeds
+# every label vocabulary at construction.
+
+#: overload controller states (the brownout rung)
+OVERLOAD_STATES = ("normal", "brownout")
+
+
+def overload_state_gauge(registry: Registry | None = None) -> Gauge:
+    """Overload-control state: 0 = normal, 1 = brownout (sustained shedding
+    tripped the rung: lane admissions are capped per step and the shed
+    margin tightens until sheds stop for the cooldown)."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_overload_state",
+        "overload control state (0=normal, 1=brownout)")
+
+
+def overload_shed_counter(registry: Registry | None = None) -> Counter:
+    """Jobs shed at admission because the estimator predicted a deadline
+    miss, by workload: non-fatal ``overloaded`` envelopes a lease-aware
+    hive redispatches with this worker excluded."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_overload_shed_total",
+        "jobs shed by deadline-aware admission control, by workload",
+        labelnames=("workload",))
+
+
+def overload_backpressure_counter(
+        registry: Registry | None = None) -> Counter:
+    """Poll-loop waits inserted by queue-depth backpressure: the queued
+    backlog alone was predicted to outlast the backpressure budget."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_overload_backpressure_waits_total",
+        "poll-loop waits inserted by queue-depth backpressure")
+
+
+def overload_predicted_wait_histogram(
+        registry: Registry | None = None) -> Histogram:
+    """The admission estimator's predicted completion time (queue drain +
+    service estimate) at every shed decision."""
+    return (registry or REGISTRY).histogram(
+        "chiaswarm_overload_predicted_wait_seconds",
+        "admission estimator's predicted completion time at each "
+        "shed decision",
+        buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                 120.0, 300.0, 600.0, 1800.0))
+
+
+def overload_admission_cap_gauge(
+        registry: Registry | None = None) -> Gauge:
+    """Current brownout lane-admission cap (rows per step boundary); 0 =
+    uncapped. Pushed into every slot's ``StepScheduler`` while brownout
+    holds."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_overload_admission_cap",
+        "brownout cap on lane rows admitted per step boundary "
+        "(0 = uncapped)")
+
+
+def trace_spans_evicted_counter(
+        registry: Registry | None = None) -> Counter:
+    """Spans dropped from the bounded trace ring by eviction: a scraper of
+    ``/debug/traces`` polling too slowly loses them (the ``?since=``
+    cursor shows the gap)."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_trace_spans_evicted_total",
+        "spans evicted from the bounded trace ring before any scrape "
+        "collected them (use /debug/traces?since= to detect gaps)")
+
+
 # ---- gray-failure guard families (serving/guard.py) ----
 #
 # The DeviceGuard is per worker (hermetic test workers must not bleed
@@ -488,3 +656,7 @@ def unet_evals_per_image_histogram(
         "chiaswarm_stepper_unet_evals_per_image",
         "full UNet evaluations per finished image",
         buckets=UNET_EVAL_BUCKETS)
+
+
+#: the Prometheus text exposition content type
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"

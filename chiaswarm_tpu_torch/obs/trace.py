@@ -1,6 +1,7 @@
 """Dapper-style trace spans: where a job's wall-clock actually goes. A copy
 of ``chiaswarm_tpu/obs/trace.py`` (``Span``, ``span``, ``JobTrace``,
-``TraceRing``, ``job_trace``, ``attach``, ``detach``, ``activate``).
+``TraceRing`` with its scrape cursor and Chrome export :229-300,
+``job_trace``, ``attach``, ``detach``, ``activate``).
 
 One :class:`JobTrace` per hive job, built across the worker's thread
 boundaries (poll loop -> slot task -> executor thread -> upload task),
@@ -20,9 +21,10 @@ Mechanics:
   ``TRACE_KEY``; the executor pops it before argument formatting) and
   phases are opened/closed manually (:meth:`JobTrace.phase`).
 - Finished traces land in a bounded in-memory :class:`TraceRing`; the
-  worker folds their phases into its latency histograms. The JAX module's
-  exports (``/debug/traces``, Perfetto JSON, the scrape cursor) wait for
-  the health server of a later slice.
+  worker folds their phases into its latency histograms and serves the
+  ring at ``/debug/traces``: Chrome-tracing "complete" events
+  (Perfetto-loadable) or span trees (``?format=tree``), after a scrape
+  cursor (``?since=<seq>``; evictions are counted, so a gap shows).
 
 Everything is stdlib; a ``span()`` outside any active trace times into
 a detached throwaway Span, so library code can instrument
@@ -89,6 +91,29 @@ class Span:
         end = time.perf_counter() if self.t1 is None else self.t1
         return max(0.0, end - self.t0)
 
+    def find(self, name: str) -> "Span | None":
+        """First span named ``name`` in this subtree."""
+        if self.name == name:
+            return self
+        for child in self.children:
+            hit = child.find(name)
+            if hit is not None:
+                return hit
+        return None
+
+    def to_dict(self) -> dict[str, Any]:
+        data: dict[str, Any] = {
+            "name": self.name,
+            "start_us": int(self.t0 * 1e6),
+            "duration_us": int(self.duration_s * 1e6),
+        }
+        if self.meta:
+            data["meta"] = dict(self.meta)
+        if self.children:
+            data["children"] = [c.to_dict() for c in self.children]
+        return data
+
+
 @contextlib.contextmanager
 def span(name: str, **meta: Any) -> Iterator[Span]:
     """Time a region under the currently active span (contextvar).
@@ -118,7 +143,13 @@ class JobTrace:
 
     def __init__(self, name: str = "job", **meta: Any) -> None:
         self.root = Span(name, meta)
+        # wall-clock anchor for readers of the exports; durations never
+        # touch it
+        self.started_at_unix = time.time()
         self.finished = False
+        # ring sequence number from TraceRing.push (0 = never pushed): the
+        # /debug/traces?since=<seq> cursor key
+        self.seq = 0
 
     @property
     def meta(self) -> dict[str, Any]:
@@ -155,8 +186,48 @@ class JobTrace:
         self.root.end()
         (ring if ring is not None else TRACE_RING).push(self)
 
+    # ---- export ----
+
+    def to_dict(self) -> dict[str, Any]:
+        return {"started_at_unix": round(self.started_at_unix, 6),
+                "seq": self.seq,
+                "root": self.root.to_dict()}
+
+    def to_chrome_events(self, pid: int = 1,
+                         tid: int = 1) -> list[dict[str, Any]]:
+        """Chrome-tracing "complete" (ph=X) events, microsecond ts on the
+        process perf_counter timebase (Perfetto-loadable)."""
+        events: list[dict[str, Any]] = []
+
+        def emit(node: Span) -> None:
+            event = {
+                "name": node.name,
+                "ph": "X",
+                "ts": int(node.t0 * 1e6),
+                "dur": max(1, int(node.duration_s * 1e6)),
+                "pid": pid,
+                "tid": tid,
+            }
+            if node.meta:
+                event["args"] = {k: str(v) for k, v in node.meta.items()}
+            events.append(event)
+            for child in node.children:
+                emit(child)
+
+        emit(self.root)
+        return events
+
+
+def _span_count(node: Span) -> int:
+    return 1 + sum(_span_count(child) for child in node.children)
+
+
 class TraceRing:
-    """Bounded ring of recently finished traces (newest last)."""
+    """Bounded ring of recently finished traces (newest last). Every pushed
+    trace gets a monotone ``seq``; evictions are counted (``spans_evicted``
+    feeds ``chiaswarm_trace_spans_evicted_total``), so a scraper passing
+    ``?since=<seq>`` sees a gap (``cursor()["oldest_seq"] > since + 1``)
+    instead of losing traces silently."""
 
     def __init__(self, capacity: int | None = None) -> None:
         if capacity is None:
@@ -165,15 +236,58 @@ class TraceRing:
         self._lock = threading.Lock()
         self._traces: collections.deque[JobTrace] = collections.deque(
             maxlen=self.capacity)
+        self._seq = 0
+        self.traces_evicted = 0
+        self.spans_evicted = 0
 
     def push(self, trace: JobTrace) -> None:
         with self._lock:
+            self._seq += 1
+            trace.seq = self._seq
+            if len(self._traces) == self.capacity:
+                oldest = self._traces[0]  # the deque's maxlen drops it
+                self.traces_evicted += 1
+                self.spans_evicted += _span_count(oldest.root)
             self._traces.append(trace)
 
-    def traces(self) -> list[JobTrace]:
-        """Ring contents, oldest first."""
+    def __len__(self) -> int:
         with self._lock:
-            return list(self._traces)
+            return len(self._traces)
+
+    def traces(self, since: int | None = None) -> list[JobTrace]:
+        """Ring contents, oldest first; ``since`` keeps only the traces
+        pushed after that sequence number (the scrape cursor)."""
+        with self._lock:
+            out = list(self._traces)
+        if since is not None:
+            out = [t for t in out if t.seq > int(since)]
+        return out
+
+    def cursor(self) -> dict[str, Any]:
+        """Scraper bookkeeping: pass ``last_seq`` back as ``?since=``; a
+        later ``oldest_seq`` > since + 1 means the ring evicted traces the
+        scraper never saw."""
+        with self._lock:
+            return {
+                "last_seq": self._seq,
+                "oldest_seq": self._traces[0].seq if self._traces else None,
+                "evicted_traces": self.traces_evicted,
+                "evicted_spans": self.spans_evicted,
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._traces.clear()
+
+    def to_dicts(self, since: int | None = None) -> list[dict[str, Any]]:
+        return [t.to_dict() for t in self.traces(since)]
+
+    def to_chrome(self, since: int | None = None) -> dict[str, Any]:
+        """One Perfetto-loadable document; each trace its own track."""
+        events: list[dict[str, Any]] = []
+        for tid, trace in enumerate(self.traces(since), start=1):
+            events.extend(trace.to_chrome_events(tid=tid))
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 #: process-global ring; each worker passes its own to finish()

@@ -11,7 +11,10 @@ imports every module of the package on a machine with no ``nvcc``.
 Each :class:`CudaKernel` carries a plain integer ``launches`` that its
 wrapper increments once per launch, and a count per launched shape, so a
 run can show that its main path went through the kernel and at which
-shapes.
+shapes. The per-shape counts are mirrored into the process registry's
+``chiaswarm_kernel_launches_total`` at every scrape (a worker's
+``/metrics``); :func:`reset_launches`, a harness's reset, never lowers the
+mirror.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable
+
+from chiaswarm_tpu_torch.obs import metrics as obs_metrics
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -149,6 +154,22 @@ def build_all() -> dict[str, Path]:
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
         futures = {name: pool.submit(k.build) for name, k in KERNELS.items()}
     return {name: f.result() for name, f in futures.items()}
+
+
+def shape_label(shape: tuple) -> str:
+    """``(B, L, S, H, D, dtype)`` -> ``"BxLxSxHxD:dtype"``."""
+    *dims, dtype = shape
+    return "x".join(str(int(n)) for n in dims) + f":{dtype}"
+
+
+def _mirror_launches() -> None:
+    counter = obs_metrics.kernel_launches_counter()
+    for name, kernel in list(KERNELS.items()):
+        for shape, n in list(kernel.shapes.items()):
+            counter.set_to(n, kernel=name, shape=shape_label(shape))
+
+
+obs_metrics.REGISTRY.add_collector(_mirror_launches)
 
 
 def reset_launches() -> None:

@@ -124,6 +124,7 @@ from chiaswarm_tpu_torch.core.rng import (
 )
 from chiaswarm_tpu_torch.models.vae import tiled_decode
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.obs.profiling import annotate
 from chiaswarm_tpu_torch.obs.metrics import (
     STEPPER_UNET_EVAL_MODES,
     steps_skipped_counter,
@@ -925,7 +926,7 @@ class DiffusionPipeline:
         image_cond = None
         if mode == "pix2pix":
             image_cond, init_latent = init_latent, None
-        with sequence_parallel(self.mesh):
+        with sequence_parallel(self.mesh), annotate("swarm.generate"):
             images = self._generate(
                 batch=batch, steps=steps, sampler=sampler, use_cfg=use_cfg,
                 guidance=float(req.guidance_scale), ids=ids, neg_ids=neg,

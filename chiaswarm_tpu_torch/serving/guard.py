@@ -1,6 +1,6 @@
 """The gray-failure guard: a copy of ``chiaswarm_tpu/serving/guard.py``
 (``StepHung`` :108, ``LaneHung`` :115, ``InvalidOutput`` :127, the budgets
-:134-248, ``Watchdog``/``WATCHDOG`` :256-326, the flush epoch :328-347,
+and the measured suggestion :134-250, ``Watchdog``/``WATCHDOG`` :256-326, the flush epoch :328-347,
 ``_slot_devices`` :350, ``watch_solo`` :361, ``screen_images`` :427, the
 chaos seams :459-540, ``HEAL_RUNGS``/``HealAction``/``DeviceGuard``
 :547-758), with the same knobs and defaults.
@@ -27,9 +27,9 @@ A card that degrades without dying is caught three ways:
 What is the port's own: devices are labelled ``str(torch.device)`` and
 de-duplicated, so a one-card ``seq = 4`` mesh (``cuda:0`` four times) is one
 device. The ``cache_flush`` rung has no executable cache to drop here
-(``node/worker.py``). Left out until the port serves ``/healthz`` and
-``/metrics``, their readers: ``suggest_hang_budget`` (:190) and the
-step-seconds histogram it reads.
+(``node/worker.py``). :func:`suggest_hang_budget` (:187-250) reads the
+lanes' step-seconds histogram (``serving/stepper.py``) for the measured
+knobs ``/healthz`` shows beside the priors.
 
 Knobs (env): ``CHIASWARM_GUARD=0`` disables the watchdog and validation;
 ``CHIASWARM_GUARD_HANG_FACTOR`` (20), ``_HANG_FLOOR_S`` (30), ``_HANG_CEIL_S``
@@ -145,6 +145,60 @@ def solo_hang_budget_s(step_ewma: float, steps: int) -> float | None:
 
 def slow_factor() -> float:
     return max(1.0, _env_float(ENV_SLOW_FACTOR, 4.0))
+
+
+#: step-seconds observations before a hang-budget suggestion is called
+#: measured: below this the histogram is warm-up noise
+SUGGEST_MIN_SAMPLES = 32
+
+
+def suggest_hang_budget(histogram: Any = None, *,
+                        min_samples: int = SUGGEST_MIN_SAMPLES) -> dict:
+    """The watchdog knobs suggested by the live step-seconds histogram
+    (``chiaswarm_stepper_step_seconds`` on the process registry), beside
+    the current ones (the priors: factor 20, floor 30 s, ceiling 600 s):
+
+    - ``factor``  = 4x the measured p99/p50 dispersion, clamped to [4, 20];
+    - ``floor_s`` = 20x p99, at least 1 s;
+    - ``ceil_s``  = 200x p99 bounded to [60 s, the configured ceiling]
+      (a lane's first dispatch at a width runs under the ceiling alone, so
+      the ceiling need not cover warm-up).
+
+    ``{"measured": False, "samples": n, ...}`` until ``min_samples``
+    observations exist."""
+    if histogram is None:
+        histogram = obs_metrics.REGISTRY.get("chiaswarm_stepper_step_seconds")
+    current = {
+        "factor": _env_float(ENV_HANG_FACTOR, 20.0),
+        "floor_s": _env_float(ENV_HANG_FLOOR, 30.0),
+        "ceil_s": max(_env_float(ENV_HANG_FLOOR, 30.0),
+                      _env_float(ENV_HANG_CEIL, 600.0)),
+    }
+    samples = histogram.count() if histogram is not None else 0
+    if histogram is None or samples < min_samples:
+        return {"measured": False, "samples": int(samples),
+                "min_samples": int(min_samples), "current": current}
+    p50 = histogram.percentile(0.5)
+    p99 = histogram.percentile(0.99)
+    if not p50 or not p99:
+        return {"measured": False, "samples": int(samples),
+                "min_samples": int(min_samples), "current": current}
+    dispersion = max(1.0, p99 / p50)
+    factor = min(20.0, max(4.0, 4.0 * dispersion))
+    floor_s = max(1.0, 20.0 * p99)
+    ceil_s = min(current["ceil_s"], max(60.0, 200.0 * p99))
+    return {
+        "measured": True,
+        "samples": int(samples),
+        "p50_s": round(p50, 6),
+        "p99_s": round(p99, 6),
+        "suggested": {
+            "factor": round(factor, 2),
+            "floor_s": round(floor_s, 3),
+            "ceil_s": round(max(ceil_s, floor_s), 3),
+        },
+        "current": current,
+    }
 
 
 # ---- the watchdog monitor thread ----

@@ -99,12 +99,21 @@ The gray-failure guard (``serving/guard.py``; JAX :473-610, :1003-1156,
   ``InvalidOutput``) and keeps each job's resume state in memory: latents,
   multistep history and step, in the JAX envelope's keys, and beside them,
   under ``generators``, each row's noise ``torch.Generator`` state, taken
-  in the lane thread where the draws happen. The durable spool that ships
-  them to the hive is the heartbeat slice's.
+  in the lane thread where the draws happen, and under ``slots`` the rows'
+  slots. When the worker attached its checkpoint spool to the slot
+  (``slot._checkpoint_spool``, heartbeats on; JAX :474-476, :1245-1354) the
+  same state is written there by the hive's job id, ``checkpoints_written``
+  counts it, and the worker's heartbeat ships it to a lease-aware hive.
+  Every field is JSON (``pack_array``), so it survives the hive and resumes
+  in another process.
 - **Resume.** ``submit_request(resume=...)`` validates a checkpoint against
   the job (:meth:`StepScheduler._validate_resume`) and splices the rows in
-  at its step with their latents, history and generators; an image row
-  re-derives its start index, ``known`` and mask from the job's inputs. A
+  at its step with their latents, history and generators, into the slots
+  they held when those are free (on the card a row's bits depend on its
+  slot, so a job redelivered to another worker's lane of the same width
+  renders its uninterrupted image bit for bit, whatever order the jobs
+  arrive in); an image row re-derives its start index, ``known`` and mask
+  from the job's inputs. A
   payload it cannot trust, a JAX lane checkpoint among them (its threefry
   keys are not the port's noise stream), is rejected loudly and the job
   restarts at 0.
@@ -125,10 +134,18 @@ step to a full eval, which refreshes every active row's cache. A retiring row's
 the flag, the tally and the schedule, and a resume under another schedule
 is refused.
 
-Not here yet (``ROADMAP.md``): the overload admission cap and poll hints,
-the lane metrics but the checkpoint-seconds histogram and the step-collapse
-families of ``obs/metrics.py`` (the step-seconds and resume-step histograms
-wait for ``/metrics``, their reader).
+Overload control (``node/overload.py``; JAX :1570-1580, :778-793): the
+worker pushes a brownout admission cap into every slot's scheduler
+(:meth:`StepScheduler.set_admission_cap`); each lane reads it before a
+boundary, and at most that many rows splice in at it (the first pending job
+always admits). The lanes' step seconds feed the process registry's
+``chiaswarm_stepper_step_seconds`` (the hang-budget suggestion,
+``serving/guard.py``) and resumed rows ``chiaswarm_stepper_resume_step``;
+``obs/profiling.py`` names each lane step and decode in a profiler's
+timeline.
+
+Not here (``ROADMAP.md``): the poll hint (``note_poll``), the occupancy,
+admission-seconds, resize, arrival-rate and lane-admission families.
 """
 
 from __future__ import annotations
@@ -161,6 +178,7 @@ from chiaswarm_tpu_torch.core.rng import row_generators
 from chiaswarm_tpu_torch.models.common import param_dtype
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.obs.profiling import annotate
 from chiaswarm_tpu_torch.pipelines.diffusion import (
     PendingImages,
     deepcache_enabled,
@@ -190,12 +208,21 @@ ENV_CKPT_EVERY = "CHIASWARM_STEPPER_CKPT_EVERY"
 
 _OFF = ("0", "false", "off", "no")
 
+# lane step wall time, the depth-2 window's wait included: in steady state
+# the device's step time (the hang-budget suggestion reads it)
+_STEP_SECONDS = obs_metrics.REGISTRY.histogram(
+    "chiaswarm_stepper_step_seconds",
+    "lane step wall time (dispatch + pipelined-window backpressure)",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0))
 # checkpoint seconds (chip_smoke's guard_cost reads them)
 _CKPT_SECONDS = obs_metrics.REGISTRY.histogram(
     "chiaswarm_stepper_checkpoint_seconds",
     "wall time of one lane checkpoint (device->host copy, finite check, "
-    "generator states)",
+    "generator states, spool write)",
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0))
+# the step index redelivered rows splice back in at
+_RESUME_STEP = obs_metrics.resume_step_histogram()
 
 # the step-collapse families (obs/metrics.py; seeded by pipelines/diffusion)
 _UNET_EVALS = obs_metrics.unet_evals_counter()
@@ -303,9 +330,11 @@ class _RowJob:                    # must never compare tensor fields
     cond0: torch.Tensor | None = None   # (n, C0, h, w)
     cscale: float = 1.0
     # a resumed job's rows splice in at ``resume_step`` with restored
-    # latents (x0), multistep history and generators
+    # latents (x0), multistep history and generators, into the slots they
+    # held when those are free (a row's bits depend on its slot)
     resume_step: int = 0
     old0: torch.Tensor | None = None    # (n, C, h, w) restored history
+    slots0: tuple[int, ...] = ()
     # DeepCache: the canonical schedule, and a resumed row's caches (n, C1,
     # h, w), validity and skipped tally
     reuse_schedule: tuple[int, ...] = ()
@@ -477,6 +506,12 @@ class Lane:
         # from the dispatch that first saw it) and the widths whose first
         # dispatch this lane has made in the current flush epoch
         self._ckpt_every = int(os.environ.get(ENV_CKPT_EVERY, "8") or 8)
+        # the worker's durable spool, attached to the slot only with
+        # heartbeats on: the lane then writes each job's state by job id
+        self._spool = getattr(getattr(sched, "slot", None),
+                              "_checkpoint_spool", None)
+        # the brownout cap read before each boundary (None = uncapped)
+        self._admit_cap: int | None = None
         self._condemned = False
         self._ckpt_mem: dict[int, dict[str, Any]] = {}
         self._chaos_base: int | None = None
@@ -619,6 +654,7 @@ class Lane:
                     # invert the lock order
                     width_limit = self._sched.width_limit_for(self.key)
                     rate = self._sched.arrival_rate()
+                    self._admit_cap = self._sched.admission_cap()
                     with self._cond:
                         while True:
                             if self._stop:
@@ -725,13 +761,25 @@ class Lane:
         """Splice pending jobs into free row slots: the step boundary is
         wherever the lane thread is between dispatches. Admission is FIFO; the
         job's tensors were queued by the submitting thread on the same
-        stream, so they are ready before anything queued here reads them."""
+        stream, so they are ready before anything queued here reads them.
+        Under a brownout cap (``self._admit_cap``) at most that many rows
+        splice in at one boundary; the first pending job always admits."""
+        cap = self._admit_cap
+        admitted_rows = 0
         free = [s for s in range(self.width) if self._rows[s] is None]
         while self._pending and self._pending[0].n_rows <= len(free):
+            if (cap is not None and admitted_rows > 0
+                    and admitted_rows + self._pending[0].n_rows > cap):
+                break
             job = self._pending.popleft()
             if job.future.cancelled():
                 continue
-            slots, free = free[:job.n_rows], free[job.n_rows:]
+            slots = ([s for s in job.slots0 if s in free]
+                     if job.slots0 else [])
+            if len(slots) != job.n_rows:
+                slots = free[:job.n_rows]
+            free = [s for s in free if s not in slots]
+            admitted_rows += job.n_rows
             if self._dev is None:
                 self._alloc_dev(job)
             mid_flight = bool(self._h_active.any())
@@ -798,6 +846,8 @@ class Lane:
                 rows_resumed=job.n_rows if job.resume_step > 0 else 0,
                 **{f"rows_admitted_{job.workload}": job.n_rows}))
             if job.resume_step > 0:
+                # a metric-local lock only: safe under self._cond
+                _RESUME_STEP.observe(job.resume_step)
                 log.info("job %s resumed at step %d/%d (%d row(s))",
                          job.job_id, job.resume_step, job.steps, job.n_rows)
 
@@ -918,7 +968,8 @@ class Lane:
                 ~self._h_active | (wants & self._h_cache_ok)))
         cache = ((dev["cache_u"], dev["cache_c"]) if self.reuse else None)
         t0 = time.perf_counter()
-        with self._watched(budget, f"step {this_step}"):
+        with self._watched(budget, f"step {this_step}"), \
+                annotate("swarm.lane.step"):
             out = self.pipe.stepper_step(
                 sampler=self.sampler, ctx_u=dev["ctx_u"], ctx_c=dev["ctx_c"],
                 x=dev["x"], idx=dev["idx"], start_idx=dev["start"],
@@ -980,6 +1031,7 @@ class Lane:
         if slow_extra > 0:  # chaos: the sick but living card
             time.sleep(slow_extra)
             step_s += slow_extra
+        _STEP_SECONDS.observe(step_s)
         # the lane's first step pays cuDNN's and the allocator's warm-up:
         # it does not feed the EWMA the hang budget reads
         ewma_before = self._sched.step_ewma()
@@ -1016,7 +1068,8 @@ class Lane:
             if job.n_rows < bucket:  # the solo decode's batch bucket
                 rows_x = torch.cat([rows_x, rows_x[-1:].expand(
                     (bucket - job.n_rows,) + tuple(rows_x.shape[1:]))])
-            images = self.pipe.stepper_decode(rows_x)
+            with annotate("swarm.lane.decode"):
+                images = self.pipe.stepper_decode(rows_x)
             if images.device.type == "cuda":
                 # queue the copy to the host behind the decode: the job's
                 # collector then reads host memory, not the lane's queue
@@ -1074,14 +1127,19 @@ class Lane:
         :1246-1354): copy the lane's latents and history to the host (the
         copy waits for every queued step, under the watchdog), retire each
         job whose rows are not finite (:meth:`_poison_rows`) and keep each
-        other job's resume state in memory: JAX's envelope keys, the rows'
-        latents and history in NCHW, and under ``generators`` each row's
+        other job's resume state: JAX's envelope keys, the rows' latents and
+        history in NCHW, and under ``generators`` each row's
         ``torch.Generator`` state. The states are read here, in the thread
         that draws from them, after the dispatch of the step whose latents
-        the copy holds, so draws and latents agree. Rows at their start or
-        about to retire keep no checkpoint."""
+        the copy holds, so draws and latents agree. The state goes to the
+        in-memory twin the guard resumes a condemned lane from, and, with
+        the worker's spool attached, to the spool by the hive's job id
+        (a failed write never fails the lane). Rows at their start or about
+        to retire keep no checkpoint."""
+        validate = _guard.validation_enabled()
+        want_ckpt = self._spool is not None or _guard.watchdog_enabled()
         if (self._ckpt_every <= 0 or self._dev is None
-                or not _guard.watchdog_enabled()
+                or not (validate or want_ckpt)
                 or self.steps_executed % self._ckpt_every):
             return
         jobs = {id(j): j for j in self._rows if j is not None}
@@ -1095,16 +1153,17 @@ class Lane:
             if self.reuse:
                 cache_u = self._dev["cache_u"].to("cpu")
                 cache_c = self._dev["cache_c"].to("cpu")
+        written = 0
         poisoned: list[_RowJob] = []
         for job in jobs.values():
             sel = list(job.slots)
-            if not bool(torch.isfinite(x[sel]).all()):
+            if validate and not bool(torch.isfinite(x[sel]).all()):
                 poisoned.append(job)
                 continue
             step = int(self._h_idx[sel[0]])
-            if step <= job.start_step or step >= job.steps:
+            if not want_ckpt or step <= job.start_step or step >= job.steps:
                 continue
-            self._ckpt_mem[id(job)] = {
+            state = {
                 "version": CKPT_VERSION, "kind": "lane",
                 "step": step, "steps": int(job.steps),
                 "rows": int(job.n_rows),
@@ -1116,20 +1175,32 @@ class Lane:
                 "old": pack_array(old[sel]),
                 "generators": [pack_array(self._gens[s].get_state())
                                for s in sel],
+                "slots": [int(s) for s in sel],
             }
             if self.reuse:
                 # the deep caches, their validity and the skipped tally:
                 # a resumed row replays the remaining reuse decisions bit
                 # for bit; the schedule is recorded for validation
-                self._ckpt_mem[id(job)].update({
+                state.update({
                     "reuse_schedule": [int(j) for j in job.reuse_schedule],
                     "cache_u": pack_array(cache_u[sel]),
                     "cache_c": pack_array(cache_c[sel]),
                     "cache_ok": bool(self._h_cache_ok[sel[0]]),
                     "skipped": int(self._h_skipped[sel[0]]),
                 })
+            self._ckpt_mem[id(job)] = state
+            if self._spool is None or job.job_id is None:
+                continue
+            try:
+                self._spool.save(job.job_id, state)
+                written += 1
+            except OSError as exc:  # durability never fails the lane
+                log.warning("checkpoint for job %s failed: %s", job.job_id,
+                            exc)
         for job in poisoned:
             self._poison_rows(job)
+        if written:
+            self._sched._count(checkpoints_written=written)
         _CKPT_SECONDS.observe(time.perf_counter() - t0)
 
     def _poison_rows(self, job: _RowJob) -> None:
@@ -1240,6 +1311,8 @@ class StepScheduler:
         # condemned lanes whose threads may still be inside the wedged
         # step: shutdown joins them too
         self._condemned: list[Lane] = []
+        # the brownout cap the worker's overload controller pushes
+        self._admission_cap: int | None = None
         _register_for_exit(self)
 
     # ---- policy ----
@@ -1305,8 +1378,22 @@ class StepScheduler:
         with self._lock:
             return self._width_limits.get(key)
 
+    def set_admission_cap(self, rows: int | None) -> None:
+        """Brownout rung (``node/overload.py``): at most ``rows`` lane rows
+        admitted per step boundary (None or 0 = uncapped). The worker pushes
+        it on every poll and every shed."""
+        with self._lock:
+            self._admission_cap = (None if not rows or int(rows) <= 0
+                                   else int(rows))
+
+    def admission_cap(self) -> int | None:
+        with self._lock:
+            return self._admission_cap
+
     def note_step_seconds(self, seconds: float) -> None:
-        """Lane threads feed each step's wall time (throttle included)."""
+        """Lane threads feed each step's wall time (throttle included): the
+        hang budgets, the slow-step signal and the overload estimator's lane
+        floor read its EWMA."""
         with self._lock:
             self._step_ewma = (float(seconds) if self._step_ewma <= 0.0
                                else self._step_ewma + 0.25 * (
@@ -1443,11 +1530,12 @@ class StepScheduler:
                     log.error("resume state for job %s rejected (%s); "
                               "restarting at step 0", job_id, exc)
                     self._count(resumes_rejected=1)
-            resume_step, old0 = 0, None
+            resume_step, old0, slots0 = 0, None, ()
             cache_u0 = cache_c0 = None
             cache_ok0, skipped0 = False, 0
             if restored is not None:
                 resume_step = restored["step"]
+                slots0 = restored["slots"]
                 generators = restored["generators"]
                 x0 = upload(restored["x"], pipe.c.device)
                 old0 = upload(restored["old"], pipe.c.device)
@@ -1476,7 +1564,8 @@ class StepScheduler:
             x0=x0, workload=workload, start_step=start_step,
             known0=init_rows if mask_rows is not None else None,
             mask0=mask_rows, cond0=cond_rows, cscale=float(control_scale),
-            resume_step=resume_step, old0=old0, reuse_schedule=reuse,
+            resume_step=resume_step, old0=old0, slots0=slots0,
+            reuse_schedule=reuse,
             cache_u0=cache_u0, cache_c0=cache_c0, cache_ok0=cache_ok0,
             skipped0=skipped0,
             deadline=time.monotonic() + (deadline_s if deadline_s is not None
@@ -1552,8 +1641,15 @@ class StepScheduler:
             except (RuntimeError, TypeError, ValueError) as exc:
                 raise ResumeReject(f"bad generator state: {exc}") from exc
             generators.append(gen)
+        # the slots the rows held: a hint, kept only when it names one
+        # distinct slot a row (a redelivered job lands where it stepped)
+        slots = resume.get("slots")
+        if not (isinstance(slots, list) and len(slots) == rows
+                and len(set(slots)) == rows
+                and all(isinstance(n, int) and n >= 0 for n in slots)):
+            slots = []
         restored = {"step": step, "x": x, "old": old,
-                    "generators": generators}
+                    "generators": generators, "slots": tuple(slots)}
         try:
             ck_reuse = tuple(int(j) for j in
                              (resume.get("reuse_schedule") or ()))

@@ -4,7 +4,8 @@ counterpart of
 ``chiaswarm_tpu/workloads/diffusion.py`` (``diffusion_callback`` :27-191, the
 lane workload ``stepper_eligible``/``StepperTicket``/``stepper_submit``/
 ``stepper_finish`` :236-466, ``stepper_submit`` passing a lane checkpoint
-through as ``resume`` :376-387).
+through as ``resume`` :376-387, the solo path's phase checkpoints
+:134-146).
 
 An ``image`` (the fetched ``start_image_uri``) sets the job's size and makes
 it img2img; a ``mask_image`` beside it makes it inpaint (averaged over its
@@ -76,6 +77,7 @@ from typing import Any
 import numpy as np
 
 from chiaswarm_tpu_torch.node.output_processor import OutputProcessor
+from chiaswarm_tpu_torch.node.resilience import phase_checkpoint
 from chiaswarm_tpu_torch.obs.trace import span
 from chiaswarm_tpu_torch.pipelines.diffusion import (
     GenerateRequest,
@@ -161,9 +163,16 @@ def diffusion_callback(slot, model_name: str, *, seed: int, registry,
         control_scale=float(controlnet_scale),
         reuse_schedule=reuse_schedule,
     )
+    # coarse phase checkpoints (JAX :134-146): the solo loop keeps no step
+    # state to resume from, so with heartbeats on the spool records how far
+    # the job got: "encoded" once the model is bound and the request built,
+    # "denoised" once the generation finished (lanes checkpoint their steps)
+    phase_checkpoint("encoded", model=str(model_name))
     t0 = time.perf_counter()
     images, config = pipe(req)
     elapsed = time.perf_counter() - t0
+    phase_checkpoint("denoised", model=str(model_name),
+                     generation_s=round(elapsed, 3))
 
     if upscale:
         # the x2 pass, 20 steps at guidance 0, with the job's own prompt

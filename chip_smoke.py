@@ -42,7 +42,8 @@ each phase printing one JSON line:
                 lane_check's and xl_check's fp32 shapes and at ragged fp32
                 shapes (2e-4 and
                 1e-4, TF32 off); CUDA-event median times of the kernel, the
-                plain version and ``scaled_dot_product_attention`` (the
+                plain version (over 3 calls above 2**31 logits) and
+                ``scaled_dot_product_attention`` (the
                 library yardstick, which the port never calls), with FLOP
                 and byte counts and the bound.
 4. ring_kernel — holds kernel B2 (one ring hop with carried state) against
@@ -316,6 +317,36 @@ each phase printing one JSON line:
                 (the copy to the host, which waits for the queued steps, the
                 finite check and the generator states), the card; images
                 bit for bit across the runs, times not gated.
+15o1. overload_serve — the hive worker's second half, on the checkpoint
+                of checkpoint_serve through a lease-aware ``LocalHive``: a
+                worker with ``overload_control`` and a deadline of 2 x 20
+                steps x the step EWMA the card measured takes 12 jobs into
+                a lane of 8; the later bursts are shed before any kernel
+                (non-fatal ``overloaded``, requeued with the worker
+                excluded), the admitted settle within the deadline; B1 =
+                10 x lane steps, lane rows = admitted jobs; the verdicts'
+                predicted and remaining seconds, brownout.
+15o2. health_serve — a worker with ``health_bind_ephemeral`` through an
+                8-job burst at 8 rows: ``/healthz`` and ``/metrics``
+                (Prometheus text; at least ``SUGGEST_MIN_SAMPLES`` lane
+                steps in the step-seconds histogram) read mid-burst, a 2 s
+                ``/debug/profile`` capture holding CUDA activity and B1's
+                kernel, a second capture meanwhile answering 409 ``busy``,
+                ``/debug/traces`` after; the suggested hang budget beside
+                JAX's priors.
+15o3. lease_resume_serve — two ``python -m chiaswarm_tpu_torch.node.worker``
+                children with heartbeats every 0.2 s and lanes of 2: B
+                serves a warm-up job, A takes the lease pair (its steps
+                stretched 3x by the chaos seam, checkpoints every 4) and is
+                SIGKILLed once the hive holds both checkpoints past step 8;
+                the hive revokes its leases and B resumes both; each job
+                once, by B, from its step; B1 on B (read from its
+                ``/metrics``) = 10 x B's lane steps, all accounted by the
+                stamps; each image against the uninterrupted lane of 2 in
+                this process, run four times with the spool off, on, on,
+                off (the checkpoint boundary's ms each way); the kill to
+                B's first resumed step and to the settled uploads, the
+                checkpoints' bytes and ``checkpoints_written``.
 15p. guard_xl — guard_lane for SDXL at 1024 px (after the SDXL phases), two
                 txt2img jobs (seeds 1, 2): both resume at step 8 bit for
                 bit, their pooled text encoded again; B1 = 70 x dispatches.
@@ -459,7 +490,7 @@ each phase printing one JSON line:
                 bf16, vocabularies 129,600 / 12,096 / 1,056, the 8-codebook
                 EnCodec at 24 kHz in float32; 1.10 B parameters), random
                 from seed 0 through the registry's ``allow_random``
-                fallback; a 2 s job at temperature 0.7, one with a
+                fallback; a 1 s job at temperature 0.7, one with a
                 ``history`` preset of Bark's shapes and one naming a preset
                 by a string through the worker, then the first again: WAV
                 (MP3 with ffmpeg) of ``frames x 320`` samples at 24 kHz, the
@@ -477,7 +508,8 @@ each phase printing one JSON line:
                 VAE bf16, the 23-layer CLIP-H tower float32; 1.84 B
                 parameters), random from seed 0 through the registry's
                 fallback; a txt2vid job at the defaults (256 px, 25 frames
-                bucketed to 32, 25 steps, guidance 9.0), the same job again
+                bucketed to 32, guidance 9.0) but 15 steps (the hive's 25
+                cut for the run's wall), the same job again
                 and one at guidance 1.0 through the worker: ``video/mp4`` of
                 25 frames of 256x256 (read back with OpenCV), a JPEG
                 thumbnail, JAX's config keys; the repeat's frames bit for
@@ -587,7 +619,8 @@ each phase printing one JSON line:
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
-                phases, the guard phases, the safety and ControlNet
+                phases, the guard phases, the worker's overload, health
+                and lease phases, the safety and ControlNet
                 phases, the pix2pix, upscale and adapter phases,
                 audio_serve (head dim 32), the three video phases and
                 cascade_serve (head dim 128 among its shapes), and B3
@@ -617,6 +650,7 @@ import struct
 import subprocess
 import sys
 import time
+import urllib.parse
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -928,9 +962,10 @@ KERNEL_SHAPES = [
 ]
 
 
-# above this many logits (B·H·L·S) the plain version takes a second or
-# more a call: it is timed over 3 calls after 1 warm-up, not 20 after 3
-PLAIN_FEW_CALLS_LOGITS = 1 << 33
+# above this many logits (B·H·L·S) the plain version takes ~70 ms or more a
+# call: it is timed over 3 calls after 1 warm-up, not 20 after 3 (the run's
+# wall; 1 << 33 until PR 19)
+PLAIN_FEW_CALLS_LOGITS = 1 << 31
 
 
 def _held(name: str, shape, out, ref, tol: float, rel_tol: float) -> dict:
@@ -2381,12 +2416,41 @@ class LocalHive:
     ``faults`` maps a job id to the HTTP statuses its first uploads get.
     ``assets`` maps a name to the bytes ``GET``/``HEAD /assets/<name>``
     serve, as ``image/png`` unless ``asset_types`` names another type (the
-    jobs' input images and clips)."""
+    jobs' input images and clips).
 
-    def __init__(self) -> None:
+    ``lease_aware=True`` adds the lease-aware part of the wire, with the
+    semantics of the JAX package's ``node/minihive.py`` (not imported): a
+    poll leases each job it hands out to the poller (``worker_name``) for
+    ``lease_s``; ``POST /api/heartbeat`` extends the sender's leases, keeps
+    each job's latest checkpoint and answers the ids it no longer leases
+    to the sender as ``lost``; an expired or revoked lease
+    (:meth:`expire_worker`, a dead worker) requeues its job with the holder
+    excluded, and the redelivery carries ``resume`` (the kept checkpoint)
+    and ``attempt``; every delivery carries ``queued_s`` since the first
+    submission; a non-fatal ``overloaded`` envelope requeues its job with
+    the shedder excluded instead of settling it; a second upload of a
+    settled job is acked and dropped. ``pinned`` maps a job id to the one
+    worker that may take it (the script's routing)."""
+
+    def __init__(self, lease_aware: bool = False,
+                 lease_s: float = 600.0) -> None:
         import http.server
         import threading
 
+        self.lease_aware = lease_aware
+        self.lease_s = lease_s
+        self.leases: dict[str, dict] = {}  # id -> job, worker, attempt, exp
+        self.attempts: dict[str, int] = {}
+        self.excluded: dict[str, set] = {}
+        self.pinned: dict[str, str] = {}
+        self.checkpoints: dict[str, dict] = {}
+        self.checkpoint_bytes: dict[str, int] = {}
+        self.submitted_at: dict[str, float] = {}
+        self.settled: set = set()
+        self.refused: list[dict] = []  # overloaded envelopes requeued
+        self.duplicates: list[dict] = []
+        self.heartbeats: dict[str, int] = collections.Counter()
+        self.polled: set = set()
         self.cond = threading.Condition()
         self.queued: list[dict] = []
         self.results: list[dict] = []
@@ -2437,26 +2501,42 @@ class LocalHive:
                     return self._reply(200, {"models": []})
                 if path != "/api/work":
                     return self._reply(404, {"message": "no such endpoint"})
+                query = urllib.parse.parse_qs(
+                    urllib.parse.urlsplit(self.path).query)
+                worker = (query.get("worker_name") or [""])[0]
                 with hive.cond:
-                    jobs, hive.queued = hive.queued, []
+                    if hive.lease_aware:
+                        jobs = hive._grant(worker)
+                    else:
+                        jobs, hive.queued = hive.queued, []
                     if jobs:
                         hive.work_t.append(time.perf_counter())
                 self._reply(200, {"jobs": jobs})
 
             def do_POST(self) -> None:
                 body = self.rfile.read(int(self.headers["Content-Length"]))
-                result = json.loads(body)
+                payload = json.loads(body)
+                if self.path.split("?")[0] == "/api/heartbeat":
+                    if not hive.lease_aware:
+                        return self._reply(404, {"message": "no leases"})
+                    with hive.cond:
+                        ack = hive._beat(payload)
+                    return self._reply(200, ack)
+                result = payload
                 with hive.cond:
                     hive.posts += 1
                     statuses = hive.faults.get(str(result.get("id")))
                     status = statuses.pop(0) if statuses else 200
-                    if status == 200:
+                    ack = {"status": "ok"}
+                    if status == 200 and hive.lease_aware:
+                        ack = hive._settle(result)
+                    elif status == 200:
                         hive.results.append(result)
                         hive.result_t.append(time.perf_counter())
-                        hive.cond.notify_all()
+                    hive.cond.notify_all()
                 if status != 200:
                     return self._reply(status, {"message": "unavailable"})
-                self._reply(200, {"status": "ok"})
+                self._reply(200, ack)
 
         self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
                                                       Handler)
@@ -2470,7 +2550,112 @@ class LocalHive:
 
     def submit(self, *jobs: dict) -> None:
         with self.cond:
+            for job in jobs:
+                self.submitted_at.setdefault(str(job["id"]),
+                                             time.monotonic())
             self.queued.extend(dict(job) for job in jobs)
+
+    # ---- the lease-aware part (under self.cond) ----
+
+    def _sweep(self) -> list[str]:
+        """Requeue the jobs of expired leases, their holders excluded."""
+        now = time.monotonic()
+        expired = [j for j, lease in self.leases.items()
+                   if now >= lease["expires"]]
+        for job_id in expired:
+            lease = self.leases.pop(job_id)
+            self.excluded.setdefault(job_id, set()).add(lease["worker"])
+            if self.pinned.get(job_id) == lease["worker"]:
+                del self.pinned[job_id]
+            if job_id not in self.settled:
+                self.queued.append(lease["job"])
+        return expired
+
+    def _grant(self, worker: str) -> list[dict]:
+        self.polled.add(worker)
+        self._sweep()
+        self._extend(worker)  # a poll proves liveness
+        handed, kept = [], []
+        for job in self.queued:
+            job_id = str(job["id"])
+            if job_id in self.settled:
+                continue
+            if (worker in self.excluded.get(job_id, ())
+                    or self.pinned.get(job_id, worker) != worker):
+                kept.append(job)
+                continue
+            attempt = self.attempts.get(job_id, 0) + 1
+            self.attempts[job_id] = attempt
+            self.leases[job_id] = {"job": job, "worker": worker,
+                                   "attempt": attempt,
+                                   "expires": time.monotonic() + self.lease_s}
+            wire = dict(job, attempt=attempt, queued_s=round(
+                time.monotonic() - self.submitted_at.get(
+                    job_id, time.monotonic()), 4))
+            if job_id in self.checkpoints:
+                wire["resume"] = self.checkpoints[job_id]
+            handed.append(wire)
+        self.queued = kept
+        return handed
+
+    def _extend(self, worker: str) -> None:
+        for lease in self.leases.values():
+            if lease["worker"] == worker:
+                lease["expires"] = time.monotonic() + self.lease_s
+
+    def _beat(self, payload: dict) -> dict:
+        worker = str(payload.get("worker_name") or "")
+        self.heartbeats[worker] += 1
+        self._sweep()
+        lost = []
+        for entry in payload.get("jobs") or []:
+            job_id = str(entry.get("id"))
+            lease = self.leases.get(job_id)
+            if lease is None or lease["worker"] != worker:
+                if job_id not in self.settled:
+                    lost.append(job_id)
+                continue
+            lease["expires"] = time.monotonic() + self.lease_s
+            checkpoint = entry.get("checkpoint")
+            if checkpoint is not None:
+                self.checkpoints[job_id] = checkpoint
+                self.checkpoint_bytes[job_id] = len(json.dumps(checkpoint))
+                self.cond.notify_all()
+        return {"status": "ok", "lost": lost}
+
+    def _settle(self, result: dict) -> dict:
+        job_id = str(result.get("id"))
+        worker = str(result.get("worker_name") or "")
+        if job_id in self.settled:
+            self.duplicates.append(result)
+            return {"status": "duplicate"}
+        cfg = result.get("pipeline_config") or {}
+        lease = self.leases.get(job_id)
+        if (cfg.get("error_kind") == "overloaded"
+                and not result.get("fatal_error")):
+            # requeued with the shedder excluded, never settled
+            self.excluded.setdefault(job_id, set()).add(worker)
+            if lease is not None and lease["worker"] == worker:
+                self.leases.pop(job_id)
+                self.queued.append(lease["job"])
+            self.refused.append(dict(result, _t=time.perf_counter()))
+            return {"status": "requeued", "kind": "overloaded"}
+        self.settled.add(job_id)
+        self.leases.pop(job_id, None)
+        self.checkpoints.pop(job_id, None)
+        self.queued = [j for j in self.queued if str(j["id"]) != job_id]
+        self.results.append(result)
+        self.result_t.append(time.perf_counter())
+        return {"status": "ok"}
+
+    def expire_worker(self, worker: str) -> list[str]:
+        """Revoke every lease ``worker`` holds (a worker known dead): its
+        jobs requeue now, with their checkpoints as ``resume``."""
+        with self.cond:
+            for lease in self.leases.values():
+                if lease["worker"] == worker:
+                    lease["expires"] = float("-inf")
+            return self._sweep()
 
     def __enter__(self) -> "LocalHive":
         self.thread.start()
@@ -4308,6 +4493,596 @@ def guard_cost_phase(torch, registry, slot) -> dict:
     if any(r["checkpoints"] for r in off) or not all(r["checkpoints"]
                                                      for r in on):
         raise AssertionError(f"guard_cost: checkpoints {runs}")
+    return run
+
+
+# ---- the hive worker's second half: lease heartbeats, overload, health ----
+
+LEASE_STEPS = SERVE_STEPS
+LEASE_MIN_RESUME = 8           # the kill waits for checkpoints at or past it
+LEASE_A_CKPT_EVERY = 4         # worker A's checkpoint cadence
+LEASE_A_SLOW = "3"             # A's lane steps stretched 3x: the kill lands
+                               # mid-lane (sleeps only; the bits stay)
+LEASE_HEARTBEAT_S = 0.2
+LEASE_IMAGE_BAR = 0            # uint8 levels: bit for bit
+LEASE_JOBS = [dict(JOBS[0], id=f"lease-pair-{seed}", seed=seed,
+                   model_name=CKPT_MODEL) for seed in (42, 43)]
+LEASE_WARM_JOB = dict(JOBS[0], id="lease-warm-41", seed=41,
+                      model_name=CKPT_MODEL)
+OVERLOAD_JOBS = [dict(JOBS[0], id=f"overload-{i}", seed=60 + i,
+                      model_name=CKPT_MODEL) for i in range(12)]
+OVERLOAD_DEADLINE_FACTOR = 2.0  # deadline = this x steps x the step EWMA
+OVERLOAD_MARGIN = 0.8
+HEALTH_JOBS = [dict(JOBS[0], id=f"health-{i}", seed=70 + i,
+                    model_name=CKPT_MODEL) for i in range(8)]
+HEALTH_CAPTURE_S = 2.0
+B1_KERNEL_SYMBOL = "flash_fwd"  # B1's __global__ functions in its source
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*'
+    r'\})? (-?[0-9.e+-]+|\+Inf|-Inf|NaN)$')
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url: str, timeout: float = 30.0) -> tuple[int, str]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as response:
+            return response.status, response.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def prometheus_samples(body: str) -> dict:
+    """``{(name, labels tuple): value}`` of a Prometheus text body; raises on
+    a line that is not a sample, a HELP or a TYPE line."""
+    samples = {}
+    for line in body.splitlines():
+        if not line or line.startswith(("# HELP ", "# TYPE ")):
+            continue
+        if not PROM_SAMPLE.match(line):
+            raise AssertionError(f"/metrics line is not Prometheus text: "
+                                 f"{line!r}")
+        series, value = line.rsplit(" ", 1)
+        name, _, rest = series.partition("{")
+        labels = tuple(re.findall(r'(\w+)="((?:\\.|[^"\\])*)"', rest))
+        samples[(name, labels)] = float(value)
+    return samples
+
+
+def worker_counts(port: int) -> dict:
+    """A worker's ``/metrics``: its lane steps, resumed rows and checkpoints
+    written, and each kernel's launches by shape (the process registry's
+    mirror of ``ops/kernels.py``'s counts)."""
+    status, body = http_get(f"http://127.0.0.1:{port}/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    samples = prometheus_samples(body)
+    kernels: dict = collections.defaultdict(collections.Counter)
+    for (name, labels), value in samples.items():
+        if name == "chiaswarm_kernel_launches_total":
+            label = dict(labels)
+            dims, dtype = label["shape"].split(":")
+            key = (*(int(n) for n in dims.split("x")), dtype)
+            kernels[label["kernel"]][key] = int(value)
+    return {"steps": samples.get(
+                ("chiaswarm_stepper_steps_executed_total", ()), 0.0),
+            "rows_resumed": samples.get(
+                ("chiaswarm_stepper_rows_resumed_total", ()), 0.0),
+            "checkpoints_written": samples.get(
+                ("chiaswarm_checkpoints_written_total", ()), 0.0),
+            "kernels": kernels}
+
+
+def counts_run(after: dict, before: dict) -> dict:
+    """A ``launched()``-shaped run from two :func:`worker_counts`."""
+    from chiaswarm_tpu_torch.ops import kernels
+
+    run = {}
+    for name in kernels.KERNELS:
+        shapes = {k: n - before["kernels"][name].get(k, 0)
+                  for k, n in after["kernels"][name].items()
+                  if n - before["kernels"][name].get(k, 0)}
+        run[name] = {"launches": sum(shapes.values()), "shapes": shapes}
+    return run
+
+
+def lease_child_root(root: Path, tag: str, settings: dict) -> Path:
+    """A child worker's settings root: ``CKPT_MODEL``'s directory linked in,
+    its catalog and ``settings.json``."""
+    from chiaswarm_tpu_torch.node.registry import model_dir
+
+    child_root = root / f"lease-{tag}"
+    (child_root / "models").mkdir(parents=True, exist_ok=True)
+    src = model_dir(CKPT_MODEL)
+    (child_root / "models" / src.name).symlink_to(src)
+    (child_root / "models.json").write_text(json.dumps(
+        [{"name": CKPT_MODEL, "family": "sd15"}]))
+    (child_root / "settings.json").write_text(json.dumps(settings))
+    return child_root
+
+
+def lease_reference(torch, registry, slot) -> tuple[dict, dict]:
+    """The lease pair through ``synchronous_do_work_batch`` in a lane of 2
+    with checkpoints every ``LEASE_A_CKPT_EVERY`` steps, four times: without
+    the worker's spool on the slot, with it, with it, without. Returns each
+    job's image (every run the same bits) and the checkpoint boundaries'
+    ms and the spool's bytes."""
+    import shutil
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.node.resilience import CheckpointSpool
+    from chiaswarm_tpu_torch.obs.metrics import REGISTRY
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    hist = REGISTRY.get("chiaswarm_stepper_checkpoint_seconds")
+    spool_dir = settings_root_dir() / "lease-reference-spool"
+    runs, blobs = [], {}
+    for spool_on in (False, True, True, False):
+        get_stepper(slot).shutdown()
+        shutil.rmtree(spool_dir, ignore_errors=True)
+        spool = CheckpointSpool(spool_dir) if spool_on else None
+        slot._checkpoint_spool = spool
+        n0, s0 = hist.count(), hist.sum()
+        try:
+            with env(CHIASWARM_STEPPER_LANE_WIDTH="2",
+                     CHIASWARM_STEPPER_CKPT_EVERY=str(LEASE_A_CKPT_EVERY)):
+                results = synchronous_do_work_batch(
+                    [dict(j) for j in LEASE_JOBS], slot, registry)
+        finally:
+            slot._checkpoint_spool = None
+            get_stepper(slot).shutdown()
+        n, s = hist.count() - n0, hist.sum() - s0
+        runs.append({"spool": spool_on, "boundaries": n,
+                     "boundary_ms_mean": 1e3 * s / n if n else None,
+                     "spooled": spool.written if spool else 0,
+                     "spool_bytes": sum(p.stat().st_size for p in
+                                        spool_dir.glob("*.ckpt.json"))
+                     if spool else 0})
+        for job, result in zip(LEASE_JOBS, results):
+            blob = check_envelope("lease_resume_serve", job, result,
+                                  lanes=True)
+            if blobs.setdefault(job["id"], blob) != blob:
+                raise AssertionError(f"lease_resume_serve: {job['id']}'s "
+                                     "reference image changed between runs")
+    shutil.rmtree(spool_dir, ignore_errors=True)
+    on = [r for r in runs if r["spool"]]
+    off = [r for r in runs if not r["spool"]]
+    if not all(r["spooled"] for r in on) or any(r["spooled"] for r in off):
+        raise AssertionError(f"lease_resume_serve: spool writes {runs}")
+    return blobs, {
+        "runs": runs,
+        "boundary_ms_spool": statistics.mean(r["boundary_ms_mean"]
+                                             for r in on),
+        "boundary_ms_no_spool": statistics.mean(r["boundary_ms_mean"]
+                                                for r in off),
+        "card": nvidia_smi_line()}
+
+
+def lease_resume_serve_phase(torch, registry, slot,
+                             root: Path) -> tuple[dict, dict]:
+    """Worker A and worker B, each ``python -m
+    chiaswarm_tpu_torch.node.worker`` as a child process on ``CKPT_MODEL``
+    with heartbeats every ``LEASE_HEARTBEAT_S`` against a lease-aware
+    ``LocalHive`` and lanes of 2 rows. B serves a warm-up job first; then A
+    takes the lease pair (one poll, one burst, one lane; its steps stretched
+    by the chaos seam so the kill lands mid-lane, checkpoints every
+    ``LEASE_A_CKPT_EVERY`` steps). Once the hive holds a heartbeat checkpoint
+    at a step >= ``LEASE_MIN_RESUME`` for both jobs, A gets SIGKILL, the hive
+    revokes its leases, and B gets both jobs with ``resume``, in the other
+    order than A got them (each row returns to its slot). Gates: each
+    job uploaded once, by B, resumed at a step >= ``LEASE_MIN_RESUME``; B1
+    on B exactly 10 x B's lane steps for the pair, which are exactly the
+    steps the stamps account for (``10 x (20 - resume step)`` when both
+    rows splice in at one boundary from one step); each image within
+    ``LEASE_IMAGE_BAR`` levels of the uninterrupted lane
+    (:func:`lease_reference`); B exits 0 on SIGTERM. Prints the resume
+    steps, seconds from the kill to B's first resumed step and to the
+    settled uploads, the checkpoints' bytes, ``checkpoints_written``, and
+    the checkpoint boundary's ms with the spool against without."""
+    import signal
+
+    from chiaswarm_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    ref_blobs, boundary = lease_reference(torch, registry, slot)
+    reference_run = launched()
+    ports = {"a": free_port(), "b": free_port()}
+    children, logs, handles = {}, {}, []
+    with LocalHive(lease_aware=True) as hive:
+        for tag in ("a", "b"):
+            child_root = lease_child_root(root, tag, {
+                "worker_name": f"lease-{tag}", "poll_busy_s": 0.1,
+                "poll_idle_s": 0.1, "heartbeat_s": LEASE_HEARTBEAT_S,
+                "health_port": ports[tag]})
+            extra = ({"CHIASWARM_STEPPER_CKPT_EVERY": str(LEASE_A_CKPT_EVERY),
+                      "CHIASWARM_CHAOS_SLOW_STEP": LEASE_A_SLOW}
+                     if tag == "a" else {})
+            # B's warm lane outlives the wait for A's kill
+            child_env = dict(os.environ, SDAAS_URI=hive.uri,
+                             SDAAS_TOKEN="chip-smoke",
+                             SWARM_TPU_ROOT=str(child_root),
+                             CHIASWARM_STEPPER="1",
+                             CHIASWARM_STEPPER_LANE_WIDTH="2",
+                             CHIASWARM_STEPPER_IDLE_S="300", **extra)
+            logs[tag] = child_root / "child.log"
+            handles.append(open(logs[tag], "w"))
+            children[tag] = subprocess.Popen(
+                [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+                cwd=ROOT, env=child_env, stdout=handles[-1],
+                stderr=subprocess.STDOUT)
+        try:
+            hive.pinned[LEASE_WARM_JOB["id"]] = "lease-b"
+            hive.submit(LEASE_WARM_JOB)
+            with hive.cond:
+                if not hive.cond.wait_for(
+                        lambda: LEASE_WARM_JOB["id"] in hive.settled
+                        and "lease-a" in hive.polled, timeout=300):
+                    raise AssertionError("lease_resume_serve: B served no "
+                                         "warm-up job or A never polled")
+            [warm] = [r for r in hive.results
+                      if r["id"] == LEASE_WARM_JOB["id"]]
+            check_envelope("lease_resume_serve", LEASE_WARM_JOB, warm,
+                           lanes=True)
+            b_before = worker_counts(ports["b"])
+            for job in LEASE_JOBS:
+                hive.pinned[job["id"]] = "lease-a"
+            hive.submit(*LEASE_JOBS)
+            ids = [job["id"] for job in LEASE_JOBS]
+            with hive.cond:
+                if not hive.cond.wait_for(lambda: all(
+                        (hive.checkpoints.get(i) or {}).get("step", 0)
+                        >= LEASE_MIN_RESUME for i in ids), timeout=300):
+                    raise AssertionError("lease_resume_serve: no checkpoint "
+                                         f"at step >= {LEASE_MIN_RESUME}")
+                held = {i: hive.checkpoints[i]["step"] for i in ids}
+            a_counts = worker_counts(ports["a"])
+            children["a"].send_signal(signal.SIGKILL)
+            t_kill = time.perf_counter()
+            rc_a = children["a"].wait(timeout=60)
+            settled_by_a = [r["id"] for r in hive.results if r["id"] in ids]
+            with hive.cond:  # B meets them in the other order than A did
+                redelivered = hive.expire_worker("lease-a")
+                hive.queued.sort(key=lambda j: -ids.index(j["id"])
+                                 if j["id"] in ids else 0)
+            first_step_s = None
+            while first_step_s is None:
+                counts = worker_counts(ports["b"])
+                if counts["steps"] > b_before["steps"]:
+                    first_step_s = time.perf_counter() - t_kill
+                elif time.perf_counter() - t_kill > 300:
+                    raise AssertionError("lease_resume_serve: B never "
+                                         "stepped the resumed jobs")
+                else:
+                    time.sleep(0.005)
+            with hive.cond:
+                if not hive.cond.wait_for(
+                        lambda: all(i in hive.settled for i in ids),
+                        timeout=300):
+                    raise AssertionError("lease_resume_serve: the resumed "
+                                         "jobs never settled")
+            settled_s = max(t for r, t in zip(hive.results, hive.result_t)
+                            if r["id"] in ids) - t_kill
+            b_after = worker_counts(ports["b"])
+            status, health = http_get(
+                f"http://127.0.0.1:{ports['b']}/healthz")
+            children["b"].send_signal(signal.SIGTERM)
+            rc_b = children["b"].wait(timeout=120)
+        finally:
+            for child in children.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=30)
+            for handle in handles:
+                handle.close()
+        results = {r["id"]: r for r in hive.results if r["id"] in ids}
+        uploads = collections.Counter(r["id"] for r in hive.results)
+        duplicates = len(hive.duplicates)
+        ckpt_bytes = {i: hive.checkpoint_bytes.get(i) for i in ids}
+    stamps = {i: results[i]["pipeline_config"]["stepper"] for i in ids}
+    run = counts_run(b_after, b_before)
+    steps = int(b_after["steps"] - b_before["steps"])
+    accounted = (max(s["admitted_at_step"] + LEASE_STEPS - s["resume_step"]
+                     for s in stamps.values())
+                 - min(s["admitted_at_step"] for s in stamps.values()))
+    blobs = {i: check_envelope("lease_resume_serve", job, results[i],
+                               lanes=True)
+             for i, job in zip(ids, LEASE_JOBS)}
+    diffs = {}
+    for i in ids:
+        diff = abs(decode_png(blobs[i]) - decode_png(ref_blobs[i]))
+        diffs[i] = {"max": int(diff.max()),
+                    "within_one": float((diff <= 1).mean())}
+    out = {"card": nvidia_smi_line(), "held_at_kill": held,
+           "resume_steps": {i: s["resume_step"] for i, s in stamps.items()},
+           "admitted_at_step": {i: s["admitted_at_step"]
+                                for i, s in stamps.items()},
+           "redelivered": redelivered, "settled_by_a": settled_by_a,
+           "rc_a": rc_a, "rc_b": rc_b, "uploads": dict(uploads),
+           "duplicates": duplicates,
+           "workers": {i: results[i].get("worker_name") for i in ids},
+           "b_lane_steps": steps, "b_steps_accounted": accounted,
+           "b_b1_launches": run["flash_attention"]["launches"],
+           "b_launches": {n: r["launches"] for n, r in run.items()},
+           "b_rows_resumed": b_after["rows_resumed"]
+           - b_before["rows_resumed"],
+           "kill_to_first_resumed_step_s": first_step_s,
+           "kill_to_settled_s": settled_s,
+           "checkpoint_bytes": ckpt_bytes,
+           "checkpoints_written_a_at_kill": a_counts["checkpoints_written"],
+           "checkpoints_written_b": b_after["checkpoints_written"],
+           "b_health": {k: json.loads(health).get(k) for k in (
+               "lease_heartbeats", "leases_lost", "checkpoints_written",
+               "inflight_jobs")} if status == 200 else status,
+           "log_tails": {tag: path.read_text().splitlines()[-4:]
+                         for tag, path in logs.items()},
+           "boundary": boundary, "vs_uninterrupted": diffs}
+    emit("lease_resume_serve", **out)
+    if (rc_a != -signal.SIGKILL or rc_b != 0 or settled_by_a
+            or sorted(redelivered) != sorted(ids)
+            or any(uploads[i] != 1 for i in ids) or duplicates
+            or any(w != "lease-b" for w in out["workers"].values())
+            or any(r < LEASE_MIN_RESUME for r in out["resume_steps"].values())
+            or out["b_rows_resumed"] != len(ids)
+            or steps != accounted
+            or out["b_b1_launches"] != steps * B1_LAUNCHES_PER_UNET_EVAL
+            or sum(out["b_launches"].values()) != out["b_b1_launches"]
+            or any(d["max"] > LEASE_IMAGE_BAR for d in diffs.values())):
+        raise AssertionError(f"lease_resume_serve: {out}")
+    return run, reference_run
+
+
+def overload_serve_phase(torch, registry, pool) -> dict:
+    """A worker with ``overload_control`` on and ``job_deadline_s`` =
+    ``OVERLOAD_DEADLINE_FACTOR`` x 20 steps x the lanes' step EWMA the card
+    measured (the slot's scheduler, from the phases before) takes a 12-job
+    burst from a lease-aware ``LocalHive`` into a lane of 8 rows: the first
+    bursts admit, the later ones are predicted to miss and shed. Gates:
+    every job either settles without error within its deadline or comes back
+    a non-fatal ``overloaded`` envelope (the hive requeues it, the shedder
+    excluded), at least one of each; B1 exactly 10 x the phase's lane steps
+    and lane rows admitted equal to the admitted jobs (a shed job launched
+    nothing). Prints the shed and admitted counts, each admission verdict's
+    predicted and remaining seconds, each admitted job's seconds and
+    whether brownout tripped."""
+    import asyncio
+
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    ewma = get_stepper(slot).step_ewma()
+    deadline = OVERLOAD_DEADLINE_FACTOR * SERVE_STEPS * ewma
+    if ewma <= 0:
+        raise AssertionError("overload_serve: no step EWMA measured")
+    verdicts = []
+    ids = [job["id"] for job in OVERLOAD_JOBS]
+    with LocalHive(lease_aware=True) as hive:
+        worker = Worker(Settings(
+            hive_uri=hive.uri, hive_token="chip-smoke",
+            worker_name="chip-smoke-ovl", overload_control=True,
+            job_deadline_s=deadline, overload_margin=OVERLOAD_MARGIN,
+            heartbeat_s=0.2, poll_busy_s=0.05, poll_idle_s=0.05,
+            install_signal_handlers=False), pool=pool, registry=registry)
+        should_shed = worker.overload.should_shed
+
+        def recorded(**kw):
+            decision = should_shed(**kw)
+            verdicts.append({"shed": decision.shed,
+                             "predicted_s": decision.predicted_s,
+                             "remaining_s": decision.remaining_s})
+            return decision
+
+        worker.overload.should_shed = recorded
+        hive.submit(*OVERLOAD_JOBS)
+
+        async def drive():
+            task = asyncio.create_task(worker.run())
+            t0 = time.perf_counter()
+            try:
+                while True:
+                    with hive.cond:
+                        refused = {r["id"] for r in hive.refused}
+                        done = len(hive.settled & set(ids)) + len(refused)
+                    if done >= len(ids):
+                        break
+                    if task.done():
+                        task.result()
+                        raise AssertionError("the worker stopped early")
+                    if time.perf_counter() - t0 > 300:
+                        raise AssertionError("overload_serve: jobs unsettled")
+                    await asyncio.sleep(0.01)
+            finally:
+                worker.request_stop()
+                await asyncio.wait_for(task, timeout=120)
+
+        with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)):
+            get_stepper(slot).shutdown()
+            before = stepper_stats(slot)
+            kernels.reset_launches()
+            asyncio.run(drive())
+            run = launched()
+            after = stepper_stats(slot)
+            get_stepper(slot).shutdown()
+        admitted = {r["id"]: r for r in hive.results if r["id"] in ids}
+        shed = {r["id"]: r for r in hive.refused}
+    rows = trace_rows(worker)
+    steps = delta(after, before, "steps_executed")
+    out = {"card": nvidia_smi_line(), "step_ewma_s": ewma,
+           "deadline_s": deadline, "margin": OVERLOAD_MARGIN,
+           "admitted": len(admitted), "shed": len(shed),
+           "verdicts": verdicts,
+           "admitted_seconds": {i: rows[i]["seconds"] for i in admitted},
+           "shed_fatal": [i for i, r in shed.items() if r.get("fatal_error")],
+           "brownout": worker.overload.snapshot()["state"],
+           "sheds_total": worker.overload.sheds_total,
+           "jobs_shed": worker.stats.jobs_shed,
+           "jobs_failed": worker.stats.jobs_failed,
+           "lane_steps": steps,
+           "rows_admitted": delta(after, before, "rows_admitted"),
+           "b1_launches": run["flash_attention"]["launches"]}
+    emit("overload_serve", **out)
+    for i, result in admitted.items():
+        check_envelope("overload_serve", OVERLOAD_JOBS[ids.index(i)],
+                       result, lanes=True)
+    if (not admitted or not shed or len(admitted) + len(shed) != len(ids)
+            or out["shed_fatal"]
+            or any(r["pipeline_config"].get("error_kind") != "overloaded"
+                   for r in shed.values())
+            or any(s > deadline for s in out["admitted_seconds"].values())
+            or out["jobs_failed"] or out["jobs_shed"] != len(shed)
+            or out["rows_admitted"] != len(admitted)
+            or out["b1_launches"] != steps * B1_LAUNCHES_PER_UNET_EVAL
+            or sum(r["launches"] for r in run.values())
+            != out["b1_launches"]):
+        raise AssertionError(f"overload_serve: {out}")
+    return run
+
+
+def health_serve_phase(torch, registry, pool, root: Path) -> dict:
+    """A worker with ``health_bind_ephemeral`` through an 8-job burst in a
+    lane of 8 rows. While the lane steps the script reads ``/healthz`` and
+    ``/metrics`` and asks ``/debug/profile?seconds=2``, and, during that
+    capture, a second one. After the burst, ``/debug/traces`` (Chrome and
+    tree). Gates: ``/metrics`` is Prometheus text and the step-seconds
+    histogram holds at least ``SUGGEST_MIN_SAMPLES`` lane steps of this
+    process on the card; the capture is ``ok`` with CUDA activity and B1's
+    kernel (``B1_KERNEL_SYMBOL``) among its kernel events, the second
+    capture answers 409 ``busy``; the trace ring holds every job. Prints
+    the suggested hang budget beside the priors (factor 20, floor 30 s,
+    ceiling 600 s)."""
+    import asyncio
+
+    import aiohttp
+
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.guard import SUGGEST_MIN_SAMPLES
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    captures = root / "captures"
+    scraped: dict = {}
+    ids = [job["id"] for job in HEALTH_JOBS]
+
+    async def get(session, url):
+        async with session.get(url) as response:
+            return response.status, await response.text()
+
+    async def drive(hive, worker):
+        task = asyncio.create_task(worker.run())
+        t0 = time.perf_counter()
+        try:
+            while (worker.health_address is None
+                   or stepper_stats(slot).get("steps_executed", 0)
+                   <= start_steps):
+                if task.done():
+                    task.result()
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("health_serve: the lane never "
+                                         "stepped")
+                await asyncio.sleep(0.005)
+            base = "http://%s:%d" % worker.health_address
+            timeout = aiohttp.ClientTimeout(total=120)
+            async with aiohttp.ClientSession(timeout=timeout) as session:
+                scraped["healthz"] = await get(session, base + "/healthz")
+                scraped["metrics"] = await get(session, base + "/metrics")
+                url = (f"{base}/debug/profile?seconds={HEALTH_CAPTURE_S}"
+                       f"&dir={captures}")
+                first = asyncio.create_task(get(session, url))
+                await asyncio.sleep(0.3)
+                scraped["busy"] = await get(session, url)
+                scraped["profile"] = await first
+                scraped["lane_steps_after_capture"] = stepper_stats(
+                    slot).get("steps_executed", 0) - start_steps
+                while True:
+                    with hive.cond:
+                        if set(ids) <= {r["id"] for r in hive.results}:
+                            break
+                    if time.perf_counter() - t0 > 300:
+                        raise AssertionError("health_serve: unsettled")
+                    await asyncio.sleep(0.01)
+                scraped["traces"] = await get(session, base + "/debug/traces")
+                scraped["tree"] = await get(
+                    session, base + "/debug/traces?format=tree&since=0")
+        finally:
+            worker.request_stop()
+            await asyncio.wait_for(task, timeout=120)
+
+    with LocalHive() as hive, env(
+            CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)):
+        worker = Worker(Settings(
+            hive_uri=hive.uri, hive_token="chip-smoke",
+            worker_name="chip-smoke-health", health_bind_ephemeral=True,
+            poll_busy_s=0.05, poll_idle_s=0.05,
+            install_signal_handlers=False), pool=pool, registry=registry)
+        get_stepper(slot).shutdown()
+        before = stepper_stats(slot)
+        start_steps = before.get("steps_executed", 0)
+        hive.submit(*HEALTH_JOBS)
+        kernels.reset_launches()
+        asyncio.run(drive(hive, worker))
+        run = launched()
+        after = stepper_stats(slot)
+        get_stepper(slot).shutdown()
+        results = {r["id"]: r for r in hive.results if r["id"] in ids}
+    for job in HEALTH_JOBS:
+        check_envelope("health_serve", job, results[job["id"]], lanes=True)
+    health = json.loads(scraped["healthz"][1])
+    samples = prometheus_samples(scraped["metrics"][1])
+    step_count = int(samples[("chiaswarm_stepper_step_seconds_count", ())])
+    profile = json.loads(scraped["profile"][1])
+    busy = json.loads(scraped["busy"][1])
+    traces = json.loads(scraped["traces"][1])
+    tree = json.loads(scraped["tree"][1])
+    b1_kernels = [k for k in profile.get("kernels", [])
+                  if B1_KERNEL_SYMBOL in k]
+    steps = delta(after, before, "steps_executed")
+    out = {"card": nvidia_smi_line(),
+           "healthz_status": scraped["healthz"][0],
+           "healthz_keys": sorted(health),
+           "device_memory": health.get("device_memory"),
+           "metrics_status": scraped["metrics"][0],
+           "metrics_samples": len(samples),
+           "step_seconds_samples": step_count,
+           "suggested_hang_budget": health["guard"]["suggested_hang_budget"],
+           "priors": {"factor": 20.0, "floor_s": 30.0, "ceil_s": 600.0},
+           "profile_status": scraped["profile"][0],
+           "profile": {k: profile.get(k) for k in (
+               "status", "seconds", "activities", "events", "device_events",
+               "trace")},
+           "b1_kernel_names": b1_kernels,
+           "profile_kernel_names": len(profile.get("kernels", [])),
+           "busy_status": scraped["busy"][0], "busy": busy.get("status"),
+           "lane_steps_during_capture": scraped["lane_steps_after_capture"],
+           "trace_events": len(traces.get("traceEvents", [])),
+           "trace_cursor": traces.get("cursor"),
+           "trace_jobs": sorted(t["root"]["meta"]["id"]
+                                for t in tree.get("traces", [])),
+           "lane_steps": steps,
+           "b1_launches": run["flash_attention"]["launches"]}
+    emit("health_serve", **out)
+    if (out["healthz_status"] != 200 or out["metrics_status"] != 200
+            or step_count < SUGGEST_MIN_SAMPLES
+            or not out["suggested_hang_budget"].get("measured")
+            or out["profile_status"] != 200 or profile.get("status") != "ok"
+            or "CUDA" not in (profile.get("activities") or [])
+            or not profile.get("device_events") or not b1_kernels
+            or out["busy_status"] != 409 or out["busy"] != "busy"
+            or out["trace_jobs"] != sorted(ids)
+            or out["b1_launches"] != steps * B1_LAUNCHES_PER_UNET_EVAL):
+        raise AssertionError(f"health_serve: {out}")
     return run
 
 
@@ -6313,7 +7088,7 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
 
 TTS_MODEL = "suno/bark"  # random weights from seed 0 (the registry's fallback)
 TTS_TEXT = "Hello, my name is Suno. And, uh, I like pizza."
-TTS_SECONDS = 2.0  # cut from 4.0 to keep the run inside its time limit
+TTS_SECONDS = 1.0  # cut from 4.0, then 2.0: the run's wall, its time limit
 TTS_SEM_STEPS = 32      # semantic steps held against the float32 CPU run
 TTS_LOGIT_BAR = 0.08    # bf16 card against float32 CPU, first-step logits
 TTS_CODEC_BAR = 1e-2    # relative L2 of the codec's waveform, card vs CPU
@@ -6413,7 +7188,7 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     """Bark at its published widths (three 24 x 1,024 GPTs in bf16 with
     vocabularies 129,600 / 12,096 / 1,056 and the 8-codebook EnCodec at
     24 kHz in float32), random from seed 0 through the registry's
-    ``allow_random`` fallback; through the worker a 2 s job at the default
+    ``allow_random`` fallback; through the worker a 1 s job at the default
     temperature 0.7, a job with a ``history`` preset of Bark's shapes and a
     job naming a preset by a string, then the first job again. Gates: the
     served envelopes error-free with ``audio/wav`` (``audio/mpeg`` with
@@ -6551,17 +7326,22 @@ def tts_serve_phase(torch, registry, pool) -> dict:
 VIDEO_TXT_MODEL = "damo-vilab/text-to-video-ms-1.7b"  # random, seed 0
 VIDEO_IMG_MODEL = "stabilityai/stable-video-diffusion-img2vid"  # random
 VIDEO_PROMPT = "a red fox running through fresh snow at dawn, cinematic"
+# the video jobs' steps, cut from the hive's 25 for the run's wall (PR 19):
+# a step's work, and so every B1 shape, is the same at any step count
+TXT2VID_STEPS = 15
 TXT2VID_JOBS = [
     {"id": "txt2vid-1", "workflow": "txt2vid", "model_name": VIDEO_TXT_MODEL,
-     "prompt": VIDEO_PROMPT, "seed": 1, "content_type": "video/mp4"},
+     "prompt": VIDEO_PROMPT, "seed": 1, "num_inference_steps": TXT2VID_STEPS,
+     "content_type": "video/mp4"},
     {"id": "txt2vid-1-again", "workflow": "txt2vid",
      "model_name": VIDEO_TXT_MODEL, "prompt": VIDEO_PROMPT, "seed": 1,
-     "content_type": "video/mp4"},
+     "num_inference_steps": TXT2VID_STEPS, "content_type": "video/mp4"},
     {"id": "txt2vid-nocfg", "workflow": "txt2vid",
      "model_name": VIDEO_TXT_MODEL, "prompt": VIDEO_PROMPT, "seed": 2,
-     "guidance_scale": 1.0, "content_type": "video/mp4"},
+     "guidance_scale": 1.0, "num_inference_steps": TXT2VID_STEPS,
+     "content_type": "video/mp4"},
 ]
-IMG2VID_STEPS = 25
+IMG2VID_STEPS = 15
 IMG2VID_JOBS = [
     {"id": "img2vid-1", "workflow": "img2vid", "model_name": VIDEO_IMG_MODEL,
      "start_image_uri": "/assets/svd-a.png", "seed": 1,
@@ -6787,7 +7567,8 @@ def video_shares(b1_rows: list, run: dict, stages: dict) -> dict:
 def txt2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
     """ModelScope at its published widths, random from seed 0 through the
     registry's ``allow_random`` fallback; a hive txt2vid job at the defaults
-    (256 px, 25 frames bucketed to 32, 25 steps, guidance 9.0, 8 fps), the
+    (256 px, 25 frames bucketed to 32, guidance 9.0, 8 fps) at
+    ``TXT2VID_STEPS`` steps (the hive's default is 25), the
     same job again and one at guidance 1.0, through the worker. Gates: the
     envelopes, the repeat's frames bit for bit, B1 exactly 5 x evals at
     (64, 1024, 1024, 5, 64) and (32, ...) and no other kernel, one eval
@@ -6826,7 +7607,8 @@ def txt2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
         frames[job["id"]] = check_video_envelope(
             "txt2vid_serve", "txt2vid", by_id[job["id"]], 25, (256, 256))
         batch = 64 if job.get("guidance_scale", 9.0) > 1.0 else 32
-        want[(batch, 1024, 1024, 5, 64, "bfloat16")] += VIDEO_B1_PER_EVAL * 25
+        want[(batch, 1024, 1024, 5, 64, "bfloat16")] += (
+            VIDEO_B1_PER_EVAL * TXT2VID_STEPS)
     got = collections.Counter(run["flash_attention"]["shapes"])
     if got != want or sum(launches.values()) != launches["flash_attention"]:
         raise AssertionError(f"txt2vid_serve launched {launches} by shape "
@@ -6838,13 +7620,15 @@ def txt2vid_serve_phase(torch, registry, pool, b1_rows: list) -> dict:
     gates = video_eval_gates(torch, pipe, rows=2, frames=32,
                              b1_launches=VIDEO_B1_PER_EVAL)
     profile = profile_tool().video_profile(torch, pipe, "txt2vid",
+                                           steps=TXT2VID_STEPS,
                                            warm_up=False, top=8)
     emit("txt2vid_serve", load_s=load_s, params=params,
          param_bytes=pipe.c.param_bytes(),
          **video_jobs_table([j["id"] for j in TXT2VID_JOBS], by_id, rows,
                             stages, container),
          **video_shares(b1_rows, run, stages),
-         launches_per_eval=launches["flash_attention"] / (3 * 25),
+         launches_per_eval=launches["flash_attention"]
+         / (3 * TXT2VID_STEPS),
          launches=launches, b1_shapes=b1_shapes(run),
          repeat_frames_equal=repeat_equal, evals=gates, profile=profile,
          max_memory_allocated=peak, nvidia_smi=nvidia_smi_line())
@@ -7807,6 +8591,9 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "guard_lane", "guard_nan",
                                            "guard_solo", "guard_worker",
                                            "guard_cost", "guard_xl",
+                                           "overload_serve",
+                                           "health_serve",
+                                           "lease_resume_serve",
                                            "safety_serve",
                                            "controlnet_serve",
                                            "xl_controlnet_serve",
@@ -7924,6 +8711,16 @@ def run_phases(torch, t0: float) -> int:
             emit("guard_child", **guard_child(child_hive,
                                               settings_root_dir()))
         runs["guard_cost"] = guard_cost_phase(torch, registry, slot)
+        # the hive worker's second half on the checkpoint's model: the
+        # overload controller, the health server, lease heartbeats with a
+        # killed worker's jobs resumed by another
+        runs["overload_serve"] = overload_serve_phase(
+            torch, ckpt["registry"], pool)
+        runs["health_serve"] = health_serve_phase(
+            torch, ckpt["registry"], pool, settings_root_dir())
+        (runs["lease_resume_serve"],
+         runs["lease_resume_reference"]) = lease_resume_serve_phase(
+            torch, ckpt["registry"], slot, settings_root_dir())
     # SDXL at 1024 px: the solo path, then the lanes and the worker
     with env(CHIASWARM_STEPPER="0"):
         runs["xl_serve"], xl_blobs, xl_ips = xl_serve_phase(torch, registry,

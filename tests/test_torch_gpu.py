@@ -27,7 +27,10 @@ weights are wrong raising on the card instead of serving its stand-in; the
 rest of the SD surface (B1 at a three-job burst's batch-6 shapes, SD1.5's
 UNet under int8 weights against its bf16 twin, the int8 and fp8 fake-quant
 and ``quantize_leaf`` on the card against the CPU, DeepCache's shallow
-eval launching B1 at level 0 only).
+eval launching B1 at level 0 only); the hive worker's lease and health
+parts (a lane checkpoint spooled by job id, handed back through JSON and
+resumed on the card bit for bit; a profiler capture holding B1's kernel
+events, a concurrent one answering busy).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -2073,3 +2076,98 @@ def test_a_shallow_eval_launches_b1_at_level_zero_only(cuda_device, family,
     assert deep.shape == (2, fam.unet.block_out_channels[1], hw, hw)
     rel = ((replay - out).float().norm() / out.float().norm()).item()
     assert rel <= 1e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# lease heartbeats and the health server on the card (tests/test_torch_lease.py
+# and tests/test_torch_health.py on the CPU)
+
+
+def test_a_spooled_lane_checkpoint_resumes_bit_for_bit_on_the_card(
+        cuda_device, monkeypatch, tmp_path):
+    """A tiny_b1 lane job on the card with the worker's checkpoint spool on
+    its slot: the spool holds its step-6 state by job id; that state, through
+    JSON as a hive hands it back, resumes the job in a fresh lane at step 6,
+    and the image is the uninterrupted run's bit for bit, B1 at the same
+    shapes."""
+    import json
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.resilience import CheckpointSpool
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    _guard_env(monkeypatch)
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    job = {"id": "spooled", "model_name": "tiny_b1", "prompt": "a red door",
+           "num_inference_steps": 8, "seed": 4, "height": 64, "width": 64,
+           "content_type": "image/png",
+           "parameters": {"scheduler_type": "EulerAncestralDiscreteScheduler"}}
+
+    def run(**over):
+        result = synchronous_do_work(
+            dict(job, parameters=dict(job["parameters"]), **over), slot,
+            registry)
+        get_stepper(slot).shutdown()
+        return result
+
+    kernels.reset_launches()
+    ref = run()
+    ref_shapes = dict(KERNEL.shapes)
+    spool = CheckpointSpool(tmp_path / "spool")
+    slot._checkpoint_spool = spool
+    spooled = run()
+    slot._checkpoint_spool = None
+    assert spool.written == 3  # lane steps 2, 4 and 6
+    state = json.loads(json.dumps(spool.load("spooled")))
+    assert state["step"] == 6 and len(state["generators"]) == 1
+    kernels.reset_launches()
+    resumed = run(resume=state)
+    stamp = resumed["pipeline_config"]["stepper"]
+    assert stamp["resume_step"] == 6 and stamp["steps_executed"] == 2
+    assert (_png_u8(spooled) == _png_u8(ref)).all()
+    assert (_png_u8(resumed) == _png_u8(ref)).all()
+    assert KERNEL.launches > 0 and set(KERNEL.shapes) <= set(ref_shapes)
+
+
+def test_a_profiler_capture_on_the_card_holds_b1s_kernel_events(
+        cuda_device, monkeypatch, tmp_path):
+    """``obs/profiling.py::capture`` on the card while a tiny_b1 lane steps
+    records CUDA activity, B1's kernel among it, and a second capture at the
+    same time answers busy."""
+    import threading
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.obs import profiling
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    _guard_env(monkeypatch)
+    registry, slot = _tiny_b1(monkeypatch, tmp_path, cuda_device)
+    job = {"id": "profiled", "model_name": "tiny_b1", "prompt": "a red door",
+           "num_inference_steps": 40, "seed": 4, "height": 64, "width": 64,
+           "content_type": "image/png"}
+    synchronous_do_work(dict(job), slot, registry)  # warm
+    done = threading.Event()
+
+    def serve():
+        try:
+            synchronous_do_work(dict(job), slot, registry)
+        finally:
+            done.set()
+
+    server = threading.Thread(target=serve)
+    server.start()
+    got = {}
+    capturer = threading.Thread(target=lambda: got.update(
+        profiling.capture(0.5, str(tmp_path / "captures"))))
+    capturer.start()
+    while not profiling._CAPTURE_LOCK.locked():
+        threading.Event().wait(0.001)
+    busy = profiling.capture(0.1, str(tmp_path / "captures"))
+    capturer.join()
+    server.join()
+    get_stepper(slot).shutdown()
+    assert busy["status"] == "busy"
+    assert got["status"] == "ok", got
+    assert got["activities"] == ["CPU", "CUDA"] and got["device_events"] > 0
+    assert any("flash_fwd" in name for name in got["kernels"])

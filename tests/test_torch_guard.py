@@ -426,7 +426,8 @@ def test_a_wedged_lane_resumes_alike_in_both_packages(jax_pipe, port_pipe,
         assert img.std() > 1.0
     assert np.array_equal(out["torch"][1], ref_img)
     j, t = out["jax"], out["torch"]
-    assert {k: t[0][k] for k in t[0] if k not in ("x", "old", "generators")} \
+    assert {k: t[0][k] for k in t[0]
+            if k not in ("x", "old", "generators", "slots")} \
         == {k: j[0][k] for k in j[0] if k not in ("x", "old", "keys")}
     assert {k: t[3].get(k, 0) for k in GUARD_COUNTERS} == \
         {k: j[3].get(k, 0) for k in GUARD_COUNTERS}
@@ -434,8 +435,8 @@ def test_a_wedged_lane_resumes_alike_in_both_packages(jax_pipe, port_pipe,
     diff = np.abs(t[1].astype(np.int16) - j[1].astype(np.int16))
     assert diff.max() <= 1, diff.max()
     # the checkpoint carries the JAX envelope's keys, the port's noise
-    # state beside them
-    assert set(t[0]) - set(j[0]) == {"generators"}
+    # state and the rows' slots beside them
+    assert set(t[0]) - set(j[0]) == {"generators", "slots"}
     assert set(j[0]) - set(t[0]) == {"keys"}
 
 

@@ -22,7 +22,8 @@ modules it brings, on the CPU, against the JAX package.
   never give ``SlotBusy``; a job submitted from an executor thread renders
   the bits of one submitted directly.
 - **No CPU fallback**, the default pool's rules, and the settings the worker
-  refuses until the next worker slice.
+  refuses until the next worker slice (federation: several hive uris,
+  ``hive_front_uri``).
 """
 
 from __future__ import annotations
@@ -1230,11 +1231,8 @@ def test_sdxl_estimate_reaches_the_default_pool_policy(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    {"heartbeat_s": 1.0}, {"health_port": 8080},
-    {"health_bind_ephemeral": True}, {"overload_control": True},
     {"hive_uri": "http://a,http://b"}, {"hive_front_uri": "http://front"},
-], ids=["heartbeat", "health", "health-ephemeral", "overload", "shards",
-        "front"])
+], ids=["shards", "front"])
 def test_worker_refuses_parts_of_the_next_slice(over):
     with pytest.raises(ValueError, match="next worker slice"):
         tworker.Worker(settings=tsettings.Settings(**over),

@@ -14,7 +14,10 @@ reported on lines of their own too. ``--seq 4`` serves on a ring of
 four shards (four cards when four are visible, else the first card named
 four times, where B3 runs each ring attention in one launch);
 ``CHIASWARM_RING_FLASH=scan`` in the environment makes it the scan drive
-over B2.
+over B2. Every profile holds the process-wide profiler lock
+(``chiaswarm_tpu_torch/obs/profiling.py::profile``): run in a worker's
+process, a ``/debug/profile`` capture meanwhile answers busy, and a profile
+asked for during a capture raises ``ProfilerBusy``.
 
 ``--controlnet`` profiles the same job twice, as txt2img and as a
 ControlNet job at scale 1.0 (a ControlNet of the family's widths, random
@@ -293,7 +296,9 @@ def tts_decode_launches(torch, pipe, steps: tuple[int, int] = (2, 12)
     stage behind one 887-slot prefill, ``steps`` tokens each, under the
     profiler; their difference over the steps' difference."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from chiaswarm_tpu_torch.obs.profiling import profile
 
     from chiaswarm_tpu_torch.pipelines.tts import _stage_decode
 
@@ -471,7 +476,9 @@ def profiled(torch, pipe, req, trace: str | None = None,
     under the profiler (CPU and CUDA activity, CUDA's alone without
     ``cpu``): its summary and its CUDA-event span. ``pipe`` is any
     callable of ``req``."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from chiaswarm_tpu_torch.obs.profiling import profile
 
     if warm_up:
         pipe(req)
@@ -577,7 +584,9 @@ def burst_jobs(n: int, steps: int, model: str = "sd15") -> list[dict]:
 
 def lanes_main(args) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from chiaswarm_tpu_torch.obs.profiling import profile
 
     from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
