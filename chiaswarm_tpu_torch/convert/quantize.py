@@ -120,11 +120,13 @@ def _div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
-def fake_quant_activation(x: Any, fmt: str | None = None) -> Any:
+def fake_quant_activation(x: Any, fmt: str | None = None,
+                          tag: str | None = None) -> Any:
     """Per-tensor dynamic-absmax quantize and dequantize of one activation,
     back in its dtype. Identity when the knob is off or ``x`` is not a
     float tensor. ``fmt`` overrides the environment (the callers read it
-    once per call site)."""
+    once per call site). With ``tag``, the numerics probe ``act.<tag>``
+    records the dequantized tensor (JAX ``:150-155``)."""
     fmt = activations_format() if fmt is None else fmt
     if fmt == "off" or not isinstance(x, torch.Tensor) \
             or not x.is_floating_point():
@@ -134,9 +136,17 @@ def fake_quant_activation(x: Any, fmt: str | None = None) -> Any:
     if fmt == "int8":
         scale = _div(absmax.clamp_min(1e-12), _INT8_MAX)
         q = torch.clamp(torch.round(xf / scale), -_INT8_MAX, _INT8_MAX)
-        return (q.to(torch.int8).float() * scale).to(x.dtype)
-    scale = _div(absmax.clamp_min(1e-12), _FP8_E4M3_MAX)
-    return ((xf / scale).to(torch.float8_e4m3fn).float() * scale).to(x.dtype)
+        out = (q.to(torch.int8).float() * scale).to(x.dtype)
+    else:
+        scale = _div(absmax.clamp_min(1e-12), _FP8_E4M3_MAX)
+        out = ((xf / scale).to(torch.float8_e4m3fn).float()
+               * scale).to(x.dtype)
+    if tag is not None:
+        from chiaswarm_tpu_torch.obs import numerics as _numerics
+
+        if _numerics.enabled_for("act"):
+            out = _numerics.tap(f"act.{tag}", out)
+    return out
 
 
 # ---------------------------------------------------------------- weights

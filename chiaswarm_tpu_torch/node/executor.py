@@ -64,6 +64,7 @@ import logging
 from typing import Any
 
 from chiaswarm_tpu_torch import WORKER_VERSION
+from chiaswarm_tpu_torch.node.hive import HIVE_EPOCH_KEY, HIVE_SHARD_KEY
 from chiaswarm_tpu_torch.node.job_args import format_args
 from chiaswarm_tpu_torch.node.output_processor import (
     encode_image,
@@ -77,6 +78,7 @@ from chiaswarm_tpu_torch.node.resilience import (
     classify_exception,
 )
 from chiaswarm_tpu_torch.obs import trace as obs_trace
+from chiaswarm_tpu_torch.obs.flight import TRACE_CTX_KEY
 from chiaswarm_tpu_torch.obs.profiling import job_profile
 from chiaswarm_tpu_torch.serving.guard import (
     InvalidOutput,
@@ -88,9 +90,11 @@ from chiaswarm_tpu_torch.serving.guard import (
 log = logging.getLogger("chiaswarm_torch.executor")
 
 # what a job may carry that is never a job argument: the worker's trace,
-# and the trace context and epoch stamp a lease-aware hive adds (the JAX
-# package's obs/flight.py::TRACE_CTX_KEY, node/hivelog.py::HIVE_EPOCH_KEY)
-_NOT_ARGUMENTS = (obs_trace.TRACE_KEY, "trace_ctx", "hive_epoch")
+# and the trace context, epoch and owner-shard stamps a lease-aware or
+# federated hive adds. The worker pops the last three at poll receipt;
+# a job handed to the executor directly still never formats them
+_NOT_ARGUMENTS = (obs_trace.TRACE_KEY, TRACE_CTX_KEY, HIVE_EPOCH_KEY,
+                  HIVE_SHARD_KEY)
 
 
 async def do_work(job: dict[str, Any], slot, registry) -> dict:

@@ -12,6 +12,15 @@ from one package to the other needs no hive change:
   with ``heartbeat_s > 0`` against a lease-aware hive, and any failure is
   tolerated by the worker
 
+Two wire keys beyond the reference's (copies of
+``chiaswarm_tpu/node/hivelog.py:65,75``): a journaled hive stamps
+:data:`HIVE_EPOCH_KEY` on every grant and its heartbeat acks, and the worker
+echoes it on its beats and uploads (a beat claiming an older epoch is
+answered ``stale_epoch`` with every claimed job ``lost`` and the current
+epoch); a hive shard of a federation stamps :data:`HIVE_SHARD_KEY`, the
+owning shard's index, and the worker echoes it on the upload. Neither is
+sent to a hive that sent none.
+
 Bearer-token auth and the ``chiaSWARM.worker/<version>`` user agent, with
 ``WORKER_VERSION`` from ``chiaswarm_tpu_torch/__init__.py``. A 400 from the
 work endpoint is the hive flagging this worker: it raises
@@ -42,6 +51,14 @@ from chiaswarm_tpu_torch.node.settings import (  # noqa: F401
 )
 
 log = logging.getLogger("chiaswarm_torch.hive")
+
+#: the journal generation a journaled hive stamps on grants and acks, and
+#: the worker echoes on beats and uploads
+HIVE_EPOCH_KEY = "hive_epoch"
+
+#: the owning shard's index a federated hive shard stamps on grants, and
+#: the worker echoes on the upload (routing it to that shard)
+HIVE_SHARD_KEY = "hive_shard"
 
 # control-plane request accounting (process-global: the HTTP client is
 # worker-agnostic; worker-scoped health lives on the worker's registry)

@@ -61,16 +61,42 @@ With a lease-aware hive (all opt-in, as in JAX):
   poll loop waits while the queued backlog outlasts the backpressure
   budget; brownout caps lane admissions (``set_admission_cap``).
 - **The health server** (``health_port`` or ``health_bind_ephemeral``; JAX
-  :805-1130): ``/healthz`` (:meth:`Worker.health`, with the card's memory),
-  ``/metrics`` (the worker's registry and the process one, Prometheus text),
-  ``/debug/traces`` (Chrome events or ``?format=tree``, after ``?since=``)
-  and ``/debug/profile?seconds=N`` (``obs/profiling.py``: a CUDA + CPU
-  capture on a card; 409 ``busy`` while another runs), with JAX's 400, 409
-  and 500 answers. ``/debug/numerics`` is not served.
+  :805-1130): ``/healthz`` (:meth:`Worker.health`, with the card's memory
+  and one ``hive_shards`` entry per shard), ``/metrics`` (the worker's
+  registry and the process one, Prometheus text), ``/debug/traces`` (Chrome
+  events or ``?format=tree``, after ``?since=``), ``/debug/profile?seconds=N``
+  (``obs/profiling.py``: a CUDA + CPU capture on a card; 409 ``busy`` while
+  another runs) and ``/debug/numerics?probe=<prefix>&limit=N``
+  (``obs/numerics.py``: the ring of per-probe summaries the taps around
+  kernels B1, B2 and B3 and the pipelines record under
+  ``CHIASWARM_NUMERICS``), with JAX's 400, 409 and 500 answers.
 
-Left for the next worker slice, and refused when a setting asks for them:
-several hive uris and ``hive_front_uri`` (federation over hive shards, the
-hive epoch handshake).
+A journaled hive (JAX :633-658, :1243-1297, :2016-2049):
+
+- **The epoch handshake**: the grant's ``hive_epoch`` is popped at poll
+  receipt, tracked per shard (:meth:`Worker._note_hive_epoch`; a change
+  counts ``hive_epoch_changes``: the shard recovered from its journal and
+  its pre-recovery leases are void) and echoed on the shard's beats and on
+  the job's upload, stamped before any spool so a replay after the restart
+  still carries the grant's epoch (the hive counts it as epoch salvage). A
+  beat that claims an old epoch is answered ``stale_epoch`` with every
+  claimed job lost and the current epoch, which the next beat carries.
+- **Flight trace context** (``obs/flight.py``): a grant's ``trace_ctx`` is
+  joined into the job's trace, and the upload carries the trace's
+  ``span_digest``.
+
+Federation over hive shards (JAX :93-119, :370-431, :555-631, :1496-1561,
+:2082-2096): the settings list several shards (``hive_shard_uris``, or
+commas in ``hive_uri``) or one front (``hive_front_uri``, resolved at start
+through ``GET /api/shards``, ``node/federation.py``). Each shard has its own
+client, :class:`~chiaswarm_tpu_torch.node.resilience.HiveSession` (a dead
+shard rides an outage alone while the others serve), poll loop and
+``Backoff``, dead-letter spool (shard 0 keeps the single-hive directory,
+shard i > 0 suffixes ``__shard<i>``) and epoch. A grant stamped with
+``hive_shard`` belongs to that shard, whichever shard's poll delivered it (a
+stolen job): its beats, upload and spool replay go to the owner, and its
+upload echoes the stamp. A single-hive worker is shard 0, with the wire of
+the reference hive.
 
 ``python -m chiaswarm_tpu_torch.node.worker`` runs one worker on the
 machine's CUDA cards. There is no CPU fallback: pass ``pool=`` and
@@ -109,7 +135,12 @@ from chiaswarm_tpu_torch.node.executor import (
     rows_cap,
     single_chip_rows,
 )
-from chiaswarm_tpu_torch.node.hive import BadWorkerError, HiveClient
+from chiaswarm_tpu_torch.node.hive import (
+    HIVE_EPOCH_KEY,
+    HIVE_SHARD_KEY,
+    BadWorkerError,
+    HiveClient,
+)
 from chiaswarm_tpu_torch.node.logging_setup import setup_logging
 from chiaswarm_tpu_torch.node.overload import OverloadController
 from chiaswarm_tpu_torch.node.registry import ModelRegistry
@@ -133,14 +164,14 @@ from chiaswarm_tpu_torch.node.settings import (
     load_settings,
     settings_root,
 )
+from chiaswarm_tpu_torch.obs import flight as obs_flight
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
+from chiaswarm_tpu_torch.obs import numerics as obs_numerics
 from chiaswarm_tpu_torch.obs import profiling as obs_profiling
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.serving import guard as _guard
 
 log = logging.getLogger("chiaswarm_torch.worker")
-
-_LATER = "the next worker slice of chiaswarm_tpu_torch"
 
 #: the lanes' stats the worker mirrors into its registry (JAX :1008-1027)
 _STEPPER_COUNTERS = ("steps_executed", "rows_admitted",
@@ -153,6 +184,27 @@ _STEPPER_COUNTERS = ("steps_executed", "rows_admitted",
                      "steps_slow")
 _STEPPER_GAUGES = ("lanes_live", "rows_active", "lane_rows_total",
                    "lane_occupancy", "padding_waste")
+
+
+class _HiveShard:
+    """One hive shard as the worker sees it (JAX :93-119): its client,
+    outage session, dead-letter spool, poll backoff and the epoch last seen
+    on its grants and acks (None against a journal-less shard). A
+    single-hive worker holds one, shard 0."""
+
+    def __init__(self, *, index: int, uri: str, client: Any,
+                 session: HiveSession, spool: DeadLetterSpool,
+                 backoff: Backoff) -> None:
+        self.index = int(index)
+        self.uri = str(uri)
+        self.client = client
+        self.session = session
+        self.spool = spool
+        self.backoff = backoff
+        self.last_epoch: int | None = None
+        # the heartbeat's metrics-snapshot throttle: each shard keeps the
+        # latest snapshot of this worker for its own fleet view
+        self.last_metrics = float("-inf")
 
 
 def _burst_key(job: dict) -> tuple | None:
@@ -235,15 +287,15 @@ class Worker:
                  hive: HiveClient | None = None,
                  executor: Any | None = None) -> None:
         self.settings = settings or load_settings()
-        self._refuse_later_parts()
         # registry first: its catalog feeds the default mesh policy
         self.registry = registry or ModelRegistry(
             catalog=load_file("models.json") or [])
         self.mesh_spec: MeshSpec | None = None
         self.pool = pool if pool is not None else self._default_pool()
-        self.hive = hive if hive is not None else HiveClient(
-            self.settings.hive_uri, self.settings.hive_token,
-            self.settings.worker_name)
+        # one session bundle per hive shard; an injected client (the test
+        # and chaos seam) is the whole control plane, one bundle
+        self._hive_injected = hive is not None
+        self.shards: list[_HiveShard] = self._build_hive_shards(hive)
         self._executor = executor
         # queue bound = total in-flight capacity: per slot, the larger of
         # its depth and its data-axis width
@@ -311,20 +363,18 @@ class Worker:
             on_close=getattr(self.registry, "unquarantine", None),
             on_probe=getattr(self.registry, "unquarantine", None),
             persist_path=self._breaker_state_path())
-        self.hive_session = HiveSession(
-            outage_after=self.settings.hive_outage_after)
-        self.dead_letters = DeadLetterSpool(self._dead_letter_dir())
-        self._poll_backoff = Backoff(
-            base=self.settings.poll_backoff_base_s,
-            cap=self.settings.poll_backoff_cap_s,
-            seed=f"poll:{self.settings.worker_name}")
-        # dead-letter files currently riding the result queue: a live
-        # replay must never enqueue a spooled envelope twice
+        # dead-letter files currently riding the result queue, across
+        # every shard's spool: a live replay never enqueues one twice
         self._replayed_paths: set[str] = set()
         self._dl_replayed = obs_metrics.dead_letter_replayed_counter(
             self.metrics)
         for when in obs_metrics.DEAD_LETTER_REPLAY_WHEN:
             self._dl_replayed.inc(0, when=when)
+        # one series per configured shard, 0 from the first scrape
+        shard_gauge = obs_metrics.hive_shard_session_state_gauge(
+            self.metrics)
+        for shard in self.shards:
+            shard_gauge.set(0, shard=str(shard.index))
         # the resume-state spool beside the dead-letter spool; attached to
         # the slots only with heartbeats on, the one path that ships a
         # checkpoint anywhere (with them off, lanes pay no spool write)
@@ -335,9 +385,11 @@ class Worker:
         # jobs between poll receipt and settled upload: the id set the
         # heartbeat keeps leased (insertion-ordered, stable payloads)
         self._inflight: dict[Any, float] = {}
-        # the heartbeat's metrics-snapshot throttle, and where the health
-        # server bound (host, port)
-        self._last_metrics = float("-inf")
+        # which shard OWNS each in-flight job's lease (a stolen grant
+        # arrives through one shard's poll and belongs to another): beats
+        # and uploads route by it
+        self._inflight_shard: dict[Any, int] = {}
+        # where the health server bound (host, port)
         self.health_address: tuple[str, int] | None = None
         # the operator's residency settings, pushed into the registry's
         # ledger: an explicit budget, and the prefetch toggle (idle polls
@@ -350,18 +402,6 @@ class Worker:
             residency.prefetch_enabled = bool(
                 self.settings.residency_prefetch
                 and residency.prefetch_enabled)
-
-    def _refuse_later_parts(self) -> None:
-        s = self.settings
-        asked = []
-        if len(s.hive_uris()) > 1:
-            asked.append("several hive uris (federation over hive shards)")
-        if str(s.hive_front_uri or "").strip():
-            asked.append("hive_front_uri (federation bootstrap)")
-        if asked:
-            raise ValueError(
-                f"settings ask for {'; '.join(asked)}, which {_LATER} "
-                "ports; unset them to run this worker")
 
     def _spool_dirname(self) -> str:
         return re.sub(r"[^A-Za-z0-9._-]+", "_",
@@ -383,6 +423,84 @@ class Worker:
         # namespaced by worker name: workers sharing one settings root
         # must never replay (and then delete) each other's results
         return settings_root() / "dead_letter" / self._spool_dirname()
+
+    def _shard_dead_letter_dir(self, index: int) -> Path:
+        """Shard 0 keeps the single-hive directory (the breaker file is its
+        sibling); shard i > 0 suffixes ``__shard<i>``, so one shard's heal
+        never replays (and deletes) envelopes owed to another."""
+        base = self._dead_letter_dir()
+        if index <= 0:
+            return base
+        return base.parent / f"{base.name}__shard{index}"
+
+    def _build_hive_shards(self, hive: Any | None) -> list[_HiveShard]:
+        uris = self.settings.hive_uris() or [self.settings.hive_uri]
+        if hive is not None:
+            uris = uris[:1]
+        shards: list[_HiveShard] = []
+        for index, uri in enumerate(uris):
+            client = hive if hive is not None else HiveClient(
+                uri, self.settings.hive_token, self.settings.worker_name)
+            # shard 0 keeps the single-hive backoff seed, so single-hive
+            # schedules reproduce; the others decorrelate from it
+            seed = (f"poll:{self.settings.worker_name}" if index == 0
+                    else f"poll:{self.settings.worker_name}:{index}")
+            shards.append(_HiveShard(
+                index=index, uri=uri, client=client,
+                session=HiveSession(
+                    outage_after=self.settings.hive_outage_after,
+                    name=f"shard{index}" if len(uris) > 1 else ""),
+                spool=DeadLetterSpool(self._shard_dead_letter_dir(index)),
+                backoff=Backoff(
+                    base=self.settings.poll_backoff_base_s,
+                    cap=self.settings.poll_backoff_cap_s,
+                    seed=seed)))
+        return shards
+
+    async def _bootstrap_from_front(self) -> None:
+        """``hive_front_uri`` names one federated front: resolve it into
+        the shard list (``GET /api/shards``) and rebuild the session
+        bundles from it, replacing a hand-configured list. An injected hive
+        client always wins. Raises on an unreachable front."""
+        front = str(self.settings.hive_front_uri or "").strip()
+        if not front or self._hive_injected:
+            return
+        from chiaswarm_tpu_torch.node.federation import bootstrap_shard_uris
+
+        uris = await bootstrap_shard_uris(front)
+        if list(uris) == self.settings.hive_uris():
+            return
+        log.info("bootstrapped %d shard uri(s) from front %s",
+                 len(uris), front)
+        self.settings.hive_shard_uris = tuple(uris)
+        self.settings.hive_uri = uris[0]
+        self.shards = self._build_hive_shards(None)
+
+    # the single-hive surface: shard 0 is the worker's one hive
+
+    @property
+    def hive(self) -> Any:
+        return self.shards[0].client
+
+    @hive.setter
+    def hive(self, client: Any) -> None:
+        self.shards[0].client = client
+
+    @property
+    def hive_session(self) -> HiveSession:
+        return self.shards[0].session
+
+    @property
+    def dead_letters(self) -> DeadLetterSpool:
+        return self.shards[0].spool
+
+    @property
+    def _poll_backoff(self) -> Backoff:
+        return self.shards[0].backoff
+
+    @property
+    def _last_hive_epoch(self) -> int | None:
+        return self.shards[0].last_epoch
 
     # ---- the default pool ----
 
@@ -478,50 +596,93 @@ class Worker:
             except (NotImplementedError, RuntimeError, ValueError):
                 pass
 
-    def _replay_dead_letters(self, when: str = "startup") -> int:
-        """Re-queue spooled results for upload: at ``startup``, or
-        ``live`` when the hive healed mid-run. A file is discarded only
-        after ITS upload succeeds (:meth:`_deliver`)."""
-        found = 0
-        for path, result in self.dead_letters.replay():
-            key = str(path)
-            if key in self._replayed_paths:
-                continue  # already riding from an earlier replay
-            self._replayed_paths.add(key)
-            result["_dead_letter_path"] = key
-            self.result_queue.put_nowait(result)
-            self.stats.results_replayed += 1
-            self._dl_replayed.inc(when=when)
-            found += 1
-        if found:
-            log.warning("replaying %d dead-letter result(s) from %s (%s)",
-                        found, self.dead_letters.directory, when)
-        return found
+    def _replay_dead_letters(self, when: str = "startup",
+                             shards: list[_HiveShard] | None = None
+                             ) -> int:
+        """Re-queue spooled results for upload: at ``startup`` every
+        shard's spool, or ``live`` the spool of a shard that healed
+        mid-run (envelopes owed to a shard still down stay put). A file is
+        discarded only after ITS upload succeeds (:meth:`_deliver`)."""
+        replayed = 0
+        multiplexed = len(self.shards) > 1
+        for shard in (self.shards if shards is None else shards):
+            found = 0
+            for path, result in shard.spool.replay():
+                key = str(path)
+                if key in self._replayed_paths:
+                    continue  # already riding from an earlier replay
+                self._replayed_paths.add(key)
+                result["_dead_letter_path"] = key
+                if multiplexed:
+                    # the replay goes to the shard whose spool held it
+                    result.setdefault(HIVE_SHARD_KEY, shard.index)
+                self.result_queue.put_nowait(result)
+                self.stats.results_replayed += 1
+                self._dl_replayed.inc(when=when)
+                found += 1
+            if found:
+                log.warning("replaying %d dead-letter result(s) from %s "
+                            "(%s)", found, shard.spool.directory, when)
+            replayed += found
+        return replayed
 
-    def _note_hive_ok(self) -> None:
-        """A poll or upload reached the hive; a heal drains the
-        dead-letter spool live."""
-        if self.hive_session.note_success():
-            log.warning("hive healed after %.1fs outage; replaying its "
-                        "dead-letter spool live",
-                        self.hive_session.last_outage_s)
-            self._replay_dead_letters(when="live")
+    def _shard_label(self, shard: _HiveShard) -> str:
+        return f" shard {shard.index}" if len(self.shards) > 1 else ""
 
-    def _note_hive_failure(self, source: str, exc: Exception) -> None:
-        """A poll or upload could not reach the hive. An HTTP 4xx is
-        excluded: the hive answered."""
+    def _note_hive_ok(self, shard: _HiveShard | None = None) -> None:
+        """A poll, upload or beat reached this shard; a heal drains the
+        shard's dead-letter spool live."""
+        shard = shard if shard is not None else self.shards[0]
+        if shard.session.note_success():
+            log.warning("hive%s healed after %.1fs outage; replaying its "
+                        "dead-letter spool live", self._shard_label(shard),
+                        shard.session.last_outage_s)
+            self._replay_dead_letters(when="live", shards=[shard])
+
+    def _note_hive_failure(self, source: str, exc: Exception,
+                           shard: _HiveShard | None = None) -> None:
+        """A poll, upload or beat could not reach this shard. An HTTP 4xx
+        is excluded: the hive answered. An outage assumes only this
+        shard's leases lost."""
         if hive_reachable_error(exc):
             return
-        if self.hive_session.note_failure(source):
-            assumed = len(self._inflight)
+        shard = shard if shard is not None else self.shards[0]
+        if shard.session.note_failure(source):
+            assumed = sum(
+                1 for job_id in self._inflight
+                if self._inflight_shard.get(job_id, 0) == shard.index)
             self.stats.hive_outages += 1
             if assumed:
                 self.stats.leases_assumed_lost += assumed
             log.error(
-                "hive OUTAGE after %d consecutive %s failure(s); %d "
+                "hive%s OUTAGE after %d consecutive %s failure(s); %d "
                 "in-flight lease(s) assumed lost — work rides through, "
                 "results spool to dead-letter and replay on heal",
-                self.hive_session.consecutive_failures, source, assumed)
+                self._shard_label(shard), shard.session.consecutive_failures,
+                source, assumed)
+
+    def _note_hive_epoch(self, raw: Any,
+                         shard: _HiveShard | None = None) -> int | None:
+        """Track the epoch stamped on a shard's grants and acks (JAX
+        :633-658). A change means that shard recovered from its journal:
+        its pre-recovery leases are void and their jobs redeliver. Epochs
+        are per shard."""
+        try:
+            epoch = None if raw is None else int(raw)
+        except (TypeError, ValueError):
+            return None
+        if epoch is None:
+            return None
+        shard = shard if shard is not None else self.shards[0]
+        previous = shard.last_epoch
+        if previous is not None and epoch != previous:
+            self.stats.hive_epoch_changes += 1
+            log.warning("hive%s epoch %d -> %d: the hive recovered from "
+                        "its journal; pre-recovery leases are void and "
+                        "their jobs will redeliver",
+                        self._shard_label(shard), previous, epoch)
+        shard.last_epoch = epoch
+        return epoch
 
     def _note_placement(self, raw: Any) -> None:
         """Feed a heartbeat ack's ``placement`` hint (the fleet planner's
@@ -539,6 +700,7 @@ class Worker:
             log.debug("placement hint dropped", exc_info=True)
 
     async def run(self) -> None:
+        await self._bootstrap_from_front()
         self.startup()
         self._replay_dead_letters()
         # a redelivered job arrives with the hive's copy of its checkpoint:
@@ -555,8 +717,14 @@ class Worker:
         ]
         result_task = asyncio.create_task(self._result_worker(),
                                           name="results")
-        poll_task = asyncio.create_task(self._poll_loop(), name="poll")
-        tasks = slot_tasks + [result_task, poll_task]
+        # one poll loop per shard: a dead shard slows only its own loop
+        poll_tasks = [
+            asyncio.create_task(self._poll_loop(shard),
+                                name=(f"poll{shard.index}"
+                                      if len(self.shards) > 1 else "poll"))
+            for shard in self.shards
+        ]
+        tasks = slot_tasks + [result_task] + poll_tasks
         if float(self.settings.heartbeat_s or 0) > 0:
             # heartbeats outlive the poll loop: they keep the leases of
             # draining in-flight jobs until the final cancellation below
@@ -564,7 +732,7 @@ class Worker:
                                              name="heartbeat"))
         try:
             await self._stop.wait()
-            await self._shutdown(poll_task, slot_tasks, result_task)
+            await self._shutdown(poll_tasks, slot_tasks, result_task)
         finally:
             for task in tasks:
                 task.cancel()
@@ -577,14 +745,15 @@ class Worker:
                 await health_runner.cleanup()
             self._remove_signal_handlers(loop, signals)
 
-    async def _shutdown(self, poll_task, slot_tasks, result_task) -> None:
+    async def _shutdown(self, poll_tasks, slot_tasks, result_task) -> None:
         """Graceful drain: polling halts first, in-flight slots finish,
         queued results upload, each phase bounded by its timeout."""
         log.info("stopping: polling halts; %d queued job(s) + in-flight "
                  "work drain, then %d pending result(s) upload",
                  self.work_queue.qsize(), self.result_queue.qsize())
-        poll_task.cancel()
-        await asyncio.gather(poll_task, return_exceptions=True)
+        for poll_task in poll_tasks:
+            poll_task.cancel()
+        await asyncio.gather(*poll_tasks, return_exceptions=True)
         self._draining.set()
         try:
             await asyncio.wait_for(
@@ -623,9 +792,18 @@ class Worker:
             except asyncio.QueueEmpty:
                 return
             trace = obs_trace.detach(result)  # never serializes to disk
+            if len(self.shards) > 1:
+                # stamp the owner before serializing (these envelopes never
+                # reached _deliver), so the replay routes to it
+                owner = None if trace is None else trace.meta.get(
+                    HIVE_SHARD_KEY)
+                if owner is None:
+                    owner = self._inflight_shard.get(result.get("id"))
+                if owner is not None:
+                    result.setdefault(HIVE_SHARD_KEY, int(owner))
             spooled = result.pop("_dead_letter_path", None)
             if spooled is None:  # replayed results already have a file
-                self.dead_letters.spool(result)
+                self._result_shard(result).spool.spool(result)
                 self.stats.results_dead_lettered += 1
             self._settle_inflight(result)
             self._finish_trace(trace, result, settled="dead_letter")
@@ -645,10 +823,10 @@ class Worker:
                 else "cpu")
 
     def health(self) -> dict[str, Any]:
-        """``/healthz``: JAX's keys for the ported parts (the per-shard
-        ``hive_shards`` and ``hive_epoch`` wait for federation), and
-        ``device_memory``, each card's ``memory_allocated`` and
-        ``max_memory_allocated``."""
+        """``/healthz``: JAX's keys, with ``hive_epoch`` (shard 0's) and
+        ``hive_shards`` (each shard's index, uri, session, epoch, spool
+        depth and poll error streak), and ``device_memory``, each card's
+        ``memory_allocated`` and ``max_memory_allocated``."""
         from chiaswarm_tpu_torch import WORKER_VERSION
 
         devices = self._devices()
@@ -663,13 +841,25 @@ class Worker:
             "queue_depth": self.work_queue.qsize(),
             "results_pending": self.result_queue.qsize(),
             "breakers": self.breakers.states(),
-            "dead_letter_depth": self.dead_letters.depth(),
-            "poll_consecutive_errors": self._poll_backoff.failures,
+            "dead_letter_depth": sum(shard.spool.depth()
+                                     for shard in self.shards),
+            "poll_consecutive_errors": max(shard.backoff.failures
+                                           for shard in self.shards),
             "checkpoint_depth": self.checkpoints.depth(),
             "checkpoints_written": self.checkpoints.written,
             "checkpoints_corrupt_skipped": self.checkpoints.corrupt_skipped,
             "inflight_jobs": len(self._inflight),
             "hive_session": self.hive_session.snapshot(),
+            "hive_epoch": self._last_hive_epoch,
+            "hive_shards": [
+                {"shard": shard.index,
+                 "uri": shard.uri,
+                 "session": shard.session.snapshot(),
+                 "hive_epoch": shard.last_epoch,
+                 "dead_letter_depth": shard.spool.depth(),
+                 "poll_consecutive_errors": shard.backoff.failures}
+                for shard in self.shards
+            ],
         }
         data.update(self.stats.snapshot())
         data["stepper"] = self._stepper_health()
@@ -769,10 +959,11 @@ class Worker:
             self.jobs_done)
         m.gauge("chiaswarm_dead_letter_depth",
                 "result envelopes spooled on disk (all shard spools)").set(
-            self.dead_letters.depth())
+            sum(shard.spool.depth() for shard in self.shards))
         m.gauge("chiaswarm_poll_consecutive_errors",
                 "current poll-loop error streak (drives the backoff; "
-                "worst shard)").set(self._poll_backoff.failures)
+                "worst shard)").set(
+            max(shard.backoff.failures for shard in self.shards))
         m.gauge("chiaswarm_checkpoint_depth",
                 "in-flight resume checkpoints on disk").set(
             self.checkpoints.depth())
@@ -785,8 +976,15 @@ class Worker:
         m.gauge("chiaswarm_inflight_jobs",
                 "jobs between poll receipt and settled upload (the "
                 "lease-heartbeat set)").set(len(self._inflight))
+        # the unlabeled gauge is the any-shard rollup; the labeled family
+        # names the shard
         obs_metrics.hive_session_state_gauge(m).set(
-            1 if self.hive_session.in_outage else 0)
+            1 if any(shard.session.in_outage for shard in self.shards)
+            else 0)
+        shard_gauge = obs_metrics.hive_shard_session_state_gauge(m)
+        for shard in self.shards:
+            shard_gauge.set(1 if shard.session.in_outage else 0,
+                            shard=str(shard.index))
         obs_metrics.trace_spans_evicted_counter(m).set_to(
             self.traces.spans_evicted)
         state_code = {"closed": 0, "half_open": 1, "open": 2}
@@ -815,8 +1013,9 @@ class Worker:
             1 if stepper.get("enabled") else 0)
 
     async def _start_health_server(self):
-        """Serve ``/healthz``, ``/metrics``, ``/debug/traces`` and
-        ``/debug/profile`` on ``health_host`` (loopback by default) at
+        """Serve ``/healthz``, ``/metrics``, ``/debug/traces``,
+        ``/debug/profile`` and ``/debug/numerics`` on ``health_host``
+        (loopback by default) at
         ``health_port``, or an ephemeral port with ``health_bind_ephemeral``
         (``self.health_address`` says which). None when neither is set."""
         port = int(self.settings.health_port or 0)
@@ -870,11 +1069,32 @@ class Worker:
             status = {"ok": 200, "busy": 409}.get(result.get("status"), 500)
             return web.json_response(result, status=status)
 
+        async def numerics_endpoint(request):
+            # the ring of per-probe summaries, filtered by probe prefix;
+            # the payload says whether the taps are on, so "empty because
+            # off" and "empty because nothing tapped" read differently.
+            # Reading it copies the queued summaries off the card
+            limit = None
+            try:
+                if request.query.get("limit"):
+                    limit = int(request.query["limit"])
+            except ValueError:
+                return web.json_response(
+                    {"status": "error",
+                     "error": "limit must be an integer"}, status=400)
+            payload = await asyncio.get_running_loop().run_in_executor(
+                None, functools.partial(
+                    obs_numerics.debug_payload,
+                    probe_prefix=request.query.get("probe") or None,
+                    limit=limit))
+            return web.json_response(payload)
+
         app = web.Application()
         app.router.add_get("/healthz", healthz)
         app.router.add_get("/metrics", metrics_endpoint)
         app.router.add_get("/debug/traces", traces_endpoint)
         app.router.add_get("/debug/profile", profile_endpoint)
+        app.router.add_get("/debug/numerics", numerics_endpoint)
         runner = web.AppRunner(app)
         await runner.setup()
         host = self.settings.health_host or "127.0.0.1"
@@ -883,7 +1103,8 @@ class Worker:
         bound_port = runner.addresses[0][1] if runner.addresses else port
         self.health_address = (host, bound_port)
         log.info("health endpoints on %s:%d (/healthz /metrics "
-                 "/debug/traces /debug/profile)", host, bound_port)
+                 "/debug/traces /debug/profile /debug/numerics)", host,
+                 bound_port)
         return runner
 
     # ---- the healing ladder (serving/guard.py) ----
@@ -955,7 +1176,8 @@ class Worker:
 
     # ---- tasks ----
 
-    async def _poll_loop(self) -> None:
+    async def _poll_loop(self, shard: _HiveShard | None = None) -> None:
+        shard = shard if shard is not None else self.shards[0]
         async with aiohttp.ClientSession() as session:
             while not self._stop.is_set():
                 # backpressure: wait for queue space, but keep watching
@@ -982,31 +1204,35 @@ class Worker:
                         except asyncio.TimeoutError:
                             pass
                         continue
-                delay = await self._ask_for_work(session)
+                delay = await self._ask_for_work(session, shard)
                 self._apply_heal_rungs()
                 try:
                     await asyncio.wait_for(self._stop.wait(), timeout=delay)
                 except asyncio.TimeoutError:
                     pass
 
-    async def _ask_for_work(self, session: aiohttp.ClientSession) -> float:
-        """One poll; returns the next delay. Errors back off
+    async def _ask_for_work(self, session: aiohttp.ClientSession,
+                            shard: _HiveShard | None = None) -> float:
+        """One poll of one shard; returns the next delay. Errors back off
         exponentially with jitter (capped at ``poll_backoff_cap_s``) and
-        the schedule resets on the first successful poll."""
+        the schedule resets on the first successful poll. A federated
+        grant may be stolen: it names its owner shard, which holds its
+        lease, journal entry and epoch."""
+        shard = shard if shard is not None else self.shards[0]
         t_poll = time.perf_counter()
         try:
-            jobs = await self.hive.get_work(session)
+            jobs = await shard.client.get_work(session)
         except BadWorkerError as exc:
             # the hive ANSWERED (flagged us): reachable, not an outage
-            self._note_hive_ok()
+            self._note_hive_ok(shard)
             log.error("hive flagged this worker: %s", exc)
-            return self._poll_backoff.next()
+            return shard.backoff.next()
         except Exception as exc:
-            self._note_hive_failure("poll", exc)
+            self._note_hive_failure("poll", exc, shard)
             log.warning("poll failed: %s", exc)
-            return self._poll_backoff.next()
-        self._note_hive_ok()
-        self._poll_backoff.reset()
+            return shard.backoff.next()
+        self._note_hive_ok(shard)
+        shard.backoff.reset()
         poll_http_s = time.perf_counter() - t_poll
         # the brownout cap, refreshed on every poll: it lands promptly under
         # load and lifts on the next (possibly idle) poll once cleared
@@ -1026,6 +1252,21 @@ class Worker:
             # redelivered job carries its lineage: the delivery attempt and
             # the checkpoint step it resumes from
             resume = job.get("resume")
+            # the hive's stamps never reach argument formatting: the trace
+            # context joins the trace, the owner shard and its epoch ride
+            # the trace to the upload (the epoch tracked on the owner,
+            # whichever shard's poll delivered the grant)
+            ctx = job.pop(obs_flight.TRACE_CTX_KEY, None)
+            owner_raw = job.pop(HIVE_SHARD_KEY, None)
+            try:
+                owner_index = (shard.index if owner_raw is None
+                               else int(owner_raw))
+            except (TypeError, ValueError):
+                owner_index = shard.index
+            owner = (self.shards[owner_index]
+                     if 0 <= owner_index < len(self.shards) else shard)
+            epoch = self._note_hive_epoch(job.pop(HIVE_EPOCH_KEY, None),
+                                          owner)
             try:
                 queued_s = max(0.0, float(job.get("queued_s") or 0.0))
             except (TypeError, ValueError):
@@ -1039,9 +1280,20 @@ class Worker:
                 queued_s=round(queued_s, 4),
                 resume_step=(resume.get("step", 0)
                              if isinstance(resume, dict) else 0))
+            if epoch is not None:
+                trace.meta[HIVE_EPOCH_KEY] = epoch
+            if owner_raw is not None:
+                # only a federated grant carries a shard, and only then
+                # does the upload echo one
+                trace.meta[HIVE_SHARD_KEY] = owner.index
+            if isinstance(ctx, dict) and ctx.get("trace_id"):
+                # join the hive's trace: the upload carries a span digest
+                trace.meta["trace_id"] = str(ctx.get("trace_id"))
+                trace.meta["span_id"] = str(ctx.get("span_id") or "")
             trace.phase("poll", http_s=round(poll_http_s, 6))
             obs_trace.attach(job, trace)
             self._inflight[job.get("id")] = time.monotonic()
+            self._inflight_shard[job.get("id")] = owner.index
             await self.work_queue.put(job)
         if jobs:
             return float(self.settings.poll_busy_s)
@@ -1068,14 +1320,18 @@ class Worker:
                 stepper.set_admission_cap(cap)
 
     async def _heartbeat_loop(self) -> None:
-        """Lease keep-alive (JAX :1408-1576, one hive): every
-        ``heartbeat_s`` tell the hive which jobs are in flight here, with
-        each checkpoint changed since the last beat. A hive that reassigned
-        a lease answers with the lost ids: the local run goes on (the first
-        upload wins hive-side), the loss is counted and warned once."""
+        """Lease keep-alive (JAX :1408-1576): every ``heartbeat_s`` each
+        shard gets a beat naming the in-flight jobs whose lease it owns,
+        with each checkpoint changed since the last beat and the shard's
+        epoch. A hive that reassigned a lease answers with the lost ids:
+        the local run goes on (the first upload wins hive-side), the loss
+        is counted and warned once. A shard with no leases here gets an
+        idle beat, the metrics snapshot alone. A dead shard fails only its
+        own beat."""
         interval = float(self.settings.heartbeat_s)
-        # the metrics snapshot refreshes at most every ~2 s: leases can
-        # beat at 20 Hz, and an autoscaler reads seconds-scale state
+        # the metrics snapshot refreshes at most every ~2 s per shard:
+        # leases can beat at 20 Hz, and an autoscaler reads seconds-scale
+        # state
         metrics_every = max(interval, 2.0)
         pushed: dict[Any, int] = {}  # job id -> spool version last pushed
         # leases the hive already reported lost: counted once per loss
@@ -1099,23 +1355,27 @@ class Worker:
                 jobs.append({"id": job_id, "checkpoint": checkpoint})
             return jobs
 
-        async def idle_beat() -> None:
-            # nothing in flight: a metrics-only beat at the metrics cadence,
+        async def idle_beat(shard: _HiveShard) -> None:
+            # no lease here: a metrics-only beat at the metrics cadence,
             # so the hive sees idle capacity too
-            if time.monotonic() - self._last_metrics < metrics_every:
+            if time.monotonic() - shard.last_metrics < metrics_every:
                 return
+            payload = {
+                "worker_name": self.settings.worker_name,
+                "jobs": [],
+                "metrics": self._fleet_metrics(),
+            }
+            if shard.last_epoch is not None:
+                payload[HIVE_EPOCH_KEY] = shard.last_epoch
             try:
-                ack = await self.hive.post_heartbeat(session, {
-                    "worker_name": self.settings.worker_name,
-                    "jobs": [],
-                    "metrics": self._fleet_metrics(),
-                })
-                self._note_hive_ok()
+                ack = await shard.client.post_heartbeat(session, payload)
+                self._note_hive_ok(shard)
                 if isinstance(ack, dict):
+                    self._note_hive_epoch(ack.get(HIVE_EPOCH_KEY), shard)
                     self._note_placement(ack.get("placement"))
-                self._last_metrics = time.monotonic()
+                shard.last_metrics = time.monotonic()
             except Exception as exc:
-                self._note_hive_failure("heartbeat", exc)
+                self._note_hive_failure("heartbeat", exc, shard)
                 log.debug("idle heartbeat failed: %s", exc)
 
         async with aiohttp.ClientSession() as session:
@@ -1126,36 +1386,59 @@ class Worker:
                 if not self._inflight:
                     pushed.clear()
                     lost_reported.clear()
-                    await idle_beat()
+                    for shard in self.shards:
+                        await idle_beat(shard)
                     continue
                 inflight = list(self._inflight)
                 for job_id in [j for j in pushed if j not in self._inflight]:
                     pushed.pop(job_id, None)
                 lost_reported &= {str(j) for j in inflight}
-                payload = {
-                    "worker_name": self.settings.worker_name,
-                    "jobs": await asyncio.to_thread(build_jobs, inflight),
-                }
-                if time.monotonic() - self._last_metrics >= metrics_every:
-                    payload["metrics"] = self._fleet_metrics()
-                    self._last_metrics = time.monotonic()
-                try:
-                    response = await self.hive.post_heartbeat(session,
-                                                              payload)
-                    self._note_hive_ok()
-                    # a malformed 2xx body counts as a failed beat, never a
-                    # loop exit
-                    lost_raw = response.get("lost") or []
-                    if not isinstance(lost_raw, list):
-                        raise TypeError("non-list 'lost' in heartbeat "
-                                        f"response: {lost_raw!r}")
-                    reported = {str(j) for j in lost_raw}
-                    self._note_placement(response.get("placement"))
-                except Exception as exc:
-                    # a reference hive has no heartbeat endpoint, and a
-                    # partitioned hive is exactly when beats go on
-                    self._note_hive_failure("heartbeat", exc)
-                    log.debug("heartbeat failed: %s", exc)
+                by_owner: dict[int, list] = {}
+                for job_id in inflight:
+                    by_owner.setdefault(
+                        self._inflight_shard.get(job_id, 0),
+                        []).append(job_id)
+                reported: set[str] = set()
+                any_beat_ok = False
+                for shard in self.shards:
+                    owned = by_owner.get(shard.index)
+                    if not owned:
+                        await idle_beat(shard)
+                        continue
+                    payload = {
+                        "worker_name": self.settings.worker_name,
+                        "jobs": await asyncio.to_thread(build_jobs, owned),
+                    }
+                    if shard.last_epoch is not None:
+                        # the epoch handshake: a recovered hive rejects a
+                        # beat claiming a pre-restart epoch, and its ack
+                        # hands back the current one for the next beat
+                        payload[HIVE_EPOCH_KEY] = shard.last_epoch
+                    if time.monotonic() - shard.last_metrics \
+                            >= metrics_every:
+                        payload["metrics"] = self._fleet_metrics()
+                        shard.last_metrics = time.monotonic()
+                    try:
+                        response = await shard.client.post_heartbeat(
+                            session, payload)
+                        self._note_hive_ok(shard)
+                        # a malformed 2xx body counts as a failed beat,
+                        # never a loop exit
+                        lost_raw = response.get("lost") or []
+                        if not isinstance(lost_raw, list):
+                            raise TypeError("non-list 'lost' in heartbeat "
+                                            f"response: {lost_raw!r}")
+                        reported |= {str(j) for j in lost_raw}
+                        self._note_hive_epoch(
+                            response.get(HIVE_EPOCH_KEY), shard)
+                        self._note_placement(response.get("placement"))
+                        any_beat_ok = True
+                    except Exception as exc:
+                        # a reference hive has no heartbeat endpoint, and
+                        # a partitioned hive is exactly when beats go on
+                        self._note_hive_failure("heartbeat", exc, shard)
+                        log.debug("heartbeat failed: %s", exc)
+                if not any_beat_ok:
                     continue
                 self.stats.lease_heartbeats += 1
                 reported &= {str(j) for j in inflight}
@@ -1536,25 +1819,45 @@ class Worker:
         result.setdefault("worker_name", self.settings.worker_name)
         if trace is not None:
             trace.phase("upload")
+            # the grant's epoch, owner shard and span digest go on the
+            # envelope before any upload attempt, so a spooled envelope
+            # keeps them for its replay; none is sent to a hive that
+            # stamped none
+            if trace.meta.get(HIVE_EPOCH_KEY) is not None:
+                result.setdefault(HIVE_EPOCH_KEY,
+                                  trace.meta[HIVE_EPOCH_KEY])
+            if trace.meta.get(HIVE_SHARD_KEY) is not None:
+                result.setdefault(HIVE_SHARD_KEY,
+                                  trace.meta[HIVE_SHARD_KEY])
+            if trace.meta.get("trace_id"):
+                try:
+                    result[obs_flight.SPAN_DIGEST_KEY] = \
+                        obs_flight.span_digest(
+                            trace, worker_name=self.settings.worker_name)
+                except Exception as exc:  # telemetry never blocks upload
+                    log.debug("span digest failed for %s: %s",
+                              result.get("id"), exc)
+        shard = self._result_shard(result)
         try:
             with obs_trace.activate(trace):
-                uploaded = await self._upload_with_retry(session, result)
+                uploaded = await self._upload_with_retry(session, result,
+                                                         shard)
         except asyncio.CancelledError:
             # shutdown cancelled us mid-upload: persist before dying
             if spooled is None:
-                self.dead_letters.spool(result)
+                shard.spool.spool(result)
                 self.stats.results_dead_lettered += 1
             self._settle_inflight(result)
             self._finish_trace(trace, result, settled="dead_letter")
             raise
         if uploaded:
             if spooled is not None:
-                self.dead_letters.discard(spooled)
+                shard.spool.discard(spooled)
                 self._replayed_paths.discard(str(spooled))
             # the job settled: its resume checkpoint is garbage
             self.checkpoints.discard(result.get("id"))
         elif spooled is None:
-            self.dead_letters.spool(result)
+            shard.spool.spool(result)
             self.stats.results_dead_lettered += 1
         else:
             # a replayed result that failed again keeps its file and
@@ -1564,8 +1867,26 @@ class Worker:
         self._finish_trace(trace, result,
                            settled="uploaded" if uploaded else "dead_letter")
 
+    def _result_shard(self, result: dict) -> _HiveShard:
+        """The shard an upload belongs to: the envelope's owner-shard echo
+        (stamped from the grant; it survives spool and replay), else the
+        in-flight routing table, else shard 0."""
+        raw = result.get(HIVE_SHARD_KEY)
+        if raw is None:
+            raw = self._inflight_shard.get(result.get("id"))
+        try:
+            index = 0 if raw is None else int(raw)
+        except (TypeError, ValueError):
+            index = 0
+        if 0 <= index < len(self.shards):
+            return self.shards[index]
+        return self.shards[0]
+
     def _settle_inflight(self, result: dict) -> None:
+        """The job left this worker (uploaded or dead-lettered): its lease
+        is no longer beaten."""
         self._inflight.pop(result.get("id"), None)
+        self._inflight_shard.pop(result.get("id"), None)
 
     def _finish_trace(self, trace, result: dict, settled: str) -> None:
         """Close a job's span tree, publish it to the trace ring, and fold
@@ -1596,21 +1917,23 @@ class Worker:
             self.overload.note_service(trace.meta.get("workflow"),
                                        service_s / attempt_jobs)
 
-    async def _upload_with_retry(self, session, result) -> bool:
+    async def _upload_with_retry(self, session, result,
+                                 shard: _HiveShard | None = None) -> bool:
+        shard = shard if shard is not None else self.shards[0]
         retries = max(1, int(self.settings.upload_retries))
         for attempt in range(1, retries + 1):
             try:
-                response = await self.hive.post_result(session, result)
-                self._note_hive_ok()
+                response = await shard.client.post_result(session, result)
+                self._note_hive_ok(shard)
                 log.info("uploaded result %s: %s", result.get("id"),
                          response)
                 return True
             except Exception as exc:
-                self._note_hive_failure("upload", exc)
+                self._note_hive_failure("upload", exc, shard)
                 self.stats.upload_retries += 1
                 log.warning("result upload attempt %d/%d failed: %s",
                             attempt, retries, exc)
-                if self.hive_session.in_outage:
+                if shard.session.in_outage:
                     # during a declared outage the full ladder only delays
                     # the spool; the spool replays live on heal
                     log.warning("hive in outage; spooling result %s "

@@ -384,6 +384,18 @@ def hive_session_state_gauge(registry: Registry | None = None) -> Gauge:
         "worker's hive reachability state (0=online, 1=outage)")
 
 
+def hive_shard_session_state_gauge(
+        registry: Registry | None = None) -> Gauge:
+    """The per-shard half of the session signal: a worker over several
+    hive shards holds one session per shard, and this family shows which
+    shard's traffic rides an outage while the rest keep serving. The
+    unlabeled gauge above is the any-shard rollup."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_hive_shard_session_state",
+        "worker's per-shard hive session (0=online, 1=outage)",
+        ("shard",))
+
+
 # ---- residency families (serving/residency.py owns the ledger) ----
 
 #: the authoritative per-model state vocabulary (registry + residency:

@@ -42,9 +42,14 @@ pick.
 Low-precision activations (``CHIASWARM_ACTIVATIONS=int8|fp8``, off by
 default): q, k and v are fake-quantized per tensor at entry, before any
 route, as JAX's dispatcher does (``:192-199``); B1 and the rings then take
-the dequantized tensors in their own dtype (``convert/quantize.py``). The
-numerics taps of the JAX dispatcher are off by default there and are not
-ported.
+the dequantized tensors in their own dtype (``convert/quantize.py``).
+
+Numerics probes (``obs/numerics.py``, off unless ``CHIASWARM_NUMERICS``
+names them; JAX ``:201-216``): ``attn.q``, ``attn.k`` and ``attn.v`` on what
+the route consumes (after the fake-quant) and ``attn.out`` on its result,
+each with ``step`` = the call-site index (``TAPS.trace_seq("attn")``), around
+every route: B1, the rings (B3 or the scan drive over B2) and the plain
+path. Off, the dispatcher reads the environment and touches no tensor.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ from chiaswarm_tpu_torch.convert.quantize import (
     fake_quant_activation,
 )
 from chiaswarm_tpu_torch.core.mesh import seq_size
+from chiaswarm_tpu_torch.obs import numerics as _numerics
 from chiaswarm_tpu_torch.ops.flash_attention import flash_attention
 from chiaswarm_tpu_torch.ops.ring_flash_attention import ring_flash_attention
 from chiaswarm_tpu_torch.parallel.context import active_seq_mesh, note_ring_call
@@ -157,12 +163,23 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale = q.shape[-1] ** -0.5
     fmt = activations_format()
     if fmt != "off":
-        q, k, v = (fake_quant_activation(t, fmt) for t in (q, k, v))
+        q, k, v = (fake_quant_activation(t, fmt, tag=f"attn.{name}")
+                   for t, name in zip((q, k, v), "qkv"))
     mesh = active_seq_mesh()
     route = _route(impl, q.device.type, q.shape[1], k.shape[1], seq_size(mesh))
+    idx = None
+    if _numerics.enabled_for("attn"):
+        idx = _numerics.TAPS.trace_seq("attn")
+        q = _numerics.tap("attn.q", q, step=idx)
+        k = _numerics.tap("attn.k", k, step=idx)
+        v = _numerics.tap("attn.v", v, step=idx)
     if route == "ring_flash":
         note_ring_call(route, q.shape)
-        return ring_flash_attention(q, k, v, mesh=mesh, scale=scale)
-    if route == "flash":
-        return flash_attention(q, k, v, scale=scale)
-    return xla_attention(q, k, v, scale)
+        out = ring_flash_attention(q, k, v, mesh=mesh, scale=scale)
+    elif route == "flash":
+        out = flash_attention(q, k, v, scale=scale)
+    else:
+        out = xla_attention(q, k, v, scale)
+    if idx is not None:
+        out = _numerics.tap("attn.out", out, step=idx)
+    return out

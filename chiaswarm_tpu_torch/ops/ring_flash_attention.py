@@ -39,6 +39,16 @@ a plain version.
 B2's state layout: m and l are (B, H, L) float32 and acc is (B, L, H, D)
 float32. The JAX package's folded (B·H, Lp, 128) lane-broadcast tiles were
 a TPU tiling need; the tests unfold them at the seam.
+
+Numerics probes (``obs/numerics.py``, under ``CHIASWARM_NUMERICS`` naming
+``ring_flash``; JAX ``:345-373``): the scan drive records each shard's state
+after each hop (``ring_flash.hop_rowmax``/``hop_rowsum``/``hop_acc``, step =
+hop, shard = its index) and each shard's float32 output
+(``ring_flash.out``). The port summarizes its logical (B, H, L) and
+(B, L, H, D) state, where JAX summarizes its padded lane tiles, so the
+records compare with JAX's state unfolded at the seam, not with JAX's
+records. Under B3 the hops stay inside one launch: ``ring_flash.out``
+records each shard's slice of its output, in q's type.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import os
 import torch
 
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, ring_devices
+from chiaswarm_tpu_torch.obs import numerics as _numerics
 from chiaswarm_tpu_torch.ops.flash_attention import (
     NEG_INF,
     TENSOR_CORE_DTYPES,
@@ -320,8 +331,15 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mode = _mode()
     home = _placed(q.device)
     one_device = all(_placed(dev) == home for dev in devices)
+    tap_on = _numerics.enabled_for("ring_flash")
     if mode != "scan" and one_device:
-        return ring_flash_fused(q, k, v, shards=n, scale=scale)
+        out = ring_flash_fused(q, k, v, shards=n, scale=scale)
+        if tap_on:
+            step = q.shape[1] // n
+            for i in range(n):
+                _numerics.tap("ring_flash.out",
+                              out[:, i * step:(i + 1) * step], shard=i)
+        return out
     if mode == "fused":
         raise NotImplementedError(
             "CHIASWARM_RING_FLASH=fused asks for kernel B3 over a ring whose "
@@ -343,7 +361,15 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for i, qs in enumerate(q_shards):
             states[i] = ring_flash_hop(qs, *ring.current[i], *states[i],
                                        scale=scale)
+            if tap_on:
+                for probe, state in zip(("ring_flash.hop_rowmax",
+                                         "ring_flash.hop_rowsum",
+                                         "ring_flash.hop_acc"), states[i]):
+                    _numerics.tap(probe, state, step=hop, shard=i)
         if hop < n - 1:
             ring.rotate()
-    return gather_shards(
-        [acc / lsum.transpose(1, 2)[..., None] for _, lsum, acc in states], q)
+    outs = [acc / lsum.transpose(1, 2)[..., None] for _, lsum, acc in states]
+    if tap_on:
+        for i, out in enumerate(outs):
+            _numerics.tap("ring_flash.out", out, shard=i)
+    return gather_shards(outs, q)

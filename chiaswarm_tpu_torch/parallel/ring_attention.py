@@ -11,9 +11,12 @@ the last copies every shard's K/V into the next shard's receive buffer
 
 The per-hop math keeps the JAX numerics: float32 logits, p cast to
 ``v.dtype`` before the P·V product with float32 accumulation, float32
-carries combined across hops by the running max. It is the port's
-exactness oracle for the ring, as in the JAX package, and no route of the
-attention dispatcher: every ring call goes through
+carries combined across hops by the running max. Under
+``CHIASWARM_NUMERICS`` naming ``ring`` each shard records its hop's partials
+(``ring.hop_partial``/``hop_rowmax``/``hop_rowsum``, step = hop) and its
+float32 output (``ring.out``), in JAX's layouts (JAX ``:89-120``). It is the
+port's exactness oracle for the ring, as in the JAX package, and no route of
+the attention dispatcher: every ring call goes through
 ``ops/ring_flash_attention.py``, whose scan drive over kernel B2 shares
 :func:`shard_sequence`, :class:`KVRing` and :func:`gather_shards`.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from chiaswarm_tpu_torch.core.mesh import DeviceMesh, ring_devices
+from chiaswarm_tpu_torch.obs import numerics as _numerics
 
 NEG_INF = -1e30
 
@@ -102,6 +106,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, l, h, d = q.shape
     q_shards = shard_sequence(q, devices)
     ring = KVRing(k, v, devices)
+    tap_on = _numerics.enabled_for("ring")
     carries = []
     for qs in q_shards:
         o0 = torch.zeros(qs.shape, dtype=torch.float32, device=qs.device)
@@ -112,6 +117,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for i, qs in enumerate(q_shards):
             o_acc, m_acc, l_acc = carries[i]
             o_i, m_i, l_i = _partial_attention(qs, *ring.current[i], scale)
+            if tap_on:
+                for probe, part in (("ring.hop_partial", o_i),
+                                    ("ring.hop_rowmax", m_i),
+                                    ("ring.hop_rowsum", l_i)):
+                    _numerics.tap(probe, part, step=hop, shard=i)
             m_new = torch.maximum(m_acc, m_i)
             a_old = torch.exp(m_acc - m_new)
             a_new = torch.exp(m_i - m_new)
@@ -121,8 +131,11 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             carries[i] = (o_acc, m_new, l_acc * a_old + l_i * a_new)
         if hop < n - 1:
             ring.rotate()
-    return gather_shards(
-        [o / lsum.transpose(1, 2)[..., None] for o, _, lsum in carries], q)
+    outs = [o / lsum.transpose(1, 2)[..., None] for o, _, lsum in carries]
+    if tap_on:
+        for i, out in enumerate(outs):
+            _numerics.tap("ring.out", out, shard=i)
+    return gather_shards(outs, q)
 
 
 def gather_shards(shards: list[torch.Tensor], like: torch.Tensor

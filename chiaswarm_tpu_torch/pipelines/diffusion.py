@@ -99,6 +99,16 @@ Low-precision activations (``CHIASWARM_ACTIVATIONS=int8|fp8``,
 once (``unet.ctx``) and the UNet input every step (``unet.in``) as JAX's
 does; the lane programs do not, as in JAX. q, k and v are quantized at the
 attention dispatcher on every path.
+
+Numerics probes (``obs/numerics.py``, off unless ``CHIASWARM_NUMERICS``
+names them; JAX :427, :573, :587, :598, :610): the solo program records
+``diffusion.text_ctx`` (the prompt's context, before the CFG concat),
+``diffusion.eps`` (the combined prediction) and ``diffusion.latents`` (the
+carry after the step and any re-projection) at each step index,
+``diffusion.final_latents`` and ``diffusion.image_u8``. Each program run
+(the solo generate, a lane step, a decode, an encode) starts the
+``attn.*`` call-site index at 0, and every step of the solo loop rewinds it
+to the loop's first index, as JAX traces the loop body once.
 """
 
 from __future__ import annotations
@@ -123,6 +133,7 @@ from chiaswarm_tpu_torch.core.rng import (
     row_generators,
 )
 from chiaswarm_tpu_torch.models.vae import tiled_decode
+from chiaswarm_tpu_torch.obs import numerics as _numerics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.obs.profiling import annotate
 from chiaswarm_tpu_torch.obs.metrics import (
@@ -515,8 +526,10 @@ class DiffusionPipeline:
             raise ValueError("DeepCache reuse supports the plain "
                              "txt2img/img2img/inpaint programs only")
         act = activations_format()
+        attn_taps = _numerics.begin_program()
 
         ctx, pooled = self._encode_text(ids)
+        ctx = _numerics.tap("diffusion.text_ctx", ctx)
         pooled_rows = [pooled]
         pix2pix = image_cond is not None
         if pix2pix:
@@ -532,7 +545,7 @@ class DiffusionPipeline:
             nctx, npooled = self._encode_text(neg_ids)
             ctx = torch.cat([nctx, ctx], dim=0)
             pooled_rows = [npooled, pooled]
-        ctx = fake_quant_activation(ctx, act)  # "unet.ctx", once
+        ctx = fake_quant_activation(ctx, act, tag="unet.ctx")  # once
 
         x = noise * sched.sigmas[start]
         if init_latent is not None:
@@ -543,9 +556,13 @@ class DiffusionPipeline:
         if control is not None:
             hint = hint.expand(rows, -1, -1, -1)
         cache = None  # DeepCache: the deep activation of the last full eval
+        loop_seq = _numerics.TAPS.peek_trace_seq("attn") if attn_taps else 0
         for i in range(start, steps):
+            if attn_taps:
+                _numerics.TAPS.rewind_trace_seq("attn", loop_seq)
             # "unet.in": every branch's batch derives from this tensor
-            inp = fake_quant_activation(scale_model_input(sched, x, i), act)
+            inp = fake_quant_activation(scale_model_input(sched, x, i), act,
+                                        tag="unet.in")
             t = timesteps[i].expand(rows)
             if pix2pix:
                 inp_b = torch.cat([torch.cat([inp, inp, inp], dim=0), img3],
@@ -571,6 +588,7 @@ class DiffusionPipeline:
                 eps = eps_u + guidance * (eps_c - eps_u)
             else:
                 eps = out
+            eps = _numerics.tap("diffusion.eps", eps, step=i)
             step_noise = (randn_rows(generators, tuple(x.shape[1:]),
                                      self.c.device)
                           if sampler.kind in NOISY_KINDS else None)
@@ -580,9 +598,11 @@ class DiffusionPipeline:
                 renoise = randn_rows(generators, tuple(x.shape[1:]),
                                      self.c.device)
                 x = reproject_known(sched, i, x, init_latent, mask, renoise)
-
-        return self._decode_uint8(x, tiled=True) if tiled else \
+            x = _numerics.tap("diffusion.latents", x, step=i)
+        x = _numerics.tap("diffusion.final_latents", x)
+        images = self._decode_uint8(x, tiled=True) if tiled else \
             self._decode_uint8(x)
+        return _numerics.tap("diffusion.image_u8", images)
 
     def encode_init_image(self, image: np.ndarray, height: int, width: int,
                           seed: int, row: int = 0) -> torch.Tensor:
@@ -605,6 +625,7 @@ class DiffusionPipeline:
                    self.c.device)
         noise = randn_rows([posterior_row_generator(seed, row)],
                            (channels, lh, lw), self.c.device)
+        _numerics.begin_program()
         with torch.inference_mode(), sequence_parallel(None):
             return self.c.vae.encode(x, noise)
 
@@ -809,6 +830,7 @@ class DiffusionPipeline:
         if cache is not None and control is not None:
             raise ValueError("DeepCache reuse lanes do not take the "
                              "ControlNet branch")
+        _numerics.begin_program()
         with torch.inference_mode(), sequence_parallel(self.mesh):
             rows = SamplingSchedule(sigmas=sigmas, timesteps=timesteps)
             inp = scale_model_input_rows(rows, x, idx)
@@ -872,6 +894,7 @@ class DiffusionPipeline:
     def stepper_decode(self, x: torch.Tensor) -> torch.Tensor:
         """Latents of retiring rows -> uint8 (B, H, W, 3) on the device, the
         solo path's tail."""
+        _numerics.begin_program()
         with torch.inference_mode(), sequence_parallel(self.mesh):
             return self._decode_uint8(x)
 

@@ -177,6 +177,7 @@ from chiaswarm_tpu_torch.core.device import upload
 from chiaswarm_tpu_torch.core.rng import row_generators
 from chiaswarm_tpu_torch.models.common import param_dtype
 from chiaswarm_tpu_torch.obs import metrics as obs_metrics
+from chiaswarm_tpu_torch.obs import numerics as _numerics
 from chiaswarm_tpu_torch.obs import trace as obs_trace
 from chiaswarm_tpu_torch.obs.profiling import annotate
 from chiaswarm_tpu_torch.pipelines.diffusion import (
@@ -1135,11 +1136,20 @@ class Lane:
         in-memory twin the guard resumes a condemned lane from, and, with
         the worker's spool attached, to the spool by the hive's job id
         (a failed write never fails the lane). Rows at their start or about
-        to retire keep no checkpoint."""
+        to retire keep no checkpoint.
+
+        The numerics probe ``lane_row`` rides the same copy (JAX
+        :1263-1297): enabled, it opens the boundary even with the spool,
+        the watchdog and the output checks off, and records each active
+        row's latents (step = the row's step index, shard = its slot, note
+        = the job id) before the finite screen, so a poisoned row's step is
+        on the record. Set ``CHIASWARM_STEPPER_CKPT_EVERY=1`` for a record
+        every step."""
         validate = _guard.validation_enabled()
         want_ckpt = self._spool is not None or _guard.watchdog_enabled()
+        numerics_on = _numerics.enabled_for("lane_row")
         if (self._ckpt_every <= 0 or self._dev is None
-                or not (validate or want_ckpt)
+                or not (validate or want_ckpt or numerics_on)
                 or self.steps_executed % self._ckpt_every):
             return
         jobs = {id(j): j for j in self._rows if j is not None}
@@ -1149,14 +1159,20 @@ class Lane:
         with self._watched(self._sched.hang_budget(),
                            f"checkpoint at step {self.steps_executed}"):
             x = self._dev["x"].to("cpu")
-            old = self._dev["old"].to("cpu")
-            if self.reuse:
-                cache_u = self._dev["cache_u"].to("cpu")
-                cache_c = self._dev["cache_c"].to("cpu")
+            if want_ckpt:
+                old = self._dev["old"].to("cpu")
+                if self.reuse:
+                    cache_u = self._dev["cache_u"].to("cpu")
+                    cache_c = self._dev["cache_c"].to("cpu")
         written = 0
         poisoned: list[_RowJob] = []
         for job in jobs.values():
             sel = list(job.slots)
+            if numerics_on:
+                for s in sel:
+                    _numerics.record_host(
+                        "lane_row", x[s], step=int(self._h_idx[s]),
+                        shard=s, note=str(job.job_id))
             if validate and not bool(torch.isfinite(x[sel]).all()):
                 poisoned.append(job)
                 continue

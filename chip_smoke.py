@@ -206,9 +206,10 @@ each phase printing one JSON line:
                 registry loads the checkpoint from disk (bit for bit
                 checkpoint_serve's image), then
                 ``python -m chiaswarm_tpu_torch.node.worker`` as a
-                child process: its registry has no checkpoint, so it
-                uploads a non-fatal ``model_unavailable`` envelope, and on
-                SIGTERM it drains and exits with 0. B1 = 10 x lane steps.
+                child process against a hive of its own, started with the
+                phase: its registry has no checkpoint, so it uploads a
+                non-fatal ``model_unavailable`` envelope, and on SIGTERM it
+                drains and exits with 0. B1 = 10 x lane steps.
                 Prints each job's seconds (poll receipt to settled upload,
                 from the worker's traces and ``chiaswarm_job_seconds``) with
                 its spans (format, text encode, lane wait, decode, PNG and
@@ -310,7 +311,8 @@ each phase printing one JSON line:
                 (on the per-job path). guard_child: ``python -m
                 chiaswarm_tpu_torch.node.worker`` on the checkpoint of 14b
                 (thresholds 1, 2, 2; lane step 3 wedged) exits with 73, its
-                job settled once without error.
+                job settled once without error; it runs beside 15y-15ab
+                (stitch to tts, mostly host-bound) and prints after them.
 15o. guard_cost — lane_burst's nine jobs as one burst at 8 rows, four
                 times (guard off, on, on, off): images/s of each, the
                 checkpoints a run and the mean ms of one checkpoint boundary
@@ -347,6 +349,33 @@ each phase printing one JSON line:
                 off (the checkpoint boundary's ms each way); the kill to
                 B's first resumed step and to the settled uploads, the
                 checkpoints' bytes and ``checkpoints_written``.
+15o4. federation_serve — one worker from ``hive_front_uri`` (health server,
+                heartbeats every 0.2 s, a lane pinned at 8) over two
+                journaled, trace-stamping ``LocalHive`` shards: two SD1.5
+                jobs owned by each, one of shard 1's stolen through shard
+                0's empty poll, and one of shard 0's held by a lost lane
+                with its last checkpoint (this process's own lane through
+                the spool). Shard 0 restarts mid-lane (epoch 1 to 2, its
+                leases void): each job settles once on its owner, every
+                upload echoes its grant's epoch and shard and carries a span
+                digest (shard 0's in-flight jobs as epoch salvage), the
+                stale beat is rejected and the worker counts one epoch
+                change, the lost holder's job resumes at its checkpoint
+                step, ``/healthz`` shows both shards; B1 = 10 x lane steps.
+                Prints the restart to the resumed row's admission and first
+                step and to every upload settled, and the digests' bytes.
+15o5. numerics_serve — ``obs/numerics.py`` on the card: one B1 launch's
+                ``attn.out`` record against the plain version's summary
+                (B1's bars), a tap's launches and ms; through a worker and
+                ``/debug/numerics``, serve's seed 1 solo with every probe,
+                the two-image job in a lane of 2 with the taps off and on,
+                seed 1 solo off again (a bad ``limit`` 400, ``limit=0``
+                empty); seed 1 on the seq slot under ``ring_flash``, B3 then
+                the scan drive over B2 (records per shard 0-3, hops 0-3).
+                Every tapped image bit for bit its untapped twin (serve's,
+                seq_serve's, seq_serve_scan's, the pair off) at the same B1,
+                B2 and B3 launches; records per job, the ring's stats and
+                the lane's step seconds with the taps on against off.
 15p. guard_xl — guard_lane for SDXL at 1024 px (after the SDXL phases), two
                 txt2img jobs (seeds 1, 2): both resume at step 8 bit for
                 bit, their pooled text encoded again; B1 = 70 x dispatches.
@@ -490,7 +519,8 @@ each phase printing one JSON line:
                 bf16, vocabularies 129,600 / 12,096 / 1,056, the 8-codebook
                 EnCodec at 24 kHz in float32; 1.10 B parameters), random
                 from seed 0 through the registry's ``allow_random``
-                fallback; a 1 s job at temperature 0.7, one with a
+                fallback; a 0.6 s job (32 semantic tokens) at temperature
+                0.7, one with a
                 ``history`` preset of Bark's shapes and one naming a preset
                 by a string through the worker, then the first again: WAV
                 (MP3 with ffmpeg) of ``frames x 320`` samples at 24 kHz, the
@@ -501,14 +531,15 @@ each phase printing one JSON line:
                 CPU's where its top-two gap is at least that); the codec
                 within 1e-2 relative L2 of its CPU run. Prints job seconds,
                 ``generation_s``, the served jobs' device ms by stage,
-                decode tokens/s, the busy share and launches per decode
-                step (``tools/torch_serve_profile.py``'s ``tts_profile``)
-                and the peak memory.
+                decode tokens/s, the repeat's busy share under the profiler
+                and the launches per decode step
+                (``tools/torch_serve_profile.py``'s ``kernel_summary`` and
+                ``tts_decode_launches``) and the peak memory.
 15ac. txt2vid_serve — ModelScope at its published widths (the UNet3D and
                 VAE bf16, the 23-layer CLIP-H tower float32; 1.84 B
                 parameters), random from seed 0 through the registry's
                 fallback; a txt2vid job at the defaults (256 px, 25 frames
-                bucketed to 32, guidance 9.0) but 15 steps (the hive's 25
+                bucketed to 32, guidance 9.0) but 10 steps (the hive's 25
                 cut for the run's wall), the same job again
                 and one at guidance 1.0 through the worker: ``video/mp4`` of
                 25 frames of 256x256 (read back with OpenCV), a JPEG
@@ -564,8 +595,8 @@ each phase printing one JSON line:
                 never. Prints each job's seconds, ``generation_s``, device
                 ms by stage (T5, stage 1, stage 2, the x4's text, denoise
                 and decode), B1's ms and share, the peak memory, and the
-                default job under ``tools/torch_serve_profile.py``'s
-                ``cascade_profile`` (busy share, B1's share, top kernels).
+                repeat under the profiler (``tools/torch_serve_profile.py``'s
+                ``kernel_summary``: busy share, B1's share, top kernels).
 15ah. quant_check — ``convert/quantize.py`` on the card: ``quantize_leaf``
                 of a dense and a conv weight (bf16) and SD1.5's token table
                 (float32, scaled along its embedding dim) with codes and
@@ -619,14 +650,14 @@ each phase printing one JSON line:
                 ``shapes``); B1 also under ``lane_serve``, ``lane_burst``,
                 ``checkpoint_serve``, ``residency_churn``,
                 ``worker_serve``, the four SDXL serve phases, the image
-                phases, the guard phases, the worker's overload, health
-                and lease phases, the safety and ControlNet
+                phases, the guard phases, the worker's overload, health,
+                lease, federation and numerics phases, the safety and
+                ControlNet
                 phases, the pix2pix, upscale and adapter phases,
                 audio_serve (head dim 32), the three video phases and
-                cascade_serve (head dim 128 among its shapes), and B3
-                under ``lane_seq_serve``
-                and
-                ``seq_img2img``, with
+                cascade_serve (head dim 128 among its shapes), B3 under
+                ``lane_seq_serve``, ``seq_img2img`` and ``numerics_seq``,
+                and B2 under ``numerics_seq_scan``, with
                 their launches there and their numbers over those
                 launches.
 
@@ -641,6 +672,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -982,7 +1014,24 @@ def _held(name: str, shape, out, ref, tol: float, rel_tol: float) -> dict:
             "mean_abs_out": ref.float().abs().mean().item()}
 
 
-def kernel_phase(torch) -> list[dict]:
+def kernel_inputs(torch) -> list[list]:
+    """q, k and v of each row of ``KERNEL_SHAPES``, drawn in that order on
+    the host from seed 0 and put on the card at the row's dtype (the draw
+    is host-bound: the script makes it while the kernels build)."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    inputs = []
+    for b, l, s, h, d, dtype_name, *_ in KERNEL_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        inputs.append([torch.randn(shape, generator=gen).to("cuda", dtype)
+                       for shape in ((b, l, h, d), (b, s, h, d),
+                                     (b, s, h, d))])
+    return inputs
+
+
+def kernel_phase(torch, inputs: list[list]) -> list[dict]:
+    """Each row of ``KERNEL_SHAPES`` on its ``kernel_inputs`` (released
+    row by row): B1 held against its plain version and timed beside it and
+    SDPA."""
     import torch.nn.functional as F
 
     from chiaswarm_tpu_torch.ops.flash_attention import (
@@ -995,13 +1044,12 @@ def kernel_phase(torch) -> list[dict]:
     emit("kernel_settings",
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-    gen = torch.Generator(device="cpu").manual_seed(0)
     rows = []
-    for b, l, s, h, d, dtype_name, tol, rel_tol, paths in KERNEL_SHAPES:
+    for i, (b, l, s, h, d, dtype_name, tol, rel_tol, paths) in enumerate(
+            KERNEL_SHAPES):
         dtype = getattr(torch, dtype_name)
-        q = torch.randn((b, l, h, d), generator=gen).to("cuda", dtype)
-        k = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
-        v = torch.randn((b, s, h, d), generator=gen).to("cuda", dtype)
+        q, k, v = inputs[i]
+        inputs[i] = None
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
         shape = [b, l, s, h, d]
@@ -1059,11 +1107,15 @@ def one_card_devices(torch) -> list:
 
 
 @contextlib.contextmanager
-def env(**values: str):
-    """The environment variables ``values`` set for the block, then
-    restored."""
+def env(**values: str | None):
+    """The environment variables ``values`` set (None: unset) for the
+    block, then restored."""
     old = {name: os.environ.get(name) for name in values}
-    os.environ.update(values)
+    for name, value in values.items():
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
     try:
         yield
     finally:
@@ -1560,13 +1612,14 @@ def decode_png(blob_b64: str):
                       .convert("RGB")).astype("int16")
 
 
-def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
-    """The serve jobs on a seq = 4 slot: ``seq_serve`` through B3 on the
-    one-card mesh, ``seq_serve_scan`` through the scan drive over B2."""
+def seq_slot(torch, phase: str, label: str | None = None):
+    """(slot, registry, ring mode, kernel, launches an eval and a decode)
+    of a seq = 4 slot: ``seq_serve`` through B3 on the one-card mesh,
+    ``seq_serve_scan`` through the scan drive over B2; the registry's
+    SD1.5 drawn from seed 0 on its mesh."""
     from chiaswarm_tpu_torch.core.chip_pool import ChipPool
     from chiaswarm_tpu_torch.core.mesh import MeshSpec
     from chiaswarm_tpu_torch.node.registry import ModelRegistry
-    from chiaswarm_tpu_torch.ops import kernels
     from chiaswarm_tpu_torch.ops.ring_flash_attention import (
         FUSED_KERNEL as B3,
     )
@@ -1584,7 +1637,19 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
     slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
                     devices=devices).slots[0]
     with env(CHIASWARM_RING_FLASH=mode):
-        load_pipeline(torch, phase, registry, mesh=slot.mesh)
+        load_pipeline(torch, label or phase, registry, mesh=slot.mesh)
+    return slot, registry, mode, kernel, per_eval, per_decode
+
+
+def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> tuple:
+    """The serve jobs on a seq = 4 slot: ``seq_serve`` through B3 on the
+    one-card mesh, ``seq_serve_scan`` through the scan drive over B2.
+    Returns the launches and the blobs by seed."""
+    from chiaswarm_tpu_torch.ops import kernels
+
+    slot, registry, mode, kernel, per_eval, per_decode = seq_slot(torch,
+                                                                  phase)
+    with env(CHIASWARM_RING_FLASH=mode):
         seconds, blobs = run_jobs(torch, phase, slot, registry)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     want = len(JOBS) * (SERVE_STEPS * per_eval + per_decode)
@@ -1605,7 +1670,7 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> dict:
     if launches[kernel.name] != want or sum(launches.values()) != want:
         raise AssertionError(f"{phase} launched {launches}, expected "
                              f"{want} of {kernel.name} and no other")
-    return launched()
+    return launched(), blobs
 
 
 # ---------------------------------------------------------------------------
@@ -2003,15 +2068,16 @@ def write_clip_vocab(path: Path) -> dict:
 
 
 def write_checkpoint(torch, components, path: Path,
-                     float32: bool = True) -> dict:
+                     float32: bool = True, flush: bool = False) -> dict:
     """``components`` as a diffusers-layout snapshot at ``path``: ``unet/``,
     ``vae/``, ``text_encoder/`` (and ``text_encoder_2/`` for a second
     tower) as safetensors through the port's own writer, in float32 (the
     dtype of the published SD1.5 snapshot; bf16 weights round-trip it
     exactly) or, with ``float32=False``, each tensor at the dtype it serves
-    at; ``tokenizer/`` from ``synthetic_clip_vocab``. The files are synced
-    and advised out of the page cache (``posix_fadvise``), which a
-    filesystem may ignore: ``page_cache_share`` reads what it kept."""
+    at; ``tokenizer/`` from ``synthetic_clip_vocab``. With ``flush`` the
+    files are synced (an ``O_DIRECT`` read then times the disk, not the
+    writeback) and advised out of the page cache (``posix_fadvise``), which
+    a filesystem may ignore: ``page_cache_share`` reads what it kept."""
     from chiaswarm_tpu_torch.convert.safetensors_io import save_file
 
     modules = {"unet": components.unet, "vae": components.vae}
@@ -2027,7 +2093,7 @@ def write_checkpoint(torch, components, path: Path,
                   path / sub / name, {"format": "pt"})
         files.append(path / sub / name)
     vocab = write_clip_vocab(path / "tokenizer")
-    for file in files:
+    for file in files if flush else ():
         fd = os.open(file, os.O_RDONLY)
         try:
             os.fsync(fd)
@@ -2146,7 +2212,7 @@ def checkpoint_serve_phase(torch, src_registry, slot, lane_blobs: dict,
     path = model_dir(CKPT_MODEL)
     shutil.rmtree(path, ignore_errors=True)
     t0 = time.perf_counter()
-    written = write_checkpoint(torch, src, path)
+    written = write_checkpoint(torch, src, path, flush=True)
     write_s = time.perf_counter() - t0
     disk = shutil.disk_usage(path)
     paths = [str(path / name) for name in written["files"]]
@@ -2430,15 +2496,44 @@ class LocalHive:
     submission; a non-fatal ``overloaded`` envelope requeues its job with
     the shedder excluded instead of settling it; a second upload of a
     settled job is acked and dropped. ``pinned`` maps a job id to the one
-    worker that may take it (the script's routing)."""
+    worker that may take it (the script's routing).
+
+    The journaled and federated parts, with the semantics of the JAX
+    package's ``node/minihive.py`` and ``node/federation.py`` (not
+    imported): ``epoch`` (an int) stamps ``hive_epoch`` on every grant and
+    ack, answers a beat claiming another epoch ``stale_epoch`` with every
+    claimed job ``lost`` and the current epoch, and counts an upload of an
+    older epoch as epoch salvage (``salvaged``); :meth:`restart` bumps the
+    epoch and voids every lease, so its job redelivers with ``resume``; its
+    grants wait for the first beat after it, so that beat is the
+    pre-restart one. ``trace=True`` stamps ``trace_ctx`` (one trace id a
+    job, one span id an attempt). :func:`federate` joins hives into shards
+    of one federation (one lock; each grant stamped ``hive_shard``): a poll
+    that finds nothing for its worker steals one ``steal_only`` job from a
+    peer, granted (and leased, stamped) by its owner; those jobs leave
+    their owner only so. ``shard_uris`` makes this hive a front answering ``GET
+    /api/shards``."""
 
     def __init__(self, lease_aware: bool = False,
-                 lease_s: float = 600.0) -> None:
+                 lease_s: float = 600.0, shard: int = 0,
+                 epoch: int | None = None, trace: bool = False) -> None:
         import http.server
         import threading
 
         self.lease_aware = lease_aware
         self.lease_s = lease_s
+        self.shard = shard
+        self.epoch = epoch
+        self.trace = trace
+        self.peers: list = [self]
+        self.steal_only: set = set()
+        self.shard_uris: list | None = None
+        self.trace_ids: dict[str, str] = {}
+        self.salvaged: list[str] = []
+        self.stale_beats = 0
+        self.stolen: list[str] = []
+        self.misrouted: list[str] = []
+        self.hold_until_beat = False
         self.leases: dict[str, dict] = {}  # id -> job, worker, attempt, exp
         self.attempts: dict[str, int] = {}
         self.excluded: dict[str, set] = {}
@@ -2499,6 +2594,10 @@ class LocalHive:
                 path = self.path.split("?")[0]
                 if path == "/api/models":
                     return self._reply(200, {"models": []})
+                if path == "/api/shards" and hive.shard_uris is not None:
+                    return self._reply(200, {
+                        "shards": hive.shard_uris,
+                        "n_shards": len(hive.shard_uris)})
                 if path != "/api/work":
                     return self._reply(404, {"message": "no such endpoint"})
                 query = urllib.parse.parse_qs(
@@ -2541,7 +2640,9 @@ class LocalHive:
         self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
                                                       Handler)
         self.server.daemon_threads = True
+        # a short poll: every phase's ``with LocalHive()`` waits it out once
         self.thread = threading.Thread(target=self.server.serve_forever,
+                                       kwargs={"poll_interval": 0.02},
                                        name="local-hive", daemon=True)
 
     @property
@@ -2571,17 +2672,25 @@ class LocalHive:
                 self.queued.append(lease["job"])
         return expired
 
-    def _grant(self, worker: str) -> list[dict]:
+    def _grant(self, worker: str, steal: bool = False) -> list[dict]:
+        """Lease the queued jobs ``worker`` may take; with ``steal``, one
+        job at most (a peer's poll takes it), ``steal_only`` ones too."""
+        import uuid
+
         self.polled.add(worker)
         self._sweep()
         self._extend(worker)  # a poll proves liveness
+        if self.hold_until_beat:
+            return []
         handed, kept = [], []
         for job in self.queued:
             job_id = str(job["id"])
             if job_id in self.settled:
                 continue
             if (worker in self.excluded.get(job_id, ())
-                    or self.pinned.get(job_id, worker) != worker):
+                    or self.pinned.get(job_id, worker) != worker
+                    or (job_id in self.steal_only) is not steal
+                    or (steal and handed)):
                 kept.append(job)
                 continue
             attempt = self.attempts.get(job_id, 0) + 1
@@ -2594,8 +2703,25 @@ class LocalHive:
                     job_id, time.monotonic()), 4))
             if job_id in self.checkpoints:
                 wire["resume"] = self.checkpoints[job_id]
+            if self.epoch is not None:
+                wire["hive_epoch"] = self.epoch
+            if len(self.peers) > 1:
+                wire["hive_shard"] = self.shard
+            if self.trace:
+                trace_id = self.trace_ids.setdefault(job_id,
+                                                     uuid.uuid4().hex[:16])
+                wire["trace_ctx"] = {"trace_id": trace_id,
+                                     "span_id": f"{trace_id}.{attempt}",
+                                     "attempt": attempt}
             handed.append(wire)
         self.queued = kept
+        if not handed and not steal:
+            for peer in self.peers:
+                if peer is not self and peer.queued:
+                    handed = peer._grant(worker, steal=True)
+                    if handed:
+                        peer.stolen.append(str(handed[0]["id"]))
+                        break
         return handed
 
     def _extend(self, worker: str) -> None:
@@ -2607,6 +2733,16 @@ class LocalHive:
         worker = str(payload.get("worker_name") or "")
         self.heartbeats[worker] += 1
         self._sweep()
+        claimed = payload.get("hive_epoch")
+        if self.epoch is not None and claimed is not None \
+                and int(claimed) != self.epoch:
+            # a beat of another epoch describes a hive that is gone
+            self.stale_beats += 1
+            self.hold_until_beat = False
+            return {"status": "stale_epoch", "hive_epoch": self.epoch,
+                    "lost": [str(e.get("id"))
+                             for e in payload.get("jobs") or []]}
+        self.hold_until_beat = False
         lost = []
         for entry in payload.get("jobs") or []:
             job_id = str(entry.get("id"))
@@ -2621,7 +2757,10 @@ class LocalHive:
                 self.checkpoints[job_id] = checkpoint
                 self.checkpoint_bytes[job_id] = len(json.dumps(checkpoint))
                 self.cond.notify_all()
-        return {"status": "ok", "lost": lost}
+        ack = {"status": "ok", "lost": lost}
+        if self.epoch is not None:
+            ack["hive_epoch"] = self.epoch
+        return ack
 
     def _settle(self, result: dict) -> dict:
         job_id = str(result.get("id"))
@@ -2641,12 +2780,33 @@ class LocalHive:
             self.refused.append(dict(result, _t=time.perf_counter()))
             return {"status": "requeued", "kind": "overloaded"}
         self.settled.add(job_id)
+        upload_epoch = result.get("hive_epoch")
+        if self.epoch is not None and upload_epoch is not None \
+                and int(upload_epoch) < self.epoch:
+            self.salvaged.append(job_id)
+        if len(self.peers) > 1 and result.get("hive_shard") != self.shard:
+            self.misrouted.append(job_id)
         self.leases.pop(job_id, None)
         self.checkpoints.pop(job_id, None)
         self.queued = [j for j in self.queued if str(j["id"]) != job_id]
         self.results.append(result)
         self.result_t.append(time.perf_counter())
         return {"status": "ok"}
+
+    def restart(self) -> list[str]:
+        """The hive recovered from its journal: the epoch moves on and
+        every lease is void; their jobs requeue (holders not excluded) and
+        redeliver with their checkpoints as ``resume``."""
+        with self.cond:
+            self.epoch = (self.epoch or 0) + 1
+            self.hold_until_beat = True
+            voided = sorted(self.leases)
+            for job_id in voided:
+                lease = self.leases.pop(job_id)
+                if job_id not in self.settled:
+                    self.queued.append(lease["job"])
+            self.cond.notify_all()
+            return voided
 
     def expire_worker(self, worker: str) -> list[str]:
         """Revoke every lease ``worker`` holds (a worker known dead): its
@@ -2665,6 +2825,16 @@ class LocalHive:
         self.server.shutdown()
         self.server.server_close()
         self.thread.join(timeout=10)
+
+
+def federate(*hives: LocalHive) -> None:
+    """Join ``hives`` as shards 0..n-1 of one federation: one lock, each
+    the others' peers."""
+    import threading
+
+    cond = threading.Condition()
+    for index, hive in enumerate(hives):
+        hive.shard, hive.peers, hive.cond = index, list(hives), cond
 
 
 def serve_through_worker(hive: LocalHive, pool, registry, jobs: list[dict],
@@ -2814,52 +2984,61 @@ def replay_burst(registry, slot, jobs: list[dict], admissions: dict) -> dict:
             "admissions": replayed, "steps": steps, "b1_launches": b1}
 
 
-def worker_child(hive: LocalHive, root: Path) -> dict:
+@contextlib.contextmanager
+def worker_child(root: Path):
     """``python -m chiaswarm_tpu_torch.node.worker`` as a child process
-    pointed at ``hive`` by ``SDAAS_URI``/``SDAAS_TOKEN``: its registry holds
-    no checkpoint and no random fallback, so one ``sd15`` job must come back
-    as a non-fatal ``model_unavailable`` envelope; then SIGTERM, and the
-    child drains and exits with 0."""
+    pointed at a ``LocalHive`` of its own by ``SDAAS_URI``/``SDAAS_TOKEN``:
+    its registry holds no checkpoint and no random fallback, so one
+    ``sd15`` job must come back as a non-fatal ``model_unavailable``
+    envelope; then SIGTERM, and the child drains and exits with 0. Started
+    on entry, so its start-up (the interpreter, torch, the card's context)
+    overlaps the caller's block; the exit waits for the result and the
+    child's end and fills the yielded dict (``result_after_s`` counts from
+    the start, the caller's work beside it)."""
     import signal
 
+    out: dict = {}
     job = dict(JOBS[0], id="worker-child-1")
-    hive.submit(job)
     log_path = root / "child.log"
-    child_env = dict(os.environ, SDAAS_URI=hive.uri, SDAAS_TOKEN="chip-smoke",
-                     SDAAS_WORKERNAME="chip-smoke-child",
-                     SWARM_TPU_ROOT=str(root / "child"))
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log_file:
-        child = subprocess.Popen(
-            [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
-            cwd=ROOT, env=child_env, stdout=log_file,
-            stderr=subprocess.STDOUT)
-        try:
-            with hive.cond:
-                if not hive.cond.wait_for(
-                        lambda: any(r["id"] == job["id"]
-                                    for r in hive.results), timeout=300):
-                    raise AssertionError("the child worker uploaded nothing")
-            result_s = time.perf_counter() - t0
-            child.send_signal(signal.SIGTERM)
-            rc = child.wait(timeout=120)
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait(timeout=30)
+    with LocalHive() as hive:
+        hive.submit(job)
+        child_env = dict(os.environ, SDAAS_URI=hive.uri,
+                         SDAAS_TOKEN="chip-smoke",
+                         SDAAS_WORKERNAME="chip-smoke-child",
+                         SWARM_TPU_ROOT=str(root / "child"))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_file:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+                cwd=ROOT, env=child_env, stdout=log_file,
+                stderr=subprocess.STDOUT)
+            try:
+                yield out
+                with hive.cond:
+                    if not hive.cond.wait_for(
+                            lambda: any(r["id"] == job["id"]
+                                        for r in hive.results), timeout=300):
+                        raise AssertionError("the child worker uploaded "
+                                             "nothing")
+                result_s = time.perf_counter() - t0
+                child.send_signal(signal.SIGTERM)
+                rc = child.wait(timeout=120)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=30)
+        [result] = [r for r in hive.results if r["id"] == job["id"]]
     text = log_path.read_text()
     startup = [line for line in text.splitlines()
                if "card(s)" in line or "derived default mesh" in line]
-    [result] = [r for r in hive.results if r["id"] == job["id"]]
     cfg = result["pipeline_config"]
-    out = {"rc": rc, "error_kind": cfg.get("error_kind"),
-           "fatal_error": bool(result.get("fatal_error")),
-           "result_after_s": result_s, "startup": startup,
-           "log_tail": text.splitlines()[-5:]}
+    out.update({"rc": rc, "error_kind": cfg.get("error_kind"),
+                "fatal_error": bool(result.get("fatal_error")),
+                "result_after_s": result_s, "startup": startup,
+                "log_tail": text.splitlines()[-5:]})
     if (rc != 0 or cfg.get("error_kind") != "model_unavailable"
             or result.get("fatal_error") or not startup):
         raise AssertionError(f"the child worker failed: {out}")
-    return out
 
 
 def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
@@ -2894,7 +3073,8 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
       (``image_blobs``, by seed); then one job whose init image is past the
       3 MiB input cap: a non-fatal ``bad_asset`` envelope;
     - the entry point: ``python -m chiaswarm_tpu_torch.node.worker`` as a
-      child process (``worker_child``).
+      child process against a hive of its own (``worker_child``), started
+      with the phase and awaited at its end.
 
     B1 launches 10 times per lane step, at held shapes. Prints each job's
     seconds (poll receipt to settled upload, from the worker's traces and
@@ -2918,7 +3098,8 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
     failed: list[str] = []  # checked after every sub-run has run
     kernels.reset_launches()
     with tempfile.TemporaryDirectory(prefix="worker-serve-") as tmp, \
-            env(SWARM_TPU_ROOT=tmp), LocalHive() as hive:
+            env(SWARM_TPU_ROOT=tmp), LocalHive() as hive, \
+            worker_child(Path(tmp)) as child:
         hive.assets.update(image_assets())
         # the lone job, in a fresh lane
         before, b1_before = stepper_stats(slot), B1.launches
@@ -3152,9 +3333,9 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
                 or out["bad_asset"]["fatal_error"]):
             failed.append(f"worker_serve bad asset: {out['bad_asset']}")
 
-        # the entry point, as a node operator starts it
-        out["child"] = worker_child(hive, Path(tmp))
-        emit("worker_serve_child", **out["child"])
+    # the entry point, as a node operator starts it (beside the sub-runs)
+    out["child"] = child
+    emit("worker_serve_child", **child)
     run = launched()
 
     # the burst's batch composition again, outside the worker: each image
@@ -3270,7 +3451,13 @@ INPAINT_JOBS = [dict(JOBS[0], id=f"inpaint-sd15-{seed}", seed=seed,
 def smooth_image(seed: int, size: int):
     """A smooth uint8 (size, size, 3) test picture made from ``seed``: a few
     low-frequency waves per channel and three flat rectangles (a PNG of it
-    stays far under the 3 MiB input cap at 1024 px)."""
+    stays far under the 3 MiB input cap at 1024 px). A fresh copy each
+    call; each picture is drawn once a run."""
+    return _smooth_image(seed, size).copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _smooth_image(seed: int, size: int):
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -3309,7 +3496,12 @@ def png_bytes(pixels) -> bytes:
 def image_assets() -> dict:
     """Every input the image phases fetch, by asset name: the init images
     of IMG_JOBS, INPAINT_JOBS and XL_IMG_JOB, the mask, and one body past
-    the 3 MiB input cap."""
+    the 3 MiB input cap (encoded once a run)."""
+    return dict(_image_assets())
+
+
+@functools.lru_cache(maxsize=None)
+def _image_assets() -> dict:
     from chiaswarm_tpu_torch.node.job_args import MAX_IMAGE_BYTES
 
     assets = {f"init-{seed}.png": png_bytes(smooth_image(seed, IMG_SIZE))
@@ -4380,14 +4572,18 @@ def guard_worker_phase(torch, registry, pool) -> dict:
     return run
 
 
-def guard_child(hive: LocalHive, root: Path) -> dict:
+@contextlib.contextmanager
+def guard_child(root: Path):
     """``python -m chiaswarm_tpu_torch.node.worker`` as a child process on
     ``CKPT_MODEL`` (its directory linked into the child's settings root),
-    with ``guard_cache_flush_after=1``, ``guard_quarantine_after=2`` and
-    ``guard_restart_after=2`` in its ``settings.json`` and lane step 3
-    wedged by ``CHIASWARM_CHAOS_WEDGE_STEP``: the one hang queues all three
-    rungs, the child declines to quarantine its card, drains, uploads the
-    job once without error and exits with 73."""
+    against a ``LocalHive`` of its own, with ``guard_cache_flush_after=1``,
+    ``guard_quarantine_after=2`` and ``guard_restart_after=2`` in its
+    ``settings.json`` and lane step 3 wedged by
+    ``CHIASWARM_CHAOS_WEDGE_STEP``: the one hang queues all three rungs, the
+    child declines to quarantine its card, drains, uploads the job once
+    without error and exits with 73. Started on entry, so the child runs
+    beside the caller's block; the exit waits for it and fills the yielded
+    dict (``exit_s`` counts from the start)."""
     from chiaswarm_tpu_torch.node.registry import model_dir
 
     child_root = root / "guard-child"
@@ -4402,37 +4598,40 @@ def guard_child(hive: LocalHive, root: Path) -> dict:
         "guard_cache_flush_after": 1, "guard_quarantine_after": 2,
         "guard_restart_after": 2}))
     job = dict(JOBS[0], id="guard-child-1", model_name=CKPT_MODEL)
-    hive.submit(job)
-    child_env = dict(os.environ, SDAAS_URI=hive.uri, SDAAS_TOKEN="chip-smoke",
-                     SWARM_TPU_ROOT=str(child_root),
-                     CHIASWARM_CHAOS_WEDGE_STEP="3:6", **GUARD_KNOBS)
+    out: dict = {}
     log_path = child_root / "child.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log_file:
-        child = subprocess.Popen(
-            [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
-            cwd=ROOT, env=child_env, stdout=log_file,
-            stderr=subprocess.STDOUT)
-        try:
-            rc = child.wait(timeout=600)
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait(timeout=30)
+    with LocalHive() as hive:
+        hive.submit(job)
+        child_env = dict(os.environ, SDAAS_URI=hive.uri,
+                         SDAAS_TOKEN="chip-smoke",
+                         SWARM_TPU_ROOT=str(child_root),
+                         CHIASWARM_CHAOS_WEDGE_STEP="3:6", **GUARD_KNOBS)
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_file:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+                cwd=ROOT, env=child_env, stdout=log_file,
+                stderr=subprocess.STDOUT)
+            try:
+                yield out
+                rc = child.wait(timeout=600)
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=30)
+        results = [r for r in hive.results if r["id"] == job["id"]]
     text = log_path.read_text()
-    results = [r for r in hive.results if r["id"] == job["id"]]
-    out = {"rc": rc, "exit_s": time.perf_counter() - t0,
-           "settled": len(results),
-           "error": results[0]["pipeline_config"].get("error")
-           if results else None,
-           "condemned": "CONDEMNED" in text,
-           "declined": "cannot quarantine device" in text,
-           "restart": "self-restart requested" in text,
-           "log_tail": text.splitlines()[-4:]}
+    out.update({"rc": rc, "exit_s": time.perf_counter() - t0,
+                "settled": len(results),
+                "error": results[0]["pipeline_config"].get("error")
+                if results else None,
+                "condemned": "CONDEMNED" in text,
+                "declined": "cannot quarantine device" in text,
+                "restart": "self-restart requested" in text,
+                "log_tail": text.splitlines()[-4:]})
     if (rc != 73 or len(results) != 1 or out["error"] is not None
             or not (out["condemned"] and out["declined"] and out["restart"])):
         raise AssertionError(f"the guard child failed: {out}")
-    return out
 
 
 def guard_cost_phase(torch, registry, slot) -> dict:
@@ -4838,6 +5037,525 @@ def lease_resume_serve_phase(torch, registry, slot,
             or any(d["max"] > LEASE_IMAGE_BAR for d in diffs.values())):
         raise AssertionError(f"lease_resume_serve: {out}")
     return run, reference_run
+
+
+# ---- federation over hive shards, and the numerics taps ----
+
+FED_WIDTH = 8              # the worker's lane, pinned (B1 at batch 16)
+FED_CKPT_EVERY = 4
+FED_MIN_STEP = 8           # shard 0 restarts once its jobs hold this step
+FED_SLOW = "2"             # lane steps stretched 2x: the restart is mid-lane
+FED_HEARTBEAT_S = 0.2
+FED_JOBS = {0: [dict(JOBS[0], id=f"fed-0-{seed}", seed=seed)
+                for seed in (81, 82)],
+            1: [dict(JOBS[0], id=f"fed-1-{seed}", seed=seed)
+                for seed in (83, 84)]}
+#: owned by shard 1, granted through shard 0's empty poll
+FED_STOLEN = dict(JOBS[0], id="fed-stolen-85", seed=85)
+#: owned by shard 0; its first holder was lost with its last checkpoint on
+#: the shard, so the restart redelivers it with ``resume``
+FED_RESUMED = dict(JOBS[0], id="fed-resumed-86", seed=86)
+NUMERICS_SOLO_JOB = dict(JOBS[0], id="numerics-solo-1")
+NUMERICS_PAIR_JOB = dict(JOBS[0], id="numerics-pair-1",
+                         num_images_per_prompt=2)
+#: one B1 launch's attn.out summary against the plain version's: B1's bars
+NUMERICS_BAR = {"abs": 4e-3, "rel": 1e-2}
+NUMERICS_TAP_SHAPE = (2, 4096, 8, 40)
+RING_HOP_PROBES = ("ring_flash.hop_rowmax", "ring_flash.hop_rowsum",
+                   "ring_flash.hop_acc")
+
+
+async def _until(predicate, what: str, task=None, timeout: float = 300.0):
+    """Wait for ``predicate`` (raising the worker task's error, if it
+    ended, and on ``timeout``)."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not predicate():
+        if task is not None and task.done():
+            task.result()
+            raise AssertionError(f"the worker stopped before {what}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not after {timeout} s")
+        await asyncio.sleep(0.005)
+
+
+def federation_serve_phase(torch, registry, pool) -> dict:
+    """One worker (from ``hive_front_uri``, health server on, heartbeats
+    every ``FED_HEARTBEAT_S``, a lane pinned at ``FED_WIDTH``) over two
+    lease-aware, journaled ``LocalHive`` shards that stamp ``hive_epoch``,
+    ``hive_shard`` and ``trace_ctx``, found through a third hive's ``GET
+    /api/shards``. Each shard owns two SD1.5 512 px jobs; a fifth, owned by
+    shard 1, goes out through shard 0's empty poll (a stolen grant). A sixth
+    (``FED_RESUMED``), owned by shard 0, was held by a lane that is gone:
+    its last checkpoint (written by this script's own lane through the
+    spool, every ``FED_CKPT_EVERY`` steps, its image the uninterrupted one)
+    sits on shard 0 under a lease of the lost holder. Once shard 0's two
+    jobs hold checkpoints at step ``FED_MIN_STEP`` (the lane's steps
+    stretched by the chaos seam, sleeps only), shard 0 restarts: epoch 1 to
+    2, every lease void. Gates: each job settled once, on its owner, never
+    misrouted; every upload echoes its grant's epoch (shard 0's two
+    in-flight jobs settle as epoch salvage) and shard, and carries a span
+    digest; the worker's stale beat is answered ``stale_epoch`` and it
+    counts one epoch change; the resumed job restarts at its checkpoint
+    step; ``/healthz`` shows both shards (epochs 2 and 1); B1 = 10 x lane
+    steps, all at held lane shapes. Prints restart to the resumed row's
+    admission and first step, restart to every upload settled, epoch
+    changes, digest bytes and the resumed image against the uninterrupted
+    one."""
+    import asyncio
+    import shutil
+
+    import aiohttp
+
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.node.resilience import CheckpointSpool
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    resumed_id = FED_RESUMED["id"]
+    # the lost holder: a lane of this process checkpointing into a spool
+    spool_dir = settings_root_dir() / "federation-first-holder"
+    shutil.rmtree(spool_dir, ignore_errors=True)
+    spool = CheckpointSpool(spool_dir)
+    get_stepper(slot).shutdown()
+    slot._checkpoint_spool = spool
+    try:
+        with env(CHIASWARM_STEPPER_LANE_WIDTH=str(FED_WIDTH),
+                 CHIASWARM_STEPPER_CKPT_EVERY=str(FED_CKPT_EVERY)):
+            first = synchronous_do_work(dict(FED_RESUMED), slot, registry)
+    finally:
+        slot._checkpoint_spool = None
+        get_stepper(slot).shutdown()
+    uninterrupted = check_envelope("federation_serve", FED_RESUMED, first,
+                                   lanes=True)
+    held = json.loads(json.dumps(spool.load(resumed_id)))
+    shutil.rmtree(spool_dir, ignore_errors=True)
+
+    shards = [LocalHive(lease_aware=True, epoch=1, trace=True)
+              for _ in range(2)]
+    federate(*shards)
+    s0, s1 = shards
+    marks: dict = {}
+    scraped: dict = {}
+    jobs = {0: FED_JOBS[0] + [FED_RESUMED], 1: FED_JOBS[1] + [FED_STOLEN]}
+    ids = {i: [j["id"] for j in js] for i, js in jobs.items()}
+
+    def settled(hive, want) -> bool:
+        with hive.cond:
+            return set(want) <= {r["id"] for r in hive.results}
+
+    async def drive(worker):
+        task = asyncio.create_task(worker.run())
+        try:
+            await _until(lambda: worker.health_address is not None
+                         and len(worker.shards) == 2, "the bootstrap", task)
+            with s0.cond:
+                s0.submit(*FED_JOBS[0])
+                s1.submit(*FED_JOBS[1], FED_STOLEN)
+            await _until(lambda: all(
+                (s0.checkpoints.get(i) or {}).get("step", 0) >= FED_MIN_STEP
+                for i in ids[0][:2]), "shard 0's checkpoints", task)
+            marks["held_at_restart"] = {i: s0.checkpoints[i]["step"]
+                                        for i in ids[0][:2]}
+            before = stepper_stats(slot)
+            t0 = time.perf_counter()
+            marks["voided"] = s0.restart()
+            await _until(lambda: stepper_stats(slot).get("rows_resumed", 0)
+                         > before.get("rows_resumed", 0),
+                         "the resumed row's admission", task)
+            marks["restart_to_resumed_admission_s"] = \
+                time.perf_counter() - t0
+            admitted = stepper_stats(slot)
+            await _until(lambda: stepper_stats(slot).get(
+                "steps_executed", 0) > admitted.get("steps_executed", 0),
+                "the resumed row's first step", task)
+            marks["restart_to_first_resumed_step_s"] = \
+                time.perf_counter() - t0
+            await _until(lambda: settled(s0, ids[0]) and settled(s1, ids[1]),
+                         "every upload settled", task)
+            marks["restart_to_settled_s"] = time.perf_counter() - t0
+            base = "http://%s:%d" % worker.health_address
+            async with aiohttp.ClientSession() as session:
+                async with session.get(base + "/healthz") as response:
+                    scraped["healthz"] = (response.status,
+                                          await response.json())
+        finally:
+            worker.request_stop()
+            await asyncio.wait_for(task, timeout=120)
+
+    with s0, s1, LocalHive() as front, env(
+            CHIASWARM_STEPPER_LANE_WIDTH=str(FED_WIDTH),
+            CHIASWARM_STEPPER_CKPT_EVERY=str(FED_CKPT_EVERY),
+            CHIASWARM_STEPPER_IDLE_S="300",
+            CHIASWARM_CHAOS_SLOW_STEP=FED_SLOW):
+        front.shard_uris = [s0.uri, s1.uri]
+        with s0.cond:  # the lost holder's lease and checkpoint
+            s0.submitted_at[resumed_id] = time.monotonic()
+            s0.attempts[resumed_id] = 1
+            s0.leases[resumed_id] = {"job": dict(FED_RESUMED),
+                                     "worker": "fed-first-holder",
+                                     "attempt": 1, "expires": float("inf")}
+            s0.checkpoints[resumed_id] = held
+        s1.steal_only.add(FED_STOLEN["id"])
+        worker = Worker(Settings(
+            hive_uri="http://127.0.0.1:9", hive_front_uri=front.uri,
+            hive_token="chip-smoke", worker_name="chip-smoke-fed",
+            heartbeat_s=FED_HEARTBEAT_S, health_bind_ephemeral=True,
+            poll_busy_s=0.05, poll_idle_s=0.05,
+            install_signal_handlers=False), pool=pool, registry=registry)
+        before = stepper_stats(slot)
+        kernels.reset_launches()
+        asyncio.run(drive(worker))
+        run = launched()
+        after = stepper_stats(slot)
+        get_stepper(slot).shutdown()
+        results = {i: {r["id"]: r for r in h.results}
+                   for i, h in enumerate(shards)}
+        uploads = {i: collections.Counter(r["id"] for r in h.results)
+                   for i, h in enumerate(shards)}
+        books = {i: {"salvaged": sorted(h.salvaged),
+                     "stale_beats": h.stale_beats,
+                     "stolen_from": sorted(h.stolen),
+                     "misrouted": sorted(h.misrouted),
+                     "duplicates": len(h.duplicates), "epoch": h.epoch}
+                 for i, h in enumerate(shards)}
+    blobs, digests, epochs = {}, {}, {}
+    for index, js in jobs.items():
+        for job in js:
+            result = results[index][job["id"]]
+            blobs[job["id"]] = check_envelope("federation_serve", job,
+                                              result, lanes=True)
+            digest = result.get("span_digest")
+            digests[job["id"]] = (None if digest is None
+                                  else len(json.dumps(digest)))
+            epochs[job["id"]] = [result.get("hive_epoch"),
+                                 result.get("hive_shard")]
+    stamp = results[0][resumed_id]["pipeline_config"]["stepper"]
+    diff = abs(decode_png(blobs[resumed_id]) - decode_png(uninterrupted))
+    status, health = scraped["healthz"]
+    steps = delta(after, before, "steps_executed")
+    out = {"card": nvidia_smi_line(), **marks, "books": books,
+           "uploads": {i: dict(c) for i, c in uploads.items()},
+           "upload_epoch_shard": epochs, "digest_bytes": digests,
+           "held_checkpoint_step": held["step"],
+           "resume_step": stamp.get("resume_step"),
+           "resumed_vs_uninterrupted": {
+               "max": int(diff.max()),
+               "within_one": float((diff <= 1).mean())},
+           "epoch_changes": worker.stats.hive_epoch_changes,
+           "leases_lost": worker.stats.leases_lost,
+           "healthz_status": status,
+           "hive_shards": [{k: s[k] for k in ("shard", "uri", "hive_epoch")}
+                           | {"session": s["session"]["state"]}
+                           for s in health.get("hive_shards", [])],
+           "lane_steps": steps,
+           "b1_launches": run["flash_attention"]["launches"],
+           "launches": {n: r["launches"] for n, r in run.items()}}
+    emit("federation_serve", **out)
+    in_flight = set(ids[0][:2])
+    if (status != 200 or any(n != 1 for c in uploads.values()
+                             for n in c.values())
+            or {i: set(c) for i, c in uploads.items()}
+            != {i: set(v) for i, v in ids.items()}
+            or books[0]["salvaged"] != sorted(in_flight)
+            or books[1]["salvaged"] or books[0]["stale_beats"] < 1
+            or books[1]["stolen_from"] != [FED_STOLEN["id"]]
+            or any(b["misrouted"] or b["duplicates"] for b in books.values())
+            or sorted(marks["voided"]) != sorted(ids[0])
+            or any(epochs[i] != [1 if i in in_flight or index == 1 else 2,
+                                 index]
+                   for index, js in ids.items() for i in js)
+            or any(n is None for n in digests.values())
+            or out["epoch_changes"] != 1
+            or out["resume_step"] != held["step"]
+            or [s["hive_epoch"] for s in out["hive_shards"]] != [2, 1]
+            or out["b1_launches"] != steps * B1_LAUNCHES_PER_UNET_EVAL
+            or sum(out["launches"].values()) != out["b1_launches"]):
+        raise AssertionError(f"federation_serve: {out}")
+    return run
+
+
+def tap_cost(torch, numerics) -> dict:
+    """What one tap costs on the card, on a bf16 ``NUMERICS_TAP_SHAPE``
+    tensor: its kernel launches (a ``torch.profiler`` capture of one tap),
+    the device ms (CUDA events, behind a sleep) and the host ms to enqueue
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(NUMERICS_TAP_SHAPE, device="cuda", dtype=torch.bfloat16)
+    path = settings_root_dir() / "numerics-tap-trace.json"
+    with env(CHIASWARM_NUMERICS="tap_cost"):
+        numerics.tap("tap_cost", x)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            numerics.tap("tap_cost", x)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        device_ms = time_ms(torch, lambda: numerics.tap("tap_cost", x))
+        enqueue_ms = host_ms(torch, lambda: numerics.tap("tap_cost", x))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    numerics.RING.clear()
+    return {"kernels_per_tap": sum(1 for e in events
+                                   if e.get("cat") == "kernel"),
+            "device_ms_per_tap": device_ms, "host_ms_per_tap": enqueue_ms}
+
+
+def numerics_serve_phase(torch, registry, pool, solo_blobs: dict,
+                         seq_blobs: dict, seq_scan_blobs: dict) -> dict:
+    """The numerics taps on the card. (1) One B1 launch at
+    ``NUMERICS_TAP_SHAPE`` under ``CHIASWARM_NUMERICS=attn.out``: its record
+    against the same summary of the plain version's output on the same
+    q, k, v, within ``NUMERICS_BAR``; a tap's launches and device and host
+    ms. (2) A worker with ``health_bind_ephemeral`` serves serve's seed 1
+    solo with every probe on, the seed-1 two-image job in a lane pinned at 2
+    rows with the taps off and then on, and seed 1 solo off again; after each
+    job ``/debug/numerics`` is read (then ``?limit=0`` and a bad limit,
+    400). (3) Seed 1 on the one-card seq = 4 slot under
+    ``CHIASWARM_NUMERICS=ring_flash``, through B3 and then under the scan
+    drive over B2. Gates: every image of a tapped job bit for bit its
+    untapped twin (serve's, seq_serve's, seq_serve_scan's; the pair off and
+    on) with the same B1, B2 and B3 launches (100 solo, 10 x lane steps,
+    201 B3, 3,216 B2) and no other kernel; the solo job's records hold
+    every probe of the solo program (``diffusion.eps`` at steps 0-19); the
+    pair's ``lane_row`` records hold slots 0 and 1 at its boundaries; with
+    the taps off nothing is recorded and the payload says ``enabled``
+    false; B3's ``ring_flash.out`` comes per shard 0-3, the scan's hop
+    records per shard 0-3 and hop 0-3. Prints records per job, the ring's
+    stats, a tap's cost and the lane's mean step seconds with the taps on
+    against off."""
+    out: dict = {"card": nvidia_smi_line()}
+    tap_ok = numerics_b1_check(torch, out)
+    worker_ok, run = numerics_worker_stages(torch, registry, pool,
+                                            solo_blobs, out)
+    seq_ok, seq_runs = numerics_ring_jobs(torch, seq_blobs, seq_scan_blobs,
+                                          out)
+    emit("numerics_serve", **out)
+    if not (tap_ok and worker_ok and seq_ok):
+        raise AssertionError(f"numerics_serve: tap {tap_ok}, worker "
+                             f"{worker_ok}, ring {seq_ok}: {out}")
+    return {"numerics_serve": run, **seq_runs}
+
+
+def numerics_b1_check(torch, out: dict) -> bool:
+    """numerics_serve (1): one B1 launch's ``attn.out`` record against the
+    plain version's summary, and a tap's cost, into ``out``."""
+    from chiaswarm_tpu_torch.obs import numerics
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops.attention import attention
+    from chiaswarm_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v = (torch.randn(NUMERICS_TAP_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    numerics.RING.clear()
+    kernels.reset_launches()
+    with env(CHIASWARM_NUMERICS="attn.out"):
+        numerics.TAPS.reset_trace_seq()
+        attention(q, k, v)
+        [rec] = numerics.RING.drain()
+    b1_one = launched()["flash_attention"]["launches"]
+    summary, size = numerics.summarize(flash_attention_plain(q, k, v))
+    want = dict(zip(numerics.SUMMARY_FIELDS, summary.tolist()))
+    gaps = {f: abs(rec[f] - want[f]) for f in ("l2", "mean", "absmax")}
+    out["b1_attn_out"] = {"record": {f: rec[f] for f in
+                                     numerics.SUMMARY_FIELDS},
+                          "plain": want, "gaps": gaps, "launches": b1_one,
+                          "size": [rec["size"], size]}
+    tap_ok = (b1_one == 1 and rec["size"] == size and rec["nonfinite"] == 0
+              and all(g <= NUMERICS_BAR["abs"]
+                      + NUMERICS_BAR["rel"] * abs(want[f])
+                      for f, g in gaps.items()))
+    out["tap_cost"] = tap_cost(torch, numerics)
+    return tap_ok
+
+
+def numerics_worker_stages(torch, registry, pool, solo_blobs: dict,
+                           out: dict) -> tuple[bool, dict]:
+    """numerics_serve (2): the solo job and the lane pair through a worker
+    and ``/debug/numerics``; returns whether the gates held and the
+    launches."""
+    import asyncio
+
+    import aiohttp
+
+    from chiaswarm_tpu_torch.node.settings import Settings
+    from chiaswarm_tpu_torch.node.worker import Worker
+    from chiaswarm_tpu_torch.obs import numerics
+    from chiaswarm_tpu_torch.obs.metrics import REGISTRY
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    slot = pool.slots[0]
+    hist = REGISTRY.get("chiaswarm_stepper_step_seconds")
+    stages = [("solo_on", NUMERICS_SOLO_JOB,
+               {"CHIASWARM_STEPPER": "0", "CHIASWARM_NUMERICS": "1"}),
+              ("pair_off", NUMERICS_PAIR_JOB,
+               {"CHIASWARM_STEPPER": "1", "CHIASWARM_NUMERICS": None,
+                "CHIASWARM_STEPPER_LANE_WIDTH": "2"}),
+              ("pair_on", NUMERICS_PAIR_JOB,
+               {"CHIASWARM_STEPPER": "1", "CHIASWARM_NUMERICS": "1",
+                "CHIASWARM_STEPPER_LANE_WIDTH": "2"}),
+              ("solo_off", NUMERICS_SOLO_JOB,
+               {"CHIASWARM_STEPPER": "0", "CHIASWARM_NUMERICS": None})]
+    served: dict = {}
+
+    async def get(session, url):
+        async with session.get(url) as response:
+            return response.status, await response.json()
+
+    async def drive(hive, worker):
+        task = asyncio.create_task(worker.run())
+        try:
+            await _until(lambda: worker.health_address is not None,
+                         "the health server", task)
+            base = "http://%s:%d/debug/numerics" % worker.health_address
+            timeout = aiohttp.ClientTimeout(total=120)
+            async with aiohttp.ClientSession(timeout=timeout) as session:
+                for name, job, knobs in stages:
+                    with env(**knobs):
+                        numerics.RING.clear()
+                        total = numerics.RING.total
+                        n0, s0 = hist.count(), hist.sum()
+                        before = launched()
+                        job_id = f"{job['id']}-{name}"
+                        hive.submit(dict(job, id=job_id))
+                        await _until(lambda: any(
+                            r["id"] == job_id for r in hive.results),
+                            f"numerics_serve {name}", task)
+                        status, payload = await get(session, base)
+                        after = launched()
+                        [result] = [r for r in hive.results
+                                    if r["id"] == job_id]
+                        served[name] = {
+                            "result": result, "status": status,
+                            "payload": payload,
+                            "queued": numerics.RING.total - total,
+                            "steps": hist.count() - n0,
+                            "step_s": hist.sum() - s0,
+                            "launches": {n: after[n]["launches"]
+                                         - before[n]["launches"]
+                                         for n in after}}
+                    if name == "pair_on":
+                        get_stepper(slot).shutdown()
+                served["limit0"] = await get(session, base + "?limit=0")
+                served["bad_limit"] = await get(session, base + "?limit=soon")
+        finally:
+            worker.request_stop()
+            await asyncio.wait_for(task, timeout=120)
+
+    with LocalHive() as hive:
+        worker = Worker(Settings(
+            hive_uri=hive.uri, hive_token="chip-smoke",
+            worker_name="chip-smoke-numerics", health_bind_ephemeral=True,
+            poll_busy_s=0.05, poll_idle_s=0.05,
+            install_signal_handlers=False), pool=pool, registry=registry)
+        get_stepper(slot).shutdown()
+        kernels.reset_launches()
+        asyncio.run(drive(hive, worker))
+        run = launched()
+    blobs, rows = {}, {}
+    for name, job, _ in stages:
+        entry = served[name]
+        lanes = name.startswith("pair")
+        # a two-image job's PNG is its 1x2 grid
+        grid = dict(job, width=job["width"]
+                    * job.get("num_images_per_prompt", 1))
+        blobs[name] = check_envelope("numerics_serve", grid,
+                                     entry["result"], lanes=lanes)
+        records = entry["payload"]["records"]
+        probes = collections.Counter(r["probe"] for r in records)
+        rows[name] = {
+            "status": entry["status"], "enabled": entry["payload"]["enabled"],
+            "records": len(records), "queued": entry["queued"],
+            "ring": entry["payload"]["ring"], "probes": dict(probes),
+            "launches": entry["launches"],
+            "lane_steps": entry["steps"],
+            "mean_step_s": (entry["step_s"] / entry["steps"]
+                            if entry["steps"] else None),
+            "generation_s": entry["result"]["pipeline_config"].get(
+                "generation_s")}
+    solo = served["solo_on"]["payload"]["records"]
+    eps_steps = sorted(r["step"] for r in solo
+                       if r["probe"] == "diffusion.eps")
+    pair = [r for r in served["pair_on"]["payload"]["records"]
+            if r["probe"] == "lane_row"]
+    lane_keys = sorted({(r["step"], r["shard"]) for r in pair})
+    out["served"] = rows
+    out["lane_row_keys"] = lane_keys
+    out["lane_step_ratio_on_off"] = (
+        rows["pair_on"]["mean_step_s"] / rows["pair_off"]["mean_step_s"])
+    out["limit0"] = [served["limit0"][0],
+                     len(served["limit0"][1]["records"])]
+    out["bad_limit"] = list(served["bad_limit"])
+    b1 = {name: rows[name]["launches"]["flash_attention"] for name in rows}
+    worker_ok = (
+        blobs["solo_on"] == solo_blobs[1] == blobs["solo_off"]
+        and blobs["pair_on"] == blobs["pair_off"]
+        and b1["solo_on"] == b1["solo_off"]
+        == SERVE_STEPS * B1_LAUNCHES_PER_UNET_EVAL
+        and b1["pair_on"] == b1["pair_off"]
+        == rows["pair_on"]["lane_steps"] * B1_LAUNCHES_PER_UNET_EVAL
+        and all(sum(r["launches"].values()) == b1[n] for n, r in rows.items())
+        and all(r["status"] == 200 for r in rows.values())
+        and rows["solo_on"]["enabled"] and rows["pair_on"]["enabled"]
+        and not rows["pair_off"]["enabled"] and not rows["solo_off"]["enabled"]
+        and rows["pair_off"]["queued"] == rows["solo_off"]["queued"] == 0
+        and rows["pair_off"]["records"] == rows["solo_off"]["records"] == 0
+        and eps_steps == list(range(SERVE_STEPS))
+        and {"attn.q", "attn.k", "attn.v", "attn.out", "diffusion.text_ctx",
+             "diffusion.eps", "diffusion.latents", "diffusion.final_latents",
+             "diffusion.image_u8"} <= set(rows["solo_on"]["probes"])
+        and {s for _, s in lane_keys} == {0, 1}
+        and out["limit0"] == [200, 0] and served["bad_limit"][0] == 400)
+    return worker_ok, run
+
+
+def numerics_ring_jobs(torch, seq_blobs: dict, seq_scan_blobs: dict,
+                       out: dict) -> tuple[bool, dict]:
+    """numerics_serve (3): seed 1 on the seq slot under ``ring_flash``, B3
+    then the scan drive over B2; returns whether the gates held and each
+    run's launches."""
+    from chiaswarm_tpu_torch.obs import numerics
+
+    seq_runs, seq_ok = {}, True
+    for label, phase, ref in (("numerics_seq", "seq_serve", seq_blobs),
+                              ("numerics_seq_scan", "seq_serve_scan",
+                               seq_scan_blobs)):
+        sslot, sregistry, mode, kernel, per_eval, per_decode = seq_slot(
+            torch, phase, label=label)
+        numerics.RING.clear()
+        total = numerics.RING.total
+        with env(CHIASWARM_RING_FLASH=mode, CHIASWARM_NUMERICS="ring_flash",
+                 CHIASWARM_STEPPER="0"):  # the solo path, as seq_serve's
+            seconds, seq_served = run_jobs(torch, label, sslot, sregistry,
+                                           jobs=JOBS[:1])
+        seq_runs[label] = launched()
+        records = numerics.RING.drain()
+        keys = {(r["probe"], r["step"], r["shard"]) for r in records}
+        launches = {n: r["launches"] for n, r in seq_runs[label].items()}
+        want_n = SERVE_STEPS * per_eval + per_decode
+        out[label] = {"kernel": kernel.name, "job_seconds": seconds,
+                      "records": len(records),
+                      "queued": numerics.RING.total - total,
+                      "evicted": numerics.RING.stats()["evicted"],
+                      "launches": launches, "expected_launches": want_n,
+                      "bit_equal": seq_served[1] == ref[1]}
+        outs = {("ring_flash.out", -1, s) for s in range(RING_SHARDS)}
+        hops = {(p, h, s) for p in RING_HOP_PROBES
+                for h in range(RING_SHARDS) for s in range(RING_SHARDS)}
+        seq_ok = seq_ok and (
+            seq_served[1] == ref[1] and launches[kernel.name] == want_n
+            and sum(launches.values()) == want_n
+            and (keys == outs if mode != "scan" else keys == outs | hops))
+        del sslot, sregistry
+        torch.cuda.empty_cache()
+    return seq_ok, seq_runs
 
 
 def overload_serve_phase(torch, registry, pool) -> dict:
@@ -7088,7 +7806,7 @@ def audio_serve_phase(torch, strict, pool, b1_rows: list) -> dict:
 
 TTS_MODEL = "suno/bark"  # random weights from seed 0 (the registry's fallback)
 TTS_TEXT = "Hello, my name is Suno. And, uh, I like pizza."
-TTS_SECONDS = 1.0  # cut from 4.0, then 2.0: the run's wall, its time limit
+TTS_SECONDS = 0.6  # cut from 4.0, 2.0, 1.0 for the wall: 32 semantic tokens
 TTS_SEM_STEPS = 32      # semantic steps held against the float32 CPU run
 TTS_LOGIT_BAR = 0.08    # bf16 card against float32 CPU, first-step logits
 TTS_CODEC_BAR = 1e-2    # relative L2 of the codec's waveform, card vs CPU
@@ -7188,7 +7906,7 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     """Bark at its published widths (three 24 x 1,024 GPTs in bf16 with
     vocabularies 129,600 / 12,096 / 1,056 and the 8-codebook EnCodec at
     24 kHz in float32), random from seed 0 through the registry's
-    ``allow_random`` fallback; through the worker a 1 s job at the default
+    ``allow_random`` fallback; through the worker a 0.6 s job at the default
     temperature 0.7, a job with a ``history`` preset of Bark's shapes and a
     job naming a preset by a string, then the first job again. Gates: the
     served envelopes error-free with ``audio/wav`` (``audio/mpeg`` with
@@ -7198,14 +7916,18 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     same weights (``tts_semantic_gate``); the codec's waveform on the card
     within 1e-2 relative L2 of its float32 CPU run on the same codes.
     Prints job seconds and ``generation_s``, the served jobs' device ms and
-    host seconds by stage, decode tokens/s, the busy share and launches per
-    decode step from the profile tool, and the peak memory."""
+    host seconds by stage, decode tokens/s, the repeat's busy share and top
+    kernels under the profiler and the launches per decode step (the
+    profile tool's ``kernel_summary`` and ``tts_decode_launches``), and the
+    peak memory."""
     import copy
     import dataclasses
     import shutil
 
     import numpy as np
+    from torch.profiler import ProfilerActivity
 
+    from chiaswarm_tpu_torch.obs.profiling import profile as profiler
     from chiaswarm_tpu_torch.pipelines.tts import TTSPipeline
 
     t0 = time.perf_counter()
@@ -7235,8 +7957,11 @@ def tts_serve_phase(torch, registry, pool) -> dict:
         peak = torch.cuda.max_memory_allocated()
         by_id = {r["id"]: r for r in hive.results}
         rows = trace_rows(worker)
-        serve_through_worker(hive, pool, registry,
-                             [dict(TTS_JOBS[0], id="tts-1-again")])
+        # the repeat under the profiler (CUDA activity only)
+        with tool.counted_decode_steps(pipe) as again_calls, \
+                profiler(activities=[ProfilerActivity.CUDA]) as prof:
+            again_worker = serve_through_worker(
+                hive, pool, registry, [dict(TTS_JOBS[0], id="tts-1-again")])
         again = hive.results[-1]
         run, launches = launched(), kernel_launches()
     jobs = {}
@@ -7301,8 +8026,12 @@ def tts_serve_phase(torch, registry, pool) -> dict:
     codec_rel = float(np.linalg.norm(card_wav - cpu_wav)
                       / np.linalg.norm(cpu_wav))
     semantic_gate = tts_semantic_gate(torch, pipe)
-    profile = tool.tts_profile(torch, pipe, TTS_SECONDS, warm_up=False)
-    profile["top"] = profile["top"][:8]
+    profile = tool.kernel_summary(
+        prof, trace_rows(again_worker)["tts-1-again"]["seconds"], top=8)
+    profile.update(job="tts-1-again", decode_steps={
+        stage: sum(n for s, n in again_calls if s == stage)
+        for stage in ("semantic", "coarse")},
+        launches_per_decode_step=tool.tts_decode_launches(torch, pipe))
     emit("tts_serve", load_s=load_s, param_bytes=pipe.c.param_bytes(),
          params=params, dtypes={name: str(next(m.parameters()).dtype)
                                 for name, m in zip(
@@ -7326,9 +8055,9 @@ def tts_serve_phase(torch, registry, pool) -> dict:
 VIDEO_TXT_MODEL = "damo-vilab/text-to-video-ms-1.7b"  # random, seed 0
 VIDEO_IMG_MODEL = "stabilityai/stable-video-diffusion-img2vid"  # random
 VIDEO_PROMPT = "a red fox running through fresh snow at dawn, cinematic"
-# the video jobs' steps, cut from the hive's 25 for the run's wall (PR 19):
-# a step's work, and so every B1 shape, is the same at any step count
-TXT2VID_STEPS = 15
+# the video jobs' steps, cut from the hive's 25 for the run's wall (to 15,
+# then 10): a step's work, and so every B1 shape, is the same at any count
+TXT2VID_STEPS = 10
 TXT2VID_JOBS = [
     {"id": "txt2vid-1", "workflow": "txt2vid", "model_name": VIDEO_TXT_MODEL,
      "prompt": VIDEO_PROMPT, "seed": 1, "num_inference_steps": TXT2VID_STEPS,
@@ -7341,7 +8070,7 @@ TXT2VID_JOBS = [
      "guidance_scale": 1.0, "num_inference_steps": TXT2VID_STEPS,
      "content_type": "video/mp4"},
 ]
-IMG2VID_STEPS = 15
+IMG2VID_STEPS = 10
 IMG2VID_JOBS = [
     {"id": "img2vid-1", "workflow": "img2vid", "model_name": VIDEO_IMG_MODEL,
      "start_image_uri": "/assets/svd-a.png", "seed": 1,
@@ -8025,10 +8754,13 @@ def cascade_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
     ``cascade_b1_want`` by shape a job (1,530 at the defaults), B2 and B3
     never. Prints each job's seconds, ``generation_s``, device ms by stage
     (T5, stage 1, stage 2, the x4's text, denoise and decode), B1's ms and
-    share of the device ms and the peak memory; then the default job under
-    ``tools/torch_serve_profile.py``'s ``cascade_profile`` (busy share, B1's
-    share, top kernels)."""
+    share of the device ms and the peak memory; the repeat ran under the
+    profiler (CUDA activity, ``tools/torch_serve_profile.py``'s
+    ``kernel_summary``: busy share, B1's share, top kernels)."""
+    from torch.profiler import ProfilerActivity
+
     from chiaswarm_tpu_torch.node.executor import synchronous_do_work
+    from chiaswarm_tpu_torch.obs.profiling import profile as profiler
     from chiaswarm_tpu_torch.ops import kernels
 
     pipe = registry.cascade_pipeline(CASCADE_MODEL)
@@ -8036,14 +8768,21 @@ def cascade_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
     jobs, blobs = {}, {}
     total = collections.Counter()
     kernels.reset_launches()
+    profiled = "if-1-again"
     with timed_stages(torch, pipe, CASCADE_STAGES) as stages, \
             timed_stages(torch, up, X4_STAGES) as x4_stages:
         for job in CASCADE_JOBS:
             before = launched()
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            result = synchronous_do_work(dict(job), slot, registry)
-            seconds = time.perf_counter() - t0
+            with (profiler(activities=[ProfilerActivity.CUDA])
+                  if job["id"] == profiled
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                result = synchronous_do_work(dict(job), slot, registry)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            if prof is not None:
+                profile = profile_tool().kernel_summary(prof, seconds, top=8)
             after = launched()
             cfg = result["pipeline_config"]
             blobs[job["id"]] = check_envelope(
@@ -8091,8 +8830,9 @@ def cascade_serve_phase(torch, registry, slot, b1_rows: list) -> dict:
     repeat_equal = blobs["if-1"] == blobs["if-1-again"]
     if not repeat_equal:
         raise AssertionError("cascade_serve: the same job twice differs")
-    profile = profile_tool().cascade_profile(torch, pipe, up, warm_up=False,
-                                             top=8)
+    profile.update(job=profiled,
+                   b1_launches=profile["flash_attention"]["calls"],
+                   b1_share_of_device=profile["flash_attention"]["share"])
     emit("cascade_serve", jobs=jobs, repeat_png_equal=repeat_equal,
          launches={name: r["launches"] for name, r in run.items()},
          b1_shapes=b1_shapes(run), profile=profile,
@@ -8594,6 +9334,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "overload_serve",
                                            "health_serve",
                                            "lease_resume_serve",
+                                           "federation_serve",
+                                           "numerics_serve",
                                            "safety_serve",
                                            "controlnet_serve",
                                            "xl_controlnet_serve",
@@ -8616,14 +9358,15 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "xl_deepcache_serve",
                                            "coalesce_serve",
                                            "coalesce_img2img_serve")),
-        entry("ring_flash_hop", "seq_serve_scan",
+        entry("ring_flash_hop", "seq_serve_scan", ("numerics_seq_scan",),
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
                            "included, is timed beside "
                            "scaled_dot_product_attention under "
                            "ring_flash_fused"),
         entry("ring_flash_fused", "seq_serve", ("lane_seq_serve",
-                                                "seq_img2img"),
+                                                "seq_img2img",
+                                                "numerics_seq"),
               library_note="scaled_dot_product_attention on the unsharded "
                            "attention"),
     ]
@@ -8647,10 +9390,16 @@ def main() -> int:
 
 
 def run_phases(torch, t0: float) -> int:
-    build()
+    from concurrent.futures import ThreadPoolExecutor
+
+    # nvcc builds in child processes while the host draws the inputs
+    with ThreadPoolExecutor(max_workers=1) as builder:
+        built = builder.submit(build)
+        inputs = kernel_inputs(torch)
+        built.result()
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
-    b1_rows = kernel_phase(torch)
+    b1_rows = kernel_phase(torch, inputs)
     b2_rows = ring_kernel_phase(torch)
     b3_rows = fused_kernel_phase(torch)
     check_phase(torch)
@@ -8670,8 +9419,10 @@ def run_phases(torch, t0: float) -> int:
     runs = {}
     with env(CHIASWARM_STEPPER="0"):  # the solo path
         runs["serve"], solo_blobs = serve_phase(torch, registry, slot)
-        runs["seq_serve"] = seq_serve_phase(torch, "seq_serve", solo_blobs)
-        runs["seq_serve_scan"] = seq_serve_phase(torch, "seq_serve_scan",
+        runs["seq_serve"], seq_blobs = seq_serve_phase(torch, "seq_serve",
+                                                       solo_blobs)
+        runs["seq_serve_scan"], seq_scan_blobs = seq_serve_phase(
+            torch, "seq_serve_scan",
                                                  solo_blobs)
     with env(CHIASWARM_STEPPER="1"):  # the lanes, the default engine
         runs["lane_serve"], lane_blobs, lane_spans = lane_serve_phase(
@@ -8707,9 +9458,6 @@ def run_phases(torch, t0: float) -> int:
         runs["guard_solo"] = guard_solo_phase(torch, registry, pool,
                                               solo_blobs[1])
         runs["guard_worker"] = guard_worker_phase(torch, registry, pool)
-        with LocalHive() as child_hive:
-            emit("guard_child", **guard_child(child_hive,
-                                              settings_root_dir()))
         runs["guard_cost"] = guard_cost_phase(torch, registry, slot)
         # the hive worker's second half on the checkpoint's model: the
         # overload controller, the health server, lease heartbeats with a
@@ -8721,6 +9469,12 @@ def run_phases(torch, t0: float) -> int:
         (runs["lease_resume_serve"],
          runs["lease_resume_reference"]) = lease_resume_serve_phase(
             torch, ckpt["registry"], slot, settings_root_dir())
+        # the rest of the worker: federation over hive shards with the
+        # epoch handshake and flight context, then the numerics taps
+        runs["federation_serve"] = federation_serve_phase(torch, registry,
+                                                          pool)
+        runs.update(numerics_serve_phase(torch, registry, pool, solo_blobs,
+                                         seq_blobs, seq_scan_blobs))
     # SDXL at 1024 px: the solo path, then the lanes and the worker
     with env(CHIASWARM_STEPPER="0"):
         runs["xl_serve"], xl_blobs, xl_ips = xl_serve_phase(torch, registry,
@@ -8765,13 +9519,18 @@ def run_phases(torch, t0: float) -> int:
         # stitch, img2txt and txt2audio, their models loaded with no random
         # fallback
         strict = ModelRegistry(allow_random=False, device="cuda")
-        runs["stitch_serve"] = stitch_serve_phase(torch, strict, pool)
-        runs["caption_serve"] = caption_serve_phase(torch, strict, pool)
-        runs["audio_serve"] = audio_serve_phase(torch, strict, pool, b1_rows)
-        del strict
-        torch.cuda.empty_cache()
-        # text to speech: Bark's three GPT stages and the EnCodec decode
-        runs["tts_serve"] = tts_serve_phase(torch, registry, pool)
+        # the guard's child worker (a wedged lane, exit 73) runs beside
+        # these mostly host-bound workflows, which leave the card idle
+        with guard_child(settings_root_dir()) as child:
+            runs["stitch_serve"] = stitch_serve_phase(torch, strict, pool)
+            runs["caption_serve"] = caption_serve_phase(torch, strict, pool)
+            runs["audio_serve"] = audio_serve_phase(torch, strict, pool,
+                                                    b1_rows)
+            del strict
+            torch.cuda.empty_cache()
+            # text to speech: Bark's three GPT stages and the EnCodec decode
+            runs["tts_serve"] = tts_serve_phase(torch, registry, pool)
+        emit("guard_child", **child)
         # video: txt2vid (ModelScope), img2vid (SVD), vid2vid (SD1.5)
         runs["txt2vid_serve"] = txt2vid_serve_phase(torch, registry, pool,
                                                     b1_rows)

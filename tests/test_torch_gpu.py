@@ -30,7 +30,9 @@ and ``quantize_leaf`` on the card against the CPU, DeepCache's shallow
 eval launching B1 at level 0 only); the hive worker's lease and health
 parts (a lane checkpoint spooled by job id, handed back through JSON and
 resumed on the card bit for bit; a profiler capture holding B1's kernel
-events, a concurrent one answering busy).
+events, a concurrent one answering busy); the numerics taps (a tapped B1
+call's ``attn.out`` record against the plain version's summary, and B1, B2
+and B3 launching the same with the taps off and on).
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -2171,3 +2173,72 @@ def test_a_profiler_capture_on_the_card_holds_b1s_kernel_events(
     assert got["status"] == "ok", got
     assert got["activities"] == ["CPU", "CUDA"] and got["device_events"] > 0
     assert any("flash_fwd" in name for name in got["kernels"])
+
+
+# ---------------------------------------------------------------------------
+# the numerics taps on the card (tests/test_torch_numerics.py on the CPU)
+
+
+def test_a_tapped_b1_call_records_the_plain_versions_summary(cuda_device,
+                                                            monkeypatch):
+    """``attn.out`` of one B1 launch at SD1.5's (2,4096,4096,8,40) bf16
+    against the same summary of the plain version's output on the same
+    q, k, v, within B1's bars (4e-3 absolute plus 1e-2 relative); the
+    summary queued on the card and read back when the ring is read."""
+    from chiaswarm_tpu_torch.obs import numerics
+
+    monkeypatch.setenv("CHIASWARM_NUMERICS", "attn.out")
+    q, k, v = _qkv((2, 4096, 8, 40), (2, 4096, 8, 40), torch.bfloat16,
+                   cuda_device, seed=20)
+    numerics.RING.clear()
+    before = KERNEL.launches
+    tattn.attention(q, k, v)
+    assert KERNEL.launches - before == 1
+    assert numerics.RING.pending() == 1
+    [rec] = numerics.RING.drain()
+    want, size = numerics.summarize(flash_attention_plain(q, k, v))
+    want = dict(zip(numerics.SUMMARY_FIELDS, want.tolist()))
+    assert rec["probe"] == "attn.out" and rec["size"] == size
+    assert rec["nonfinite"] == 0 == want["nonfinite"]
+    for field in ("l2", "mean", "absmax"):
+        assert abs(rec[field] - want[field]) <= 4e-3 + 1e-2 * abs(
+            want[field]), (field, rec, want)
+
+
+def test_taps_launch_no_kernel_of_the_port(cuda_device, monkeypatch):
+    """B1, then B3 and the scan drive over B2 on a 4-shard ring on one
+    card: the same launches and the same outputs with every probe off and
+    on."""
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from chiaswarm_tpu_torch.obs import numerics
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    mesh = build_mesh(MeshSpec({"seq": 4}), devices=[cuda_device] * 4)
+    q, k, v = _qkv((2, 4096, 8, 40), (2, 4096, 8, 40), torch.bfloat16,
+                   cuda_device, seed=21)
+
+    def run(taps: str | None):
+        if taps is None:
+            monkeypatch.delenv("CHIASWARM_NUMERICS", raising=False)
+        else:
+            monkeypatch.setenv("CHIASWARM_NUMERICS", taps)
+        numerics.RING.clear()
+        kernels.reset_launches()
+        outs = [tattn.attention(q, k, v)]
+        for mode in ("", "scan"):
+            monkeypatch.setenv("CHIASWARM_RING_FLASH", mode)
+            outs.append(tring.ring_flash_attention(q, k, v, mesh=mesh))
+        torch.cuda.synchronize()
+        return ({n: (kern.launches, dict(kern.shapes))
+                 for n, kern in kernels.KERNELS.items()},
+                outs, len(numerics.RING))
+
+    off, off_outs, off_records = run(None)
+    on, on_outs, on_records = run("1")
+    assert off == on
+    assert off["flash_attention"][0] == 1
+    assert off["ring_flash_fused"][0] == 1 and off["ring_flash_hop"][0] == 16
+    assert off_records == 0 and on_records == 4 + 4 + 4 * 4 * 3 + 4
+    for a, b in zip(off_outs, on_outs):
+        assert torch.equal(a, b)

@@ -44,8 +44,9 @@ from chiaswarm_tpu_torch.obs import trace as ttrace
 from chiaswarm_tpu_torch.serving import guard as tguard
 from chiaswarm_tpu_torch.serving import stepper as tstepper
 
-#: what the JAX worker serves and the port does not yet: federation's
-#: per-shard views and the hive epoch (the next worker slice)
+#: federation's per-shard views and the hive epoch: once left for the next
+#: worker slice, served since; the tests below hold them present with JAX's
+#: shapes
 NEXT_SLICE_KEYS = {"hive_epoch", "hive_shards"}
 NEXT_SLICE_FAMILIES = {"chiaswarm_hive_shard_session_state"}
 #: the port's own: each card's allocator levels
@@ -195,7 +196,15 @@ def _workers():
 def test_health_keys_match_the_jax_worker():
     jax_worker, torch_worker = _workers()
     theirs, mine = jax_worker.health(), torch_worker.health()
-    assert set(mine) - PORT_KEYS == set(theirs) - NEXT_SLICE_KEYS
+    assert set(mine) - PORT_KEYS == set(theirs)
+    assert NEXT_SLICE_KEYS <= set(mine)
+    assert mine["hive_epoch"] is None is theirs["hive_epoch"]
+    assert [set(s) for s in mine["hive_shards"]] == \
+        [set(s) for s in theirs["hive_shards"]]
+    assert [{k: v for k, v in s.items() if k != "session"}
+            for s in mine["hive_shards"]] == \
+        [{k: v for k, v in s.items() if k != "session"}
+         for s in theirs["hive_shards"]]
     for key in ("stepper", "guard", "overload", "hive_session"):
         assert set(mine[key]) == set(theirs[key]), key
     # the suggestion reads each package's process-wide histogram, which
@@ -226,8 +235,9 @@ def test_metric_families_match_the_jax_worker():
     jax_worker, torch_worker = _workers()
     theirs = _families(jax_worker.metrics.render())
     mine = _families(torch_worker.metrics.render())
-    assert {k: v for k, v in theirs.items()
-            if k not in NEXT_SLICE_FAMILIES} == mine
+    assert theirs == mine
+    assert all(mine[name] == ("gauge", ("shard",))
+               for name in NEXT_SLICE_FAMILIES)
     # the lanes' process-wide families this slice adds
     from chiaswarm_tpu.serving import stepper as jstepper  # noqa: F401
 
@@ -320,8 +330,10 @@ def test_the_health_endpoints_answer_as_the_jax_worker_does(tmp_path):
     theirs = _scrape("jax", tmp_path)
     status, health = mine["/healthz"]
     assert status == 200 and health["jobs_done"] == 1
-    assert set(health) - PORT_KEYS == set(theirs["/healthz"][1]) \
-        - NEXT_SLICE_KEYS
+    assert set(health) - PORT_KEYS == set(theirs["/healthz"][1])
+    assert health["hive_shards"][0]["shard"] == 0
+    assert set(health["hive_shards"][0]) == \
+        set(theirs["/healthz"][1]["hive_shards"][0])
     status, body = mine["/metrics"]
     assert status == 200 and _parse_prometheus(body) > 50
     assert 'chiaswarm_jobs_total{outcome="ok"} 1' in body

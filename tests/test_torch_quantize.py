@@ -422,16 +422,17 @@ def test_solo_activation_seams_match_jax(monkeypatch, families, fmt):
     jpipe = jdiff.DiffusionPipeline(dataclasses.replace(families["tiny"]))
     fp_img, _ = port(_request(tdiff.GenerateRequest, init_noise=_noise("t")))
     monkeypatch.setenv("CHIASWARM_ACTIVATIONS", fmt)
-    seen = {"jax": collections.Counter(), "port": []}
+    seen = {"jax": collections.Counter(), "port": [], "port_tags": []}
     real_j, real_t = jdiff.fake_quant_activation, tdiff.fake_quant_activation
 
     def jax_spy(x, *, tag=None):
         seen["jax"][tag] += 1
         return real_j(x, tag=tag)
 
-    def port_spy(x, fmt=None):
+    def port_spy(x, fmt=None, tag=None):
         seen["port"].append(tuple(x.shape))
-        return real_t(x, fmt)
+        seen["port_tags"].append(tag)
+        return real_t(x, fmt, tag=tag)
 
     monkeypatch.setattr(jdiff, "fake_quant_activation", jax_spy)
     monkeypatch.setattr(tdiff, "fake_quant_activation", port_spy)
@@ -439,6 +440,8 @@ def test_solo_activation_seams_match_jax(monkeypatch, families, fmt):
     t_img, _ = port(_request(tdiff.GenerateRequest, init_noise=_noise("t")))
     assert seen["jax"] == {"unet.ctx": 1, "unet.in": 1}
     assert seen["port"] == [(2, 77, 32)] + [(1, 4, 32, 32)] * 3
+    # the port's seams carry JAX's tags (the act.<tag> numerics probes)
+    assert seen["port_tags"] == ["unet.ctx"] + ["unet.in"] * 3
     mean_abs, rel = _gate(t_img, np.asarray(j_img))
     assert mean_abs < 4.0 and rel < 0.05, (mean_abs, rel)
     assert not np.array_equal(t_img, fp_img)

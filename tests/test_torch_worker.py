@@ -21,9 +21,9 @@ modules it brings, on the CPU, against the JAX package.
   splices into it; two solo bursts never run on one device at once and
   never give ``SlotBusy``; a job submitted from an executor thread renders
   the bits of one submitted directly.
-- **No CPU fallback**, the default pool's rules, and the settings the worker
-  refuses until the next worker slice (federation: several hive uris,
-  ``hive_front_uri``).
+- **No CPU fallback**, the default pool's rules, and the federation
+  settings (several hive uris, ``hive_front_uri``), which the worker once
+  refused and now serves (``tests/test_torch_federation.py``).
 """
 
 from __future__ import annotations
@@ -1234,9 +1234,21 @@ def test_sdxl_estimate_reaches_the_default_pool_policy(monkeypatch):
     {"hive_uri": "http://a,http://b"}, {"hive_front_uri": "http://front"},
 ], ids=["shards", "front"])
 def test_worker_refuses_parts_of_the_next_slice(over):
-    with pytest.raises(ValueError, match="next worker slice"):
-        tworker.Worker(settings=tsettings.Settings(**over),
-                       pool=[StubSlot()], registry=object(), hive=object())
+    # the name predates federation's port: the worker refused these
+    # settings until it served them. Now it builds one session bundle per
+    # shard as the JAX worker does (an injected client is the whole
+    # control plane, one bundle), and a front is resolved at run()
+    kwargs = dict(pool=[StubSlot()], registry=object())
+    mine = tworker.Worker(settings=tsettings.Settings(**over), **kwargs)
+    theirs = JaxWorker(settings=jsettings.Settings(**over), **kwargs)
+    assert [(s.index, s.uri, s.spool.directory.name,
+             s.session.name) for s in mine.shards] == \
+        [(s.index, s.uri, s.spool.directory.name, s.session.name)
+         for s in theirs.shards]
+    assert len(mine.shards) == (2 if "hive_uri" in over else 1)
+    injected = tworker.Worker(settings=tsettings.Settings(**over),
+                              hive=object(), **kwargs)
+    assert len(injected.shards) == 1
 
 
 def test_worker_ignores_guard_enabled_and_logs_it(caplog):

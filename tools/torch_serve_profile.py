@@ -295,7 +295,6 @@ def tts_decode_launches(torch, pipe, steps: tuple[int, int] = (2, 12)
     """Kernel launches of one coarse decode step: two decodes of the coarse
     stage behind one 887-slot prefill, ``steps`` tokens each, under the
     profiler; their difference over the steps' difference."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
     from chiaswarm_tpu_torch.obs.profiling import profile
@@ -319,8 +318,7 @@ def tts_decode_launches(torch, pipe, steps: tuple[int, int] = (2, 12)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        counts.append(sum(e.count for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA))
+        counts.append(sum(n for n, _ in device_kernels(prof).values()))
     return (counts[1] - counts[0]) / (steps[1] - steps[0])
 
 
@@ -529,17 +527,41 @@ def seeded_picture(size: int):
                                                     Image.BICUBIC))
 
 
+def device_kernels(prof) -> dict:
+    """Each device event of a finished ``torch.profiler`` window by name:
+    (calls, summed ns). Read straight off the profiler's raw events:
+    ``key_averages()`` first builds a Python event tree over the whole
+    window, which takes tens of seconds for a job's 10^5 launches."""
+    from torch.autograd import DeviceType
+
+    try:
+        from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    except ImportError:  # the names as the profiler gives them
+        def _filter_name(name):
+            return False
+
+        def _rewrite_name(name, with_wildcard=False):
+            return name
+    by_name: dict[str, list[int]] = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA or _filter_name(evt.name()):
+            continue  # host-side ops and runtime calls
+        row = by_name.setdefault(evt.name(), [0, 0])
+        row[0] += 1
+        row[1] += evt.duration_ns()
+    merged: dict[str, tuple[int, int]] = {}
+    for name, (calls, ns) in by_name.items():
+        key = _rewrite_name(name, with_wildcard=True)
+        had = merged.get(key, (0, 0))
+        merged[key] = (had[0] + calls, had[1] + ns)
+    return merged
+
+
 def kernel_summary(prof, wall_s: float, top: int) -> dict:
     """Device time, busy share and launches of a profiled window, and the
     port's kernels (each with both its routes) on lines of their own."""
-    from torch.autograd import DeviceType
-
-    kernels = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue  # host-side ops and runtime calls
-        kernels.append({"name": evt.key[:120], "calls": evt.count,
-                        "device_ms": evt.device_time_total / 1e3})
+    kernels = [{"name": name[:120], "calls": calls, "device_ms": ns / 1e6}
+               for name, (calls, ns) in device_kernels(prof).items()]
     total_ms = sum(k["device_ms"] for k in kernels)
     kernels.sort(key=lambda k: -k["device_ms"])
     for k in kernels:
