@@ -19,6 +19,7 @@ Layer map (mirrors the JAX package's names):
 - ``workloads``  — job callbacks
 - ``node``       — job routing, the executor, the artifact envelope
 - ``serving``    — output screening
+- ``cli``        — the operator CLI (``python -m chiaswarm_tpu_torch.cli``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

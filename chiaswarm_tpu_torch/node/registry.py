@@ -44,8 +44,9 @@ is planned at ``bytes_per_param()`` (1 under int8, else 2).
 family's ``kind``, as JAX does (:278-291): ``"upscaler"`` builds the x2
 ``LatentUpscalePipeline`` and ``"upscaler4"`` the SD x4
 ``Upscale4xPipeline`` (``pipelines/upscale.py``; on a ``seq`` > 1 slot it
-raises, ROADMAP queue item 7), the rest builds ``DiffusionPipeline``. A textual inversion and a
-LoRA at a scale key entries of their own, ``("pipeline", name,
+raises, ROADMAP queue item 7d), the rest builds ``DiffusionPipeline``,
+which rings over a ``seq`` > 1 slot for SD1.x, SD2.x and SDXL alike. A
+textual inversion and a LoRA at a scale key entries of their own, ``("pipeline", name,
 textual_inversion, (lora, scale), mesh key)`` as in JAX: each is built
 from its own ``Components``, the embedding rows appended to its private
 tables (``convert/textual_inversion.py``) and the LoRA merged into its
@@ -301,12 +302,14 @@ class ModelRegistry:
                   mesh: DeviceMesh | None) -> torch.device:
         """The device of a pipeline that does not ring: the slot mesh's lead
         device (the registry's with no mesh). A ``seq`` > 1 slot raises: the
-        JAX package rings the audio program there (ROADMAP queue item 7)."""
+        JAX package rings the caption, audio, video and cascade programs
+        there, or pins the captioner to the lead chip (ROADMAP queue item
+        7d)."""
         if seq_size(mesh) > 1:
             raise NotImplementedError(
                 f"{what} model {model_name!r} on a seq={seq_size(mesh)} "
                 "mesh is not served yet (ROADMAP queue item 7: the rings "
-                "serve SD1.x/SD2.x)")
+                "serve the SD1.x, SD2.x and SDXL pipelines)")
         return self.device if mesh is None else mesh.lead
 
     def cascade_pipeline(self, model_name: str,

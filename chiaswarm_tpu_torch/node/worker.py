@@ -272,6 +272,52 @@ def pool_layout(spec: MeshSpec, n_devices: int) -> tuple[int, MeshSpec]:
     return n_devices, MeshSpec({DATA_AXIS: 1})
 
 
+def default_pool_plan(settings: Settings, registry: ModelRegistry
+                      ) -> tuple[MeshSpec, int, MeshSpec]:
+    """(the node's mesh spec, slots, each slot's spec) for the cards
+    ``torch.cuda.device_count()`` reports. An explicit ``mesh_shape``
+    setting wins; otherwise the spec derives from the card count and the
+    heaviest catalog family (``core/mesh.py::derive_mesh_spec``). The
+    worker's default pool and ``node/initialize.py``'s warm-up read it."""
+    n = torch.cuda.device_count()
+    if settings.mesh_shape:
+        spec = MeshSpec(dict(settings.mesh_shape))
+    else:
+        spec = derive_mesh_spec(n, heaviest_catalog_bytes(registry),
+                                latency=settings.latency_mode)
+    n_slots, slot_spec = pool_layout(spec, n)
+    return spec, n_slots, slot_spec
+
+
+def heaviest_catalog_bytes(registry: ModelRegistry) -> int | None:
+    """Footprint of the heaviest model the catalog serves (None = empty
+    catalog or no estimate): the ledger's measured footprint (persisted
+    across restarts in ``residency.json``) where there is one, else the
+    family's bf16 estimate."""
+    try:
+        from chiaswarm_tpu_torch.models.configs import get_family
+        from chiaswarm_tpu_torch.pipelines.components import (
+            estimate_family_bytes,
+        )
+
+        names = registry.known_models()
+        if not names:
+            return None
+        residency = getattr(registry, "residency", None)
+        measured = (residency.measured_footprints()
+                    if residency is not None else {})
+        heaviest = 0
+        for name in names:
+            nbytes = measured.get(name)
+            if nbytes is None:
+                nbytes = estimate_family_bytes(get_family(name).name)
+            heaviest = max(heaviest, int(nbytes))
+        return heaviest or None
+    except Exception as exc:  # policy must never block startup
+        log.warning("mesh policy estimate failed (%s); using dp-only", exc)
+        return None
+
+
 class Worker:
     """One node process: one task per slot, plus the poll and upload tasks.
 
@@ -504,55 +550,13 @@ class Worker:
 
     # ---- the default pool ----
 
-    def _default_pool_plan(self) -> tuple[MeshSpec, int, MeshSpec]:
-        """(the node's mesh spec, slots, each slot's spec) for the cards
-        ``torch.cuda.device_count()`` reports. An explicit ``mesh_shape``
-        setting wins; otherwise the spec derives from the card count and
-        the heaviest catalog family (``core/mesh.py::derive_mesh_spec``)."""
-        n = torch.cuda.device_count()
-        if self.settings.mesh_shape:
-            spec = MeshSpec(dict(self.settings.mesh_shape))
-        else:
-            spec = derive_mesh_spec(n, self._heaviest_catalog_bytes(),
-                                    latency=self.settings.latency_mode)
-        n_slots, slot_spec = pool_layout(spec, n)
-        return spec, n_slots, slot_spec
-
     def _default_pool(self) -> ChipPool:
         resolve_device(None)  # no card: raises, there is no CPU fallback
-        spec, n_slots, slot_spec = self._default_pool_plan()
+        spec, n_slots, slot_spec = default_pool_plan(self.settings,
+                                                     self.registry)
         self.mesh_spec = spec
         log.info("derived default mesh: %s", spec.shape)
         return ChipPool(n_slots=n_slots, mesh_spec=slot_spec)
-
-    def _heaviest_catalog_bytes(self) -> int | None:
-        """Footprint of the heaviest model the catalog serves (None =
-        empty catalog or no estimate): the ledger's measured footprint
-        (persisted across restarts in ``residency.json``) where there is
-        one, else the family's bf16 estimate."""
-        try:
-            from chiaswarm_tpu_torch.models.configs import get_family
-            from chiaswarm_tpu_torch.pipelines.components import (
-                estimate_family_bytes,
-            )
-
-            names = self.registry.known_models()
-            if not names:
-                return None
-            residency = getattr(self.registry, "residency", None)
-            measured = (residency.measured_footprints()
-                        if residency is not None else {})
-            heaviest = 0
-            for name in names:
-                nbytes = measured.get(name)
-                if nbytes is None:
-                    nbytes = estimate_family_bytes(get_family(name).name)
-                heaviest = max(heaviest, int(nbytes))
-            return heaviest or None
-        except Exception as exc:  # policy must never block startup
-            log.warning("mesh policy estimate failed (%s); using dp-only",
-                        exc)
-            return None
 
     # ---- lifecycle ----
 
@@ -1234,6 +1238,8 @@ class Worker:
         self._note_hive_ok(shard)
         shard.backoff.reset()
         poll_http_s = time.perf_counter() - t_poll
+        if jobs:
+            self._note_poll(jobs)
         # the brownout cap, refreshed on every poll: it lands promptly under
         # load and lifts on the next (possibly idle) poll once cleared
         self._push_admission_caps()
@@ -1308,6 +1314,18 @@ class Worker:
                 except Exception:  # prefetch must never stop polls
                     log.exception("residency prefetch tick failed")
         return float(self.settings.poll_idle_s)
+
+    def _note_poll(self, jobs: list[dict]) -> None:
+        """The lanes' poll hint (JAX :1198-1210): tell each slot's step
+        scheduler how many rows this poll is about to submit, so an adaptive
+        lane grows at its next boundary instead of queueing the burst behind
+        a full lane. A hint only: it never creates a scheduler."""
+        rows = sum(max(1, int(job.get("num_images_per_prompt") or 1))
+                   for job in jobs)
+        for slot in self.pool:
+            stepper = getattr(slot, "_stepper", None)
+            if stepper is not None:
+                stepper.note_poll(rows)
 
     def _push_admission_caps(self) -> None:
         """Mirror the overload controller's brownout admission cap into

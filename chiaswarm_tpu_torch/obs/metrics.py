@@ -4,8 +4,9 @@ worker (``node/worker.py``) and ``node/resilience.py::ResilienceStats`` use:
 :class:`Registry` (with its scrape-time collectors), :class:`Counter`,
 :class:`Gauge`, :class:`Histogram` (with ``percentile``/``percentiles``,
 :204-250), :func:`render_all`, the process-global :data:`REGISTRY`, the
-dead-letter and hive-session families, the resume-step histogram
-(:409-430), the residency families (:530-636), which
+dead-letter and hive-session families, the lanes' families (the
+occupancy histogram, resume step, resizes, arrival rate and admissions by
+workload, :388-490), the residency families (:530-636), which
 ``serving/residency.py`` registers on :data:`REGISTRY` with zeroes, the
 overload families (:630-702), which each worker's
 ``node/overload.py::OverloadController`` registers on the worker's registry
@@ -345,6 +346,54 @@ def resume_step_histogram(registry: Registry | None = None) -> Histogram:
         "step index at which resumed (redelivered) rows spliced into "
         "a lane",
         buckets=RESUME_STEP_BUCKETS)
+
+
+#: occupancy-ratio buckets: one per eighth of a lane, which reads at every
+#: power-of-two width
+OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+
+def lane_occupancy_histogram(registry: Registry | None = None) -> Histogram:
+    """Active rows / lane width, sampled at every lane step by
+    ``serving/stepper.py``: whether padding is a steady trickle (the width
+    too large for the arrival rate) or bursts draining out. Labelled by
+    width, a bounded power-of-two lattice, never by lane id, which grows
+    with every rebuilt lane."""
+    return (registry or REGISTRY).histogram(
+        "chiaswarm_stepper_lane_occupancy_ratio",
+        "active rows / lane width at each lane step, by lane width",
+        labelnames=("width",),
+        buckets=OCCUPANCY_BUCKETS)
+
+
+def lane_resizes_counter(registry: Registry | None = None) -> Counter:
+    """Adaptive-width resizes at step boundaries, by direction: a handful
+    as traffic shifts is healthy; a high rate means the controller
+    thrashes; all-grow means demand outruns ``CHIASWARM_STEPPER_MAX_WIDTH``,
+    all-shrink an initial width habitually too large."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_stepper_lane_resizes_total",
+        "adaptive lane-width resizes at step boundaries, by direction",
+        labelnames=("direction",))
+
+
+def arrival_rate_gauge(registry: Registry | None = None) -> Gauge:
+    """The lane scheduler's arrival-rate EWMA (rows/s), the demand half of
+    the adaptive-width signal (occupancy is the supply half), sampled at
+    each arrival and each control read; 0 when lanes idle."""
+    return (registry or REGISTRY).gauge(
+        "chiaswarm_stepper_arrival_rate",
+        "EWMA of lane row arrivals per second (adaptive-width demand "
+        "signal)")
+
+
+def lane_admissions_counter(registry: Registry | None = None) -> Counter:
+    """Rows admitted into lanes, by workload: a workload stuck at 0 while
+    its jobs flow is falling back to the per-job path."""
+    return (registry or REGISTRY).counter(
+        "chiaswarm_stepper_lane_admissions_total",
+        "lane rows admitted, by workload kind",
+        labelnames=("workload",))
 
 
 def kernel_launches_counter(registry: Registry | None = None) -> Counter:

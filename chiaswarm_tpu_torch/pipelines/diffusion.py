@@ -126,7 +126,7 @@ from chiaswarm_tpu_torch.convert.quantize import (
 )
 from chiaswarm_tpu_torch.core.buckets import bucket_batch, bucket_image_size
 from chiaswarm_tpu_torch.core.device import upload
-from chiaswarm_tpu_torch.core.mesh import DeviceMesh, seq_size
+from chiaswarm_tpu_torch.core.mesh import DeviceMesh
 from chiaswarm_tpu_torch.core.rng import (
     posterior_row_generator,
     randn_rows,
@@ -412,20 +412,15 @@ class DiffusionPipeline:
     loop, VAE decode, uint8) runs under ``parallel.context.
     sequence_parallel``, so every large self-attention, the VAE mid block's
     included, rings over the mesh (the JAX solo program's
-    ``seq_parallel_wrap``, ``pipelines/diffusion.py:615-618``); a mesh
-    that rings beside another axis above 1 raises there. Rings serve the
-    SD1.x/SD2.x UNet only: an SDXL-class family on a ``seq`` mesh raises
-    here (ROADMAP queue item 7)."""
+    ``seq_parallel_wrap``, ``pipelines/diffusion.py:615-618``), SDXL's
+    as SD1.x's: its pooled text and time ids are row state and do not
+    ring; a mesh that rings beside another axis above 1 raises there."""
 
     def __init__(self, components: Components,
                  mesh: DeviceMesh | None = None) -> None:
         self.c = components
         self.mesh = mesh
         fam = components.family
-        if seq_size(mesh) > 1 and fam.unet.addition_embed_dim is not None:
-            raise NotImplementedError(
-                f"{fam.name} on a seq={seq_size(mesh)} mesh is not served "
-                "yet (ROADMAP queue item 7: the rings serve SD1.x/SD2.x)")
         self.schedule_config = ScheduleConfig(
             beta_schedule=fam.beta_schedule,
             prediction_type=fam.prediction_type,

@@ -17,7 +17,12 @@ opts out and the executor runs every job on the solo path.
 Lane width is a closed loop (:class:`LaneWidthController`, copied with its
 defaults): it grows when pending rows cannot fit, doubles under sustained
 occupancy with arrivals flowing, halves under trickle, only at step
-boundaries and only onto the power-of-two lattice. A failed lane fails every
+boundaries and only onto the power-of-two lattice. Demand is the arrival
+EWMA of the rows submitted and the worker's poll hint
+(:meth:`StepScheduler.note_poll`, JAX :1539-1560): after a poll that
+returned jobs, the rows about to be submitted count as pending at the
+next boundary for 2 s, burnt down as they land, so a lane grows before a
+burst queues behind it. A failed lane fails every
 resident row's future and the executor falls back to the per-job path; rows
 carry their own deadline; an out-of-memory lane halves the width lanes are
 rebuilt with; ``drain``/``shutdown`` retire lanes, and so does the
@@ -142,10 +147,10 @@ always admits). The lanes' step seconds feed the process registry's
 ``chiaswarm_stepper_step_seconds`` (the hang-budget suggestion,
 ``serving/guard.py``) and resumed rows ``chiaswarm_stepper_resume_step``;
 ``obs/profiling.py`` names each lane step and decode in a profiler's
-timeline.
-
-Not here (``ROADMAP.md``): the poll hint (``note_poll``), the occupancy,
-admission-seconds, resize, arrival-rate and lane-admission families.
+timeline. The control loop's families (JAX :143-193), seeded with zeroes
+at import: the admission-prep seconds, the occupancy at each step by
+width, resizes by direction, the arrival-rate EWMA and admissions by
+workload.
 """
 
 from __future__ import annotations
@@ -224,6 +229,17 @@ _CKPT_SECONDS = obs_metrics.REGISTRY.histogram(
     buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0))
 # the step index redelivered rows splice back in at
 _RESUME_STEP = obs_metrics.resume_step_histogram()
+# admission prep on the submitting thread (tokenize, encode, row init)
+_LANE_ADMIT_SECONDS = obs_metrics.REGISTRY.histogram(
+    "chiaswarm_stepper_admission_seconds",
+    "submit-side admission prep (tokenize + encode + row init)",
+    buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
+# the adaptive-width loop: occupancy at each step, resizes, the demand
+# EWMA and the rows each workload admits
+_LANE_OCCUPANCY = obs_metrics.lane_occupancy_histogram()
+_LANE_RESIZES = obs_metrics.lane_resizes_counter()
+_ARRIVAL_RATE = obs_metrics.arrival_rate_gauge()
+_LANE_ADMISSIONS = obs_metrics.lane_admissions_counter()
 
 # the step-collapse families (obs/metrics.py; seeded by pipelines/diffusion)
 _UNET_EVALS = obs_metrics.unet_evals_counter()
@@ -233,6 +249,19 @@ _EVALS_PER_IMAGE = obs_metrics.unet_evals_per_image_histogram()
 #: the version of the port's lane checkpoint (JAX's envelope keys plus
 #: ``generators``)
 CKPT_VERSION = 1
+
+#: lane workload kinds (the ``workload`` label's vocabulary)
+WORKLOADS = ("txt2img", "img2img", "inpaint", "controlnet")
+
+#: seconds a poll hint counts as demand
+POLL_HINT_S = 2.0
+
+# every label seeded at import, so the first /metrics scrape shows zeroes
+_ARRIVAL_RATE.set(0.0)
+for _direction in ("grow", "shrink"):
+    _LANE_RESIZES.inc(0, direction=_direction)
+for _workload in WORKLOADS:
+    _LANE_ADMISSIONS.inc(0, workload=_workload)
 
 
 def stepper_enabled() -> bool:
@@ -654,13 +683,14 @@ class Lane:
                     # lane's cond, so taking it under self._cond would
                     # invert the lock order
                     width_limit = self._sched.width_limit_for(self.key)
-                    rate = self._sched.arrival_rate()
+                    rate, hint_rows = self._sched.demand_signal()
                     self._admit_cap = self._sched.admission_cap()
                     with self._cond:
                         while True:
                             if self._stop:
                                 raise LaneRetired("lane stopped")
-                            self._resize_locked(width_limit, rate)
+                            self._resize_locked(width_limit, rate,
+                                                hint_rows)
                             self._admit_locked()
                             if self._h_active.any():
                                 idle_since = None
@@ -846,21 +876,26 @@ class Lane:
                 rows_admitted_midflight=job.n_rows if mid_flight else 0,
                 rows_resumed=job.n_rows if job.resume_step > 0 else 0,
                 **{f"rows_admitted_{job.workload}": job.n_rows}))
+            # metric-local locks only: safe under self._cond
+            _LANE_ADMISSIONS.inc(job.n_rows, workload=job.workload)
             if job.resume_step > 0:
-                # a metric-local lock only: safe under self._cond
                 _RESUME_STEP.observe(job.resume_step)
                 log.info("job %s resumed at step %d/%d (%d row(s))",
                          job.job_id, job.resume_step, job.steps, job.n_rows)
 
-    def _resize_locked(self, width_limit: int | None, rate: float) -> None:
+    def _resize_locked(self, width_limit: int | None, rate: float,
+                       hint_rows: int) -> None:
         """Adaptive capacity, applied only here: between dispatches, under
-        ``self._cond``."""
+        ``self._cond``. The poll hint's rows count as pending (the
+        scheduler burns the hint down as they land, so no row counts
+        twice)."""
         if not self._adaptive:
             return
         occupied = sum(r is not None for r in self._rows)
         pending = sum(j.n_rows for j in self._pending
                       if not j.future.cancelled())
-        target = self._ctl.decide(self.width, occupied, pending, rate,
+        target = self._ctl.decide(self.width, occupied,
+                                  pending + max(0, hint_rows), rate,
                                   max_width=width_limit)
         if target != self.width:
             self._apply_resize_locked(target)
@@ -872,9 +907,11 @@ class Lane:
         old_width, self.width = self.width, int(new_width)
         occupied = [(s, self._rows[s]) for s in range(old_width)
                     if self._rows[s] is not None]
+        grow = self.width > old_width
         log.info("lane %d %s %d -> %d rows (%d resident)", self.lane_id,
-                 "grows" if self.width > old_width else "shrinks", old_width,
-                 self.width, len(occupied))
+                 "grows" if grow else "shrinks", old_width, self.width,
+                 len(occupied))
+        _LANE_RESIZES.inc(direction="grow" if grow else "shrink")
         self._deferred_counts.append(dict(lane_resizes=1))
         old_h, old_gens = self._mirrors(), self._gens
         self._new_mirrors()
@@ -1027,6 +1064,7 @@ class Lane:
         self.steps_executed += 1
         self._sched._count(steps_executed=1, row_steps_active=active,
                            row_steps_padded=self.width - active)
+        _LANE_OCCUPANCY.observe(active / self.width, width=str(self.width))
         step_s = time.perf_counter() - t0
         slow_extra = chaos.slow_extra_s(step_s)
         if slow_extra > 0:  # chaos: the sick but living card
@@ -1322,7 +1360,11 @@ class StepScheduler:
         # (key -> width) of failed lanes: note_oom must find the lane that
         # just died even after _lane_done removed it
         self._failed_lane_hints = _ByPipe()
+        # the demand signal: submissions feed the rows/s EWMA; the worker's
+        # poll leaves a short-lived hint of the rows about to land
         self._arrivals = ArrivalEwma()
+        self._poll_hint_rows = 0
+        self._poll_hint_t = float("-inf")
         self._step_ewma = 0.0
         # condemned lanes whose threads may still be inside the wedged
         # step: shutdown joins them too
@@ -1379,14 +1421,34 @@ class StepScheduler:
     # ---- demand and step signals ----
 
     def _note_arrival(self, rows: int) -> None:
+        now = time.monotonic()
         with self._lock:
-            self._arrivals.note(int(rows), time.monotonic())
+            self._arrivals.note(int(rows), now)
+            # the hinted rows landed (in part) as submissions: burn the
+            # hint down, so no row counts as both pending and hinted
+            self._poll_hint_rows = max(0, self._poll_hint_rows - int(rows))
+            rate = self._arrivals.rate(now)
+        _ARRIVAL_RATE.set(rate)
 
-    def arrival_rate(self, now: float | None = None) -> float:
-        """The arrival-rate EWMA in rows/s, read by the lane threads."""
+    def note_poll(self, jobs: int, now: float | None = None) -> None:
+        """The worker's poll hook: a poll just returned ``jobs`` rows, about
+        to be formatted and submitted. Lanes read the hint at their next
+        step boundary and grow before the submissions land."""
         now = time.monotonic() if now is None else now
         with self._lock:
-            return self._arrivals.rate(now)
+            self._poll_hint_rows = max(0, int(jobs))
+            self._poll_hint_t = now
+
+    def demand_signal(self, now: float | None = None) -> tuple[float, int]:
+        """(arrival-rate EWMA in rows/s, the poll hint's rows while fresh),
+        read by the lane threads outside their lane's lock."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            rate = self._arrivals.rate(now)
+            hint = (self._poll_hint_rows
+                    if now - self._poll_hint_t <= POLL_HINT_S else 0)
+        _ARRIVAL_RATE.set(rate)
+        return rate, hint
 
     def width_limit_for(self, key: tuple) -> int | None:
         """The OOM-halving width cap for ``key`` (:meth:`note_oom`), read by
@@ -1518,6 +1580,7 @@ class StepScheduler:
             lane_rows = max(rows, limit)
         self._note_arrival(rows)
 
+        t_prep = time.perf_counter()
         with obs_trace.span("encode", rows=rows, steps=steps):
             sched = make_sampling_schedule(pipe.noise_schedule, steps,
                                            sampler)
@@ -1571,6 +1634,7 @@ class StepScheduler:
                 if init_rows is not None:
                     # x = init + noise * sigma[start], the solo prologue
                     x0 = init_rows + x0
+        _LANE_ADMIT_SECONDS.observe(time.perf_counter() - t_prep)
         job = _RowJob(
             job_id=job_id, n_rows=rows, steps=steps,
             guidance=float(guidance_scale),

@@ -48,10 +48,12 @@ each phase printing one JSON line:
                 and byte counts and the bound.
 4. ring_kernel — holds kernel B2 (one ring hop with carried state) against
                 ``ring_flash_hop_plain`` with a non-trivial incoming state,
-                on a strided query shard, at the three shapes of the
-                sequence-parallel serve path in bf16 (the two at head dims
-                40 and 80 on the tensor-core route, the VAE's 512 on the
-                sweep), a ragged bf16 shape off the path and a ragged fp32
+                on a strided query shard, at the shard shapes of the
+                sequence-parallel serve paths in bf16 (SD1.5's two at head
+                dims 40 and 80 and SDXL's two at head dim 64 with 10 and 20
+                heads on the tensor-core route, the VAE's 512 at 1,024 and
+                4,096 tokens on the sweep), a ragged bf16 shape off the path
+                and a ragged fp32
                 one: the normalised output acc / l to B1's bars, m within
                 1e-5 and l within a relative 1e-4. Times, FLOPs and bytes
                 with the state counted in and out, the bound, and the host
@@ -60,9 +62,12 @@ each phase printing one JSON line:
                 time is null).
 5. fused_kernel — holds kernel B3 (a whole 4-shard ring in one launch)
                 against its plain version ``ring_flash_fused_plain`` at the
-                ring attentions of the seq slot's serve paths in bf16 (batch
-                2 for a solo job, 16 for a lane of 8 rows, 1 for the VAE)
-                and a ragged fp32 one (S != L) to B1's bars, and against
+                ring attentions of the seq slot's serve paths in bf16 (SD1.5:
+                batch 2 for a solo job, 16 for a lane of 8 rows, 1 for the
+                VAE at 4,096 tokens; SDXL: batch 2 solo and 4 for a lane of
+                2 rows at head dim 64, 1 for its VAE at 16,384 tokens; rings
+                above ``FEW_CALLS_FLOPS`` timed over 5 calls) and a ragged
+                fp32 one (S != L) to B1's bars, and against
                 unsharded ``flash_attention_plain`` and the scan drive over
                 B2 on the one-card mesh (whether the two agree bit for bit
                 is printed). Times of B3, its plain version, the scan
@@ -115,8 +120,10 @@ each phase printing one JSON line:
 9. seq_serve  — the same three jobs on a slot whose mesh has ``seq = 4``
                 over ``cuda:0`` named four times: every envelope error-free
                 with a 512x512 PNG, B3 launched jobs x (steps x 10 + 1)
-                times, B1 and B2 never. The uint8 difference from the serve
-                phase's image of the same seed is printed as information.
+                times, B1 and B2 never. Each image against the serve
+                phase's of the same seed within ``SEQ_IMAGE_BAR`` (the mean
+                uint8 difference; the ring sums in another order), the
+                largest difference printed.
 10. seq_serve_scan — the same jobs under ``CHIASWARM_RING_FLASH=scan`` on a
                 ``seq = 4`` slot (``cuda:0..3`` when four cards are visible,
                 else ``cuda:0`` named four times, and the rotation copies
@@ -205,8 +212,9 @@ each phase printing one JSON line:
                 checkpoint_serve's seed-1 job through a worker whose
                 registry loads the checkpoint from disk (bit for bit
                 checkpoint_serve's image), then
-                ``python -m chiaswarm_tpu_torch.node.worker`` as a
-                child process against a hive of its own, started with the
+                ``python -m chiaswarm_tpu_torch.cli worker`` (the operator
+                CLI) as a child process against a hive of its own, started
+                with the
                 phase: its registry has no checkpoint, so it uploads a
                 non-fatal ``model_unavailable`` envelope, and on SIGTERM it
                 drains and exits with 0. B1 = 10 x lane steps.
@@ -216,7 +224,11 @@ each phase printing one JSON line:
                 base64, upload), the worker's host seconds (job seconds
                 minus ``generation_s``), the burst's images/s from the first
                 poll that returned work to the last upload beside
-                lane_burst's, lane steps and occupancy.
+                lane_burst's, lane steps and occupancy, and the burst's
+                demand signal (``demand_watch``): the rows each poll hinted
+                to the slot's scheduler (they must sum to the burst's jobs),
+                the hints lane boundaries read, the lane's width at its
+                first admission and the resizes by direction.
 15b. xl_serve — SDXL at its published widths (3.47 B parameters: UNet
                 and VAE in bf16, both text towers in float32, random from
                 seed 0, drawn on the card once and reused by every SDXL
@@ -379,6 +391,15 @@ each phase printing one JSON line:
 15p. guard_xl — guard_lane for SDXL at 1024 px (after the SDXL phases), two
                 txt2img jobs (seeds 1, 2): both resume at step 8 bit for
                 bit, their pooled text encoded again; B1 = 70 x dispatches.
+15pa. xl_seq_serve — SDXL at 1024 px on the one-card ``seq = 4`` slot, on
+                the SDXL phases' weights (shared, not drawn again): seed 1
+                on the solo path through B3 (70 x evals + 1, B1 and B2
+                never; its image against xl_serve's within
+                ``SEQ_IMAGE_BAR``), the same job under
+                ``CHIASWARM_RING_FLASH=scan`` through B2 (1,120 x evals +
+                16, nothing else; the same bar), seeds 1 and 2 through a
+                lane pinned at 2 rows (``xl_seq_lane``: B3 = 70 x lane steps
+                + 1 a decode, one lane).
 15q. safety_check — the NSFW safety checker at its published widths
                 (ViT-L/14: 1024 hidden, 24 layers, 16 heads, 4096
                 intermediate, patch 14 at 224, projection 768; 17 concept
@@ -572,6 +593,15 @@ each phase printing one JSON line:
                 one-frame stack the one-image img2img path bit for bit.
                 Prints job seconds, the encodes' and generate calls'
                 device ms, B1's ms and share and the peak memory.
+15ae2. cli    — the operator CLI (``python -m chiaswarm_tpu_torch.cli``) in
+                three child processes beside the three video phases:
+                ``info`` (backend ``cuda``, the card by name, the slot's
+                descriptor), ``smoke --workflow txt2img`` (SD1.5 at 512 px,
+                status ``ok``) and ``init --silent --warm-compile`` against
+                a hive of this script listing ``CKPT_MODEL`` and a model
+                with no directory (``models.json`` as listed, the missing
+                model logged, ``CKPT_MODEL`` warmed with no WARNING line);
+                each exits 0.
 15af. cascade_check — the run's models released from the registry's
                 ledger first (``release_models``: a squeeze to a zero
                 budget); the DeepFloyd cascade (T5-XXL, IF-I-XL's base,
@@ -656,8 +686,9 @@ each phase printing one JSON line:
                 phases, the pix2pix, upscale and adapter phases,
                 audio_serve (head dim 32), the three video phases and
                 cascade_serve (head dim 128 among its shapes), B3 under
-                ``lane_seq_serve``, ``seq_img2img`` and ``numerics_seq``,
-                and B2 under ``numerics_seq_scan``, with
+                ``lane_seq_serve``, ``seq_img2img``, ``numerics_seq``,
+                ``xl_seq_serve`` and ``xl_seq_lane``, and B2 under
+                ``numerics_seq_scan`` and ``xl_seq_serve_scan``, with
                 their launches there and their numbers over those
                 launches.
 
@@ -707,6 +738,12 @@ B2_LAUNCHES_PER_DECODE = RING_SHARDS * RING_SHARDS
 # B3 runs each of those ring attentions in one launch
 B3_LAUNCHES_PER_UNET_EVAL = 10
 B3_LAUNCHES_PER_DECODE = 1
+# a seq slot's image against the same job's on a one-card slot: the mean
+# uint8 difference. The ring sums each row's softmax in another order than
+# B1 and 20 bf16 steps of random weights carry that apart by a level or
+# so; a ring that attends to the wrong keys gives another picture (tens of
+# levels)
+SEQ_IMAGE_BAR = {"mean": 4.0}
 
 
 def design(dtype_name: str, d: int) -> str:
@@ -1127,13 +1164,17 @@ def env(**values: str | None):
 
 
 # B2 shapes: the query shard, a K/V shard, and the launches per job of the
-# sequence-parallel serve path (20 steps x 5 self-attentions x 16 per level,
-# 16 for the VAE mid block)
+# sequence-parallel serve path (SD1.5 at 512 px: 20 steps x 5
+# self-attentions x 16 per level, 16 for the VAE mid block; SDXL at 1024 px:
+# 20 steps x 10 and x 60 self-attentions x 16, 16 for its VAE mid block)
 RING_SHAPES = [
     # (B, L, S, H, D, dtype, max abs error, relative L2, launches per job)
     (2, 1024, 1024, 8, 40, "bfloat16", 4e-3, 1e-2, 1600),
     (2, 256, 256, 8, 80, "bfloat16", 4e-3, 1e-2, 1600),
     (1, 1024, 1024, 1, 512, "bfloat16", 4e-3, 1e-2, 16),
+    (2, 1024, 1024, 10, 64, "bfloat16", 4e-3, 1e-2, 3200),
+    (2, 256, 256, 20, 64, "bfloat16", 4e-3, 1e-2, 19200),
+    (1, 4096, 4096, 1, 512, "bfloat16", 4e-3, 1e-2, 16),
     (2, 300, 170, 2, 64, "bfloat16", 4e-3, 1e-2, 0),  # ragged, strided q
     (1, 300, 170, 2, 64, "float32", 2e-4, 1e-4, 0),
 ]
@@ -1213,8 +1254,21 @@ FUSED_SHAPES = [
     (16, 1024, 1024, 8, 80, "bfloat16", 4e-3, 1e-2, ("lane_seq_serve",)),
     (1, 4096, 4096, 1, 512, "bfloat16", 4e-3, 1e-2,
      ("seq_serve", "lane_seq_serve")),
+    # SDXL at 1024 px on the seq slot: solo (CFG), a lane of 2 rows, and
+    # its VAE mid block at 16,384 tokens
+    (2, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_seq_serve",)),
+    (2, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_seq_serve",)),
+    (4, 4096, 4096, 10, 64, "bfloat16", 4e-3, 1e-2, ("xl_seq_lane",)),
+    (4, 1024, 1024, 20, 64, "bfloat16", 4e-3, 1e-2, ("xl_seq_lane",)),
+    (1, 16384, 16384, 1, 512, "bfloat16", 4e-3, 1e-2,
+     ("xl_seq_serve", "xl_seq_lane")),
     (1, 600, 680, 2, 64, "float32", 2e-4, 1e-4, ()),
 ]
+
+#: FLOPs from which a ring's times are medians of 5 calls after 1, not 20
+#: after 3 (SDXL's lane-pair ring at 4,096 tokens and the VAE's D = 512
+#: sweep at 16,384 tokens, ~0.1 s a call)
+FEW_CALLS_FLOPS = 1e11
 
 
 def fused_kernel_phase(torch) -> list[dict]:
@@ -1251,6 +1305,9 @@ def fused_kernel_phase(torch) -> list[dict]:
             with env(CHIASWARM_RING_FLASH="scan"):
                 ring_flash_attention(q, k, v, mesh=mesh)
 
+        work = attention_work(b, l, s, h, d, dtype)
+        calls = ({"warmup": 1, "iters": 5}
+                 if work["flops"] > FEW_CALLS_FLOPS else {})
         row = {
             "shape": shape, "dtype": dtype_name, "shards": RING_SHARDS,
             "design": design(dtype_name, d),
@@ -1262,17 +1319,19 @@ def fused_kernel_phase(torch) -> list[dict]:
             "max_abs_err_vs_scan": (out.float() - scan.float())
             .abs().max().item(),
             "bit_equal_vs_scan": bool(torch.equal(out, scan)),
+            "timed_calls": calls.get("iters", 20),
             "ms": time_ms(torch, lambda: ring_flash_fused(
-                q, k, v, shards=RING_SHARDS)),
+                q, k, v, shards=RING_SHARDS), **calls),
             "host_ms": host_ms(torch, lambda: ring_flash_fused(
-                q, k, v, shards=RING_SHARDS)),
+                q, k, v, shards=RING_SHARDS), **calls),
             "plain_ms": time_ms(torch, lambda: ring_flash_fused_plain(
-                q, k, v, shards=RING_SHARDS, scale=scale)),
-            "scan_ms": time_ms(torch, scan_ring),
-            "scan_host_ms": host_ms(torch, scan_ring),
+                q, k, v, shards=RING_SHARDS, scale=scale), **calls),
+            "scan_ms": time_ms(torch, scan_ring, **calls),
+            "scan_host_ms": host_ms(torch, scan_ring, **calls),
             "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            **attention_work(b, l, s, h, d, dtype),
+                torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                **calls),
+            **work,
         }
         row["vs_library"] = vs_library(row["ms"], row["library_ms"])
         if not torch.isfinite(out).all():
@@ -1604,6 +1663,12 @@ def serve_phase(torch, registry, slot) -> tuple[dict, dict]:
     return launched(), blobs
 
 
+def image_within_bar(diff: dict) -> bool:
+    """Whether one image's ``image_diffs`` entry is within
+    ``SEQ_IMAGE_BAR``."""
+    return diff["mean"] <= SEQ_IMAGE_BAR["mean"]
+
+
 def decode_png(blob_b64: str):
     import numpy as np
     from PIL import Image
@@ -1653,10 +1718,7 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> tuple:
         seconds, blobs = run_jobs(torch, phase, slot, registry)
     launches = {name: k.launches for name, k in kernels.KERNELS.items()}
     want = len(JOBS) * (SERVE_STEPS * per_eval + per_decode)
-    diffs = {}
-    for seed, blob in blobs.items():
-        diffs[seed] = int(abs(decode_png(blob)
-                              - decode_png(solo_blobs[seed])).max())
+    diffs = image_diffs(blobs, solo_blobs)
     desc = slot.descriptor()
     emit(phase, jobs=len(JOBS), steps=SERVE_STEPS,
          ring_flash_mode=mode or "default", kernel=kernel.name,
@@ -1666,10 +1728,13 @@ def seq_serve_phase(torch, phase: str, solo_blobs: dict) -> tuple:
          images_per_s_after_first=(len(JOBS) - 1) / sum(seconds[1:]),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, expected_ring_launches=want,
-         max_uint8_diff_vs_serve=diffs)
+         vs_serve=diffs, image_bar=SEQ_IMAGE_BAR)
     if launches[kernel.name] != want or sum(launches.values()) != want:
         raise AssertionError(f"{phase} launched {launches}, expected "
                              f"{want} of {kernel.name} and no other")
+    if not all(image_within_bar(d) for d in diffs.values()):
+        raise AssertionError(f"{phase} images against serve's: {diffs}, "
+                             f"bar {SEQ_IMAGE_BAR}")
     return launched(), blobs
 
 
@@ -1806,12 +1871,13 @@ def lane_serve_phase(torch, registry, slot, solo_blobs: dict) -> tuple:
 
 
 def image_diffs(blobs: dict, ref_blobs: dict) -> dict:
-    """Per seed: the largest uint8 difference and the share of values within
-    one level, against the reference's image of the same seed."""
+    """Per seed: the largest and the mean uint8 difference and the share of
+    values within one level, against the reference's image of the same
+    seed."""
     diffs = {}
     for seed, blob in blobs.items():
         diff = abs(decode_png(blob) - decode_png(ref_blobs[seed]))
-        diffs[seed] = {"max": int(diff.max()),
+        diffs[seed] = {"max": int(diff.max()), "mean": float(diff.mean()),
                        "within_one": float((diff <= 1).mean()),
                        "bit_equal": bool((diff == 0).all())}
     return diffs
@@ -2553,6 +2619,7 @@ class LocalHive:
         self.faults: dict[str, list[int]] = {}
         self.assets: dict[str, bytes] = {}
         self.asset_types: dict[str, str] = {}  # image/png unless named
+        self.models: list[dict] = []  # the catalog GET /api/models lists
         self.work_t: list[float] = []  # when each poll that handed out work
         self.posts = 0
         hive = self
@@ -2593,7 +2660,7 @@ class LocalHive:
                     return
                 path = self.path.split("?")[0]
                 if path == "/api/models":
-                    return self._reply(200, {"models": []})
+                    return self._reply(200, {"models": hive.models})
                 if path == "/api/shards" and hive.shard_uris is not None:
                     return self._reply(200, {
                         "shards": hive.shard_uris,
@@ -2956,6 +3023,53 @@ def lane_admissions(record: dict | None = None, hold: dict | None = None):
         Lane._admit_locked = admit
 
 
+@contextlib.contextmanager
+def demand_watch():
+    """What the lanes' demand signal did while the block ran
+    (``serving/stepper.py``): the rows each ``note_poll`` hinted, the
+    non-zero hints lane boundaries read from ``demand_signal``, the width of
+    the lane at its first admission, and the resizes by direction
+    (``chiaswarm_stepper_lane_resizes_total``). Fills the yielded dict."""
+    from chiaswarm_tpu_torch.obs import metrics as obs_metrics
+    from chiaswarm_tpu_torch.serving.stepper import Lane, StepScheduler
+
+    resizes = obs_metrics.REGISTRY.get("chiaswarm_stepper_lane_resizes_total")
+    before = {d: resizes.value(direction=d) for d in ("grow", "shrink")}
+    note_poll, demand_signal = (StepScheduler.note_poll,
+                                StepScheduler.demand_signal)
+    admit = Lane._admit_locked
+    out: dict = {"polls_hinted": [], "hints_read": [],
+                 "width_at_first_admission": None}
+
+    def watched_poll(sched, jobs, now=None):
+        out["polls_hinted"].append(int(jobs))
+        return note_poll(sched, jobs, now)
+
+    def watched_signal(sched, now=None):
+        rate, hint = demand_signal(sched, now)
+        if hint:
+            out["hints_read"].append(hint)
+        return rate, hint
+
+    def watched_admit(lane):
+        admit(lane)
+        if (out["width_at_first_admission"] is None
+                and any(row is not None for row in lane._rows)):
+            out["width_at_first_admission"] = lane.width
+
+    StepScheduler.note_poll = watched_poll
+    StepScheduler.demand_signal = watched_signal
+    Lane._admit_locked = watched_admit
+    try:
+        yield out
+    finally:
+        StepScheduler.note_poll = note_poll
+        StepScheduler.demand_signal = demand_signal
+        Lane._admit_locked = admit
+        out["resizes"] = {d: resizes.value(direction=d) - before[d]
+                          for d in before}
+
+
 def replay_burst(registry, slot, jobs: list[dict], admissions: dict) -> dict:
     """``jobs`` through ``synchronous_do_work_batch`` on a fresh lane of
     ``LANE_WIDTH`` rows, each admitted at the lane step at which
@@ -2986,8 +3100,9 @@ def replay_burst(registry, slot, jobs: list[dict], admissions: dict) -> dict:
 
 @contextlib.contextmanager
 def worker_child(root: Path):
-    """``python -m chiaswarm_tpu_torch.node.worker`` as a child process
-    pointed at a ``LocalHive`` of its own by ``SDAAS_URI``/``SDAAS_TOKEN``:
+    """``python -m chiaswarm_tpu_torch.cli worker`` (the operator CLI's
+    ``worker``) as a child process pointed at a ``LocalHive`` of its own by
+    ``SDAAS_URI``/``SDAAS_TOKEN``:
     its registry holds no checkpoint and no random fallback, so one
     ``sd15`` job must come back as a non-fatal ``model_unavailable``
     envelope; then SIGTERM, and the child drains and exits with 0. Started
@@ -3009,7 +3124,7 @@ def worker_child(root: Path):
         t0 = time.perf_counter()
         with open(log_path, "w") as log_file:
             child = subprocess.Popen(
-                [sys.executable, "-m", "chiaswarm_tpu_torch.node.worker"],
+                [sys.executable, "-m", "chiaswarm_tpu_torch.cli", "worker"],
                 cwd=ROOT, env=child_env, stdout=log_file,
                 stderr=subprocess.STDOUT)
             try:
@@ -3039,6 +3154,101 @@ def worker_child(root: Path):
     if (rc != 0 or cfg.get("error_kind") != "model_unavailable"
             or result.get("fatal_error") or not startup):
         raise AssertionError(f"the child worker failed: {out}")
+
+
+CLI_MISSING_MODEL = "chip-smoke/not-on-this-node"
+
+
+@contextlib.contextmanager
+def cli_children(root: Path):
+    """The operator CLI (``python -m chiaswarm_tpu_torch.cli``) in three
+    child processes started together on entry, beside the caller's block:
+
+    - ``info``: JSON with the worker version, backend ``cuda``, the card by
+      name and the slot's descriptor;
+    - ``smoke --workflow txt2img``: SD1.5 at 512 px from seeded random
+      weights on the card, its status line ``ok``;
+    - ``init --silent --warm-compile`` against a ``LocalHive`` whose catalog
+      lists ``CKPT_MODEL`` (its directory linked into the child's settings
+      root) and a model with no directory: ``models.json`` written as the
+      hive lists it, the missing model logged, ``CKPT_MODEL`` warmed on the
+      worker's default slot with no WARNING or ERROR line.
+
+    The exit waits for all three (each must exit 0) and fills the yielded
+    dict with what each printed and took."""
+    from chiaswarm_tpu_torch.node.registry import model_dir
+
+    init_root = root / "cli-init"
+    (init_root / "models").mkdir(parents=True, exist_ok=True)
+    src = model_dir(CKPT_MODEL)
+    (init_root / "models" / src.name).symlink_to(src)
+    catalog = [{"name": CKPT_MODEL, "family": "sd15"},
+               {"name": CLI_MISSING_MODEL, "family": "sd15"}]
+    commands = {"info": ["info"],
+                "smoke": ["smoke", "--workflow", "txt2img"],
+                "init": ["init", "--silent", "--warm-compile"]}
+    out: dict = {}
+    with LocalHive() as hive:
+        hive.models = catalog
+        envs = {"info": dict(os.environ, SWARM_TPU_ROOT=str(root / "cli")),
+                "smoke": dict(os.environ, SWARM_TPU_ROOT=str(root / "cli")),
+                "init": dict(os.environ, SWARM_TPU_ROOT=str(init_root),
+                             SDAAS_URI=hive.uri, SDAAS_TOKEN="chip-smoke",
+                             SDAAS_WORKERNAME="chip-smoke-cli")}
+        children, logs = {}, {}
+        t0 = time.perf_counter()
+        try:
+            for name, args in commands.items():
+                logs[name] = root / f"cli-{name}.log"
+                with open(logs[name], "w") as log_file:
+                    children[name] = subprocess.Popen(
+                        [sys.executable, "-m", "chiaswarm_tpu_torch.cli",
+                         *args], cwd=ROOT, env=envs[name],
+                        stdout=subprocess.PIPE, stderr=log_file, text=True)
+            yield out
+            for name, child in children.items():
+                stdout, _ = child.communicate(timeout=600)
+                out[name] = {"rc": child.returncode, "stdout": stdout,
+                             "done_after_s": time.perf_counter() - t0}
+        finally:
+            for child in children.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.wait(timeout=30)
+    failed = []
+    for name in commands:
+        out[name]["log"] = logs[name].read_text().splitlines()
+        if out[name]["rc"] != 0:
+            failed.append(f"cli {name} exited {out[name]['rc']}: "
+                          f"{out[name]['log'][-5:]}")
+    if not failed:
+        info = json.loads(out["info"]["stdout"])
+        out["info"]["json"] = info
+        if (info["backend"] != "cuda" or not info["devices"]
+                or info["slots"]["platform"] != "gpu"):
+            failed.append(f"cli info: {info}")
+        [line] = [json.loads(x) for x in out["smoke"]["stdout"].splitlines()
+                  if x.startswith("{")]
+        out["smoke"]["line"] = line
+        if (line["status"] != "ok" or line["model"] != "sd15"
+                or line["artifacts"] != ["primary"]):
+            failed.append(f"cli smoke: {line}")
+        log = out["init"]["log"]
+        written = json.loads((init_root / "models.json").read_text())
+        out["init"].update(
+            models_json=written,
+            warmed=[x for x in log if f"warmed {CKPT_MODEL}" in x],
+            missing=[x for x in log if f"no weights for {CLI_MISSING_MODEL}"
+                     in x],
+            warnings=[x for x in log if " WARNING " in x or " ERROR " in x])
+        if (written != catalog or not out["init"]["warmed"]
+                or not out["init"]["missing"] or out["init"]["warnings"]):
+            failed.append(f"cli init: {out['init']}")
+    for name in commands:
+        out[name].pop("stdout", None)
+        out[name]["log"] = out[name]["log"][-3:]
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
@@ -3166,7 +3376,7 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
         # the burst, at lane_burst's pinned width
         admissions: dict = {}
         with env(CHIASWARM_STEPPER_LANE_WIDTH=str(LANE_WIDTH)), \
-                lane_admissions(record=admissions):
+                lane_admissions(record=admissions), demand_watch() as demand:
             before, b1_before = stepper_stats(slot), B1.launches
             late_at: dict = {}
 
@@ -3232,6 +3442,7 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
             "histogram_sum_s": worker._job_seconds.sum(),
             "lanes": sorted({info["lane"] for info in infos.values()}),
             "admissions": {j["seed"]: admissions.get(j["id"]) for j in jobs},
+            "demand": demand,
             "vs_lane_burst": diffs,
             "bit_equal_vs_lane_burst": sum(d["bit_equal"]
                                            for d in diffs.values()),
@@ -3240,7 +3451,8 @@ def worker_serve_phase(torch, registry, pool, lane_blobs: dict,
         emit("worker_serve_burst", **out["burst"])
         if (B1.launches - b1_before != steps * B1_LAUNCHES_PER_UNET_EVAL
                 or len(out["burst"]["lanes"]) != 1
-                or any(j["id"] not in admissions for j in jobs)):
+                or any(j["id"] not in admissions for j in jobs)
+                or sum(demand["polls_hinted"]) != len(jobs)):
             failed.append(f"worker_serve burst: {out['burst']}")
 
         # one upload fault on a re-run of the lone job
@@ -4343,6 +4555,110 @@ def guard_xl_phase(torch, registry, slot) -> dict:
     if res["failed"]:
         raise AssertionError("guard_xl: " + "; ".join(res["failed"]))
     return res["run"]
+
+
+XL_SEQ_STEPS = SERVE_STEPS
+XL_SEQ_JOB = dict(XL_JOBS[0], id="seq-sdxl-1",
+                  num_inference_steps=XL_SEQ_STEPS)
+XL_SEQ_PAIR = [dict(XL_JOBS[i], id=f"seq-sdxl-pair-{XL_JOBS[i]['seed']}",
+                    num_inference_steps=XL_SEQ_STEPS) for i in (0, 1)]
+# SDXL's large self-attentions: 10 at 4,096 tokens and 60 at 1,024 an eval
+# (B1_LAUNCHES_PER_XL_EVAL); on a seq slot each is one ring
+B3_LAUNCHES_PER_XL_EVAL = B1_LAUNCHES_PER_XL_EVAL
+B2_LAUNCHES_PER_XL_EVAL = B1_LAUNCHES_PER_XL_EVAL * RING_SHARDS * RING_SHARDS
+
+
+def xl_seq_serve_phase(torch, registry, xl_blobs: dict) -> dict:
+    """SDXL at 1024 px on the one-card ``seq = 4`` slot, on the weights the
+    SDXL phases drew (the registry's components, shared, not drawn again):
+    seed 1 on the solo path through B3 (70 x evals + 1 a decode, B1 and B2
+    never; its image against xl_serve's seed 1 within ``SEQ_IMAGE_BAR``),
+    the same job under ``CHIASWARM_RING_FLASH=scan`` through B2 (1,120 x
+    evals + 16 a decode, nothing else), and seeds 1 and 2 together through
+    a lane pinned at 2 rows (B3 = 70 x lane steps + 1 a decode). Returns
+    the three runs' launches (``launched``) by phase name."""
+    from chiaswarm_tpu_torch.core.chip_pool import ChipPool
+    from chiaswarm_tpu_torch.core.mesh import MeshSpec
+    from chiaswarm_tpu_torch.node.executor import synchronous_do_work_batch
+    from chiaswarm_tpu_torch.node.registry import ModelRegistry
+    from chiaswarm_tpu_torch.ops import kernels
+    from chiaswarm_tpu_torch.serving.stepper import get_stepper
+
+    components = xl_pipeline(registry).c
+    seq_registry = ModelRegistry(catalog=[{"name": XL_MODEL,
+                                           "family": "sdxl"}],
+                                 allow_random=False, device="cuda")
+    # the seq slot's pipeline over the components the SDXL phases drew
+    seq_registry._load_components = lambda name, device: components
+    slot = ChipPool(mesh_spec=MeshSpec({"seq": RING_SHARDS}),
+                    devices=one_card_devices(torch)).slots[0]
+    desc = slot.descriptor()
+    runs, out, failed = {}, {}, []
+    for phase, mode, kernel, per_eval, per_decode in (
+            ("xl_seq_serve", "", "ring_flash_fused",
+             B3_LAUNCHES_PER_XL_EVAL, B3_LAUNCHES_PER_DECODE),
+            ("xl_seq_serve_scan", "scan", "ring_flash_hop",
+             B2_LAUNCHES_PER_XL_EVAL, B2_LAUNCHES_PER_DECODE)):
+        with env(CHIASWARM_STEPPER="0", CHIASWARM_RING_FLASH=mode):
+            seconds, blobs = run_jobs(torch, phase, slot, seq_registry,
+                                      jobs=[XL_SEQ_JOB])
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        want = XL_SEQ_STEPS * per_eval + per_decode
+        diff = image_diffs({1: blobs[1]}, xl_blobs)[1]
+        out[phase] = {"ring_flash_mode": mode or "default",
+                      "job_seconds": seconds[0], "launches": launches,
+                      "expected_ring_launches": want,
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
+                      "vs_xl_serve": diff}
+        emit(phase, steps=XL_SEQ_STEPS, size=XL_SIZE,
+             mesh_shape=desc["mesh_shape"], mesh_devices=desc["mesh_devices"],
+             **out[phase])
+        if launches[kernel] != want or sum(launches.values()) != want:
+            failed.append(f"{phase} launched {launches}, expected {want} of "
+                          f"{kernel} and no other")
+        if not image_within_bar(diff):
+            failed.append(f"{phase}: seed 1 against xl_serve's {diff}, bar "
+                          f"{SEQ_IMAGE_BAR}")
+        runs[phase] = launched()
+
+    with env(CHIASWARM_STEPPER="1", CHIASWARM_RING_FLASH="",
+             CHIASWARM_STEPPER_LANE_WIDTH="2"):
+        get_stepper(slot).shutdown()
+        before = stepper_stats(slot)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        results = synchronous_do_work_batch([dict(j) for j in XL_SEQ_PAIR],
+                                            slot, seq_registry)
+        wall_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.KERNELS.items()}
+        runs["xl_seq_lane"] = launched()
+        after = stepper_stats(slot)
+        get_stepper(slot).shutdown()
+    blobs = {job["seed"]: check_envelope("xl_seq_lane", job, result,
+                                         lanes=True)
+             for job, result in zip(XL_SEQ_PAIR, results)}
+    steps = delta(after, before, "steps_executed")
+    decodes = delta(after, before, "rows_completed")
+    want = steps * B3_LAUNCHES_PER_XL_EVAL + decodes * B3_LAUNCHES_PER_DECODE
+    out["xl_seq_lane"] = {
+        "jobs": len(XL_SEQ_PAIR), "lane_width": 2, "wall_s": wall_s,
+        "images_per_s": len(XL_SEQ_PAIR) / wall_s, "steps_executed": steps,
+        "decodes": decodes, "launches": launches,
+        "expected_ring_launches": want,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "lanes": sorted({r["pipeline_config"]["stepper"]["lane"]
+                         for r in results}),
+        "vs_xl_serve": image_diffs(blobs, xl_blobs)}
+    emit("xl_seq_lane", **out["xl_seq_lane"])
+    if (launches["ring_flash_fused"] != want or sum(launches.values()) != want
+            or len(out["xl_seq_lane"]["lanes"]) != 1):
+        failed.append(f"xl_seq_lane: {out['xl_seq_lane']}")
+    del seq_registry
+    if failed:
+        raise AssertionError("xl_seq_serve: " + "; ".join(failed))
+    return runs
 
 
 def guard_nan_phase(torch, registry, pool) -> dict:
@@ -9358,7 +9674,8 @@ def kernels_line(runs: dict, tables: dict) -> None:
                                            "xl_deepcache_serve",
                                            "coalesce_serve",
                                            "coalesce_img2img_serve")),
-        entry("ring_flash_hop", "seq_serve_scan", ("numerics_seq_scan",),
+        entry("ring_flash_hop", "seq_serve_scan", ("numerics_seq_scan",
+                                                   "xl_seq_serve_scan"),
               library_note="no single PyTorch call computes one ring hop "
                            "with carried state; the whole ring, scan drive "
                            "included, is timed beside "
@@ -9366,7 +9683,9 @@ def kernels_line(runs: dict, tables: dict) -> None:
                            "ring_flash_fused"),
         entry("ring_flash_fused", "seq_serve", ("lane_seq_serve",
                                                 "seq_img2img",
-                                                "numerics_seq"),
+                                                "numerics_seq",
+                                                "xl_seq_serve",
+                                                "xl_seq_lane"),
               library_note="scaled_dot_product_attention on the unsharded "
                            "attention"),
     ]
@@ -9491,6 +9810,8 @@ def run_phases(torch, t0: float) -> int:
             runs.update(xl_img2img_serve_phase(torch, registry, slot,
                                                asset_hive))
         runs["guard_xl"] = guard_xl_phase(torch, registry, slot)
+    # SDXL on the one-card seq slot: B3, the scan drive over B2, a lane pair
+    runs.update(xl_seq_serve_phase(torch, registry, xl_blobs))
     # the safety checker and ControlNet, SD1.5 and SDXL
     checker = safety_check_phase(torch)
     runs["safety_serve"] = safety_serve_phase(torch, registry, slot, checker,
@@ -9531,13 +9852,16 @@ def run_phases(torch, t0: float) -> int:
             # text to speech: Bark's three GPT stages and the EnCodec decode
             runs["tts_serve"] = tts_serve_phase(torch, registry, pool)
         emit("guard_child", **child)
-        # video: txt2vid (ModelScope), img2vid (SVD), vid2vid (SD1.5)
-        runs["txt2vid_serve"] = txt2vid_serve_phase(torch, registry, pool,
-                                                    b1_rows)
-        runs["img2vid_serve"] = img2vid_serve_phase(torch, registry, pool,
-                                                    b1_rows)
-        runs["vid2vid_serve"] = vid2vid_serve_phase(torch, registry, pool,
-                                                    b1_rows)
+        # video: txt2vid (ModelScope), img2vid (SVD), vid2vid (SD1.5),
+        # device-bound, with the operator CLI's children beside them
+        with cli_children(settings_root_dir()) as cli:
+            runs["txt2vid_serve"] = txt2vid_serve_phase(torch, registry,
+                                                        pool, b1_rows)
+            runs["img2vid_serve"] = img2vid_serve_phase(torch, registry,
+                                                        pool, b1_rows)
+            runs["vid2vid_serve"] = vid2vid_serve_phase(torch, registry,
+                                                        pool, b1_rows)
+        emit("cli", **cli)
     encode_check_phase(torch, registry)
     # the DeepFloyd cascade, after every earlier model is released
     cascade_check_phase(torch, registry)

@@ -32,7 +32,9 @@ parts (a lane checkpoint spooled by job id, handed back through JSON and
 resumed on the card bit for bit; a profiler capture holding B1's kernel
 events, a concurrent one answering busy); the numerics taps (a tapped B1
 call's ``attn.out`` record against the plain version's summary, and B1, B2
-and B3 launching the same with the taps off and on).
+and B3 launching the same with the taps off and on); B2 and B3 at the rings
+of SDXL at 1024 px on a one-card seq = 4 slot, the VAE's D = 512 sweep over
+16,384 tokens among them.
 
 A CUDA kernel has no CPU mode, so every test here carries the ``cuda``
 marker and skips, with a reason, where ``torch.cuda.is_available()`` is
@@ -321,6 +323,11 @@ def _held_hop(got, want, tol=4e-3):
     (2, 256, 256, 8, 80, torch.bfloat16, 4e-3),     # UNet 32x32 level shard
     (1, 1024, 1024, 1, 512, torch.bfloat16, 4e-3),  # VAE mid block shard
     (1, 300, 170, 2, 64, torch.float32, 2e-4),      # ragged, fp32
+    # SDXL at 1024 px on a seq = 4 slot under the scan drive: the UNet's
+    # 64x64 and 32x32 level shards and the VAE mid block's 4,096-token one
+    (2, 1024, 1024, 10, 64, torch.bfloat16, 4e-3),
+    (2, 256, 256, 20, 64, torch.bfloat16, 4e-3),
+    (1, 4096, 4096, 1, 512, torch.bfloat16, 4e-3),
 ])
 def test_ring_hop_kernel_matches_plain(cuda_device, b, l, s, h, d, dtype, tol):
     from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
@@ -617,6 +624,31 @@ def test_fused_ring_kernel_matches_plain_at_lane_batches(cuda_device, b, l,
     out = tring.ring_flash_fused(q, k, v, shards=4)
     torch.cuda.synchronize()
     assert tring.FUSED_KERNEL.launches == before + 1
+    plain = tring.ring_flash_fused_plain(q, k, v, shards=4, scale=d ** -0.5)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=4e-3)
+    rel = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
+    assert rel <= 1e-2
+
+
+@pytest.mark.parametrize("b,l,h,d", [
+    (2, 4096, 10, 64), (2, 1024, 20, 64),   # SDXL solo on a seq = 4 slot
+    (4, 4096, 10, 64), (4, 1024, 20, 64),   # a lane of 2 rows there
+    (1, 16384, 1, 512),                     # its VAE mid block at 1024 px
+])
+def test_fused_ring_kernel_matches_plain_at_sdxl_shapes(cuda_device, b, l, h,
+                                                        d):
+    """B3 at the rings an SDXL job at 1024 px launches on a one-card seq = 4
+    slot, the D = 512 sweep over 16,384 tokens (4 shards of 4,096 queries)
+    among them: 4e-3 max abs and 1e-2 relative L2 against its plain
+    version."""
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+
+    q, k, v = _qkv((b, l, h, d), (b, l, h, d), torch.bfloat16, cuda_device)
+    before = tring.FUSED_KERNEL.launches
+    out = tring.ring_flash_fused(q, k, v, shards=4)
+    torch.cuda.synchronize()
+    assert tring.FUSED_KERNEL.launches == before + 1
+    assert torch.isfinite(out).all()
     plain = tring.ring_flash_fused_plain(q, k, v, shards=4, scale=d ** -0.5)
     torch.testing.assert_close(out.float(), plain.float(), rtol=0, atol=4e-3)
     rel = ((out.float() - plain.float()).norm() / plain.float().norm()).item()

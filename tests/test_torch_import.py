@@ -94,7 +94,7 @@ def test_package_has_the_slice_modules():
                   "workloads.cascade", "workloads.ade_palette",
                   "models.annotator", "models.hed", "models.lineart",
                   "models.mlsd", "models.openpose", "models.dpt",
-                  "models.upernet"):
+                  "models.upernet", "cli", "node.initialize"):
         assert f"chiaswarm_tpu_torch.{layer}" in names
     assert (PACKAGE / "csrc" / "flash_attention.cu").exists()
     for source in ("ring_flash_hop.cu", "ring_flash_fused.cu",

@@ -397,10 +397,10 @@ def test_worker_mesh_policy_reads_measured_footprints_first(_root):
     registry = ModelRegistry(catalog=[{"name": "sd15"}, {"name": "tiny"}],
                              device="cpu")
     assert registry.residency.measured_footprints() == {"sd15": 123}
-    worker = _worker(registry)
-    assert worker._heaviest_catalog_bytes() == estimate_family_bytes("tiny")
+    assert (tworker.heaviest_catalog_bytes(registry)
+            == estimate_family_bytes("tiny"))
     registry = ModelRegistry(catalog=[{"name": "sd15"}], device="cpu")
-    assert _worker(registry)._heaviest_catalog_bytes() == 123
+    assert tworker.heaviest_catalog_bytes(registry) == 123
 
 
 def test_an_empty_poll_lets_the_ledger_prefetch():

@@ -40,6 +40,7 @@ from chiaswarm_tpu_torch.core.mesh import MeshSpec
 from chiaswarm_tpu_torch.models.configs import FAMILIES
 from chiaswarm_tpu_torch.node import executor
 from chiaswarm_tpu_torch.node.registry import ModelRegistry, model_dir
+from chiaswarm_tpu_torch.parallel.context import capture_ring_calls
 from chiaswarm_tpu_torch.pipelines.components import (
     Components,
     estimate_family_bytes,
@@ -401,14 +402,160 @@ def test_executor_envelope_matches_the_jax_executor(monkeypatch, lanes):
     assert got["pipeline_config"]["size"] == [64, 64]
 
 
-def test_an_sdxl_job_on_a_seq_slot_raises_naming_the_roadmap_item():
+def test_an_sdxl_job_on_a_seq_slot_raises_naming_the_roadmap_item(
+        monkeypatch):
+    """Served now: an SDXL job on a seq = 4 slot rings (solo path) and its
+    envelope is the one-device slot's, image within one uint8 level; what
+    the port still refuses on a seq slot (an audio model) names the
+    ROADMAP item."""
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    registry = ModelRegistry(catalog=CATALOG, allow_random=True, device="cpu")
     slot = ChipPool(mesh_spec=MeshSpec({"seq": 4}),
                     devices=["cpu"] * 4).slots[0]
-    result = executor.synchronous_do_work(
-        _job(height=64, width=64), slot,
-        ModelRegistry(catalog=CATALOG, allow_random=True, device="cpu"))
-    get_stepper(slot).shutdown()
-    assert "ROADMAP queue item 7" in result["pipeline_config"]["error"]
+    with capture_ring_calls() as rings:
+        result = executor.synchronous_do_work(_job(height=64, width=64),
+                                              slot, registry)
+    solo = executor.synchronous_do_work(_job(height=64, width=64),
+                                        ChipPool(device="cpu").slots[0],
+                                        registry)
+    assert "error" not in result["pipeline_config"], result
+    assert rings  # the VAE mid block's 1,024 tokens at least
+    assert result["pipeline_config"]["slot"]["mesh_shape"]["seq"] == 4
+    _within_one(_png(result), _png(solo))
+    refused = executor.synchronous_do_work(
+        {"id": "audio-1", "workflow": "txt2audio",
+         "model_name": "random/tiny_audio", "prompt": "rain",
+         "num_inference_steps": 2, "audio_length_in_s": 0.1, "seed": 1,
+         "content_type": "audio/wav"}, slot, registry)
+    assert "ROADMAP queue item 7" in refused["pipeline_config"]["error"]
+
+
+# ---------------------------------------------------------------------------
+# SDXL on a seq = 4 mesh (ROADMAP 7d): the pipeline against JAX's seq-mesh
+# pipeline and its own one-device run; the executor's lanes and an img2img
+# job against the one-device slot
+
+
+def _png(result) -> np.ndarray:
+    blob = base64.b64decode(result["artifacts"]["primary"]["blob"])
+    return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+
+
+@pytest.mark.parametrize("guidance", [7.5, 1.0])
+def test_tiny_xl_on_a_seq_mesh_matches_jax_and_single_device(
+        jax_xl, port_xl, guidance, monkeypatch):
+    """Every self-attention rings (the 256-token UNet level with the ring
+    threshold at 1 token, the VAE mid block's 1,024) through B3's plain
+    version; the pooled text and time ids ride as row state. Within one
+    uint8 level of JAX's seq-mesh pipeline and of the port's one-device
+    run."""
+    from chiaswarm_tpu.parallel.context import (
+        capture_ring_calls as jax_capture_ring_calls,
+    )
+    from chiaswarm_tpu.parallel.sharding import shard_params
+    from chiaswarm_tpu_torch.ops import attention as tattn
+    from chiaswarm_tpu_torch.ops import ring_flash_attention as tring
+    from tests.test_torch_ring import cpu_mesh, jax_seq_mesh
+
+    monkeypatch.setattr(tattn, "RING_MIN_TOKENS", 1)
+    monkeypatch.delenv("CHIASWARM_RING_FLASH", raising=False)
+    fused = []
+    real = tring.ring_flash_fused_plain
+    monkeypatch.setattr(tring, "ring_flash_fused_plain", lambda q, *a, **kw: (
+        fused.append(tuple(q.shape)), real(q, *a, **kw))[1])
+    jax_seq = dataclasses.replace(
+        jax_xl, params=shard_params(jax_xl.params, jax_seq_mesh(4)))
+    noise = np.random.default_rng(3).standard_normal(
+        (1, 32, 32, 4)).astype(np.float32)
+    kw = dict(prompt=PROMPT, negative_prompt="blurry", steps=3,
+              guidance_scale=guidance, height=64, width=64, seed=0,
+              init_noise=noise)
+    with jax_capture_ring_calls() as jax_rings:
+        j_img, j_cfg = JaxPipeline(jax_seq)(JaxRequest(**kw))
+    assert jax_rings, "the JAX seq-mesh pipeline never rang"
+    with capture_ring_calls() as rings:
+        ring_img, cfg = DiffusionPipeline(port_xl, mesh=cpu_mesh(4))(
+            GenerateRequest(**kw))
+    solo_img, solo_cfg = DiffusionPipeline(port_xl)(GenerateRequest(**kw))
+    # the attention-free first level never rings; the second level and
+    # the VAE mid block do, each a B3 (plain version) call
+    assert {shape[1] for _, shape in rings} == {256, 1024}
+    assert {kind for kind, _ in rings} == {"ring_flash"}
+    assert len(fused) == len(rings)
+    # the UNet's batch: the CFG pair, or the prompt's row alone
+    assert {shape[0] for shape in fused[:-1]} == {2 if guidance > 1.0 else 1}
+    assert cfg == solo_cfg == j_cfg
+    assert ring_img.shape == (1, 64, 64, 3)
+    _within_one(ring_img, j_img)
+    _within_one(ring_img, solo_img)
+
+
+def _seq_and_solo_slots():
+    return (ChipPool(mesh_spec=MeshSpec({"seq": 4}),
+                     devices=["cpu"] * 4).slots[0],
+            ChipPool(device="cpu").slots[0])
+
+
+def test_sdxl_lanes_on_a_seq_slot_match_the_one_device_slot(monkeypatch):
+    """Two jobs through the lanes of a seq = 4 slot: every lane step's
+    256-token self-attentions and every decode's VAE mid block ring, from
+    the lane's own thread; each image within one uint8 level of the same
+    jobs' lanes on a one-device slot."""
+    from chiaswarm_tpu_torch.ops import attention as tattn
+
+    monkeypatch.delenv("CHIASWARM_STEPPER", raising=False)
+    monkeypatch.delenv("CHIASWARM_RING_FLASH", raising=False)
+    monkeypatch.setattr(tattn, "RING_MIN_TOKENS", 1)
+    registry = ModelRegistry(catalog=CATALOG, allow_random=True, device="cpu")
+    seq_slot, solo_slot = _seq_and_solo_slots()
+    jobs = [_job("xl-lane-1", height=64, width=64, num_inference_steps=3),
+            _job("xl-lane-2", height=64, width=64, seed=6,
+                 guidance_scale=5.0)]
+    try:
+        with capture_ring_calls() as rings:
+            got = executor.synchronous_do_work_batch(
+                [dict(j) for j in jobs], seq_slot, registry)
+        solo = executor.synchronous_do_work_batch(
+            [dict(j) for j in jobs], solo_slot, registry)
+        steps = get_stepper(seq_slot).stats()["steps_executed"]
+    finally:
+        get_stepper(seq_slot).shutdown()
+        get_stepper(solo_slot).shutdown()
+    assert {shape[1] for _, shape in rings} == {256, 1024}
+    unet_rings = [shape for _, shape in rings if shape[1] == 256]
+    decodes = [shape for _, shape in rings if shape[1] == 1024]
+    assert len(decodes) == len(jobs) and len(unet_rings) % steps == 0
+    for ours, ref in zip(got, solo):
+        for result in (ours, ref):
+            assert "stepper" in result["pipeline_config"], result
+        assert ours["pipeline_config"]["slot"]["mesh_shape"]["seq"] == 4
+        _within_one(_png(ours), _png(ref))
+
+
+def test_an_sdxl_img2img_job_on_a_seq_slot_matches_the_one_device_slot(
+        monkeypatch):
+    """The solo path: the init image's encode does not ring (JAX runs it
+    outside ``seq_parallel_wrap``), the denoise and the decode do; within
+    one uint8 level of the one-device slot."""
+    from chiaswarm_tpu_torch.ops import attention as tattn
+
+    monkeypatch.setenv("CHIASWARM_STEPPER", "0")
+    monkeypatch.setattr(tattn, "RING_MIN_TOKENS", 1)
+    registry = ModelRegistry(catalog=CATALOG, allow_random=True, device="cpu")
+    seq_slot, solo_slot = _seq_and_solo_slots()
+    image = np.random.default_rng(7).integers(0, 255, (64, 64, 3),
+                                              dtype=np.uint8)
+    job = _job("xl-img2img-1", height=64, width=64, num_inference_steps=4,
+               strength=0.5, image=image)
+    with capture_ring_calls() as rings:
+        got = executor.synchronous_do_work(dict(job), seq_slot, registry)
+    ref = executor.synchronous_do_work(dict(job), solo_slot, registry)
+    for result in (got, ref):
+        assert "error" not in result["pipeline_config"], result
+        assert result["pipeline_config"]["mode"] == "img2img"
+    # 2 of the 4 steps run at strength 0.5; one decode rings, no encode
+    assert sum(shape[1] == 1024 for _, shape in rings) == 1
+    _within_one(_png(got), _png(ref))
 
 
 def test_sdxl_footprint_and_eviction_against_sd15_class(tmp_path,

@@ -1206,9 +1206,10 @@ def test_default_pool_rules(cards, over, catalog, want, monkeypatch):
         hive=object())
     if want == "raises":
         with pytest.raises(NotImplementedError, match="item 7"):
-            worker._default_pool_plan()
+            tworker.default_pool_plan(worker.settings, worker.registry)
         return
-    spec, n_slots, slot_spec = worker._default_pool_plan()
+    spec, n_slots, slot_spec = tworker.default_pool_plan(worker.settings,
+                                                         worker.registry)
     assert (spec.resolve(cards), n_slots, dict(slot_spec.shape)) == want
 
 
@@ -1221,13 +1222,13 @@ def test_sdxl_estimate_reaches_the_default_pool_policy(monkeypatch):
         settings=tsettings.Settings(), pool=ChipPool(device="cpu"),
         registry=TorchRegistry(catalog=[{"name": "sdxl-base"}], device="cpu"),
         hive=object())
-    nbytes = worker._heaviest_catalog_bytes()
+    nbytes = tworker.heaviest_catalog_bytes(worker.registry)
     assert nbytes == 6_937_675_734
     assert (tmesh.derive_mesh_spec(8, nbytes).resolve(8)
             == jmesh.derive_mesh_spec(8, nbytes).resolve(8))
     assert tmesh.derive_mesh_spec(8, nbytes).resolve(8)["model"] > 1
     with pytest.raises(NotImplementedError, match="item 7"):
-        worker._default_pool_plan()
+        tworker.default_pool_plan(worker.settings, worker.registry)
 
 
 @pytest.mark.parametrize("over", [
